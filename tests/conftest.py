@@ -46,3 +46,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running soak, excluded from tier-1 (-m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (skips without one; run with -m cuda)",
+    )
