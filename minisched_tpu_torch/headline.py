@@ -47,18 +47,19 @@ from minisched_tpu_torch.plugins.nodeunschedulable import NodeUnschedulable
 from minisched_tpu_torch.utils import build
 
 ROUTES = ("fused", "generic")
+WAVE = 8192  # pods per wave of the headline run
 
 
-def mk_cluster(n_nodes: int = 10_000, n_pods: int = 100_000, seed: int = 1234,
-               unsched: float = 0.2) -> Tuple[List[Any], List[Any]]:
+def mk_cluster(n_nodes: int = 10_000, n_pods: int = 100_000,
+               seed: int = 1234) -> Tuple[List[Any], List[Any]]:
     """The headline cluster (a copy of ``bench.py`` ``_mk_cluster``):
     ``n_nodes`` nodes named ``node00000`` …, each cordoned with probability
-    ``unsched`` from ``random.Random(seed)``, and ``n_pods`` request-less
-    pods ``pod0`` …"""
+    0.2 from ``random.Random(seed)``, and ``n_pods`` request-less pods
+    ``pod0`` …"""
     rng = random.Random(seed)
     nodes = sorted(
         (
-            make_node(f"node{i:05d}", unschedulable=rng.random() < unsched)
+            make_node(f"node{i:05d}", unschedulable=rng.random() < 0.2)
             for i in range(n_nodes)
         ),
         key=lambda n: n.metadata.name,
@@ -123,7 +124,7 @@ def run_waves(step: Callable, node_table: NodeTable, pod_tables: Sequence[Any],
 
 
 def schedule_waves(nodes: Sequence[Any], pods: Sequence[Any],
-                   wave: int = 8192, route: str = "fused",
+                   wave: int = WAVE, route: str = "fused",
                    device=None) -> WaveRun:
     """Schedule ``pods`` against ``nodes`` in waves of ``wave`` pods.
 

@@ -6,8 +6,8 @@ tables, and the chain
 
     filter → pre-score → score → normalize → weighted-sum → masked-argmax
 
-ends in ``select_hosts``, the seeded masked argmax (bit-exact with the
-scalar ``engine.tiebreak.select_host``).
+ends in ``select_hosts`` (from ``ops.kernels``), the seeded masked argmax
+(bit-exact with the scalar ``engine.tiebreak.select_host``).
 
 There is no routing flag: ``select_hosts`` takes the plain twin for a CPU
 tensor and the hand-written kernel for a CUDA tensor, at any shape.  The
@@ -23,11 +23,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from minisched_tpu_torch.framework.plugin import implements_batch
-from minisched_tpu_torch.ops.kernels import (
-    mix32_plain as mix32,
-    select_hosts_cuda,
-    select_hosts_plain,
-)
+from minisched_tpu_torch.ops.kernels import mix32_plain as mix32
+from minisched_tpu_torch.ops.kernels import select_hosts
 
 __all__ = [
     "BatchContext",
@@ -50,24 +47,6 @@ class BatchContext:
             if n == name:
                 return w
         return 1
-
-
-def select_hosts(
-    scores: torch.Tensor, mask: torch.Tensor, seeds: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched deterministic selectHost.
-
-    scores i32[P, N] weighted totals; mask bool[P, N] feasibility; seeds
-    i32[P] holding the u32 tie-break seeds.  Returns (choice i32[P], node
-    index or -1; best_score i32[P]).  Among feasible max-score nodes the
-    one minimizing mix32(seed, node_index) wins; hash ties go to the
-    lowest index.
-    """
-    if scores.device.type == "cuda":
-        return select_hosts_cuda(scores, mask, seeds)
-    if scores.device.type == "cpu":
-        return select_hosts_plain(scores, mask, seeds)
-    raise ValueError(f"no select_hosts route for tensors on {scores.device}")
 
 
 @dataclass

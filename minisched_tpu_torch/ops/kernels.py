@@ -6,9 +6,9 @@ launches on PyTorch's current stream and counts the launch, and a plain
 PyTorch twin (``*_plain``) that computes the same function with tensor
 ops.  The twin runs the CPU tests and is what ``chip_smoke.py`` holds each
 kernel against on the card.  A wrapper takes CUDA tensors only; the
-dispatchers (``fused.select_hosts``, ``nodenumber_select_hosts`` below)
-pick the twin for a CPU tensor and the kernel for a CUDA tensor, at any
-shape, with no fallback between them.
+dispatchers at the end of this module (``select_hosts``,
+``nodenumber_select_hosts``) pick the twin for a CPU tensor and the kernel
+for a CUDA tensor, at any shape, with no fallback between them.
 
 Rule shared by every function here (== ``engine.tiebreak.select_host``):
 per pod, among feasible nodes take the max score; among those the least
@@ -99,9 +99,10 @@ def select_hosts_plain(
     return choice, best
 
 
-def nodenumber_planes(pods: Any, nodes: Any, match_score: int):
-    """(scores i32[P, N], mask bool[P, N]) of the flagship chain."""
-    tol = tolerates_unschedulable(pods)
+def nodenumber_planes(tol: torch.Tensor, pods: Any, nodes: Any,
+                      match_score: int):
+    """(scores i32[P, N], mask bool[P, N]) of the flagship chain, given
+    ``tol = tolerates_unschedulable(pods)``."""
     mask = (pods.valid[:, None] & nodes.valid[None, :]) & (
         (~nodes.unschedulable)[None, :] | tol[:, None]
     )
@@ -115,7 +116,16 @@ def nodenumber_select_hosts_plain(
     pods: Any, nodes: Any, match_score: int = 10
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused flagship chain with its (P, N) planes written out."""
-    scores, mask = nodenumber_planes(pods, nodes, match_score)
+    return nodenumber_body_plain(tolerates_unschedulable(pods), pods, nodes,
+                                 match_score)
+
+
+def nodenumber_body_plain(
+    tol: torch.Tensor, pods: Any, nodes: Any, match_score: int = 10
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The twin of the fused kernel's body: the chain after its
+    ``tolerates_unschedulable`` prologue."""
+    scores, mask = nodenumber_planes(tol, pods, nodes, match_score)
     return select_hosts_plain(scores, mask, pods.seed)
 
 
@@ -196,6 +206,14 @@ def nodenumber_select_hosts_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``nodenumber_select_hosts_kernel`` over table columns on one card.
     ``tolerates_unschedulable`` is a small tensor prologue, as on the TPU."""
+    return nodenumber_body_cuda(tolerates_unschedulable(pods), pods, nodes,
+                                match_score)
+
+
+def nodenumber_body_cuda(
+    tol: torch.Tensor, pods: Any, nodes: Any, match_score: int = 10
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused kernel alone, given its prologue's ``tol`` bool[P]."""
     device = nodes.valid.device
     if device.type != "cuda":
         raise ValueError(
@@ -203,7 +221,6 @@ def nodenumber_select_hosts_cuda(
         )
     N = int(nodes.valid.shape[0])
     P = int(pods.valid.shape[0])
-    tol = tolerates_unschedulable(pods)
     _check(nodes.unschedulable, "nodes.unschedulable", torch.bool, (N,), device)
     _check(nodes.suffix, "nodes.suffix", torch.int32, (N,), device)
     _check(nodes.valid, "nodes.valid", torch.bool, (N,), device)
@@ -219,6 +236,29 @@ def nodenumber_select_hosts_cuda(
             pods.seed.data_ptr(), pods.valid.data_ptr(), P, match_score,
             choice.data_ptr(), best.data_ptr())
     return choice, best
+
+
+# ---------------------------------------------------------------------------
+# dispatchers: the tensor's device decides the route
+# ---------------------------------------------------------------------------
+
+
+def select_hosts(
+    scores: torch.Tensor, mask: torch.Tensor, seeds: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched deterministic selectHost.
+
+    scores i32[P, N] weighted totals; mask bool[P, N] feasibility; seeds
+    i32[P] holding the u32 tie-break seeds.  Returns (choice i32[P], node
+    index or -1; best_score i32[P]).  Among feasible max-score nodes the
+    one minimizing mix32(seed, node_index) wins; hash ties go to the
+    lowest index.
+    """
+    if scores.device.type == "cuda":
+        return select_hosts_cuda(scores, mask, seeds)
+    if scores.device.type == "cpu":
+        return select_hosts_plain(scores, mask, seeds)
+    raise ValueError(f"no select_hosts route for tensors on {scores.device}")
 
 
 def nodenumber_select_hosts(

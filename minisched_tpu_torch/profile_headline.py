@@ -2,14 +2,14 @@
 
 Run from the root of the repository on a machine with a CUDA card:
 
-    python3 -m minisched_tpu_torch.profile_headline [--reps 7] [--trace-dir DIR]
+    python3 -m minisched_tpu_torch.profile_headline [--trace-dir DIR]
 
 For each route of ``headline.schedule_waves`` (fused, generic) on the
 headline cluster (10,000 nodes, 100,000 pods, waves of 8,192), with every
 table already on the device:
 
 * the host wall time of the whole wave loop, closed by a synchronise,
-  over ``--reps`` passes after one warm-up pass (median and spread);
+  over ``REPS`` passes after one warm-up pass (median and spread);
 * one pass under ``torch.profiler``: the device busy time (the union of
   the intervals of every kernel and copy on the card), the idle share of
   the profiled window, and device time by kernel (device events only).
@@ -31,8 +31,16 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from minisched_tpu_torch import resolve_device
-from minisched_tpu_torch.headline import ROUTES, make_step, mk_cluster, run_waves
+from minisched_tpu_torch.headline import (
+    ROUTES,
+    WAVE,
+    make_step,
+    mk_cluster,
+    run_waves,
+)
 from minisched_tpu_torch.models.tables import pack_node_table, pack_pod_table, pad_to
+
+REPS = 7  # timed passes of each route
 
 
 def _busy_us(intervals: List[Tuple[float, float]]) -> float:
@@ -46,7 +54,7 @@ def _busy_us(intervals: List[Tuple[float, float]]) -> float:
     return total
 
 
-def profile_route(route: str, node_host, pod_tables, n_live, reps: int,
+def profile_route(route: str, node_host, pod_tables, n_live,
                   device: torch.device, trace_dir: Optional[Path]) -> dict:
     step = make_step(route)
 
@@ -59,7 +67,7 @@ def profile_route(route: str, node_host, pod_tables, n_live, reps: int,
         return time.monotonic() - t0
 
     one_pass()  # warm-up: first launches, allocator growth
-    walls = [one_pass() for _ in range(reps)]
+    walls = [one_pass() for _ in range(REPS)]
 
     node_table = node_host.to_device(device)
     torch.cuda.synchronize(device)
@@ -100,23 +108,20 @@ def profile_route(route: str, node_host, pod_tables, n_live, reps: int,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--reps", type=int, default=7)
-    ap.add_argument("--wave", type=int, default=8192)
     ap.add_argument("--trace-dir", type=Path, default=None)
     args = ap.parse_args(argv)
     device = resolve_device(None)
 
     nodes, pods = mk_cluster()
     node_host, _ = pack_node_table(nodes, capacity=pad_to(len(nodes)))
-    starts = range(0, len(pods), args.wave)
-    pod_tables = [pack_pod_table(pods[s:s + args.wave],
-                                 capacity=max(args.wave, 128))[0].to_device(device)
+    starts = range(0, len(pods), WAVE)
+    pod_tables = [pack_pod_table(pods[s:s + WAVE], capacity=WAVE)[0].to_device(device)
                   for s in starts]
-    n_live = [min(args.wave, len(pods) - s) for s in starts]
+    n_live = [min(WAVE, len(pods) - s) for s in starts]
     print(f"card: {torch.cuda.get_device_name(device)}", flush=True)
     for route in ROUTES:
-        out = profile_route(route, node_host, pod_tables, n_live, args.reps,
-                            device, args.trace_dir)
+        out = profile_route(route, node_host, pod_tables, n_live, device,
+                            args.trace_dir)
         for k in out["top_kernels"]:
             print(f"[{route}] {k['device_ms']:9.4f} ms  x{k['count']:<4d} "
                   f"{k['name']}", flush=True)

@@ -183,7 +183,8 @@ def test_nodenumber_plain_on_jax_columns_with_ragged_shapes():
     jp, _ = jtables.build_pod_table(pods, capacity=1)
     tn, tp = ttables.tables_from_numpy(jax_columns(jn), jax_columns(jp), "cpu")
     c, b = kernels.nodenumber_select_hosts_plain(tp, tn)
-    scores, mask = kernels.nodenumber_planes(tp, tn, 10)
+    scores, mask = kernels.nodenumber_planes(
+        tolerates_unschedulable(tp), tp, tn, 10)
     want_c, want_b = _jax_select(scores.numpy(), mask.numpy(),
                                  np.asarray(jp.seed))
     assert np.array_equal(c.numpy(), want_c) and np.array_equal(b.numpy(), want_b)
