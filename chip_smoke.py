@@ -12,17 +12,22 @@ Phases, each of which raises on failure (nothing catches it):
 2. Hold each kernel against its plain PyTorch twin on the card, bit for
    bit (tolerance 0: the outputs are integers), on random and tie-heavy
    scores, a row with no feasible node, seeds near 2**32, P=1, a ragged
-   N=300 and the main-path shape P=8,192 x N=10,112.
+   N=300 and the main-path shape P=8,192 x N=10,112; for ``select_hosts``
+   also the edge rows of ``kernel_cases.select_case`` at every N of
+   ``SELECT_NS`` with P odd and planes at a 1-element offset; for the
+   fused kernel every toleration form of ``kernel_cases`` with garbage
+   past ``num_tols``, invalid rows, one and several node tiles, and
+   match scores of 0 and below.
 3. Schedule the headline cluster (10,000 nodes, 20% cordoned, seed 1234;
    100,000 pods in waves of 8,192) through ``schedule_waves`` on the
    fused route and compare all 100,000 choices with ``headline_oracle``.
 4. The same through the generic route: equal choices, and final node
    tables equal column for column.
-5. Time each kernel per wave at the main-path shape (CUDA events around
-   a batch of back-to-back calls, median over batches) beside its plain
-   twin and its bound.  The fused kernel is timed alone, its
-   ``tolerates_unschedulable`` prologue computed once beforehand and timed
-   on its own line.
+5. Time each kernel per wave at the main-path shape beside its plain
+   twin and its bound: the kernel as a CUDA graph of 20 calls (device
+   time, no host launch cost), also launched one by one for comparison;
+   the twin eagerly, two calls between events; medians over batches.  The fused kernel is timed as its whole entry
+   point, one launch that evaluates ``tolerates_unschedulable`` itself.
 
 The launch counters are set to 0 just before each route of the main path
 and read just after it.  The last three lines of output are the card's
@@ -85,22 +90,46 @@ def check_equal(what: str, got, want) -> int:
     return err
 
 
-def time_ms(fn, rounds: int, batch: int, warmup: int = 3) -> float:
-    """Milliseconds of one call: ``batch`` calls back to back between two
-    events, so host gaps hide behind queued work; median over ``rounds``."""
-    for _ in range(warmup):
-        fn()
+def _events_ms(run, rounds: int, per_run: int) -> float:
+    """Median over ``rounds`` of the milliseconds between two events
+    around ``run()``, divided by the ``per_run`` calls it makes."""
     times = []
     for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(batch):
-            fn()
+        run()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / batch)
+        times.append(start.elapsed_time(end) / per_run)
     return statistics.median(times)
+
+
+def time_ms(fn, rounds: int, batch: int, warmup: int = 3) -> float:
+    """Milliseconds of one call: ``batch`` calls back to back between two
+    events; median over ``rounds``.  Includes whatever the host's launch
+    path adds where the device waits on it."""
+    for _ in range(warmup):
+        fn()
+    return _events_ms(lambda: [fn() for _ in range(batch)], rounds, batch)
+
+
+def graph_time_ms(fn, rounds: int, batch: int, warmup: int = 3) -> float:
+    """Device milliseconds of one call: ``batch`` calls captured in one
+    CUDA graph, whose replay is timed between two events, so that no host
+    launch cost is counted; median over ``rounds``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture stream
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(batch):
+            fn()
+    graph.replay()
+    return _events_ms(graph.replay, rounds, batch)
 
 
 def main() -> int:
@@ -111,6 +140,14 @@ def main() -> int:
     from minisched_tpu_torch.api.objects import Toleration, make_pod
     from minisched_tpu_torch.engine.oracle import headline_oracle
     from minisched_tpu_torch.headline import mk_cluster, schedule_waves
+    from minisched_tpu_torch.kernel_cases import (
+        SELECT_NS,
+        garble,
+        offset_view,
+        select_case,
+        select_tensors,
+        toleration_cluster,
+    )
     from minisched_tpu_torch.models import tables
     from minisched_tpu_torch.ops import kernels
     from minisched_tpu_torch.plugins.nodeunschedulable import (
@@ -127,8 +164,12 @@ def main() -> int:
     log(f"[build] kernels built in {time.monotonic() - t0:.2f}s "
         f"({build.library_path()})")
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or "entry function" in line
+                or line.startswith("==")):
             log(f"[build] {line.strip()}")
+    smem, resident = kernels.nodenumber_launch_shape(dev)
+    log(f"[build] nodenumber_select_hosts_kernel: {smem} B dynamic shared "
+        f"memory a block, {resident} blocks resident (its persistent grid)")
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -162,6 +203,13 @@ def main() -> int:
     }
     sc, mk, _ = plane_cases["random 256x2048"]
     sc[1], mk[1] = torch.iinfo(torch.int32).min, True  # feasible at INT32_MIN
+    for n in SELECT_NS:
+        for tie_heavy in (False, True):
+            plane_cases[f"edge rows P=9 N={n} tie_heavy={tie_heavy}"] = (
+                select_tensors(*select_case(n, 9, n, tie_heavy), dev))
+    sc, mk, sd = select_tensors(*select_case(7, 9, 10112), dev)
+    plane_cases["planes at a 1-element offset 9x10112"] = (
+        offset_view(sc), offset_view(mk), sd)
     for name, (scores, mask, seeds) in plane_cases.items():
         check_equal(f"select_hosts {name}",
                     kernels.select_hosts_cuda(scores, mask, seeds),
@@ -199,6 +247,15 @@ def main() -> int:
     high = torch.arange(WAVE, device=dev, dtype=torch.int32) - WAVE
     nn_cases["main shape, seeds near 2**32"] = (
         replace(wave0, seed=high), node_table)  # 2**32 - 8192 .. 2**32 - 1
+    # every toleration form, garbage past num_tols, invalid rows; one node
+    # tile and several (the kernel stages 7,680 nodes at a time)
+    for n_nodes, n_pods in ((300, 1), (200, 100), (7681, 77), (20000, 301),
+                            (10112, 8191)):
+        t_nodes, t_pods = toleration_cluster(n_nodes + n_pods, n_nodes, n_pods)
+        nn_cases[f"toleration forms {n_pods}x{n_nodes}"] = (
+            garble(tables.build_pod_table(t_pods, capacity=n_pods,
+                                          device=dev)[0], n_pods),
+            tables.build_node_table(t_nodes, capacity=n_nodes, device=dev)[0])
     main_err = {}
     for name, (pt, nt) in nn_cases.items():
         err = check_equal(f"nodenumber_select_hosts {name}",
@@ -207,6 +264,13 @@ def main() -> int:
         if name == "main shape 8192x10112":
             main_err["nodenumber_select_hosts"] = err
         log(f"[check] nodenumber_select_hosts {name}: bit-exact with the twin")
+    pt, nt = nn_cases["toleration forms 301x20000"]
+    for ms in (0, -5, 7):
+        check_equal(f"nodenumber_select_hosts match_score={ms}",
+                    kernels.nodenumber_select_hosts_cuda(pt, nt, ms),
+                    kernels.nodenumber_select_hosts_plain(pt, nt, ms))
+        log(f"[check] nodenumber_select_hosts 301x20000 match_score={ms}: "
+            "bit-exact with the twin")
 
     # the main-path inputs of the generic route's select_hosts: wave 0's
     # NodeUnschedulable mask and NodeNumber scores against the fresh table
@@ -260,13 +324,26 @@ def main() -> int:
     best = main_scores.masked_fill(~main_mask, torch.iinfo(torch.int32).min)
     cand = int((main_mask & (best == best.max(dim=1, keepdim=True).values))
                .sum())
-    pair_ops = {"select_hosts": 2, "nodenumber_select_hosts": 3}
+    T = wave0.tol_key.shape[1]
+    # the prologue's work per (pod, toleration slot): the slot range, two
+    # effect compares and an or, key, op and value compares, the value's
+    # or, the wildcard's and, two ands, an or and the any
+    prologue_ops = 13 * P * T
+    # select_hosts must look at every pair (compare, running max); the
+    # fused chain's candidates follow from a pod's suffix and toleration
+    # class alone, so it needs no work per pair: classifying each node
+    # (valid, unschedulable, suffix, its group), the prologue, and the
+    # mix32 and compare of each candidate
+    ops = {
+        "select_hosts": 2 * P * N + MIX32_OPS * cand,
+        "nodenumber_select_hosts": 4 * N + prologue_ops + MIX32_OPS * cand,
+    }
     in_bytes = {
         # scores i32 + mask bool per pair, seeds i32 per pod
         "select_hosts": P * N * 5 + P * 4,
-        # the kernel alone, its prologue's result given: node:
-        # unschedulable, suffix, valid; pod: tol, valid, suffix, seed
-        "nodenumber_select_hosts": N * 6 + P * (1 + 1 + 4 + 4),
+        # node: unschedulable, suffix, valid; pod: valid, suffix, seed, the
+        # four i32 toleration columns and tol_empty_key per slot, num_tols
+        "nodenumber_select_hosts": N * 6 + P * (1 + 4 + 4) + P * T * 17 + P * 4,
     }
     calls = {
         "select_hosts": (
@@ -274,28 +351,24 @@ def main() -> int:
             lambda: kernels.select_hosts_plain(main_scores, main_mask,
                                                wave0.seed)),
         "nodenumber_select_hosts": (
-            lambda: kernels.nodenumber_body_cuda(tol0, wave0, node_table),
-            lambda: kernels.nodenumber_body_plain(tol0, wave0, node_table)),
+            lambda: kernels.nodenumber_select_hosts_cuda(wave0, node_table),
+            lambda: kernels.nodenumber_select_hosts_plain(wave0, node_table)),
     }
     replaces = {
         "select_hosts": "minisched_tpu/ops/pallas_kernels.py:221",
         "nodenumber_select_hosts": "minisched_tpu/ops/pallas_kernels.py:174",
     }
-    prologue_ms = time_ms(lambda: tolerates_unschedulable(wave0), rounds=9,
-                          batch=20)
-    log(f"[time] tolerates_unschedulable prologue (plain PyTorch, outside "
-        f"the fused kernel's entry below) P={P}: {prologue_ms:.4f} ms")
     report = []
     for name in ("select_hosts", "nodenumber_select_hosts"):
         kernel_fn, plain_fn = calls[name]
         plain_a = time_ms(plain_fn, rounds=5, batch=2)
-        ms = time_ms(kernel_fn, rounds=9, batch=20)
-        ms_b = time_ms(kernel_fn, rounds=9, batch=20)
+        ms = graph_time_ms(kernel_fn, rounds=9, batch=20)
+        ms_b = graph_time_ms(kernel_fn, rounds=9, batch=20)
+        eager = time_ms(kernel_fn, rounds=9, batch=20)
         plain_b = time_ms(plain_fn, rounds=5, batch=2)
         nbytes = in_bytes[name] + 2 * P * 4  # + choice, best
-        ops = pair_ops[name] * P * N + MIX32_OPS * cand
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / INT32_OPS_PER_S * 1e3
+        ops_ms = ops[name] / INT32_OPS_PER_S * 1e3
         entry = {
             "name": name,
             "route": "cuda",
@@ -310,10 +383,12 @@ def main() -> int:
             "library_ms": None,
         }
         report.append(entry)
-        log(f"[time] {name} P={P} N={N}: kernel {ms:.4f} / {ms_b:.4f} ms, "
-            f"plain {plain_a:.4f} / {plain_b:.4f} ms, bound "
+        log(f"[time] {name} P={P} N={N}: kernel {ms:.5f} / {ms_b:.5f} ms "
+            f"(graph replay; {eager:.5f} ms launched one by one from "
+            f"Python), plain {plain_a:.4f} / {plain_b:.4f} ms, bound "
             f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: "
-            f"{nbytes} B, {ops} int ops, {cand} candidates hashed)")
+            f"{nbytes} B, {ops[name]} int ops, {cand} candidates hashed); "
+            f"{entry['bound_ms'] / entry['ms']:.1%} of the bound")
 
     log(card)
     log(json.dumps({"kernels": report}))

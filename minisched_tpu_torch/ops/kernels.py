@@ -26,7 +26,12 @@ from typing import Any, Tuple
 
 import torch
 
-from minisched_tpu_torch.plugins.nodeunschedulable import tolerates_unschedulable
+from minisched_tpu_torch.models import tables
+from minisched_tpu_torch.plugins.nodeunschedulable import (
+    _EMPTY_VALUE_HASH,
+    _UNSCHED_KEY_HASH,
+    tolerates_unschedulable,
+)
 from minisched_tpu_torch.utils import build
 
 INT32_MIN = -(1 << 31)
@@ -115,17 +120,10 @@ def nodenumber_planes(tol: torch.Tensor, pods: Any, nodes: Any,
 def nodenumber_select_hosts_plain(
     pods: Any, nodes: Any, match_score: int = 10
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fused flagship chain with its (P, N) planes written out."""
-    return nodenumber_body_plain(tolerates_unschedulable(pods), pods, nodes,
-                                 match_score)
-
-
-def nodenumber_body_plain(
-    tol: torch.Tensor, pods: Any, nodes: Any, match_score: int = 10
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The twin of the fused kernel's body: the chain after its
-    ``tolerates_unschedulable`` prologue."""
-    scores, mask = nodenumber_planes(tol, pods, nodes, match_score)
+    """The fused flagship chain with its ``tolerates_unschedulable``
+    prologue and its (P, N) planes written out."""
+    scores, mask = nodenumber_planes(tolerates_unschedulable(pods), pods,
+                                     nodes, match_score)
     return select_hosts_plain(scores, mask, pods.seed)
 
 
@@ -139,12 +137,17 @@ _SIGNATURES = {
     # scores, mask, seeds, P, N, choice, best, stream
     "minisched_select_hosts": (_ptr, _ptr, _ptr, _int, _int, _ptr, _ptr,
                                _ptr),
-    # unsched, nsuffix, nvalid, N, tol, psuffix, seeds, pvalid, P,
-    # match_score, choice, best, stream
+    # unsched, nsuffix, nvalid, N, psuffix, seeds, pvalid, tol_key,
+    # tol_value, tol_effect, tol_op, tol_empty_key, num_tols, T, P,
+    # match_score, unsched_key_hash, empty_value_hash, effect_none,
+    # effect_no_schedule, op_exists, choice, best, stream
     "minisched_nodenumber_select_hosts": (
-        _ptr, _ptr, _ptr, _int, _ptr, _ptr, _ptr, _ptr, _int, _int, _ptr,
+        _ptr, _ptr, _ptr, _int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+        _ptr, _ptr, _int, _int, _int, _int, _int, _int, _int, _int, _ptr,
         _ptr, _ptr,
     ),
+    "minisched_nodenumber_smem_bytes": (),
+    "minisched_nodenumber_resident_blocks": (),
 }
 
 
@@ -204,16 +207,11 @@ def select_hosts_cuda(
 def nodenumber_select_hosts_cuda(
     pods: Any, nodes: Any, match_score: int = 10
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``nodenumber_select_hosts_kernel`` over table columns on one card.
-    ``tolerates_unschedulable`` is a small tensor prologue, as on the TPU."""
-    return nodenumber_body_cuda(tolerates_unschedulable(pods), pods, nodes,
-                                match_score)
-
-
-def nodenumber_body_cuda(
-    tol: torch.Tensor, pods: Any, nodes: Any, match_score: int = 10
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fused kernel alone, given its prologue's ``tol`` bool[P]."""
+    """``nodenumber_select_hosts_kernel`` over table columns on one card,
+    in one launch: the kernel evaluates ``tolerates_unschedulable`` from
+    the pod's toleration columns itself.  The taint's hashes and the code
+    constants come from ``plugins/nodeunschedulable.py`` and
+    ``models/tables.py`` as kernel arguments."""
     device = nodes.valid.device
     if device.type != "cuda":
         raise ValueError(
@@ -221,21 +219,39 @@ def nodenumber_body_cuda(
         )
     N = int(nodes.valid.shape[0])
     P = int(pods.valid.shape[0])
+    T = int(pods.tol_key.shape[1]) if pods.tol_key.dim() == 2 else -1
     _check(nodes.unschedulable, "nodes.unschedulable", torch.bool, (N,), device)
     _check(nodes.suffix, "nodes.suffix", torch.int32, (N,), device)
     _check(nodes.valid, "nodes.valid", torch.bool, (N,), device)
-    _check(tol, "tolerates_unschedulable", torch.bool, (P,), device)
     _check(pods.suffix, "pods.suffix", torch.int32, (P,), device)
     _check(pods.seed, "pods.seed", torch.int32, (P,), device)
     _check(pods.valid, "pods.valid", torch.bool, (P,), device)
+    for name in ("tol_key", "tol_value", "tol_effect", "tol_op"):
+        _check(getattr(pods, name), f"pods.{name}", torch.int32, (P, T), device)
+    _check(pods.tol_empty_key, "pods.tol_empty_key", torch.bool, (P, T), device)
+    _check(pods.num_tols, "pods.num_tols", torch.int32, (P,), device)
     choice = torch.empty(P, dtype=torch.int32, device=device)
     best = torch.empty(P, dtype=torch.int32, device=device)
     _launch("minisched_nodenumber_select_hosts", device,
             nodes.unschedulable.data_ptr(), nodes.suffix.data_ptr(),
-            nodes.valid.data_ptr(), N, tol.data_ptr(), pods.suffix.data_ptr(),
-            pods.seed.data_ptr(), pods.valid.data_ptr(), P, match_score,
-            choice.data_ptr(), best.data_ptr())
+            nodes.valid.data_ptr(), N, pods.suffix.data_ptr(),
+            pods.seed.data_ptr(), pods.valid.data_ptr(),
+            pods.tol_key.data_ptr(), pods.tol_value.data_ptr(),
+            pods.tol_effect.data_ptr(), pods.tol_op.data_ptr(),
+            pods.tol_empty_key.data_ptr(), pods.num_tols.data_ptr(), T, P,
+            match_score, _UNSCHED_KEY_HASH, _EMPTY_VALUE_HASH,
+            tables.EFFECT_NONE, tables.EFFECT_NO_SCHEDULE,
+            tables.TOLERATION_OP_EXISTS_CODE, choice.data_ptr(),
+            best.data_ptr())
     return choice, best
+
+
+def nodenumber_launch_shape(device: torch.device) -> Tuple[int, int]:
+    """(dynamic shared bytes a block, blocks resident at once) of the
+    fused kernel on ``device``: the size of its persistent grid."""
+    with torch.cuda.device(device):
+        return (_kernel("minisched_nodenumber_smem_bytes")(),
+                _kernel("minisched_nodenumber_resident_blocks")())
 
 
 # ---------------------------------------------------------------------------

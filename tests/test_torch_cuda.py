@@ -12,6 +12,8 @@ exact: the outputs are integers.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,14 @@ import torch
 from minisched_tpu_torch.api.objects import Toleration, make_node, make_pod
 from minisched_tpu_torch.engine.oracle import headline_oracle
 from minisched_tpu_torch.headline import mk_cluster, schedule_waves
+from minisched_tpu_torch.kernel_cases import (
+    SELECT_NS,
+    garble,
+    offset_view,
+    select_case,
+    select_tensors,
+    toleration_cluster,
+)
 from minisched_tpu_torch.models import tables
 from minisched_tpu_torch.ops import fused, kernels
 
@@ -83,6 +93,68 @@ def test_nodenumber_kernel_matches_twin(P, N, dev):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _assert_select_matches_twin(scores, mask, seeds):
+    before = kernels.launch_counts["select_hosts"]
+    got = kernels.select_hosts(scores, mask, seeds)  # the CUDA route
+    assert kernels.launch_counts["select_hosts"] == before + 1
+    want = kernels.select_hosts_plain(scores, mask, seeds)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("N", SELECT_NS)
+@pytest.mark.parametrize("tie_heavy", [False, True])
+def test_select_hosts_kernel_edge_rows(N, tie_heavy, dev):
+    """P odd, so most row starts are not 16-byte aligned; the edge rows
+    (every node a candidate, max in the last column, ties across chunk
+    boundaries, INT32_MIN, seeds near 2**32) on both sides of the 16-node
+    group and the 512-node step."""
+    _assert_select_matches_twin(
+        *select_tensors(*select_case(N, 9, N, tie_heavy), dev))
+
+
+@pytest.mark.parametrize("N", [16, 512, 10112])
+def test_select_hosts_kernel_unaligned_planes(N, dev):
+    """Planes starting one element into their allocation: no row takes
+    the 16-byte path, the edge loop does all of it."""
+    scores, mask, seeds = select_tensors(*select_case(N + 1, 9, N), dev)
+    _assert_select_matches_twin(offset_view(scores), offset_view(mask), seeds)
+    _assert_select_matches_twin(scores, offset_view(mask), seeds)
+
+
+# (nodes, pods): one tile and several (the kernel stages 7,680 nodes at a
+# time), P = 1, and P not a multiple of the rows a block takes
+NN_SHAPES = [(300, 1), (200, 100), (7681, 77), (20000, 301), (10112, 8191)]
+
+
+@pytest.mark.parametrize("n_nodes,n_pods", NN_SHAPES)
+def test_nodenumber_kernel_toleration_forms(n_nodes, n_pods, dev):
+    nodes, pods = toleration_cluster(n_nodes + n_pods, n_nodes, n_pods)
+    nt, _ = tables.build_node_table(nodes, capacity=n_nodes, device=dev)
+    pt, _ = tables.build_pod_table(pods, capacity=n_pods, device=dev)
+    pt = garble(pt, n_pods)
+    before = kernels.launch_counts["nodenumber_select_hosts"]
+    got = kernels.nodenumber_select_hosts(pt, nt)
+    assert kernels.launch_counts["nodenumber_select_hosts"] == before + 1
+    want = kernels.nodenumber_select_hosts_plain(pt, nt)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("match_score", [0, -5, 7])
+def test_nodenumber_kernel_other_match_scores(match_score, dev):
+    """A zero or negative match score changes which nodes win (the
+    kernel's second pass); the twin is the reference."""
+    nodes, pods = toleration_cluster(3, 900, 130)
+    nt, _ = tables.build_node_table(nodes, device=dev)
+    pt, _ = tables.build_pod_table(pods, device=dev)
+    pt = garble(pt, 3)
+    got = kernels.nodenumber_select_hosts_cuda(pt, nt, match_score)
+    want = kernels.nodenumber_select_hosts_plain(pt, nt, match_score)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     scores, mask, seeds = _planes(1, 8, 64, dev, False)
     with pytest.raises(TypeError):
@@ -93,6 +165,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         kernels.select_hosts_cuda(scores, mask, seeds[:4])
     with pytest.raises(ValueError):
         kernels.select_hosts_cuda(scores, mask.cpu(), seeds)
+    nodes, pods = _cluster(2, 64, 8)
+    nt, _ = tables.build_node_table(nodes, device=dev)
+    pt, _ = tables.build_pod_table(pods, device=dev)
+    narrow = pt.tol_value[:, :4].contiguous()
+    with pytest.raises(ValueError, match="tol_value"):
+        kernels.nodenumber_select_hosts_cuda(
+            dataclasses.replace(pt, tol_value=narrow), nt)
 
 
 @pytest.mark.parametrize("route", ["fused", "generic"])

@@ -33,6 +33,8 @@ from minisched_tpu.plugins.nodeunschedulable import (
     tolerates_unschedulable as jax_tolerates_unschedulable,
 )
 
+from minisched_tpu_torch import kernel_cases
+from minisched_tpu_torch.api import objects as tobjects
 from minisched_tpu_torch.engine import oracle as toracle
 from minisched_tpu_torch.engine import tiebreak as ttiebreak
 from minisched_tpu_torch.models import tables as ttables
@@ -40,7 +42,7 @@ from minisched_tpu_torch.ops import fused as tfused
 from minisched_tpu_torch.ops import kernels
 from minisched_tpu_torch.plugins.nodeunschedulable import tolerates_unschedulable
 
-from tests.test_torch_tables import jax_columns
+from tests.test_torch_tables import jax_columns, port_columns
 
 
 def _case(seed: int, P: int, N: int, tie_heavy: bool, high_seeds: bool = False):
@@ -188,6 +190,53 @@ def test_nodenumber_plain_on_jax_columns_with_ragged_shapes():
     want_c, want_b = _jax_select(scores.numpy(), mask.numpy(),
                                  np.asarray(jp.seed))
     assert np.array_equal(c.numpy(), want_c) and np.array_equal(b.numpy(), want_b)
+
+
+def _jax_table(cls, port_table):
+    """The JAX package's table holding the port table's columns."""
+    return cls(**{k: jnp.asarray(v) for k, v in port_columns(port_table).items()})
+
+
+@pytest.mark.parametrize("seed,n_nodes,n_pods", [(1, 200, 128), (2, 300, 8),
+                                                 (3, 128, 256)])
+def test_toleration_forms_match_jax(seed, n_nodes, n_pods):
+    """Every toleration form of ``kernel_cases`` (Exists with the taint's
+    key, Equal with an empty and a non-empty value, the wildcard, the
+    NoExecute and PreferNoSchedule effects, other keys), slots past
+    ``num_tols`` holding tolerations that would match, invalid rows, and
+    pods and nodes without a numeric suffix: the port's
+    ``tolerates_unschedulable`` and fused twin against the JAX package's
+    and ``nodenumber_select_hosts(interpret=True)``."""
+    nodes, pods = kernel_cases.toleration_cluster(seed, n_nodes, n_pods)
+    tn, _ = ttables.build_node_table(nodes, device="cpu")
+    tp, _ = ttables.build_pod_table(pods, device="cpu")
+    tp = kernel_cases.garble(tp, seed)
+    jn, jp = _jax_table(jtables.NodeTable, tn), _jax_table(jtables.PodTable, tp)
+    got_tol = tolerates_unschedulable(tp).numpy()
+    assert np.array_equal(got_tol, np.asarray(jax_tolerates_unschedulable(jp)))
+    # the cases reach both answers, and garbage past num_tols is present
+    assert got_tol.any() and not got_tol.all()
+    past = np.arange(tp.tol_key.shape[1])[None, :] >= tp.num_tols.numpy()[:, None]
+    assert (past & (tp.tol_key.numpy() != 0)).any()
+    want_c, want_b = jax_nodenumber_select_hosts(jp, jn, interpret=True)
+    got_c, got_b = kernels.nodenumber_select_hosts_plain(tp, tn)
+    assert np.array_equal(got_c.numpy(), np.asarray(want_c))
+    assert np.array_equal(got_b.numpy(), np.asarray(want_b))
+
+
+def test_toleration_forms_cover_every_form():
+    """Each form of ``TOLERATION_FORMS`` tolerates the taint in the JAX
+    package exactly when the port says so, one pod per form."""
+    forms = list(kernel_cases.TOLERATION_FORMS)
+    tp, _ = ttables.build_pod_table(
+        [tobjects.make_pod(f"p{i}", tolerations=[kernel_cases.TOLERATION_FORMS[f]])
+         for i, f in enumerate(forms)], device="cpu")
+    got = tolerates_unschedulable(tp).numpy()[:len(forms)]
+    want = np.asarray(jax_tolerates_unschedulable(
+        _jax_table(jtables.PodTable, tp)))[:len(forms)]
+    assert np.array_equal(got, want)
+    assert dict(zip(forms, got.tolist())) == {
+        f: i < 4 for i, f in enumerate(forms)}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
