@@ -28,9 +28,26 @@ Phases, each of which raises on failure (nothing catches it):
    time, no host launch cost), also launched one by one for comparison;
    the twin eagerly, two calls between events; medians over batches.  The fused kernel is timed as its whole entry
    point, one launch that evaluates ``tolerates_unschedulable`` itself.
+   ``select_hosts`` is also timed at the repair route's shape (16,384 x
+   10,112, round 1 of config 5's wave 0).
+6. Config 5 at full size (10,000 nodes, 20% cordoned, seed 55; 100,000
+   pods of 500m and 256 Mi, 2% with a node selector no node matches) in
+   repair waves of 16,384 through ``fullchain.schedule_repair_waves`` with
+   the node-local roster, then an audit in numpy on the host: the final
+   table equals the initial one plus a recount from the choices, no node
+   is over its allocatable, no pod sits on a cordoned node, no
+   ``special*`` pod is placed, every unplaced plain pod fits no node; and
+   98,000 pods placed, no wave at the 16-round cap.
+7. A reduced config 5 (2,000 nodes, 20,000 pods, waves of 4,096) on the
+   card and on the CPU twins: equal choices, rounds per wave,
+   unschedulable masks and final tables.
 
-The launch counters are set to 0 just before each route of the main path
-and read just after it.  The last three lines of output are the card's
+Phase 2 also holds ``select_hosts`` against its twin on the repair
+route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
+of wave 1 (the rows committed in round 1 fully masked).
+
+The launch counters are set to 0 just before each path of the main path
+(the headline's two routes, the repair waves) and read just after it.  The last three lines of output are the card's
 name and power limit, one JSON object describing every kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -60,6 +77,7 @@ INT32_OPS_PER_S = 67e12 / 2 / 2
 MIX32_OPS = 11
 WAVE = 8192
 N_NODES, N_PODS = 10_000, 100_000
+C5_WAVE = 16_384  # repair waves of config 5
 
 
 def log(msg: str) -> None:
@@ -132,6 +150,58 @@ def graph_time_ms(fn, rounds: int, batch: int, warmup: int = 3) -> float:
     return _events_ms(graph.replay, rounds, batch)
 
 
+def audit_config5(run, nodes, pods, tables) -> None:
+    """Config 5's result, checked in numpy from the objects and the final
+    table alone (no plugin code): raise on any failure."""
+    init = {k: v.numpy() for k, v in tables.table_columns(
+        tables.build_node_table(nodes, device="cpu")[0]).items()}
+    final = {k: v.cpu().numpy() for k, v in tables.table_columns(
+        run.node_table).items()}
+    choice = run.choices
+    placed = choice >= 0
+    reqs = [p.resource_requests() for p in pods]
+    mib = 1024 * 1024
+    cpu = np.array([r.milli_cpu for r in reqs], np.int64)
+    mem = np.array([r.memory // mib for r in reqs], np.int64)
+    eph = np.array([r.ephemeral_storage // mib for r in reqs], np.int64)
+    demand = {"req_cpu": cpu, "req_mem": mem, "req_eph": eph,
+              "req_pods": np.ones_like(cpu),
+              "nzreq_cpu": np.where(cpu == 0, 100, cpu),
+              "nzreq_mem": np.where(mem == 0, 200, mem)}
+    n = len(init["valid"])
+    for col, amount in demand.items():  # (a)
+        want = init[col] + np.bincount(choice[placed], amount[placed],
+                                       minlength=n).astype(np.int64)
+        if not np.array_equal(final[col].astype(np.int64), want):
+            raise AssertionError(f"config 5 audit (a): {col} is not the "
+                                 "initial table plus the recount")
+    valid = final["valid"]
+    for res in ("cpu", "mem", "eph", "pods"):  # (b)
+        over = valid & (final[f"req_{res}"] > final[f"alloc_{res}"])
+        if over.any():
+            raise AssertionError(f"config 5 audit (b): {int(over.sum())} "
+                                 f"nodes over their {res} allocatable")
+    if final["unschedulable"][choice[placed]].any():  # (c)
+        raise AssertionError("config 5 audit (c): a pod on a cordoned node")
+    special = np.array([p.metadata.name.startswith("special") for p in pods])
+    if (placed & special).any():  # (d)
+        raise AssertionError("config 5 audit (d): a special pod was placed")
+    open_node = valid & ~final["unschedulable"]
+
+    def room(res: str, amount: int):
+        # a resource the pod does not ask for fits any node
+        return amount == 0 or final[f"alloc_{res}"] - final[f"req_{res}"] >= amount
+
+    for i in np.flatnonzero(~placed & ~special):  # (e)
+        fits = (open_node & room("cpu", cpu[i]) & room("mem", mem[i])
+                & room("eph", eph[i])
+                & (final["req_pods"] + 1 <= final["alloc_pods"]))
+        if fits.any():
+            raise AssertionError(f"config 5 audit (e): unplaced "
+                                 f"{pods[i].metadata.name} fits "
+                                 f"{int(fits.sum())} nodes")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -139,17 +209,25 @@ def main() -> int:
     # imported here: a bare copy of this script must fail, not half-run
     from minisched_tpu_torch.api.objects import Toleration, make_pod
     from minisched_tpu_torch.engine.oracle import headline_oracle
+    from minisched_tpu_torch.fullchain import (
+        mk_c5_cluster,
+        schedule_repair_waves,
+    )
     from minisched_tpu_torch.headline import mk_cluster, schedule_waves
     from minisched_tpu_torch.kernel_cases import (
         SELECT_NS,
         garble,
         offset_view,
+        repair_planes,
         select_case,
         select_tensors,
         toleration_cluster,
     )
     from minisched_tpu_torch.models import tables
     from minisched_tpu_torch.ops import kernels
+    from minisched_tpu_torch.ops.repair import MAX_ROUNDS, RepairingEvaluator
+    from minisched_tpu_torch.plugins.registry import build_plugins
+    from minisched_tpu_torch.service.config import node_local_roster_config
     from minisched_tpu_torch.plugins.nodeunschedulable import (
         tolerates_unschedulable,
     )
@@ -283,6 +361,38 @@ def main() -> int:
         kernels.select_hosts_plain(main_scores, main_mask, wave0.seed))
     log("[check] select_hosts on the main path's wave-0 planes: bit-exact")
 
+    # the repair route's own planes at config 5's full size: round 1 of
+    # wave 0 (every feasible node an identical empty node: tie-heavy) and
+    # round 2 of wave 1 (rows committed in round 1 fully masked)
+    c5_nodes, c5_pods = mk_c5_cluster(N_NODES, N_PODS)
+    cfg = node_local_roster_config()
+    chains = build_plugins(cfg)
+    repair_ev = RepairingEvaluator(chains.filter, chains.pre_score,
+                                   chains.score, weights=cfg.score_weights(),
+                                   with_diagnostics=True)
+    c5_table, _ = tables.build_node_table(c5_nodes, device=dev)
+    c5_wave0, _ = tables.build_pod_table(c5_pods[:C5_WAVE], device=dev)
+    rep_scores, rep_mask = repair_planes(c5_wave0, c5_table, repair_ev, 0)
+    main_err["select_hosts repair"] = check_equal(
+        "select_hosts repair round 1 of wave 0",
+        kernels.select_hosts_cuda(rep_scores, rep_mask, c5_wave0.seed),
+        kernels.select_hosts_plain(rep_scores, rep_mask, c5_wave0.seed))
+    log(f"[check] select_hosts on config 5's round-1 repair planes "
+        f"{tuple(rep_scores.shape)}: bit-exact")
+    c5_wave1, _ = tables.build_pod_table(c5_pods[C5_WAVE:2 * C5_WAVE],
+                                         device=dev)
+    later_scores, later_mask = repair_planes(
+        c5_wave1, repair_ev(c5_wave0, c5_table)[0], repair_ev, 1)
+    masked = float((~later_mask.any(dim=1)).float().mean())
+    check_equal("select_hosts repair round 2 of wave 1",
+                kernels.select_hosts_cuda(later_scores, later_mask,
+                                          c5_wave1.seed),
+                kernels.select_hosts_plain(later_scores, later_mask,
+                                           c5_wave1.seed))
+    log(f"[check] select_hosts on config 5's round-2 planes of wave 1 "
+        f"({masked:.1%} of rows fully masked): bit-exact")
+    del later_scores, later_mask
+
     # -- phases 3 and 4: the main path, both routes ------------------------
     want = headline_oracle(pods, nodes)
     runs, launches = {}, {}
@@ -319,76 +429,164 @@ def main() -> int:
                              f"{int(runs['fused'].node_table.req_pods.sum())}")
     log("[routes] equal choices; final node tables equal column for column")
 
-    # -- phase 5: time per wave at the main-path shape ---------------------
+    # -- phase 5: time per wave at the main-path shapes --------------------
+    def candidates(scores, mask) -> int:
+        best = scores.masked_fill(~mask, torch.iinfo(torch.int32).min)
+        return int((mask & (best == best.max(dim=1, keepdim=True).values))
+                   .sum())
+
     P, N = main_scores.shape
-    best = main_scores.masked_fill(~main_mask, torch.iinfo(torch.int32).min)
-    cand = int((main_mask & (best == best.max(dim=1, keepdim=True).values))
-               .sum())
+    cand = candidates(main_scores, main_mask)
     T = wave0.tol_key.shape[1]
     # the prologue's work per (pod, toleration slot): the slot range, two
     # effect compares and an or, key, op and value compares, the value's
     # or, the wildcard's and, two ands, an or and the any
     prologue_ops = 13 * P * T
-    # select_hosts must look at every pair (compare, running max); the
-    # fused chain's candidates follow from a pod's suffix and toleration
-    # class alone, so it needs no work per pair: classifying each node
-    # (valid, unschedulable, suffix, its group), the prologue, and the
-    # mix32 and compare of each candidate
-    ops = {
-        "select_hosts": 2 * P * N + MIX32_OPS * cand,
-        "nodenumber_select_hosts": 4 * N + prologue_ops + MIX32_OPS * cand,
-    }
-    in_bytes = {
-        # scores i32 + mask bool per pair, seeds i32 per pod
-        "select_hosts": P * N * 5 + P * 4,
-        # node: unschedulable, suffix, valid; pod: valid, suffix, seed, the
-        # four i32 toleration columns and tol_empty_key per slot, num_tols
-        "nodenumber_select_hosts": N * 6 + P * (1 + 4 + 4) + P * T * 17 + P * 4,
-    }
-    calls = {
-        "select_hosts": (
-            lambda: kernels.select_hosts_cuda(main_scores, main_mask, wave0.seed),
+
+    def select_work(scores, mask):
+        """(bytes, int ops) of select_hosts: a 4-byte score and a 1-byte
+        mask read per pair, seeds read and (choice, best) written per pod;
+        a compare and running max per pair and a mix32 and compare per
+        candidate at the row's max."""
+        p, n = scores.shape
+        return (p * n * 5 + p * 4 + 2 * p * 4,
+                2 * p * n + MIX32_OPS * candidates(scores, mask))
+
+    # the fused chain's candidates follow from a pod's suffix and
+    # toleration class alone, so it needs no work per pair: classifying
+    # each node (valid, unschedulable, suffix, its group), the prologue,
+    # and the mix32 and compare of each candidate.  Bytes: node
+    # unschedulable, suffix, valid; pod valid, suffix, seed, the four i32
+    # toleration columns and tol_empty_key per slot, num_tols; choice, best
+    cases = {
+        ("select_hosts", "generic"): (
+            lambda: kernels.select_hosts_cuda(main_scores, main_mask,
+                                              wave0.seed),
             lambda: kernels.select_hosts_plain(main_scores, main_mask,
-                                               wave0.seed)),
-        "nodenumber_select_hosts": (
+                                               wave0.seed),
+            select_work(main_scores, main_mask), (P, N)),
+        ("select_hosts", "repair"): (
+            lambda: kernels.select_hosts_cuda(rep_scores, rep_mask,
+                                              c5_wave0.seed),
+            lambda: kernels.select_hosts_plain(rep_scores, rep_mask,
+                                               c5_wave0.seed),
+            select_work(rep_scores, rep_mask), tuple(rep_scores.shape)),
+        ("nodenumber_select_hosts", "fused"): (
             lambda: kernels.nodenumber_select_hosts_cuda(wave0, node_table),
-            lambda: kernels.nodenumber_select_hosts_plain(wave0, node_table)),
+            lambda: kernels.nodenumber_select_hosts_plain(wave0, node_table),
+            (N * 6 + P * (1 + 4 + 4) + P * T * 17 + P * 4 + 2 * P * 4,
+             4 * N + prologue_ops + MIX32_OPS * cand), (P, N)),
     }
-    replaces = {
-        "select_hosts": "minisched_tpu/ops/pallas_kernels.py:221",
-        "nodenumber_select_hosts": "minisched_tpu/ops/pallas_kernels.py:174",
-    }
-    report = []
-    for name in ("select_hosts", "nodenumber_select_hosts"):
-        kernel_fn, plain_fn = calls[name]
+    timed = {}
+    for (name, path), (kernel_fn, plain_fn, (nbytes, n_ops), shape) in cases.items():
         plain_a = time_ms(plain_fn, rounds=5, batch=2)
         ms = graph_time_ms(kernel_fn, rounds=9, batch=20)
         ms_b = graph_time_ms(kernel_fn, rounds=9, batch=20)
         eager = time_ms(kernel_fn, rounds=9, batch=20)
         plain_b = time_ms(plain_fn, rounds=5, batch=2)
-        nbytes = in_bytes[name] + 2 * P * 4  # + choice, best
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops[name] / INT32_OPS_PER_S * 1e3
-        entry = {
-            "name": name,
-            "route": "cuda",
-            "source": "minisched_tpu_torch/csrc/select_hosts.cu",
-            "replaces": replaces[name],
-            "launches": launches[name],
-            "max_abs_err": main_err[name],
+        ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+        timed[name, path] = t = {
+            "P": shape[0], "N": shape[1],
             "ms": min(ms, ms_b),
             "plain_ms": min(plain_a, plain_b),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
         }
-        report.append(entry)
-        log(f"[time] {name} P={P} N={N}: kernel {ms:.5f} / {ms_b:.5f} ms "
-            f"(graph replay; {eager:.5f} ms launched one by one from "
-            f"Python), plain {plain_a:.4f} / {plain_b:.4f} ms, bound "
-            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: "
-            f"{nbytes} B, {ops[name]} int ops, {cand} candidates hashed); "
-            f"{entry['bound_ms'] / entry['ms']:.1%} of the bound")
+        log(f"[time] {name} ({path} path) P={shape[0]} N={shape[1]}: kernel "
+            f"{ms:.5f} / {ms_b:.5f} ms (graph replay; {eager:.5f} ms "
+            f"launched one by one from Python), plain {plain_a:.4f} / "
+            f"{plain_b:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {nbytes} B, {n_ops} int ops); "
+            f"{t['bound_ms'] / t['ms']:.1%} of the bound")
+    del main_scores, main_mask
+
+    # -- phase 6: config 5 at full size, repair waves ----------------------
+    kernels.reset_launch_counts()
+    c5 = schedule_repair_waves(c5_nodes, c5_pods, wave=C5_WAVE)
+    c5_counts = dict(kernels.launch_counts)
+    n_special = sum(p.metadata.name.startswith("special") for p in c5_pods)
+    placed = c5.choices >= 0
+    log(f"[config5] {c5.n_waves} waves of {C5_WAVE}; rounds per wave "
+        f"{c5.rounds} ({sum(c5.rounds)} in all); {int(placed.sum())} of "
+        f"{len(c5_pods)} pods placed; launches {c5_counts}; host build "
+        f"{c5.build_s:.3f}s, h2d {c5.h2d_s:.3f}s, warmup {c5.warmup_s:.3f}s, "
+        f"schedule {c5.schedule_s:.4f}s = "
+        f"{len(c5_pods) / c5.schedule_s:,.0f} pods/s")
+    if max(c5.rounds) >= MAX_ROUNDS:
+        raise AssertionError(f"a wave hit the {MAX_ROUNDS}-round cap: "
+                             f"{c5.rounds}")
+    if c5_counts["select_hosts"] < sum(c5.rounds):
+        raise AssertionError(f"select_hosts launched {c5_counts} for "
+                             f"{sum(c5.rounds)} rounds")
+    audit_config5(c5, c5_nodes, c5_pods, tables)
+    if int(placed.sum()) != len(c5_pods) - n_special:
+        raise AssertionError(f"{int(placed.sum())} placed, expected "
+                             f"{len(c5_pods) - n_special}")
+    failing = sorted({c5.filter_names[k] for k in np.flatnonzero(
+        c5.unschedulable.any(axis=1))})
+    log(f"[config5] audit passed: final table = initial + recount, no node "
+        f"over allocatable, no pod on a cordoned node, no special pod "
+        f"placed, no unplaced plain pod fits; unplaced pods fail {failing}")
+    launches = {"select_hosts": {"generic": launches["select_hosts"],
+                                 "repair": c5_counts["select_hosts"]},
+                "nodenumber_select_hosts": {
+                    "fused": launches["nodenumber_select_hosts"]}}
+
+    # -- phase 7: reduced config 5, the card against the twins -------------
+    r_nodes, r_pods = mk_c5_cluster(2_000, 20_000)
+    t0 = time.monotonic()
+    on_card = schedule_repair_waves(r_nodes, r_pods, wave=4_096)
+    card_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    on_cpu = schedule_repair_waves(r_nodes, r_pods, wave=4_096, device="cpu")
+    cpu_s = time.monotonic() - t0
+    if not np.array_equal(on_card.choices, on_cpu.choices):
+        bad = np.flatnonzero(on_card.choices != on_cpu.choices)
+        raise AssertionError(f"reduced config 5: {bad.size} choices differ "
+                             f"card vs CPU, first at pod {int(bad[0])}")
+    if on_card.rounds != on_cpu.rounds:
+        raise AssertionError(f"reduced config 5 rounds: card {on_card.rounds}"
+                             f", CPU {on_cpu.rounds}")
+    if not np.array_equal(on_card.unschedulable, on_cpu.unschedulable):
+        raise AssertionError("reduced config 5: unschedulable masks differ")
+    cpu_cols = tables.table_columns(on_cpu.node_table)
+    for name, col in tables.table_columns(on_card.node_table).items():
+        if not torch.equal(col.cpu(), cpu_cols[name]):
+            raise AssertionError(f"reduced config 5: final tables differ in "
+                                 f"{name}")
+    log(f"[config5-reduced] 2,000 nodes x 20,000 pods, waves of 4,096: card "
+        f"and CPU twins equal (choices, rounds {on_card.rounds}, "
+        f"unschedulable masks, every final table column); "
+        f"{card_s:.2f}s on the card, {cpu_s:.2f}s on the CPU")
+
+    report = []
+    replaces = {
+        "select_hosts": "minisched_tpu/ops/pallas_kernels.py:221",
+        "nodenumber_select_hosts": "minisched_tpu/ops/pallas_kernels.py:174",
+    }
+    errs = {"select_hosts": max(main_err["select_hosts"],
+                                main_err["select_hosts repair"]),
+            "nodenumber_select_hosts": main_err["nodenumber_select_hosts"]}
+    for name, first_path in (("select_hosts", "generic"),
+                             ("nodenumber_select_hosts", "fused")):
+        by_path = launches[name]
+        first = timed[name, first_path]
+        report.append({
+            "name": name,
+            "route": "cuda",
+            "source": "minisched_tpu_torch/csrc/select_hosts.cu",
+            "replaces": replaces[name],
+            "launches": sum(by_path.values()),
+            "max_abs_err": errs[name],
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": None,
+            "launches_by_path": by_path,
+            "by_path": {path: t for (n, path), t in timed.items() if n == name},
+        })
 
     log(card)
     log(json.dumps({"kernels": report}))

@@ -3,7 +3,7 @@
 A copy of what ``minisched_tpu/api/objects.py`` defines for these readers:
 quantities in integer base units (milli-CPU, bytes), names as the
 identity (``uid`` defaults to ``""``, so tie-break seeds come from names),
-taints and tolerations.  The table encoders read these objects
+taints and tolerations, node affinity.  The table encoders read these objects
 duck-typed, so the JAX package's objects build the same tables.
 """
 
@@ -99,6 +99,8 @@ class ObjectMeta:
 
 
 TAINT_EFFECT_NO_SCHEDULE = "NoSchedule"
+TAINT_EFFECT_PREFER_NO_SCHEDULE = "PreferNoSchedule"
+TAINT_EFFECT_NO_EXECUTE = "NoExecute"
 TOLERATION_OP_EXISTS = "Exists"
 TOLERATION_OP_EQUAL = "Equal"
 
@@ -170,15 +172,75 @@ class Container:
 
 
 @dataclass
+class LabelSelectorRequirement:
+    key: str
+    operator: str  # In, NotIn, Exists, DoesNotExist, Gt, Lt
+    values: List[str] = field(default_factory=list)
+
+
+def _match_expression(req: LabelSelectorRequirement,
+                      labels: Dict[str, str]) -> bool:
+    val = labels.get(req.key)
+    if req.operator == "In":
+        return val is not None and val in req.values
+    if req.operator == "NotIn":
+        return val is None or val not in req.values
+    if req.operator == "Exists":
+        return val is not None
+    if req.operator == "DoesNotExist":
+        return val is None
+    if req.operator in ("Gt", "Lt"):
+        # an unparsable operand or label value is no match, never an error
+        try:
+            lhs = int(val)  # type: ignore[arg-type]
+            rhs = int(req.values[0])
+        except (TypeError, ValueError, IndexError):
+            return False
+        return lhs > rhs if req.operator == "Gt" else lhs < rhs
+    return False
+
+
+@dataclass
+class NodeSelectorTerm:
+    match_expressions: List[LabelSelectorRequirement] = field(
+        default_factory=list)
+
+    def matches(self, node_labels: Dict[str, str]) -> bool:
+        return all(_match_expression(r, node_labels)
+                   for r in self.match_expressions)
+
+
+@dataclass
+class PreferredSchedulingTerm:
+    weight: int
+    preference: NodeSelectorTerm = field(default_factory=NodeSelectorTerm)
+
+
+@dataclass
+class NodeAffinity:
+    # required: OR over terms; None means no requirement
+    required_terms: Optional[List[NodeSelectorTerm]] = None
+    preferred: List[PreferredSchedulingTerm] = field(default_factory=list)
+
+
+@dataclass
+class Affinity:
+    """Node affinity only: pod (anti-)affinity comes with the cross-pod
+    plugins."""
+
+    node_affinity: Optional[NodeAffinity] = None
+
+
+@dataclass
 class PodSpec:
     node_name: str = ""  # set by binding
     containers: List[Container] = field(default_factory=list)
     node_selector: Dict[str, str] = field(default_factory=dict)
     tolerations: List[Toleration] = field(default_factory=list)
-    #: node affinity and gang membership are encoded by the table encoder
-    #: when present; their object model arrives with the slices that
-    #: schedule them (read duck-typed until then)
-    affinity: Optional[Any] = None
+    affinity: Optional[Affinity] = None
+    #: spread constraints and gang membership are encoded by the table
+    #: encoder when present; their object model arrives with the slices
+    #: that schedule them (read duck-typed until then)
     topology_spread_constraints: List[Any] = field(default_factory=list)
     gang: Optional[Any] = None
 

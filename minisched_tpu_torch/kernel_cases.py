@@ -12,6 +12,8 @@ holds the twins against the JAX package on the same toleration forms.
   N not a multiple of 16, row starts are not 16-byte aligned.
 * ``offset_view``: the same values at a 1-byte offset, so that no row of a
   bool plane is 16-byte aligned together with its scores.
+* ``repair_planes``: the (scores, mask) planes of a given round of a
+  repair wave (``ops/repair.py``), for ``select_hosts`` on its real inputs.
 * ``toleration_cluster``: nodes (some cordoned, some without a numeric
   suffix) and pods carrying every toleration form, then ``garble`` fills
   the slots at or past ``num_tols`` with matching tolerations and clears
@@ -28,6 +30,8 @@ import torch
 
 from minisched_tpu_torch.api.objects import Toleration, make_node, make_pod
 from minisched_tpu_torch.models import tables
+from minisched_tpu_torch.ops.fused import wave_planes
+from minisched_tpu_torch.ops.repair import repair_wave_step
 from minisched_tpu_torch.utils.hashing import fnv1a32
 
 #: node counts of the select_hosts cases: both sides of the 16-node group
@@ -158,3 +162,20 @@ def garble(pods: Any, seed: int) -> Any:
         tol_empty_key=fill(pods.tol_empty_key, wildcard),
         valid=torch.from_numpy(valid).to(pods.valid.device),
     )
+
+
+def repair_planes(pods: Any, nodes: Any, evaluator: Any,
+                  rounds_before: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores, mask) that the repair route hands ``select_hosts`` in round
+    ``rounds_before + 1`` of a wave: the pods committed in the earlier
+    rounds are masked out (all-masked rows), and the node table holds
+    their commits.  ``evaluator`` is an ``ops.repair.RepairingEvaluator``."""
+    chains = (evaluator.filter_plugins, evaluator.pre_score_plugins,
+              evaluator.score_plugins)
+    if rounds_before:
+        nodes, final, _ = repair_wave_step(nodes, pods, *chains,
+                                           evaluator.ctx,
+                                           max_rounds=rounds_before)
+        pods = replace(pods, valid=pods.valid & (final < 0))
+    planes = wave_planes(pods, nodes, *chains, evaluator.ctx)
+    return planes.totals, planes.mask

@@ -10,15 +10,20 @@ ends in ``select_hosts`` (from ``ops.kernels``), the seeded masked argmax
 (bit-exact with the scalar ``engine.tiebreak.select_host``).
 
 There is no routing flag: ``select_hosts`` takes the plain twin for a CPU
-tensor and the hand-written kernel for a CUDA tensor, at any shape.  The
-JAX package's ``static=`` planes and diagnostics arrive with the repair
-and diagnostics slices of the port.
+tensor and the hand-written kernel for a CUDA tensor, at any shape.
+
+``precompute_static`` and ``evaluate(static=)`` split a repair wave's
+chain into the round-invariant half (computed once) and the plugins that
+read committed state (every round); ``with_diagnostics`` keeps every
+plugin's planes.  Plugins that read the wave's constraint tables
+(``needs_extra``) are refused: the port has no constraint tables yet
+(ROADMAP.md §1 item 6).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,9 +35,13 @@ __all__ = [
     "BatchContext",
     "FusedEvaluator",
     "PlacementResult",
+    "StaticWavePlanes",
     "evaluate",
     "mix32",
+    "precompute_static",
     "select_hosts",
+    "unschedulable_plugin_masks",
+    "wave_planes",
 ]
 
 
@@ -56,6 +65,105 @@ class PlacementResult:
     choice: torch.Tensor  # i32[P] node index, -1 = unschedulable
     best_score: torch.Tensor  # i32[P]
     feasible_count: torch.Tensor  # i32[P]
+    #: bool[K, P, N] per-filter-plugin pass masks (``with_diagnostics``)
+    filter_masks: Optional[torch.Tensor] = None
+    #: i32[K, P, N] per-score-plugin normalized × weighted matrices
+    score_matrices: Optional[torch.Tensor] = None
+    #: i32[K, P, N] per-score-plugin RAW matrices, before normalize/weight
+    raw_score_matrices: Optional[torch.Tensor] = None
+
+
+@dataclass
+class StaticWavePlanes:
+    """Round-invariant planes shared by every round of a repair wave.
+
+    Filters and scores of plugins with ``reads_committed_state`` False
+    give the same mask and RAW score in every round; the repair loop
+    computes them once and per round re-evaluates only the committed-state
+    plugins, then re-normalizes the cached raw scores against the round's
+    full mask: bit-identical to evaluating the whole chain every round."""
+
+    static_mask: torch.Tensor  # bool[P, N] conjunction of static filter masks
+    static_names: frozenset  # names of the filters folded into static_mask
+    aux: Dict[str, Dict[str, Any]]  # pre-score aux (static plugins only)
+    raw_scores: Dict[str, torch.Tensor]  # plugin name → i32[P, N] raw score
+
+
+def _is_dynamic(pl: Any) -> bool:
+    return bool(getattr(pl, "reads_committed_state", False))
+
+
+def precompute_static(pods: Any, nodes: Any, filter_plugins: Sequence[Any],
+                      pre_score_plugins: Sequence[Any],
+                      score_plugins: Sequence[Any],
+                      ctx: BatchContext) -> StaticWavePlanes:
+    """Evaluate the round-invariant half of the chain once."""
+    mask = pods.valid[:, None] & nodes.valid[None, :]
+    names = []
+    for pl in filter_plugins:
+        if not _is_dynamic(pl):
+            names.append(pl.name())
+            mask = mask & pl.batch_filter(ctx, pods, nodes)
+    aux = {pl.name(): pl.batch_pre_score(ctx, pods, nodes)
+           for pl in pre_score_plugins if not _is_dynamic(pl)}
+    raw = {pl.name(): pl.batch_score(ctx, pods, nodes, aux.get(pl.name(), {}))
+           for pl in score_plugins if not _is_dynamic(pl)}
+    return StaticWavePlanes(mask, frozenset(names), aux, raw)
+
+
+@dataclass
+class WavePlanes:
+    """The (P, N) planes one evaluation hands to ``select_hosts``."""
+
+    totals: torch.Tensor  # i32[P, N] weighted score sum
+    mask: torch.Tensor  # bool[P, N] feasibility
+    per_filter: List[torch.Tensor]  # diagnostics only
+    per_score: List[torch.Tensor]
+    per_raw: List[torch.Tensor]
+
+
+def wave_planes(pods: Any, nodes: Any, filter_plugins: Sequence[Any],
+                pre_score_plugins: Sequence[Any],
+                score_plugins: Sequence[Any], ctx: BatchContext,
+                with_diagnostics: bool = False,
+                static: Optional[StaticWavePlanes] = None) -> WavePlanes:
+    """The filter conjunction and the weighted score sum of one
+    evaluation (``evaluate`` without its argmax)."""
+    mask = pods.valid[:, None] & nodes.valid[None, :]
+    run_filters = list(filter_plugins)
+    if static is not None:
+        if with_diagnostics:
+            raise ValueError("diagnostics need the unsplit chain")
+        mask &= static.static_mask
+        run_filters = [pl for pl in filter_plugins
+                       if pl.name() not in static.static_names]
+    per_filter = []
+    for pl in run_filters:
+        m = pl.batch_filter(ctx, pods, nodes)
+        if with_diagnostics:
+            per_filter.append(m)
+        mask &= m
+
+    aux: Dict[str, Dict[str, Any]] = dict(static.aux) if static else {}
+    for pl in pre_score_plugins:
+        if pl.name() not in aux:
+            aux[pl.name()] = pl.batch_pre_score(ctx, pods, nodes)
+
+    totals = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
+    per_score, per_raw = [], []
+    for pl in score_plugins:
+        if static is not None and pl.name() in static.raw_scores:
+            s = static.raw_scores[pl.name()]
+        else:
+            s = pl.batch_score(ctx, pods, nodes, aux.get(pl.name(), {}))
+        if with_diagnostics:
+            per_raw.append(s.to(torch.int32))
+        s = pl.batch_normalize(ctx, s, mask).to(torch.int32)
+        weight = ctx.weight_of(pl.name())
+        if with_diagnostics:
+            per_score.append(s * weight)
+        totals.add_(s, alpha=weight)  # int32: wraps as jnp's sum does
+    return WavePlanes(totals, mask, per_filter, per_score, per_raw)
 
 
 def evaluate(
@@ -65,40 +173,65 @@ def evaluate(
     pre_score_plugins: Sequence[Any],
     score_plugins: Sequence[Any],
     ctx: BatchContext,
+    with_diagnostics: bool = False,
+    static: Optional[StaticWavePlanes] = None,
 ) -> PlacementResult:
     """One fused scheduling evaluation: the conjunction of the filter
     masks, per-plugin pre-score aux tensors, normalized and weighted
-    scores summed, then ``select_hosts``."""
-    mask = pods.valid[:, None] & nodes.valid[None, :]
-    for pl in filter_plugins:
-        mask = mask & pl.batch_filter(ctx, pods, nodes)
+    scores summed, then ``select_hosts``.
 
-    aux: Dict[str, Dict[str, Any]] = {}
-    for pl in pre_score_plugins:
-        aux[pl.name()] = pl.batch_pre_score(ctx, pods, nodes)
+    ``static``: precomputed round-invariant planes; static filters enter
+    through ``static_mask`` and static scorers reuse their cached RAW
+    matrices (normalized against THIS call's full mask).  Incompatible
+    with ``with_diagnostics``, whose per-plugin masks need every filter."""
+    planes = wave_planes(pods, nodes, filter_plugins, pre_score_plugins,
+                         score_plugins, ctx, with_diagnostics, static)
+    choice, best = select_hosts(planes.totals, planes.mask, pods.seed)
 
-    totals = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
-    for pl in score_plugins:
-        s = pl.batch_score(ctx, pods, nodes, aux.get(pl.name(), {}))
-        s = pl.batch_normalize(ctx, s, mask)
-        totals = totals + s.to(torch.int32) * ctx.weight_of(pl.name())
+    def stack(ms):
+        return torch.stack(ms) if ms else None
 
-    choice, best = select_hosts(totals, mask, pods.seed)
     return PlacementResult(
         choice=choice,
         best_score=best,
-        feasible_count=mask.sum(dim=1, dtype=torch.int32),
+        feasible_count=planes.mask.sum(dim=1, dtype=torch.int32),
+        filter_masks=stack(planes.per_filter),
+        score_matrices=stack(planes.per_score),
+        raw_score_matrices=stack(planes.per_raw),
     )
 
 
+def unschedulable_plugin_masks(filter_masks: torch.Tensor,
+                               valid: torch.Tensor) -> torch.Tensor:
+    """bool[K, P]: filter plugin k is a FIRST-failing plugin for pod p on
+    some node: per node only the first plugin in chain order that rejects
+    is recorded, and a pod's set is the union over nodes.
+
+    ``filter_masks`` bool[K, P, N] per-plugin pass masks; ``valid``
+    bool[P, N] the pod × node validity mask."""
+    prefix = valid
+    out = []
+    for k in range(filter_masks.shape[0]):
+        m = filter_masks[k]
+        out.append((prefix & ~m).any(dim=1))
+        prefix = prefix & m
+    return torch.stack(out)
+
+
 def validate_batch_chains(*chains: Sequence[Any]) -> None:
-    """Every plugin of a device chain must implement the batch protocol."""
+    """Every plugin of a device chain must implement the batch protocol,
+    and none may need the constraint tables the port does not have."""
     for chain in chains:
         for pl in chain:
             if not implements_batch(pl):
                 raise TypeError(
                     f"plugin {pl.name()} has no batch form; "
                     "scalar-only plugins must run through the engine"
+                )
+            if getattr(pl, "needs_extra", False):
+                raise TypeError(
+                    f"plugin {pl.name()} reads the wave's constraint tables, "
+                    "which the port does not have yet (ROADMAP.md §1 item 6)"
                 )
 
 

@@ -1,0 +1,94 @@
+"""TaintToleration, batch form: filter on NoSchedule/NoExecute taints the
+pod does not tolerate, score by intolerable PreferNoSchedule taints with
+a reversed normalize.
+
+Counterpart of ``minisched_tpu/plugins/tainttoleration.py:103-184``.
+Taint-by-toleration matching runs over the node TAINT PROFILES (Dp rows,
+unrolled over the pod's toleration slots so the largest intermediate is
+(P, Dp, Tn)) and expands to (P, N) with one gather through
+``nodes.profile_id``.  Padded node rows point at profile 0, so the gather
+stays in range.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from minisched_tpu_torch.framework.plugin import MAX_NODE_SCORE, BatchEvaluable
+from minisched_tpu_torch.models import tables
+
+NAME = "TaintToleration"
+
+
+def _taint_in_range(nodes: Any) -> torch.Tensor:
+    Tn = nodes.prof_taint_key.shape[1]
+    slots = torch.arange(Tn, device=nodes.prof_taint_key.device)
+    return slots[None, :] < nodes.prof_num_taints[:, None]  # (Dp, Tn)
+
+
+def _per_node(per_profile: torch.Tensor, nodes: Any) -> torch.Tensor:
+    """(P, Dp) → (P, N) through each node's profile row."""
+    return per_profile.index_select(1, nodes.profile_id.long())
+
+
+class TaintToleration(BatchEvaluable):
+    def name(self) -> str:
+        return NAME
+
+    @staticmethod
+    def _tolerates_matrix(pods: Any, nodes: Any,
+                          tol_effect_ok: torch.Tensor) -> torch.Tensor:
+        """bool[P, Dp, Tn]: pod p tolerates taint slot t of taint profile
+        d.  ``tol_effect_ok`` bool[P, Tp] says which toleration slots are
+        eligible (filter and score consider different effects)."""
+        P, Tp = pods.tol_key.shape
+        dev = pods.tol_key.device
+        tol_in_range = torch.arange(Tp, device=dev)[None, :] < pods.num_tols[:, None]
+        tol_ok = tol_in_range & tol_effect_ok  # (P, Tp)
+        exists_all = pods.tol_op == tables.TOLERATION_OP_EXISTS_CODE
+        out = torch.zeros((P,) + tuple(nodes.prof_taint_key.shape),
+                          dtype=torch.bool, device=dev)  # (P, Dp, Tn)
+        for t in range(Tp):
+            # toleration effect "" matches every taint effect
+            eff = pods.tol_effect[:, t][:, None, None]
+            eff_match = (eff == tables.EFFECT_NONE) | (
+                eff == nodes.prof_taint_effect[None, :, :])
+            exists = exists_all[:, t]
+            wildcard = (pods.tol_empty_key[:, t] & exists)[:, None, None]
+            key_eq = pods.tol_key[:, t][:, None, None] == nodes.prof_taint_key[None]
+            val_eq = (pods.tol_value[:, t][:, None, None]
+                      == nodes.prof_taint_value[None])
+            value_ok = exists[:, None, None] | val_eq
+            covers = eff_match & (wildcard | (key_eq & value_ok))
+            out |= covers & tol_ok[:, t][:, None, None]
+        return out
+
+    def batch_filter(self, ctx: Any, pods: Any, nodes: Any) -> torch.Tensor:
+        hard = (nodes.prof_taint_effect == tables.EFFECT_NO_SCHEDULE) | (
+            nodes.prof_taint_effect == tables.EFFECT_NO_EXECUTE)  # (Dp, Tn)
+        all_tols_ok = torch.ones(pods.tol_key.shape, dtype=torch.bool,
+                                 device=pods.tol_key.device)
+        tolerated = self._tolerates_matrix(pods, nodes, all_tols_ok)
+        blocking = (_taint_in_range(nodes) & hard)[None] & ~tolerated
+        return _per_node(~blocking.any(dim=2), nodes)  # (P, N)
+
+    def batch_score(self, ctx: Any, pods: Any, nodes: Any,
+                    aux: Dict[str, Any]) -> torch.Tensor:
+        prefer = nodes.prof_taint_effect == tables.EFFECT_PREFER_NO_SCHEDULE
+        tol_eligible = (pods.tol_effect == tables.EFFECT_NONE) | (
+            pods.tol_effect == tables.EFFECT_PREFER_NO_SCHEDULE)
+        tolerated = self._tolerates_matrix(pods, nodes, tol_eligible)
+        intolerable = (_taint_in_range(nodes) & prefer)[None] & ~tolerated
+        counts = intolerable.sum(dim=2, dtype=torch.int32)  # (P, Dp)
+        return _per_node(counts, nodes)
+
+    def batch_normalize(self, ctx: Any, scores: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+        """DefaultNormalizeScore reversed: more intolerable taints, lower
+        score; a pod whose feasible counts are all 0 scores 100 everywhere."""
+        max_count = torch.where(mask, scores, 0).amax(dim=1, keepdim=True)
+        normalized = MAX_NODE_SCORE - scores * MAX_NODE_SCORE // max_count.clamp(min=1)
+        return torch.where(max_count == 0, MAX_NODE_SCORE,
+                           normalized).to(torch.int32)

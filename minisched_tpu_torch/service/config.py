@@ -1,0 +1,172 @@
+"""Scheduler configuration: per-extension-point plugin sets and weights.
+
+A copy of the scheduler half of ``minisched_tpu/service/config.py``: the
+KubeSchedulerConfiguration analog with enable/disable lists (``"*"``
+wildcard), per-plugin weights and args, the two rosters the JAX package
+ships and its merge of a user's customization over a default.  The
+mesh-pinning fields wait for the multi-device slice of the port.
+
+``node_local_roster_config`` is the full default roster without the
+plugins that read the wave's constraint tables (volumes, topology spread,
+inter-pod affinity): the roster the port's repair waves run today.
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass, field
+from typing import Any, Dict, List
+
+
+@dataclass
+class PluginEnabled:
+    name: str
+    weight: int = 1
+
+
+@dataclass
+class PluginSet:
+    enabled: List[PluginEnabled] = field(default_factory=list)
+    disabled: List[str] = field(default_factory=list)  # names or ["*"]
+
+
+@dataclass
+class SchedulerConfig:
+    filter: PluginSet = field(default_factory=PluginSet)
+    post_filter: PluginSet = field(default_factory=PluginSet)
+    pre_score: PluginSet = field(default_factory=PluginSet)
+    score: PluginSet = field(default_factory=PluginSet)
+    reserve: PluginSet = field(default_factory=PluginSet)
+    permit: PluginSet = field(default_factory=PluginSet)
+    plugin_args: Dict[str, Dict[str, Any]] = field(default_factory=dict)
+    queue_opts: Dict[str, Any] = field(default_factory=dict)
+    time_scale: float = 1.0
+
+    def clone(self) -> "SchedulerConfig":
+        return copy.deepcopy(self)
+
+    def score_weights(self) -> Dict[str, int]:
+        return {e.name: e.weight for e in self.score.enabled}
+
+    def extension_points(self) -> Dict[str, PluginSet]:
+        return {
+            "filter": self.filter,
+            "post_filter": self.post_filter,
+            "pre_score": self.pre_score,
+            "score": self.score,
+            "reserve": self.reserve,
+            "permit": self.permit,
+        }
+
+
+def default_scheduler_config(time_scale: float = 1.0) -> SchedulerConfig:
+    """The minisched default wiring: filter [NodeUnschedulable];
+    pre-score/score/permit [NodeNumber]."""
+    return SchedulerConfig(
+        filter=PluginSet(enabled=[PluginEnabled("NodeUnschedulable")]),
+        pre_score=PluginSet(enabled=[PluginEnabled("NodeNumber")]),
+        score=PluginSet(enabled=[PluginEnabled("NodeNumber", weight=1)]),
+        permit=PluginSet(enabled=[PluginEnabled("NodeNumber")]),
+        time_scale=time_scale,
+    )
+
+
+def default_full_roster_config(time_scale: float = 1.0) -> SchedulerConfig:
+    """The upstream default plugin roster: 15 filters and 7 scorers in the
+    reference's order and weights (NodeResourcesFit scores through its
+    LeastAllocated strategy)."""
+    return SchedulerConfig(
+        filter=PluginSet(
+            enabled=[
+                PluginEnabled("NodeUnschedulable"),
+                PluginEnabled("NodeName"),
+                PluginEnabled("TaintToleration"),
+                PluginEnabled("NodeAffinity"),
+                PluginEnabled("NodePorts"),
+                PluginEnabled("NodeResourcesFit"),
+                PluginEnabled("VolumeRestrictions"),
+                PluginEnabled("EBSLimits"),
+                PluginEnabled("GCEPDLimits"),
+                PluginEnabled("NodeVolumeLimits"),
+                PluginEnabled("AzureDiskLimits"),
+                PluginEnabled("VolumeBinding"),
+                PluginEnabled("VolumeZone"),
+                PluginEnabled("PodTopologySpread"),
+                PluginEnabled("InterPodAffinity"),
+            ]
+        ),
+        post_filter=PluginSet(enabled=[PluginEnabled("DefaultPreemption")]),
+        pre_score=PluginSet(
+            enabled=[
+                PluginEnabled("ImageLocality"),
+                PluginEnabled("InterPodAffinity"),
+                PluginEnabled("PodTopologySpread"),
+            ]
+        ),
+        score=PluginSet(
+            enabled=[
+                PluginEnabled("NodeResourcesBalancedAllocation", weight=1),
+                PluginEnabled("ImageLocality", weight=1),
+                PluginEnabled("InterPodAffinity", weight=1),
+                PluginEnabled("NodeResourcesFit", weight=1),
+                PluginEnabled("NodeAffinity", weight=1),
+                PluginEnabled("PodTopologySpread", weight=2),
+                PluginEnabled("TaintToleration", weight=1),
+            ]
+        ),
+        time_scale=time_scale,
+    )
+
+
+#: plugins of the full roster that read the wave's constraint tables
+CONSTRAINT_FILTERS = (
+    "VolumeRestrictions", "EBSLimits", "GCEPDLimits", "NodeVolumeLimits",
+    "AzureDiskLimits", "VolumeBinding", "VolumeZone", "PodTopologySpread",
+    "InterPodAffinity",
+)
+CONSTRAINT_SCORERS = ("InterPodAffinity", "PodTopologySpread")
+
+
+def node_local_roster_config(time_scale: float = 1.0) -> SchedulerConfig:
+    """The full default roster minus every plugin that reads constraint
+    tables, merged as a user's customization would be: filters
+    NodeUnschedulable, NodeName, TaintToleration, NodeAffinity, NodePorts,
+    NodeResourcesFit; pre-score ImageLocality; scorers BalancedAllocation,
+    ImageLocality, NodeResourcesFit, NodeAffinity, TaintToleration at the
+    roster's weights.  On pods without volumes, pod (anti-)affinity or
+    spread constraints it places exactly as the full roster does."""
+    return apply_plugin_customization(
+        default_full_roster_config(time_scale),
+        SchedulerConfig(
+            filter=PluginSet(disabled=list(CONSTRAINT_FILTERS)),
+            pre_score=PluginSet(disabled=list(CONSTRAINT_SCORERS)),
+            score=PluginSet(disabled=list(CONSTRAINT_SCORERS)),
+        ),
+    )
+
+
+def apply_plugin_customization(
+    default: SchedulerConfig, custom: SchedulerConfig
+) -> SchedulerConfig:
+    """Merge a user's plugin enable/disable lists over the default config:
+    ``disabled`` takes exact names or the ``"*"`` wildcard (drop every
+    default); enabled entries are appended in order after the surviving
+    defaults; the user's plugin args win."""
+    out = default.clone()
+    for point, merged in out.extension_points().items():
+        user: PluginSet = getattr(custom, point)
+        disabled = set(user.disabled)
+        if "*" in disabled:
+            merged.enabled = []
+        else:
+            merged.enabled = [e for e in merged.enabled if e.name not in disabled]
+        existing = {e.name for e in merged.enabled}
+        for e in user.enabled:
+            if e.name not in existing:
+                merged.enabled.append(copy.deepcopy(e))
+    for name, args in custom.plugin_args.items():
+        out.plugin_args[name] = copy.deepcopy(args)
+    out.queue_opts.update(custom.queue_opts)
+    if custom.time_scale != 1.0:
+        out.time_scale = custom.time_scale
+    return out

@@ -20,17 +20,22 @@ import torch
 
 from minisched_tpu_torch.api.objects import Toleration, make_node, make_pod
 from minisched_tpu_torch.engine.oracle import headline_oracle
+from minisched_tpu_torch.fullchain import mk_c5_cluster, schedule_repair_waves
 from minisched_tpu_torch.headline import mk_cluster, schedule_waves
 from minisched_tpu_torch.kernel_cases import (
     SELECT_NS,
     garble,
     offset_view,
+    repair_planes,
     select_case,
     select_tensors,
     toleration_cluster,
 )
 from minisched_tpu_torch.models import tables
 from minisched_tpu_torch.ops import fused, kernels
+from minisched_tpu_torch.ops.repair import RepairingEvaluator
+from minisched_tpu_torch.plugins.registry import build_plugins
+from minisched_tpu_torch.service.config import node_local_roster_config
 
 pytestmark = pytest.mark.cuda
 
@@ -183,3 +188,46 @@ def test_schedule_waves_on_card_matches_oracle(route, dev):
     cpu = schedule_waves(nodes, pods, wave=1024, route=route, device="cpu")
     for name, col in tables.table_columns(run.node_table).items():
         assert torch.equal(col.cpu(), getattr(cpu.node_table, name)), name
+
+
+def _c5_evaluator():
+    cfg = node_local_roster_config()
+    chains = build_plugins(cfg)
+    return RepairingEvaluator(chains.filter, chains.pre_score, chains.score,
+                              weights=cfg.score_weights(),
+                              with_diagnostics=True)
+
+
+def test_reduced_config5_on_card_matches_cpu(dev):
+    """Repair waves with the node-local roster: the card (every round ends
+    in the select_hosts kernel) against the plain twins on the CPU."""
+    nodes, pods = mk_c5_cluster(512, 4096)
+    before = kernels.launch_counts["select_hosts"]
+    run = schedule_repair_waves(nodes, pods, wave=1024)
+    assert kernels.launch_counts["select_hosts"] - before >= sum(run.rounds)
+    assert run.node_table.valid.device.type == "cuda"
+    cpu = schedule_repair_waves(nodes, pods, wave=1024, device="cpu")
+    assert np.array_equal(run.choices, cpu.choices)
+    assert run.rounds == cpu.rounds and max(run.rounds) > 1
+    assert np.array_equal(run.unschedulable, cpu.unschedulable)
+    for name, col in tables.table_columns(run.node_table).items():
+        assert torch.equal(col.cpu(), getattr(cpu.node_table, name)), name
+
+
+@pytest.mark.parametrize("wave", [0, 1])
+def test_select_hosts_kernel_on_repair_planes(wave, dev):
+    """Round 1 of wave 0 (tie-heavy: every feasible node is an identical
+    empty node) and round 2 of wave 1, where the rows committed in round 1
+    are fully masked and the rest contend for the emptiest nodes."""
+    nodes, pods = mk_c5_cluster(512, 4096)
+    nt, _ = tables.build_node_table(nodes, device=dev)
+    ev = _c5_evaluator()
+    pt, _ = tables.build_pod_table(pods[:1024], device=dev)
+    if wave:
+        nt = ev(pt, nt)[0]
+        pt, _ = tables.build_pod_table(pods[1024:2048], device=dev)
+    scores, mask = repair_planes(pt, nt, ev, rounds_before=wave)
+    empty = ~mask.any(dim=1)
+    if wave:
+        assert 0.0 < empty.float().mean() < 1.0
+    _assert_select_matches_twin(scores, mask, pt.seed)
