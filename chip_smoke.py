@@ -213,7 +213,11 @@ def main() -> int:
         mk_c5_cluster,
         schedule_repair_waves,
     )
-    from minisched_tpu_torch.headline import mk_cluster, schedule_waves
+    from minisched_tpu_torch.headline import (
+        mk_cluster,
+        repair_evaluator,
+        schedule_waves,
+    )
     from minisched_tpu_torch.kernel_cases import (
         SELECT_NS,
         garble,
@@ -225,9 +229,7 @@ def main() -> int:
     )
     from minisched_tpu_torch.models import tables
     from minisched_tpu_torch.ops import kernels
-    from minisched_tpu_torch.ops.repair import MAX_ROUNDS, RepairingEvaluator
-    from minisched_tpu_torch.plugins.registry import build_plugins
-    from minisched_tpu_torch.service.config import node_local_roster_config
+    from minisched_tpu_torch.ops.repair import MAX_ROUNDS
     from minisched_tpu_torch.plugins.nodeunschedulable import (
         tolerates_unschedulable,
     )
@@ -365,11 +367,7 @@ def main() -> int:
     # wave 0 (every feasible node an identical empty node: tie-heavy) and
     # round 2 of wave 1 (rows committed in round 1 fully masked)
     c5_nodes, c5_pods = mk_c5_cluster(N_NODES, N_PODS)
-    cfg = node_local_roster_config()
-    chains = build_plugins(cfg)
-    repair_ev = RepairingEvaluator(chains.filter, chains.pre_score,
-                                   chains.score, weights=cfg.score_weights(),
-                                   with_diagnostics=True)
+    repair_ev = repair_evaluator()
     c5_table, _ = tables.build_node_table(c5_nodes, device=dev)
     c5_wave0, _ = tables.build_pod_table(c5_pods[:C5_WAVE], device=dev)
     rep_scores, rep_mask = repair_planes(c5_wave0, c5_table, repair_ev, 0)
@@ -523,8 +521,7 @@ def main() -> int:
     if int(placed.sum()) != len(c5_pods) - n_special:
         raise AssertionError(f"{int(placed.sum())} placed, expected "
                              f"{len(c5_pods) - n_special}")
-    failing = sorted({c5.filter_names[k] for k in np.flatnonzero(
-        c5.unschedulable.any(axis=1))})
+    failing = sorted(name for name, m in c5.unschedulable.items() if m.any())
     log(f"[config5] audit passed: final table = initial + recount, no node "
         f"over allocatable, no pod on a cordoned node, no special pod "
         f"placed, no unplaced plain pod fits; unplaced pods fail {failing}")
@@ -548,7 +545,9 @@ def main() -> int:
     if on_card.rounds != on_cpu.rounds:
         raise AssertionError(f"reduced config 5 rounds: card {on_card.rounds}"
                              f", CPU {on_cpu.rounds}")
-    if not np.array_equal(on_card.unschedulable, on_cpu.unschedulable):
+    if (on_card.unschedulable.keys() != on_cpu.unschedulable.keys()
+            or not all(np.array_equal(m, on_cpu.unschedulable[name])
+                       for name, m in on_card.unschedulable.items())):
         raise AssertionError("reduced config 5: unschedulable masks differ")
     cpu_cols = tables.table_columns(on_cpu.node_table)
     for name, col in tables.table_columns(on_card.node_table).items():

@@ -1,15 +1,15 @@
-"""Repair waves with the node-local roster: config 5 of the JAX package.
+"""Config 5 of the JAX package: repair waves with the node-local roster.
 
 Counterpart of the config-5 flow of ``bench.py`` (``_c5_cluster`` and the
-live wave's ``RepairingEvaluator``): every pending pod is scheduled in
-waves of ``wave`` pods against a NodeTable that stays on the device; each
-wave runs evaluate-accept-commit rounds (``ops/repair.py``) until its
-pods are placed or have no feasible node, and the updated table carries
-to the next wave.  Every round ends in ``select_hosts``, the hand-written
-seeded-argmax kernel on a card.
-
-The roster defaults to ``service.config.node_local_roster_config``: the
-full default roster without the plugins that read constraint tables.
+live wave's ``RepairingEvaluator``): the cluster's objects, and
+``schedule_repair_waves``, which runs them through the wave driver's
+``"repair"`` route (``headline.schedule_waves``): every wave runs
+evaluate-accept-commit rounds (``ops/repair.py``) until its pods are
+placed or have no feasible node, and the updated table carries to the
+next wave.  Every round ends in ``select_hosts``, the hand-written
+seeded-argmax kernel on a card.  The roster is
+``service.config.node_local_roster_config``: the full default roster
+without the plugins that read constraint tables.
 
 Usage (on the card)::
 
@@ -22,28 +22,10 @@ Usage (on the card)::
 from __future__ import annotations
 
 import random
-import time
-from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, List, Sequence, Tuple
 
-import numpy as np
-import torch
-
-from minisched_tpu_torch import resolve_device
 from minisched_tpu_torch.api.objects import make_node, make_pod
-from minisched_tpu_torch.models.tables import (
-    NodeTable,
-    pack_node_table,
-    pack_pod_table,
-    pad_to,
-)
-from minisched_tpu_torch.ops.repair import RepairingEvaluator
-from minisched_tpu_torch.plugins.registry import build_plugins
-from minisched_tpu_torch.service.config import (
-    SchedulerConfig,
-    node_local_roster_config,
-)
-from minisched_tpu_torch.utils import build
+from minisched_tpu_torch.headline import WaveRun, schedule_waves
 
 WAVE = 16_384  # pods per wave of the config-5 run
 C5_REQUESTS = {"cpu": "500m", "memory": "256Mi"}
@@ -76,98 +58,11 @@ def mk_c5_cluster(n_nodes: int = 10_000,
     return nodes, pods
 
 
-@dataclass
-class RepairRun:
-    """What ``schedule_repair_waves`` returns.  Times are host wall
-    seconds, each phase closed by a device synchronise on a card."""
-
-    choices: np.ndarray  # int64[n_pods] node row per pod, -1 = unplaced
-    rounds: List[int]  # repair rounds of each wave
-    #: bool[K, n_pods]: filter k is a first-failing filter of an unplaced
-    #: pod against the final table of its wave
-    unschedulable: np.ndarray
-    filter_names: List[str]
-    node_table: NodeTable  # the resident table after the last wave
-    node_names: List[str]
-    kernel_build_s: float  # nvcc build (or cache hit) of the kernels
-    build_s: float  # host encoding of the node table and every pod wave
-    h2d_s: float  # every table copied to the device
-    warmup_s: float  # one wave whose result is dropped (first launches)
-    schedule_s: float  # every wave, node table resident
-
-    @property
-    def n_waves(self) -> int:
-        return len(self.rounds)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def schedule_repair_waves(nodes: Sequence[Any], pods: Sequence[Any],
-                          cfg: Optional[SchedulerConfig] = None,
-                          wave: int = WAVE, device=None) -> RepairRun:
-    """Schedule ``pods`` against ``nodes`` in repair waves of ``wave``.
-
-    ``device=None`` means the card (and raises without one); pass
-    ``device="cpu"`` to run the plain twins on the host.  The node table
-    is built once; each wave's pod table has capacity ``max(wave, 128)``."""
-    device = resolve_device(device)
-    cfg = cfg or node_local_roster_config()
-    chains = build_plugins(cfg)
-    evaluator = RepairingEvaluator(chains.filter, chains.pre_score,
-                                   chains.score, weights=cfg.score_weights(),
-                                   with_diagnostics=True)
-
-    t0 = time.monotonic()
-    if device.type == "cuda":
-        build.load_library()
-    kernel_build_s = time.monotonic() - t0
-
-    t0 = time.monotonic()
-    node_host, node_names = pack_node_table(nodes, capacity=pad_to(len(nodes)))
-    starts = range(0, len(pods), wave)
-    wave_hosts = [pack_pod_table(pods[s:s + wave], capacity=max(wave, 128))[0]
-                  for s in starts]
-    build_s = time.monotonic() - t0
-
-    t0 = time.monotonic()
-    node_table = node_host.to_device(device)
-    pod_tables = [h.to_device(device) for h in wave_hosts]
-    _sync(device)
-    h2d_s = time.monotonic() - t0
-
-    t0 = time.monotonic()
-    if pod_tables:
-        evaluator(pod_tables[0], node_table)  # pure: the result is dropped
-    _sync(device)
-    warmup_s = time.monotonic() - t0
-
-    t0 = time.monotonic()
-    choices, unsched, rounds = [], [], []
-    for s, pod_table in zip(starts, pod_tables):
-        n = min(wave, len(pods) - s)
-        node_table, choice, r, u = evaluator(pod_table, node_table)
-        choices.append(choice[:n])
-        unsched.append(u[:, :n])
-        rounds.append(r)
-    _sync(device)
-    schedule_s = time.monotonic() - t0
-
-    K = len(chains.filter)
-    return RepairRun(
-        choices=(torch.cat(choices).cpu().numpy().astype(np.int64)
-                 if choices else np.zeros(0, np.int64)),
-        rounds=rounds,
-        unschedulable=(torch.cat(unsched, dim=1).cpu().numpy() if unsched
-                       else np.zeros((K, 0), bool)),
-        filter_names=[pl.name() for pl in chains.filter],
-        node_table=node_table,
-        node_names=node_names,
-        kernel_build_s=kernel_build_s,
-        build_s=build_s,
-        h2d_s=h2d_s,
-        warmup_s=warmup_s,
-        schedule_s=schedule_s,
-    )
+                          wave: int = WAVE, device=None) -> WaveRun:
+    """Schedule ``pods`` against ``nodes`` in repair waves of ``wave``
+    (``schedule_waves`` on the ``"repair"`` route).  ``device=None`` means
+    the card (and raises without one); ``device="cpu"`` runs the plain
+    twins on the host."""
+    return schedule_waves(nodes, pods, wave=wave, route="repair",
+                          device=device)

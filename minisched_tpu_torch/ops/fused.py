@@ -15,7 +15,7 @@ tensor and the hand-written kernel for a CUDA tensor, at any shape.
 ``precompute_static`` and ``evaluate(static=)`` split a repair wave's
 chain into the round-invariant half (computed once) and the plugins that
 read committed state (every round); ``with_diagnostics`` keeps every
-plugin's planes.  Plugins that read the wave's constraint tables
+filter's mask.  Plugins that read the wave's constraint tables
 (``needs_extra``) are refused: the port has no constraint tables yet
 (ROADMAP.md §1 item 6).
 """
@@ -67,10 +67,6 @@ class PlacementResult:
     feasible_count: torch.Tensor  # i32[P]
     #: bool[K, P, N] per-filter-plugin pass masks (``with_diagnostics``)
     filter_masks: Optional[torch.Tensor] = None
-    #: i32[K, P, N] per-score-plugin normalized × weighted matrices
-    score_matrices: Optional[torch.Tensor] = None
-    #: i32[K, P, N] per-score-plugin RAW matrices, before normalize/weight
-    raw_score_matrices: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -118,8 +114,6 @@ class WavePlanes:
     totals: torch.Tensor  # i32[P, N] weighted score sum
     mask: torch.Tensor  # bool[P, N] feasibility
     per_filter: List[torch.Tensor]  # diagnostics only
-    per_score: List[torch.Tensor]
-    per_raw: List[torch.Tensor]
 
 
 def wave_planes(pods: Any, nodes: Any, filter_plugins: Sequence[Any],
@@ -150,20 +144,15 @@ def wave_planes(pods: Any, nodes: Any, filter_plugins: Sequence[Any],
             aux[pl.name()] = pl.batch_pre_score(ctx, pods, nodes)
 
     totals = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
-    per_score, per_raw = [], []
     for pl in score_plugins:
         if static is not None and pl.name() in static.raw_scores:
             s = static.raw_scores[pl.name()]
         else:
             s = pl.batch_score(ctx, pods, nodes, aux.get(pl.name(), {}))
-        if with_diagnostics:
-            per_raw.append(s.to(torch.int32))
         s = pl.batch_normalize(ctx, s, mask).to(torch.int32)
-        weight = ctx.weight_of(pl.name())
-        if with_diagnostics:
-            per_score.append(s * weight)
-        totals.add_(s, alpha=weight)  # int32: wraps as jnp's sum does
-    return WavePlanes(totals, mask, per_filter, per_score, per_raw)
+        # int32: wraps as jnp's sum does
+        totals.add_(s, alpha=ctx.weight_of(pl.name()))
+    return WavePlanes(totals, mask, per_filter)
 
 
 def evaluate(
@@ -187,17 +176,12 @@ def evaluate(
     planes = wave_planes(pods, nodes, filter_plugins, pre_score_plugins,
                          score_plugins, ctx, with_diagnostics, static)
     choice, best = select_hosts(planes.totals, planes.mask, pods.seed)
-
-    def stack(ms):
-        return torch.stack(ms) if ms else None
-
     return PlacementResult(
         choice=choice,
         best_score=best,
         feasible_count=planes.mask.sum(dim=1, dtype=torch.int32),
-        filter_masks=stack(planes.per_filter),
-        score_matrices=stack(planes.per_score),
-        raw_score_matrices=stack(planes.per_raw),
+        filter_masks=(torch.stack(planes.per_filter) if planes.per_filter
+                      else None),
     )
 
 

@@ -54,7 +54,7 @@ def _busy_us(intervals: List[Tuple[float, float]]) -> float:
     return total
 
 
-def profile_route(route: str, node_host, pod_tables, n_live,
+def profile_route(route: str, node_host, pod_tables,
                   device: torch.device, trace_dir: Optional[Path]) -> dict:
     step = make_step(route)
 
@@ -62,7 +62,7 @@ def profile_route(route: str, node_host, pod_tables, n_live,
         node_table = node_host.to_device(device)
         torch.cuda.synchronize(device)
         t0 = time.monotonic()
-        run_waves(step, node_table, pod_tables, n_live)
+        run_waves(step, node_table, pod_tables)
         torch.cuda.synchronize(device)
         return time.monotonic() - t0
 
@@ -73,7 +73,7 @@ def profile_route(route: str, node_host, pod_tables, n_live,
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        run_waves(step, node_table, pod_tables, n_live)
+        run_waves(step, node_table, pod_tables)
         torch.cuda.synchronize(device)
         window_us = (time.monotonic() - t0) * 1e6
     device_events = [e for e in prof.events()
@@ -114,13 +114,11 @@ def main(argv=None) -> int:
 
     nodes, pods = mk_cluster()
     node_host, _ = pack_node_table(nodes, capacity=pad_to(len(nodes)))
-    starts = range(0, len(pods), WAVE)
     pod_tables = [pack_pod_table(pods[s:s + WAVE], capacity=WAVE)[0].to_device(device)
-                  for s in starts]
-    n_live = [min(WAVE, len(pods) - s) for s in starts]
+                  for s in range(0, len(pods), WAVE)]
     print(f"card: {torch.cuda.get_device_name(device)}", flush=True)
     for route in ROUTES:
-        out = profile_route(route, node_host, pod_tables, n_live, device,
+        out = profile_route(route, node_host, pod_tables, device,
                             args.trace_dir)
         for k in out["top_kernels"]:
             print(f"[{route}] {k['device_ms']:9.4f} ms  x{k['count']:<4d} "

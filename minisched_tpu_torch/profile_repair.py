@@ -15,9 +15,12 @@ table already on the device:
   the profiled window, device launches in all and per repair round,
   device ms per round, ``select_hosts``' share of the busy time, device
   time by kernel (device events only), and device time by span: each
-  plugin's batch method, ``accept_placements``, ``apply_placements`` and
-  ``select_hosts``, each wrapped in a ``record_function`` range for this
-  pass only (the library itself carries no annotation).
+  plugin's batch method, ``precompute_static``, ``accept_placements`` and
+  ``apply_placements``, each wrapped in a ``record_function`` range for
+  this pass only (the library itself carries no annotation).
+  ``select_hosts`` has no span: the profiler does not attribute its
+  launch, made through ctypes, to the enclosing range, so its time and
+  launches are read from the kernel list alone.
 
 It ends in one JSON line.  ``--trace-dir`` also writes a Chrome trace
 there.  Without a card the script raises.
@@ -32,32 +35,19 @@ import json
 import statistics
 import time
 from pathlib import Path
-from typing import Iterator, List, Optional
+from typing import Iterator, Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from minisched_tpu_torch import resolve_device
 from minisched_tpu_torch.fullchain import WAVE, mk_c5_cluster
+from minisched_tpu_torch.headline import repair_evaluator, repair_step, run_waves
 from minisched_tpu_torch.models.tables import pack_node_table, pack_pod_table, pad_to
-from minisched_tpu_torch.ops import fused, repair
-from minisched_tpu_torch.ops.repair import RepairingEvaluator
-from minisched_tpu_torch.plugins.registry import build_plugins
+from minisched_tpu_torch.ops import repair
 from minisched_tpu_torch.profile_headline import _busy_us
-from minisched_tpu_torch.service.config import node_local_roster_config
 
 REPS = 5  # timed passes
-
-
-def run_waves(evaluator, node_table, pod_tables) -> List[int]:
-    """Every wave against the resident table: the rounds of each wave."""
-    rounds = []
-    for pod_table in pod_tables:
-        node_table, _, r, _ = evaluator(pod_table, node_table)
-        rounds.append(r)
-    return rounds
-
-
 SPAN = "span:"  # prefix of the record_function ranges added here
 
 
@@ -86,8 +76,7 @@ def spans(evaluator) -> Iterator[None]:
                                          f"{pl.name()}.{method[6:]}"))
     for module, name in ((repair, "accept_placements"),
                          (repair, "apply_placements"),
-                         (repair, "precompute_static"),
-                         (fused, "select_hosts")):
+                         (repair, "precompute_static")):
         original = getattr(module, name)
         patched.append((module, name, original, False))
         setattr(module, name, _spanned(original, name))
@@ -103,11 +92,13 @@ def spans(evaluator) -> Iterator[None]:
 
 def profile_repair(evaluator, node_host, pod_tables, device: torch.device,
                    trace_dir: Optional[Path]) -> dict:
+    step = repair_step(evaluator)
+
     def one_pass() -> float:
         node_table = node_host.to_device(device)
         torch.cuda.synchronize(device)
         t0 = time.monotonic()
-        run_waves(evaluator, node_table, pod_tables)
+        run_waves(step, node_table, pod_tables)
         torch.cuda.synchronize(device)
         return time.monotonic() - t0
 
@@ -119,7 +110,7 @@ def profile_repair(evaluator, node_host, pod_tables, device: torch.device,
     with spans(evaluator), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        rounds = run_waves(evaluator, node_table, pod_tables)
+        _, outs = run_waves(step, node_table, pod_tables)
         torch.cuda.synchronize(device)
         window_us = (time.monotonic() - t0) * 1e6
     # the spans also show on the device timeline as annotations: they are
@@ -145,6 +136,7 @@ def profile_repair(evaluator, node_host, pod_tables, device: torch.device,
     if trace_dir is not None:
         trace_dir.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace_dir / "repair_config5.json"))
+    rounds = [o.rounds for o in outs]
     n_rounds = sum(rounds)
     return {
         "route": "repair",
@@ -159,6 +151,8 @@ def profile_repair(evaluator, node_host, pod_tables, device: torch.device,
         "device_launches": len(device_events),
         "launches_per_round": len(device_events) / n_rounds,
         "device_ms_per_round": busy_us / 1e3 / n_rounds,
+        "select_hosts_launches": sum(c for name, c, _ in by_kernel
+                                     if "select_hosts" in name),
         "select_hosts_ms": select_us / 1e3,
         "select_hosts_share_of_busy": select_us / busy_us if busy_us else None,
         "top_kernels": [
@@ -179,11 +173,7 @@ def main(argv=None) -> int:
     device = resolve_device(None)
 
     nodes, pods = mk_c5_cluster()
-    cfg = node_local_roster_config()
-    chains = build_plugins(cfg)
-    evaluator = RepairingEvaluator(chains.filter, chains.pre_score,
-                                   chains.score, weights=cfg.score_weights(),
-                                   with_diagnostics=True)
+    evaluator = repair_evaluator()
     node_host, _ = pack_node_table(nodes, capacity=pad_to(len(nodes)))
     pod_tables = [pack_pod_table(pods[s:s + WAVE], capacity=WAVE)[0].to_device(device)
                   for s in range(0, len(pods), WAVE)]

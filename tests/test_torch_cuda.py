@@ -21,7 +21,11 @@ import torch
 from minisched_tpu_torch.api.objects import Toleration, make_node, make_pod
 from minisched_tpu_torch.engine.oracle import headline_oracle
 from minisched_tpu_torch.fullchain import mk_c5_cluster, schedule_repair_waves
-from minisched_tpu_torch.headline import mk_cluster, schedule_waves
+from minisched_tpu_torch.headline import (
+    mk_cluster,
+    repair_evaluator,
+    schedule_waves,
+)
 from minisched_tpu_torch.kernel_cases import (
     SELECT_NS,
     garble,
@@ -33,9 +37,6 @@ from minisched_tpu_torch.kernel_cases import (
 )
 from minisched_tpu_torch.models import tables
 from minisched_tpu_torch.ops import fused, kernels
-from minisched_tpu_torch.ops.repair import RepairingEvaluator
-from minisched_tpu_torch.plugins.registry import build_plugins
-from minisched_tpu_torch.service.config import node_local_roster_config
 
 pytestmark = pytest.mark.cuda
 
@@ -190,14 +191,6 @@ def test_schedule_waves_on_card_matches_oracle(route, dev):
         assert torch.equal(col.cpu(), getattr(cpu.node_table, name)), name
 
 
-def _c5_evaluator():
-    cfg = node_local_roster_config()
-    chains = build_plugins(cfg)
-    return RepairingEvaluator(chains.filter, chains.pre_score, chains.score,
-                              weights=cfg.score_weights(),
-                              with_diagnostics=True)
-
-
 def test_reduced_config5_on_card_matches_cpu(dev):
     """Repair waves with the node-local roster: the card (every round ends
     in the select_hosts kernel) against the plain twins on the CPU."""
@@ -209,7 +202,9 @@ def test_reduced_config5_on_card_matches_cpu(dev):
     cpu = schedule_repair_waves(nodes, pods, wave=1024, device="cpu")
     assert np.array_equal(run.choices, cpu.choices)
     assert run.rounds == cpu.rounds and max(run.rounds) > 1
-    assert np.array_equal(run.unschedulable, cpu.unschedulable)
+    assert run.unschedulable.keys() == cpu.unschedulable.keys()
+    for name, m in run.unschedulable.items():
+        assert np.array_equal(m, cpu.unschedulable[name]), name
     for name, col in tables.table_columns(run.node_table).items():
         assert torch.equal(col.cpu(), getattr(cpu.node_table, name)), name
 
@@ -221,7 +216,7 @@ def test_select_hosts_kernel_on_repair_planes(wave, dev):
     are fully masked and the rest contend for the emptiest nodes."""
     nodes, pods = mk_c5_cluster(512, 4096)
     nt, _ = tables.build_node_table(nodes, device=dev)
-    ev = _c5_evaluator()
+    ev = repair_evaluator()
     pt, _ = tables.build_pod_table(pods[:1024], device=dev)
     if wave:
         nt = ev(pt, nt)[0]

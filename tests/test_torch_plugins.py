@@ -413,17 +413,29 @@ def test_build_plugins_refuses_the_full_roster_and_unknown_names():
         tregistry.build_plugins(cfg)
 
 
-@pytest.mark.parametrize("shape", [(3, 5, 8), (1, 8), (4, 7), (2, 3, 16)])
+@pytest.mark.parametrize("shape", [(3, 5, 8), (1, 8), (2, 3, 4, 8)])
 def test_any_last_axis_equals_any(shape):
     from minisched_tpu_torch.utils.reduce import any_last_axis
 
-    rng = np.random.default_rng(len(shape) * 10 + shape[-1])
+    rng = np.random.default_rng(len(shape) * 10 + shape[0])
     x = torch.from_numpy(rng.random(shape) < 0.15)
     x[..., 0, :] = False  # rows with no true slot
     assert torch.equal(any_last_axis(x), x.any(dim=-1))
-    if shape[-1] == 8:  # views the fast path must not take
-        flat = torch.from_numpy(rng.random(x.numel() + 1) < 0.2)
-        shifted = flat[1:].view(shape)
-        assert torch.equal(any_last_axis(shifted), shifted.any(dim=-1))
-        strided = x.transpose(-1, -2).contiguous().transpose(-1, -2)
-        assert torch.equal(any_last_axis(strided), x.any(dim=-1))
+
+
+@pytest.mark.parametrize("layout", ["width7", "width16", "shifted", "strided",
+                                    "int8"])
+def test_any_last_axis_refuses_other_layouts(layout):
+    from minisched_tpu_torch.utils.reduce import any_last_axis
+
+    x = torch.from_numpy(np.random.default_rng(3).random((4, 5, 8)) < 0.2)
+    bad = {
+        "width7": lambda: x[..., :7].contiguous(),
+        "width16": lambda: x.reshape(2, 5, 16),
+        "shifted": lambda: torch.zeros(x.numel() + 1, dtype=torch.bool)[1:]
+        .view(x.shape),
+        "strided": lambda: x.transpose(-1, -2).contiguous().transpose(-1, -2),
+        "int8": lambda: x.to(torch.int8),
+    }[layout]()
+    with pytest.raises(ValueError, match="any_last_axis needs"):
+        any_last_axis(bad)

@@ -447,10 +447,10 @@ def test_reduced_config5_matches_jax_across_waves(c5_jax):
     assert (run.choices[-n_special:] == -1).all()
     # the special pods fail NodeAffinity (and NodeUnschedulable on the
     # cordoned nodes) and nothing else
-    failing = {run.filter_names[k] for k in np.flatnonzero(
-        run.unschedulable[:, -n_special:].any(axis=1))}
+    failing = {name for name, m in run.unschedulable.items()
+               if m[-n_special:].any()}
     assert failing == {"NodeUnschedulable", "NodeAffinity"}
-    assert not run.unschedulable[:, :-n_special].any()
+    assert not any(m[:-n_special].any() for m in run.unschedulable.values())
 
 
 def test_node_local_roster_places_config5_as_the_full_roster(c5_jax):
