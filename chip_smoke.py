@@ -41,13 +41,34 @@ Phases, each of which raises on failure (nothing catches it):
 7. A reduced config 5 (2,000 nodes, 20,000 pods, waves of 4,096) on the
    card and on the CPU twins: equal choices, rounds per wave,
    unschedulable masks and final tables.
+8. Config 5 at full size again, with the full default roster (15
+   filters, 7 scores; each wave's constraint tables built on the host
+   from the placements so far): phase 6's audit, and choices, rounds and
+   final node table equal to phase 6's node-local run.  Printed beside
+   phase 6: the schedule wall, the host constraint build, device ms per
+   round (one profiled pass of each roster, ``profile_repair``) and
+   ``select_hosts`` launches.
+9. Config 4 at its own size (``fullchain.mk_c4_cluster``: 2,048 nodes,
+   512 assigned pods, 2,048 pods with required zone pod affinity and a
+   ScheduleAnyway zone spread) through ``FusedEvaluator([NodeUnschedulable,
+   InterPodAffinity, PodTopologySpread], [], [InterPodAffinity,
+   PodTopologySpread])`` at the default weights, as ``bench.py``: card and
+   CPU twins give equal choices; printed: pods placed, the wave's ms (best
+   of 3) and the host table builds.
+10. ``fullchain.mk_mixed_cluster`` (2,048 nodes, 4,800 assigned pods,
+   8,192 pods with every feature of the full roster, a zone domain sum
+   above 4,096) in full-roster repair waves of 4,096, on the card and on
+   the CPU twins: equal choices, rounds, unschedulable masks, final node
+   tables and carried volume planes (``vol_any``, ``vol_rw``,
+   ``node_vols_fam``) of every wave.
 
 Phase 2 also holds ``select_hosts`` against its twin on the repair
 route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
 of wave 1 (the rows committed in round 1 fully masked).
 
 The launch counters are set to 0 just before each path of the main path
-(the headline's two routes, the repair waves) and read just after it.  The last three lines of output are the card's
+(the headline's two routes, the repair waves with each roster, config 4,
+the mixed cluster's card run) and read just after it.  The last three lines of output are the card's
 name and power limit, one JSON object describing every kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -78,6 +99,7 @@ MIX32_OPS = 11
 WAVE = 8192
 N_NODES, N_PODS = 10_000, 100_000
 C5_WAVE = 16_384  # repair waves of config 5
+MIXED_WAVE = 4_096  # repair waves of the mixed cluster (phase 10)
 
 
 def log(msg: str) -> None:
@@ -202,6 +224,26 @@ def audit_config5(run, nodes, pods, tables) -> None:
                                  f"{int(fits.sum())} nodes")
 
 
+def check_twin_runs(what: str, card, cpu, tables) -> None:
+    """Raise unless two ``WaveRun``s (card, CPU twins) agree in choices,
+    rounds, unschedulable masks and every final node-table column."""
+    if not np.array_equal(card.choices, cpu.choices):
+        bad = np.flatnonzero(card.choices != cpu.choices)
+        raise AssertionError(f"{what}: {bad.size} choices differ card vs "
+                             f"CPU, first at pod {int(bad[0])}")
+    if card.rounds != cpu.rounds:
+        raise AssertionError(f"{what} rounds: card {card.rounds}, CPU "
+                             f"{cpu.rounds}")
+    if (card.unschedulable.keys() != cpu.unschedulable.keys()
+            or not all(np.array_equal(m, cpu.unschedulable[name])
+                       for name, m in card.unschedulable.items())):
+        raise AssertionError(f"{what}: unschedulable masks differ")
+    cpu_cols = tables.table_columns(cpu.node_table)
+    for name, col in tables.table_columns(card.node_table).items():
+        if not torch.equal(col.cpu(), cpu_cols[name]):
+            raise AssertionError(f"{what}: final tables differ in {name}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -210,7 +252,9 @@ def main() -> int:
     from minisched_tpu_torch.api.objects import Toleration, make_pod
     from minisched_tpu_torch.engine.oracle import headline_oracle
     from minisched_tpu_torch.fullchain import (
+        mk_c4_cluster,
         mk_c5_cluster,
+        mk_mixed_cluster,
         schedule_repair_waves,
     )
     from minisched_tpu_torch.headline import (
@@ -227,11 +271,22 @@ def main() -> int:
         select_tensors,
         toleration_cluster,
     )
+    from minisched_tpu_torch.headline import ConstraintFeed, pods_by_node
     from minisched_tpu_torch.models import tables
+    from minisched_tpu_torch.models.constraints import build_constraint_tables
     from minisched_tpu_torch.ops import kernels
+    from minisched_tpu_torch.ops.fused import FusedEvaluator
     from minisched_tpu_torch.ops.repair import MAX_ROUNDS
+    from minisched_tpu_torch.plugins.interpodaffinity import InterPodAffinity
     from minisched_tpu_torch.plugins.nodeunschedulable import (
+        NodeUnschedulable,
         tolerates_unschedulable,
+    )
+    from minisched_tpu_torch.plugins.podtopologyspread import PodTopologySpread
+    from minisched_tpu_torch.profile_repair import profile_repair
+    from minisched_tpu_torch.service.config import (
+        default_full_roster_config,
+        node_local_roster_config,
     )
     from minisched_tpu_torch.utils import build
 
@@ -367,7 +422,7 @@ def main() -> int:
     # wave 0 (every feasible node an identical empty node: tie-heavy) and
     # round 2 of wave 1 (rows committed in round 1 fully masked)
     c5_nodes, c5_pods = mk_c5_cluster(N_NODES, N_PODS)
-    repair_ev = repair_evaluator()
+    repair_ev = repair_evaluator(node_local_roster_config())
     c5_table, _ = tables.build_node_table(c5_nodes, device=dev)
     c5_wave0, _ = tables.build_pod_table(c5_pods[:C5_WAVE], device=dev)
     rep_scores, rep_mask = repair_planes(c5_wave0, c5_table, repair_ev, 0)
@@ -501,7 +556,8 @@ def main() -> int:
 
     # -- phase 6: config 5 at full size, repair waves ----------------------
     kernels.reset_launch_counts()
-    c5 = schedule_repair_waves(c5_nodes, c5_pods, wave=C5_WAVE)
+    c5 = schedule_repair_waves(c5_nodes, c5_pods, wave=C5_WAVE,
+                               cfg=node_local_roster_config())
     c5_counts = dict(kernels.launch_counts)
     n_special = sum(p.metadata.name.startswith("special") for p in c5_pods)
     placed = c5.choices >= 0
@@ -533,31 +589,165 @@ def main() -> int:
     # -- phase 7: reduced config 5, the card against the twins -------------
     r_nodes, r_pods = mk_c5_cluster(2_000, 20_000)
     t0 = time.monotonic()
-    on_card = schedule_repair_waves(r_nodes, r_pods, wave=4_096)
+    on_card = schedule_repair_waves(r_nodes, r_pods, wave=4_096,
+                                    cfg=node_local_roster_config())
     card_s = time.monotonic() - t0
     t0 = time.monotonic()
-    on_cpu = schedule_repair_waves(r_nodes, r_pods, wave=4_096, device="cpu")
+    on_cpu = schedule_repair_waves(r_nodes, r_pods, wave=4_096, device="cpu",
+                                   cfg=node_local_roster_config())
     cpu_s = time.monotonic() - t0
-    if not np.array_equal(on_card.choices, on_cpu.choices):
-        bad = np.flatnonzero(on_card.choices != on_cpu.choices)
-        raise AssertionError(f"reduced config 5: {bad.size} choices differ "
-                             f"card vs CPU, first at pod {int(bad[0])}")
-    if on_card.rounds != on_cpu.rounds:
-        raise AssertionError(f"reduced config 5 rounds: card {on_card.rounds}"
-                             f", CPU {on_cpu.rounds}")
-    if (on_card.unschedulable.keys() != on_cpu.unschedulable.keys()
-            or not all(np.array_equal(m, on_cpu.unschedulable[name])
-                       for name, m in on_card.unschedulable.items())):
-        raise AssertionError("reduced config 5: unschedulable masks differ")
-    cpu_cols = tables.table_columns(on_cpu.node_table)
-    for name, col in tables.table_columns(on_card.node_table).items():
-        if not torch.equal(col.cpu(), cpu_cols[name]):
-            raise AssertionError(f"reduced config 5: final tables differ in "
-                                 f"{name}")
+    check_twin_runs("reduced config 5", on_card, on_cpu, tables)
     log(f"[config5-reduced] 2,000 nodes x 20,000 pods, waves of 4,096: card "
         f"and CPU twins equal (choices, rounds {on_card.rounds}, "
         f"unschedulable masks, every final table column); "
         f"{card_s:.2f}s on the card, {cpu_s:.2f}s on the CPU")
+
+    # -- phase 8: config 5 at full size, the full default roster -----------
+    kernels.reset_launch_counts()
+    c5f = schedule_repair_waves(c5_nodes, c5_pods, wave=C5_WAVE)
+    c5f_counts = dict(kernels.launch_counts)
+    if max(c5f.rounds) >= MAX_ROUNDS:
+        raise AssertionError(f"full roster: a wave hit the round cap: "
+                             f"{c5f.rounds}")
+    if c5f_counts["select_hosts"] < sum(c5f.rounds):
+        raise AssertionError(f"full roster: select_hosts launched "
+                             f"{c5f_counts} for {sum(c5f.rounds)} rounds")
+    audit_config5(c5f, c5_nodes, c5_pods, tables)
+    if not np.array_equal(c5f.choices, c5.choices) or c5f.rounds != c5.rounds:
+        bad = np.flatnonzero(c5f.choices != c5.choices)
+        raise AssertionError(f"full roster vs node-local: {bad.size} choices "
+                             f"differ; rounds {c5f.rounds} vs {c5.rounds}")
+    node_local_cols = tables.table_columns(c5.node_table)
+    for name, col in tables.table_columns(c5f.node_table).items():
+        if not torch.equal(col, node_local_cols[name]):
+            raise AssertionError(f"full roster vs node-local: final tables "
+                                 f"differ in {name}")
+    failing = sorted(name for name, m in c5f.unschedulable.items() if m.any())
+    log(f"[config5-full] {len(c5f.unschedulable)} filters; rounds {c5f.rounds}; "
+        f"{int((c5f.choices >= 0).sum())} placed; audit passed; choices, "
+        f"rounds and final table equal phase 6's; unplaced pods fail "
+        f"{failing}")
+    c5_cap = tables.pad_to(len(c5_nodes))
+    c5_host, c5_names = tables.pack_node_table(c5_nodes, capacity=c5_cap)
+    c5_waves = [c5_pods[s:s + C5_WAVE] for s in range(0, len(c5_pods), C5_WAVE)]
+    c5_tables = [tables.build_pod_table(w, capacity=C5_WAVE, device=dev)[0]
+                 for w in c5_waves]
+    profiled = {}
+    for roster, cfg in (("node-local", node_local_roster_config()),
+                        ("full", default_full_roster_config())):
+        ev = repair_evaluator(cfg)
+
+        def make_feed(ev=ev):
+            if not ev.needs_extra:
+                return None
+            return ConstraintFeed(c5_nodes, c5_names, c5_waves, (), (), (),
+                                  C5_WAVE, c5_cap, dev)
+        profiled[roster] = profile_repair(ev, c5_host, c5_tables, dev, None,
+                                          make_feed, reps=0)
+    del c5_tables
+    for roster, run, counts in (("node-local", c5, c5_counts),
+                                ("full", c5f, c5f_counts)):
+        pr = profiled[roster]
+        log(f"[config5-compare] {roster:10s}: schedule {run.schedule_s:.4f}s "
+            f"(constraint build {run.constraint_build_s:.4f}s), "
+            f"{sum(run.rounds)} rounds, device "
+            f"{pr['device_ms_per_round']:.3f} ms a round (profiled pass: busy "
+            f"{pr['device_busy_ms']:.1f} ms, idle share "
+            f"{pr['device_idle_share']:.3f}), select_hosts launches "
+            f"{counts['select_hosts']}")
+    launches["select_hosts"]["full-roster"] = c5f_counts["select_hosts"]
+
+    # -- phase 9: config 4 at its own size ---------------------------------
+    c4_nodes, c4_assigned, c4_pods = mk_c4_cluster()
+
+    def config4(device):
+        t0 = time.monotonic()
+        nt, _ = tables.build_node_table(c4_nodes, pods_by_node(c4_assigned),
+                                        device=device)
+        pt, _ = tables.build_pod_table(c4_pods, device=device)
+        t1 = time.monotonic()
+        extra = build_constraint_tables(
+            c4_pods, c4_nodes, c4_assigned, pod_capacity=pt.capacity,
+            node_capacity=nt.capacity, device=device)
+        build = (t1 - t0, time.monotonic() - t1)
+        ipa, ts = InterPodAffinity(), PodTopologySpread()
+        ev = FusedEvaluator([NodeUnschedulable(), ipa, ts], [], [ipa, ts])
+        ev(pt, nt, extra)  # first launches
+        best = float("inf")
+        for _ in range(3):
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.monotonic()
+            res = ev(pt, nt, extra)
+            choice = res.choice.cpu().numpy()[: len(c4_pods)]
+            best = min(best, time.monotonic() - t0)
+        return choice, best, build, extra
+
+    kernels.reset_launch_counts()
+    c4_card, c4_s, c4_build, c4_extra = config4(dev)
+    c4_counts = dict(kernels.launch_counts)
+    c4_cpu, c4_cpu_s, _, _ = config4(torch.device("cpu"))
+    if not np.array_equal(c4_card, c4_cpu):
+        bad = np.flatnonzero(c4_card != c4_cpu)
+        raise AssertionError(f"config 4: {bad.size} choices differ card vs "
+                             f"CPU, first at pod {int(bad[0])}")
+    if c4_counts["select_hosts"] < 4:
+        raise AssertionError(f"config 4: select_hosts launches {c4_counts}")
+    placed4 = int((c4_card >= 0).sum())
+    log(f"[config4] {len(c4_nodes)} nodes x {len(c4_pods)} pods "
+        f"({len(c4_assigned)} assigned), affinity+spread wave: "
+        f"{c4_s * 1e3:.3f} ms best of 3 = {len(c4_pods) / c4_s:,.0f} pods/s "
+        f"({placed4} placed; slots in use {c4_extra.in_use}); host builds: "
+        f"node+pod tables {c4_build[0]:.3f}s, constraint tables "
+        f"{c4_build[1]:.3f}s; CPU twins {c4_cpu_s * 1e3:.1f} ms; card and "
+        f"CPU choices equal")
+    launches["select_hosts"]["config4"] = c4_counts["select_hosts"]
+    del c4_extra
+
+    # -- phase 10: the mixed cluster, the card against the twins -----------
+    m_nodes, m_assigned, m_pods, m_pvcs, m_pvs = mk_mixed_cluster()
+    probe = build_constraint_tables(
+        m_pods[:MIXED_WAVE], m_nodes, m_assigned, pod_capacity=MIXED_WAVE,
+        node_capacity=tables.pad_to(len(m_nodes)), pvcs=m_pvcs, pvs=m_pvs,
+        scan_planes=False, device=dev)
+    top = int(probe.combo_dsum.max())
+    if top <= 4096 or not (probe.in_use.ts_hard and probe.in_use.ts_soft
+                           and probe.in_use.ex and probe.in_use.rev):
+        raise AssertionError(f"mixed cluster misses a feature: top domain "
+                             f"sum {top}, {probe.in_use}")
+    del probe
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    m_card = schedule_repair_waves(m_nodes, m_pods, wave=MIXED_WAVE,
+                                   assigned=m_assigned, pvcs=m_pvcs, pvs=m_pvs)
+    m_card_s = time.monotonic() - t0
+    m_counts = dict(kernels.launch_counts)
+    t0 = time.monotonic()
+    m_cpu = schedule_repair_waves(m_nodes, m_pods, wave=MIXED_WAVE,
+                                  device="cpu", assigned=m_assigned,
+                                  pvcs=m_pvcs, pvs=m_pvs)
+    m_cpu_s = time.monotonic() - t0
+    check_twin_runs("mixed cluster", m_card, m_cpu, tables)
+    for w, (got, want) in enumerate(zip(m_card.volumes, m_cpu.volumes)):
+        for name in want:
+            if not np.array_equal(got[name], want[name]):
+                raise AssertionError(f"mixed cluster wave {w}: carried "
+                                     f"{name} differs card vs CPU")
+    if len(m_card.volumes) != m_card.n_waves:
+        raise AssertionError("mixed cluster: carried volume planes missing")
+    if m_counts["select_hosts"] < sum(m_card.rounds):
+        raise AssertionError(f"mixed cluster: select_hosts {m_counts}")
+    failing = sorted(name for name, m in m_card.unschedulable.items()
+                     if m.any())
+    log(f"[mixed] {len(m_nodes)} nodes x {len(m_pods)} pods "
+        f"({len(m_assigned)} assigned; top zone domain sum {top}), waves of "
+        f"{MIXED_WAVE}: rounds {m_card.rounds}, "
+        f"{int((m_card.choices >= 0).sum())} placed; card and CPU twins equal "
+        f"(choices, rounds, unschedulable masks, final tables, carried "
+        f"vol_any/vol_rw/node_vols_fam); unplaced pods fail {failing}; "
+        f"{m_card_s:.2f}s on the card (constraint build "
+        f"{m_card.constraint_build_s:.2f}s), {m_cpu_s:.2f}s on the CPU")
+    launches["select_hosts"]["mixed"] = m_counts["select_hosts"]
 
     report = []
     replaces = {

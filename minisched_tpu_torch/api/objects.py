@@ -3,8 +3,10 @@
 A copy of what ``minisched_tpu/api/objects.py`` defines for these readers:
 quantities in integer base units (milli-CPU, bytes), names as the
 identity (``uid`` defaults to ``""``, so tie-break seeds come from names),
-taints and tolerations, node affinity.  The table encoders read these objects
-duck-typed, so the JAX package's objects build the same tables.
+taints and tolerations, node affinity, pod (anti-)affinity, topology
+spread constraints, and the volumes a pod mounts with their claims and
+PersistentVolumes.  The table encoders read these objects duck-typed, so
+the JAX package's objects build the same tables.
 """
 
 from __future__ import annotations
@@ -96,6 +98,10 @@ class ObjectMeta:
     namespace: str = "default"
     uid: str = ""
     labels: Dict[str, str] = field(default_factory=dict)
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
 
 
 TAINT_EFFECT_NO_SCHEDULE = "NoSchedule"
@@ -224,11 +230,56 @@ class NodeAffinity:
 
 
 @dataclass
-class Affinity:
-    """Node affinity only: pod (anti-)affinity comes with the cross-pod
-    plugins."""
+class LabelSelector:
+    match_labels: Dict[str, str] = field(default_factory=dict)
+    match_expressions: List[LabelSelectorRequirement] = field(
+        default_factory=list)
 
+    def matches(self, labels: Dict[str, str]) -> bool:
+        return (all(labels.get(k) == v for k, v in self.match_labels.items())
+                and all(_match_expression(r, labels)
+                        for r in self.match_expressions))
+
+
+@dataclass
+class PodAffinityTerm:
+    label_selector: LabelSelector = field(default_factory=LabelSelector)
+    topology_key: str = "kubernetes.io/hostname"
+    namespaces: List[str] = field(default_factory=list)
+
+
+@dataclass
+class WeightedPodAffinityTerm:
+    weight: int
+    term: PodAffinityTerm = field(default_factory=PodAffinityTerm)
+
+
+@dataclass
+class PodAffinity:
+    required: List[PodAffinityTerm] = field(default_factory=list)
+    preferred: List[WeightedPodAffinityTerm] = field(default_factory=list)
+
+
+@dataclass
+class PodAntiAffinity:
+    required: List[PodAffinityTerm] = field(default_factory=list)
+    preferred: List[WeightedPodAffinityTerm] = field(default_factory=list)
+
+
+@dataclass
+class Affinity:
     node_affinity: Optional[NodeAffinity] = None
+    pod_affinity: Optional[PodAffinity] = None
+    pod_anti_affinity: Optional[PodAntiAffinity] = None
+
+
+@dataclass
+class TopologySpreadConstraint:
+    max_skew: int = 1
+    topology_key: str = ""
+    # DoNotSchedule | ScheduleAnyway
+    when_unsatisfiable: str = "DoNotSchedule"
+    label_selector: LabelSelector = field(default_factory=LabelSelector)
 
 
 @dataclass
@@ -238,10 +289,12 @@ class PodSpec:
     node_selector: Dict[str, str] = field(default_factory=dict)
     tolerations: List[Toleration] = field(default_factory=list)
     affinity: Optional[Affinity] = None
-    #: spread constraints and gang membership are encoded by the table
-    #: encoder when present; their object model arrives with the slices
-    #: that schedule them (read duck-typed until then)
-    topology_spread_constraints: List[Any] = field(default_factory=list)
+    topology_spread_constraints: List[TopologySpreadConstraint] = field(
+        default_factory=list)
+    #: names of the PersistentVolumeClaims the pod mounts
+    volumes: List[str] = field(default_factory=list)
+    #: gang membership is encoded by the table encoder when present; its
+    #: object model arrives with the gang slice (read duck-typed until then)
     gang: Optional[Any] = None
 
 
@@ -315,3 +368,42 @@ def make_pod(
         ),
         spec=PodSpec(containers=containers, **spec_kwargs),
     )
+
+
+@dataclass
+class PVSpec:
+    capacity: int = 0  # bytes
+    claim_ref: str = ""  # namespace/name of the bound claim
+    #: node labels a consuming pod's node must carry (the PV's required
+    #: node affinity, collapsed to match-labels form)
+    required_node_labels: Dict[str, str] = field(default_factory=dict)
+    #: "ebs" / "gcepd" / "azuredisk" count against their per-cloud attach
+    #: limits; anything else is generic
+    driver: str = ""
+
+
+@dataclass
+class PersistentVolume:
+    metadata: ObjectMeta
+    spec: PVSpec = field(default_factory=PVSpec)
+
+
+@dataclass
+class PVCSpec:
+    request: int = 0  # bytes
+    volume_name: str = ""
+    #: read-only mounts of one volume may share a node
+    read_only: bool = False
+    storage_class_name: str = ""
+
+
+@dataclass
+class PVCStatus:
+    phase: str = "Pending"
+
+
+@dataclass
+class PersistentVolumeClaim:
+    metadata: ObjectMeta
+    spec: PVCSpec = field(default_factory=PVCSpec)
+    status: PVCStatus = field(default_factory=PVCStatus)

@@ -12,11 +12,16 @@ next wave.  A route is the step that schedules one wave:
 * ``"generic"``: the same chain as ``ops.state.wave_step``, whose (P, N)
   planes end in ``fused.select_hosts``; bit-identical with ``"fused"`` in
   choices and final tables;
-* ``"repair"``: the node-local roster (``service.config``: the full
-  default roster without the plugins that read constraint tables) in
+* ``"repair"``: a roster (``cfg``, by default the full default roster
+  ``service.config.default_full_roster_config``) in
   evaluate-accept-commit rounds (``ops.repair.RepairingEvaluator``, with
   diagnostics), each round ending in ``fused.select_hosts``.  Config 5
-  (``fullchain``) runs on it.
+  (``fullchain``) runs on it.  A roster with plugins that
+  read constraint tables gets each wave's tables built on the host
+  (``ConstraintFeed``): the assigned pods are the caller's plus every pod
+  an earlier wave placed, as the live engine counts its assumed binds.
+  That takes one read of each wave's choices before the next wave's
+  build.
 
 Usage (on the card)::
 
@@ -38,6 +43,10 @@ import torch
 
 from minisched_tpu_torch import resolve_device
 from minisched_tpu_torch.api.objects import make_node, make_pod
+from minisched_tpu_torch.models.constraints import (
+    ConstraintTables,
+    build_constraint_tables,
+)
 from minisched_tpu_torch.models.tables import (
     NodeTable,
     pack_node_table,
@@ -51,7 +60,10 @@ from minisched_tpu_torch.ops.state import apply_placements, wave_step
 from minisched_tpu_torch.plugins.nodenumber import NodeNumber
 from minisched_tpu_torch.plugins.nodeunschedulable import NodeUnschedulable
 from minisched_tpu_torch.plugins.registry import build_plugins
-from minisched_tpu_torch.service.config import node_local_roster_config
+from minisched_tpu_torch.service.config import (
+    SchedulerConfig,
+    default_full_roster_config,
+)
 from minisched_tpu_torch.utils import build
 
 ROUTES = ("fused", "generic")  # the headline chain's two routes
@@ -87,12 +99,15 @@ class WaveOut:
     #: repair: filter name → bool[P], a first-failing filter of an
     #: unplaced pod against the wave's final table
     unschedulable: Dict[str, torch.Tensor] = field(default_factory=dict)
+    #: repair with constraint tables: the wave's tables with the volume
+    #: state committed by its last round
+    extra: Optional[ConstraintTables] = None
 
 
-def repair_evaluator() -> RepairingEvaluator:
-    """The repair route's evaluator: the node-local roster at its weights,
-    with diagnostics."""
-    cfg = node_local_roster_config()
+def repair_evaluator(cfg: Optional[SchedulerConfig] = None) -> RepairingEvaluator:
+    """The repair route's evaluator: the roster of ``cfg`` (by default the
+    full default roster) at its weights, with diagnostics."""
+    cfg = cfg or default_full_roster_config()
     chains = build_plugins(cfg)
     return RepairingEvaluator(chains.filter, chains.pre_score, chains.score,
                               weights=cfg.score_weights(),
@@ -101,18 +116,27 @@ def repair_evaluator() -> RepairingEvaluator:
 
 def repair_step(evaluator: RepairingEvaluator) -> Callable:
     """The repair route's step around ``evaluator`` (one built with
-    ``with_diagnostics``)."""
+    ``with_diagnostics``): ``step(node_table, pod_table, extra=None)``,
+    ``extra`` being the wave's constraint tables when the roster reads
+    them."""
     names = [pl.name() for pl in evaluator.filter_plugins]
 
-    def step(node_table, pod_table):
-        node_table, choice, rounds, unsched = evaluator(pod_table, node_table)
-        return WaveOut(node_table, choice, rounds=rounds,
-                       unschedulable=dict(zip(names, unsched)))
+    def step(node_table, pod_table, extra=None):
+        out = evaluator(pod_table, node_table, extra,
+                        carry_volumes=extra is not None)
+        return WaveOut(out[0], out[1], rounds=out[2],
+                       unschedulable=dict(zip(names, out[3])),
+                       extra=out[4] if extra is not None else None)
     return step
 
 
-def make_step(route: str) -> Callable:
-    """``step(node_table, pod_table) -> WaveOut``; a step is pure."""
+def make_step(route: str, cfg: Optional[SchedulerConfig] = None) -> Callable:
+    """``step(node_table, pod_table) -> WaveOut``; a step is pure.  ``cfg``
+    is the repair route's roster (``repair_evaluator``); the repair step
+    also takes the wave's constraint tables (``repair_step``)."""
+    if cfg is not None and route != "repair":
+        raise ValueError(f"the {route!r} route runs a fixed chain; cfg is "
+                         "for the repair route")
     if route == "fused":
         def step(node_table, pod_table):
             choice, best = nodenumber_select_hosts(pod_table, node_table)
@@ -129,7 +153,7 @@ def make_step(route: str) -> Callable:
                                       pre_scores, scores, ctx))
         return step
     if route == "repair":
-        return repair_step(repair_evaluator())
+        return repair_step(repair_evaluator(cfg))
     raise ValueError(f"unknown route {route!r}; expected one of "
                      f"{ROUTES + ('repair',)}")
 
@@ -149,8 +173,15 @@ class WaveRun:
     kernel_build_s: float  # nvcc build (or cache hit) of the kernels
     build_s: float  # host encoding of the node table and every pod wave
     h2d_s: float  # every table copied to the device
-    warmup_s: float  # one step whose result is dropped (first launches)
+    #: one step whose result is dropped (first launches; the card only)
+    warmup_s: float
     schedule_s: float  # every wave, node table resident
+    #: the part of ``schedule_s`` spent building constraint tables on the
+    #: host (0 for a roster that reads none)
+    constraint_build_s: float = 0.0
+    #: repair with constraint tables, per wave: the carried volume planes
+    #: after its last round (``node_vols_fam``, ``vol_any``, ``vol_rw``)
+    volumes: List[Dict[str, np.ndarray]] = field(default_factory=list)
 
     @property
     def n_waves(self) -> int:
@@ -162,30 +193,121 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class _BoundSpec:
+    """A pod spec with ``node_name`` set; its other fields are the
+    original spec's."""
+
+    __slots__ = ("_spec", "node_name", "affinity", "volumes")
+
+    def __init__(self, spec: Any, node_name: str):
+        self._spec = spec
+        self.node_name = node_name
+        self.affinity = spec.affinity
+        self.volumes = spec.volumes
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self._spec, name)
+
+
+class BoundPod:
+    """A pending pod as an earlier wave placed it: its metadata, and its
+    spec with ``node_name`` set.  The pod itself is not changed, and
+    nothing is copied (a copy of each placed pod cost more than the rest
+    of the wave's constraint build)."""
+
+    __slots__ = ("metadata", "spec")
+
+    def __init__(self, pod: Any, node_name: str):
+        self.metadata = pod.metadata
+        self.spec = _BoundSpec(pod.spec, node_name)
+
+
+class ConstraintFeed:
+    """Each wave's constraint tables, built on the host from the objects
+    (``scan_planes=False``, the wave mode).  The assigned pods are
+    ``assigned`` plus every pod that an earlier wave placed."""
+
+    def __init__(self, nodes: Sequence[Any], node_names: Sequence[str],
+                 waves: Sequence[Sequence[Any]], assigned: Sequence[Any],
+                 pvcs: Sequence[Any], pvs: Sequence[Any], pod_capacity: int,
+                 node_capacity: int, device: torch.device):
+        self.nodes, self.node_names, self.waves = nodes, node_names, waves
+        self.assigned = list(assigned)
+        self.pvcs, self.pvs = pvcs, pvs
+        self.pod_capacity, self.node_capacity = pod_capacity, node_capacity
+        self.device = device
+        self.build_s = 0.0  # host time in ``tables`` and ``commit``
+
+    def tables(self, i: int) -> ConstraintTables:
+        t0 = time.monotonic()
+        extra = build_constraint_tables(
+            self.waves[i], self.nodes, self.assigned,
+            pod_capacity=self.pod_capacity, node_capacity=self.node_capacity,
+            pvcs=self.pvcs, pvs=self.pvs, scan_planes=False,
+            device=self.device)
+        self.build_s += time.monotonic() - t0
+        return extra
+
+    def commit(self, i: int, choice: torch.Tensor) -> None:
+        """Wave ``i``'s placed pods join the assigned pods.  Reading its
+        choices waits for the wave's device work."""
+        pods = self.waves[i]
+        rows = choice[: len(pods)].tolist()
+        t0 = time.monotonic()
+        self.assigned.extend(BoundPod(pod, self.node_names[c])
+                             for pod, c in zip(pods, rows) if c >= 0)
+        self.build_s += time.monotonic() - t0
+
+
 def run_waves(step: Callable, node_table: NodeTable,
-              pod_tables: Sequence[Any]) -> Tuple[NodeTable, List[WaveOut]]:
+              pod_tables: Sequence[Any],
+              feed: Optional[ConstraintFeed] = None
+              ) -> Tuple[NodeTable, List[WaveOut]]:
     """The wave loop: ``step`` each pod table against the resident node
-    table.  Returns the final table and each wave's ``WaveOut``; nothing
-    here waits for the device but what the step itself reads."""
+    table, with the wave's constraint tables from ``feed`` if given.
+    Returns the final table and each wave's ``WaveOut``; nothing here
+    waits for the device but what the step reads and ``feed.commit``."""
     outs = []
-    for pod_table in pod_tables:
-        out = step(node_table, pod_table)
+    for i, pod_table in enumerate(pod_tables):
+        if feed is None:
+            out = step(node_table, pod_table)
+        else:
+            out = step(node_table, pod_table, feed.tables(i))
+            feed.commit(i, out.choice)
         node_table = out.node_table
         outs.append(out)
     return node_table, outs
 
 
+def pods_by_node(assigned: Sequence[Any]) -> Dict[str, List[Any]]:
+    """``assigned`` pods grouped by ``spec.node_name``."""
+    out: Dict[str, List[Any]] = {}
+    for p in assigned:
+        out.setdefault(p.spec.node_name, []).append(p)
+    return out
+
+
 def schedule_waves(nodes: Sequence[Any], pods: Sequence[Any],
-                   wave: int = WAVE, route: str = "fused",
-                   device=None) -> WaveRun:
+                   wave: int = WAVE, route: str = "fused", device=None,
+                   cfg: Optional[SchedulerConfig] = None,
+                   assigned: Sequence[Any] = (), pvcs: Sequence[Any] = (),
+                   pvs: Sequence[Any] = ()) -> WaveRun:
     """Schedule ``pods`` against ``nodes`` in waves of ``wave`` pods.
 
     ``device=None`` means the card (and raises without one); pass
     ``device="cpu"`` to run the plain twins on the host.  The node table
-    is built once; each wave's pod table has capacity ``max(wave, 128)``,
-    as in the JAX flow."""
+    is built once, holding the ``assigned`` pods (each with
+    ``spec.node_name`` set); each wave's pod table has capacity
+    ``max(wave, 128)``, as in the JAX flow.  ``cfg`` is the repair
+    route's roster; ``pvcs`` and ``pvs`` feed its constraint tables."""
     device = resolve_device(device)
-    step = make_step(route)
+    needs_tables = False
+    if route == "repair":
+        evaluator = repair_evaluator(cfg)
+        step = repair_step(evaluator)
+        needs_tables = evaluator.needs_extra
+    else:
+        step = make_step(route, cfg)
 
     t0 = time.monotonic()
     if device.type == "cuda":
@@ -193,10 +315,13 @@ def schedule_waves(nodes: Sequence[Any], pods: Sequence[Any],
     kernel_build_s = time.monotonic() - t0
 
     t0 = time.monotonic()
-    node_host, node_names = pack_node_table(nodes, capacity=pad_to(len(nodes)))
+    node_cap, pod_cap = pad_to(len(nodes)), max(wave, 128)
+    node_host, node_names = pack_node_table(nodes, pods_by_node(assigned),
+                                            capacity=node_cap)
     starts = range(0, len(pods), wave)
-    wave_hosts = [pack_pod_table(pods[s:s + wave], capacity=max(wave, 128))[0]
-                  for s in starts]
+    wave_pods = [pods[s:s + wave] for s in starts]
+    wave_hosts = [pack_pod_table(batch, capacity=pod_cap)[0]
+                  for batch in wave_pods]
     build_s = time.monotonic() - t0
 
     t0 = time.monotonic()
@@ -205,19 +330,26 @@ def schedule_waves(nodes: Sequence[Any], pods: Sequence[Any],
     _sync(device)
     h2d_s = time.monotonic() - t0
 
+    def feed() -> Optional[ConstraintFeed]:
+        if not needs_tables:
+            return None
+        return ConstraintFeed(nodes, node_names, wave_pods, assigned, pvcs,
+                              pvs, pod_cap, node_cap, device)
+
     t0 = time.monotonic()
-    if pod_tables:
-        step(node_table, pod_tables[0])  # the step is pure: result dropped
+    if pod_tables and device.type == "cuda":  # the step is pure: dropped
+        run_waves(step, node_table, pod_tables[:1], feed())
     _sync(device)
     warmup_s = time.monotonic() - t0
 
     t0 = time.monotonic()
-    node_table, outs = run_waves(step, node_table, pod_tables)
+    timed_feed = feed()
+    node_table, outs = run_waves(step, node_table, pod_tables, timed_feed)
     _sync(device)
     schedule_s = time.monotonic() - t0
 
     # the first n_live rows of each wave; the rest are padding
-    n_live = [min(wave, len(pods) - s) for s in starts]
+    n_live = [len(batch) for batch in wave_pods]
     names = outs[0].unschedulable if outs else {}
     return WaveRun(
         choices=_concat([o.choice[:n] for o, n in zip(outs, n_live)]),
@@ -235,6 +367,10 @@ def schedule_waves(nodes: Sequence[Any], pods: Sequence[Any],
         h2d_s=h2d_s,
         warmup_s=warmup_s,
         schedule_s=schedule_s,
+        constraint_build_s=timed_feed.build_s if timed_feed else 0.0,
+        volumes=[{name: getattr(o.extra, name).cpu().numpy()
+                  for name in ("node_vols_fam", "vol_any", "vol_rw")}
+                 for o in outs if o.extra is not None],
     )
 
 

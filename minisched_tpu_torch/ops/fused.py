@@ -16,8 +16,8 @@ tensor and the hand-written kernel for a CUDA tensor, at any shape.
 chain into the round-invariant half (computed once) and the plugins that
 read committed state (every round); ``with_diagnostics`` keeps every
 filter's mask.  Plugins that read the wave's constraint tables
-(``needs_extra``) are refused: the port has no constraint tables yet
-(ROADMAP.md §1 item 6).
+(``needs_extra``: the volume and cross-pod plugins) get them as the
+``extra`` argument (``models/constraints.ConstraintTables``).
 """
 
 from __future__ import annotations
@@ -89,20 +89,41 @@ def _is_dynamic(pl: Any) -> bool:
     return bool(getattr(pl, "reads_committed_state", False))
 
 
+def _needs_extra(pl: Any) -> bool:
+    return bool(getattr(pl, "needs_extra", False))
+
+
+def run_filter(pl: Any, ctx: BatchContext, pods: Any, nodes: Any,
+               extra: Any) -> torch.Tensor:
+    """``pl.batch_filter``, with the constraint tables if it reads them."""
+    if _needs_extra(pl):
+        return pl.batch_filter(ctx, pods, nodes, extra)
+    return pl.batch_filter(ctx, pods, nodes)
+
+
+def run_score(pl: Any, ctx: BatchContext, pods: Any, nodes: Any,
+              aux: Dict[str, Any], extra: Any) -> torch.Tensor:
+    """``pl.batch_score``, with the constraint tables if it reads them."""
+    if _needs_extra(pl):
+        return pl.batch_score(ctx, pods, nodes, aux, extra)
+    return pl.batch_score(ctx, pods, nodes, aux)
+
+
 def precompute_static(pods: Any, nodes: Any, filter_plugins: Sequence[Any],
                       pre_score_plugins: Sequence[Any],
                       score_plugins: Sequence[Any],
-                      ctx: BatchContext) -> StaticWavePlanes:
+                      ctx: BatchContext, extra: Any = None) -> StaticWavePlanes:
     """Evaluate the round-invariant half of the chain once."""
     mask = pods.valid[:, None] & nodes.valid[None, :]
     names = []
     for pl in filter_plugins:
         if not _is_dynamic(pl):
             names.append(pl.name())
-            mask = mask & pl.batch_filter(ctx, pods, nodes)
+            mask = mask & run_filter(pl, ctx, pods, nodes, extra)
     aux = {pl.name(): pl.batch_pre_score(ctx, pods, nodes)
            for pl in pre_score_plugins if not _is_dynamic(pl)}
-    raw = {pl.name(): pl.batch_score(ctx, pods, nodes, aux.get(pl.name(), {}))
+    raw = {pl.name(): run_score(pl, ctx, pods, nodes, aux.get(pl.name(), {}),
+                                extra)
            for pl in score_plugins if not _is_dynamic(pl)}
     return StaticWavePlanes(mask, frozenset(names), aux, raw)
 
@@ -120,7 +141,8 @@ def wave_planes(pods: Any, nodes: Any, filter_plugins: Sequence[Any],
                 pre_score_plugins: Sequence[Any],
                 score_plugins: Sequence[Any], ctx: BatchContext,
                 with_diagnostics: bool = False,
-                static: Optional[StaticWavePlanes] = None) -> WavePlanes:
+                static: Optional[StaticWavePlanes] = None,
+                extra: Any = None) -> WavePlanes:
     """The filter conjunction and the weighted score sum of one
     evaluation (``evaluate`` without its argmax)."""
     mask = pods.valid[:, None] & nodes.valid[None, :]
@@ -133,7 +155,7 @@ def wave_planes(pods: Any, nodes: Any, filter_plugins: Sequence[Any],
                        if pl.name() not in static.static_names]
     per_filter = []
     for pl in run_filters:
-        m = pl.batch_filter(ctx, pods, nodes)
+        m = run_filter(pl, ctx, pods, nodes, extra)
         if with_diagnostics:
             per_filter.append(m)
         mask &= m
@@ -148,7 +170,7 @@ def wave_planes(pods: Any, nodes: Any, filter_plugins: Sequence[Any],
         if static is not None and pl.name() in static.raw_scores:
             s = static.raw_scores[pl.name()]
         else:
-            s = pl.batch_score(ctx, pods, nodes, aux.get(pl.name(), {}))
+            s = run_score(pl, ctx, pods, nodes, aux.get(pl.name(), {}), extra)
         s = pl.batch_normalize(ctx, s, mask).to(torch.int32)
         # int32: wraps as jnp's sum does
         totals.add_(s, alpha=ctx.weight_of(pl.name()))
@@ -164,6 +186,7 @@ def evaluate(
     ctx: BatchContext,
     with_diagnostics: bool = False,
     static: Optional[StaticWavePlanes] = None,
+    extra: Any = None,
 ) -> PlacementResult:
     """One fused scheduling evaluation: the conjunction of the filter
     masks, per-plugin pre-score aux tensors, normalized and weighted
@@ -172,9 +195,10 @@ def evaluate(
     ``static``: precomputed round-invariant planes; static filters enter
     through ``static_mask`` and static scorers reuse their cached RAW
     matrices (normalized against THIS call's full mask).  Incompatible
-    with ``with_diagnostics``, whose per-plugin masks need every filter."""
+    with ``with_diagnostics``, whose per-plugin masks need every filter.
+    ``extra``: the wave's ConstraintTables, for the plugins that read them."""
     planes = wave_planes(pods, nodes, filter_plugins, pre_score_plugins,
-                         score_plugins, ctx, with_diagnostics, static)
+                         score_plugins, ctx, with_diagnostics, static, extra)
     choice, best = select_hosts(planes.totals, planes.mask, pods.seed)
     return PlacementResult(
         choice=choice,
@@ -203,19 +227,13 @@ def unschedulable_plugin_masks(filter_masks: torch.Tensor,
 
 
 def validate_batch_chains(*chains: Sequence[Any]) -> None:
-    """Every plugin of a device chain must implement the batch protocol,
-    and none may need the constraint tables the port does not have."""
+    """Every plugin of a device chain must implement the batch protocol."""
     for chain in chains:
         for pl in chain:
             if not implements_batch(pl):
                 raise TypeError(
                     f"plugin {pl.name()} has no batch form; "
                     "scalar-only plugins must run through the engine"
-                )
-            if getattr(pl, "needs_extra", False):
-                raise TypeError(
-                    f"plugin {pl.name()} reads the wave's constraint tables, "
-                    "which the port does not have yet (ROADMAP.md §1 item 6)"
                 )
 
 
@@ -235,8 +253,9 @@ class FusedEvaluator:
         self.score_plugins = tuple(score_plugins)
         self.ctx = BatchContext(weights=tuple(sorted((weights or {}).items())))
 
-    def __call__(self, pods: Any, nodes: Any) -> PlacementResult:
+    def __call__(self, pods: Any, nodes: Any,
+                 extra: Any = None) -> PlacementResult:
         return evaluate(
             pods, nodes, self.filter_plugins, self.pre_score_plugins,
-            self.score_plugins, self.ctx,
+            self.score_plugins, self.ctx, extra=extra,
         )

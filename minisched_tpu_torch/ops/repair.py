@@ -10,18 +10,24 @@ lowest-indexed contender of each contested node, so the loop converges;
 a pod with no feasible node (choice -1) stays unplaced, since commits
 only consume resources.
 
+With the wave's constraint tables (``extra``) and volume plugins in the
+chain, the loop also carries the committed volume state across rounds
+(``node_vols_fam``, ``vol_any``, ``vol_rw``), so that a node filled to a
+family's attach limit, or holding a conflicting mount, in an earlier
+round is seen by the filters of the next; acceptance applies the
+per-family limits as further cumulative demands and same-round mounts of
+one volume on one node by the sequential rule of VolumeRestrictions.
+
 The JAX ``lax.while_loop`` is a host loop here, with the same round count
 (the last round, which commits nothing new or leaves nothing to retry,
 included).  Each round ends in one read of two flags from the card, the
 loop's only wait on the device; the plugins branch on no device value.
-The volume state of the JAX loop (its ``extra`` constraint tables) comes
-with the constraint-table slice of the port (ROADMAP.md §1 item 6).
 """
 
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,7 +39,7 @@ from minisched_tpu_torch.ops.fused import (
     unschedulable_plugin_masks,
     validate_batch_chains,
 )
-from minisched_tpu_torch.ops.state import apply_placements
+from minisched_tpu_torch.ops.state import apply_placements, mount_slot_planes
 
 _INF32 = 2**31 - 1
 MAX_ROUNDS = 16  # the round cap of a repair wave
@@ -46,6 +52,38 @@ def _segment_starts(sorted_keys: torch.Tensor) -> torch.Tensor:
     return torch.searchsorted(sorted_keys, sorted_keys)
 
 
+def _restriction_ok(choice: torch.Tensor, live: torch.Tensor,
+                    restr_state: Tuple[torch.Tensor, torch.Tensor, int]
+                    ) -> torch.Tensor:
+    """bool[P]: no mount of the pod loses a same-round claim of its volume
+    on its node.  Per (node, volume), the first pod in index order always
+    survives; a later pod survives only if both it and the first mount
+    read-only (what a sequential bind order gives)."""
+    pod_vol, pod_ro, n_vol_rows = restr_state
+    P, V = pod_vol.shape
+    slots = torch.arange(V, device=pod_vol.device)
+    # a pod mounting one volume through two claims is a single mount
+    dup_within = ((pod_vol[:, :, None] == pod_vol[:, None, :])
+                  & (pod_vol[:, None, :] >= 0)
+                  & (slots[None, None, :] < slots[None, :, None])).any(dim=2)
+    slot_live = live[:, None] & (pod_vol >= 0) & ~dup_within
+    # (node, volume) key, in int64: the JAX int32 key needs
+    # n_vol_rows * N < 2^31, and orders the same where it holds
+    pair_key = choice.long()[:, None] * n_vol_rows + pod_vol
+    flat_key = torch.where(slot_live, pair_key, _INF32).reshape(-1)
+    # stable: pod-index order survives within equal keys
+    vorder = torch.argsort(flat_key, stable=True)
+    s_key = flat_key[vorder]
+    s_ro = pod_ro.reshape(-1)[vorder]
+    first = torch.ones_like(s_key, dtype=torch.bool)
+    first[1:] = s_key[1:] != s_key[:-1]
+    first_ro = s_ro[_segment_starts(s_key)]
+    ok_slot = first | (s_ro & first_ro)
+    loses = torch.empty_like(first)
+    loses[vorder] = ~ok_slot & (s_key < _INF32)
+    return ~loses.reshape(P, V).any(dim=1)
+
+
 def accept_placements(
     nodes: NodeTable,
     pods: PodTable,
@@ -53,6 +91,8 @@ def accept_placements(
     active: torch.Tensor,
     check_resources: bool = True,
     check_ports: bool = True,
+    vol_state: Optional[List[Tuple[torch.Tensor, torch.Tensor, int]]] = None,
+    restr_state: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None,
 ) -> torch.Tensor:
     """bool[P]: which tentative placements commit this round.
 
@@ -62,11 +102,18 @@ def accept_placements(
     host port on one node only the first pod survives.
     ``check_resources`` / ``check_ports`` mirror whether NodeResourcesFit
     / NodePorts are in the filter chain: acceptance enforces exactly what
-    the chain enforces."""
+    the chain enforces.
+
+    ``vol_state``: (pod_amt i32[P], node_count i32[N], max) per
+    volume-limit plugin of the chain; each family's counts join the
+    cumulative-demand rule.  ``restr_state``: (pod_vol i32[P, V], pod_ro
+    bool[P, V], number of volume rows) when VolumeRestrictions is in the
+    chain (``_restriction_ok``)."""
     P = choice.shape[0]
     dev = choice.device
     live = active & (choice >= 0)
-    if not check_resources and not check_ports:
+    if (not check_resources and not check_ports and vol_state is None
+            and restr_state is None):
         return live
     # node segments in pod-index order: a stable sort on the chosen node,
     # dead rows last (the JAX code's key, choice * (P + 1) + index, orders
@@ -77,6 +124,7 @@ def accept_placements(
     s_choice = choice[order]
     s_live = live[order]
 
+    ok = torch.ones(P, dtype=torch.bool, device=dev)
     if check_ports:
         W = pods.port.shape[1]
         slots = torch.arange(W, device=dev)
@@ -96,11 +144,11 @@ def accept_placements(
         first[1:] = sflat[1:] != sflat[:-1]
         loses = torch.empty_like(first)
         loses[porder] = ~first & (sflat < _INF32)
-        port_ok = ~loses.reshape(P, W).any(dim=1)
-        eligible = s_live & port_ok[order]
-    else:
-        eligible = s_live
-    if not check_resources:
+        ok &= ~loses.reshape(P, W).any(dim=1)
+    if restr_state is not None:
+        ok &= _restriction_ok(choice, live, restr_state)
+    eligible = s_live & ok[order]
+    if not check_resources and vol_state is None:
         accept = torch.empty_like(eligible)
         accept[order] = eligible
         return accept & live
@@ -118,14 +166,18 @@ def accept_placements(
         # for nothing fits even an over-committed node
         return (amt == 0) | (within_ex + amt <= headroom)
 
-    fits = (
-        eligible
-        & prefix_fits(pods.req_cpu, nodes.req_cpu, nodes.alloc_cpu)
-        & prefix_fits(pods.req_mem, nodes.req_mem, nodes.alloc_mem)
-        & prefix_fits(pods.req_eph, nodes.req_eph, nodes.alloc_eph)
-        & prefix_fits(torch.ones_like(pods.req_pods), nodes.req_pods,
-                      nodes.alloc_pods)
-    )
+    fits = eligible
+    if check_resources:
+        fits = (
+            fits
+            & prefix_fits(pods.req_cpu, nodes.req_cpu, nodes.alloc_cpu)
+            & prefix_fits(pods.req_mem, nodes.req_mem, nodes.alloc_mem)
+            & prefix_fits(pods.req_eph, nodes.req_eph, nodes.alloc_eph)
+            & prefix_fits(torch.ones_like(pods.req_pods), nodes.req_pods,
+                          nodes.alloc_pods)
+        )
+    for pod_amt, node_count, max_volumes in vol_state or ():
+        fits = fits & prefix_fits(pod_amt, node_count, max_volumes)
     # an earlier candidate that does not fit still counts in the prefix:
     # it is rejected now and retried next round, so the prefix only ever
     # over-estimates what commits ahead of a pod (never over-commits)
@@ -141,44 +193,107 @@ def repair_wave_step(
     pre_score_plugins: Sequence[Any],
     score_plugins: Sequence[Any],
     ctx: BatchContext,
+    extra: Any = None,
     max_rounds: int = MAX_ROUNDS,
     with_diagnostics: bool = False,
     split_static: bool = True,
+    carry_volumes: bool = False,
 ) -> Tuple[Any, ...]:
     """Evaluate-accept-commit rounds until every pod is placed or has no
     feasible node, at most ``max_rounds``.
 
     Returns (updated NodeTable, choice i32[P] with -1 = unplaced, rounds
-    used as an int); with ``with_diagnostics`` a fourth element, bool[K, P]
-    per-filter first-failure masks of the UNPLACED pods against the final
-    table (``unschedulable_plugin_masks``).
+    used as an int); with ``with_diagnostics`` a further element, bool[K,
+    P] per-filter first-failure masks of the UNPLACED pods against the
+    final table and the final volume state (``unschedulable_plugin_masks``);
+    with ``carry_volumes`` a last one, ``extra`` with the volume state the
+    loop carried out of its last round (``node_vols_fam``, ``vol_any``,
+    ``vol_rw``; unchanged planes where the chain reads none of them).
 
-    ``split_static``: compute the round-invariant planes once per wave
-    (``precompute_static``) and re-evaluate only the committed-state
-    plugins each round; bit-identical either way."""
+    ``extra``: the wave's ConstraintTables, for the chain's plugins that
+    read them.  ``split_static``: compute the round-invariant planes once
+    per wave (``precompute_static``) and re-evaluate only the
+    committed-state plugins each round; bit-identical either way."""
     P = pods.valid.shape[0]
+    dev = pods.valid.device
     names = {pl.name() for pl in filter_plugins}
     check_resources = "NodeResourcesFit" in names
     check_ports = "NodePorts" in names
+    # volume-limit plugins of the chain as (family index, max) pairs, and
+    # whether VolumeRestrictions is there (attribute markers, as JAX)
+    fam_limits: Tuple[Tuple[int, int], ...] = ()
+    check_restr = False
+    if extra is not None:
+        fam_limits = tuple(
+            (pl.volume_family_index, pl.max_volumes) for pl in filter_plugins
+            if getattr(pl, "volume_family_index", None) is not None)
+        check_restr = any(getattr(pl, "enforces_volume_restrictions", False)
+                          for pl in filter_plugins)
+    # the volume planes are carried whenever something reads them across
+    # rounds: VolumeRestrictions (conflicts) or a limit plugin (its
+    # unique-attach dedup reads vol_any)
+    track_vols = check_restr or bool(fam_limits)
+    if track_vols:
+        slot_cnt, slot_vol, slot_ro, slot_fam, slot_dup = mount_slot_planes(extra)
+        n_vol_rows = extra.vol_any.shape[0]
+        dummy_row = n_vol_rows - 1  # never referenced by any claim row
+        n_fams = extra.node_vols_fam.shape[0]
     static = (precompute_static(pods, nodes, filter_plugins,
-                                pre_score_plugins, score_plugins, ctx)
+                                pre_score_plugins, score_plugins, ctx, extra)
               if split_static else None)
 
+    def carried(vols_fam, va, vr):
+        """``extra`` with the committed volume state of the rounds so far."""
+        if fam_limits:
+            return replace(extra, node_vols_fam=vols_fam, vol_any=va, vol_rw=vr)
+        if track_vols:
+            return replace(extra, vol_any=va, vol_rw=vr)
+        return extra
+
+    vols_fam = extra.node_vols_fam if fam_limits else None
+    va = extra.vol_any if track_vols else None
+    vr = extra.vol_rw if track_vols else None
     committed = ~pods.valid  # padding rows never schedule
-    final = torch.full((P,), -1, dtype=torch.int32, device=pods.valid.device)
+    final = torch.full((P,), -1, dtype=torch.int32, device=dev)
     rounds = 0
     pending = True  # some valid pod is still uncommitted
     while rounds < max_rounds:
         active_pods = replace(pods, valid=pods.valid & ~committed)
         result = evaluate(active_pods, nodes, filter_plugins,
                           pre_score_plugins, score_plugins, ctx,
-                          static=static)
-        accept = accept_placements(nodes, active_pods, result.choice,
-                                   active_pods.valid,
-                                   check_resources=check_resources,
-                                   check_ports=check_ports)
+                          static=static, extra=carried(vols_fam, va, vr))
+        accept = accept_placements(
+            nodes, active_pods, result.choice, active_pods.valid,
+            check_resources=check_resources, check_ports=check_ports,
+            vol_state=([(extra.pod_vols_fam[:, f], vols_fam[f], mx)
+                        for f, mx in fam_limits] if fam_limits else None),
+            restr_state=(slot_vol, slot_ro, n_vol_rows) if check_restr else None)
         nodes = apply_placements(nodes, active_pods,
                                  torch.where(accept, result.choice, -1))
+        idx = torch.where(accept, result.choice, 0).long()
+        if fam_limits:
+            # the committed attach counts, so later rounds cannot blow a
+            # node's limit: only NEW attachments count (a volume already
+            # on the node, per the pre-update vol_any, does not)
+            attached = va[slot_cnt.clamp(min=0).long(), idx[:, None]]  # (P, V)
+            new_slot = accept[:, None] & (slot_cnt >= 0) & ~slot_dup & ~attached
+            fams = torch.arange(n_fams, device=dev)
+            counts = (new_slot[None] & (slot_fam[None] == fams[:, None, None])
+                      ).sum(dim=2, dtype=torch.int32)  # (F, P)
+            counts[0] += torch.where(accept, extra.pod_missing, 0)
+            vols_fam = vols_fam.index_add(1, idx, counts)
+        if track_vols:
+            # the committed mounts; slots that did not commit write the
+            # dummy row.  vol_any rows are counting keys (bound PV or
+            # unbound claim); vol_rw tracks bound, writable mounts only
+            cols = idx[:, None].expand(slot_cnt.shape).reshape(-1)
+            rows = torch.where(accept[:, None] & (slot_cnt >= 0), slot_cnt,
+                               dummy_row).reshape(-1).long()
+            rw_rows = torch.where(accept[:, None] & (slot_vol >= 0) & ~slot_ro,
+                                  slot_vol, dummy_row).reshape(-1).long()
+            true = torch.ones_like(rows, dtype=torch.bool)
+            va = va.index_put((rows, cols), true)
+            vr = vr.index_put((rw_rows, cols), true)
         final = torch.where(accept, result.choice, final)
         committed = committed | accept
         rounds += 1
@@ -189,31 +304,35 @@ def repair_wave_step(
         progress, pending = flags
         if not progress:
             break
-    if not with_diagnostics:
-        return nodes, final, rounds
-
-    # one diagnostic evaluation of the unplaced remainder against the
-    # FINAL table, filters only, and none when every pod placed
-    K = len(filter_plugins)
-    dev = pods.valid.device
-    if K == 0 or not pending:
-        return nodes, final, rounds, torch.zeros((K, P), dtype=torch.bool,
-                                                 device=dev)
-    losers = replace(pods, valid=pods.valid & ~committed)
-    result = evaluate(losers, nodes, filter_plugins, (), (), ctx,
-                      with_diagnostics=True)
-    valid = losers.valid[:, None] & nodes.valid[None, :]
-    return nodes, final, rounds, unschedulable_plugin_masks(
-        result.filter_masks, valid)
+    out: Tuple[Any, ...] = (nodes, final, rounds)
+    if with_diagnostics:
+        # one diagnostic evaluation of the unplaced remainder against the
+        # FINAL table and volume state, filters only, and none when every
+        # pod placed
+        K = len(filter_plugins)
+        unsched = torch.zeros((K, P), dtype=torch.bool, device=dev)
+        if K and pending:
+            losers = replace(pods, valid=pods.valid & ~committed)
+            result = evaluate(losers, nodes, filter_plugins, (), (), ctx,
+                              with_diagnostics=True,
+                              extra=carried(vols_fam, va, vr))
+            valid = losers.valid[:, None] & nodes.valid[None, :]
+            unsched = unschedulable_plugin_masks(result.filter_masks, valid)
+        out += (unsched,)
+    if carry_volumes:
+        out += (carried(vols_fam, va, vr),)
+    return out
 
 
 class RepairingEvaluator:
     """Plugin chains fixed at construction (argument order as
     ``FusedEvaluator``); tables vary per call, each wave at most
     ``MAX_ROUNDS`` rounds.  With ``split_static`` the construction runs
-    the static-classification guard (``ops/staticcheck.py``).  The JAX package's ``mesh`` (ROADMAP.md §1
-    item 12) and ``call_packed`` (the live engine, item 10) are not
-    ported."""
+    the static-classification guard (``ops/staticcheck.py``).
+    ``needs_extra``: some plugin of the chains reads the wave's
+    constraint tables, which each call must then pass.  The JAX package's
+    ``mesh`` (ROADMAP.md §1 item 12) and ``call_packed`` (the live engine,
+    item 10) are not ported."""
 
     def __init__(
         self,
@@ -243,11 +362,16 @@ class RepairingEvaluator:
         self.score_plugins = tuple(score_plugins)
         self.with_diagnostics = with_diagnostics
         self.split_static = split_static
+        self.needs_extra = any(
+            getattr(pl, "needs_extra", False)
+            for chain in (filter_plugins, pre_score_plugins, score_plugins)
+            for pl in chain)
 
-    def __call__(self, pods: PodTable, nodes: NodeTable):
+    def __call__(self, pods: PodTable, nodes: NodeTable, extra: Any = None,
+                 carry_volumes: bool = False):
         return repair_wave_step(
             nodes, pods, self.filter_plugins, self.pre_score_plugins,
-            self.score_plugins, self.ctx,
+            self.score_plugins, self.ctx, extra=extra,
             with_diagnostics=self.with_diagnostics,
-            split_static=self.split_static,
+            split_static=self.split_static, carry_volumes=carry_volumes,
         )

@@ -58,6 +58,27 @@ def _commit_ports(nodes: NodeTable, pods: PodTable, placed: torch.Tensor,
     return used_port[:N], num_used[:N]
 
 
+def mount_slot_planes(extra: Any) -> Tuple[torch.Tensor, ...]:
+    """Per-mount-slot volume planes of the repair loop's commits:
+    (slot_cnt, slot_vol, slot_ro, slot_fam, slot_dup), all (P, V).
+    slot_cnt is the counting row (−1 = empty slot), slot_vol the
+    bound-volume row (−1 = unbound or empty), slot_dup marks later mounts
+    of a volume the pod already mounts (they count once)."""
+    V = extra.pod_claims.shape[1]
+    slots = torch.arange(V, device=extra.pod_claims.device)
+    in_range = slots[None, :] < extra.pod_n_vols[:, None]
+    slot_valid = in_range & extra.pod_claim_valid
+    claims = extra.pod_claims.long()
+    slot_cnt = torch.where(slot_valid, extra.claim_cnt[claims], -1)
+    slot_vol = torch.where(slot_valid, extra.claim_vol[claims], -1)
+    slot_ro = extra.claim_ro[claims]
+    slot_fam = extra.claim_family[claims]
+    slot_dup = ((slot_cnt[:, :, None] == slot_cnt[:, None, :])
+                & (slot_cnt[:, None, :] >= 0)
+                & (slots[None, None, :] < slots[None, :, None])).any(dim=2)
+    return slot_cnt, slot_vol, slot_ro, slot_fam, slot_dup
+
+
 def apply_placements(nodes: NodeTable, pods: PodTable,
                      choice: torch.Tensor) -> NodeTable:
     """Commit chosen placements: add each placed pod's requests to its

@@ -9,31 +9,45 @@ round-1 verdicts all wave long.
 
 So each static-classified plugin's batch kernels run twice on a tiny
 probe cluster, on CPU tensors: once as built and once with every
-committed-state plane of the NodeTable changed.  Any difference in the
-output means the plugin reads committed state, and construction is
-refused.  The constraint tables' volume planes join the probe with the
-constraint-table slice of the port (ROADMAP.md §1 item 6).
+committed-state plane changed, those of the NodeTable and the volume
+planes the repair loop carries in the constraint tables.  Any difference
+in the output means the plugin reads committed state, and construction
+is refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+from typing import Any, Sequence, Tuple
 
 import torch
+
+from minisched_tpu_torch.ops.fused import run_filter, run_score
 
 #: NodeTable planes apply_placements updates within a wave
 _NODE_COMMITTED = (
     "req_cpu", "req_mem", "req_eph", "req_pods", "nzreq_cpu", "nzreq_mem",
     "used_port", "num_used_ports",
 )
+#: ConstraintTables planes the repair loop carries across rounds
+_EXTRA_COMMITTED = ("vol_any", "vol_rw", "node_vols_fam")
 
 
 def _probe_tables():
     """A tiny cluster on the CPU whose committed-state perturbation flips
     verdicts: nodes with room on every resource for one probe pod, which
-    asks for CPU, memory, ephemeral storage and a host port."""
-    from minisched_tpu_torch.api.objects import make_node, make_pod
+    asks for CPU, memory, ephemeral storage and a host port, and mounts a
+    claim bound to an EBS PersistentVolume.  Returns (pods, nodes, extra)."""
+    from minisched_tpu_torch.api.objects import (
+        ObjectMeta,
+        PersistentVolume,
+        PersistentVolumeClaim,
+        PVCSpec,
+        PVSpec,
+        make_node,
+        make_pod,
+    )
+    from minisched_tpu_torch.models.constraints import build_constraint_tables
     from minisched_tpu_torch.models.tables import build_node_table, build_pod_table
 
     nodes = [
@@ -49,16 +63,29 @@ def _probe_tables():
         "probe-pod",
         requests={"cpu": "600m", "memory": "600Mi",
                   "ephemeral-storage": "600Mi"},
+        volumes=["probe-claim"],
     )
     pod.spec.containers[0].ports = [8080]
+    pv = PersistentVolume(
+        ObjectMeta(name="probe-pv", namespace=""),
+        PVSpec(capacity=1 << 30, claim_ref="default/probe-claim", driver="ebs"),
+    )
+    pvc = PersistentVolumeClaim(
+        ObjectMeta(name="probe-claim"),
+        PVCSpec(request=1 << 30, volume_name="probe-pv"),
+    )
     node_table, _ = build_node_table(nodes, device="cpu")
     pod_table, _ = build_pod_table([pod], device="cpu")
-    return pod_table, node_table
+    extra = build_constraint_tables(
+        [pod], nodes, [], pod_capacity=pod_table.capacity,
+        node_capacity=node_table.capacity, pvcs=[pvc], pvs=[pv], device="cpu")
+    return pod_table, node_table, extra
 
 
-def _perturb(nodes: Any) -> Any:
+def _perturb(nodes: Any, extra: Any) -> Tuple[Any, Any]:
     """Every committed-state plane, substantially changed: resources near
-    the allocatable ceiling, the probe pod's own port claimed."""
+    the allocatable ceiling, the probe pod's own port claimed, every
+    volume mounted read-write, family counts at the cap."""
     used_port = nodes.used_port.clone()
     used_port[:, 0] = 8080
     changed = {
@@ -71,7 +98,13 @@ def _perturb(nodes: Any) -> Any:
         "used_port": used_port,
         "num_used_ports": torch.ones_like(nodes.num_used_ports),
     }
-    return dataclasses.replace(nodes, **changed)
+    extra_p = dataclasses.replace(
+        extra,
+        vol_any=torch.ones_like(extra.vol_any),
+        vol_rw=torch.ones_like(extra.vol_rw),
+        node_vols_fam=extra.node_vols_fam + 39,
+    )
+    return dataclasses.replace(nodes, **changed), extra_p
 
 
 def verify_static_classification(static_filters: Sequence[Any],
@@ -81,18 +114,19 @@ def verify_static_classification(static_filters: Sequence[Any],
     batch kernels are sensitive to committed-state planes."""
     if not static_filters and not static_scores:
         return
-    pods, nodes = _probe_tables()
-    nodes_p = _perturb(nodes)
+    pods, nodes, extra = _probe_tables()
+    nodes_p, extra_p = _perturb(nodes, extra)
 
-    def run(pl, kind: str, n):
+    def run(pl, kind: str, n, e):
         if kind == "filter":
-            return pl.batch_filter(ctx, pods, n)
+            return run_filter(pl, ctx, pods, n, e)
         aux = pl.batch_pre_score(ctx, pods, n)
-        return pl.batch_score(ctx, pods, n, aux)
+        return run_score(pl, ctx, pods, n, aux, e)
 
     for kind, chain in (("filter", static_filters), ("score", static_scores)):
         for pl in chain:
-            if not torch.equal(run(pl, kind, nodes), run(pl, kind, nodes_p)):
+            if not torch.equal(run(pl, kind, nodes, extra),
+                               run(pl, kind, nodes_p, extra_p)):
                 raise TypeError(
                     f"plugin {pl.name()}: batch_{kind} output changes when "
                     "committed-state planes change, but the plugin is "

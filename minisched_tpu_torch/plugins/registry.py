@@ -19,6 +19,7 @@ from typing import Any, Callable, Dict, List
 
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
 from minisched_tpu_torch.plugins.imagelocality import ImageLocality
+from minisched_tpu_torch.plugins.interpodaffinity import InterPodAffinity
 from minisched_tpu_torch.plugins.nodeaffinity import NodeAffinity
 from minisched_tpu_torch.plugins.nodename import NodeName
 from minisched_tpu_torch.plugins.nodenumber import NodeNumber
@@ -29,7 +30,16 @@ from minisched_tpu_torch.plugins.noderesources import (
     NodeResourcesLeastAllocated,
 )
 from minisched_tpu_torch.plugins.nodeunschedulable import NodeUnschedulable
+from minisched_tpu_torch.plugins.podtopologyspread import PodTopologySpread
 from minisched_tpu_torch.plugins.tainttoleration import TaintToleration
+from minisched_tpu_torch.plugins.volumebinding import NodeVolumeLimits, VolumeBinding
+from minisched_tpu_torch.plugins.volumelimits import (
+    AzureDiskLimits,
+    EBSLimits,
+    GCEPDLimits,
+)
+from minisched_tpu_torch.plugins.volumerestrictions import VolumeRestrictions
+from minisched_tpu_torch.plugins.volumezone import VolumeZone
 from minisched_tpu_torch.service.config import SchedulerConfig
 
 # factory signature: (args: dict) -> plugin instance
@@ -48,16 +58,22 @@ _REGISTRY: Dict[str, Factory] = {
     "NodeResourcesBalancedAllocation":
         lambda args: NodeResourcesBalancedAllocation(),
     "ImageLocality": lambda args: ImageLocality(),
+    "InterPodAffinity": lambda args: InterPodAffinity(),
+    "PodTopologySpread": lambda args: PodTopologySpread(),
+    "VolumeBinding": lambda args: VolumeBinding(),
+    "VolumeRestrictions": lambda args: VolumeRestrictions(),
+    "VolumeZone": lambda args: VolumeZone(),
+    "NodeVolumeLimits": lambda args: NodeVolumeLimits(
+        max_volumes=args.get("max_volumes")),
+    "EBSLimits": lambda args: EBSLimits(max_volumes=args.get("max_volumes")),
+    "GCEPDLimits": lambda args: GCEPDLimits(
+        max_volumes=args.get("max_volumes")),
+    "AzureDiskLimits": lambda args: AzureDiskLimits(
+        max_volumes=args.get("max_volumes")),
 }
 
-_CONSTRAINT_ITEM = ("ROADMAP.md §1 item 6 (constraint tables and the volume "
-                    "and cross-pod plugins)")
 #: plugins of the JAX package the port does not have yet → where they come
 NOT_PORTED: Dict[str, str] = {
-    **{name: _CONSTRAINT_ITEM for name in (
-        "VolumeRestrictions", "EBSLimits", "GCEPDLimits", "NodeVolumeLimits",
-        "AzureDiskLimits", "VolumeBinding", "VolumeZone", "PodTopologySpread",
-        "InterPodAffinity")},
     "GangTopology": "ROADMAP.md §1 item 8 (gangs)",
 }
 

@@ -1,0 +1,87 @@
+"""Volume scheduling plugins, batch form: VolumeBinding and
+NodeVolumeLimits.
+
+Counterpart of ``minisched_tpu/plugins/volumebinding.py:44-162``:
+
+* ``VolumeBinding``: every claim the pod mounts must exist; a BOUND claim
+  restricts the pod to nodes carrying its PV's required node labels; an
+  UNBOUND claim needs some free PV of sufficient capacity whose labels the
+  node satisfies.  ``claim_node_mask`` is the one definition of that
+  verdict, run on the host by the constraint-table build
+  (``models/constraints.py``); the batch filter gathers its
+  ``claim_mask[C2, N]`` rows.
+* ``NodeVolumeLimits``: the generic member of the volume-limit family
+  (``plugins/volumelimits.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from minisched_tpu_torch.framework.plugin import BatchEvaluable
+from minisched_tpu_torch.plugins.volumelimits import FAM_GENERIC, VolumeLimitsCore
+
+BINDING_NAME = "VolumeBinding"
+LIMITS_NAME = "NodeVolumeLimits"
+
+
+def _labels_ok(required: Dict[str, str], node: Any) -> bool:
+    labels = node.metadata.labels
+    return all(labels.get(k) == v for k, v in required.items())
+
+
+def claim_node_mask(pvc: Any, pvs: Any, nodes: Any) -> List[bool]:
+    """Which nodes can host a pod mounting ``pvc``.  A claim bound to a
+    missing PV passes nowhere."""
+    if pvc.spec.volume_name:
+        pv_by_name = {pv.metadata.name: pv for pv in pvs}
+        pv = pv_by_name.get(pvc.spec.volume_name)
+        if pv is None:
+            return [False] * len(nodes)
+        return [_labels_ok(pv.spec.required_node_labels, n) for n in nodes]
+    free = [pv for pv in pvs
+            if not pv.spec.claim_ref and pv.spec.capacity >= pvc.spec.request]
+    return [any(_labels_ok(pv.spec.required_node_labels, n) for pv in free)
+            for n in nodes]
+
+
+def claims_pass(extra: Any, per_claim: torch.Tensor) -> torch.Tensor:
+    """bool[P, N]: every claim the pod mounts passes on the node, with
+    ``per_claim`` the bool[C2, N] verdict of each claim row; a pod with a
+    missing claim passes nowhere.  The JAX kernel's (P, V, N) gather is
+    folded one mount slot at a time."""
+    P, N = extra.pod_claims.shape[0], per_claim.shape[1]
+    ok = extra.vol_ok[:, None].expand(P, N)
+    for j in range(extra.in_use.vols):
+        in_range = extra.pod_n_vols > j
+        rows = per_claim.index_select(0, extra.pod_claims[:, j].long())
+        ok = ok & (rows | ~in_range[:, None])
+    return ok.contiguous()
+
+
+class VolumeBinding(BatchEvaluable):
+    needs_extra = True
+
+    def name(self) -> str:
+        return BINDING_NAME
+
+    def batch_filter(self, ctx: Any, pods: Any, nodes: Any,
+                     extra: Any) -> torch.Tensor:
+        if extra is None:
+            raise ValueError("VolumeBinding batch kernel needs the wave's "
+                             "ConstraintTables (built with pvcs/pvs) — pass "
+                             "`extra`")
+        return claims_pass(extra, extra.claim_mask)
+
+
+class NodeVolumeLimits(VolumeLimitsCore):
+    """The generic volume counter: every volume not bound to a named
+    cloud family."""
+
+    volume_family_index = FAM_GENERIC
+
+    def name(self) -> str:
+        return LIMITS_NAME
+

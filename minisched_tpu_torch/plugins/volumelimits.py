@@ -1,0 +1,117 @@
+"""Per-cloud volume attach limits, batch form: EBSLimits, GCEPDLimits,
+AzureDiskLimits, and the shared counting core.
+
+Counterpart of ``minisched_tpu/plugins/volumelimits.py:36-203``.  Each
+plugin counts only the volumes of its own driver family against that
+family's per-node limit; the generic counter (``NodeVolumeLimits``, every
+volume no named cloud family claims) lives in ``plugins/volumebinding.py``
+as in the JAX package.  A volume's family is the ``driver`` of the PV its
+claim is bound to; unbound or unresolvable claims count as generic.  The
+family resolution runs on the host (``models/constraints.py``); the batch
+filter reads the ``pod_vols_fam``-side slot planes and the carried
+``node_vols_fam``/``vol_any`` planes of the wave's ConstraintTables.
+
+Default limits, as the JAX package: EBS 39, GCE PD 16, Azure Disk 16,
+generic 16.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from minisched_tpu_torch.framework.plugin import BatchEvaluable
+
+#: family axis of the pod_vols_fam/node_vols_fam constraint planes;
+#: index 0 is the generic (non-cloud / CSI / unbound) family
+FAMILIES = ("", "ebs", "gcepd", "azuredisk")
+FAM_GENERIC, FAM_EBS, FAM_GCEPD, FAM_AZURE = range(len(FAMILIES))
+
+DEFAULT_MAX_VOLUMES = 16  # generic / GCE PD / Azure Disk
+DEFAULT_MAX_EBS = 39  # AWS attach limit
+
+
+def volume_family(pvc: Optional[Any], pv_by_name: Any) -> int:
+    """Family index of one claim: its bound PV's driver, else generic."""
+    if pvc is None or not pvc.spec.volume_name:
+        return FAM_GENERIC
+    pv = pv_by_name.get(pvc.spec.volume_name)
+    if pv is None or pv.spec.driver not in FAMILIES:
+        return FAM_GENERIC
+    return FAMILIES.index(pv.spec.driver)
+
+
+class VolumeLimitsCore(BatchEvaluable):
+    """Shared counting core: the pod's NEW family-f attachments plus the
+    node's attached family-f volumes must stay within ``max_volumes``."""
+
+    reads_committed_state = True  # intra-wave commits change the verdict
+    needs_extra = True
+    #: the repair loop's marker for volume-limit plugins (ops/repair.py
+    #: reads it with ``max_volumes``)
+    volume_family_index = FAM_GENERIC
+
+    def __init__(self, max_volumes: Optional[int] = None):
+        self.max_volumes = (max_volumes if max_volumes is not None
+                            else self.default_max())
+
+    @classmethod
+    def default_max(cls) -> int:
+        return DEFAULT_MAX_VOLUMES
+
+    def batch_filter(self, ctx: Any, pods: Any, nodes: Any,
+                     extra: Any) -> torch.Tensor:
+        """The JAX kernel's (P, V, N) ``vol_any[cnt]`` gather, folded one
+        mount slot at a time into the (P, N) count of new attachments."""
+        if extra is None:
+            raise ValueError(f"{self.name()} batch kernel needs the wave's "
+                             "ConstraintTables — pass `extra`")
+        f = self.volume_family_index
+        P, N = pods.valid.shape[0], nodes.valid.shape[0]
+        new = torch.zeros((P, N), dtype=torch.int32, device=nodes.valid.device)
+        cnts, uses = [], []
+        for j in range(extra.in_use.vols):
+            # mount slot j of every pod: in range and a real claim
+            live = (extra.pod_n_vols > j) & extra.pod_claim_valid[:, j]
+            claim = extra.pod_claims[:, j].long()
+            cnt = extra.claim_cnt[claim]  # (P,) counting row
+            use = live & (extra.claim_family[claim] == f)
+            # mounts sharing one volume within the pod count once
+            dup = torch.zeros_like(use)
+            for cnt_b, use_b in zip(cnts, uses):
+                dup |= (cnt_b == cnt) & use_b
+            cnts.append(cnt)
+            uses.append(use)
+            # a volume already attached to the node is no NEW attachment
+            attached = extra.vol_any.index_select(0, cnt.long())  # (P, N)
+            new += ((use & ~dup)[:, None] & ~attached).to(torch.int32)
+        if f == FAM_GENERIC:
+            new += extra.pod_missing[:, None]
+        fits = extra.node_vols_fam[f][None, :] + new <= self.max_volumes
+        return (new == 0) | fits
+
+
+class EBSLimits(VolumeLimitsCore):
+    volume_family_index = FAM_EBS
+
+    @classmethod
+    def default_max(cls) -> int:
+        return DEFAULT_MAX_EBS
+
+    def name(self) -> str:
+        return "EBSLimits"
+
+
+class GCEPDLimits(VolumeLimitsCore):
+    volume_family_index = FAM_GCEPD
+
+    def name(self) -> str:
+        return "GCEPDLimits"
+
+
+class AzureDiskLimits(VolumeLimitsCore):
+    volume_family_index = FAM_AZURE
+
+    def name(self) -> str:
+        return "AzureDiskLimits"

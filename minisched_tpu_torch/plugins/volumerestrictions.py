@@ -1,0 +1,46 @@
+"""VolumeRestrictions, batch form: single-attach volumes cannot share a
+node unless every mount involved is read-only.
+
+Counterpart of ``minisched_tpu/plugins/volumerestrictions.py:52-126``.
+The "same underlying disk" is two claims bound to one PersistentVolume,
+and a mount's access intent is its claim's ``read_only`` flag.  Claim c
+conflicts on node n iff some mount of its volume there is writable, or
+any mount exists there and c itself is writable; the repair loop
+(``ops/repair.py``) carries the ``vol_any``/``vol_rw`` planes across
+rounds, so pods committed earlier in the same wave count too.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from minisched_tpu_torch.framework.plugin import BatchEvaluable
+from minisched_tpu_torch.plugins.volumebinding import claims_pass
+
+NAME = "VolumeRestrictions"
+
+
+class VolumeRestrictions(BatchEvaluable):
+    reads_committed_state = True  # intra-wave commits change the verdict
+    needs_extra = True
+    #: the repair loop's marker: carry per-volume mount state across
+    #: rounds and dedup same-round mounts
+    enforces_volume_restrictions = True
+
+    def name(self) -> str:
+        return NAME
+
+    def batch_filter(self, ctx: Any, pods: Any, nodes: Any,
+                     extra: Any) -> torch.Tensor:
+        if extra is None:
+            raise ValueError("VolumeRestrictions batch kernel needs the "
+                             "wave's ConstraintTables — pass `extra`")
+        cv = extra.claim_vol.clamp(min=0).long()
+        bound = extra.claim_vol >= 0
+        conflict = bound[:, None] & (
+            extra.vol_rw.index_select(0, cv)
+            | (extra.vol_any.index_select(0, cv) & ~extra.claim_ro[:, None])
+        )  # (C2, N)
+        return claims_pass(extra, ~conflict)

@@ -2,11 +2,13 @@
 
 Run from the root of the repository on a machine with a CUDA card:
 
-    python3 -m minisched_tpu_torch.profile_repair [--trace-dir DIR]
+    python3 -m minisched_tpu_torch.profile_repair [--roster full|node-local] [--trace-dir DIR]
 
 Config 5 at full size (``fullchain.mk_c5_cluster``: 10,000 nodes,
-100,000 pods) in repair waves of 16,384 with the node-local roster, every
-table already on the device:
+100,000 pods) in repair waves of 16,384 with the full default roster (the
+default) or the node-local roster, the node and pod tables already on the
+device; with the full roster each wave's constraint tables are built on
+the host inside the loop, as ``schedule_waves`` builds them:
 
 * the host wall time of the whole wave loop, closed by a synchronise,
   over ``REPS`` passes after one warm-up pass (median and spread);
@@ -20,7 +22,8 @@ table already on the device:
   this pass only (the library itself carries no annotation).
   ``select_hosts`` has no span: the profiler does not attribute its
   launch, made through ctypes, to the enclosing range, so its time and
-  launches are read from the kernel list alone.
+  launches are read from the kernel list alone.  The host's constraint
+  builds show as device idle time.
 
 It ends in one JSON line.  ``--trace-dir`` also writes a Chrome trace
 there.  Without a card the script raises.
@@ -35,17 +38,26 @@ import json
 import statistics
 import time
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from minisched_tpu_torch import resolve_device
 from minisched_tpu_torch.fullchain import WAVE, mk_c5_cluster
-from minisched_tpu_torch.headline import repair_evaluator, repair_step, run_waves
+from minisched_tpu_torch.headline import (
+    ConstraintFeed,
+    repair_evaluator,
+    repair_step,
+    run_waves,
+)
 from minisched_tpu_torch.models.tables import pack_node_table, pack_pod_table, pad_to
 from minisched_tpu_torch.ops import repair
 from minisched_tpu_torch.profile_headline import _busy_us
+from minisched_tpu_torch.service.config import (
+    default_full_roster_config,
+    node_local_roster_config,
+)
 
 REPS = 5  # timed passes
 SPAN = "span:"  # prefix of the record_function ranges added here
@@ -91,26 +103,33 @@ def spans(evaluator) -> Iterator[None]:
 
 
 def profile_repair(evaluator, node_host, pod_tables, device: torch.device,
-                   trace_dir: Optional[Path]) -> dict:
+                   trace_dir: Optional[Path],
+                   make_feed: Callable[[], Optional[ConstraintFeed]],
+                   reps: int = REPS) -> dict:
+    """``reps`` timed passes of the wave loop, then one profiled pass.
+    ``make_feed`` gives each pass a fresh ``ConstraintFeed`` (or None for
+    a roster that reads no constraint tables)."""
     step = repair_step(evaluator)
 
     def one_pass() -> float:
         node_table = node_host.to_device(device)
+        feed = make_feed()
         torch.cuda.synchronize(device)
         t0 = time.monotonic()
-        run_waves(step, node_table, pod_tables)
+        run_waves(step, node_table, pod_tables, feed)
         torch.cuda.synchronize(device)
         return time.monotonic() - t0
 
     one_pass()  # warm-up: first launches, allocator growth
-    walls = [one_pass() for _ in range(REPS)]
+    walls = [one_pass() for _ in range(reps)]
 
     node_table = node_host.to_device(device)
+    feed = make_feed()
     torch.cuda.synchronize(device)
     with spans(evaluator), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        _, outs = run_waves(step, node_table, pod_tables)
+        _, outs = run_waves(step, node_table, pod_tables, feed)
         torch.cuda.synchronize(device)
         window_us = (time.monotonic() - t0) * 1e6
     # the spans also show on the device timeline as annotations: they are
@@ -140,11 +159,15 @@ def profile_repair(evaluator, node_host, pod_tables, device: torch.device,
     n_rounds = sum(rounds)
     return {
         "route": "repair",
+        "roster": ("full" if any(getattr(pl, "needs_extra", False)
+                                 for pl in evaluator.filter_plugins)
+                   else "node-local"),
         "waves": len(pod_tables),
         "rounds_per_wave": rounds,
-        "wall_ms_median": statistics.median(walls) * 1e3,
-        "wall_ms_min": min(walls) * 1e3,
-        "wall_ms_max": max(walls) * 1e3,
+        "wall_ms_median": statistics.median(walls) * 1e3 if walls else None,
+        "wall_ms_min": min(walls) * 1e3 if walls else None,
+        "wall_ms_max": max(walls) * 1e3 if walls else None,
+        "constraint_build_ms": feed.build_s * 1e3 if feed else 0.0,
         "profiled_window_ms": window_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / window_us if window_us else None,
@@ -168,18 +191,30 @@ def profile_repair(evaluator, node_host, pod_tables, device: torch.device,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--roster", choices=("full", "node-local"), default="full")
     ap.add_argument("--trace-dir", type=Path, default=None)
     args = ap.parse_args(argv)
     device = resolve_device(None)
 
     nodes, pods = mk_c5_cluster()
-    evaluator = repair_evaluator()
-    node_host, _ = pack_node_table(nodes, capacity=pad_to(len(nodes)))
-    pod_tables = [pack_pod_table(pods[s:s + WAVE], capacity=WAVE)[0].to_device(device)
-                  for s in range(0, len(pods), WAVE)]
+    cfg = (default_full_roster_config() if args.roster == "full"
+           else node_local_roster_config())
+    evaluator = repair_evaluator(cfg)
+    node_cap = pad_to(len(nodes))
+    node_host, node_names = pack_node_table(nodes, capacity=node_cap)
+    waves = [pods[s:s + WAVE] for s in range(0, len(pods), WAVE)]
+    pod_tables = [pack_pod_table(w, capacity=WAVE)[0].to_device(device)
+                  for w in waves]
+
+    def make_feed() -> Optional[ConstraintFeed]:
+        if not evaluator.needs_extra:
+            return None
+        return ConstraintFeed(nodes, node_names, waves, (), (), (), WAVE,
+                              node_cap, device)
+
     print(f"card: {torch.cuda.get_device_name(device)}", flush=True)
     out = profile_repair(evaluator, node_host, pod_tables, device,
-                         args.trace_dir)
+                         args.trace_dir, make_feed)
     for k in out["top_kernels"]:
         print(f"[repair] {k['device_ms']:9.4f} ms  x{k['count']:<5d} "
               f"{k['name']}", flush=True)

@@ -20,11 +20,22 @@ import torch
 
 from minisched_tpu_torch.api.objects import Toleration, make_node, make_pod
 from minisched_tpu_torch.engine.oracle import headline_oracle
-from minisched_tpu_torch.fullchain import mk_c5_cluster, schedule_repair_waves
+from minisched_tpu_torch.fullchain import (
+    mk_c5_cluster,
+    mk_mixed_cluster,
+    schedule_repair_waves,
+)
 from minisched_tpu_torch.headline import (
     mk_cluster,
+    pods_by_node,
     repair_evaluator,
     schedule_waves,
+)
+from minisched_tpu_torch.models.constraints import build_constraint_tables
+from minisched_tpu_torch.plugins.registry import build_plugins
+from minisched_tpu_torch.service.config import (
+    default_full_roster_config,
+    node_local_roster_config,
 )
 from minisched_tpu_torch.kernel_cases import (
     SELECT_NS,
@@ -191,15 +202,18 @@ def test_schedule_waves_on_card_matches_oracle(route, dev):
         assert torch.equal(col.cpu(), getattr(cpu.node_table, name)), name
 
 
-def test_reduced_config5_on_card_matches_cpu(dev):
-    """Repair waves with the node-local roster: the card (every round ends
-    in the select_hosts kernel) against the plain twins on the CPU."""
+@pytest.mark.parametrize("roster", ["node-local", "full"])
+def test_reduced_config5_on_card_matches_cpu(roster, dev):
+    """Repair waves with either roster: the card (every round ends in the
+    select_hosts kernel) against the plain twins on the CPU."""
+    cfg = (node_local_roster_config() if roster == "node-local"
+           else default_full_roster_config())
     nodes, pods = mk_c5_cluster(512, 4096)
     before = kernels.launch_counts["select_hosts"]
-    run = schedule_repair_waves(nodes, pods, wave=1024)
+    run = schedule_repair_waves(nodes, pods, wave=1024, cfg=cfg)
     assert kernels.launch_counts["select_hosts"] - before >= sum(run.rounds)
     assert run.node_table.valid.device.type == "cuda"
-    cpu = schedule_repair_waves(nodes, pods, wave=1024, device="cpu")
+    cpu = schedule_repair_waves(nodes, pods, wave=1024, device="cpu", cfg=cfg)
     assert np.array_equal(run.choices, cpu.choices)
     assert run.rounds == cpu.rounds and max(run.rounds) > 1
     assert run.unschedulable.keys() == cpu.unschedulable.keys()
@@ -216,7 +230,7 @@ def test_select_hosts_kernel_on_repair_planes(wave, dev):
     are fully masked and the rest contend for the emptiest nodes."""
     nodes, pods = mk_c5_cluster(512, 4096)
     nt, _ = tables.build_node_table(nodes, device=dev)
-    ev = repair_evaluator()
+    ev = repair_evaluator(node_local_roster_config())
     pt, _ = tables.build_pod_table(pods[:1024], device=dev)
     if wave:
         nt = ev(pt, nt)[0]
@@ -226,3 +240,127 @@ def test_select_hosts_kernel_on_repair_planes(wave, dev):
     if wave:
         assert 0.0 < empty.float().mean() < 1.0
     _assert_select_matches_twin(scores, mask, pt.seed)
+
+
+# ---------------------------------------------------------------------------
+# the constraint-table plugins on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mixed_wave():
+    """Wave 0 of the phase-10 mixed cluster (4,096 pods × 2,048 nodes):
+    its objects, decided into tables per device by ``mixed_tables``."""
+    nodes, assigned, pods, pvcs, pvs = mk_mixed_cluster()
+    return nodes, assigned, pods[:4096], pvcs, pvs
+
+
+def mixed_tables(wave, device):
+    nodes, assigned, pods, pvcs, pvs = wave
+    nt, _ = tables.build_node_table(nodes, pods_by_node(assigned),
+                                    device=device)
+    pt, _ = tables.build_pod_table(pods, device=device)
+    extra = build_constraint_tables(pods, nodes, assigned,
+                                    pod_capacity=pt.capacity,
+                                    node_capacity=nt.capacity, pvcs=pvcs,
+                                    pvs=pvs, scan_planes=False, device=device)
+    return nt, pt, extra
+
+
+def _carried(extra):
+    """The carried planes changed as commits change them."""
+    gen = torch.Generator().manual_seed(3)
+    vol_any = extra.vol_any.cpu() | (torch.rand(extra.vol_any.shape,
+                                                generator=gen) < 0.1)
+    return dataclasses.replace(
+        extra, vol_any=vol_any.to(extra.vol_any.device),
+        vol_rw=(vol_any & (torch.rand(vol_any.shape, generator=gen) < 0.5)
+                ).to(extra.vol_any.device),
+        node_vols_fam=extra.node_vols_fam + 14)
+
+
+CONSTRAINT_PLUGINS = ["VolumeRestrictions", "EBSLimits", "GCEPDLimits",
+                      "NodeVolumeLimits", "AzureDiskLimits", "VolumeBinding",
+                      "VolumeZone", "PodTopologySpread", "InterPodAffinity"]
+
+
+@pytest.mark.parametrize("name", CONSTRAINT_PLUGINS)
+def test_constraint_plugin_planes_on_card_match_cpu(name, dev, mixed_wave):
+    """Each plugin's filter (and, for the cross-pod plugins, score and
+    normalize) on the card equals its CPU run, with the tables as built
+    and with the carried volume planes changed."""
+    chains = build_plugins(default_full_roster_config())
+    pl = next(p for p in chains.filter if p.name() == name)
+    ctx = fused.BatchContext()
+    card, cpu = mixed_tables(mixed_wave, dev), mixed_tables(mixed_wave, "cpu")
+    for change in (False, True):
+        (cnt, cpt, cex), (nt, pt, ex) = card, cpu
+        if change:
+            cex, ex = _carried(cex), _carried(ex)
+        got = pl.batch_filter(ctx, cpt, cnt, cex)
+        want = pl.batch_filter(ctx, pt, nt, ex)
+        assert torch.equal(got.cpu(), want), (name, change)
+        if name in ("PodTopologySpread", "InterPodAffinity"):
+            score = pl.batch_score(ctx, cpt, cnt, {}, cex)
+            want_score = pl.batch_score(ctx, pt, nt, {}, ex)
+            assert torch.equal(score.cpu(), want_score)
+            assert torch.equal(pl.batch_normalize(ctx, score, got).cpu(),
+                               pl.batch_normalize(ctx, want_score, want))
+
+
+def test_spread_filter_exact_with_tf32_allowed(dev, mixed_wave):
+    """PodTopologySpread's domain sums stay exact when the process allows
+    TF32 for float32 products: a zone's sum above 4,096 gives the CPU
+    twin's verdicts."""
+    (cnt, cpt, cex), (nt, pt, ex) = (mixed_tables(mixed_wave, dev),
+                                     mixed_tables(mixed_wave, "cpu"))
+    assert int(ex.combo_dsum.max()) > 4096 and ex.in_use.ts_hard
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("medium")
+    try:
+        pl = [p for p in build_plugins(default_full_roster_config()).filter
+              if p.name() == "PodTopologySpread"][0]
+        ctx = fused.BatchContext()
+        got = pl.batch_filter(ctx, cpt, cnt, cex)
+        want = pl.batch_filter(ctx, pt, nt, ex)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before[0]
+        torch.set_float32_matmul_precision(before[1])
+    assert torch.equal(got.cpu(), want)
+    assert not want[:4096].all() and want[:4096].any()
+
+
+def test_interpod_products_on_card(dev, mixed_wave):
+    """InterPodAffinity's reverse anti-affinity product and symmetric
+    score run on CUDA tensors (CUDA has no integer matmul) and give the
+    CPU twin's integers."""
+    (cnt, cpt, cex), (nt, pt, ex) = (mixed_tables(mixed_wave, dev),
+                                     mixed_tables(mixed_wave, "cpu"))
+    assert cex.in_use.ex and cex.in_use.rev
+    assert cex.pod_matches_ex.is_cuda and cex.rev_weight.is_cuda
+    pl = [p for p in build_plugins(default_full_roster_config()).filter
+          if p.name() == "InterPodAffinity"][0]
+    ctx = fused.BatchContext()
+    score = pl.batch_score(ctx, cpt, cnt, {}, cex)
+    assert score.is_cuda and score.dtype == torch.int32
+    assert torch.equal(score.cpu(), pl.batch_score(ctx, pt, nt, {}, ex))
+    assert (score != 0).any()
+
+
+def test_mixed_cluster_waves_on_card_match_cpu(dev):
+    """A smaller mixed cluster in full-roster repair waves: card against
+    the CPU twins, carried volume planes included."""
+    nodes, assigned, pods, pvcs, pvs = mk_mixed_cluster(512, 2048)
+    kw = dict(wave=1024, assigned=assigned, pvcs=pvcs, pvs=pvs)
+    run = schedule_repair_waves(nodes, pods, **kw)
+    cpu = schedule_repair_waves(nodes, pods, device="cpu", **kw)
+    assert np.array_equal(run.choices, cpu.choices) and run.rounds == cpu.rounds
+    for name, m in run.unschedulable.items():
+        assert np.array_equal(m, cpu.unschedulable[name]), name
+    for got, want in zip(run.volumes, cpu.volumes):
+        for name in want:
+            assert np.array_equal(got[name], want[name]), name
+    for name, col in tables.table_columns(run.node_table).items():
+        assert torch.equal(col.cpu(), getattr(cpu.node_table, name)), name

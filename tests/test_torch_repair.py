@@ -1,17 +1,19 @@
 """The port's repair waves against the JAX package's, bit for bit.
 
 ``RepairingEvaluator`` with the node-local roster (the full default roster
-without the plugins that read constraint tables) must give the JAX
+without the plugins that read constraint tables) and with the full
+default roster (with each wave's constraint tables) must give the JAX
 evaluator's choices, round count, every final NodeTable column and the
 unschedulable-plugin masks, with diagnostics and the static split on and
 off, on contended clusters that carry every feature of the roster.
 ``accept_placements`` is held to the JAX function on its edge cases, the
 safety guards of ``tests/test_repair.py`` are run against the port, and a
 reduced config 5 (512 nodes, 4,096 pods, waves of 1,024) goes through
-``fullchain.schedule_repair_waves`` and the JAX waves alike.  On the JAX
-side, the same reduced config 5 places exactly the same under the full
-roster with constraint tables: the equivalence the node-local roster
-rests on.  Every comparison is exact (integers and bools).
+``fullchain.schedule_repair_waves`` and the JAX waves alike, with either
+roster; so does a three-wave cluster with cross-pod and volume
+constraints, whose later waves see the earlier placements as assigned
+pods.  On the JAX side, the reduced config 5 places exactly the same
+under both rosters.  Every comparison is exact (integers and bools).
 
 Each JAX chain is compiled for one table shape and reused across tests.
 """
@@ -48,6 +50,8 @@ from minisched_tpu_torch.plugins.nodeunschedulable import NodeUnschedulable
 from minisched_tpu_torch.plugins.registry import build_plugins
 from minisched_tpu_torch.service import config as tconfig
 
+from tests.test_torch_constraints import constraint_cluster
+from tests.test_torch_crosspod import both_waves, by_node
 from tests.test_torch_plugins import feature_cluster, port_tables
 from tests.test_torch_tables import assert_tables_equal
 
@@ -91,8 +95,10 @@ def jax_evaluator(cfg_name: str = "node_local", with_diagnostics: bool = True,
     return _JAX_EVALUATORS[key]
 
 
-def port_evaluator(with_diagnostics: bool = True, split_static: bool = True):
-    cfg = tconfig.node_local_roster_config()
+def port_evaluator(with_diagnostics: bool = True, split_static: bool = True,
+                   cfg_name: str = "node_local"):
+    cfg = (tconfig.node_local_roster_config() if cfg_name == "node_local"
+           else tconfig.default_full_roster_config())
     chains = build_plugins(cfg)
     return trepair.RepairingEvaluator(
         chains.filter, chains.pre_score, chains.score,
@@ -138,6 +144,84 @@ def test_repairing_evaluator_matches_jax(seed, with_diagnostics, split_static,
     assert (choice >= 0).any() and (choice < 0).any()
     if seed == 5:
         assert got[2] > 1, "the cluster should need more than one round"
+
+
+@pytest.fixture(scope="module")
+def constrained():
+    """Two seeded constraint clusters (40 nodes, 60 pods of 2 CPU on
+    8-CPU nodes, so some waves take several rounds) as (JAX, port)
+    tables with their constraint tables."""
+    return {seed: both_waves(*constraint_cluster(jobj, seed,
+                                                 requests={"cpu": "2"}))
+            for seed in (1, 7)}
+
+
+@pytest.mark.parametrize("seed", [1, 7])
+@pytest.mark.parametrize("with_diagnostics", [True, False])
+@pytest.mark.parametrize("split_static", [True, False])
+def test_full_roster_repairing_evaluator_matches_jax(
+        seed, with_diagnostics, split_static, constrained):
+    (jn, jp, je), (tn, tp, te) = constrained[seed]
+    want = jax_evaluator("full", with_diagnostics, split_static)(jp, jn, je)
+    got = port_evaluator(with_diagnostics, split_static, "full")(tp, tn, te)
+    assert len(got) == len(want) == (4 if with_diagnostics else 3)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert got[2] == int(want[2]) and got[2] > 1
+    assert_tables_equal(got[0], want[0])
+    if with_diagnostics:
+        np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+        # the constraint plugins are among the first-failing filters
+        names = [pl.name() for pl in port_evaluator(cfg_name="full").filter_plugins]
+        failing = {n for n, m in zip(names, got[3]) if m.any()}
+        assert failing & {"InterPodAffinity", "PodTopologySpread",
+                          "VolumeBinding", "VolumeRestrictions"}
+    choice = got[1].numpy()[:60]
+    assert (choice >= 0).any() and (choice < 0).any()
+
+
+def test_split_static_rounds_are_bit_identical_with_constraints():
+    """``tests/test_repair.py``'s split test on the port: affinity and
+    ScheduleAnyway spread constraint tables, resource contention over
+    several rounds; the split and unsplit full-roster evaluations agree
+    exactly, and both equal the JAX evaluator."""
+    rng = random.Random(17)
+    nodes = sorted((jobj.make_node(
+        f"n{i:03d}", labels={"zone": f"z{rng.randrange(3)}"},
+        capacity={"cpu": "2", "memory": "4Gi", "pods": 110},
+        unschedulable=rng.random() < 0.2) for i in range(24)),
+        key=lambda n: n.metadata.name)
+    assigned = []
+    for i in range(10):
+        p = jobj.make_pod(f"a{i}", labels={"app": f"app{rng.randrange(3)}"},
+                          requests={"cpu": "250m"})
+        p.metadata.uid = f"a{i}"
+        p.spec.node_name = rng.choice(nodes).metadata.name
+        assigned.append(p)
+    pods = []
+    for i in range(40):
+        app = f"app{rng.randrange(3)}"
+        pod = jobj.make_pod(f"p{i:03d}", labels={"app": app},
+                            requests={"cpu": "500m", "memory": "256Mi"})
+        selector = jobj.LabelSelector(match_labels={"app": app})
+        if rng.random() < 0.5:
+            pod.spec.affinity = jobj.Affinity(pod_affinity=jobj.PodAffinity(
+                required=[jobj.PodAffinityTerm(label_selector=selector,
+                                               topology_key="zone")]))
+        pod.spec.topology_spread_constraints = [jobj.TopologySpreadConstraint(
+            max_skew=2, topology_key="zone", when_unsatisfiable="ScheduleAnyway",
+            label_selector=selector)]
+        pods.append(pod)
+    (jn, jp, je), (tn, tp, te) = both_waves(nodes, assigned, pods)
+    outs = {split: port_evaluator(True, split, "full")(tp, tn, te)
+            for split in (False, True)}
+    (n0, c0, r0, u0), (n1, c1, r1, u1) = outs[False], outs[True]
+    assert torch.equal(c0, c1) and r0 == r1 and torch.equal(u0, u1)
+    for name, col in ttables.table_columns(n0).items():
+        assert torch.equal(col, getattr(n1, name)), name
+    assert (c0 >= 0).any() and r0 > 1
+    want = jax_evaluator("full", True, True)(jp, jn, je)
+    np.testing.assert_array_equal(c1.numpy(), np.asarray(want[1]))
+    assert r1 == int(want[2])
 
 
 # ---------------------------------------------------------------------------
@@ -361,16 +445,6 @@ def test_static_classification_guard_fires_on_misclassified_plugin():
                                split_static=False)
 
 
-def test_plugins_needing_constraint_tables_are_refused():
-    class NeedsExtra(NodeUnschedulable):
-        needs_extra = True
-
-    with pytest.raises(TypeError, match="ROADMAP.md §1 item 6"):
-        trepair.RepairingEvaluator([NeedsExtra()], [], [])
-    with pytest.raises(TypeError, match="ROADMAP.md §1 item 6"):
-        tfused.FusedEvaluator([NeedsExtra()], [], [])
-
-
 # ---------------------------------------------------------------------------
 # reduced config 5, across waves
 # ---------------------------------------------------------------------------
@@ -393,20 +467,23 @@ def jax_c5_cluster(n_nodes: int, n_pods: int):
     return nodes, pods
 
 
-def jax_repair_waves(cfg_name: str, nodes, pods, wave: int):
+def jax_repair_waves(cfg_name: str, nodes, pods, wave: int, assigned=(),
+                     pvcs=(), pvs=()):
     """The JAX waves: (choices, rounds per wave, final node table).  The
-    full roster gets each wave's constraint tables, with the pods placed
-    so far as assigned pods."""
+    node table holds the ``assigned`` pods; the full roster gets each
+    wave's constraint tables, with the pods placed so far joining the
+    assigned pods."""
     ev = jax_evaluator(cfg_name)
-    jn, names = jtables.build_node_table(nodes)
-    choices, rounds, assigned = [], [], []
+    jn, names = jtables.build_node_table(nodes, by_node(assigned))
+    choices, rounds, assigned = [], [], list(assigned)
     for s in range(0, len(pods), wave):
         batch = pods[s:s + wave]
         jp, _ = jtables.build_pod_table(batch, capacity=wave)
         if cfg_name == "full":
             extra = build_constraint_tables(
                 batch, nodes, assigned, pod_capacity=wave,
-                node_capacity=jn.capacity, scan_planes=False)
+                node_capacity=jn.capacity, pvcs=pvcs, pvs=pvs,
+                scan_planes=False)
             jn, choice, r, _ = ev(jp, jn, extra)
         else:
             jn, choice, r, _ = ev(jp, jn)
@@ -427,6 +504,12 @@ def c5_jax():
     return nodes, pods, jax_repair_waves("node_local", nodes, pods, C5_WAVE)
 
 
+@pytest.fixture(scope="module")
+def c5_jax_full(c5_jax):
+    nodes, pods, _ = c5_jax
+    return jax_repair_waves("full", nodes, pods, C5_WAVE)
+
+
 def test_reduced_config5_matches_jax_across_waves(c5_jax):
     jnodes, jpods, (want, want_rounds, want_table) = c5_jax
     nodes, pods = fullchain.mk_c5_cluster(C5_NODES, C5_PODS)
@@ -437,8 +520,9 @@ def test_reduced_config5_matches_jax_across_waves(c5_jax):
         ttables.build_pod_table(pods[-C5_WAVE:], capacity=C5_WAVE,
                                 device="cpu")[0],
         jtables.build_pod_table(jpods[-C5_WAVE:], capacity=C5_WAVE)[0])
-    run = fullchain.schedule_repair_waves(nodes, pods, wave=C5_WAVE,
-                                          device="cpu")
+    run = fullchain.schedule_repair_waves(
+        nodes, pods, wave=C5_WAVE, device="cpu",
+        cfg=tconfig.node_local_roster_config())
     np.testing.assert_array_equal(run.choices, want)
     assert run.rounds == want_rounds and max(run.rounds) > 1
     assert_tables_equal(run.node_table, want_table)
@@ -453,11 +537,12 @@ def test_reduced_config5_matches_jax_across_waves(c5_jax):
     assert not any(m[:-n_special].any() for m in run.unschedulable.values())
 
 
-def test_node_local_roster_places_config5_as_the_full_roster(c5_jax):
+def test_node_local_roster_places_config5_as_the_full_roster(c5_jax,
+                                                             c5_jax_full):
     """JAX side: the full roster with constraint tables places the reduced
     config 5 exactly as the node-local roster does."""
     nodes, pods, (want, want_rounds, want_table) = c5_jax
-    got, rounds, table = jax_repair_waves("full", nodes, pods, C5_WAVE)
+    got, rounds, table = c5_jax_full
     np.testing.assert_array_equal(got, want)
     assert rounds == want_rounds
     for f in dataclasses.fields(table):
@@ -466,13 +551,81 @@ def test_node_local_roster_places_config5_as_the_full_roster(c5_jax):
                                       err_msg=f.name)
 
 
+def test_full_roster_config5_matches_jax_across_waves(c5_jax_full):
+    """``schedule_repair_waves`` with the full roster (its default), each
+    wave's constraint tables built from the placements so far."""
+    want, want_rounds, want_table = c5_jax_full
+    nodes, pods = fullchain.mk_c5_cluster(C5_NODES, C5_PODS)
+    run = fullchain.schedule_repair_waves(nodes, pods, wave=C5_WAVE,
+                                          device="cpu")
+    np.testing.assert_array_equal(run.choices, want)
+    assert run.rounds == want_rounds
+    assert_tables_equal(run.node_table, want_table)
+    assert len(run.volumes) == len(run.rounds) and run.constraint_build_s > 0
+    assert len(run.unschedulable) == 15
+
+
+def test_later_waves_see_earlier_placements_as_assigned():
+    """Three repair waves of a cluster with cross-pod and volume
+    constraints (and assigned pods of its own): each wave's constraint
+    tables count the pods the earlier waves placed, in both packages."""
+    jnodes, jassigned, jpods, jpvcs, jpvs = constraint_cluster(
+        jobj, 3, n_nodes=48, n_assigned=40, n_pods=360,
+        requests={"cpu": "1"})
+    jnodes = sorted(jnodes, key=lambda n: n.metadata.name)
+    want, want_rounds, want_table = jax_repair_waves(
+        "full", jnodes, jpods, 128, jassigned, jpvcs, jpvs)
+    nodes, assigned, pods, pvcs, pvs = constraint_cluster(
+        tobj, 3, n_nodes=48, n_assigned=40, n_pods=360, requests={"cpu": "1"})
+    nodes = sorted(nodes, key=lambda n: n.metadata.name)
+    run = fullchain.schedule_repair_waves(nodes, pods, wave=128, device="cpu",
+                                          assigned=assigned, pvcs=pvcs,
+                                          pvs=pvs)
+    np.testing.assert_array_equal(run.choices, want)
+    assert run.rounds == want_rounds
+    assert_tables_equal(run.node_table, want_table)
+    # the earlier waves' placements matter: scheduled without them as
+    # assigned pods, the later waves place differently
+    alone = [jax_repair_waves("full", jnodes, jpods[s:s + 128], 128,
+                              jassigned, jpvcs, jpvs)[0] for s in (128, 256)]
+    assert not all(np.array_equal(a, want[s:s + 128])
+                   for a, s in zip(alone, (128, 256)))
+
+
 def test_static_probe_perturbs_every_committed_plane():
     """The guard's probe changes each NodeTable plane that commits update,
-    and nothing else (a static plugin must answer the same)."""
+    and each carried plane of the constraint tables, and nothing else (a
+    static plugin must answer the same)."""
+    from minisched_tpu_torch.models.constraints import _COLUMNS
     from minisched_tpu_torch.ops import staticcheck
 
-    _, nodes = staticcheck._probe_tables()
-    changed = staticcheck._perturb(nodes)
+    _, nodes, extra = staticcheck._probe_tables()
+    changed, extra_p = staticcheck._perturb(nodes, extra)
     for name, col in ttables.table_columns(nodes).items():
         same = torch.equal(col, getattr(changed, name))
         assert same == (name not in staticcheck._NODE_COMMITTED), name
+    for name in _COLUMNS:
+        same = torch.equal(getattr(extra, name), getattr(extra_p, name))
+        assert same == (name not in staticcheck._EXTRA_COMMITTED), name
+    assert extra.pod_n_vols[0] == 1 and extra.claim_family[0] == 1  # EBS
+
+
+def test_full_roster_static_classification_matches_jax():
+    """The static guard classifies every full-roster plugin as JAX does:
+    the same plugins are round-invariant, and the guard accepts them."""
+    chains = build_plugins(tconfig.default_full_roster_config())
+    jchains = jbuild_plugins(jconfig.default_full_roster_config())
+    for point in ("filter", "score"):
+        got = [(p.name(), bool(getattr(p, "reads_committed_state", False)))
+               for p in getattr(chains, point)]
+        want = [(p.name(), bool(getattr(p, "reads_committed_state", False)))
+                for p in getattr(jchains, point)]
+        assert got == want, point
+    dynamic = {n for n, d in got if d}
+    assert dynamic == {"NodeResourcesFit", "NodeResourcesBalancedAllocation"}
+    from minisched_tpu_torch.ops.staticcheck import verify_static_classification
+
+    verify_static_classification(
+        [p for p in chains.filter if not getattr(p, "reads_committed_state", False)],
+        [p for p in chains.score if not getattr(p, "reads_committed_state", False)],
+        tfused.BatchContext())
