@@ -47,7 +47,11 @@ Phases, each of which raises on failure (nothing catches it):
    final node table equal to phase 6's node-local run.  Printed beside
    phase 6: the schedule wall, the host constraint build, device ms per
    round (one profiled pass of each roster, ``profile_repair``) and
-   ``select_hosts`` launches.
+   ``select_hosts`` launches.  Then config 5 once more with kubelet's
+   labels, every node its own ``kubernetes.io/hostname`` (10,000 node
+   label sets instead of 16): the audit, and choices, rounds and final
+   resource columns equal to phase 6's; printed: the schedule wall and
+   the peak device memory beside phase 8's.
 9. Config 4 at its own size (``fullchain.mk_c4_cluster``: 2,048 nodes,
    512 assigned pods, 2,048 pods with required zone pod affinity and a
    ScheduleAnyway zone spread) through ``FusedEvaluator([NodeUnschedulable,
@@ -55,9 +59,10 @@ Phases, each of which raises on failure (nothing catches it):
    PodTopologySpread])`` at the default weights, as ``bench.py``: card and
    CPU twins give equal choices; printed: pods placed, the wave's ms (best
    of 3) and the host table builds.
-10. ``fullchain.mk_mixed_cluster`` (2,048 nodes, 4,800 assigned pods,
-   8,192 pods with every feature of the full roster, a zone domain sum
-   above 4,096) in full-roster repair waves of 4,096, on the card and on
+10. ``fullchain.mk_mixed_cluster`` (2,048 nodes, each its own hostname,
+   4,800 assigned pods, 8,192 pods with every feature of the full roster,
+   a zone domain sum above 4,096) in full-roster repair waves of 4,096,
+   on the card and on
    the CPU twins: equal choices, rounds, unschedulable masks, final node
    tables and carried volume planes (``vol_any``, ``vol_rw``,
    ``node_vols_fam``) of every wave.
@@ -67,8 +72,9 @@ route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
 of wave 1 (the rows committed in round 1 fully masked).
 
 The launch counters are set to 0 just before each path of the main path
-(the headline's two routes, the repair waves with each roster, config 4,
-the mixed cluster's card run) and read just after it.  The last three lines of output are the card's
+(the headline's two routes, the repair waves with each roster and with
+hostname labels, config 4, the mixed cluster's card run) and read just
+after it.  The last three lines of output are the card's
 name and power limit, one JSON object describing every kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -252,13 +258,16 @@ def main() -> int:
     from minisched_tpu_torch.api.objects import Toleration, make_pod
     from minisched_tpu_torch.engine.oracle import headline_oracle
     from minisched_tpu_torch.fullchain import (
+        HOST_KEY,
         mk_c4_cluster,
         mk_c5_cluster,
         mk_mixed_cluster,
         schedule_repair_waves,
     )
     from minisched_tpu_torch.headline import (
+        make_step,
         mk_cluster,
+        pods_by_node,
         repair_evaluator,
         schedule_waves,
     )
@@ -271,7 +280,6 @@ def main() -> int:
         select_tensors,
         toleration_cluster,
     )
-    from minisched_tpu_torch.headline import ConstraintFeed, pods_by_node
     from minisched_tpu_torch.models import tables
     from minisched_tpu_torch.models.constraints import build_constraint_tables
     from minisched_tpu_torch.ops import kernels
@@ -603,9 +611,11 @@ def main() -> int:
         f"{card_s:.2f}s on the card, {cpu_s:.2f}s on the CPU")
 
     # -- phase 8: config 5 at full size, the full default roster -----------
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     c5f = schedule_repair_waves(c5_nodes, c5_pods, wave=C5_WAVE)
     c5f_counts = dict(kernels.launch_counts)
+    c5f_peak = torch.cuda.max_memory_allocated()
     if max(c5f.rounds) >= MAX_ROUNDS:
         raise AssertionError(f"full roster: a wave hit the round cap: "
                              f"{c5f.rounds}")
@@ -626,25 +636,46 @@ def main() -> int:
     log(f"[config5-full] {len(c5f.unschedulable)} filters; rounds {c5f.rounds}; "
         f"{int((c5f.choices >= 0).sum())} placed; audit passed; choices, "
         f"rounds and final table equal phase 6's; unplaced pods fail "
-        f"{failing}")
-    c5_cap = tables.pad_to(len(c5_nodes))
-    c5_host, c5_names = tables.pack_node_table(c5_nodes, capacity=c5_cap)
-    c5_waves = [c5_pods[s:s + C5_WAVE] for s in range(0, len(c5_pods), C5_WAVE)]
-    c5_tables = [tables.build_pod_table(w, capacity=C5_WAVE, device=dev)[0]
-                 for w in c5_waves]
-    profiled = {}
-    for roster, cfg in (("node-local", node_local_roster_config()),
-                        ("full", default_full_roster_config())):
-        ev = repair_evaluator(cfg)
+        f"{failing}; peak device memory {c5f_peak / 2**30:.2f} GiB")
 
-        def make_feed(ev=ev):
-            if not ev.needs_extra:
-                return None
-            return ConstraintFeed(c5_nodes, c5_names, c5_waves, (), (), (),
-                                  C5_WAVE, c5_cap, dev)
-        profiled[roster] = profile_repair(ev, c5_host, c5_tables, dev, None,
-                                          make_feed, reps=0)
-    del c5_tables
+    # the same with kubelet's labels: every node its own hostname, so the
+    # node label sets (Dp) number 10,000 instead of 16
+    h_nodes = mk_c5_cluster(N_NODES, N_PODS)[0]
+    for node in h_nodes:
+        node.metadata.labels[HOST_KEY] = node.metadata.name
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    c5h = schedule_repair_waves(h_nodes, c5_pods, wave=C5_WAVE)
+    c5h_counts = dict(kernels.launch_counts)
+    c5h_peak = torch.cuda.max_memory_allocated()
+    if c5h_counts["select_hosts"] < sum(c5h.rounds):
+        raise AssertionError(f"hostnames: select_hosts launched "
+                             f"{c5h_counts} for {sum(c5h.rounds)} rounds")
+    audit_config5(c5h, h_nodes, c5_pods, tables)
+    if not np.array_equal(c5h.choices, c5.choices) or c5h.rounds != c5.rounds:
+        bad = np.flatnonzero(c5h.choices != c5.choices)
+        raise AssertionError(f"hostnames vs node-local: {bad.size} choices "
+                             f"differ; rounds {c5h.rounds} vs {c5.rounds}")
+    for name, col in tables.table_columns(c5h.node_table).items():
+        if name.startswith("prof_") or name == "profile_id":
+            continue  # the label sets differ by construction
+        if not torch.equal(col, node_local_cols[name]):
+            raise AssertionError(f"hostnames vs node-local: final tables "
+                                 f"differ in {name}")
+    log(f"[config5-hostnames] {c5h.node_table.prof_label_key.shape[0]} label "
+        f"sets; rounds {c5h.rounds}; audit passed; choices, rounds and final "
+        f"resource columns equal phase 6's; schedule {c5h.schedule_s:.4f}s "
+        f"(constraint build {c5h.constraint_build_s:.4f}s; phase 8 "
+        f"{c5f.schedule_s:.4f}s); peak device memory "
+        f"{c5h_peak / 2**30:.2f} GiB; select_hosts launches "
+        f"{c5h_counts['select_hosts']}")
+    del h_nodes
+    c5_waves = [c5_pods[s:s + C5_WAVE] for s in range(0, len(c5_pods), C5_WAVE)]
+    profiled = {
+        roster: profile_repair(make_step("repair", cfg), c5_nodes, c5_waves,
+                               dev, reps=0)
+        for roster, cfg in (("node-local", node_local_roster_config()),
+                            ("full", default_full_roster_config()))}
     for roster, run, counts in (("node-local", c5, c5_counts),
                                 ("full", c5f, c5f_counts)):
         pr = profiled[roster]
@@ -656,6 +687,7 @@ def main() -> int:
             f"{pr['device_idle_share']:.3f}), select_hosts launches "
             f"{counts['select_hosts']}")
     launches["select_hosts"]["full-roster"] = c5f_counts["select_hosts"]
+    launches["select_hosts"]["full-roster-hostnames"] = c5h_counts["select_hosts"]
 
     # -- phase 9: config 4 at its own size ---------------------------------
     c4_nodes, c4_assigned, c4_pods = mk_c4_cluster()
@@ -716,12 +748,14 @@ def main() -> int:
         raise AssertionError(f"mixed cluster misses a feature: top domain "
                              f"sum {top}, {probe.in_use}")
     del probe
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.monotonic()
     m_card = schedule_repair_waves(m_nodes, m_pods, wave=MIXED_WAVE,
                                    assigned=m_assigned, pvcs=m_pvcs, pvs=m_pvs)
     m_card_s = time.monotonic() - t0
     m_counts = dict(kernels.launch_counts)
+    m_peak = torch.cuda.max_memory_allocated()
     t0 = time.monotonic()
     m_cpu = schedule_repair_waves(m_nodes, m_pods, wave=MIXED_WAVE,
                                   device="cpu", assigned=m_assigned,
@@ -746,7 +780,9 @@ def main() -> int:
         f"(choices, rounds, unschedulable masks, final tables, carried "
         f"vol_any/vol_rw/node_vols_fam); unplaced pods fail {failing}; "
         f"{m_card_s:.2f}s on the card (constraint build "
-        f"{m_card.constraint_build_s:.2f}s), {m_cpu_s:.2f}s on the CPU")
+        f"{m_card.constraint_build_s:.2f}s, peak device memory "
+        f"{m_peak / 2**30:.2f} GiB, {m_card.node_table.prof_label_key.shape[0]} "
+        f"label sets), {m_cpu_s:.2f}s on the CPU")
     launches["select_hosts"]["mixed"] = m_counts["select_hosts"]
 
     report = []

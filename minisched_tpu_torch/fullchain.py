@@ -122,11 +122,10 @@ def mk_mixed_cluster(n_nodes: int = 2048, n_pods: int = 8192,
     (nodes, assigned pods, pending pods, pvcs, pvs), from
     ``random.Random(seed)``.
 
-    Nodes sit in 8 zones (``topology.kubernetes.io/zone``), half carry a
-    ``disk`` label, a tenth are cordoned, and one in eight carries a
-    unique ``kubernetes.io/hostname`` (the others lack the key; node
-    affinity is evaluated per distinct label set, so this also keeps the
-    plain twins' work in bounds).  Zone z0 holds more than 4,096 assigned ``app=web`` pods,
+    Nodes sit in 8 zones (``topology.kubernetes.io/zone``), each carries
+    its own ``kubernetes.io/hostname`` (as the kubelet labels it), half
+    carry a ``disk`` label and a tenth are cordoned.  Zone z0 holds more
+    than 4,096 assigned ``app=web`` pods,
     so its domain sum of that app exceeds what TF32 keeps exact.  Other
     assigned pods carry required anti-affinity and preferred (anti-)
     affinity terms and mount volumes.  Pending pods mix required and
@@ -138,9 +137,7 @@ def mk_mixed_cluster(n_nodes: int = 2048, n_pods: int = 8192,
     rng = random.Random(seed)
     nodes = []
     for i in range(n_nodes):
-        labels = {ZONE_KEY: f"z{i % 8}"}
-        if i % 8 == 1:
-            labels[HOST_KEY] = f"node{i:05d}"
+        labels = {ZONE_KEY: f"z{i % 8}", HOST_KEY: f"node{i:05d}"}
         if rng.random() < 0.5:
             labels["disk"] = rng.choice(["ssd", "hdd"])
         nodes.append(make_node(

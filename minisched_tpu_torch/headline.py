@@ -114,29 +114,29 @@ def repair_evaluator(cfg: Optional[SchedulerConfig] = None) -> RepairingEvaluato
                               with_diagnostics=True)
 
 
-def repair_step(evaluator: RepairingEvaluator) -> Callable:
+class RepairStep:
     """The repair route's step around ``evaluator`` (one built with
     ``with_diagnostics``): ``step(node_table, pod_table, extra=None)``,
     ``extra`` being the wave's constraint tables when the roster reads
-    them."""
-    names = [pl.name() for pl in evaluator.filter_plugins]
+    them (``needs_extra``)."""
 
-    def step(node_table, pod_table, extra=None):
-        out = evaluator(pod_table, node_table, extra,
-                        carry_volumes=extra is not None)
-        return WaveOut(out[0], out[1], rounds=out[2],
-                       unschedulable=dict(zip(names, out[3])),
-                       extra=out[4] if extra is not None else None)
-    return step
+    def __init__(self, evaluator: RepairingEvaluator):
+        self.evaluator = evaluator
+        self.needs_extra = evaluator.needs_extra
+        self._names = [pl.name() for pl in evaluator.filter_plugins]
+
+    def __call__(self, node_table: NodeTable, pod_table: Any,
+                 extra: Optional[ConstraintTables] = None) -> WaveOut:
+        out = self.evaluator(pod_table, node_table, extra)
+        return WaveOut(out.node_table, out.choice, rounds=out.rounds,
+                       unschedulable=dict(zip(self._names, out.unschedulable)),
+                       extra=out.extra)
 
 
 def make_step(route: str, cfg: Optional[SchedulerConfig] = None) -> Callable:
     """``step(node_table, pod_table) -> WaveOut``; a step is pure.  ``cfg``
-    is the repair route's roster (``repair_evaluator``); the repair step
-    also takes the wave's constraint tables (``repair_step``)."""
-    if cfg is not None and route != "repair":
-        raise ValueError(f"the {route!r} route runs a fixed chain; cfg is "
-                         "for the repair route")
+    is the repair route's roster (``repair_evaluator``); the fixed routes
+    ignore it."""
     if route == "fused":
         def step(node_table, pod_table):
             choice, best = nodenumber_select_hosts(pod_table, node_table)
@@ -153,7 +153,7 @@ def make_step(route: str, cfg: Optional[SchedulerConfig] = None) -> Callable:
                                       pre_scores, scores, ctx))
         return step
     if route == "repair":
-        return repair_step(repair_evaluator(cfg))
+        return RepairStep(repair_evaluator(cfg))
     raise ValueError(f"unknown route {route!r}; expected one of "
                      f"{ROUTES + ('repair',)}")
 
@@ -238,6 +238,12 @@ class ConstraintFeed:
         self.device = device
         self.build_s = 0.0  # host time in ``tables`` and ``commit``
 
+    @classmethod
+    def for_step(cls, step: Callable, *args: Any) -> Optional["ConstraintFeed"]:
+        """The feed of ``step``'s waves (the constructor's arguments), or
+        None when the step reads no constraint tables."""
+        return cls(*args) if getattr(step, "needs_extra", False) else None
+
     def tables(self, i: int) -> ConstraintTables:
         t0 = time.monotonic()
         extra = build_constraint_tables(
@@ -301,13 +307,7 @@ def schedule_waves(nodes: Sequence[Any], pods: Sequence[Any],
     ``max(wave, 128)``, as in the JAX flow.  ``cfg`` is the repair
     route's roster; ``pvcs`` and ``pvs`` feed its constraint tables."""
     device = resolve_device(device)
-    needs_tables = False
-    if route == "repair":
-        evaluator = repair_evaluator(cfg)
-        step = repair_step(evaluator)
-        needs_tables = evaluator.needs_extra
-    else:
-        step = make_step(route, cfg)
+    step = make_step(route, cfg)
 
     t0 = time.monotonic()
     if device.type == "cuda":
@@ -331,10 +331,9 @@ def schedule_waves(nodes: Sequence[Any], pods: Sequence[Any],
     h2d_s = time.monotonic() - t0
 
     def feed() -> Optional[ConstraintFeed]:
-        if not needs_tables:
-            return None
-        return ConstraintFeed(nodes, node_names, wave_pods, assigned, pvcs,
-                              pvs, pod_cap, node_cap, device)
+        return ConstraintFeed.for_step(step, nodes, node_names, wave_pods,
+                                       assigned, pvcs, pvs, pod_cap, node_cap,
+                                       device)
 
     t0 = time.monotonic()
     if pod_tables and device.type == "cuda":  # the step is pure: dropped

@@ -173,9 +173,8 @@ def repair_planes(pods: Any, nodes: Any, evaluator: Any,
     chains = (evaluator.filter_plugins, evaluator.pre_score_plugins,
               evaluator.score_plugins)
     if rounds_before:
-        nodes, final, _ = repair_wave_step(nodes, pods, *chains,
-                                           evaluator.ctx,
-                                           max_rounds=rounds_before)
+        nodes, final = repair_wave_step(nodes, pods, *chains, evaluator.ctx,
+                                        max_rounds=rounds_before)[:2]
         pods = replace(pods, valid=pods.valid & (final < 0))
     planes = wave_planes(pods, nodes, *chains, evaluator.ctx)
     return planes.totals, planes.mask

@@ -143,9 +143,27 @@ class NodeTable:
         return int(self.valid.shape[0])
 
 
+@dataclass(frozen=True)
+class PodUse:
+    """Which toleration and node-affinity slots any row of a pod table
+    uses, read from the host columns when the table is packed
+    (``pod_use``).  TaintToleration and NodeAffinity, whose work scales
+    with the node label and taint sets, compute only these; a skipped slot
+    equals its computed result (no toleration, all-pass masks, zero
+    scores).  The JAX NodeAffinity skips the same parts with a
+    ``lax.cond`` on the device columns.  The default assumes every slot is
+    in use."""
+
+    tol_slots: int = MAX_TOLERATIONS  # the most tolerations of a row
+    sel_slots: int = MAX_LABELS  # the most nodeSelector pairs of a row
+    aff_required: bool = True  # some row has required node affinity
+    pref_terms: bool = True  # some row has a preferred term
+
+
 @dataclass
 class PodTable:
-    """All scheduler-relevant pending-pod state, shape (P,) or (P, K)."""
+    """All scheduler-relevant pending-pod state, shape (P,) or (P, K),
+    and ``use``, which is host values, not a column."""
 
     req_cpu: Any  # i32[P]
     req_mem: Any  # i32[P] MiB
@@ -190,15 +208,30 @@ class PodTable:
     gang_n: Any  # i32[P]
     seed: Any  # i32[P] holding the u32 tie-break seed's bits
     valid: Any  # bool[P]
+    use: PodUse = PodUse()
 
     @property
     def capacity(self) -> int:
         return int(self.valid.shape[0])
 
 
+def pod_use(cols: Dict[str, np.ndarray]) -> PodUse:
+    """``PodTable.use`` from the host columns (an absent column is all
+    zero)."""
+    def top(name: str) -> int:
+        col = cols.get(name)
+        return int(col.max()) if col is not None and col.size else 0
+
+    return PodUse(tol_slots=top("num_tols"), sel_slots=top("num_sel"),
+                  aff_required=top("aff_required") > 0,
+                  pref_terms=top("pref_nterms") > 0)
+
+
 def table_columns(table) -> Dict[str, torch.Tensor]:
-    """{field name: tensor} in declaration order."""
-    return {f.name: getattr(table, f.name) for f in fields(table)}
+    """{field name: tensor} in declaration order (``PodTable.use`` is not
+    a column)."""
+    return {f.name: getattr(table, f.name) for f in fields(table)
+            if f.name != "use"}
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +260,8 @@ class HostTable:
     metas: Tuple[Meta, ...]
     zero_metas: Tuple[Meta, ...]
     flat: np.ndarray  # int32[total]
+    #: fields that stay host values (``PodTable.use``)
+    host_fields: Dict[str, Any]
 
     @staticmethod
     def pack(cls: type, host: Dict[str, np.ndarray],
@@ -242,7 +277,8 @@ class HostTable:
             for v in arrays.values()
         ]
         flat = np.concatenate(parts) if parts else np.zeros(0, np.int32)
-        return HostTable(cls, metas, tuple(zero_metas), flat)
+        host_fields = {"use": pod_use(arrays)} if cls is PodTable else {}
+        return HostTable(cls, metas, tuple(zero_metas), flat, host_fields)
 
     def to_device(self, device) -> Any:
         """One host→device copy of the flat buffer (pinned and
@@ -263,7 +299,7 @@ class HostTable:
         for name, kind, shape in self.zero_metas:
             dtype = torch.bool if kind == "bool" else torch.int32
             cols[name] = torch.zeros(shape, dtype=dtype, device=device)
-        return self.cls(**cols)
+        return self.cls(**cols, **self.host_fields)
 
 
 def tables_from_numpy(node_cols: Dict[str, Any], pod_cols: Dict[str, Any],

@@ -27,7 +27,7 @@ loop's only wait on the device; the plugins branch on no device value.
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -186,6 +186,24 @@ def accept_placements(
     return accept & live
 
 
+class RepairResult(NamedTuple):
+    """What a repair wave gives.  The JAX step returns the first three
+    (and with diagnostics the fourth) as a tuple in this order."""
+
+    node_table: NodeTable  # the table with the wave's commits
+    choice: torch.Tensor  # i32[P] node row per pod, -1 = unplaced
+    rounds: int  # evaluate-accept-commit rounds used
+    #: with diagnostics, bool[K, P]: per filter, the UNPLACED pods it is
+    #: the first to reject against the final table and volume state
+    #: (``unschedulable_plugin_masks``); None without
+    unschedulable: Optional[torch.Tensor]
+    #: with constraint tables, the wave's tables with the volume state the
+    #: loop carried out of its last round (``node_vols_fam``, ``vol_any``,
+    #: ``vol_rw``; unchanged where the chain reads none of them); None
+    #: without
+    extra: Any
+
+
 def repair_wave_step(
     nodes: NodeTable,
     pods: PodTable,
@@ -197,18 +215,9 @@ def repair_wave_step(
     max_rounds: int = MAX_ROUNDS,
     with_diagnostics: bool = False,
     split_static: bool = True,
-    carry_volumes: bool = False,
-) -> Tuple[Any, ...]:
+) -> RepairResult:
     """Evaluate-accept-commit rounds until every pod is placed or has no
     feasible node, at most ``max_rounds``.
-
-    Returns (updated NodeTable, choice i32[P] with -1 = unplaced, rounds
-    used as an int); with ``with_diagnostics`` a further element, bool[K,
-    P] per-filter first-failure masks of the UNPLACED pods against the
-    final table and the final volume state (``unschedulable_plugin_masks``);
-    with ``carry_volumes`` a last one, ``extra`` with the volume state the
-    loop carried out of its last round (``node_vols_fam``, ``vol_any``,
-    ``vol_rw``; unchanged planes where the chain reads none of them).
 
     ``extra``: the wave's ConstraintTables, for the chain's plugins that
     read them.  ``split_static``: compute the round-invariant planes once
@@ -304,7 +313,7 @@ def repair_wave_step(
         progress, pending = flags
         if not progress:
             break
-    out: Tuple[Any, ...] = (nodes, final, rounds)
+    unsched = None
     if with_diagnostics:
         # one diagnostic evaluation of the unplaced remainder against the
         # FINAL table and volume state, filters only, and none when every
@@ -318,10 +327,8 @@ def repair_wave_step(
                               extra=carried(vols_fam, va, vr))
             valid = losers.valid[:, None] & nodes.valid[None, :]
             unsched = unschedulable_plugin_masks(result.filter_masks, valid)
-        out += (unsched,)
-    if carry_volumes:
-        out += (carried(vols_fam, va, vr),)
-    return out
+    return RepairResult(nodes, final, rounds, unsched,
+                        None if extra is None else carried(vols_fam, va, vr))
 
 
 class RepairingEvaluator:
@@ -367,11 +374,11 @@ class RepairingEvaluator:
             for chain in (filter_plugins, pre_score_plugins, score_plugins)
             for pl in chain)
 
-    def __call__(self, pods: PodTable, nodes: NodeTable, extra: Any = None,
-                 carry_volumes: bool = False):
+    def __call__(self, pods: PodTable, nodes: NodeTable,
+                 extra: Any = None) -> RepairResult:
         return repair_wave_step(
             nodes, pods, self.filter_plugins, self.pre_score_plugins,
             self.score_plugins, self.ctx, extra=extra,
             with_diagnostics=self.with_diagnostics,
-            split_static=self.split_static, carry_volumes=carry_volumes,
+            split_static=self.split_static,
         )

@@ -8,9 +8,12 @@ are evaluated against the node LABEL PROFILES (Dp rows) and expanded to
 
 The JAX package skips each selector slot, the required-affinity terms and
 the preferred terms with ``lax.cond`` when no pod of the wave uses them.
-Here they are always computed: the skipped branch equals the computed one
-(all-true masks, zero scores), so the result is the same, and no branch
-on a device value makes the host wait for the card.
+Here the same skips follow ``pods.use`` (``models/tables.PodUse``), which
+the host read from its own columns when it packed the table, so no
+branch waits for the card; a skipped part equals its computed result
+(all-true masks, zero scores).  The skips matter where the nodes carry
+many distinct label sets, as they do when each node has its own
+``kubernetes.io/hostname``: the term lookup is (P, T, R, Dp, L).
 """
 
 from __future__ import annotations
@@ -81,23 +84,28 @@ def required_node_affinity_mask(pods: Any, nodes: Any) -> torch.Tensor:
     its label pairs) and required node affinity (OR over terms)."""
     lab_in_range = _label_in_range(nodes)  # (Dp, L)
     sel_ok = None
-    for s in range(pods.sel_key.shape[1]):
+    for s in range(min(pods.use.sel_slots, pods.sel_key.shape[1])):
         # selector slot s: the profile carries the exact label pair
         ok = ((pods.sel_key[:, s][:, None, None] == nodes.prof_label_key[None])
               & (pods.sel_value[:, s][:, None, None] == nodes.prof_label_value[None])
               & lab_in_range[None]).any(dim=2)  # (P, Dp)
         ok |= (pods.num_sel <= s)[:, None]
         sel_ok = ok if sel_ok is None else sel_ok & ok
-    term_match = terms_match(
-        (pods.aff_key, pods.aff_op, pods.aff_vals, pods.aff_nvals,
-         pods.aff_numval, pods.aff_nreqs), nodes)  # (P,T,Dp)
-    T = pods.aff_key.shape[1]
-    term_in_range = torch.arange(T, device=pods.aff_key.device)[None, :] < pods.aff_nterms[:, None]
-    any_term = (term_match & term_in_range[:, :, None]).any(dim=1)  # (P, Dp)
-    # a required affinity with an empty term list matches nothing; no
-    # requirement passes every node
-    aff_ok = any_term | ~pods.aff_required[:, None]
-    ok = aff_ok if sel_ok is None else sel_ok & aff_ok
+    ok = sel_ok
+    if pods.use.aff_required:
+        term_match = terms_match(
+            (pods.aff_key, pods.aff_op, pods.aff_vals, pods.aff_nvals,
+             pods.aff_numval, pods.aff_nreqs), nodes)  # (P,T,Dp)
+        T = pods.aff_key.shape[1]
+        term_in_range = torch.arange(T, device=pods.aff_key.device)[None, :] < pods.aff_nterms[:, None]
+        any_term = (term_match & term_in_range[:, :, None]).any(dim=1)  # (P, Dp)
+        # a required affinity with an empty term list matches nothing; no
+        # requirement passes every node
+        aff_ok = any_term | ~pods.aff_required[:, None]
+        ok = aff_ok if ok is None else ok & aff_ok
+    if ok is None:  # no selector and no required affinity in the wave
+        return torch.ones((pods.valid.shape[0], nodes.valid.shape[0]),
+                          dtype=torch.bool, device=pods.valid.device)
     return _per_node(ok, nodes)
 
 
@@ -112,6 +120,9 @@ class NodeAffinity(BatchEvaluable):
                     aux: Dict[str, Any]) -> torch.Tensor:
         """Sum of the weights of the pod's preferred terms the node's
         labels match."""
+        if not pods.use.pref_terms:
+            return torch.zeros((pods.valid.shape[0], nodes.valid.shape[0]),
+                               dtype=torch.int32, device=pods.valid.device)
         term_match = terms_match(
             (pods.pref_key, pods.pref_op, pods.pref_vals, pods.pref_nvals,
              pods.pref_numval, pods.pref_nreqs), nodes)  # (P,T,Dp)

@@ -7,7 +7,10 @@ Taint-by-toleration matching runs over the node TAINT PROFILES (Dp rows,
 unrolled over the pod's toleration slots so the largest intermediate is
 (P, Dp, Tn)) and expands to (P, N) with one gather through
 ``nodes.profile_id``.  Padded node rows point at profile 0, so the gather
-stays in range.
+stays in range.  Only the toleration slots some pod of the wave fills
+(``pods.use.tol_slots``, known on the host) are unrolled: an empty slot
+tolerates nothing, and a wave without tolerations needs one row for all
+its pods, (Dp, Tn).
 """
 
 from __future__ import annotations
@@ -28,9 +31,14 @@ def _taint_in_range(nodes: Any) -> torch.Tensor:
     return slots[None, :] < nodes.prof_num_taints[:, None]  # (Dp, Tn)
 
 
-def _per_node(per_profile: torch.Tensor, nodes: Any) -> torch.Tensor:
-    """(P, Dp) → (P, N) through each node's profile row."""
-    return per_profile.index_select(1, nodes.profile_id.long())
+def _per_node(per_profile: torch.Tensor, pods: Any,
+              nodes: Any) -> torch.Tensor:
+    """(P, Dp), or (Dp,) for every pod alike, → (P, N) through each
+    node's profile row."""
+    out = per_profile.index_select(-1, nodes.profile_id.long())
+    if out.dim() == 1:
+        out = out.expand(pods.valid.shape[0], -1).contiguous()
+    return out
 
 
 class TaintToleration(BatchEvaluable):
@@ -50,7 +58,7 @@ class TaintToleration(BatchEvaluable):
         exists_all = pods.tol_op == tables.TOLERATION_OP_EXISTS_CODE
         out = torch.zeros((P,) + tuple(nodes.prof_taint_key.shape),
                           dtype=torch.bool, device=dev)  # (P, Dp, Tn)
-        for t in range(Tp):
+        for t in range(min(pods.use.tol_slots, Tp)):
             # toleration effect "" matches every taint effect
             eff = pods.tol_effect[:, t][:, None, None]
             eff_match = (eff == tables.EFFECT_NONE) | (
@@ -68,21 +76,25 @@ class TaintToleration(BatchEvaluable):
     def batch_filter(self, ctx: Any, pods: Any, nodes: Any) -> torch.Tensor:
         hard = (nodes.prof_taint_effect == tables.EFFECT_NO_SCHEDULE) | (
             nodes.prof_taint_effect == tables.EFFECT_NO_EXECUTE)  # (Dp, Tn)
-        all_tols_ok = torch.ones(pods.tol_key.shape, dtype=torch.bool,
-                                 device=pods.tol_key.device)
-        tolerated = self._tolerates_matrix(pods, nodes, all_tols_ok)
-        blocking = (_taint_in_range(nodes) & hard)[None] & ~tolerated
-        return _per_node(~blocking.any(dim=2), nodes)  # (P, N)
+        blocking = _taint_in_range(nodes) & hard  # (Dp, Tn)
+        if pods.use.tol_slots:
+            all_tols_ok = torch.ones(pods.tol_key.shape, dtype=torch.bool,
+                                     device=pods.tol_key.device)
+            tolerated = self._tolerates_matrix(pods, nodes, all_tols_ok)
+            blocking = blocking[None] & ~tolerated  # (P, Dp, Tn)
+        return _per_node(~blocking.any(dim=-1), pods, nodes)  # (P, N)
 
     def batch_score(self, ctx: Any, pods: Any, nodes: Any,
                     aux: Dict[str, Any]) -> torch.Tensor:
         prefer = nodes.prof_taint_effect == tables.EFFECT_PREFER_NO_SCHEDULE
-        tol_eligible = (pods.tol_effect == tables.EFFECT_NONE) | (
-            pods.tol_effect == tables.EFFECT_PREFER_NO_SCHEDULE)
-        tolerated = self._tolerates_matrix(pods, nodes, tol_eligible)
-        intolerable = (_taint_in_range(nodes) & prefer)[None] & ~tolerated
-        counts = intolerable.sum(dim=2, dtype=torch.int32)  # (P, Dp)
-        return _per_node(counts, nodes)
+        intolerable = _taint_in_range(nodes) & prefer  # (Dp, Tn)
+        if pods.use.tol_slots:
+            tol_eligible = (pods.tol_effect == tables.EFFECT_NONE) | (
+                pods.tol_effect == tables.EFFECT_PREFER_NO_SCHEDULE)
+            tolerated = self._tolerates_matrix(pods, nodes, tol_eligible)
+            intolerable = intolerable[None] & ~tolerated  # (P, Dp, Tn)
+        counts = intolerable.sum(dim=-1, dtype=torch.int32)  # (P, Dp) or (Dp,)
+        return _per_node(counts, pods, nodes)
 
     def batch_normalize(self, ctx: Any, scores: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:

@@ -38,7 +38,7 @@ import json
 import statistics
 import time
 from pathlib import Path
-from typing import Callable, Iterator, Optional
+from typing import Any, Iterator, Optional, Sequence
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -47,8 +47,8 @@ from minisched_tpu_torch import resolve_device
 from minisched_tpu_torch.fullchain import WAVE, mk_c5_cluster
 from minisched_tpu_torch.headline import (
     ConstraintFeed,
-    repair_evaluator,
-    repair_step,
+    RepairStep,
+    make_step,
     run_waves,
 )
 from minisched_tpu_torch.models.tables import pack_node_table, pack_pod_table, pad_to
@@ -102,14 +102,22 @@ def spans(evaluator) -> Iterator[None]:
                 setattr(owner, name, original)
 
 
-def profile_repair(evaluator, node_host, pod_tables, device: torch.device,
-                   trace_dir: Optional[Path],
-                   make_feed: Callable[[], Optional[ConstraintFeed]],
-                   reps: int = REPS) -> dict:
-    """``reps`` timed passes of the wave loop, then one profiled pass.
-    ``make_feed`` gives each pass a fresh ``ConstraintFeed`` (or None for
-    a roster that reads no constraint tables)."""
-    step = repair_step(evaluator)
+def profile_repair(step: RepairStep, nodes: Sequence[Any],
+                   waves: Sequence[Sequence[Any]], device: torch.device,
+                   trace_dir: Optional[Path] = None, reps: int = REPS) -> dict:
+    """``reps`` timed passes of ``step`` (``make_step("repair", cfg)``)
+    over the pod ``waves`` against ``nodes``, then one profiled pass.  The
+    node and pod tables go to the device before any pass; a roster that
+    reads constraint tables gets a fresh ``ConstraintFeed`` each pass."""
+    evaluator = step.evaluator
+    node_cap, pod_cap = pad_to(len(nodes)), max(len(waves[0]), 128)
+    node_host, node_names = pack_node_table(nodes, capacity=node_cap)
+    pod_tables = [pack_pod_table(w, capacity=pod_cap)[0].to_device(device)
+                  for w in waves]
+
+    def make_feed() -> Optional[ConstraintFeed]:
+        return ConstraintFeed.for_step(step, nodes, node_names, waves, (), (),
+                                       (), pod_cap, node_cap, device)
 
     def one_pass() -> float:
         node_table = node_host.to_device(device)
@@ -159,9 +167,7 @@ def profile_repair(evaluator, node_host, pod_tables, device: torch.device,
     n_rounds = sum(rounds)
     return {
         "route": "repair",
-        "roster": ("full" if any(getattr(pl, "needs_extra", False)
-                                 for pl in evaluator.filter_plugins)
-                   else "node-local"),
+        "roster": "full" if step.needs_extra else "node-local",
         "waves": len(pod_tables),
         "rounds_per_wave": rounds,
         "wall_ms_median": statistics.median(walls) * 1e3 if walls else None,
@@ -199,22 +205,10 @@ def main(argv=None) -> int:
     nodes, pods = mk_c5_cluster()
     cfg = (default_full_roster_config() if args.roster == "full"
            else node_local_roster_config())
-    evaluator = repair_evaluator(cfg)
-    node_cap = pad_to(len(nodes))
-    node_host, node_names = pack_node_table(nodes, capacity=node_cap)
     waves = [pods[s:s + WAVE] for s in range(0, len(pods), WAVE)]
-    pod_tables = [pack_pod_table(w, capacity=WAVE)[0].to_device(device)
-                  for w in waves]
-
-    def make_feed() -> Optional[ConstraintFeed]:
-        if not evaluator.needs_extra:
-            return None
-        return ConstraintFeed(nodes, node_names, waves, (), (), (), WAVE,
-                              node_cap, device)
-
     print(f"card: {torch.cuda.get_device_name(device)}", flush=True)
-    out = profile_repair(evaluator, node_host, pod_tables, device,
-                         args.trace_dir, make_feed)
+    out = profile_repair(make_step("repair", cfg), nodes, waves, device,
+                         args.trace_dir)
     for k in out["top_kernels"]:
         print(f"[repair] {k['device_ms']:9.4f} ms  x{k['count']:<5d} "
               f"{k['name']}", flush=True)

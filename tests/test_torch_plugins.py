@@ -15,6 +15,7 @@ exactly: the outputs are integers and bools, so the tolerance is 0.
 from __future__ import annotations
 
 import random
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -329,6 +330,86 @@ def test_scores_reach_their_interesting_values(clusters):
     assert (balanced[:, 2] < 0).all()
     least = NodeResourcesLeastAllocated().batch_score(ctx, tp, tn, {})
     assert (least[:, 1] != least[:, 1].clamp(0, 100)).any()  # wrapped
+
+
+def _use(**kw):
+    return replace(ttables.PodUse(tol_slots=0, sel_slots=0,
+                                  aff_required=False, pref_terms=False), **kw)
+
+
+WAVE_USES = {
+    "plain": _use(),
+    "tolerations": _use(tol_slots=2),
+    "selector": _use(sel_slots=2),
+    "required": _use(aff_required=True),
+    "preferred": _use(pref_terms=True),
+}
+
+
+def _profile_wave(objs, kind: str):
+    """Tainted nodes that each carry their own ``kubernetes.io/hostname``
+    (one label set per node), and a wave whose odd pods use one kind of
+    toleration or node affinity."""
+    taints = [[objs.Taint(key="dedicated", value="a", effect="NoSchedule")],
+              [objs.Taint(key="spot", value="", effect="PreferNoSchedule")],
+              [], []]
+    nodes = [objs.make_node(f"n{i:03d}", taints=taints[i % 4], labels={
+        "kubernetes.io/hostname": f"n{i:03d}", "zone": f"z{i % 3}"})
+        for i in range(40)]
+    term = objs.NodeSelectorTerm(
+        [objs.LabelSelectorRequirement("zone", "In", ["z0", "z2"])])
+    pods = []
+    for i in range(20):
+        kw = {}
+        if i % 2 and kind == "tolerations":
+            kw["tolerations"] = [
+                objs.Toleration(key="dedicated", operator="Equal", value="a",
+                                effect="NoSchedule"),
+                objs.Toleration(key="spot", operator="Exists", value="",
+                                effect="")]
+        elif i % 2 and kind == "selector":
+            kw["node_selector"] = {"zone": "z1", "kubernetes.io/hostname":
+                                   f"n{i:03d}"}
+        elif i % 2 and kind == "required":
+            kw["affinity"] = objs.Affinity(node_affinity=objs.NodeAffinity(
+                required_terms=[term], preferred=[]))
+        elif i % 2 and kind == "preferred":
+            kw["affinity"] = objs.Affinity(node_affinity=objs.NodeAffinity(
+                required_terms=None,
+                preferred=[objs.PreferredSchedulingTerm(7, term)]))
+        pods.append(objs.make_pod(f"p{i:03d}", **kw))
+    return nodes, pods
+
+
+@pytest.mark.parametrize("kind", list(WAVE_USES))
+def test_profile_plugins_skip_what_no_pod_of_the_wave_uses(kind):
+    """``PodTable.use``, read on the host, says which toleration slots,
+    selector slots and term lookups a wave uses; TaintToleration and
+    NodeAffinity skip the rest (the JAX NodeAffinity skips the same with
+    ``lax.cond``).  Filters and scores equal JAX's and the full
+    computation (a table with the default ``use``)."""
+    want_use = WAVE_USES[kind]
+    t_nodes, t_pods = _profile_wave(tobj, kind)
+    assert ttables.build_pod_table(t_pods, device="cpu")[0].use == want_use
+    nodes, pods = _profile_wave(jobj, kind)
+    jn, _ = jtables.build_node_table(nodes)
+    jp, _ = jtables.build_pod_table(pods)
+    tn, tp = port_tables(jn, jp)
+    assert tp.use == want_use
+    assert int(np.asarray(jn.prof_num_labels).astype(bool).sum()) == 40
+    full = replace(tp, use=ttables.PodUse())
+    jctx, tctx = JBatchContext(), tfused.BatchContext()
+    for jpl, tpl in ((JNodeAffinity(), NodeAffinity()),
+                     (JTaint(), TaintToleration())):
+        want = np.asarray(jpl.batch_filter(jctx, jp, jn))
+        want_score = np.asarray(jpl.batch_score(jctx, jp, jn, {}))
+        for table in (tp, full):
+            got = tpl.batch_filter(tctx, table, tn)
+            np.testing.assert_array_equal(
+                np.broadcast_to(got.numpy(), want.shape), want)
+            got = tpl.batch_score(tctx, table, tn, {})
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), want_score)
 
 
 def test_roster_configs_match_jax():

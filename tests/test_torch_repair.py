@@ -133,7 +133,9 @@ def test_repairing_evaluator_matches_jax(seed, with_diagnostics, split_static,
     tn, tp = port_tables(jn, jp)
     want = jax_evaluator("node_local", with_diagnostics, split_static)(jp, jn)
     got = port_evaluator(with_diagnostics, split_static)(tp, tn)
-    assert len(got) == len(want) == (4 if with_diagnostics else 3)
+    assert len(want) == (4 if with_diagnostics else 3)
+    assert (got.unschedulable is None) != with_diagnostics
+    assert got.extra is None
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     assert got[2] == int(want[2])
     assert_tables_equal(got[0], want[0])
@@ -164,7 +166,9 @@ def test_full_roster_repairing_evaluator_matches_jax(
     (jn, jp, je), (tn, tp, te) = constrained[seed]
     want = jax_evaluator("full", with_diagnostics, split_static)(jp, jn, je)
     got = port_evaluator(with_diagnostics, split_static, "full")(tp, tn, te)
-    assert len(got) == len(want) == (4 if with_diagnostics else 3)
+    assert len(want) == (4 if with_diagnostics else 3)
+    assert (got.unschedulable is None) != with_diagnostics
+    assert got.extra is not None
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     assert got[2] == int(want[2]) and got[2] > 1
     assert_tables_equal(got[0], want[0])
@@ -214,7 +218,7 @@ def test_split_static_rounds_are_bit_identical_with_constraints():
     (jn, jp, je), (tn, tp, te) = both_waves(nodes, assigned, pods)
     outs = {split: port_evaluator(True, split, "full")(tp, tn, te)
             for split in (False, True)}
-    (n0, c0, r0, u0), (n1, c1, r1, u1) = outs[False], outs[True]
+    (n0, c0, r0, u0, _), (n1, c1, r1, u1, _) = outs[False], outs[True]
     assert torch.equal(c0, c1) and r0 == r1 and torch.equal(u0, u1)
     for name, col in ttables.table_columns(n0).items():
         assert torch.equal(col, getattr(n1, name)), name
@@ -314,7 +318,7 @@ def _run(pods, nodes, filters, pre_scores, scores, weights=None):
         sorted(nodes, key=lambda n: n.metadata.name), device="cpu")
     pod_table, _ = ttables.build_pod_table(pods, device="cpu")
     ev = trepair.RepairingEvaluator(filters, pre_scores, scores, weights)
-    new_nodes, choice, rounds = ev(pod_table, node_table)
+    new_nodes, choice, rounds = ev(pod_table, node_table)[:3]
     placements = [node_names[c] if c >= 0 else ""
                   for c in choice.tolist()[: len(pods)]]
     return new_nodes, placements, rounds
@@ -383,8 +387,7 @@ def test_zero_demand_pod_accepted_on_overcommitted_node():
                                            device="cpu")
     ev = trepair.RepairingEvaluator([NodeUnschedulable(), NodeResourcesFit()],
                                     [], [NodeResourcesLeastAllocated()])
-    _, choice, _ = ev(pod_table, node_table)
-    assert int(choice[0]) == 0
+    assert int(ev(pod_table, node_table).choice[0]) == 0
 
 
 def test_randomized_safety_invariants():
@@ -424,7 +427,7 @@ def test_split_static_rounds_are_bit_identical():
     pod_table, _ = ttables.build_pod_table(pods, device="cpu")
     outs = {split: port_evaluator(True, split)(pod_table, node_table)
             for split in (False, True)}
-    (n0, c0, r0, u0), (n1, c1, r1, u1) = outs[False], outs[True]
+    (n0, c0, r0, u0, _), (n1, c1, r1, u1, _) = outs[False], outs[True]
     assert torch.equal(c0, c1) and r0 == r1 and torch.equal(u0, u1)
     for name, col in ttables.table_columns(n0).items():
         assert torch.equal(col, getattr(n1, name)), name

@@ -420,7 +420,7 @@ def _run(pkg: str, case, mode: str):
     if mode == "fused":
         choice, rounds, unsched, table = out.choice, 1, None, None
     else:
-        table, choice, rounds, unsched = out
+        table, choice, rounds, unsched = out[:4]
     choice = np.asarray(choice)[: len(pods)]
     return ([names[c] if c >= 0 else "" for c in choice], choice, int(rounds),
             None if unsched is None else np.asarray(unsched), table)
@@ -455,8 +455,8 @@ def test_repair_carries_the_committed_volume_state():
     chain = [plugin(PORT_MODULES, name) for name in (
         "NodeUnschedulable", "VolumeRestrictions", "EBSLimits",
         "NodeVolumeLimits", "VolumeBinding")]
-    _, choice, rounds, carried = trepair.RepairingEvaluator(chain, [], [])(
-        pt, nt, extra, carry_volumes=True)
+    _, choice, rounds, _, carried = trepair.RepairingEvaluator(chain, [], [])(
+        pt, nt, extra)
     placed = choice[: len(pods)] >= 0
     assert placed.any() and rounds >= 1
     from minisched_tpu_torch.ops.state import mount_slot_planes
