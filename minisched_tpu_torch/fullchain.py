@@ -1,16 +1,34 @@
-"""Config 5 and config 4 of the JAX package, in repair waves.
+"""Configs 3, 4 and 5 of the JAX package: repair waves and the scan lanes.
 
-Counterpart of the config-5 and config-4 flows of ``bench.py``
-(``_c5_cluster``, ``bench_config4``): the clusters' objects, and
-``schedule_repair_waves``, which runs them through the wave driver's
-``"repair"`` route (``headline.schedule_waves``): every wave runs
-evaluate-accept-commit rounds (``ops/repair.py``) until its pods are
-placed or have no feasible node, and the updated table carries to the
-next wave.  Every round ends in ``select_hosts``, the hand-written
+Counterpart of the config-3, config-4 and config-5 flows of ``bench.py``
+(``bench_config3``, ``bench_config4``, ``_c5_cluster``,
+``bench_fullchain_parity``) and of the live engine's cross-pod lane
+(``engine/device_scheduler.py`` ``_schedule_scan_blocked``): the
+clusters' objects and three entry points.
+
+* ``schedule_repair_waves`` runs pods through the wave driver's
+  ``"repair"`` route (``headline.schedule_waves``): every wave runs
+  evaluate-accept-commit rounds (``ops/repair.py``) until its pods are
+  placed or have no feasible node, and the updated table carries to the
+  next wave.
+* ``schedule_scan`` places pods with the exact scan
+  (``ops/sequential.SequentialScheduler``), in chunks: pod i sees every
+  bind before it.
+* ``schedule_crosspod`` is the blocked lane: it groups the pods by
+  interaction (``engine/scan_groups.py``), orders them into blocks of 32
+  and runs the blocked scan in chunks of 8,192 rows, for up to 3
+  attempts; pods that lost a same-node capacity race are regrouped and
+  tried again against the state the last attempt left, and what is left
+  after the attempts goes through the exact scan.  With no live engine
+  yet, the pods go in the order given: one backlog flush at queue drain.
+
+Every round or step ends in ``select_hosts``, the hand-written
 seeded-argmax kernel on a card.  The roster is ``cfg``, by default the
 full default roster (``service.config.default_full_roster_config``),
-whose volume and cross-pod plugins read each wave's constraint tables;
-``node_local_roster_config`` is the same roster without them.
+whose volume and cross-pod plugins read constraint tables built on the
+host (each wave's, each scan chunk's) with the pods placed so far as
+assigned pods; ``node_local_roster_config`` is the same roster without
+them.
 
 Usage (on the card)::
 
@@ -23,8 +41,14 @@ Usage (on the card)::
 from __future__ import annotations
 
 import random
+import time
+from dataclasses import dataclass, field
 from typing import Any, List, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
+
+from minisched_tpu_torch import resolve_device
 from minisched_tpu_torch.api.objects import (
     Affinity,
     LabelSelector,
@@ -41,24 +65,87 @@ from minisched_tpu_torch.api.objects import (
     make_node,
     make_pod,
 )
-from minisched_tpu_torch.headline import WaveRun, schedule_waves
+from minisched_tpu_torch.engine.scan_groups import (
+    interaction_sets,
+    order_into_blocks,
+)
+from minisched_tpu_torch.headline import (
+    BoundPod,
+    WaveRun,
+    pods_by_node,
+    schedule_waves,
+    synchronize,
+)
+from minisched_tpu_torch.models.constraints import build_constraint_tables
+from minisched_tpu_torch.models.tables import (
+    NodeTable,
+    build_pod_table,
+    pack_node_table,
+    pad_to,
+)
+from minisched_tpu_torch.ops.sequential import (
+    BlockedSequentialScheduler,
+    SequentialScheduler,
+    StepLog,
+)
+from minisched_tpu_torch.plugins.registry import build_plugins
 from minisched_tpu_torch.service.config import (
+    PluginEnabled,
+    PluginSet,
     SchedulerConfig,
     default_full_roster_config,
 )
+from minisched_tpu_torch.utils import build
 
 WAVE = 16_384  # pods per wave of the config-5 run
 C5_REQUESTS = {"cpu": "500m", "memory": "256Mi"}
+C5_MAX_SKEW = 4  # max_skew of config 5's spread pods (``bench.py``)
+
+# the live engine's lane constants (engine/device_scheduler.py)
+SCAN_MAX_CHUNK = 1024  # pods per exact-scan chunk
+SCAN_BLOCK_SIZE = 32  # pods per block of the blocked lane
+SCAN_BLOCK_RETRIES = 3  # blocked attempts before the exact scan
+BLOCKED_MAX_CHUNK = 8192  # rows per blocked call
 
 
-def mk_c5_cluster(n_nodes: int = 10_000,
-                  n_pods: int = 100_000) -> Tuple[List[Any], List[Any]]:
+def c3_roster_config() -> SchedulerConfig:
+    """Config 3's chain (``bench_config3``): the NodeUnschedulable and
+    NodeResourcesFit filters and the NodeResourcesLeastAllocated score."""
+    return SchedulerConfig(
+        filter=PluginSet(enabled=[PluginEnabled("NodeUnschedulable"),
+                                  PluginEnabled("NodeResourcesFit")]),
+        score=PluginSet(enabled=[PluginEnabled("NodeResourcesLeastAllocated")]))
+
+
+def mk_c3_cluster(n_nodes: int = 4096,
+                  n_pods: int = 4096) -> Tuple[List[Any], List[Any]]:
+    """The config-3 cluster (the objects of ``bench.py`` ``bench_config3``,
+    ``random.Random(3)``): ``n_nodes`` nodes ``node00000`` … of 4 or 8
+    CPU, 16 Gi and 110 pods, and ``n_pods`` pods ``pod0`` … asking for
+    500m, 1 or 2 CPU and 2 Gi."""
+    rng = random.Random(3)
+    nodes = [
+        make_node(f"node{i:05d}",
+                  capacity={"cpu": rng.choice(["4", "8"]), "memory": "16Gi",
+                            "pods": 110})
+        for i in range(n_nodes)
+    ]
+    pods = [make_pod(f"pod{i}", requests={"cpu": rng.choice(["500m", "1", "2"]),
+                                          "memory": "2Gi"})
+            for i in range(n_pods)]
+    return nodes, pods
+
+
+def mk_c5_cluster(n_nodes: int = 10_000, n_pods: int = 100_000,
+                  n_crosspod: int = 0) -> Tuple[List[Any], List[Any]]:
     """The config-5 cluster (the objects of ``bench.py`` ``_c5_cluster``,
     without the control plane): ``n_nodes`` nodes ``node00000`` … of 8
     CPU, 16 Gi and 110 pods, zone labels ``z0`` … ``z15``, each cordoned
     with probability 0.2 from ``random.Random(55)``; ``n_pods`` pods asking
-    for 500m and 256 Mi, of which the last 2% (``special*``) carry a node
-    selector no node matches."""
+    for 500m and 256 Mi, in bench's order: plain pods, then
+    ``n_crosspod`` pods ``spread*`` of 32 apps (``app{i % 32}``), each with
+    a DoNotSchedule zone spread of max skew 4 over its app, then the last
+    2% (``special*``), which carry a node selector no node matches."""
     rng = random.Random(55)
     nodes = [
         make_node(
@@ -71,7 +158,16 @@ def mk_c5_cluster(n_nodes: int = 10_000,
     ]
     n_special = max(n_pods // 50, 1)
     pods = [make_pod(f"pod{i:06d}", requests=C5_REQUESTS)
-            for i in range(n_pods - n_special)]
+            for i in range(n_pods - n_special - n_crosspod)]
+    for i in range(n_crosspod):
+        app = f"app{i % 32}"
+        pod = make_pod(f"spread{i:05d}", requests=C5_REQUESTS,
+                       labels={"app": app})
+        pod.spec.topology_spread_constraints = [TopologySpreadConstraint(
+            max_skew=C5_MAX_SKEW, topology_key="zone",
+            when_unsatisfiable="DoNotSchedule",
+            label_selector=LabelSelector(match_labels={"app": app}))]
+        pods.append(pod)
     pods += [make_pod(f"special{i:05d}", requests=C5_REQUESTS,
                       node_selector={"special": "true"})
              for i in range(n_special)]
@@ -263,3 +359,225 @@ def schedule_repair_waves(nodes: Sequence[Any], pods: Sequence[Any],
                           device=device,
                           cfg=cfg or default_full_roster_config(),
                           assigned=assigned, pvcs=pvcs, pvs=pvs)
+
+
+@dataclass
+class ScanRun:
+    """What ``schedule_scan`` returns.  Times are host wall seconds, closed
+    by a device synchronise on a card."""
+
+    choices: np.ndarray  # int64[n_pods] node row per pod, -1 = unplaced
+    best: np.ndarray  # int64[n_pods] winning score (0 when unplaced)
+    node_table: NodeTable  # the resident table after the last chunk
+    node_names: List[str]
+    build_s: float  # host encoding of the node table
+    #: every chunk: pod and constraint tables built on the host, the scan
+    #: and the read of its choices
+    schedule_s: float
+    constraint_build_s: float  # the part of ``schedule_s`` in constraint builds
+    chunks: int
+    log: StepLog = field(default_factory=StepLog)
+
+
+@dataclass
+class CrosspodRun:
+    """What ``schedule_crosspod`` returns."""
+
+    choices: np.ndarray  # int64[n_pods] node row per pod, -1 = unplaced
+    node_table: NodeTable
+    attempts: int  # blocked attempts made (at most SCAN_BLOCK_RETRIES)
+    blocks: List[int]  # blocks of each attempt
+    #: per blocked call, in order: (choice, accepted) of its rows in block
+    #: order (padding rows included)
+    calls: List[Tuple[np.ndarray, np.ndarray]]
+    exact_pods: int  # capacity-race leftovers placed by the exact scan
+    schedule_s: float  # the whole lane, host builds included
+    grouping_s: float  # interaction sets and block order, every attempt
+    constraint_build_s: float
+    log: StepLog = field(default_factory=StepLog)
+
+
+def _scan_chains(cfg: Optional[SchedulerConfig]):
+    cfg = cfg or default_full_roster_config()
+    chains = build_plugins(cfg)
+    needs_extra = any(getattr(pl, "needs_extra", False)
+                      for chain in (chains.filter, chains.pre_score,
+                                    chains.score) for pl in chain)
+    return chains, cfg.score_weights(), needs_extra
+
+
+class _Lane:
+    """What the scan lanes share over one run: the node objects and names,
+    the resident node table, the assigned pods (the caller's plus every
+    pod placed so far, as ``BoundPod`` views) and the host build time."""
+
+    def __init__(self, nodes, node_names, node_table, assigned, pvcs, pvs,
+                 needs_extra: bool, device: torch.device, log: StepLog):
+        self.nodes, self.node_names = nodes, node_names
+        self.node_table = node_table
+        self.assigned = list(assigned)
+        self.pvcs, self.pvs = pvcs, pvs
+        self.needs_extra = needs_extra
+        self.device = device
+        self.log = log
+        self.constraint_build_s = 0.0
+
+    def tables(self, pods: Sequence[Any], capacity: int,
+               invalid_rows: Sequence[int] = ()):
+        """The pod table and (when the roster reads them) the constraint
+        tables of one chunk, ``scan_planes`` on."""
+        pod_table, _ = build_pod_table(pods, capacity=capacity,
+                                       device=self.device,
+                                       invalid_rows=invalid_rows)
+        if not self.needs_extra:
+            return pod_table, None
+        t0 = time.monotonic()
+        extra = build_constraint_tables(
+            pods, self.nodes, self.assigned, pod_capacity=capacity,
+            node_capacity=self.node_table.capacity, pvcs=self.pvcs,
+            pvs=self.pvs, scan_planes=True, device=self.device)
+        self.constraint_build_s += time.monotonic() - t0
+        return pod_table, extra
+
+    def bind(self, pod: Any, row: int) -> None:
+        self.assigned.append(BoundPod(pod, self.node_names[row]))
+
+    def exact(self, sched: SequentialScheduler, pods: Sequence[Any],
+              chunk: int) -> Tuple[List[int], List[int]]:
+        """The exact scan over ``pods`` in chunks of ``chunk``: (choices,
+        best scores)."""
+        choices: List[int] = []
+        best: List[int] = []
+        for start in range(0, len(pods), chunk):
+            part = pods[start:start + chunk]
+            pod_table, extra = self.tables(part, pad_to(len(part)))
+            self.node_table, choice, score = sched(pod_table, self.node_table,
+                                                   extra, self.log)
+            rows = choice[: len(part)].tolist()
+            choices += rows
+            best += score[: len(part)].tolist()
+            for pod, row in zip(part, rows):
+                if row >= 0:
+                    self.bind(pod, row)
+        return choices, best
+
+
+def schedule_scan(nodes: Sequence[Any], pods: Sequence[Any],
+                  cfg: Optional[SchedulerConfig] = None,
+                  assigned: Sequence[Any] = (), pvcs: Sequence[Any] = (),
+                  pvs: Sequence[Any] = (), chunk: int = SCAN_MAX_CHUNK,
+                  device=None, log: Optional[StepLog] = None) -> ScanRun:
+    """Place ``pods`` in order with the exact scan and the roster ``cfg``
+    (default: the full default roster), in chunks of ``chunk`` pods
+    against one resident node table.  Each chunk's constraint tables
+    count the ``assigned`` pods and every pod placed by an earlier chunk.
+    ``device=None`` means the card (and raises without one)."""
+    device = resolve_device(device)
+    log = log or StepLog()
+    chains, weights, needs_extra = _scan_chains(cfg)
+    sched = SequentialScheduler(chains.filter, chains.pre_score, chains.score,
+                                weights=weights)
+    if device.type == "cuda":
+        build.load_library()
+    t0 = time.monotonic()
+    node_host, node_names = pack_node_table(nodes, pods_by_node(assigned),
+                                            capacity=pad_to(len(nodes)))
+    node_table = node_host.to_device(device)
+    synchronize(device)
+    build_s = time.monotonic() - t0
+    lane = _Lane(nodes, node_names, node_table, assigned, pvcs, pvs,
+                 needs_extra, device, log)
+    t0 = time.monotonic()
+    choices, best = lane.exact(sched, pods, chunk)
+    synchronize(device)
+    return ScanRun(
+        choices=np.asarray(choices, np.int64), best=np.asarray(best, np.int64),
+        node_table=lane.node_table, node_names=node_names, build_s=build_s,
+        schedule_s=time.monotonic() - t0,
+        constraint_build_s=lane.constraint_build_s,
+        chunks=-(-len(pods) // chunk), log=log)
+
+
+def _blocked_cap(n: int) -> int:
+    """The blocked lane's capacity tiers (the live engine's): 128, 1,024,
+    8,192 rows."""
+    if n <= 128:
+        return 128
+    return SCAN_MAX_CHUNK if n <= SCAN_MAX_CHUNK else BLOCKED_MAX_CHUNK
+
+
+def schedule_crosspod(nodes: Sequence[Any], pods: Sequence[Any],
+                      node_table: NodeTable, assigned: Sequence[Any] = (),
+                      cfg: Optional[SchedulerConfig] = None,
+                      pvcs: Sequence[Any] = (), pvs: Sequence[Any] = (),
+                      device=None, log: Optional[StepLog] = None
+                      ) -> CrosspodRun:
+    """Place cross-pod-constrained ``pods`` through the blocked lane, as
+    the live engine's ``_schedule_scan_blocked`` does (module docstring),
+    against ``node_table`` (rows in the order of ``nodes``, on ``device``)
+    whose committed pods are ``assigned``.  ``device=None`` means the
+    card."""
+    device = resolve_device(device)
+    if node_table.valid.device.type != device.type:
+        raise ValueError(f"node table on {node_table.valid.device}, lane on "
+                         f"{device}")
+    log = log or StepLog()
+    chains, weights, needs_extra = _scan_chains(cfg)
+    blocked = BlockedSequentialScheduler(
+        chains.filter, chains.pre_score, chains.score, weights=weights,
+        block_size=SCAN_BLOCK_SIZE)
+    lane = _Lane(nodes, [n.metadata.name for n in nodes], node_table,
+                 assigned, pvcs, pvs, needs_extra, device, log)
+    position = {id(p): k for k, p in enumerate(pods)}
+    choices = np.full(len(pods), -1, np.int64)
+    dummy = make_pod("scan-pad")
+    calls: List[Tuple[np.ndarray, np.ndarray]] = []
+    blocks_of: List[int] = []
+    grouping_s = 0.0
+    t_start = time.monotonic()
+    pending = list(pods)
+    for _attempt in range(SCAN_BLOCK_RETRIES):
+        t0 = time.monotonic()
+        sets = interaction_sets(pending)
+        blocks = order_into_blocks(pending, sets, SCAN_BLOCK_SIZE)
+        flat = [m for blk in blocks for m in blk]
+        grouping_s += time.monotonic() - t0
+        blocks_of.append(len(blocks))
+        retry = []
+        for start in range(0, len(flat), BLOCKED_MAX_CHUNK):
+            part = flat[start:start + BLOCKED_MAX_CHUNK]
+            pad_rows = [i for i, m in enumerate(part) if m is None]
+            pod_table, extra = lane.tables(
+                [m if m is not None else dummy for m in part],
+                _blocked_cap(len(part)), invalid_rows=pad_rows)
+            lane.node_table, choice, _, accepted = blocked(
+                pod_table, lane.node_table, extra, log)
+            rows = choice[: len(part)].tolist()
+            won = accepted[: len(part)].tolist()
+            calls.append((np.asarray(rows, np.int64), np.asarray(won, bool)))
+            for m, row, ok in zip(part, rows, won):
+                if m is None:
+                    continue
+                if row >= 0 and ok:
+                    choices[position[id(m)]] = row
+                    lane.bind(m, row)
+                elif row >= 0:
+                    retry.append(m)  # feasible; lost a same-node race
+        pending = retry
+        if not pending:
+            break
+    exact_pods = len(pending)
+    if pending:
+        # the capacity-race stragglers: a sequential order never fails
+        # them, so neither may this lane
+        exact = SequentialScheduler(chains.filter, chains.pre_score,
+                                    chains.score, weights=weights)
+        rows, _ = lane.exact(exact, pending, SCAN_MAX_CHUNK)
+        for m, row in zip(pending, rows):
+            choices[position[id(m)]] = row
+    synchronize(device)
+    return CrosspodRun(
+        choices=choices, node_table=lane.node_table, attempts=len(blocks_of),
+        blocks=blocks_of, calls=calls, exact_pods=exact_pods,
+        schedule_s=time.monotonic() - t_start, grouping_s=grouping_s,
+        constraint_build_s=lane.constraint_build_s, log=log)

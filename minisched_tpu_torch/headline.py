@@ -188,7 +188,7 @@ class WaveRun:
         return len(self.rounds)
 
 
-def _sync(device: torch.device) -> None:
+def synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -327,7 +327,7 @@ def schedule_waves(nodes: Sequence[Any], pods: Sequence[Any],
     t0 = time.monotonic()
     node_table = node_host.to_device(device)
     pod_tables = [h.to_device(device) for h in wave_hosts]
-    _sync(device)
+    synchronize(device)
     h2d_s = time.monotonic() - t0
 
     def feed() -> Optional[ConstraintFeed]:
@@ -338,13 +338,13 @@ def schedule_waves(nodes: Sequence[Any], pods: Sequence[Any],
     t0 = time.monotonic()
     if pod_tables and device.type == "cuda":  # the step is pure: dropped
         run_waves(step, node_table, pod_tables[:1], feed())
-    _sync(device)
+    synchronize(device)
     warmup_s = time.monotonic() - t0
 
     t0 = time.monotonic()
     timed_feed = feed()
     node_table, outs = run_waves(step, node_table, pod_tables, timed_feed)
-    _sync(device)
+    synchronize(device)
     schedule_s = time.monotonic() - t0
 
     # the first n_live rows of each wave; the rest are padding

@@ -14,6 +14,8 @@ holds the twins against the JAX package on the same toleration forms.
   bool plane is 16-byte aligned together with its scores.
 * ``repair_planes``: the (scores, mask) planes of a given round of a
   repair wave (``ops/repair.py``), for ``select_hosts`` on its real inputs.
+* ``scan_planes``: the (scores, mask) planes of the first step of a scan
+  lane (``ops/sequential.py``): one pod row, or one block of rows.
 * ``toleration_cluster``: nodes (some cordoned, some without a numeric
   suffix) and pods carrying every toleration form, then ``garble`` fills
   the slots at or past ``num_tols`` with matching tolerations and clears
@@ -30,8 +32,10 @@ import torch
 
 from minisched_tpu_torch.api.objects import Toleration, make_node, make_pod
 from minisched_tpu_torch.models import tables
+from minisched_tpu_torch.models.constraints import scan_use
 from minisched_tpu_torch.ops.fused import wave_planes
 from minisched_tpu_torch.ops.repair import repair_wave_step
+from minisched_tpu_torch.ops.sequential import extra_rows, pod_rows
 from minisched_tpu_torch.utils.hashing import fnv1a32
 
 #: node counts of the select_hosts cases: both sides of the 16-node group
@@ -177,4 +181,23 @@ def repair_planes(pods: Any, nodes: Any, evaluator: Any,
                                         max_rounds=rounds_before)[:2]
         pods = replace(pods, valid=pods.valid & (final < 0))
     planes = wave_planes(pods, nodes, *chains, evaluator.ctx)
+    return planes.totals, planes.mask
+
+
+def scan_planes(scheduler: Any, pods: Any, nodes: Any, extra: Any,
+                rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores, mask) that a scan lane hands ``select_hosts`` at its first
+    step: the first ``rows`` pod rows (1 for the exact scan, a block for
+    the blocked lane) against the tables as given, with the scan's
+    constraint flags.  ``scheduler`` is an ``ops.sequential``
+    ``SequentialScheduler`` or ``BlockedSequentialScheduler``; the
+    blocked lane's static split gives the same planes, so it is not
+    made here."""
+    idx = torch.arange(rows, device=pods.valid.device)
+    row_extra = (None if extra is None else
+                 extra_rows(extra, idx, {}, scan_use(extra.in_use)))
+    planes = wave_planes(pod_rows(pods, idx), nodes,
+                         scheduler.filter_plugins, scheduler.pre_score_plugins,
+                         scheduler.score_plugins, scheduler.ctx,
+                         extra=row_extra)
     return planes.totals, planes.mask

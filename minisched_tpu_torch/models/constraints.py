@@ -13,15 +13,19 @@ the device as one pinned buffer and one non-blocking copy
 
 Two parts of the JAX module are not here: the ``ConstraintIndex`` inputs
 (``index=``, ``extra_assigned=``), which belong to the live engine, and
-the packed elision options of ``device=False``, which belong to the scan
-lane.
+the packed elision options of ``device=False`` (``elide_zeros``,
+``elide_groups``).  Those keep the number of distinct compiled shapes of
+the JAX program small; the port compiles nothing per shape and always
+builds the full tables.
 
 ``ConstraintTables.in_use`` is the port's own: which constraint slots of
 the wave's pods carry anything, read from the host columns.  The batch
 plugins skip the slots no pod uses, where the JAX kernels branch on
 device values (``lax.cond``) or compute them anyway; a skipped slot is
 one whose result is all-pass or zero, so the outputs are the same and no
-round waits on the card to decide.
+round waits on the card to decide.  A sequential scan creates state as
+it commits pods; ``scan_use`` widens the flags to what the scanned pods
+can create.
 """
 
 from __future__ import annotations
@@ -70,6 +74,9 @@ class ConstraintUse:
     vols: int = 0  # mount slots in use (max pod_n_vols)
     rev: bool = False  # some assigned pod's term scores (rev_weight != 0)
     ex: bool = False  # some assigned pod's anti-affinity term can bind
+    #: a pod committed earlier in a scan can exclude later pods
+    #: (combo_excl != 0; only the scan sets it, ``scan_use``)
+    excl: bool = False
 
 
 def constraint_use(cols: Dict[str, np.ndarray]) -> ConstraintUse:
@@ -90,6 +97,20 @@ def constraint_use(cols: Dict[str, np.ndarray]) -> ConstraintUse:
         rev=bool(cols["rev_weight"].any()),
         ex=bool(cols["pod_matches_ex"].any() and cols["ex_domain"].any()),
     )
+
+
+def scan_use(use: ConstraintUse) -> ConstraintUse:
+    """The flags of a sequential scan over the pods ``use`` describes.
+
+    A committed pod adds its preferred and required affinity terms to
+    ``rev_weight`` and its required anti-affinity terms to ``combo_excl``
+    (``ops/sequential.py``), so the symmetric score is live once any
+    scanned pod has such a term, and the in-scan exclusion once any has a
+    required anti-affinity term.  One-row and one-block slices keep these
+    chunk-wide flags: a superset of the used slots gives the same result,
+    and every step takes the same host-known branches."""
+    return replace(use, rev=use.rev or use.pa > 0 or use.ppa > 0,
+                   excl=use.pan > 0)
 
 
 @dataclass
@@ -661,3 +682,18 @@ def build_constraint_tables(
 #: the device columns, in declaration order (every field but ``in_use``)
 _COLUMNS = tuple(f for f in ConstraintTables.__dataclass_fields__
                  if f != "in_use")
+
+#: columns with a leading pod axis (a scan step takes its rows of them),
+#: in the JAX package's order
+POD_AXIS_FIELDS = (
+    "pod_matches_ex", "pod_matches_combo", "pod_vols_fam", "pod_claim_valid",
+    "pod_missing", "ts_combo", "ts_skew", "ts_mode", "ts_n", "pa_combo",
+    "pa_self", "pa_n", "pan_combo", "pan_n", "ppa_combo", "ppa_w", "ppa_n",
+    "pod_claims", "vol_ok", "pod_n_vols",
+)
+
+#: columns the sequential scan carries and updates as pods commit
+SCAN_CARRIED_FIELDS = (
+    "combo_dsum", "combo_here", "combo_global", "combo_excl", "rev_weight",
+    "vol_any", "vol_rw", "node_vols_fam",
+)

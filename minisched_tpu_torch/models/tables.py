@@ -574,7 +574,8 @@ def _image_keys(pods: Sequence[Any]) -> List[int]:
     ]
 
 
-def _pack_pod_table_fast(pods: Sequence[Any], cap: int) -> HostTable:
+def _pack_pod_table_fast(pods: Sequence[Any], cap: int,
+                         invalid_rows: Sequence[int] = ()) -> HostTable:
     """Columnar fast path for simple pods: only the live columns are
     packed; the constraint columns are made all-zero on the device."""
     p = len(pods)
@@ -607,6 +608,7 @@ def _pack_pod_table_fast(pods: Sequence[Any], cap: int) -> HostTable:
     img = np.zeros((cap, MAX_CONTAINERS), np.int32)
     img[:p, 0] = _image_keys(pods)
     host["image_key"] = img
+    host["valid"][list(invalid_rows)] = False
     return HostTable.pack(PodTable, host, _zero_pod_metas(cap))
 
 
@@ -656,7 +658,8 @@ def _terms_sig(terms):
     )
 
 
-def _pack_pod_table_full(pods: Sequence[Any], cap: int) -> HostTable:
+def _pack_pod_table_full(pods: Sequence[Any], cap: int,
+                         invalid_rows: Sequence[int] = ()) -> HostTable:
     """The general encoder: every column, with the per-pod loop touching
     only the optional fields a pod carries."""
     p = len(pods)
@@ -785,26 +788,33 @@ def _pack_pod_table_full(pods: Sequence[Any], cap: int) -> HostTable:
             # the placed-member aggregates (gang_slice .. gang_n) stay zero:
             # they come with the gang slice of the port
             t["gang_id"][i] = fnv1a32(key)
+    t["valid"][list(invalid_rows)] = False
     return HostTable.pack(PodTable, t)
 
 
 def pack_pod_table(pods: Sequence[Any],
-                   capacity: Optional[int] = None
+                   capacity: Optional[int] = None,
+                   invalid_rows: Sequence[int] = ()
                    ) -> Tuple[HostTable, List[str]]:
-    """The host half of ``build_pod_table``: (HostTable, pod names)."""
+    """The host half of ``build_pod_table``: (HostTable, pod names).
+    ``invalid_rows``: rows marked ``valid=False``, the placeholder rows
+    between real pods of the blocked scan lane's blocks (the rows past
+    the pods are padding anyway)."""
     p = len(pods)
     cap = capacity or pad_to(p)
     if p > cap:
         raise ValueError(f"{p} pods exceed table capacity {cap}")
     names = [pod.metadata.name for pod in pods]
     if all(_pod_is_simple(pod) for pod in pods):
-        return _pack_pod_table_fast(pods, cap), names
-    return _pack_pod_table_full(pods, cap), names
+        return _pack_pod_table_fast(pods, cap, invalid_rows), names
+    return _pack_pod_table_full(pods, cap, invalid_rows), names
 
 
 def build_pod_table(pods: Sequence[Any], capacity: Optional[int] = None,
-                    device=None) -> Tuple[PodTable, List[str]]:
-    """PodTable on ``device`` from Pod objects: (table, pod names)."""
+                    device=None, invalid_rows: Sequence[int] = ()
+                    ) -> Tuple[PodTable, List[str]]:
+    """PodTable on ``device`` from Pod objects: (table, pod names);
+    ``invalid_rows`` as ``pack_pod_table``."""
     device = resolve_device(device)
-    host, names = pack_pod_table(pods, capacity)
+    host, names = pack_pod_table(pods, capacity, invalid_rows)
     return host.to_device(device), names

@@ -50,6 +50,10 @@ class BatchContext:
     """Per-evaluator configuration handed to the batch plugins."""
 
     weights: Tuple[Tuple[str, int], ...] = ()
+    #: True only inside the sequential scan lanes (``ops/sequential.py``):
+    #: InterPodAffinity then also applies the anti-affinity of pods
+    #: committed earlier in the scan (``combo_excl``)
+    in_scan: bool = False
 
     def weight_of(self, name: str) -> int:
         for n, w in self.weights:
@@ -112,19 +116,29 @@ def run_score(pl: Any, ctx: BatchContext, pods: Any, nodes: Any,
 def precompute_static(pods: Any, nodes: Any, filter_plugins: Sequence[Any],
                       pre_score_plugins: Sequence[Any],
                       score_plugins: Sequence[Any],
-                      ctx: BatchContext, extra: Any = None) -> StaticWavePlanes:
-    """Evaluate the round-invariant half of the chain once."""
+                      ctx: BatchContext, extra: Any = None,
+                      extra_dynamic: frozenset = frozenset()
+                      ) -> StaticWavePlanes:
+    """Evaluate the round-invariant half of the chain once.
+
+    ``extra_dynamic``: names of plugins to treat as round-varying besides
+    those with ``reads_committed_state``: the blocked scan lane passes the
+    plugins whose carried coupling planes change from block to block."""
+
+    def static(pl: Any) -> bool:
+        return not _is_dynamic(pl) and pl.name() not in extra_dynamic
+
     mask = pods.valid[:, None] & nodes.valid[None, :]
     names = []
     for pl in filter_plugins:
-        if not _is_dynamic(pl):
+        if static(pl):
             names.append(pl.name())
             mask = mask & run_filter(pl, ctx, pods, nodes, extra)
     aux = {pl.name(): pl.batch_pre_score(ctx, pods, nodes)
-           for pl in pre_score_plugins if not _is_dynamic(pl)}
+           for pl in pre_score_plugins if static(pl)}
     raw = {pl.name(): run_score(pl, ctx, pods, nodes, aux.get(pl.name(), {}),
                                 extra)
-           for pl in score_plugins if not _is_dynamic(pl)}
+           for pl in score_plugins if static(pl)}
     return StaticWavePlanes(mask, frozenset(names), aux, raw)
 
 

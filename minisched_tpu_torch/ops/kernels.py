@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -40,11 +40,22 @@ UINT32_MAX = 0xFFFFFFFF
 #: launches of each kernel since the last ``reset_launch_counts``; a
 #: wrapper adds one where it launches its kernel and nowhere else
 launch_counts = {"select_hosts": 0, "nodenumber_select_hosts": 0}
+#: calls made while a CUDA graph was being captured: each records its
+#: kernel into the graph, which launches it at every replay; whoever
+#: replays the graph counts those launches (``count_replays``)
+captured_counts = {"select_hosts": 0, "nodenumber_select_hosts": 0}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def count_replays(captured: Dict[str, int], replays: int) -> None:
+    """Count the launches of ``replays`` replays of a graph into which
+    ``captured`` (kernel name → calls) were recorded."""
+    for name, calls in captured.items():
+        launch_counts[name] += calls * replays
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +190,10 @@ def _launch(name: str, device: torch.device, *args) -> None:
         err = _kernel(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-    launch_counts[name.removeprefix("minisched_")] += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured_counts[name.removeprefix("minisched_")] += 1
+    else:
+        launch_counts[name.removeprefix("minisched_")] += 1
 
 
 def select_hosts_cuda(

@@ -79,6 +79,12 @@ def mount_slot_planes(extra: Any) -> Tuple[torch.Tensor, ...]:
     return slot_cnt, slot_vol, slot_ro, slot_fam, slot_dup
 
 
+#: the NodeTable columns ``apply_placements`` changes (the rest describe
+#: the nodes themselves and never change as pods commit)
+COMMITTED_COLUMNS = ("req_cpu", "req_mem", "req_eph", "req_pods", "nzreq_cpu",
+                     "nzreq_mem", "used_port", "num_used_ports")
+
+
 def apply_placements(nodes: NodeTable, pods: PodTable,
                      choice: torch.Tensor) -> NodeTable:
     """Commit chosen placements: add each placed pod's requests to its

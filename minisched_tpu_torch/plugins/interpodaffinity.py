@@ -5,7 +5,9 @@ Counterpart of ``minisched_tpu/plugins/interpodaffinity.py:212-289``:
 
 * The filter rejects a node when an ASSIGNED pod's required
   anti-affinity term matches the incoming pod and the node shares that
-  pod's topology domain (``pod_matches_ex @ ex_domain``), when one of the
+  pod's topology domain (``pod_matches_ex @ ex_domain``; inside a
+  sequential scan also when a pod committed EARLIER IN THE SCAN holds such
+  a term, ``pod_matches_combo @ combo_excl``), when one of the
   pod's own required anti-affinity terms has a matching assigned pod in
   the node's domain, or when a required affinity term has none (unless
   the pod matches its own term and no pod matches cluster-wide: then any
@@ -18,14 +20,16 @@ Counterpart of ``minisched_tpu/plugins/interpodaffinity.py:212-289``:
 The JAX kernels gather (P, slots, N) planes (``combo_dsum[pa_combo]``
 …) that XLA fuses away; here each slot folds into a (P, N) plane in turn,
 and slots no pod of the wave uses are skipped (``ConstraintTables.in_use``).
-The JAX filter's ``ctx.in_scan`` term (``pod_matches_combo @
-combo_excl``, the exclusions of pods committed earlier in a sequential
-scan) belongs to the scan lane and is not here.
+The in-scan term runs only where the JAX filter compiles it (``ctx.in_scan``,
+set by the scan lanes' schedulers) and only when some scanned pod has a
+required anti-affinity term (``in_use.excl``, ``ops/sequential.py``): else
+``combo_excl`` is all-False and the term passes every node.
 
-CUDA has no integer matmul, so the two products run in floating point:
+CUDA has no integer matmul, so the three products run in floating point:
 
-* the reverse anti-affinity product is only compared with 0; its terms
-  are 0 or 1, so every partial sum is a non-negative count and no
+* the reverse anti-affinity products (assigned pods' terms, and in a scan
+  the committed pods' ``combo_excl``) are only compared with 0; their
+  terms are 0 or 1, so every partial sum is a non-negative count and no
   rounding in any float type (TF32 included) turns a positive sum into
   0: float32 is exact for that test;
 * the symmetric score needs the exact signed sum.  It runs in float64:
@@ -63,6 +67,9 @@ def _need(extra: Any) -> None:
 
 class InterPodAffinity(BatchEvaluable):
     needs_extra = True
+    #: the coupling planes the sequential scan carries for this plugin
+    #: (``ops/sequential.py``): the combo aggregates
+    scan_carried_planes = ("combos",)
 
     def name(self) -> str:
         return NAME
@@ -75,6 +82,11 @@ class InterPodAffinity(BatchEvaluable):
         ok = torch.ones((P, N), dtype=torch.bool, device=extra.vol_ok.device)
         if use.ex:  # reverse direction: assigned pods' anti-affinity
             hits = extra.pod_matches_ex.float() @ extra.ex_domain.float()
+            ok &= ~(hits > 0)
+        if getattr(ctx, "in_scan", False) and use.excl:
+            # the same check against pods committed earlier in the scan
+            hits = (extra.pod_matches_combo.float()
+                    @ extra.combo_excl.float())
             ok &= ~(hits > 0)
         if use.pan or use.pa:
             occupied = extra.combo_dsum > 0  # (C, N)

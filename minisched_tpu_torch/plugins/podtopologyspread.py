@@ -53,6 +53,9 @@ def _need(extra: Any) -> None:
 
 class PodTopologySpread(BatchEvaluable):
     needs_extra = True
+    #: the coupling planes the sequential scan carries for this plugin
+    #: (``ops/sequential.py``): the combo aggregates
+    scan_carried_planes = ("combos",)
 
     def name(self) -> str:
         return NAME

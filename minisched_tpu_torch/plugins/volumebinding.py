@@ -63,6 +63,8 @@ def claims_pass(extra: Any, per_claim: torch.Tensor) -> torch.Tensor:
 
 class VolumeBinding(BatchEvaluable):
     needs_extra = True
+    #: claim verdicts do not change as pods commit: nothing to carry
+    scan_carried_planes = ()
 
     def name(self) -> str:
         return BINDING_NAME

@@ -51,6 +51,8 @@ class VolumeLimitsCore(BatchEvaluable):
     #: the repair loop's marker for volume-limit plugins (ops/repair.py
     #: reads it with ``max_volumes``)
     volume_family_index = FAM_GENERIC
+    #: the scan carries the committed attach counts and mounts for it
+    scan_carried_planes = ("volumes",)
 
     def __init__(self, max_volumes: Optional[int] = None):
         self.max_volumes = (max_volumes if max_volumes is not None

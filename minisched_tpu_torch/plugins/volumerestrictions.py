@@ -28,6 +28,8 @@ class VolumeRestrictions(BatchEvaluable):
     #: the repair loop's marker: carry per-volume mount state across
     #: rounds and dedup same-round mounts
     enforces_volume_restrictions = True
+    #: the scan carries the committed mount planes for it
+    scan_carried_planes = ("volumes",)
 
     def name(self) -> str:
         return NAME

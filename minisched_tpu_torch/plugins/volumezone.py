@@ -42,6 +42,8 @@ def pv_zone_ok(pv: Any, node: Any) -> bool:
 
 class VolumeZone(BatchEvaluable):
     needs_extra = True
+    #: zone verdicts do not change as pods commit: nothing to carry
+    scan_carried_planes = ()
 
     def name(self) -> str:
         return NAME

@@ -20,12 +20,21 @@ import torch
 
 from minisched_tpu_torch.api.objects import Toleration, make_node, make_pod
 from minisched_tpu_torch.engine.oracle import headline_oracle
+from minisched_tpu_torch.engine.scan_groups import (
+    interaction_sets,
+    order_into_blocks,
+)
 from minisched_tpu_torch.fullchain import (
+    c3_roster_config,
+    mk_c3_cluster,
     mk_c5_cluster,
     mk_mixed_cluster,
+    schedule_crosspod,
     schedule_repair_waves,
+    schedule_scan,
 )
 from minisched_tpu_torch.headline import (
+    BoundPod,
     mk_cluster,
     pods_by_node,
     repair_evaluator,
@@ -47,7 +56,7 @@ from minisched_tpu_torch.kernel_cases import (
     toleration_cluster,
 )
 from minisched_tpu_torch.models import tables
-from minisched_tpu_torch.ops import fused, kernels
+from minisched_tpu_torch.ops import fused, kernels, sequential
 
 pytestmark = pytest.mark.cuda
 
@@ -364,3 +373,123 @@ def test_mixed_cluster_waves_on_card_match_cpu(dev):
             assert np.array_equal(got[name], want[name]), name
     for name, col in tables.table_columns(run.node_table).items():
         assert torch.equal(col.cpu(), getattr(cpu.node_table, name)), name
+
+
+# ---------------------------------------------------------------------------
+# the scan lanes on the card (CUDA-graph replays) against the CPU twins
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("P", [1, 32])
+def test_select_hosts_kernel_at_scan_shapes(P, dev):
+    """The scan lanes' shapes: one pod row (the exact scan) and one block
+    of 32 (the blocked lane) against config 5's 10,112 node rows."""
+    for tie_heavy in (False, True):
+        _assert_select_matches_twin(*_planes(P + 3, P, 10112, dev, tie_heavy))
+
+
+def _scan_runs(nodes, pods, **kw):
+    """``schedule_scan`` on the card and on the CPU twins."""
+    log = sequential.StepLog()
+    before = kernels.launch_counts["select_hosts"]
+    card = schedule_scan(nodes, pods, log=log, **kw)
+    launched = kernels.launch_counts["select_hosts"] - before
+    cpu = schedule_scan(nodes, pods, device="cpu", **kw)
+    return card, cpu, log, launched
+
+
+def _assert_tables_equal(got, want):
+    for name, col in tables.table_columns(got).items():
+        assert torch.equal(col.cpu(), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("cluster", ["config3", "mixed"])
+def test_exact_scan_replayed_on_card_matches_cpu(cluster, dev):
+    """The exact scan as CUDA-graph replays, one captured step a pod: the
+    same choices, best scores and final table as the eager CPU twins;
+    each replay launches select_hosts once (the warm-up step too)."""
+    if cluster == "config3":
+        nodes, pods = mk_c3_cluster(48, 300)  # more pods than room
+        kw = dict(cfg=c3_roster_config(), chunk=128)
+    else:
+        nodes, assigned, pods, pvcs, pvs = mk_mixed_cluster(256, 160)
+        kw = dict(assigned=assigned, pvcs=pvcs, pvs=pvs, chunk=64)
+    card, cpu, log, launched = _scan_runs(nodes, pods, **kw)
+    assert np.array_equal(card.choices, cpu.choices)
+    assert np.array_equal(card.best, cpu.best)
+    _assert_tables_equal(card.node_table, cpu.node_table)
+    assert (card.choices >= 0).any() and (card.choices < 0).any()
+    steps = [s.steps for s in log.loops]
+    assert sum(steps) == len(pods)
+    assert all(s.select_hosts_per_step == 1 and s.device_ms_per_step
+               for s in log.loops)
+    assert launched == sum(steps) + len(steps)  # replays + warm-up steps
+
+
+def test_blocked_lane_replayed_on_card_matches_cpu(dev):
+    """Reduced config 5 with spread pods: repair waves for the rest, then
+    ``schedule_crosspod``, on the card and on the CPU twins: equal
+    choices, calls (choice and accepted of every row), attempts,
+    exact-lane leftovers and final tables."""
+    nodes, pods = mk_c5_cluster(256, 3000, n_crosspod=600)
+    spread = [p for p in pods if p.metadata.name.startswith("spread")]
+    rest = [p for p in pods if not p.metadata.name.startswith("spread")]
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        waves = schedule_repair_waves(nodes, rest, wave=1024, device=device)
+        placed = [BoundPod(p, waves.node_names[c])
+                  for p, c in zip(rest, waves.choices) if c >= 0]
+        runs[device.type] = schedule_crosspod(nodes, spread, waves.node_table,
+                                              placed, device=device)
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert np.array_equal(card.choices, cpu.choices)
+    assert (card.attempts, card.blocks, card.exact_pods) == (
+        cpu.attempts, cpu.blocks, cpu.exact_pods)
+    for (rows, won), (crows, cwon) in zip(card.calls, cpu.calls, strict=True):
+        assert np.array_equal(rows, crows) and np.array_equal(won, cwon)
+    _assert_tables_equal(card.node_table, cpu.node_table)
+    assert (card.choices >= 0).all()
+    assert all(s.select_hosts_per_step == 1 for s in card.log.loops)
+
+
+def test_blocked_commit_exact_with_tf32_allowed(dev):
+    """The blocked scan on the mixed cluster (a zone's domain sum above
+    4,096; every term kind) with TF32 allowed for float32 products and
+    precision "medium": the card gives the CPU twins' choices, accepted
+    masks and final table."""
+    nodes, assigned, pods, pvcs, pvs = mk_mixed_cluster(256, 256)
+    order = order_into_blocks(pods, interaction_sets(pods), 8)
+    flat = [m for blk in order for m in blk]
+    pad = [i for i, m in enumerate(flat) if m is None]
+    flat = [m if m is not None else make_pod("scan-pad") for m in flat]
+    cfg = default_full_roster_config()
+    chains = build_plugins(cfg)
+    blocked = sequential.BlockedSequentialScheduler(
+        chains.filter, chains.pre_score, chains.score,
+        weights=cfg.score_weights(), block_size=8)
+
+    def run(device):
+        nt, _ = tables.build_node_table(nodes, pods_by_node(assigned),
+                                        device=device)
+        pt, _ = tables.build_pod_table(flat, device=device, invalid_rows=pad)
+        ex = build_constraint_tables(flat, nodes, assigned,
+                                     pod_capacity=pt.capacity,
+                                     node_capacity=nt.capacity, pvcs=pvcs,
+                                     pvs=pvs, device=device)
+        return ex, blocked(pt, nt, ex)
+
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("medium")
+    try:
+        ex, card = run(dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before[0]
+        torch.set_float32_matmul_precision(before[1])
+    _, cpu = run("cpu")
+    assert int(ex.combo_dsum.max()) > 4096
+    for got, want in zip(card[1:], cpu[1:]):
+        assert torch.equal(got.cpu(), want)
+    _assert_tables_equal(card[0], cpu[0])
+    assert (card[3]).any() and (card[1] < 0).any()
