@@ -85,10 +85,12 @@ Phases, each of which raises on failure (nothing catches it):
    the plain and special pods in full-roster repair waves, then the
    spread pods through the blocked lane (``fullchain.schedule_crosspod``);
    phase 6's audit over every pod, ``bench.py``'s spread audit (per app,
-   pods per eligible zone within max skew 4); then the same at 2,000
+   pods per eligible zone within max skew 4); then the same at 1,520
    nodes, 20,000 pods and 1,000 spread pods on the card and on the CPU
    twins: equal choices, every call's accepted mask, attempts, exact-lane
-   leftovers and final tables.
+   leftovers and final tables.  At 1,520 nodes the plain pods leave about
+   one free slot a node, so the spread pods race for them and the lane
+   retries (at least 2 attempts, checked).
    For 11-13 it prints the scan wall and pods/s, the steps (blocks)
    replayed, device ms a step (CUDA events around the replays), device
    operations a step (one replay under the profiler), ``select_hosts``
@@ -145,6 +147,7 @@ MIXED_WAVE = 4_096  # repair waves of the mixed cluster (phase 10)
 # 700 W (PERF.md §6)
 C5_SCAN_PODS = 45_000
 C5X_SPREAD = 5_000  # config 5's spread pods (phase 13)
+C5X_REDUCED_NODES = 1_520  # phase 13's card-vs-CPU run: full enough to race
 
 
 def log(msg: str) -> None:
@@ -1078,7 +1081,9 @@ def main() -> int:
     launches["select_hosts"]["blocked-c5x"] = x_counts["select_hosts"]
     del x_waves, x_lane
 
-    r_nodes, r_pods = mk_c5_cluster(2_000, 20_000, n_crosspod=1_000)
+    # 1,520 nodes leave about one free slot a node after the plain pods,
+    # so the spread pods race for them: retries in every attempt
+    r_nodes, r_pods = mk_c5_cluster(C5X_REDUCED_NODES, 20_000, n_crosspod=1_000)
     t0 = time.monotonic()
     _, r_card, r_card_choices = crosspod_run(r_nodes, r_pods, dev, 4_096)
     card_s = time.monotonic() - t0
@@ -1093,6 +1098,9 @@ def main() -> int:
             or len(r_card.calls) != len(r_cpu.calls)):
         raise AssertionError("reduced blocked lane: attempts, blocks or "
                              "leftovers differ card vs CPU")
+    if r_card.attempts < 2:
+        raise AssertionError("reduced blocked lane: no capacity race, so no "
+                             "retry was compared")
     for (rows, won), (c_rows, c_won) in zip(r_card.calls, r_cpu.calls):
         if not (np.array_equal(rows, c_rows) and np.array_equal(won, c_won)):
             raise AssertionError("reduced blocked lane: a call's choices or "
@@ -1102,11 +1110,13 @@ def main() -> int:
         if not torch.equal(col.cpu(), cpu_cols[name]):
             raise AssertionError(f"reduced blocked lane: final tables differ "
                                  f"in {name}")
-    log(f"[blocked-c5x-reduced] 2,000 nodes x 20,000 pods with 1,000 spread "
-        f"pods: card and CPU twins equal (every choice, {len(r_card.calls)} "
-        f"calls' choices and accepted masks, {r_card.attempts} attempts, "
+    log(f"[blocked-c5x-reduced] {C5X_REDUCED_NODES:,} nodes x 20,000 pods "
+        f"with 1,000 spread pods: card and CPU twins equal (every choice, "
+        f"{len(r_card.calls)} calls' choices and accepted masks, "
+        f"{r_card.attempts} attempts, blocks per attempt {r_card.blocks}, "
         f"{r_card.exact_pods} exact-lane leftovers, every final table "
-        f"column); {card_s:.2f}s on the card, {cpu_s:.2f}s on the CPU")
+        f"column); {int((r_card.choices >= 0).sum())} spread pods placed; "
+        f"{card_s:.2f}s on the card, {cpu_s:.2f}s on the CPU")
 
     report = []
     replaces = {

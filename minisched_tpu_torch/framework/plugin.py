@@ -14,7 +14,7 @@ Conventions:
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 MAX_NODE_SCORE = 100
 
@@ -23,6 +23,12 @@ class BatchEvaluable:
     """Mixin declaring the vectorized form of a plugin."""
 
     has_batch = True
+    #: plugins whose kernels read the constraint tables set this True;
+    #: their batch_filter/batch_score take a trailing ``extra`` argument
+    needs_extra = False
+    #: the constraint-table planes a scan carries for such a plugin
+    #: (``"combos"``, ``"volumes"``): each declares its own
+    scan_carried_planes: Tuple[str, ...] = ()
 
     def name(self) -> str:
         raise NotImplementedError

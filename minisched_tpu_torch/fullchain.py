@@ -70,13 +70,12 @@ from minisched_tpu_torch.engine.scan_groups import (
     order_into_blocks,
 )
 from minisched_tpu_torch.headline import (
-    BoundPod,
+    ConstraintFeed,
     WaveRun,
     pods_by_node,
     schedule_waves,
     synchronize,
 )
-from minisched_tpu_torch.models.constraints import build_constraint_tables
 from minisched_tpu_torch.models.tables import (
     NodeTable,
     build_pod_table,
@@ -374,7 +373,8 @@ class ScanRun:
     #: every chunk: pod and constraint tables built on the host, the scan
     #: and the read of its choices
     schedule_s: float
-    constraint_build_s: float  # the part of ``schedule_s`` in constraint builds
+    #: the part of ``schedule_s`` in constraint builds and their commits
+    constraint_build_s: float
     chunks: int
     log: StepLog = field(default_factory=StepLog)
 
@@ -399,82 +399,53 @@ class CrosspodRun:
 
 def _scan_chains(cfg: Optional[SchedulerConfig]):
     cfg = cfg or default_full_roster_config()
-    chains = build_plugins(cfg)
-    needs_extra = any(getattr(pl, "needs_extra", False)
-                      for chain in (chains.filter, chains.pre_score,
-                                    chains.score) for pl in chain)
-    return chains, cfg.score_weights(), needs_extra
+    return build_plugins(cfg), cfg.score_weights()
 
 
-class _Lane:
-    """What the scan lanes share over one run: the node objects and names,
-    the resident node table, the assigned pods (the caller's plus every
-    pod placed so far, as ``BoundPod`` views) and the host build time."""
+def _chunk_tables(pods: Sequence[Any], capacity: int,
+                  feed: Optional[ConstraintFeed], device: torch.device,
+                  invalid_rows: Sequence[int] = ()):
+    """The pod table of one chunk and, when the roster reads them, its
+    constraint tables from ``feed``."""
+    pod_table, _ = build_pod_table(pods, capacity=capacity, device=device,
+                                   invalid_rows=invalid_rows)
+    return pod_table, (feed.tables(pods, capacity) if feed else None)
 
-    def __init__(self, nodes, node_names, node_table, assigned, pvcs, pvs,
-                 needs_extra: bool, device: torch.device, log: StepLog):
-        self.nodes, self.node_names = nodes, node_names
-        self.node_table = node_table
-        self.assigned = list(assigned)
-        self.pvcs, self.pvs = pvcs, pvs
-        self.needs_extra = needs_extra
-        self.device = device
-        self.log = log
-        self.constraint_build_s = 0.0
 
-    def tables(self, pods: Sequence[Any], capacity: int,
-               invalid_rows: Sequence[int] = ()):
-        """The pod table and (when the roster reads them) the constraint
-        tables of one chunk, ``scan_planes`` on."""
-        pod_table, _ = build_pod_table(pods, capacity=capacity,
-                                       device=self.device,
-                                       invalid_rows=invalid_rows)
-        if not self.needs_extra:
-            return pod_table, None
-        t0 = time.monotonic()
-        extra = build_constraint_tables(
-            pods, self.nodes, self.assigned, pod_capacity=capacity,
-            node_capacity=self.node_table.capacity, pvcs=self.pvcs,
-            pvs=self.pvs, scan_planes=True, device=self.device)
-        self.constraint_build_s += time.monotonic() - t0
-        return pod_table, extra
-
-    def bind(self, pod: Any, row: int) -> None:
-        self.assigned.append(BoundPod(pod, self.node_names[row]))
-
-    def exact(self, sched: SequentialScheduler, pods: Sequence[Any],
-              chunk: int) -> Tuple[List[int], List[int]]:
-        """The exact scan over ``pods`` in chunks of ``chunk``: (choices,
-        best scores)."""
-        choices: List[int] = []
-        best: List[int] = []
-        for start in range(0, len(pods), chunk):
-            part = pods[start:start + chunk]
-            pod_table, extra = self.tables(part, pad_to(len(part)))
-            self.node_table, choice, score = sched(pod_table, self.node_table,
-                                                   extra, self.log)
-            rows = choice[: len(part)].tolist()
-            choices += rows
-            best += score[: len(part)].tolist()
-            for pod, row in zip(part, rows):
-                if row >= 0:
-                    self.bind(pod, row)
-        return choices, best
+def _exact_chunks(sched: SequentialScheduler, pods: Sequence[Any],
+                  node_table: NodeTable, feed: Optional[ConstraintFeed],
+                  log: StepLog) -> Tuple[NodeTable, List[int], List[int]]:
+    """The exact scan over ``pods`` in chunks of ``SCAN_MAX_CHUNK``, each
+    chunk's placements committed to ``feed``: (node table, choices, best
+    scores)."""
+    choices: List[int] = []
+    best: List[int] = []
+    device = node_table.valid.device
+    for start in range(0, len(pods), SCAN_MAX_CHUNK):
+        part = pods[start:start + SCAN_MAX_CHUNK]
+        pod_table, extra = _chunk_tables(part, pad_to(len(part)), feed, device)
+        node_table, choice, score = sched(pod_table, node_table, extra, log)
+        rows = choice[: len(part)].tolist()
+        choices += rows
+        best += score[: len(part)].tolist()
+        if feed:
+            feed.commit(part, rows)
+    return node_table, choices, best
 
 
 def schedule_scan(nodes: Sequence[Any], pods: Sequence[Any],
                   cfg: Optional[SchedulerConfig] = None,
                   assigned: Sequence[Any] = (), pvcs: Sequence[Any] = (),
-                  pvs: Sequence[Any] = (), chunk: int = SCAN_MAX_CHUNK,
-                  device=None, log: Optional[StepLog] = None) -> ScanRun:
+                  pvs: Sequence[Any] = (), device=None,
+                  log: Optional[StepLog] = None) -> ScanRun:
     """Place ``pods`` in order with the exact scan and the roster ``cfg``
-    (default: the full default roster), in chunks of ``chunk`` pods
-    against one resident node table.  Each chunk's constraint tables
+    (default: the full default roster), in chunks of ``SCAN_MAX_CHUNK``
+    pods against one resident node table.  Each chunk's constraint tables
     count the ``assigned`` pods and every pod placed by an earlier chunk.
     ``device=None`` means the card (and raises without one)."""
     device = resolve_device(device)
     log = log or StepLog()
-    chains, weights, needs_extra = _scan_chains(cfg)
+    chains, weights = _scan_chains(cfg)
     sched = SequentialScheduler(chains.filter, chains.pre_score, chains.score,
                                 weights=weights)
     if device.type == "cuda":
@@ -485,17 +456,19 @@ def schedule_scan(nodes: Sequence[Any], pods: Sequence[Any],
     node_table = node_host.to_device(device)
     synchronize(device)
     build_s = time.monotonic() - t0
-    lane = _Lane(nodes, node_names, node_table, assigned, pvcs, pvs,
-                 needs_extra, device, log)
+    feed = ConstraintFeed.for_step(sched, nodes, node_names, assigned, pvcs,
+                                   pvs, node_table.capacity, device,
+                                   scan_planes=True)
     t0 = time.monotonic()
-    choices, best = lane.exact(sched, pods, chunk)
+    node_table, choices, best = _exact_chunks(sched, pods, node_table, feed,
+                                              log)
     synchronize(device)
     return ScanRun(
         choices=np.asarray(choices, np.int64), best=np.asarray(best, np.int64),
-        node_table=lane.node_table, node_names=node_names, build_s=build_s,
+        node_table=node_table, node_names=node_names, build_s=build_s,
         schedule_s=time.monotonic() - t0,
-        constraint_build_s=lane.constraint_build_s,
-        chunks=-(-len(pods) // chunk), log=log)
+        constraint_build_s=feed.build_s if feed else 0.0,
+        chunks=-(-len(pods) // SCAN_MAX_CHUNK), log=log)
 
 
 def _blocked_cap(n: int) -> int:
@@ -522,12 +495,13 @@ def schedule_crosspod(nodes: Sequence[Any], pods: Sequence[Any],
         raise ValueError(f"node table on {node_table.valid.device}, lane on "
                          f"{device}")
     log = log or StepLog()
-    chains, weights, needs_extra = _scan_chains(cfg)
+    chains, weights = _scan_chains(cfg)
     blocked = BlockedSequentialScheduler(
         chains.filter, chains.pre_score, chains.score, weights=weights,
         block_size=SCAN_BLOCK_SIZE)
-    lane = _Lane(nodes, [n.metadata.name for n in nodes], node_table,
-                 assigned, pvcs, pvs, needs_extra, device, log)
+    feed = ConstraintFeed.for_step(
+        blocked, nodes, [n.metadata.name for n in nodes], assigned, pvcs, pvs,
+        node_table.capacity, device, scan_planes=True)
     position = {id(p): k for k, p in enumerate(pods)}
     choices = np.full(len(pods), -1, np.int64)
     dummy = make_pod("scan-pad")
@@ -547,22 +521,26 @@ def schedule_crosspod(nodes: Sequence[Any], pods: Sequence[Any],
         for start in range(0, len(flat), BLOCKED_MAX_CHUNK):
             part = flat[start:start + BLOCKED_MAX_CHUNK]
             pad_rows = [i for i, m in enumerate(part) if m is None]
-            pod_table, extra = lane.tables(
+            pod_table, extra = _chunk_tables(
                 [m if m is not None else dummy for m in part],
-                _blocked_cap(len(part)), invalid_rows=pad_rows)
-            lane.node_table, choice, _, accepted = blocked(
-                pod_table, lane.node_table, extra, log)
+                _blocked_cap(len(part)), feed, device, invalid_rows=pad_rows)
+            node_table, choice, _, accepted = blocked(
+                pod_table, node_table, extra, log)
             rows = choice[: len(part)].tolist()
             won = accepted[: len(part)].tolist()
             calls.append((np.asarray(rows, np.int64), np.asarray(won, bool)))
+            placed, placed_rows = [], []
             for m, row, ok in zip(part, rows, won):
                 if m is None:
                     continue
                 if row >= 0 and ok:
                     choices[position[id(m)]] = row
-                    lane.bind(m, row)
+                    placed.append(m)
+                    placed_rows.append(row)
                 elif row >= 0:
                     retry.append(m)  # feasible; lost a same-node race
+            if feed:
+                feed.commit(placed, placed_rows)
         pending = retry
         if not pending:
             break
@@ -572,12 +550,13 @@ def schedule_crosspod(nodes: Sequence[Any], pods: Sequence[Any],
         # them, so neither may this lane
         exact = SequentialScheduler(chains.filter, chains.pre_score,
                                     chains.score, weights=weights)
-        rows, _ = lane.exact(exact, pending, SCAN_MAX_CHUNK)
+        node_table, rows, _ = _exact_chunks(exact, pending, node_table, feed,
+                                            log)
         for m, row in zip(pending, rows):
             choices[position[id(m)]] = row
     synchronize(device)
     return CrosspodRun(
-        choices=choices, node_table=lane.node_table, attempts=len(blocks_of),
+        choices=choices, node_table=node_table, attempts=len(blocks_of),
         blocks=blocks_of, calls=calls, exact_pods=exact_pods,
         schedule_s=time.monotonic() - t_start, grouping_s=grouping_s,
-        constraint_build_s=lane.constraint_build_s, log=log)
+        constraint_build_s=feed.build_s if feed else 0.0, log=log)

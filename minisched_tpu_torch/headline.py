@@ -223,42 +223,43 @@ class BoundPod:
 
 
 class ConstraintFeed:
-    """Each wave's constraint tables, built on the host from the objects
-    (``scan_planes=False``, the wave mode).  The assigned pods are
-    ``assigned`` plus every pod that an earlier wave placed."""
+    """The constraint tables of one batch of pods after another (each
+    wave, each scan chunk), built on the host from the objects.  The
+    assigned pods are ``assigned`` plus every pod committed since.
+    ``scan_planes`` picks the scan lanes' tables; False is the wave
+    mode."""
 
     def __init__(self, nodes: Sequence[Any], node_names: Sequence[str],
-                 waves: Sequence[Sequence[Any]], assigned: Sequence[Any],
-                 pvcs: Sequence[Any], pvs: Sequence[Any], pod_capacity: int,
-                 node_capacity: int, device: torch.device):
-        self.nodes, self.node_names, self.waves = nodes, node_names, waves
+                 assigned: Sequence[Any], pvcs: Sequence[Any],
+                 pvs: Sequence[Any], node_capacity: int, device: torch.device,
+                 scan_planes: bool = False):
+        self.nodes, self.node_names = nodes, node_names
         self.assigned = list(assigned)
         self.pvcs, self.pvs = pvcs, pvs
-        self.pod_capacity, self.node_capacity = pod_capacity, node_capacity
+        self.node_capacity = node_capacity
         self.device = device
+        self.scan_planes = scan_planes
         self.build_s = 0.0  # host time in ``tables`` and ``commit``
 
     @classmethod
-    def for_step(cls, step: Callable, *args: Any) -> Optional["ConstraintFeed"]:
-        """The feed of ``step``'s waves (the constructor's arguments), or
-        None when the step reads no constraint tables."""
-        return cls(*args) if getattr(step, "needs_extra", False) else None
+    def for_step(cls, step: Callable, *args: Any,
+                 **kw: Any) -> Optional["ConstraintFeed"]:
+        """The feed of ``step`` (the constructor's arguments), or None
+        when the step reads no constraint tables."""
+        return cls(*args, **kw) if getattr(step, "needs_extra", False) else None
 
-    def tables(self, i: int) -> ConstraintTables:
+    def tables(self, pods: Sequence[Any], pod_capacity: int) -> ConstraintTables:
         t0 = time.monotonic()
         extra = build_constraint_tables(
-            self.waves[i], self.nodes, self.assigned,
-            pod_capacity=self.pod_capacity, node_capacity=self.node_capacity,
-            pvcs=self.pvcs, pvs=self.pvs, scan_planes=False,
-            device=self.device)
+            pods, self.nodes, self.assigned, pod_capacity=pod_capacity,
+            node_capacity=self.node_capacity, pvcs=self.pvcs, pvs=self.pvs,
+            scan_planes=self.scan_planes, device=self.device)
         self.build_s += time.monotonic() - t0
         return extra
 
-    def commit(self, i: int, choice: torch.Tensor) -> None:
-        """Wave ``i``'s placed pods join the assigned pods.  Reading its
-        choices waits for the wave's device work."""
-        pods = self.waves[i]
-        rows = choice[: len(pods)].tolist()
+    def commit(self, pods: Sequence[Any], rows: Sequence[int]) -> None:
+        """The pods of ``pods`` placed on node row ``rows`` (row >= 0)
+        join the assigned pods."""
         t0 = time.monotonic()
         self.assigned.extend(BoundPod(pod, self.node_names[c])
                              for pod, c in zip(pods, rows) if c >= 0)
@@ -267,19 +268,23 @@ class ConstraintFeed:
 
 def run_waves(step: Callable, node_table: NodeTable,
               pod_tables: Sequence[Any],
-              feed: Optional[ConstraintFeed] = None
+              feed: Optional[ConstraintFeed] = None,
+              waves: Sequence[Sequence[Any]] = ()
               ) -> Tuple[NodeTable, List[WaveOut]]:
     """The wave loop: ``step`` each pod table against the resident node
-    table, with the wave's constraint tables from ``feed`` if given.
-    Returns the final table and each wave's ``WaveOut``; nothing here
-    waits for the device but what the step reads and ``feed.commit``."""
+    table, with the constraint tables of its pods ``waves[i]`` from
+    ``feed`` if given.  Returns the final table and each wave's
+    ``WaveOut``; nothing here waits for the device but what the step
+    reads and the read of each wave's choices for ``feed.commit``."""
     outs = []
     for i, pod_table in enumerate(pod_tables):
         if feed is None:
             out = step(node_table, pod_table)
         else:
-            out = step(node_table, pod_table, feed.tables(i))
-            feed.commit(i, out.choice)
+            pods = waves[i]
+            out = step(node_table, pod_table,
+                       feed.tables(pods, pod_table.capacity))
+            feed.commit(pods, out.choice[: len(pods)].tolist())
         node_table = out.node_table
         outs.append(out)
     return node_table, outs
@@ -331,19 +336,19 @@ def schedule_waves(nodes: Sequence[Any], pods: Sequence[Any],
     h2d_s = time.monotonic() - t0
 
     def feed() -> Optional[ConstraintFeed]:
-        return ConstraintFeed.for_step(step, nodes, node_names, wave_pods,
-                                       assigned, pvcs, pvs, pod_cap, node_cap,
-                                       device)
+        return ConstraintFeed.for_step(step, nodes, node_names, assigned,
+                                       pvcs, pvs, node_cap, device)
 
     t0 = time.monotonic()
     if pod_tables and device.type == "cuda":  # the step is pure: dropped
-        run_waves(step, node_table, pod_tables[:1], feed())
+        run_waves(step, node_table, pod_tables[:1], feed(), wave_pods)
     synchronize(device)
     warmup_s = time.monotonic() - t0
 
     t0 = time.monotonic()
     timed_feed = feed()
-    node_table, outs = run_waves(step, node_table, pod_tables, timed_feed)
+    node_table, outs = run_waves(step, node_table, pod_tables, timed_feed,
+                                 wave_pods)
     synchronize(device)
     schedule_s = time.monotonic() - t0
 

@@ -97,6 +97,11 @@ def _needs_extra(pl: Any) -> bool:
     return bool(getattr(pl, "needs_extra", False))
 
 
+def chains_need_extra(*chains: Sequence[Any]) -> bool:
+    """Some plugin of ``chains`` reads the constraint tables."""
+    return any(_needs_extra(pl) for chain in chains for pl in chain)
+
+
 def run_filter(pl: Any, ctx: BatchContext, pods: Any, nodes: Any,
                extra: Any) -> torch.Tensor:
     """``pl.batch_filter``, with the constraint tables if it reads them."""

@@ -34,6 +34,7 @@ import torch
 from minisched_tpu_torch.models.tables import NodeTable, PodTable
 from minisched_tpu_torch.ops.fused import (
     BatchContext,
+    chains_need_extra,
     evaluate,
     precompute_static,
     unschedulable_plugin_masks,
@@ -369,10 +370,8 @@ class RepairingEvaluator:
         self.score_plugins = tuple(score_plugins)
         self.with_diagnostics = with_diagnostics
         self.split_static = split_static
-        self.needs_extra = any(
-            getattr(pl, "needs_extra", False)
-            for chain in (filter_plugins, pre_score_plugins, score_plugins)
-            for pl in chain)
+        self.needs_extra = chains_need_extra(filter_plugins, pre_score_plugins,
+                                             score_plugins)
 
     def __call__(self, pods: PodTable, nodes: NodeTable,
                  extra: Any = None) -> RepairResult:

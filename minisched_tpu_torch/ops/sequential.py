@@ -69,6 +69,7 @@ from minisched_tpu_torch.ops import kernels
 from minisched_tpu_torch.ops.fused import (
     BatchContext,
     StaticWavePlanes,
+    chains_need_extra,
     evaluate,
     precompute_static,
     validate_batch_chains,
@@ -237,16 +238,16 @@ def _store_nodes(state: State, new: NodeTable) -> None:
         state[c].copy_(getattr(new, c))
 
 
-def _tracked_planes(chain: Sequence[Any]) -> set:
-    """The coupling planes the chain's plugins need carried (their
-    ``scan_carried_planes``; a plugin that reads the constraint tables and
-    does not say gets both)."""
-    tracked: set = set()
-    for pl in chain:
-        if getattr(pl, "needs_extra", False):
-            tracked |= set(getattr(pl, "scan_carried_planes",
-                                   ("combos", "volumes")))
-    return tracked
+def _carried_planes(chain: Sequence[Any]) -> Tuple[set, frozenset]:
+    """The coupling planes the chain's plugins need carried (the union of
+    their ``scan_carried_planes``) and the names of the plugins that read
+    one of them (evaluated per step, never hoisted)."""
+    readers = {pl.name(): set(pl.scan_carried_planes) for pl in chain
+               if getattr(pl, "needs_extra", False)}
+    tracked = set().union(*readers.values())
+    return tracked, frozenset(name for name, planes in readers.items()
+                              if planes)
+
 
 
 def _initial_state(nodes: NodeTable, extra: Any, track_combos: bool,
@@ -466,8 +467,8 @@ def scan_schedule(
     if needs and extra is None:
         raise ValueError(f"sequential scan with cross-pod plugins {needs} "
                          "needs the ConstraintTables — pass `extra`")
-    tracked = (_tracked_planes((*filter_plugins, *pre_score_plugins,
-                                *score_plugins))
+    tracked = (_carried_planes((*filter_plugins, *pre_score_plugins,
+                                *score_plugins))[0]
                if extra is not None else set())
     track_combos = "combos" in tracked
     track_vols = "volumes" in tracked
@@ -537,17 +538,12 @@ def blocked_scan_schedule(
         if getattr(pl, "volume_family_index", None) is not None)
     check_restr = any(getattr(pl, "enforces_volume_restrictions", False)
                       for pl in filter_plugins)
-    chain = (*filter_plugins, *pre_score_plugins, *score_plugins)
-    tracked = _tracked_planes(chain)
-    track_combos = "combos" in tracked
-    track_vols = "volumes" in tracked or bool(fam_limits) or check_restr
     # plugins whose carried planes change mid-scan are evaluated per
     # block; everything else once over the chunk, sliced per block
-    scan_dynamic = frozenset(
-        pl.name() for pl in chain
-        if getattr(pl, "needs_extra", False)
-        and set(getattr(pl, "scan_carried_planes", ("combos", "volumes")))
-        & tracked)
+    tracked, scan_dynamic = _carried_planes(
+        (*filter_plugins, *pre_score_plugins, *score_plugins))
+    track_combos = "combos" in tracked
+    track_vols = "volumes" in tracked or bool(fam_limits) or check_restr
     static = precompute_static(pods, nodes, filter_plugins, pre_score_plugins,
                                score_plugins, ctx, extra=extra,
                                extra_dynamic=scan_dynamic)
@@ -606,7 +602,9 @@ def blocked_scan_schedule(
 
 class SequentialScheduler:
     """The exact scan with its plugin chains fixed (argument order as
-    ``FusedEvaluator``: pods first); the context has ``in_scan`` set."""
+    ``FusedEvaluator``: pods first); the context has ``in_scan`` set.
+    ``needs_extra``: some plugin of the chains reads the constraint
+    tables, which each call must then pass."""
 
     def __init__(self, filter_plugins: Sequence[Any],
                  pre_score_plugins: Sequence[Any],
@@ -618,6 +616,8 @@ class SequentialScheduler:
         self.filter_plugins = tuple(filter_plugins)
         self.pre_score_plugins = tuple(pre_score_plugins)
         self.score_plugins = tuple(score_plugins)
+        self.needs_extra = chains_need_extra(filter_plugins, pre_score_plugins,
+                                             score_plugins)
 
     def __call__(self, pods: PodTable, nodes: NodeTable, extra: Any = None,
                  log: Optional[StepLog] = None):
@@ -626,7 +626,7 @@ class SequentialScheduler:
                              self.ctx, extra=extra, log=log)
 
 
-class BlockedSequentialScheduler:
+class BlockedSequentialScheduler(SequentialScheduler):
     """The blocked lane with its plugin chains fixed: the calling surface
     of ``SequentialScheduler`` plus the returned ``accepted`` mask."""
 
@@ -635,12 +635,8 @@ class BlockedSequentialScheduler:
                  score_plugins: Sequence[Any],
                  weights: Optional[Dict[str, int]] = None,
                  block_size: int = 32):
-        validate_batch_chains(filter_plugins, pre_score_plugins, score_plugins)
-        self.ctx = BatchContext(weights=tuple(sorted((weights or {}).items())),
-                                in_scan=True)
-        self.filter_plugins = tuple(filter_plugins)
-        self.pre_score_plugins = tuple(pre_score_plugins)
-        self.score_plugins = tuple(score_plugins)
+        super().__init__(filter_plugins, pre_score_plugins, score_plugins,
+                         weights)
         self.block_size = block_size
 
     def __call__(self, pods: PodTable, nodes: NodeTable, extra: Any,

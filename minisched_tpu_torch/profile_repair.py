@@ -116,15 +116,15 @@ def profile_repair(step: RepairStep, nodes: Sequence[Any],
                   for w in waves]
 
     def make_feed() -> Optional[ConstraintFeed]:
-        return ConstraintFeed.for_step(step, nodes, node_names, waves, (), (),
-                                       (), pod_cap, node_cap, device)
+        return ConstraintFeed.for_step(step, nodes, node_names, (), (), (),
+                                       node_cap, device)
 
     def one_pass() -> float:
         node_table = node_host.to_device(device)
         feed = make_feed()
         torch.cuda.synchronize(device)
         t0 = time.monotonic()
-        run_waves(step, node_table, pod_tables, feed)
+        run_waves(step, node_table, pod_tables, feed, waves)
         torch.cuda.synchronize(device)
         return time.monotonic() - t0
 
@@ -137,7 +137,7 @@ def profile_repair(step: RepairStep, nodes: Sequence[Any],
     with spans(evaluator), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        _, outs = run_waves(step, node_table, pod_tables, feed)
+        _, outs = run_waves(step, node_table, pod_tables, feed, waves)
         torch.cuda.synchronize(device)
         window_us = (time.monotonic() - t0) * 1e6
     # the spans also show on the device timeline as annotations: they are

@@ -18,7 +18,17 @@ import numpy as np
 import pytest
 import torch
 
-from minisched_tpu_torch.api.objects import Toleration, make_node, make_pod
+from minisched_tpu_torch import fullchain
+from minisched_tpu_torch.api.objects import (
+    Affinity,
+    LabelSelector,
+    PodAffinityTerm,
+    PodAntiAffinity,
+    Toleration,
+    TopologySpreadConstraint,
+    make_node,
+    make_pod,
+)
 from minisched_tpu_torch.engine.oracle import headline_oracle
 from minisched_tpu_torch.engine.scan_groups import (
     interaction_sets,
@@ -404,16 +414,19 @@ def _assert_tables_equal(got, want):
 
 
 @pytest.mark.parametrize("cluster", ["config3", "mixed"])
-def test_exact_scan_replayed_on_card_matches_cpu(cluster, dev):
-    """The exact scan as CUDA-graph replays, one captured step a pod: the
-    same choices, best scores and final table as the eager CPU twins;
-    each replay launches select_hosts once (the warm-up step too)."""
+def test_exact_scan_replayed_on_card_matches_cpu(cluster, dev, monkeypatch):
+    """The exact scan as CUDA-graph replays, one captured step a pod, in
+    several chunks: the same choices, best scores and final table as the
+    eager CPU twins; each replay launches select_hosts once (the warm-up
+    step too)."""
     if cluster == "config3":
         nodes, pods = mk_c3_cluster(48, 300)  # more pods than room
-        kw = dict(cfg=c3_roster_config(), chunk=128)
+        kw = dict(cfg=c3_roster_config())
+        monkeypatch.setattr(fullchain, "SCAN_MAX_CHUNK", 128)
     else:
         nodes, assigned, pods, pvcs, pvs = mk_mixed_cluster(256, 160)
-        kw = dict(assigned=assigned, pvcs=pvcs, pvs=pvs, chunk=64)
+        kw = dict(assigned=assigned, pvcs=pvcs, pvs=pvs)
+        monkeypatch.setattr(fullchain, "SCAN_MAX_CHUNK", 64)
     card, cpu, log, launched = _scan_runs(nodes, pods, **kw)
     assert np.array_equal(card.choices, cpu.choices)
     assert np.array_equal(card.best, cpu.best)
@@ -450,6 +463,53 @@ def test_blocked_lane_replayed_on_card_matches_cpu(dev):
     _assert_tables_equal(card.node_table, cpu.node_table)
     assert (card.choices >= 0).all()
     assert all(s.select_hosts_per_step == 1 for s in card.log.loops)
+
+
+def one_slot_cluster():
+    """64 nodes in 4 zones with room for one 500m pod each, and 64 pods of
+    12 apps with a DoNotSchedule zone spread of max skew 1, one in ten
+    also with a required anti-affinity to its own app on the hostname
+    key: capacity races in all 3 attempts, one pod left to the exact
+    scan."""
+    host = "kubernetes.io/hostname"
+    nodes = [make_node(f"node{i:03d}",
+                       labels={"zone": f"z{i % 4}", host: f"node{i:03d}"},
+                       capacity={"cpu": "500m", "memory": "8Gi", "pods": 110})
+             for i in range(64)]
+    pods = []
+    for i in range(64):
+        app = LabelSelector(match_labels={"app": f"app{i % 12}"})
+        p = make_pod(f"spread{i:05d}", labels={"app": f"app{i % 12}"},
+                     requests={"cpu": "500m"})
+        p.spec.topology_spread_constraints = [TopologySpreadConstraint(
+            max_skew=1, topology_key="zone",
+            when_unsatisfiable="DoNotSchedule", label_selector=app)]
+        if i % 10 == 0:
+            p.spec.affinity = Affinity(pod_anti_affinity=PodAntiAffinity(
+                required=[PodAffinityTerm(label_selector=app,
+                                          topology_key=host)]))
+        pods.append(p)
+    return nodes, pods
+
+
+def test_blocked_lane_leftovers_on_card_match_cpu(dev):
+    """``schedule_crosspod`` through every branch (3 attempts of races,
+    then the exact scan for the leftover) on the card and on the CPU
+    twins: equal choices, calls, attempts, leftovers and final tables."""
+    nodes, pods = one_slot_cluster()
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        node_table, _ = tables.build_node_table(nodes, device=device)
+        runs[device.type] = schedule_crosspod(nodes, pods, node_table,
+                                              device=device)
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert (card.attempts, card.exact_pods) == (3, 1)
+    assert np.array_equal(card.choices, cpu.choices)
+    assert (card.attempts, card.blocks, card.exact_pods) == (
+        cpu.attempts, cpu.blocks, cpu.exact_pods)
+    for (rows, won), (crows, cwon) in zip(card.calls, cpu.calls, strict=True):
+        assert np.array_equal(rows, crows) and np.array_equal(won, cwon)
+    _assert_tables_equal(card.node_table, cpu.node_table)
 
 
 def test_blocked_commit_exact_with_tf32_allowed(dev):

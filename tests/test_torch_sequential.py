@@ -389,13 +389,14 @@ def test_oracle_refuses_what_it_does_not_model():
         toracle.fullchain_scan_oracle(pods, nodes)
 
 
-def test_schedule_scan_config5_matches_oracle_and_jax():
+def test_schedule_scan_config5_matches_oracle_and_jax(monkeypatch):
     """Reduced config 5 (``mk_c5_cluster``: 64 nodes, 300 pods, 2%
     special) through ``schedule_scan`` with the full roster in chunks of
     128: every placement equals ``fullchain_scan_oracle`` and the JAX
     scan of the whole table."""
+    monkeypatch.setattr(fullchain, "SCAN_MAX_CHUNK", 128)
     nodes, pods = fullchain.mk_c5_cluster(64, 300)
-    run = fullchain.schedule_scan(nodes, pods, chunk=128, device="cpu")
+    run = fullchain.schedule_scan(nodes, pods, device="cpu")
     np.testing.assert_array_equal(run.choices,
                                   toracle.fullchain_scan_oracle(pods, nodes))
     assert run.chunks == 3 and [s.steps for s in run.log.loops] == [128, 128, 44]
@@ -417,10 +418,42 @@ def test_schedule_scan_config5_matches_oracle_and_jax():
     assert (run.choices[special] < 0).all() and (run.choices[~special] >= 0).all()
 
 
-def test_schedule_scan_config3_matches_oracle():
+@pytest.mark.parametrize("seed,chunk", [(1, 40), (5, 16)])
+def test_schedule_scan_chunks_match_one_jax_scan(seed, chunk, monkeypatch):
+    """``schedule_scan`` in several chunks on ``constraint_cluster``
+    (required and preferred (anti-)affinity on zone and hostname keys,
+    both spread modes, volumes), the full roster.  Inside a chunk the
+    scan carries what committed pods create (``combo_excl``,
+    ``rev_weight``, the volume planes); across chunks the pods placed so
+    far come in as assigned pods of the next chunk's tables.  Choices,
+    best scores and the final node table equal the JAX scan of all the
+    pods over one table."""
+    from tests.test_torch_constraints import constraint_cluster
+
+    monkeypatch.setattr(fullchain, "SCAN_MAX_CHUNK", chunk)
+    kw = dict(n_nodes=24, n_pods=120, requests={"cpu": "2", "memory": "1Gi"})
+    jnodes, jassigned, jpods, jpvcs, jpvs = constraint_cluster(jobj, seed, **kw)
+    nodes, assigned, pods, pvcs, pvs = constraint_cluster(tobj, seed, **kw)
+    run = fullchain.schedule_scan(nodes, pods, assigned=assigned, pvcs=pvcs,
+                                  pvs=pvs, device="cpu")
+    assert run.chunks == -(-len(pods) // chunk) > 2
+    jchains, _, weights = full_roster()
+    jn, jp, je, names = jax_tables(jnodes, jpods, jassigned, jpvcs, jpvs)
+    final, choice, best = jseq.SequentialScheduler(*chain_of(jchains),
+                                                   weights)(jp, jn, je)
+    assert run.node_names == names
+    np.testing.assert_array_equal(run.choices, np.asarray(choice)[: len(pods)])
+    np.testing.assert_array_equal(run.best, np.asarray(best)[: len(pods)])
+    assert_nodes_equal(run.node_table, final)
+    late = run.choices[chunk:]
+    assert (late >= 0).any() and (late < 0).any()
+
+
+def test_schedule_scan_config3_matches_oracle(monkeypatch):
+    monkeypatch.setattr(fullchain, "SCAN_MAX_CHUNK", 128)
     nodes, pods = fullchain.mk_c3_cluster(48, 300)
     run = fullchain.schedule_scan(nodes, pods, cfg=fullchain.c3_roster_config(),
-                                  chunk=128, device="cpu")
+                                  device="cpu")
     want = toracle.FullRosterScanOracle(
         nodes, ttables.DEFAULT_NONZERO_CPU, ttables.DEFAULT_NONZERO_MEM_MIB,
         with_balanced=False).place_all(pods)
