@@ -76,8 +76,7 @@ Phases, each of which raises on failure (nothing catches it):
    pods (pod i depends only on the pods before it).
 12. Config 5 with the full default roster through the exact scan
    (``fullchain.schedule_scan``, chunks of 1,024, ``scan_planes`` tables):
-   10,000 nodes and the K = ``C5_SCAN_PODS`` pods of
-   ``mk_c5_cluster(n_pods=K)`` (config 5 has 100,000; the last 2% are
+   config 5 uncut, 10,000 nodes and all 100,000 pods (the last 2% are
    ``special*`` pods); every placement equal to
    ``fullchain_scan_oracle``, the card equal to the CPU twins on the
    first 64 pods.
@@ -95,7 +94,33 @@ Phases, each of which raises on failure (nothing catches it):
    replayed, device ms a step (CUDA events around the replays), device
    operations a step (one replay under the profiler), ``select_hosts``
    launches recorded a step, the capture time and the peak device
-   memory; for 13 also the blocks, attempts and leftovers.
+   memory; for 13 also the blocks, attempts and leftovers.  Phases 8,
+   10, 12 and 13 print the host constraint build, which each feed makes
+   from one ``ConstraintIndex``.
+14. Config 5 with gangs (``fullchain.mk_c5_gang_cluster``: config 5's
+   nodes on 625 slices of 16 hosts, even slices with ring dimensions;
+   4,096 gangs of 8, a quarter of them with 4 members already bound;
+   100,000 pending pods, each gang's pending members together) in repair
+   waves of 16,384 with ``gang_roster_config``: phase 6's audit over
+   every pod; each wave's gang view and gang columns equal those built
+   from ``engine.gang.gang_view_from_infos`` on a snapshot of the
+   placements so far; config 5 without gang specs under the gang roster
+   equal to phase 8 (choices, rounds, final table); a reduced copy
+   (1,024 nodes, 10,000 pods, waves of 4,096) equal card against CPU
+   twins, and the exact scan of its first 2,048 pods likewise.  Printed:
+   the schedule wall, rounds, device ms a round (one profiled pass), the
+   gang-view and constraint-build seconds, peak memory, and the share of
+   gangs whose members all sit on one slice beside the same share under
+   the default full roster (reported, not gated; the port places gang
+   members without all-or-nothing admission).
+15. ``controlplane.evaluate.evaluate_cluster`` (the body of gRPC
+   ``Evaluate``) on config 4's objects in both modes and on the mixed
+   cluster's first 4,096 pods with its claims and volumes in ``"repair"``
+   mode: the card equal to ``device="cpu"`` in placements and rounds;
+   the wall of a call split into decode, build and evaluate.  Then
+   ``FusedEvaluator(with_diagnostics=True)`` with the full roster on
+   config 4: filter masks, score matrices and raw score matrices equal
+   card against CPU.
 
 Phase 2 also holds ``select_hosts`` against its twin on the repair
 route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
@@ -107,8 +132,9 @@ bound as in phase 5.
 The launch counters are set to 0 just before each path of the main path
 (the headline's two routes, the repair waves with each roster and with
 hostname labels, config 4, the mixed cluster's card run, the exact scan
-of configs 3 and 5 and the blocked lane of phase 13) and read just
-after it.  A scan's step is captured once in a CUDA graph and replayed;
+of configs 3 and 5, the blocked lane of phase 13, the gang waves, the
+gang roster without gangs, the gang exact scan and each ``Evaluate``
+call) and read just after it.  A scan's step is captured once in a CUDA graph and replayed;
 each replay counts the ``select_hosts`` launch recorded in the graph.  The last three lines of output are the card's
 name and power limit, one JSON object describing every kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -142,12 +168,11 @@ WAVE = 8192
 N_NODES, N_PODS = 10_000, 100_000
 C5_WAVE = 16_384  # repair waves of config 5
 MIXED_WAVE = 4_096  # repair waves of the mixed cluster (phase 10)
-# config 5's pods through the exact scan (phase 12): about a minute of
-# scan at the 1.32 ms a pod that 5,000 pods took on an H100 80GB HBM3 at
-# 700 W (PERF.md §6)
-C5_SCAN_PODS = 45_000
 C5X_SPREAD = 5_000  # config 5's spread pods (phase 13)
 C5X_REDUCED_NODES = 1_520  # phase 13's card-vs-CPU run: full enough to race
+GANG_REDUCED_NODES = 1_024  # phase 14's card-vs-CPU run: 64 slices
+GANG_REDUCED_GANGS = 410  # 10,000 pending pods in config 5's proportions
+GANG_SCAN_PODS = 2_048  # phase 14's exact scan, card against CPU
 
 
 def log(msg: str) -> None:
@@ -220,80 +245,6 @@ def graph_time_ms(fn, rounds: int, batch: int, warmup: int = 3) -> float:
     return _events_ms(graph.replay, rounds, batch)
 
 
-def audit_config5(run, nodes, pods, tables) -> None:
-    """Config 5's result, checked in numpy from the objects and the final
-    table alone (no plugin code): raise on any failure."""
-    init = {k: v.numpy() for k, v in tables.table_columns(
-        tables.build_node_table(nodes, device="cpu")[0]).items()}
-    final = {k: v.cpu().numpy() for k, v in tables.table_columns(
-        run.node_table).items()}
-    choice = run.choices
-    placed = choice >= 0
-    reqs = [p.resource_requests() for p in pods]
-    mib = 1024 * 1024
-    cpu = np.array([r.milli_cpu for r in reqs], np.int64)
-    mem = np.array([r.memory // mib for r in reqs], np.int64)
-    eph = np.array([r.ephemeral_storage // mib for r in reqs], np.int64)
-    demand = {"req_cpu": cpu, "req_mem": mem, "req_eph": eph,
-              "req_pods": np.ones_like(cpu),
-              "nzreq_cpu": np.where(cpu == 0, 100, cpu),
-              "nzreq_mem": np.where(mem == 0, 200, mem)}
-    n = len(init["valid"])
-    for col, amount in demand.items():  # (a)
-        want = init[col] + np.bincount(choice[placed], amount[placed],
-                                       minlength=n).astype(np.int64)
-        if not np.array_equal(final[col].astype(np.int64), want):
-            raise AssertionError(f"config 5 audit (a): {col} is not the "
-                                 "initial table plus the recount")
-    valid = final["valid"]
-    for res in ("cpu", "mem", "eph", "pods"):  # (b)
-        over = valid & (final[f"req_{res}"] > final[f"alloc_{res}"])
-        if over.any():
-            raise AssertionError(f"config 5 audit (b): {int(over.sum())} "
-                                 f"nodes over their {res} allocatable")
-    if final["unschedulable"][choice[placed]].any():  # (c)
-        raise AssertionError("config 5 audit (c): a pod on a cordoned node")
-    special = np.array([p.metadata.name.startswith("special") for p in pods])
-    if (placed & special).any():  # (d)
-        raise AssertionError("config 5 audit (d): a special pod was placed")
-    open_node = valid & ~final["unschedulable"]
-
-    def room(res: str, amount: int):
-        # a resource the pod does not ask for fits any node
-        return amount == 0 or final[f"alloc_{res}"] - final[f"req_{res}"] >= amount
-
-    for i in np.flatnonzero(~placed & ~special):  # (e)
-        fits = (open_node & room("cpu", cpu[i]) & room("mem", mem[i])
-                & room("eph", eph[i])
-                & (final["req_pods"] + 1 <= final["alloc_pods"]))
-        if fits.any():
-            raise AssertionError(f"config 5 audit (e): unplaced "
-                                 f"{pods[i].metadata.name} fits "
-                                 f"{int(fits.sum())} nodes")
-
-
-def spread_audit(nodes, pods, choices) -> int:
-    """``bench.py``'s spread audit: for each app of the ``spread*`` pods,
-    its pods per zone, over the zones that hold a schedulable node, differ
-    by at most ``C5_MAX_SKEW``.  Returns the number of apps."""
-    from minisched_tpu_torch.fullchain import C5_MAX_SKEW
-
-    zone = [n.metadata.labels.get("zone") for n in nodes]
-    zones = sorted({z for n, z in zip(nodes, zone)
-                    if z and not n.spec.unschedulable})
-    per_app = {}
-    for p, c in zip(pods, choices):
-        if p.metadata.name.startswith("spread") and c >= 0:
-            counts = per_app.setdefault(p.metadata.labels["app"], {})
-            counts[zone[c]] = counts.get(zone[c], 0) + 1
-    for app, counts in per_app.items():
-        row = [counts.get(z, 0) for z in zones]
-        if max(row) - min(row) > C5_MAX_SKEW:
-            raise AssertionError(f"spread audit: {app} has {row} pods per "
-                                 f"zone, skew above {C5_MAX_SKEW}")
-    return len(per_app)
-
-
 def check_twin_runs(what: str, card, cpu, tables) -> None:
     """Raise unless two ``WaveRun``s (card, CPU twins) agree in choices,
     rounds, unschedulable masks and every final node-table column."""
@@ -320,6 +271,7 @@ def main() -> int:
         return 1
     # imported here: a bare copy of this script must fail, not half-run
     from minisched_tpu_torch.api.objects import Toleration, make_pod
+    from minisched_tpu_torch.audit import audit_config5, spread_audit
     from minisched_tpu_torch.engine.oracle import (
         FullRosterScanOracle,
         fullchain_scan_oracle,
@@ -329,6 +281,10 @@ def main() -> int:
         interaction_sets,
         order_into_blocks,
     )
+    from minisched_tpu_torch.audit import one_slice_share
+    from minisched_tpu_torch.controlplane.codec import _encode
+    from minisched_tpu_torch.controlplane.evaluate import evaluate_cluster
+    from minisched_tpu_torch.engine.gang import gang_keys, gang_view_from_infos
     from minisched_tpu_torch.fullchain import (
         C5_MAX_SKEW,
         HOST_KEY,
@@ -338,6 +294,7 @@ def main() -> int:
         mk_c3_cluster,
         mk_c4_cluster,
         mk_c5_cluster,
+        mk_c5_gang_cluster,
         mk_mixed_cluster,
         schedule_crosspod,
         schedule_repair_waves,
@@ -381,6 +338,7 @@ def main() -> int:
     from minisched_tpu_torch.profile_repair import profile_repair
     from minisched_tpu_torch.service.config import (
         default_full_roster_config,
+        gang_roster_config,
         node_local_roster_config,
     )
     from minisched_tpu_torch.utils import build
@@ -688,7 +646,7 @@ def main() -> int:
     if c5_counts["select_hosts"] < sum(c5.rounds):
         raise AssertionError(f"select_hosts launched {c5_counts} for "
                              f"{sum(c5.rounds)} rounds")
-    audit_config5(c5, c5_nodes, c5_pods, tables)
+    audit_config5(c5, c5_nodes, c5_pods)
     if int(placed.sum()) != len(c5_pods) - n_special:
         raise AssertionError(f"{int(placed.sum())} placed, expected "
                              f"{len(c5_pods) - n_special}")
@@ -729,7 +687,7 @@ def main() -> int:
     if c5f_counts["select_hosts"] < sum(c5f.rounds):
         raise AssertionError(f"full roster: select_hosts launched "
                              f"{c5f_counts} for {sum(c5f.rounds)} rounds")
-    audit_config5(c5f, c5_nodes, c5_pods, tables)
+    audit_config5(c5f, c5_nodes, c5_pods)
     if not np.array_equal(c5f.choices, c5.choices) or c5f.rounds != c5.rounds:
         bad = np.flatnonzero(c5f.choices != c5.choices)
         raise AssertionError(f"full roster vs node-local: {bad.size} choices "
@@ -758,7 +716,7 @@ def main() -> int:
     if c5h_counts["select_hosts"] < sum(c5h.rounds):
         raise AssertionError(f"hostnames: select_hosts launched "
                              f"{c5h_counts} for {sum(c5h.rounds)} rounds")
-    audit_config5(c5h, h_nodes, c5_pods, tables)
+    audit_config5(c5h, h_nodes, c5_pods)
     if not np.array_equal(c5h.choices, c5.choices) or c5h.rounds != c5.rounds:
         bad = np.flatnonzero(c5h.choices != c5.choices)
         raise AssertionError(f"hostnames vs node-local: {bad.size} choices "
@@ -969,7 +927,9 @@ def main() -> int:
     del c3_pt, c3_nt
 
     # -- phase 12: config 5, the full roster, the exact scan ----------------
-    s5_nodes, s5_pods = mk_c5_cluster(N_NODES, C5_SCAN_PODS)
+    # all of config 5: about two minutes of scan at the 1.10 ms a step of
+    # an H100 80GB HBM3 at 700 W (PERF.md §6)
+    s5_nodes, s5_pods = c5_nodes, c5_pods
     full_cfg = default_full_roster_config()
     full_chains = build_plugins(full_cfg)
     full_scan = SequentialScheduler(full_chains.filter, full_chains.pre_score,
@@ -1007,8 +967,8 @@ def main() -> int:
             and np.array_equal(s5_cpu.best, s5.best[:C5_PREFIX])):
         raise AssertionError("config 5 scan: card and CPU twins differ on "
                              f"the first {C5_PREFIX} pods")
-    log(f"[scan-c5] {N_NODES} nodes x {len(s5_pods)} pods (of config 5's "
-        f"{N_PODS}), full roster, exact scan in {s5.chunks} chunks of "
+    log(f"[scan-c5] {N_NODES} nodes x {len(s5_pods)} pods (all of config "
+        f"5), full roster, exact scan in {s5.chunks} chunks of "
         f"{SCAN_MAX_CHUNK}: all placements equal fullchain_scan_oracle "
         f"({int((s5.choices >= 0).sum())} placed; oracle {oracle_s:.1f}s); "
         f"card = CPU twins on the first {C5_PREFIX}; host node table "
@@ -1065,8 +1025,8 @@ def main() -> int:
     x_peak = torch.cuda.max_memory_allocated()
     check_scan_counts("config 5 blocked lane", x_log, x_counts)
     audit_config5(SimpleNamespace(node_table=x_lane.node_table,
-                                  choices=x_choices), x_nodes, x_pods, tables)
-    spread_apps = spread_audit(x_nodes, x_pods, x_choices)
+                                  choices=x_choices), x_nodes, x_pods)
+    spread_apps = spread_audit(x_nodes, x_pods, x_choices, C5_MAX_SKEW)
     log(f"[blocked-c5x] {N_NODES} nodes x {N_PODS} pods with {C5X_SPREAD} "
         f"spread pods: repair waves {x_waves.rounds} for the rest "
         f"({x_waves.schedule_s:.3f}s), then the blocked lane: blocks per "
@@ -1117,6 +1077,212 @@ def main() -> int:
         f"{r_card.exact_pods} exact-lane leftovers, every final table "
         f"column); {int((r_card.choices >= 0).sum())} spread pods placed; "
         f"{card_s:.2f}s on the card, {cpu_s:.2f}s on the CPU")
+
+    # -- phase 14: config 5 with gangs, repair waves -----------------------
+    g_nodes, g_assigned, g_pods = mk_c5_gang_cluster()
+    gang_cfg = gang_roster_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    g = schedule_repair_waves(g_nodes, g_pods, wave=C5_WAVE, cfg=gang_cfg,
+                              assigned=g_assigned)
+    g_counts = dict(kernels.launch_counts)
+    g_peak = torch.cuda.max_memory_allocated()
+    if max(g.rounds) >= MAX_ROUNDS:
+        raise AssertionError(f"gangs: a wave hit the round cap: {g.rounds}")
+    if g_counts["select_hosts"] < sum(g.rounds):
+        raise AssertionError(f"gangs: select_hosts launched {g_counts} for "
+                             f"{sum(g.rounds)} rounds")
+    audit_config5(g, g_nodes, g_pods, g_assigned)
+    g_special = sum(p.metadata.name.startswith("special") for p in g_pods)
+    if int((g.choices >= 0).sum()) != len(g_pods) - g_special:
+        raise AssertionError(f"gangs: {int((g.choices >= 0).sum())} placed")
+    # (b) each wave's gang columns against the view of a snapshot of the
+    # placements so far
+    on_node = {n.metadata.name: [] for n in g_nodes}
+    for p in g_assigned:
+        on_node[p.spec.node_name].append(p)
+    warm_rows = []
+    for w, s in enumerate(range(0, len(g_pods), C5_WAVE)):
+        batch = g_pods[s:s + C5_WAVE]
+        infos = [SimpleNamespace(node=n, pods=on_node[n.metadata.name])
+                 for n in g_nodes]
+        want_view = gang_view_from_infos(infos, gang_keys(batch))
+        if g.gang_views[w] != want_view:
+            raise AssertionError(f"gangs wave {w}: the view differs from "
+                                 "gang_view_from_infos")
+        used = tables.with_gang_view(
+            tables.build_pod_table(batch, capacity=C5_WAVE, device=dev)[0],
+            batch, g.gang_views[w])
+        want_cols = tables.build_pod_table(batch, capacity=C5_WAVE,
+                                           device=dev, gang_view=want_view)[0]
+        for name in ("gang_id",) + tables.GANG_AGG_FIELDS:
+            if not torch.equal(getattr(used, name), getattr(want_cols, name)):
+                raise AssertionError(f"gangs wave {w}: column {name} differs")
+        warm_rows.append(int((used.gang_n > 0).sum()))
+        for p, c in zip(batch, g.choices[s:s + C5_WAVE]):
+            if c >= 0:
+                on_node[g_nodes[c].metadata.name].append(p)
+    del used, want_cols
+    g_waves = [g_pods[s:s + C5_WAVE] for s in range(0, len(g_pods), C5_WAVE)]
+    g_prof = profile_repair(make_step("repair", gang_cfg), g_nodes, g_waves,
+                            dev, reps=0, assigned=g_assigned)
+    share = one_slice_share(g_nodes, g_assigned, g_pods, g.choices)
+    g_full = schedule_repair_waves(g_nodes, g_pods, wave=C5_WAVE,
+                                   assigned=g_assigned)
+    share_full = one_slice_share(g_nodes, g_assigned, g_pods, g_full.choices)
+    del g_full
+    log(f"[gang-c5] {len(g_nodes)} nodes on {len(g_nodes) // 16} slices x "
+        f"{len(g_pods)} pods ({sum(p.spec.gang is not None for p in g_pods)} "
+        f"pending gang members, {len(g_assigned)} assigned), "
+        f"gang_roster_config, waves of {C5_WAVE}: rounds {g.rounds}, "
+        f"{int((g.choices >= 0).sum())} placed; audit passed; every wave's "
+        f"gang view and columns equal gang_view_from_infos' (warm rows per "
+        f"wave {warm_rows}); schedule {g.schedule_s:.4f}s = "
+        f"{len(g_pods) / g.schedule_s:,.0f} pods/s (constraint build "
+        f"{g.constraint_build_s:.4f}s, gang views {g.gang_view_s:.4f}s), "
+        f"host build {g.build_s:.3f}s, h2d {g.h2d_s:.3f}s; device "
+        f"{g_prof['device_ms_per_round']:.3f} ms a round (profiled pass: "
+        f"idle share {g_prof['device_idle_share']:.3f}); peak device memory "
+        f"{g_peak / 2**30:.2f} GiB; select_hosts launches "
+        f"{g_counts['select_hosts']}; gangs on one slice: {share['one_slice']}"
+        f" of {share['complete']} ({share['share']:.3f}) with GangTopology, "
+        f"{share_full['one_slice']} ({share_full['share']:.3f}) under "
+        f"default_full_roster_config")
+    launches["select_hosts"]["gang-c5"] = g_counts["select_hosts"]
+    del g
+
+    # (c) no gang specs: the gang roster places config 5 as phase 8
+    kernels.reset_launch_counts()
+    c5g = schedule_repair_waves(c5_nodes, c5_pods, wave=C5_WAVE, cfg=gang_cfg)
+    c5g_counts = dict(kernels.launch_counts)
+    if not np.array_equal(c5g.choices, c5f.choices) or c5g.rounds != c5f.rounds:
+        raise AssertionError("gang roster without gangs differs from phase 8")
+    full_cols = tables.table_columns(c5f.node_table)
+    for name, col in tables.table_columns(c5g.node_table).items():
+        if not torch.equal(col, full_cols[name]):
+            raise AssertionError(f"gang roster without gangs: final tables "
+                                 f"differ in {name}")
+    log(f"[gang-identity] config 5 without gang specs under "
+        f"gang_roster_config: choices, rounds {c5g.rounds} and final table "
+        f"equal phase 8's; schedule {c5g.schedule_s:.4f}s (phase 8 "
+        f"{c5f.schedule_s:.4f}s)")
+    launches["select_hosts"]["gang-identity"] = c5g_counts["select_hosts"]
+    del c5g
+
+    # (d) a reduced copy, the card against the twins: repair waves and the
+    # exact scan of its first pods
+    rg_nodes, rg_assigned, rg_pods = mk_c5_gang_cluster(
+        GANG_REDUCED_NODES, 10_000, n_gangs=GANG_REDUCED_GANGS)
+    t0 = time.monotonic()
+    rg_card = schedule_repair_waves(rg_nodes, rg_pods, wave=4_096,
+                                    cfg=gang_cfg, assigned=rg_assigned)
+    card_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    rg_cpu = schedule_repair_waves(rg_nodes, rg_pods, wave=4_096,
+                                   device="cpu", cfg=gang_cfg,
+                                   assigned=rg_assigned)
+    cpu_s = time.monotonic() - t0
+    check_twin_runs("reduced gang cluster", rg_card, rg_cpu, tables)
+    if rg_card.gang_views != rg_cpu.gang_views:
+        raise AssertionError("reduced gang cluster: gang views differ")
+    warm = sum(len(v) for v in rg_card.gang_views)
+    rg_share = one_slice_share(rg_nodes, rg_assigned, rg_pods, rg_card.choices)
+    kernels.reset_launch_counts()
+    sg_card = schedule_scan(rg_nodes, rg_pods[:GANG_SCAN_PODS], cfg=gang_cfg,
+                            assigned=rg_assigned)
+    sg_counts = dict(kernels.launch_counts)
+    sg_cpu = schedule_scan(rg_nodes, rg_pods[:GANG_SCAN_PODS], cfg=gang_cfg,
+                           assigned=rg_assigned, device="cpu")
+    if not (np.array_equal(sg_card.choices, sg_cpu.choices)
+            and np.array_equal(sg_card.best, sg_cpu.best)
+            and sg_card.gang_views == sg_cpu.gang_views):
+        raise AssertionError("gang exact scan: card and CPU twins differ")
+    if sg_counts["select_hosts"] < GANG_SCAN_PODS:
+        raise AssertionError(f"gang exact scan: select_hosts {sg_counts}")
+    log(f"[gang-reduced] {GANG_REDUCED_NODES} nodes x {len(rg_pods)} pods "
+        f"({GANG_REDUCED_GANGS} gangs), waves of 4,096: card and CPU twins "
+        f"equal (choices, rounds {rg_card.rounds}, unschedulable masks, "
+        f"final tables, gang views: {warm} warm gang entries); gangs on one "
+        f"slice: {rg_share['one_slice']} of {rg_share['complete']} "
+        f"({rg_share['share']:.3f}); "
+        f"{card_s:.2f}s on the card, {cpu_s:.2f}s on the CPU; exact scan "
+        f"of the first {GANG_SCAN_PODS} pods in {sg_card.chunks} chunks: "
+        f"card = CPU twins (choices, best, {len(sg_card.gang_views)} chunk "
+        f"views); scan {sg_card.schedule_s:.3f}s on the card, "
+        f"{sg_cpu.schedule_s:.2f}s on the CPU")
+    launches["select_hosts"]["scan-gang"] = sg_counts["select_hosts"]
+    del rg_card, rg_cpu, sg_card, sg_cpu
+
+    # -- phase 15: Evaluate ------------------------------------------------
+    def request(nodes_, pods_, assigned_=(), pvcs_=(), pvs_=(), mode="repair"):
+        return {"nodes": [_encode(o) for o in nodes_],
+                "pods": [_encode(o) for o in pods_],
+                "assigned": [_encode(o) for o in assigned_],
+                "pvcs": [_encode(o) for o in pvcs_],
+                "pvs": [_encode(o) for o in pvs_], "mode": mode}
+
+    ev_cases = {
+        "config4 wave": request(c4_nodes, c4_pods, c4_assigned, mode="wave"),
+        "config4 repair": request(c4_nodes, c4_pods, c4_assigned),
+        "mixed repair": request(m_nodes, m_pods[:MIXED_WAVE], m_assigned,
+                                m_pvcs, m_pvs),
+    }
+    ev_launches = 0
+    for name, req in ev_cases.items():
+        evaluate_cluster(req)  # first launches of this shape
+        times = {}
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        card_out = evaluate_cluster(req, times=times)
+        wall = time.monotonic() - t0
+        counts = dict(kernels.launch_counts)
+        t0 = time.monotonic()
+        cpu_out = evaluate_cluster(req, device="cpu")
+        cpu_wall = time.monotonic() - t0
+        if card_out != cpu_out:
+            bad = sum(card_out["placements"][k] != v
+                      for k, v in cpu_out["placements"].items())
+            raise AssertionError(f"evaluate {name}: card and CPU differ "
+                                 f"({bad} placements, rounds "
+                                 f"{card_out['rounds']} vs {cpu_out['rounds']})")
+        if counts["select_hosts"] < card_out["rounds"]:
+            raise AssertionError(f"evaluate {name}: select_hosts {counts}")
+        ev_launches += counts["select_hosts"]
+        placed_n = sum(v is not None for v in card_out["placements"].values())
+        log(f"[evaluate] {name}: {len(req['nodes'])} nodes x "
+            f"{len(req['pods'])} pods, rounds {card_out['rounds']}, "
+            f"{placed_n} placed; card = CPU; a call {wall * 1e3:.1f} ms = "
+            f"decode {times['decode'] * 1e3:.1f} + build "
+            f"{times['build'] * 1e3:.1f} + evaluate "
+            f"{times['evaluate'] * 1e3:.1f} ms; CPU {cpu_wall:.2f}s")
+    launches["select_hosts"]["evaluate"] = ev_launches
+
+    def diagnostics(device):
+        nt, _ = tables.build_node_table(c4_nodes, pods_by_node(c4_assigned),
+                                        device=device)
+        pt, _ = tables.build_pod_table(c4_pods, device=device)
+        extra = build_constraint_tables(
+            c4_pods, c4_nodes, c4_assigned, pod_capacity=pt.capacity,
+            node_capacity=nt.capacity, device=device)
+        cfg = default_full_roster_config()
+        chains = build_plugins(cfg)
+        return FusedEvaluator(chains.filter, chains.pre_score, chains.score,
+                              weights=cfg.score_weights(),
+                              with_diagnostics=True)(pt, nt, extra)
+
+    d_card, d_cpu = diagnostics(dev), diagnostics(torch.device("cpu"))
+    for field in ("choice", "best_score", "feasible_count", "filter_masks",
+                  "score_matrices", "raw_score_matrices"):
+        if not torch.equal(getattr(d_card, field).cpu(),
+                           getattr(d_cpu, field)):
+            raise AssertionError(f"config 4 diagnostics: {field} differs "
+                                 "card vs CPU")
+    log(f"[evaluate-diagnostics] config 4, full roster, FusedEvaluator with "
+        f"diagnostics: filter masks {tuple(d_card.filter_masks.shape)}, "
+        f"score matrices {tuple(d_card.score_matrices.shape)} and raw score "
+        f"matrices equal card vs CPU")
+    del d_card, d_cpu
 
     report = []
     replaces = {

@@ -4,8 +4,9 @@ A copy of what ``minisched_tpu/api/objects.py`` defines for these readers:
 quantities in integer base units (milli-CPU, bytes), names as the
 identity (``uid`` defaults to ``""``, so tie-break seeds come from names),
 taints and tolerations, node affinity, pod (anti-)affinity, topology
-spread constraints, and the volumes a pod mounts with their claims and
-PersistentVolumes.  The table encoders read these objects duck-typed, so
+spread constraints, the volumes a pod mounts with their claims and
+PersistentVolumes, and gang membership (``GangSpec``) with the slice
+topology of nodes.  The table encoders read these objects duck-typed, so
 the JAX package's objects build the same tables.
 """
 
@@ -283,6 +284,19 @@ class TopologySpreadConstraint:
 
 
 @dataclass
+class GangSpec:
+    """All-or-nothing coscheduling group: a gang is identified by (pod
+    namespace, name); ``size`` members must all be placed before any binds,
+    and ``ttl_s`` bounds how long a partial gang may hold capacity.  The
+    port's wave and scan drivers read only the identity (the admission
+    belongs to the engine's Permit point)."""
+
+    name: str = ""
+    size: int = 1
+    ttl_s: float = 30.0
+
+
+@dataclass
 class PodSpec:
     node_name: str = ""  # set by binding
     containers: List[Container] = field(default_factory=list)
@@ -293,9 +307,7 @@ class PodSpec:
         default_factory=list)
     #: names of the PersistentVolumeClaims the pod mounts
     volumes: List[str] = field(default_factory=list)
-    #: gang membership is encoded by the table encoder when present; its
-    #: object model arrives with the gang slice (read duck-typed until then)
-    gang: Optional[Any] = None
+    gang: Optional["GangSpec"] = None
 
 
 @dataclass
@@ -314,7 +326,8 @@ class Pod:
 
 
 def gang_key(pod: Any) -> Optional[str]:
-    """'namespace/gangname' for a gang member, None for singletons."""
+    """'namespace/gangname' for a gang member, None for singletons and for
+    a gang with an empty name."""
     g = pod.spec.gang
     if g is None or not g.name:
         return None
@@ -407,3 +420,26 @@ class PersistentVolumeClaim:
     metadata: ObjectMeta
     spec: PVCSpec = field(default_factory=PVCSpec)
     status: PVCStatus = field(default_factory=PVCStatus)
+
+
+def make_gang_pods(
+    gang_name: str,
+    size: int,
+    namespace: str = "default",
+    ttl_s: float = 30.0,
+    requests: Optional[Dict[str, Any]] = None,
+    labels: Optional[Dict[str, str]] = None,
+    **spec_kwargs: Any,
+) -> List[Pod]:
+    """``size`` member pods ``{gang_name}-{i}`` of one gang."""
+    return [
+        make_pod(
+            f"{gang_name}-{i}",
+            namespace=namespace,
+            requests=requests,
+            labels=labels,
+            gang=GangSpec(gang_name, size, ttl_s),
+            **spec_kwargs,
+        )
+        for i in range(size)
+    ]

@@ -22,6 +22,11 @@ clusters' objects and three entry points.
   after the attempts goes through the exact scan.  With no live engine
   yet, the pods go in the order given: one backlog flush at queue drain.
 
+``mk_c5_gang_cluster`` is config 5 with gangs (run with
+``service.config.gang_roster_config``): each wave and scan chunk gets the
+placed aggregate of its gangs (``engine.gang.PlacedGangs``), as the JAX
+engine passes its ``gang_view``.
+
 Every round or step ends in ``select_hosts``, the hand-written
 seeded-argmax kernel on a card.  The roster is ``cfg``, by default the
 full default roster (``service.config.default_full_roster_config``),
@@ -43,7 +48,7 @@ from __future__ import annotations
 import random
 import time
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,9 +67,11 @@ from minisched_tpu_torch.api.objects import (
     PVSpec,
     TopologySpreadConstraint,
     WeightedPodAffinityTerm,
+    make_gang_pods,
     make_node,
     make_pod,
 )
+from minisched_tpu_torch.engine.gang import PlacedGangs
 from minisched_tpu_torch.engine.scan_groups import (
     interaction_sets,
     order_into_blocks,
@@ -72,6 +79,7 @@ from minisched_tpu_torch.engine.scan_groups import (
 from minisched_tpu_torch.headline import (
     ConstraintFeed,
     WaveRun,
+    commit,
     pods_by_node,
     schedule_waves,
     synchronize,
@@ -145,16 +153,7 @@ def mk_c5_cluster(n_nodes: int = 10_000, n_pods: int = 100_000,
     ``n_crosspod`` pods ``spread*`` of 32 apps (``app{i % 32}``), each with
     a DoNotSchedule zone spread of max skew 4 over its app, then the last
     2% (``special*``), which carry a node selector no node matches."""
-    rng = random.Random(55)
-    nodes = [
-        make_node(
-            f"node{i:05d}",
-            unschedulable=rng.random() < 0.2,
-            capacity={"cpu": "8", "memory": "16Gi", "pods": 110},
-            labels={"zone": f"z{i % 16}"},
-        )
-        for i in range(n_nodes)
-    ]
+    nodes = _c5_nodes(n_nodes)
     n_special = max(n_pods // 50, 1)
     pods = [make_pod(f"pod{i:06d}", requests=C5_REQUESTS)
             for i in range(n_pods - n_special - n_crosspod)]
@@ -171,6 +170,84 @@ def mk_c5_cluster(n_nodes: int = 10_000, n_pods: int = 100_000,
                       node_selector={"special": "true"})
              for i in range(n_special)]
     return nodes, pods
+
+
+def _c5_nodes(n_nodes: int, sliced: bool = False) -> List[Any]:
+    """Config 5's nodes (``random.Random(55)`` cordons 20%); ``sliced``
+    puts node i on slice ``i // SLICE_HOSTS`` as host ``i % SLICE_HOSTS``
+    of a 4 x 4 torus, as ``bench.py`` ``bench_gang`` lays out its hosts;
+    even slices declare their dimensions (4, 4, 1), so the ring wraps, odd
+    slices none (the distance does not wrap)."""
+    rng = random.Random(55)
+    nodes = []
+    for i in range(n_nodes):
+        kw = {}
+        if sliced:
+            s, h = divmod(i, SLICE_HOSTS)
+            kw = dict(slice_id=f"slice{s:03d}", torus=(h % 4, h // 4, 0),
+                      host_index=h, slice_dims=(4, 4, 1) if s % 2 == 0 else None)
+        nodes.append(make_node(
+            f"node{i:05d}",
+            unschedulable=rng.random() < 0.2,
+            capacity={"cpu": "8", "memory": "16Gi", "pods": 110},
+            labels={"zone": f"z{i % 16}"}, **kw))
+    return nodes
+
+
+SLICE_HOSTS = 16  # hosts a slice of the gang cluster
+GANG_SIZE = 8  # members a gang of the gang cluster
+GANG_EVERY = 16  # plain pods before each gang's pending members
+
+
+def mk_c5_gang_cluster(n_nodes: int = 10_000, n_pods: int = 100_000,
+                       n_gangs: int = 4_096
+                       ) -> Tuple[List[Any], List[Any], List[Any]]:
+    """Config 5 with gangs: (nodes, assigned pods, pending pods).
+
+    The nodes are config 5's, each also on one of ``n_nodes // 16`` slices
+    of 16 hosts (``_c5_nodes(sliced=True)``).  ``n_gangs`` gangs of 8
+    members ``gang{g:04d}-{m}`` ask for config 5's 500m and 256 Mi; for a
+    quarter of them (drawn from ``random.Random(56)``) members 0-3 are
+    already bound to 4 uncordoned hosts of one slice, the rest pending:
+    the stragglers of a gang whose peers landed.  The pending pods come in
+    the order the JAX queue keeps gang members, adjacent: 16 plain pods
+    ``pod{i:06d}``, then one gang's pending members, for every gang; then
+    the plain pods left; then the last 2% (``special*``, a node selector
+    no node matches).  At full size: 28,672 gang members, 69,328 plain
+    and 2,000 special pods, 4,096 assigned."""
+    nodes = _c5_nodes(n_nodes, sliced=True)
+    rng = random.Random(56)
+    open_hosts: List[List[Any]] = []
+    for s in range(0, n_nodes, SLICE_HOSTS):
+        hosts = [n for n in nodes[s:s + SLICE_HOSTS] if not n.spec.unschedulable]
+        if len(hosts) >= GANG_SIZE // 2:
+            open_hosts.append(hosts)
+    stragglers = set(rng.sample(range(n_gangs), n_gangs // 4))
+    assigned, gang_pending = [], []
+    for g in range(n_gangs):
+        members = make_gang_pods(f"gang{g:04d}", GANG_SIZE,
+                                 requests=C5_REQUESTS)
+        if g in stragglers:
+            half = GANG_SIZE // 2
+            for pod, host in zip(members[:half],
+                                 rng.sample(rng.choice(open_hosts), half)):
+                pod.spec.node_name = host.metadata.name
+                assigned.append(pod)
+            members = members[half:]
+        gang_pending.append(members)
+    n_special = max(n_pods // 50, 1)
+    n_plain = n_pods - n_special - sum(len(m) for m in gang_pending)
+    plain = iter([make_pod(f"pod{i:06d}", requests=C5_REQUESTS)
+                  for i in range(n_plain)])
+    pods: List[Any] = []
+    for members in gang_pending:
+        pods += [p for _, p in zip(range(GANG_EVERY), plain)]
+        pods += members
+    pods += list(plain)
+    pods += [make_pod(f"special{i:05d}", requests=C5_REQUESTS,
+                      node_selector={"special": "true"})
+             for i in range(n_special)]
+    return nodes, assigned, pods
 
 
 def mk_c4_cluster() -> Tuple[List[Any], List[Any], List[Any]]:
@@ -377,6 +454,8 @@ class ScanRun:
     constraint_build_s: float
     chunks: int
     log: StepLog = field(default_factory=StepLog)
+    #: per chunk with gang members: the gang view its pod table was given
+    gang_views: List[Dict[str, Any]] = field(default_factory=list)
 
 
 @dataclass
@@ -403,33 +482,38 @@ def _scan_chains(cfg: Optional[SchedulerConfig]):
 
 
 def _chunk_tables(pods: Sequence[Any], capacity: int,
-                  feed: Optional[ConstraintFeed], device: torch.device,
-                  invalid_rows: Sequence[int] = ()):
-    """The pod table of one chunk and, when the roster reads them, its
-    constraint tables from ``feed``."""
-    pod_table, _ = build_pod_table(pods, capacity=capacity, device=device,
-                                   invalid_rows=invalid_rows)
+                  feed: Optional[ConstraintFeed], gangs: Optional[PlacedGangs],
+                  device: torch.device, invalid_rows: Sequence[int] = ()):
+    """The pod table of one chunk, with its gangs' placed members when it
+    has gang members, and, when the roster reads them, its constraint
+    tables from ``feed``.  The gang view stays fixed inside the chunk, as
+    in the JAX engine: members placed earlier in the chunk do not warm
+    it."""
+    pod_table, _ = build_pod_table(
+        pods, capacity=capacity, device=device, invalid_rows=invalid_rows,
+        gang_view=gangs.view(pods) if gangs else None)
     return pod_table, (feed.tables(pods, capacity) if feed else None)
 
 
 def _exact_chunks(sched: SequentialScheduler, pods: Sequence[Any],
                   node_table: NodeTable, feed: Optional[ConstraintFeed],
-                  log: StepLog) -> Tuple[NodeTable, List[int], List[int]]:
+                  gangs: Optional[PlacedGangs], log: StepLog
+                  ) -> Tuple[NodeTable, List[int], List[int]]:
     """The exact scan over ``pods`` in chunks of ``SCAN_MAX_CHUNK``, each
-    chunk's placements committed to ``feed``: (node table, choices, best
-    scores)."""
+    chunk's placements committed to ``feed`` and ``gangs``: (node table,
+    choices, best scores)."""
     choices: List[int] = []
     best: List[int] = []
     device = node_table.valid.device
     for start in range(0, len(pods), SCAN_MAX_CHUNK):
         part = pods[start:start + SCAN_MAX_CHUNK]
-        pod_table, extra = _chunk_tables(part, pad_to(len(part)), feed, device)
+        pod_table, extra = _chunk_tables(part, pad_to(len(part)), feed,
+                                         gangs, device)
         node_table, choice, score = sched(pod_table, node_table, extra, log)
         rows = choice[: len(part)].tolist()
         choices += rows
         best += score[: len(part)].tolist()
-        if feed:
-            feed.commit(part, rows)
+        commit(part, rows, feed, gangs)
     return node_table, choices, best
 
 
@@ -456,19 +540,21 @@ def schedule_scan(nodes: Sequence[Any], pods: Sequence[Any],
     node_table = node_host.to_device(device)
     synchronize(device)
     build_s = time.monotonic() - t0
+    t0 = time.monotonic()
     feed = ConstraintFeed.for_step(sched, nodes, node_names, assigned, pvcs,
                                    pvs, node_table.capacity, device,
                                    scan_planes=True)
-    t0 = time.monotonic()
+    gangs = PlacedGangs.for_pods(pods, nodes, assigned)
     node_table, choices, best = _exact_chunks(sched, pods, node_table, feed,
-                                              log)
+                                              gangs, log)
     synchronize(device)
     return ScanRun(
         choices=np.asarray(choices, np.int64), best=np.asarray(best, np.int64),
         node_table=node_table, node_names=node_names, build_s=build_s,
         schedule_s=time.monotonic() - t0,
         constraint_build_s=feed.build_s if feed else 0.0,
-        chunks=-(-len(pods) // SCAN_MAX_CHUNK), log=log)
+        chunks=-(-len(pods) // SCAN_MAX_CHUNK), log=log,
+        gang_views=gangs.views if gangs else [])
 
 
 def _blocked_cap(n: int) -> int:
@@ -499,16 +585,17 @@ def schedule_crosspod(nodes: Sequence[Any], pods: Sequence[Any],
     blocked = BlockedSequentialScheduler(
         chains.filter, chains.pre_score, chains.score, weights=weights,
         block_size=SCAN_BLOCK_SIZE)
+    t_start = time.monotonic()
     feed = ConstraintFeed.for_step(
         blocked, nodes, [n.metadata.name for n in nodes], assigned, pvcs, pvs,
         node_table.capacity, device, scan_planes=True)
+    gangs = PlacedGangs.for_pods(pods, nodes, assigned)
     position = {id(p): k for k, p in enumerate(pods)}
     choices = np.full(len(pods), -1, np.int64)
     dummy = make_pod("scan-pad")
     calls: List[Tuple[np.ndarray, np.ndarray]] = []
     blocks_of: List[int] = []
     grouping_s = 0.0
-    t_start = time.monotonic()
     pending = list(pods)
     for _attempt in range(SCAN_BLOCK_RETRIES):
         t0 = time.monotonic()
@@ -523,7 +610,8 @@ def schedule_crosspod(nodes: Sequence[Any], pods: Sequence[Any],
             pad_rows = [i for i, m in enumerate(part) if m is None]
             pod_table, extra = _chunk_tables(
                 [m if m is not None else dummy for m in part],
-                _blocked_cap(len(part)), feed, device, invalid_rows=pad_rows)
+                _blocked_cap(len(part)), feed, gangs, device,
+                invalid_rows=pad_rows)
             node_table, choice, _, accepted = blocked(
                 pod_table, node_table, extra, log)
             rows = choice[: len(part)].tolist()
@@ -539,8 +627,7 @@ def schedule_crosspod(nodes: Sequence[Any], pods: Sequence[Any],
                     placed_rows.append(row)
                 elif row >= 0:
                     retry.append(m)  # feasible; lost a same-node race
-            if feed:
-                feed.commit(placed, placed_rows)
+            commit(placed, placed_rows, feed, gangs)
         pending = retry
         if not pending:
             break
@@ -551,7 +638,7 @@ def schedule_crosspod(nodes: Sequence[Any], pods: Sequence[Any],
         exact = SequentialScheduler(chains.filter, chains.pre_score,
                                     chains.score, weights=weights)
         node_table, rows, _ = _exact_chunks(exact, pending, node_table, feed,
-                                            log)
+                                            gangs, log)
         for m, row in zip(pending, rows):
             choices[position[id(m)]] = row
     synchronize(device)

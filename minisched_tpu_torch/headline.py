@@ -21,7 +21,9 @@ next wave.  A route is the step that schedules one wave:
   (``ConstraintFeed``): the assigned pods are the caller's plus every pod
   an earlier wave placed, as the live engine counts its assumed binds.
   That takes one read of each wave's choices before the next wave's
-  build.
+  build.  A wave with gang members gets their gang's placed members the
+  same way (``engine.gang.PlacedGangs``): its pod table's gang columns
+  are rewritten after the previous wave's commit.
 
 Usage (on the card)::
 
@@ -43,6 +45,8 @@ import torch
 
 from minisched_tpu_torch import resolve_device
 from minisched_tpu_torch.api.objects import make_node, make_pod
+from minisched_tpu_torch.engine.gang import GangAgg, PlacedGangs
+from minisched_tpu_torch.models.constraint_index import ConstraintIndex
 from minisched_tpu_torch.models.constraints import (
     ConstraintTables,
     build_constraint_tables,
@@ -182,6 +186,11 @@ class WaveRun:
     #: repair with constraint tables, per wave: the carried volume planes
     #: after its last round (``node_vols_fam``, ``vol_any``, ``vol_rw``)
     volumes: List[Dict[str, np.ndarray]] = field(default_factory=list)
+    #: with gang members, per wave: the gang view its pod table was given
+    #: (gang key → placed aggregate; empty without gang members)
+    gang_views: List[Dict[str, GangAgg]] = field(default_factory=list)
+    #: the part of ``schedule_s`` spent on the gang views and their columns
+    gang_view_s: float = 0.0
 
     @property
     def n_waves(self) -> int:
@@ -225,21 +234,30 @@ class BoundPod:
 class ConstraintFeed:
     """The constraint tables of one batch of pods after another (each
     wave, each scan chunk), built on the host from the objects.  The
-    assigned pods are ``assigned`` plus every pod committed since.
-    ``scan_planes`` picks the scan lanes' tables; False is the wave
-    mode."""
+    assigned pods are ``assigned`` plus every pod committed since, held
+    in one ``ConstraintIndex`` (fed once, then with each commit), so a
+    build costs what the batch's own pods and the index's aggregates
+    cost, not a walk of every assigned pod.  ``scan_planes`` picks the
+    scan lanes' tables; False is the wave mode."""
 
     def __init__(self, nodes: Sequence[Any], node_names: Sequence[str],
                  assigned: Sequence[Any], pvcs: Sequence[Any],
                  pvs: Sequence[Any], node_capacity: int, device: torch.device,
                  scan_planes: bool = False):
+        t0 = time.monotonic()
         self.nodes, self.node_names = nodes, node_names
-        self.assigned = list(assigned)
         self.pvcs, self.pvs = pvcs, pvs
         self.node_capacity = node_capacity
         self.device = device
         self.scan_planes = scan_planes
-        self.build_s = 0.0  # host time in ``tables`` and ``commit``
+        by_name = {n.metadata.name: n for n in nodes}
+        self.index = ConstraintIndex(
+            node_get=by_name.get,
+            pvc_get={pvc.metadata.key: pvc for pvc in pvcs}.get,
+            pv_get={pv.metadata.name: pv for pv in pvs}.get)
+        self.index.add_pods(p for p in assigned if p.spec.node_name)
+        #: host time in the index, ``tables`` and ``commit``
+        self.build_s = time.monotonic() - t0
 
     @classmethod
     def for_step(cls, step: Callable, *args: Any,
@@ -251,9 +269,10 @@ class ConstraintFeed:
     def tables(self, pods: Sequence[Any], pod_capacity: int) -> ConstraintTables:
         t0 = time.monotonic()
         extra = build_constraint_tables(
-            pods, self.nodes, self.assigned, pod_capacity=pod_capacity,
+            pods, self.nodes, (), pod_capacity=pod_capacity,
             node_capacity=self.node_capacity, pvcs=self.pvcs, pvs=self.pvs,
-            scan_planes=self.scan_planes, device=self.device)
+            scan_planes=self.scan_planes, device=self.device,
+            index=self.index)
         self.build_s += time.monotonic() - t0
         return extra
 
@@ -261,30 +280,44 @@ class ConstraintFeed:
         """The pods of ``pods`` placed on node row ``rows`` (row >= 0)
         join the assigned pods."""
         t0 = time.monotonic()
-        self.assigned.extend(BoundPod(pod, self.node_names[c])
-                             for pod, c in zip(pods, rows) if c >= 0)
+        self.index.add_pods(BoundPod(pod, self.node_names[c])
+                            for pod, c in zip(pods, rows) if c >= 0)
         self.build_s += time.monotonic() - t0
+
+
+def commit(pods: Sequence[Any], rows: Sequence[int], *sinks: Any) -> None:
+    """The placements ``rows`` of ``pods`` into each sink given (a
+    ``ConstraintFeed``, a ``PlacedGangs``; None is skipped)."""
+    for sink in sinks:
+        if sink is not None:
+            sink.commit(pods, rows)
 
 
 def run_waves(step: Callable, node_table: NodeTable,
               pod_tables: Sequence[Any],
               feed: Optional[ConstraintFeed] = None,
-              waves: Sequence[Sequence[Any]] = ()
+              waves: Sequence[Sequence[Any]] = (),
+              gangs: Optional[PlacedGangs] = None
               ) -> Tuple[NodeTable, List[WaveOut]]:
     """The wave loop: ``step`` each pod table against the resident node
     table, with the constraint tables of its pods ``waves[i]`` from
-    ``feed`` if given.  Returns the final table and each wave's
+    ``feed`` if given, and its gang columns rewritten from ``gangs`` if
+    given (wave k's view holds wave k-1's placements, so the tables built
+    up front cannot hold it).  Returns the final table and each wave's
     ``WaveOut``; nothing here waits for the device but what the step
-    reads and the read of each wave's choices for ``feed.commit``."""
+    reads and the read of each wave's choices for the commits."""
     outs = []
     for i, pod_table in enumerate(pod_tables):
+        if gangs is not None:
+            pod_table = gangs.rewrite(pod_table, waves[i])
         if feed is None:
             out = step(node_table, pod_table)
         else:
-            pods = waves[i]
             out = step(node_table, pod_table,
-                       feed.tables(pods, pod_table.capacity))
-            feed.commit(pods, out.choice[: len(pods)].tolist())
+                       feed.tables(waves[i], pod_table.capacity))
+        if feed is not None or gangs is not None:
+            commit(waves[i], out.choice[: len(waves[i])].tolist(), feed,
+                   gangs)
         node_table = out.node_table
         outs.append(out)
     return node_table, outs
@@ -335,20 +368,23 @@ def schedule_waves(nodes: Sequence[Any], pods: Sequence[Any],
     synchronize(device)
     h2d_s = time.monotonic() - t0
 
-    def feed() -> Optional[ConstraintFeed]:
-        return ConstraintFeed.for_step(step, nodes, node_names, assigned,
-                                       pvcs, pvs, node_cap, device)
+    def feeds() -> Tuple[Optional[ConstraintFeed], Optional[PlacedGangs]]:
+        return (ConstraintFeed.for_step(step, nodes, node_names, assigned,
+                                        pvcs, pvs, node_cap, device),
+                PlacedGangs.for_pods(pods, nodes, assigned))
 
     t0 = time.monotonic()
     if pod_tables and device.type == "cuda":  # the step is pure: dropped
-        run_waves(step, node_table, pod_tables[:1], feed(), wave_pods)
+        warm_feed, warm_gangs = feeds()
+        run_waves(step, node_table, pod_tables[:1], warm_feed, wave_pods,
+                  warm_gangs)
     synchronize(device)
     warmup_s = time.monotonic() - t0
 
     t0 = time.monotonic()
-    timed_feed = feed()
+    timed_feed, gangs = feeds()
     node_table, outs = run_waves(step, node_table, pod_tables, timed_feed,
-                                 wave_pods)
+                                 wave_pods, gangs)
     synchronize(device)
     schedule_s = time.monotonic() - t0
 
@@ -375,6 +411,8 @@ def schedule_waves(nodes: Sequence[Any], pods: Sequence[Any],
         volumes=[{name: getattr(o.extra, name).cpu().numpy()
                   for name in ("node_vols_fam", "vol_any", "vol_rw")}
                  for o in outs if o.extra is not None],
+        gang_views=gangs.views if gangs else [],
+        gang_view_s=gangs.view_s if gangs else 0.0,
     )
 
 

@@ -11,12 +11,14 @@ JAX package's, field for field (dtypes, capacities, padding), and go to
 the device as one pinned buffer and one non-blocking copy
 (``models/tables.HostTable``).
 
-Two parts of the JAX module are not here: the ``ConstraintIndex`` inputs
-(``index=``, ``extra_assigned=``), which belong to the live engine, and
-the packed elision options of ``device=False`` (``elide_zeros``,
-``elide_groups``).  Those keep the number of distinct compiled shapes of
-the JAX program small; the port compiles nothing per shape and always
-builds the full tables.
+With ``index=`` (``models/constraint_index.ConstraintIndex``) the
+assigned-pod planes come from the index's aggregates instead of a walk of
+every assigned pod, and ``extra_assigned`` pods (placed, not yet in the
+index) fold in through the walk's own per-pod logic, as in the JAX
+module.  Not here: the packed elision options of ``device=False``
+(``elide_zeros``, ``elide_groups``), which keep the number of distinct
+compiled shapes of the JAX program small; the port compiles nothing per
+shape and always builds the full tables.
 
 ``ConstraintTables.in_use`` is the port's own: which constraint slots of
 the wave's pods carry anything, read from the host columns.  The batch
@@ -259,6 +261,13 @@ def _topo_key_axis(combos, nodes):
     return key_ids, topo_domain, topo_onehot, unique, val_id, values
 
 
+def pod_key(pod: Any) -> str:
+    """A pod's identity in the index and in the walk's per-mount volume
+    keys: its uid, or ``namespace/name`` when the uid is empty (the port's
+    objects leave it empty)."""
+    return pod.metadata.uid or f"{pod.metadata.namespace}/{pod.metadata.name}"
+
+
 def _matches(sel: Any, namespaces: Tuple[str, ...], pod: Any) -> bool:
     return pod.metadata.namespace in namespaces and sel.matches(pod.metadata.labels)
 
@@ -347,6 +356,8 @@ def constraint_columns(
     pvcs: Sequence[Any] = (),
     pvs: Sequence[Any] = (),
     scan_planes: bool = True,
+    index: Any = None,
+    extra_assigned: Sequence[Any] = (),
 ) -> Dict[str, np.ndarray]:
     """The host half of ``build_constraint_tables``: its numpy columns.
 
@@ -354,11 +365,17 @@ def constraint_columns(
     with ``spec.node_name`` set; pods on other nodes are ignored.
     ``scan_planes=False`` is the JAX package's wave mode:
     ``pod_matches_combo`` is filled only for the combos that assigned pods'
-    scoring terms use."""
+    scoring terms use.  ``index``: a ``ConstraintIndex`` holding the
+    assigned pods (pass ``()`` as ``assigned_pods``); ``extra_assigned``:
+    assigned pods it does not hold yet, folded in per pod."""
     P = pod_capacity or pad_to(len(pending_pods))
     N = node_capacity or pad_to(len(nodes))
     node_idx = {n.metadata.name: i for i, n in enumerate(nodes)}
     assigned = [p for p in assigned_pods if p.spec.node_name in node_idx]
+    if index is not None:
+        # pods on nodes outside this view are skipped, as above
+        extra_assigned = [p for p in extra_assigned
+                          if p.spec.node_name in node_idx]
 
     reg = _ComboRegistry()
     pod_rows = _pod_rows(pending_pods, reg)
@@ -366,7 +383,8 @@ def constraint_columns(
     # --- symmetric preferred contributions (assigned pods' terms) ----------
     # cid → topology value → Σ signed weight; combos register here too
     rev_vals: Dict[int, Dict[str, int]] = {}
-    for p in assigned:
+
+    def collect_rev(p: Any) -> None:
         labels = nodes[node_idx[p.spec.node_name]].metadata.labels
         for nss, sel, topo, w in rev_pref_terms_of(p):
             val = labels.get(topo)
@@ -375,6 +393,14 @@ def constraint_columns(
             cid = reg.get(nss, sel, topo)
             vals = rev_vals.setdefault(cid, {})
             vals[val] = vals.get(val, 0) + w
+
+    if index is not None:
+        for (nss, _sig, topo), sel, vals in index.rev_pref_list():
+            dst = rev_vals.setdefault(reg.get(nss, sel, topo), {})
+            for val, w in vals.items():
+                dst[val] = dst.get(val, 0) + w
+    for p in (extra_assigned if index is not None else assigned):
+        collect_rev(p)
 
     # --- combo matrices ----------------------------------------------------
     C = pad_to(max(len(reg.combos), 1), CAP_QUANTUM)
@@ -410,29 +436,36 @@ def constraint_columns(
             pod_matches_combo[: len(pending_pods), cid] = row
     n_real = len(nodes)
     # assigned pods by signature group: sig → {node: count}; only combos
-    # read it, so a wave without combos skips the walk
+    # read it, so a wave without combos skips the walk.  With an index
+    # only the extra pods fold in here.
+    fold = extra_assigned if index is not None else assigned
     a_reps, a_nodes = [], []
-    if assigned and reg.combos:
-        a_reps, a_gid = _sig_groups(assigned)
+    if fold and reg.combos:
+        a_reps, a_gid = _sig_groups(fold)
         a_nodes = [dict() for _ in a_reps]
-        for g, p in zip(a_gid, assigned):
+        for g, p in zip(a_gid, fold):
             d = a_nodes[g]
             d[p.spec.node_name] = d.get(p.spec.node_name, 0) + 1
     for cid, (nss, sel, topo) in enumerate(reg.combos):
         k = key_ids[topo]
         combo_key[cid] = k
         domain_count: Dict[str, int] = {}
-        total = 0
+        here: Dict[str, int] = (index.combo_aggregate(nss, sel, topo)
+                                if index is not None else {})
         for g, rep in enumerate(a_reps):
-            if not _matches(sel, nss, rep):
-                continue
-            for node, cnt in a_nodes[g].items():
-                i = node_idx[node]
-                total += cnt
-                combo_here[cid, i] += cnt
-                val = nodes[i].metadata.labels.get(topo)
-                if val is not None:
-                    domain_count[val] = domain_count.get(val, 0) + cnt
+            if _matches(sel, nss, rep):
+                for node, cnt in a_nodes[g].items():
+                    here[node] = here.get(node, 0) + cnt
+        total = 0
+        for node, cnt in here.items():
+            i = node_idx.get(node)
+            if i is None:
+                continue  # an index pod on a node outside this view
+            total += cnt
+            combo_here[cid, i] = cnt
+            val = nodes[i].metadata.labels.get(topo)
+            if val is not None:
+                domain_count[val] = domain_count.get(val, 0) + cnt
         combo_global[cid] = total
         # haskey/dsum/rev rows as gathers through the node → value-id axis
         rv = rev_vals.get(cid)
@@ -460,7 +493,14 @@ def constraint_columns(
     # topology domain collapse to a single row) ----------------------------
     ex_ids: Dict[Tuple, int] = {}
     ex_terms: List[Tuple[Tuple[str, ...], Any, str, str]] = []
-    for p in assigned:
+    if index is not None:
+        for key, sel, owner_nodes in index.ex_term_list():
+            if key in ex_ids or not any(n in node_idx for n in owner_nodes):
+                continue
+            nss, _sig, topo, owner_val = key
+            ex_ids[key] = len(ex_terms)
+            ex_terms.append((nss, sel, topo, owner_val))
+    for p in fold:
         aff = p.spec.affinity
         if aff is None or aff.pod_anti_affinity is None:
             continue
@@ -486,8 +526,8 @@ def constraint_columns(
         for i, pod in enumerate(pending_pods):
             pod_matches_ex[i, t] = _matches(sel, nss, pod)
 
-    vols = _volume_columns(pending_pods, nodes, assigned, node_idx, P, N,
-                           pvcs, pvs)
+    vols = _volume_columns(pending_pods, nodes, fold, node_idx, P, N,
+                           pvcs, pvs, index)
 
     # --- per-pod constraint arrays ----------------------------------------
     ts_combo = np.zeros((P, MAX_TSC), np.int32)
@@ -532,18 +572,15 @@ def constraint_columns(
 
 
 def _volume_columns(pending_pods, nodes, assigned, node_idx, P: int, N: int,
-                    pvcs, pvs) -> Dict[str, np.ndarray]:
+                    pvcs, pvs, index: Any = None) -> Dict[str, np.ndarray]:
     """The volume planes: per-claim node verdicts, each pod's claim slots
     and per-family counts, and the assigned pods' mount state per volume
     row (a bound claim's PV, or an unbound claim itself: claims bound to
-    one PV share a row).  The last volume row is a dummy scatter target."""
+    one PV share a row).  The last volume row is a dummy scatter target.
+    With ``index`` the mount state is the index's, ``assigned`` the extra
+    pods folded on top of it."""
     pvc_by_key = {pvc.metadata.key: pvc for pvc in pvcs}
     pv_by_name = {pv.metadata.name: pv for pv in pvs}
-    node_claims: List[List[Any]] = [[] for _ in range(len(nodes))]
-    for p in assigned:
-        for vol in p.spec.volumes:
-            opvc = pvc_by_key.get(f"{p.metadata.namespace}/{vol}")
-            node_claims[node_idx[p.spec.node_name]].append(opvc)
 
     def count_key(pvc: Any) -> Tuple[str, str]:
         if pvc.spec.volume_name:
@@ -624,22 +661,61 @@ def _volume_columns(pending_pods, nodes, assigned, node_idx, P: int, N: int,
     vol_any = np.zeros((Vd, N), bool)
     vol_rw = np.zeros((Vd, N), bool)
     node_vols_fam = np.zeros((F, N), np.int32)
-    for n, claims in enumerate(node_claims):
-        seen_node: set = set()
-        for opvc in claims:
-            if opvc is None:
-                # no identity: each unresolvable mount counts by itself
-                node_vols_fam[0, n] += 1
-                continue
-            ck = count_key(opvc)
-            if ck not in seen_node:  # distinct volumes per node
-                seen_node.add(ck)
-                node_vols_fam[volume_family(opvc, pv_by_name), n] += 1
-            v = vol_ids.get(ck)
-            if v is not None:
-                vol_any[v, n] = True
+    if index is not None:
+        # the index's per-node volume state, the extra pods folded in
+        # through this build's own PVC/PV view
+        nvs = index.node_vol_state()
+        for p in assigned:
+            nv = nvs.setdefault(p.spec.node_name, {})
+            for j, vol in enumerate(p.spec.volumes):
+                opvc = pvc_by_key.get(f"{p.metadata.namespace}/{vol}")
+                if opvc is None:
+                    ent = nv.setdefault(("miss", pod_key(p), j),
+                                        [0, 0, volume_family(None, pv_by_name)])
+                    ent[0] += 1
+                    continue
+                ck = count_key(opvc)
+                fam = volume_family(opvc, pv_by_name)
+                ent = nv.setdefault(ck, [0, 0, fam])
+                ent[0] += 1
+                ent[2] = fam
                 if opvc.spec.volume_name and not opvc.spec.read_only:
-                    vol_rw[v, n] = True
+                    ent[1] += 1
+        for node_name, entries in nvs.items():
+            n = node_idx.get(node_name)
+            if n is None:
+                continue
+            for vk, (mounts, rw_mounts, fam) in entries.items():
+                if mounts <= 0:
+                    continue
+                node_vols_fam[fam, n] += 1  # distinct volumes per node
+                v = vol_ids.get(vk)
+                if v is not None:
+                    vol_any[v, n] = True
+                    if rw_mounts > 0:
+                        vol_rw[v, n] = True
+    else:
+        node_claims: List[List[Any]] = [[] for _ in range(len(nodes))]
+        for p in assigned:
+            for vol in p.spec.volumes:
+                opvc = pvc_by_key.get(f"{p.metadata.namespace}/{vol}")
+                node_claims[node_idx[p.spec.node_name]].append(opvc)
+        for n, claims in enumerate(node_claims):
+            seen_node: set = set()
+            for opvc in claims:
+                if opvc is None:
+                    # no identity: each unresolvable mount counts by itself
+                    node_vols_fam[0, n] += 1
+                    continue
+                ck = count_key(opvc)
+                if ck not in seen_node:  # distinct volumes per node
+                    seen_node.add(ck)
+                    node_vols_fam[volume_family(opvc, pv_by_name), n] += 1
+                v = vol_ids.get(ck)
+                if v is not None:
+                    vol_any[v, n] = True
+                    if opvc.spec.volume_name and not opvc.spec.read_only:
+                        vol_rw[v, n] = True
     return dict(
         claim_mask=claim_mask, pod_claims=pod_claims, vol_ok=vol_ok,
         pod_n_vols=pod_n_vols, claim_zone_ok=claim_zone_ok,
@@ -670,12 +746,15 @@ def build_constraint_tables(
     pvs: Sequence[Any] = (),
     scan_planes: bool = True,
     device=None,
+    index: Any = None,
+    extra_assigned: Sequence[Any] = (),
 ) -> ConstraintTables:
     """The wave's coupling tables on ``device`` (``None``: the card);
     arguments as ``constraint_columns``."""
     return constraint_tables_from_numpy(
         constraint_columns(pending_pods, nodes, assigned_pods, pod_capacity,
-                           node_capacity, pvcs, pvs, scan_planes),
+                           node_capacity, pvcs, pvs, scan_planes, index,
+                           extra_assigned),
         device)
 
 

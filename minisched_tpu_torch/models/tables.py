@@ -18,7 +18,7 @@ table's.  Two deliberate differences:
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -151,13 +151,14 @@ class PodUse:
     with the node label and taint sets, compute only these; a skipped slot
     equals its computed result (no toleration, all-pass masks, zero
     scores).  The JAX NodeAffinity skips the same parts with a
-    ``lax.cond`` on the device columns.  The default assumes every slot is
-    in use."""
+    ``lax.cond`` on the device columns; GangTopology's plane is all zero
+    without a gang member.  The default assumes every slot is in use."""
 
     tol_slots: int = MAX_TOLERATIONS  # the most tolerations of a row
     sel_slots: int = MAX_LABELS  # the most nodeSelector pairs of a row
     aff_required: bool = True  # some row has required node affinity
     pref_terms: bool = True  # some row has a preferred term
+    gangs: bool = True  # some row belongs to a gang (gang_id != 0)
 
 
 @dataclass
@@ -222,9 +223,11 @@ def pod_use(cols: Dict[str, np.ndarray]) -> PodUse:
         col = cols.get(name)
         return int(col.max()) if col is not None and col.size else 0
 
+    gang_id = cols.get("gang_id")
     return PodUse(tol_slots=top("num_tols"), sel_slots=top("num_sel"),
                   aff_required=top("aff_required") > 0,
-                  pref_terms=top("pref_nterms") > 0)
+                  pref_terms=top("pref_nterms") > 0,
+                  gangs=gang_id is not None and bool(gang_id.any()))
 
 
 def table_columns(table) -> Dict[str, torch.Tensor]:
@@ -659,7 +662,9 @@ def _terms_sig(terms):
 
 
 def _pack_pod_table_full(pods: Sequence[Any], cap: int,
-                         invalid_rows: Sequence[int] = ()) -> HostTable:
+                         invalid_rows: Sequence[int] = (),
+                         gang_view: Optional[Dict[str, Tuple]] = None
+                         ) -> HostTable:
     """The general encoder: every column, with the per-pod loop touching
     only the optional fields a pod carries."""
     p = len(pods)
@@ -785,21 +790,27 @@ def _pack_pod_table_full(pods: Sequence[Any], cap: int,
             t["num_ports"][i] = len(ports)
         key = gang_key(pod)
         if key is not None:
-            # the placed-member aggregates (gang_slice .. gang_n) stay zero:
-            # they come with the gang slice of the port
             t["gang_id"][i] = fnv1a32(key)
+            agg = (gang_view or {}).get(key)
+            if agg is not None:
+                for name, v in zip(GANG_AGG_FIELDS, agg):
+                    t[name][i] = v
     t["valid"][list(invalid_rows)] = False
     return HostTable.pack(PodTable, t)
 
 
 def pack_pod_table(pods: Sequence[Any],
                    capacity: Optional[int] = None,
-                   invalid_rows: Sequence[int] = ()
+                   invalid_rows: Sequence[int] = (),
+                   gang_view: Optional[Dict[str, Tuple]] = None
                    ) -> Tuple[HostTable, List[str]]:
     """The host half of ``build_pod_table``: (HostTable, pod names).
     ``invalid_rows``: rows marked ``valid=False``, the placeholder rows
     between real pods of the blocked scan lane's blocks (the rows past
-    the pods are padding anyway)."""
+    the pods are padding anyway).  ``gang_view``: gang key → (slice_hash,
+    sx, sy, sz, n) aggregate of the gang's placed members
+    (``engine/gang.py``), written into each member row's gang columns;
+    None, or a gang missing from it, leaves them zero."""
     p = len(pods)
     cap = capacity or pad_to(p)
     if p > cap:
@@ -807,14 +818,36 @@ def pack_pod_table(pods: Sequence[Any],
     names = [pod.metadata.name for pod in pods]
     if all(_pod_is_simple(pod) for pod in pods):
         return _pack_pod_table_fast(pods, cap, invalid_rows), names
-    return _pack_pod_table_full(pods, cap, invalid_rows), names
+    return _pack_pod_table_full(pods, cap, invalid_rows, gang_view), names
 
 
 def build_pod_table(pods: Sequence[Any], capacity: Optional[int] = None,
-                    device=None, invalid_rows: Sequence[int] = ()
+                    device=None, invalid_rows: Sequence[int] = (),
+                    gang_view: Optional[Dict[str, Tuple]] = None
                     ) -> Tuple[PodTable, List[str]]:
     """PodTable on ``device`` from Pod objects: (table, pod names);
-    ``invalid_rows`` as ``pack_pod_table``."""
+    ``invalid_rows`` and ``gang_view`` as ``pack_pod_table``."""
     device = resolve_device(device)
-    host, names = pack_pod_table(pods, capacity, invalid_rows)
+    host, names = pack_pod_table(pods, capacity, invalid_rows, gang_view)
     return host.to_device(device), names
+
+
+#: the pod-table columns of a gang's placed aggregate, in the order of the
+#: aggregate tuple (``engine/gang.GangAgg``)
+GANG_AGG_FIELDS = ("gang_slice", "gang_sx", "gang_sy", "gang_sz", "gang_n")
+
+
+def with_gang_view(table: PodTable, pods: Sequence[Any],
+                   gang_view: Dict[str, Tuple]) -> PodTable:
+    """``table`` (the pod table of ``pods``) with its gang aggregate
+    columns rewritten from ``gang_view``, as ``pack_pod_table`` writes
+    them: one host→device copy of the five columns.  A wave driver calls
+    it when the view changed after the table was built."""
+    cols = np.zeros((len(GANG_AGG_FIELDS), table.capacity), np.int32)
+    for i, pod in enumerate(pods):
+        key = gang_key(pod)
+        agg = gang_view.get(key) if key is not None else None
+        if agg is not None:
+            cols[:, i] = agg
+    dev = torch.from_numpy(cols).to(table.valid.device)
+    return replace(table, **dict(zip(GANG_AGG_FIELDS, dev)))

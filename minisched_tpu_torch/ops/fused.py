@@ -15,9 +15,10 @@ tensor and the hand-written kernel for a CUDA tensor, at any shape.
 ``precompute_static`` and ``evaluate(static=)`` split a repair wave's
 chain into the round-invariant half (computed once) and the plugins that
 read committed state (every round); ``with_diagnostics`` keeps every
-filter's mask.  Plugins that read the wave's constraint tables
-(``needs_extra``: the volume and cross-pod plugins) get them as the
-``extra`` argument (``models/constraints.ConstraintTables``).
+filter's mask and every scorer's raw and weighted planes. Plugins that
+read the wave's constraint tables (``needs_extra``: the volume and
+cross-pod plugins) get them as the ``extra`` argument
+(``models/constraints.ConstraintTables``).
 """
 
 from __future__ import annotations
@@ -71,6 +72,12 @@ class PlacementResult:
     feasible_count: torch.Tensor  # i32[P]
     #: bool[K, P, N] per-filter-plugin pass masks (``with_diagnostics``)
     filter_masks: Optional[torch.Tensor] = None
+    #: i32[K, P, N] per-score-plugin normalized and weighted planes
+    #: (``with_diagnostics``)
+    score_matrices: Optional[torch.Tensor] = None
+    #: i32[K, P, N] per-score-plugin raw planes, before normalize and
+    #: weight (``with_diagnostics``)
+    raw_score_matrices: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -154,6 +161,8 @@ class WavePlanes:
     totals: torch.Tensor  # i32[P, N] weighted score sum
     mask: torch.Tensor  # bool[P, N] feasibility
     per_filter: List[torch.Tensor]  # diagnostics only
+    per_score: List[torch.Tensor]  # diagnostics only: weighted planes
+    per_raw: List[torch.Tensor]  # diagnostics only: raw planes
 
 
 def wave_planes(pods: Any, nodes: Any, filter_plugins: Sequence[Any],
@@ -185,15 +194,21 @@ def wave_planes(pods: Any, nodes: Any, filter_plugins: Sequence[Any],
             aux[pl.name()] = pl.batch_pre_score(ctx, pods, nodes)
 
     totals = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
+    per_score, per_raw = [], []
     for pl in score_plugins:
         if static is not None and pl.name() in static.raw_scores:
             s = static.raw_scores[pl.name()]
         else:
             s = run_score(pl, ctx, pods, nodes, aux.get(pl.name(), {}), extra)
+        if with_diagnostics:
+            per_raw.append(s.to(torch.int32))
         s = pl.batch_normalize(ctx, s, mask).to(torch.int32)
+        weight = ctx.weight_of(pl.name())
+        if with_diagnostics:
+            per_score.append(s * weight)
         # int32: wraps as jnp's sum does
-        totals.add_(s, alpha=ctx.weight_of(pl.name()))
-    return WavePlanes(totals, mask, per_filter)
+        totals.add_(s, alpha=weight)
+    return WavePlanes(totals, mask, per_filter, per_score, per_raw)
 
 
 def evaluate(
@@ -219,12 +234,16 @@ def evaluate(
     planes = wave_planes(pods, nodes, filter_plugins, pre_score_plugins,
                          score_plugins, ctx, with_diagnostics, static, extra)
     choice, best = select_hosts(planes.totals, planes.mask, pods.seed)
+    def stacked(planes_: List[torch.Tensor]) -> Optional[torch.Tensor]:
+        return torch.stack(planes_) if planes_ else None
+
     return PlacementResult(
         choice=choice,
         best_score=best,
         feasible_count=planes.mask.sum(dim=1, dtype=torch.int32),
-        filter_masks=(torch.stack(planes.per_filter) if planes.per_filter
-                      else None),
+        filter_masks=stacked(planes.per_filter),
+        score_matrices=stacked(planes.per_score),
+        raw_score_matrices=stacked(planes.per_raw),
     )
 
 
@@ -265,16 +284,19 @@ class FusedEvaluator:
         pre_score_plugins: Sequence[Any],
         score_plugins: Sequence[Any],
         weights: Optional[Dict[str, int]] = None,
+        with_diagnostics: bool = False,
     ):
         validate_batch_chains(filter_plugins, pre_score_plugins, score_plugins)
         self.filter_plugins = tuple(filter_plugins)
         self.pre_score_plugins = tuple(pre_score_plugins)
         self.score_plugins = tuple(score_plugins)
         self.ctx = BatchContext(weights=tuple(sorted((weights or {}).items())))
+        self.with_diagnostics = with_diagnostics
 
     def __call__(self, pods: Any, nodes: Any,
                  extra: Any = None) -> PlacementResult:
         return evaluate(
             pods, nodes, self.filter_plugins, self.pre_score_plugins,
-            self.score_plugins, self.ctx, extra=extra,
+            self.score_plugins, self.ctx,
+            with_diagnostics=self.with_diagnostics, extra=extra,
         )

@@ -6,10 +6,8 @@ extension points, chains in the config's order.  The port builds the
 chains the device evaluates (filter, pre-score, score).  The host-side
 extension points (post-filter, reserve, permit) run in the scheduling
 engine, which the port does not have yet: their plugin names are returned
-in ``PluginChains.host_side``, not built.
-
-A name the port does not have yet raises ``KeyError`` naming the
-ROADMAP.md item that brings it; nothing is dropped silently.
+in ``PluginChains.host_side``, not built.  An unknown name raises
+``KeyError``; nothing is dropped silently.
 """
 
 from __future__ import annotations
@@ -18,6 +16,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List
 
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
+from minisched_tpu_torch.plugins.gangtopology import GangTopology
 from minisched_tpu_torch.plugins.imagelocality import ImageLocality
 from minisched_tpu_torch.plugins.interpodaffinity import InterPodAffinity
 from minisched_tpu_torch.plugins.nodeaffinity import NodeAffinity
@@ -70,11 +69,7 @@ _REGISTRY: Dict[str, Factory] = {
         max_volumes=args.get("max_volumes")),
     "AzureDiskLimits": lambda args: AzureDiskLimits(
         max_volumes=args.get("max_volumes")),
-}
-
-#: plugins of the JAX package the port does not have yet → where they come
-NOT_PORTED: Dict[str, str] = {
-    "GangTopology": "ROADMAP.md §1 item 8 (gangs)",
+    "GangTopology": lambda args: GangTopology(),
 }
 
 #: extension points the device evaluates; the others run in the engine
@@ -107,11 +102,6 @@ def build_plugins(cfg: SchedulerConfig) -> PluginChains:
                 chains.host_side[point] = [e.name for e in plugin_set.enabled]
             continue
         for entry in plugin_set.enabled:
-            if entry.name in NOT_PORTED:
-                raise KeyError(
-                    f"plugin {entry.name!r} is not ported yet; it comes with "
-                    f"{NOT_PORTED[entry.name]}"
-                )
             if entry.name not in _REGISTRY:
                 raise KeyError(
                     f"unknown plugin {entry.name!r}; registered: "

@@ -44,11 +44,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from minisched_tpu_torch import resolve_device
+from minisched_tpu_torch.engine.gang import PlacedGangs
 from minisched_tpu_torch.fullchain import WAVE, mk_c5_cluster
 from minisched_tpu_torch.headline import (
     ConstraintFeed,
     RepairStep,
     make_step,
+    pods_by_node,
     run_waves,
 )
 from minisched_tpu_torch.models.tables import pack_node_table, pack_pod_table, pad_to
@@ -104,27 +106,33 @@ def spans(evaluator) -> Iterator[None]:
 
 def profile_repair(step: RepairStep, nodes: Sequence[Any],
                    waves: Sequence[Sequence[Any]], device: torch.device,
-                   trace_dir: Optional[Path] = None, reps: int = REPS) -> dict:
+                   trace_dir: Optional[Path] = None, reps: int = REPS,
+                   assigned: Sequence[Any] = ()) -> dict:
     """``reps`` timed passes of ``step`` (``make_step("repair", cfg)``)
-    over the pod ``waves`` against ``nodes``, then one profiled pass.  The
-    node and pod tables go to the device before any pass; a roster that
-    reads constraint tables gets a fresh ``ConstraintFeed`` each pass."""
+    over the pod ``waves`` against ``nodes`` holding the ``assigned``
+    pods, then one profiled pass.  The node and pod tables go to the
+    device before any pass; a roster that reads constraint tables gets a
+    fresh ``ConstraintFeed`` each pass, and waves with gang members a
+    fresh ``GangFeed``."""
     evaluator = step.evaluator
     node_cap, pod_cap = pad_to(len(nodes)), max(len(waves[0]), 128)
-    node_host, node_names = pack_node_table(nodes, capacity=node_cap)
+    node_host, node_names = pack_node_table(nodes, pods_by_node(assigned),
+                                            capacity=node_cap)
     pod_tables = [pack_pod_table(w, capacity=pod_cap)[0].to_device(device)
                   for w in waves]
+    pods = [p for w in waves for p in w]
 
-    def make_feed() -> Optional[ConstraintFeed]:
-        return ConstraintFeed.for_step(step, nodes, node_names, (), (), (),
-                                       node_cap, device)
+    def make_feeds():
+        return (ConstraintFeed.for_step(step, nodes, node_names, assigned,
+                                        (), (), node_cap, device),
+                PlacedGangs.for_pods(pods, nodes, assigned))
 
     def one_pass() -> float:
         node_table = node_host.to_device(device)
-        feed = make_feed()
+        feed, gangs = make_feeds()
         torch.cuda.synchronize(device)
         t0 = time.monotonic()
-        run_waves(step, node_table, pod_tables, feed, waves)
+        run_waves(step, node_table, pod_tables, feed, waves, gangs)
         torch.cuda.synchronize(device)
         return time.monotonic() - t0
 
@@ -132,12 +140,12 @@ def profile_repair(step: RepairStep, nodes: Sequence[Any],
     walls = [one_pass() for _ in range(reps)]
 
     node_table = node_host.to_device(device)
-    feed = make_feed()
+    feed, gangs = make_feeds()
     torch.cuda.synchronize(device)
     with spans(evaluator), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        _, outs = run_waves(step, node_table, pod_tables, feed, waves)
+        _, outs = run_waves(step, node_table, pod_tables, feed, waves, gangs)
         torch.cuda.synchronize(device)
         window_us = (time.monotonic() - t0) * 1e6
     # the spans also show on the device timeline as annotations: they are
@@ -174,6 +182,7 @@ def profile_repair(step: RepairStep, nodes: Sequence[Any],
         "wall_ms_min": min(walls) * 1e3 if walls else None,
         "wall_ms_max": max(walls) * 1e3 if walls else None,
         "constraint_build_ms": feed.build_s * 1e3 if feed else 0.0,
+        "gang_view_ms": gangs.view_s * 1e3 if gangs else 0.0,
         "profiled_window_ms": window_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / window_us if window_us else None,

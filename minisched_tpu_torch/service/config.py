@@ -8,7 +8,8 @@ mesh-pinning fields wait for the multi-device slice of the port.
 
 ``node_local_roster_config`` is the full default roster without the
 plugins that read the wave's constraint tables (volumes, topology spread,
-inter-pod affinity): the roster the port's repair waves run today.
+inter-pod affinity); ``gang_roster_config`` is the full roster with the
+gang subsystem.
 """
 
 from __future__ import annotations
@@ -116,6 +117,24 @@ def default_full_roster_config(time_scale: float = 1.0) -> SchedulerConfig:
         ),
         time_scale=time_scale,
     )
+
+
+def gang_roster_config(time_scale: float = 1.0) -> SchedulerConfig:
+    """The full default roster plus the gang subsystem: GangTopology at
+    pre-score and score (slice and torus locality toward a gang's placed
+    members) and Coscheduling at Permit (all-or-nothing admission).  With
+    no gang present it places exactly as the full roster (GangTopology
+    scores 0 everywhere).
+
+    Permit is a host-side point (``PluginChains.host_side``) that the
+    port's live engine will run; until then the port's wave and scan
+    drivers place gang members one by one, without all-or-nothing
+    admission: a gang can end partly placed."""
+    cfg = default_full_roster_config(time_scale=time_scale)
+    cfg.pre_score.enabled.append(PluginEnabled("GangTopology"))
+    cfg.score.enabled.append(PluginEnabled("GangTopology", weight=1))
+    cfg.permit = PluginSet(enabled=[PluginEnabled("Coscheduling")])
+    return cfg
 
 
 #: plugins of the full roster that read the wave's constraint tables

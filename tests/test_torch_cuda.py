@@ -34,10 +34,13 @@ from minisched_tpu_torch.engine.scan_groups import (
     interaction_sets,
     order_into_blocks,
 )
+from minisched_tpu_torch.controlplane.codec import _encode
+from minisched_tpu_torch.controlplane.evaluate import evaluate_cluster
 from minisched_tpu_torch.fullchain import (
     c3_roster_config,
     mk_c3_cluster,
     mk_c5_cluster,
+    mk_c5_gang_cluster,
     mk_mixed_cluster,
     schedule_crosspod,
     schedule_repair_waves,
@@ -50,10 +53,12 @@ from minisched_tpu_torch.headline import (
     repair_evaluator,
     schedule_waves,
 )
+from minisched_tpu_torch.models.constraint_index import ConstraintIndex
 from minisched_tpu_torch.models.constraints import build_constraint_tables
 from minisched_tpu_torch.plugins.registry import build_plugins
 from minisched_tpu_torch.service.config import (
     default_full_roster_config,
+    gang_roster_config,
     node_local_roster_config,
 )
 from minisched_tpu_torch.kernel_cases import (
@@ -553,3 +558,84 @@ def test_blocked_commit_exact_with_tf32_allowed(dev):
         assert torch.equal(got.cpu(), want)
     _assert_tables_equal(card[0], cpu[0])
     assert (card[3]).any() and (card[1] < 0).any()
+
+
+# -- gangs, Evaluate, the constraint index (on the card) ----------------------
+
+
+def test_gang_waves_and_scan_on_card_match_cpu(dev, monkeypatch):
+    """A reduced config 5 with gangs under ``gang_roster_config``: repair
+    waves (the gang columns rewritten each wave) and the exact scan of its
+    first pods in chunks, the card against the CPU twins: choices,
+    rounds, masks, gang views and final tables."""
+    nodes, assigned, pods = mk_c5_gang_cluster(256, 2_500, n_gangs=102)
+    cfg = gang_roster_config()
+    before = kernels.launch_counts["select_hosts"]
+    card = schedule_repair_waves(nodes, pods, wave=1024, cfg=cfg,
+                                 assigned=assigned)
+    assert kernels.launch_counts["select_hosts"] - before >= sum(card.rounds)
+    cpu = schedule_repair_waves(nodes, pods, wave=1024, device="cpu",
+                                cfg=cfg, assigned=assigned)
+    assert np.array_equal(card.choices, cpu.choices)
+    assert card.rounds == cpu.rounds and card.gang_views == cpu.gang_views
+    assert any(card.gang_views)
+    for name, m in card.unschedulable.items():
+        assert np.array_equal(m, cpu.unschedulable[name]), name
+    _assert_tables_equal(card.node_table, cpu.node_table)
+    monkeypatch.setattr(fullchain, "SCAN_MAX_CHUNK", 128)
+    card_s, cpu_s, log, launched = _scan_runs(nodes, pods[:300], cfg=cfg,
+                                              assigned=assigned)
+    assert np.array_equal(card_s.choices, cpu_s.choices)
+    assert np.array_equal(card_s.best, cpu_s.best)
+    assert card_s.gang_views == cpu_s.gang_views and card_s.chunks == 3
+    _assert_tables_equal(card_s.node_table, cpu_s.node_table)
+    assert launched == 300 + len(log.loops)
+
+
+@pytest.mark.parametrize("mode", ["wave", "repair"])
+def test_evaluate_cluster_on_card_matches_cpu(mode, dev):
+    """``evaluate_cluster`` on the mixed cluster's objects (every feature
+    of the full roster), the card against ``device="cpu"``."""
+    nodes, assigned, pods, pvcs, pvs = mk_mixed_cluster(256, 512)
+    request = {"nodes": [_encode(o) for o in nodes],
+               "pods": [_encode(o) for o in pods],
+               "assigned": [_encode(o) for o in assigned],
+               "pvcs": [_encode(o) for o in pvcs],
+               "pvs": [_encode(o) for o in pvs], "mode": mode}
+    before = kernels.launch_counts["select_hosts"]
+    card = evaluate_cluster(request)
+    assert kernels.launch_counts["select_hosts"] - before >= card["rounds"]
+    cpu = evaluate_cluster(request, device="cpu")
+    assert card == cpu
+    assert any(v is not None for v in card["placements"].values())
+
+
+def test_index_tables_on_card_equal_the_walk(dev):
+    """The constraint tables assembled from a ``ConstraintIndex`` on the
+    card's tensors equal the tables walked from every assigned pod
+    (ex-term planes as row sets), with pods folded in as extras."""
+    nodes, assigned, pods, pvcs, pvs = mk_mixed_cluster(256, 512)
+    index = ConstraintIndex(
+        node_get={n.metadata.name: n for n in nodes}.get,
+        pvc_get={c.metadata.key: c for c in pvcs}.get,
+        pv_get={v.metadata.name: v for v in pvs}.get)
+    index.add_pods(assigned[:-40])
+    kw = dict(pod_capacity=512, node_capacity=256, pvcs=pvcs, pvs=pvs,
+              scan_planes=True, device=dev)
+    got = build_constraint_tables(pods, nodes, (), index=index,
+                                  extra_assigned=assigned[-40:], **kw)
+    want = build_constraint_tables(pods, nodes, assigned, **kw)
+    assert got.in_use == want.in_use
+    for name in got.__dataclass_fields__:
+        if name in ("in_use", "ex_domain", "pod_matches_ex"):
+            continue
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.device.type == "cuda" and torch.equal(g, w), name
+
+    def ex_rows(t):
+        ex, pm = t.ex_domain.cpu().numpy(), t.pod_matches_ex.cpu().numpy()
+        return sorted((ex[i].tobytes(), pm[:, i].tobytes())
+                      for i in range(ex.shape[0])
+                      if ex[i].any() or pm[:, i].any())
+
+    assert ex_rows(got) == ex_rows(want) and ex_rows(got)

@@ -334,7 +334,8 @@ def test_scores_reach_their_interesting_values(clusters):
 
 def _use(**kw):
     return replace(ttables.PodUse(tol_slots=0, sel_slots=0,
-                                  aff_required=False, pref_terms=False), **kw)
+                                  aff_required=False, pref_terms=False,
+                                  gangs=False), **kw)
 
 
 WAVE_USES = {
@@ -496,12 +497,25 @@ def test_build_plugins_builds_the_full_roster_as_jax():
     assert chains.host_side == {"post_filter": ["DefaultPreemption"]}
 
 
-@pytest.mark.parametrize("name", ["GangTopology"])
-def test_build_plugins_names_the_roadmap_item_of_an_unported_plugin(name):
-    cfg = tconfig.node_local_roster_config()
-    cfg.score.enabled.append(tconfig.PluginEnabled(name))
-    with pytest.raises(KeyError, match="ROADMAP.md §1 item"):
-        tregistry.build_plugins(cfg)
+def test_gang_roster_builds_the_jax_chains():
+    """``gang_roster_config`` gives the JAX roster's device chains (the
+    full roster plus GangTopology at pre-score and score), weights, and
+    its host-side points by name (Coscheduling at Permit)."""
+    cfg, jcfg = tconfig.gang_roster_config(), jconfig.gang_roster_config()
+    chains = tregistry.build_plugins(cfg)
+    jchains = jregistry.build_plugins(jcfg)
+    for point in ("filter", "pre_score", "score"):
+        assert ([p.name() for p in getattr(chains, point)]
+                == [p.name() for p in getattr(jchains, point)]), point
+    assert (len(chains.filter), len(chains.pre_score), len(chains.score)) == (15, 4, 8)
+    assert cfg.score_weights() == jcfg.score_weights()
+    assert cfg.score_weights()["GangTopology"] == 1
+    gang = [p for p in chains.score if p.name() == "GangTopology"]
+    assert any(p is gang[0] for p in chains.pre_score)
+    assert chains.host_side == {
+        point: [p.name() for p in getattr(jchains, point)]
+        for point in ("post_filter", "permit")}
+    assert chains.host_side["permit"] == ["Coscheduling"]
 
 
 def test_build_plugins_refuses_the_full_roster_and_unknown_names():
