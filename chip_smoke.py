@@ -121,6 +121,40 @@ Phases, each of which raises on failure (nothing catches it):
    ``FusedEvaluator(with_diagnostics=True)`` with the full roster on
    config 4: filter masks, score matrices and raw score matrices equal
    card against CPU.
+16. The live engine (``engine/device_scheduler.DeviceScheduler`` behind
+   ``service.SchedulerService``, the port's own store, client and
+   informers) on the README scenario: ``default_scheduler_config``
+   (``time_scale=0.01``), waves of 64; nine cordoned nodes leave ``pod1``
+   parked in the unschedulableQ, then ``node10`` appears and ``pod1``
+   binds there; no exception in the engine loop.
+17. Config 5 live at full width (``live.run_config5_live``, the flow of
+   ``bench.py``'s ``_bench_config5_fullchain_once``): 10,000 nodes and
+   100,000 pods created in the store, the full default roster in waves of
+   16,384; the first drain binds the 98,000 plain pods and parks the
+   2,000 ``special*`` pods; labelling 2,000 schedulable nodes
+   ``special=true`` (``random.Random(55)``) requeues them until all
+   100,000 are bound.  Checks from the store's final state: no node over
+   its allocatable CPU, memory or pod count, nothing on a cordoned node,
+   every ``special*`` pod on a labelled node; the assume cache drained;
+   no exception in the loop; ``select_hosts`` launched on the card and no
+   plain-twin call.  The first drain's waves are fixed: the service
+   starts the loop only after the informers synced, which queues every
+   pending pod in store order, ``pop_batch`` takes them FIFO in waves of
+   16,384, and no event of the first drain requeues a parked pod (the
+   special pods fail NodeAffinity, which waits for a Node label event).
+   So every first-drain bind is held against
+   ``fullchain.schedule_repair_waves`` on the store's pods in that order,
+   node for node.  Printed: first drain, requeue tail (label loop, bound
+   wait), total and pods/s, the engine's ``CycleMetrics`` split, device
+   ms a round (``profile_repair`` on one wave), peak device memory and
+   the time-to-bind buckets.
+18. Gangs live (``live.run_gang_live``): phase 14's reduced gang cluster
+   (``GANG_REDUCED_NODES`` nodes, ``GANG_REDUCED_GANGS`` gangs of 8) with
+   ``gang_roster_config`` in waves of 4,096, Coscheduling admitting each
+   gang all or nothing: every gang fully bound and none partly, the
+   Coscheduling ledger and the assume cache empty, no node over its
+   allocatable, no exception in the loop.  Printed: the share of gangs on
+   one slice beside phase 14's wave-driver share at the same size.
 
 Phase 2 also holds ``select_hosts`` against its twin on the repair
 route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
@@ -133,8 +167,8 @@ The launch counters are set to 0 just before each path of the main path
 (the headline's two routes, the repair waves with each roster and with
 hostname labels, config 4, the mixed cluster's card run, the exact scan
 of configs 3 and 5, the blocked lane of phase 13, the gang waves, the
-gang roster without gangs, the gang exact scan and each ``Evaluate``
-call) and read just after it.  A scan's step is captured once in a CUDA graph and replayed;
+gang roster without gangs, the gang exact scan, each ``Evaluate``
+call and the three live-engine runs) and read just after it.  A scan's step is captured once in a CUDA graph and replayed;
 each replay counts the ``select_hosts`` launch recorded in the graph.  The last three lines of output are the card's
 name and power limit, one JSON object describing every kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -336,8 +370,21 @@ def main() -> int:
     from minisched_tpu_torch.plugins.podtopologyspread import PodTopologySpread
     from minisched_tpu_torch.plugins.registry import build_plugins
     from minisched_tpu_torch.profile_repair import profile_repair
+    from minisched_tpu_torch.live import (
+        SPLIT,
+        audit_gangs,
+        audit_store,
+        run_config5_live,
+        run_gang_live,
+        store_choices,
+    )
+    from minisched_tpu_torch.scenario.runner import (
+        ScenarioHarness,
+        readme_scenario,
+    )
     from minisched_tpu_torch.service.config import (
         default_full_roster_config,
+        default_scheduler_config,
         gang_roster_config,
         node_local_roster_config,
     )
@@ -1283,6 +1330,95 @@ def main() -> int:
         f"score matrices {tuple(d_card.score_matrices.shape)} and raw score "
         f"matrices equal card vs CPU")
     del d_card, d_cpu
+
+    def live_launches(what: str, min_launches: int) -> int:
+        """The ``select_hosts`` launches of the live run just finished;
+        raises unless it launched on the card and called no plain twin."""
+        counts, plain = dict(kernels.launch_counts), dict(kernels.plain_calls)
+        if counts["select_hosts"] < min_launches or any(plain.values()):
+            raise AssertionError(f"{what}: launches {counts}, plain-twin "
+                                 f"calls {plain}")
+        return counts["select_hosts"]
+
+    # -- phase 16: the README scenario on the live engine ------------------
+    kernels.reset_launch_counts()
+    with ScenarioHarness(default_scheduler_config(time_scale=0.01),
+                         max_wave=64) as h:
+        readme_node = readme_scenario(h, log=lambda m: log(f"[readme] {m}"))
+        readme_errors = h.service.scheduler.loop_errors
+    if readme_node != "node10" or readme_errors:
+        raise AssertionError(f"README scenario: pod1 on {readme_node!r}, "
+                             f"{readme_errors} loop errors")
+    launches["select_hosts"]["live-readme"] = live_launches("readme", 2)
+    log(f"[readme] live engine on the card: pod1 parked, then bound to "
+        f"node10; loop errors 0; select_hosts launches "
+        f"{launches['select_hosts']['live-readme']}")
+
+    # -- phase 17: config 5, live, full width ------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    c5l = run_config5_live(N_NODES, N_PODS, max_wave=C5_WAVE)
+    launches["select_hosts"]["live-c5"] = live_launches("live config 5",
+                                                        c5l.waves)
+    c5l_peak = torch.cuda.max_memory_allocated()
+    audited = audit_store(c5l.client, c5l.labelled)
+    if audited["bound"] != N_PODS or c5l.loop_errors or c5l.assumed_left:
+        raise AssertionError(f"live config 5: {audited['bound']} bound, "
+                             f"{c5l.loop_errors} loop errors, "
+                             f"{c5l.assumed_left} assumed left")
+    ref = schedule_repair_waves(c5l.nodes, c5l.pods, wave=C5_WAVE)
+    want = [ref.node_names[c] if c >= 0 else "" for c in ref.choices]
+    got = [c5l.first_drain[p.metadata.name] for p in c5l.pods]
+    bad = [p.metadata.name for p, g_, w in zip(c5l.pods, got, want)
+           if g_ != w]
+    if bad:
+        raise AssertionError(f"live config 5: {len(bad)} first-drain binds "
+                             f"differ from schedule_repair_waves, first "
+                             f"{bad[:3]}")
+    del ref
+    c5l_prof = profile_repair(make_step("repair", default_full_roster_config()),
+                              c5l.nodes, [c5l.pods[:C5_WAVE]], dev, reps=0)
+    split_line = ", ".join(f"{k} {c5l.split[k]:.3f}s" for k in SPLIT)
+    log(f"[live-c5] {card}: config 5 live, {N_NODES} nodes x {N_PODS} pods, "
+        f"full roster, waves of {C5_WAVE} ({c5l.waves} waves): store setup "
+        f"{c5l.setup_s:.2f}s, service start {c5l.start_s:.2f}s; first drain "
+        f"{c5l.first_drain_s:.3f}s ({N_PODS - len(c5l.labelled)} bound, "
+        f"{len(c5l.labelled)} parked; every bind equal to "
+        f"schedule_repair_waves on the same waves); requeue tail "
+        f"{c5l.total_s - c5l.first_drain_s:.3f}s (label loop "
+        f"{c5l.label_loop_s:.3f}s, bound wait {c5l.bound_wait_s:.3f}s); "
+        f"total {c5l.total_s:.3f}s = {N_PODS / c5l.total_s:,.0f} pods/s; "
+        f"split: {split_line}; device {c5l_prof['device_ms_per_round']:.3f} "
+        f"ms a round (one wave profiled); peak device memory "
+        f"{c5l_peak / 2**30:.2f} GiB; time to bind p50 <= "
+        f"{c5l.ttb_p50_le_s}s, p99 <= {c5l.ttb_p99_le_s}s; audit passed, "
+        f"assume cache drained, loop errors 0, select_hosts launches "
+        f"{launches['select_hosts']['live-c5']}, plain-twin calls 0")
+    del c5l
+
+    # -- phase 18: gangs, live, all or nothing -----------------------------
+    kernels.reset_launch_counts()
+    gl = run_gang_live(GANG_REDUCED_NODES, 10_000, GANG_REDUCED_GANGS)
+    launches["select_hosts"]["live-gang"] = live_launches("live gangs", 1)
+    gangs_audited = audit_gangs(gl.client)
+    if gl.loop_errors or gl.assumed_left or gl.pending_gangs:
+        raise AssertionError(f"live gangs: {gl.loop_errors} loop errors, "
+                             f"{gl.assumed_left} assumed left, ledger "
+                             f"{gl.pending_gangs}")
+    gl_share = one_slice_share(gl.nodes, gl.assigned, gl.pods,
+                               store_choices(gl.client, gl.nodes, gl.pods))
+    log(f"[live-gang] {GANG_REDUCED_NODES} nodes x {len(gl.pods)} pods "
+        f"({gangs_audited['gangs']} gangs of 8), gang_roster_config, waves "
+        f"of 4,096: {gl.bound} bound in {gl.wall_s:.3f}s; every gang fully "
+        f"bound, none partly; Coscheduling ledger empty, assume cache "
+        f"drained, no node over allocatable, loop errors 0; gangs on one "
+        f"slice: {gl_share['one_slice']} of {gl_share['complete']} "
+        f"({gl_share['share']:.3f}) live, {rg_share['one_slice']} of "
+        f"{rg_share['complete']} ({rg_share['share']:.3f}) in phase 14's "
+        f"wave driver; select_hosts launches "
+        f"{launches['select_hosts']['live-gang']}")
+    del gl
 
     report = []
     replaces = {

@@ -12,6 +12,7 @@ the JAX package's objects build the same tables.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -86,6 +87,14 @@ class ResourceList:
         for k, v in other.scalar.items():
             self.scalar[k] = self.scalar.get(k, 0) + v
 
+    def sub(self, other: "ResourceList") -> None:
+        self.milli_cpu -= other.milli_cpu
+        self.memory -= other.memory
+        self.pods -= other.pods
+        self.ephemeral_storage -= other.ephemeral_storage
+        for k, v in other.scalar.items():
+            self.scalar[k] = self.scalar.get(k, 0) - v
+
     def clone(self) -> "ResourceList":
         return ResourceList(
             self.milli_cpu, self.memory, self.pods, self.ephemeral_storage,
@@ -99,10 +108,19 @@ class ObjectMeta:
     namespace: str = "default"
     uid: str = ""
     labels: Dict[str, str] = field(default_factory=dict)
+    annotations: Dict[str, str] = field(default_factory=dict)
+    #: the store's version of the object (0 = never stored)
+    resource_version: int = 0
+    creation_timestamp: float = 0.0
 
     @property
     def key(self) -> str:
         return f"{self.namespace}/{self.name}"
+
+    def clone(self) -> "ObjectMeta":
+        return ObjectMeta(self.name, self.namespace, self.uid,
+                          dict(self.labels), dict(self.annotations),
+                          self.resource_version, self.creation_timestamp)
 
 
 TAINT_EFFECT_NO_SCHEDULE = "NoSchedule"
@@ -167,6 +185,17 @@ class Node:
     metadata: ObjectMeta
     spec: NodeSpec = field(default_factory=NodeSpec)
     status: NodeStatus = field(default_factory=NodeStatus)
+
+    def clone(self) -> "Node":
+        spec = copy.copy(self.spec)
+        spec.taints = [Taint(t.key, t.value, t.effect) for t in self.spec.taints]
+        return Node(
+            metadata=self.metadata.clone(),
+            spec=spec,
+            status=NodeStatus(self.status.capacity.clone(),
+                              self.status.allocatable.clone(),
+                              dict(self.status.images)),
+        )
 
 
 @dataclass
@@ -308,12 +337,52 @@ class PodSpec:
     #: names of the PersistentVolumeClaims the pod mounts
     volumes: List[str] = field(default_factory=list)
     gang: Optional["GangSpec"] = None
+    priority: int = 0
+
+
+def _clone_pod_spec(spec: PodSpec) -> PodSpec:
+    return PodSpec(
+        node_name=spec.node_name,
+        containers=[Container(c.name, c.image, c.requests.clone(),
+                              c.limits.clone(), list(c.ports))
+                    for c in spec.containers],
+        node_selector=dict(spec.node_selector),
+        tolerations=[Toleration(t.key, t.operator, t.value, t.effect)
+                     for t in spec.tolerations],
+        affinity=(None if spec.affinity is None
+                  else copy.deepcopy(spec.affinity)),
+        topology_spread_constraints=(
+            copy.deepcopy(spec.topology_spread_constraints)
+            if spec.topology_spread_constraints else []),
+        volumes=list(spec.volumes),
+        gang=None if spec.gang is None else GangSpec(
+            spec.gang.name, spec.gang.size, spec.gang.ttl_s),
+        priority=spec.priority,
+    )
+
+
+POD_PENDING = "Pending"
+POD_RUNNING = "Running"
+
+
+@dataclass
+class PodStatus:
+    phase: str = POD_PENDING
+    #: set by a successful PostFilter (preemption): the node the pod is
+    #: expected to land on once its victims are gone
+    nominated_node_name: str = ""
 
 
 @dataclass
 class Pod:
     metadata: ObjectMeta
     spec: PodSpec = field(default_factory=PodSpec)
+    status: PodStatus = field(default_factory=PodStatus)
+
+    def clone(self) -> "Pod":
+        return Pod(self.metadata.clone(), _clone_pod_spec(self.spec),
+                   PodStatus(self.status.phase,
+                             self.status.nominated_node_name))
 
     def resource_requests(self) -> ResourceList:
         """Sum of container requests, with ``pods`` floored at 1 (the
@@ -400,6 +469,12 @@ class PersistentVolume:
     metadata: ObjectMeta
     spec: PVSpec = field(default_factory=PVSpec)
 
+    def clone(self) -> "PersistentVolume":
+        return PersistentVolume(
+            self.metadata.clone(),
+            PVSpec(self.spec.capacity, self.spec.claim_ref,
+                   dict(self.spec.required_node_labels), self.spec.driver))
+
 
 @dataclass
 class PVCSpec:
@@ -420,6 +495,40 @@ class PersistentVolumeClaim:
     metadata: ObjectMeta
     spec: PVCSpec = field(default_factory=PVCSpec)
     status: PVCStatus = field(default_factory=PVCStatus)
+
+    def clone(self) -> "PersistentVolumeClaim":
+        return PersistentVolumeClaim(
+            self.metadata.clone(), copy.copy(self.spec),
+            PVCStatus(self.status.phase))
+
+
+@dataclass
+class Binding:
+    """The bind subresource's request.  ``expected_rv``: the pod's
+    resource_version the placement was computed against; when set, the
+    bind commits only if the pod is still at that version."""
+
+    pod_name: str
+    pod_namespace: str
+    node_name: str
+    expected_rv: Optional[int] = None
+
+
+@dataclass
+class Event:
+    """An events.k8s.io/v1 Event the scheduler records (``regarding``:
+    the ``namespace/name`` of the object it is about, '' for lifecycle
+    events)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    type: str = "Normal"  # Normal | Warning
+    reason: str = ""
+    message: str = ""
+    regarding: str = ""
+
+    def clone(self) -> "Event":
+        return Event(self.metadata.clone(), self.type, self.reason,
+                     self.message, self.regarding)
 
 
 def make_gang_pods(

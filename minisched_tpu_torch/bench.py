@@ -16,8 +16,14 @@ One role for each ``bench.py`` role the port can run (``ROLES``):
                         placement against ``FullRosterScanOracle``
 ``c4``                  ``bench_config4`` (``:294``): the affinity and
                         spread wave
-``c5``                  config 5 (``:469``) in full-roster repair waves,
-                        with config 5's audit
+``c5``                  config 5 (``:469-640``) through the live engine
+                        (``live.run_config5_live``): first drain, the
+                        label update that requeues the parked pods,
+                        requeue tail, total, the engine's
+                        ``CycleMetrics`` split and the audit from the
+                        store
+``c5_waves``            config 5 in full-roster repair waves through the
+                        one-shot wave driver, with config 5's audit
 ``fullchain_parity``    ``bench_fullchain_parity`` (``:810``): the exact
                         scan over all 100,000 pods of config 5 against
                         ``fullchain_scan_oracle``
@@ -30,10 +36,10 @@ One role for each ``bench.py`` role the port can run (``ROLES``):
                         with ``gang_roster_config``
 ======================  ==================================================
 
-The ``gang`` role is the wave path only.  ``bench.py``'s ``gang`` role
-(``:3159``) drives the live engine with all-or-nothing Coscheduling,
-which the port does not have yet; here gang members are placed one by
+The ``gang`` role is the wave path only: gang members are placed one by
 one, and the share of gangs on one slice is reported, not gated.
+``bench.py``'s ``gang`` role (``:3159``) drives the live engine through
+churn rounds and a deadlock probe; that role waits for ROADMAP item 10d.
 
 Each record holds the role's metrics (times are host wall seconds closed
 by a device synchronise; ``device_ms_*`` come from the profiler or CUDA
@@ -56,8 +62,8 @@ from typing import Any, Callable, Dict, List
 import numpy as np
 import torch
 
-ROLES = ("headline", "c2", "c3", "c4", "c5", "fullchain_parity", "c5x",
-         "gang")
+ROLES = ("headline", "c2", "c3", "c4", "c5", "c5_waves", "fullchain_parity",
+         "c5x", "gang")
 
 GIB = 2**30
 
@@ -231,6 +237,39 @@ def role_c4() -> Dict[str, Any]:
 
 
 def role_c5() -> Dict[str, Any]:
+    from minisched_tpu_torch.headline import make_step
+    from minisched_tpu_torch.live import SPLIT, audit_store, run_config5_live
+    from minisched_tpu_torch.profile_repair import profile_repair
+    from minisched_tpu_torch.service.config import default_full_roster_config
+
+    _peak_reset()
+    run = run_config5_live()
+    peak = _peak_gib()
+    audited = audit_store(run.client, run.labelled)
+    if run.loop_errors or run.assumed_left:
+        raise AssertionError(f"c5: {run.loop_errors} loop errors, "
+                             f"{run.assumed_left} assumed left")
+    n_pods = len(run.pods)
+    wave = run.pods[:16_384]
+    device_ms = profile_repair(make_step("repair", default_full_roster_config()),
+                               run.nodes, [wave], torch.device("cuda"),
+                               reps=0)["device_ms_per_round"]
+    return {"pods_per_sec_e2e": n_pods / run.total_s, "waves": run.waves,
+            "requeued": len(run.labelled),
+            "first_drain_s": run.first_drain_s,
+            "requeue_tail_s": run.total_s - run.first_drain_s,
+            "requeue_label_loop_s": run.label_loop_s,
+            "requeue_bound_wait_s": run.bound_wait_s,
+            "total_s": run.total_s, "setup_s": run.setup_s,
+            "service_start_s": run.start_s,
+            "split_s": {k: run.split[k] for k in SPLIT},
+            "time_to_bind_p50_le_s": run.ttb_p50_le_s,
+            "time_to_bind_p99_le_s": run.ttb_p99_le_s,
+            "bound": audited["bound"], "device_ms_per_round": device_ms,
+            "peak_mem_gib": peak}
+
+
+def role_c5_waves() -> Dict[str, Any]:
     from minisched_tpu_torch.audit import audit_config5
     from minisched_tpu_torch.fullchain import (
         WAVE,

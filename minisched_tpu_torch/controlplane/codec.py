@@ -9,8 +9,8 @@ PersistentVolumeClaim (``Lease`` waits for the port's engine).
 
 ``_decode`` keeps only the fields the target dataclass has, as the JAX
 codec does: a document written from the JAX package's objects loses the
-fields the port's objects lack (pod priority and status, object
-timestamps), none of which the port's plugins read.
+fields the port's objects lack (a pod's ``scheduler_name`` and status
+conditions), none of which the port reads.
 """
 
 from __future__ import annotations

@@ -16,15 +16,19 @@ with the floor the scalar rule uses.
 
 ``node_topo``, ``node_dims``, ``aggregate_coords`` and
 ``gang_view_from_infos`` are the JAX module's, duck-typed over objects
-with ``.node`` and ``.pods``.  ``PlacedGangs`` is what a wave or scan
-driver keeps in place of the engine's informer-wired ``GangIndex`` (which
-waits for the port's live engine): the topology tuples of each gang's
-placed members, the assigned ones and every one committed since, so that
-a batch's view costs O(members of the batch's gangs).
+with ``.node`` and ``.pods``.  ``GangIndex`` (JAX ``:100-215``) is the live
+engine's: informer-wired, it keeps each gang's BOUND members and every
+node's topology, gives Coscheduling its ``placed_count`` and each wave
+its ``view_for`` (with the engine's assumed members folded on top).
+``PlacedGangs`` is what a one-shot wave or scan driver keeps instead: the
+topology tuples of each gang's placed members, the assigned ones and
+every one committed since.  Either way a batch's view costs O(members of
+the batch's gangs).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -175,3 +179,102 @@ class PlacedGangs:
             if coords:
                 out[key] = aggregate_coords(coords)
         return out
+
+
+class GangIndex:
+    """Incremental placed-gang-member index, informer-wired like the
+    ConstraintIndex: Pod events maintain gang membership (bound members
+    only), Node events the topology map.  All reads and writes under one
+    lock; the handlers run on informer threads and touch no tensor."""
+
+    def __init__(self) -> None:
+        self._mu = threading.Lock()
+        #: gang key → member uid → node name (BOUND members only)
+        self._members: Dict[str, Dict[str, str]] = {}
+        self._pod_gang: Dict[str, str] = {}  # uid → gang key
+        self._node_topo: Dict[str, Topo] = {}
+
+    def wire(self, informer_factory: Any) -> None:
+        from minisched_tpu_torch.controlplane.informer import (
+            ResourceEventHandlers,
+        )
+
+        informer_factory.informer_for("Pod").add_event_handlers(
+            ResourceEventHandlers(on_batch=self._pod_batch))
+        informer_factory.informer_for("Node").add_event_handlers(
+            ResourceEventHandlers(
+                on_add=self._node_changed,
+                on_update=lambda old, new: self._node_changed(new),
+                on_delete=self._node_gone,
+            ))
+
+    # -- event handlers ----------------------------------------------------
+    def _pod_batch(self, events: List[Any]) -> None:
+        from minisched_tpu_torch.controlplane.store import EventType
+
+        with self._mu:
+            for ev in events:
+                pod = ev.obj
+                key = gang_key(pod)
+                if key is None:
+                    continue
+                uid = pod.metadata.uid
+                self._drop_locked(uid)  # gone, unbound, or moved
+                if ev.type != EventType.DELETED and pod.spec.node_name:
+                    self._members.setdefault(key, {})[uid] = (
+                        pod.spec.node_name)
+                    self._pod_gang[uid] = key
+
+    def _drop_locked(self, uid: str) -> None:
+        key = self._pod_gang.pop(uid, None)
+        if key is not None:
+            bucket = self._members.get(key)
+            if bucket is not None:
+                bucket.pop(uid, None)
+                if not bucket:
+                    del self._members[key]
+
+    def _node_changed(self, node: Any) -> None:
+        with self._mu:
+            self._node_topo[node.metadata.name] = node_topo(node)
+
+    def _node_gone(self, node: Any) -> None:
+        with self._mu:
+            self._node_topo.pop(node.metadata.name, None)
+
+    # -- reads -------------------------------------------------------------
+    def placed_count(self, key: str, exclude: Iterable[str] = ()) -> int:
+        """How many members of ``key`` are bound (uid-distinct), minus any
+        in ``exclude`` — Coscheduling counts them toward admission."""
+        ex = set(exclude)
+        with self._mu:
+            bucket = self._members.get(key)
+            if not bucket:
+                return 0
+            return sum(1 for uid in bucket if uid not in ex)
+
+    def view_for(self, keys: Iterable[str],
+                 extra_members: Iterable[Tuple[str, str, str]] = ()
+                 ) -> Dict[str, GangAgg]:
+        """Aggregates for the given gang keys.  ``extra_members`` are
+        (gang key, uid, node name) triples folded on top — the engine's
+        assume cache (placed, bind not yet seen); uids already in the
+        index are skipped (no double count)."""
+        want = set(keys)
+        coords: Dict[str, List[Topo]] = {}
+        with self._mu:
+            for key in want:
+                bucket = self._members.get(key)
+                if bucket:
+                    coords[key] = [self._node_topo.get(node, _NO_TOPO)
+                                   for node in bucket.values()]
+            for key, uid, node in extra_members:
+                if key not in want:
+                    continue
+                bucket = self._members.get(key)
+                if bucket is not None and uid in bucket:
+                    continue
+                coords.setdefault(key, []).append(
+                    self._node_topo.get(node, _NO_TOPO))
+        return {k: agg for k, v in coords.items()
+                if (agg := aggregate_coords(v)) is not None}

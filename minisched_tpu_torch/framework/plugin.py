@@ -1,7 +1,13 @@
-"""The batch (device) plugin protocol.
+"""The plugin protocol: the batch (device) half and the host extension points.
 
-A copy of ``BatchEvaluable`` from ``minisched_tpu/framework/plugin.py``:
-methods take a ``BatchContext``, a ``PodTable`` and a ``NodeTable`` whose
+A copy of ``minisched_tpu/framework/plugin.py``'s ``BatchEvaluable``,
+``Plugin`` and capability probes.  The live engine runs the host points
+(permit, reserve, post-filter) and reads each plugin's
+``events_to_register`` (the cluster events that may make a pod the plugin
+rejected schedulable again) for its event-gated requeue.  The scalar
+per-(pod, node) filter and score halves are not ported.
+
+``BatchEvaluable`` methods take a ``BatchContext``, a ``PodTable`` and a ``NodeTable`` whose
 columns are torch tensors, and return tensors.
 
 Conventions:
@@ -45,6 +51,38 @@ class BatchEvaluable:
     def batch_normalize(self, ctx: Any, scores, mask):
         """Default: identity (plugins without ScoreExtensions)."""
         return scores
+
+
+class Plugin:
+    """Base of the host-only plugins (Coscheduling, DefaultPreemption):
+    a stable name."""
+
+    def name(self) -> str:
+        return type(self).__name__
+
+
+def implements_post_filter(p: Any) -> bool:
+    return callable(getattr(p, "post_filter", None))
+
+
+def implements_permit(p: Any) -> bool:
+    return callable(getattr(p, "permit", None))
+
+
+def implements_reserve(p: Any) -> bool:
+    # both halves: a reserve without its rollback would crash the
+    # unguarded unreserve path on the first permit or bind failure
+    return callable(getattr(p, "reserve", None)) and callable(
+        getattr(p, "unreserve", None)
+    )
+
+
+def implements_pre_filter(p: Any) -> bool:
+    return callable(getattr(p, "pre_filter", None))
+
+
+def implements_enqueue(p: Any) -> bool:
+    return callable(getattr(p, "events_to_register", None))
 
 
 def implements_batch(p: Any) -> bool:

@@ -1,0 +1,295 @@
+"""Config 5 and the gang cluster through the live engine, with their audits.
+
+The drivers ``chip_smoke.py`` (phases 17-18) and the ``c5`` bench role
+share: the cluster is created in the port's store, then
+``SchedulerService.start_scheduler(device_mode=True)`` runs the engine
+until the run's goal holds, and the audits read the store's final state.
+
+``run_config5_live`` is ``bench.py``'s ``_bench_config5_fullchain_once``
+(``:469-640``): config 5 (``fullchain.mk_c5_cluster``: 10,000 nodes, 20%
+cordoned, 98,000 plain pods and 2,000 ``special*`` pods whose node
+selector no node matches) with the full default roster in waves of
+16,384.  The first drain binds the plain pods and parks the special ones;
+then 2,000 schedulable nodes (``random.Random(55)``, as ``bench.py``
+draws them) get the label ``special=true`` and the Node label updates
+requeue the parked pods until all 100,000 are bound.
+
+``run_gang_live`` drives ``fullchain.mk_c5_gang_cluster`` (gangs of 8,
+a quarter with 4 members already bound) with ``gang_roster_config``:
+Coscheduling admits each gang all or nothing at Permit.
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+from collections import defaultdict
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence
+
+from minisched_tpu_torch.api.objects import gang_key
+from minisched_tpu_torch.controlplane.client import Client
+from minisched_tpu_torch.fullchain import mk_c5_cluster, mk_c5_gang_cluster
+from minisched_tpu_torch.observability import hist
+from minisched_tpu_torch.observability.profiling import CycleMetrics
+from minisched_tpu_torch.service.config import (
+    default_full_roster_config,
+    gang_roster_config,
+)
+from minisched_tpu_torch.service.service import SchedulerService
+
+#: the engine's phases ``bench.py`` prints for config 5, in its order
+SPLIT = ("loop_pop", "wave", "wave_snapshot", "wave_build_tables",
+         "wave_build_constraints", "wave_device", "wave_winners", "bind",
+         "loop_gc")
+#: assume-lease TTL of the live runs: at quiesce the last wave's
+#: assumptions drain when their leases run out (``bench.py`` ``bench_gang``
+#: sets the same)
+QUIESCE_TTL_S = 3.0
+
+
+def wait_until(pred, timeout_s: float, what: str, sched: Any) -> None:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        if sched.loop_errors:
+            raise AssertionError(f"{what}: the engine loop raised: "
+                                 f"{sched.last_loop_error!r}")
+        time.sleep(0.05)
+    raise AssertionError(f"timed out waiting for {what}: queue "
+                         f"{sched.queue.stats()}, loop errors "
+                         f"{sched.loop_errors}")
+
+
+class BindCounter:
+    """``on_decision`` hook counting binds (installed before the loop)."""
+
+    def __init__(self) -> None:
+        self.n = 0
+        self._mu = threading.Lock()
+
+    def __call__(self, pod, node_name, status) -> None:
+        if node_name:
+            with self._mu:
+                self.n += 1
+
+    def count(self) -> int:
+        with self._mu:
+            return self.n
+
+
+def split(metrics: CycleMetrics) -> Dict[str, float]:
+    """Seconds in each of ``SPLIT``'s engine phases."""
+    snap = metrics.snapshot()
+    return {name: snap.get(name, {}).get("total_s", 0.0) for name in SPLIT}
+
+
+def label_sample(n_nodes: int, n_special: int,
+                 open_nodes: Sequence[str]) -> List[str]:
+    """The nodes ``bench.py`` labels: ``random.Random(55)`` after its
+    cordon draws, one per parked pod."""
+    rng = random.Random(55)
+    for _ in range(n_nodes):
+        rng.random()
+    return rng.sample(list(open_nodes), min(len(open_nodes), n_special))
+
+
+@dataclass
+class LiveRun:
+    client: Client
+    nodes: List[Any]
+    #: the pods as the store holds them before the engine starts (with
+    #: their uids), in store order: the order the engine's queue gets them
+    pods: List[Any]
+    #: pod name → node after the first drain ('' = parked)
+    first_drain: Dict[str, str]
+    setup_s: float
+    start_s: float  # service start: informer sync and evaluator build
+    first_drain_s: float
+    label_loop_s: float
+    bound_wait_s: float
+    total_s: float
+    waves: int
+    split: Dict[str, float]
+    loop_errors: int
+    assumed_left: int
+    labelled: List[str] = field(default_factory=list)
+    #: ``sched.time_to_bind_s`` bucket upper bounds, seconds
+    ttb_p50_le_s: Optional[float] = None
+    ttb_p99_le_s: Optional[float] = None
+
+
+def run_config5_live(n_nodes: int = 10_000, n_pods: int = 100_000,
+                     max_wave: int = 16_384, device: Any = None,
+                     timeout_s: float = 900.0) -> LiveRun:
+    """Config 5 through the live engine, park and requeue included."""
+    nodes, pods = mk_c5_cluster(n_nodes, n_pods)
+    n_special = sum(p.metadata.name.startswith("special") for p in pods)
+    client = Client()
+    t0 = time.monotonic()
+    client.nodes().create_many(nodes, return_objects=False)
+    client.pods().create_many(pods, return_objects=False)
+    stored = client.pods().list()
+    setup_s = time.monotonic() - t0
+    hist.reset()
+    svc = SchedulerService(client)
+    metrics, bound = CycleMetrics(), BindCounter()
+    t0 = time.monotonic()
+    sched = svc.start_scheduler(default_full_roster_config(),
+                                device_mode=True, max_wave=max_wave,
+                                on_decision=bound, metrics=metrics,
+                                device=device)
+    sched.assume_ttl_s = QUIESCE_TTL_S
+    t_loop = time.monotonic()
+    try:
+        wait_until(lambda: bound.count() >= n_pods - n_special
+                   and sched.queue.stats()["unschedulable"] == n_special,
+                   timeout_s, f"{n_pods - n_special} bound and {n_special} "
+                   "parked", sched)
+        first_drain_s = time.monotonic() - t_loop
+        first = {p.metadata.name: p.spec.node_name
+                 for p in client.pods().list()}
+        open_nodes = [n.metadata.name for n in nodes
+                      if not n.spec.unschedulable]
+        labelled = label_sample(n_nodes, n_special, open_nodes)
+        t1 = time.monotonic()
+        for name in labelled:
+            node = client.nodes().get(name)
+            node.metadata.labels["special"] = "true"
+            client.nodes().update(node)
+        label_loop_s = time.monotonic() - t1
+        t1 = time.monotonic()
+        wait_until(lambda: bound.count() >= n_pods, timeout_s,
+                   f"all {n_pods} bound", sched)
+        bound_wait_s = time.monotonic() - t1
+        total_s = time.monotonic() - t_loop
+        phases = split(metrics)
+        waves = metrics.snapshot().get("wave", {}).get("count", 0)
+        wait_until(lambda: sched.assumed_count() == 0,
+                   QUIESCE_TTL_S * 20, "the assume cache to drain", sched)
+    finally:
+        svc.close()
+    p50 = hist.quantile_bounds("sched.time_to_bind_s", 0.5)
+    p99 = hist.quantile_bounds("sched.time_to_bind_s", 0.99)
+    return LiveRun(client, nodes, stored, first, setup_s, t_loop - t0,
+                   first_drain_s, label_loop_s, bound_wait_s, total_s,
+                   int(waves), phases, sched.loop_errors,
+                   sched.assumed_count(), labelled,
+                   p50[1] if p50 else None, p99[1] if p99 else None)
+
+
+def audit_store(client: Client,
+                labelled: Optional[Sequence[str]] = None) -> Dict[str, int]:
+    """Config 5's audit from the store's final state: no node over its
+    allocatable CPU, memory or pod count, no pod on a cordoned node, and
+    (given ``labelled``) every ``special*`` pod bound on one of those
+    nodes.  Returns the bound and node counts."""
+    cpu: Dict[str, int] = defaultdict(int)
+    mem: Dict[str, int] = defaultdict(int)
+    cnt: Dict[str, int] = defaultdict(int)
+    pods = client.pods().list()
+    for p in pods:
+        if p.spec.node_name:
+            r = p.resource_requests()
+            cpu[p.spec.node_name] += r.milli_cpu
+            mem[p.spec.node_name] += r.memory
+            cnt[p.spec.node_name] += 1
+    nodes = client.nodes().list()
+    for node in nodes:
+        name, alloc = node.metadata.name, node.status.allocatable
+        if (cpu[name] > alloc.milli_cpu or mem[name] > alloc.memory
+                or cnt[name] > alloc.pods):
+            raise AssertionError(f"audit: {name} over its allocatable")
+        if cnt[name] and node.spec.unschedulable:
+            raise AssertionError(f"audit: pods on cordoned node {name}")
+    special_ok = set(labelled or ())
+    misplaced = [p.metadata.name for p in pods
+                 if p.metadata.name.startswith("special")
+                 and p.spec.node_name not in special_ok]
+    if labelled is not None and misplaced:
+        raise AssertionError(f"audit: special pods off the labelled nodes: "
+                             f"{misplaced[:5]}")
+    return {"bound": sum(cnt.values()), "nodes": len(nodes)}
+
+
+@dataclass
+class GangRun:
+    client: Client
+    nodes: List[Any]
+    assigned: List[Any]
+    pods: List[Any]
+    wall_s: float
+    bound: int
+    gangs: int
+    loop_errors: int
+    assumed_left: int
+    pending_gangs: Dict[str, int]
+    split: Dict[str, float]
+
+
+def run_gang_live(n_nodes: int, n_pods: int, n_gangs: int,
+                  max_wave: int = 4_096, device: Any = None,
+                  timeout_s: float = 600.0) -> GangRun:
+    """``mk_c5_gang_cluster`` through the live engine with
+    ``gang_roster_config``: the assigned members are created bound, the
+    pending pods in the cluster's order; runs until every pod but the
+    ``special*`` ones is bound, then until the assume cache drains."""
+    nodes, assigned, pods = mk_c5_gang_cluster(n_nodes, n_pods,
+                                               n_gangs=n_gangs)
+    n_special = sum(p.metadata.name.startswith("special") for p in pods)
+    client = Client()
+    client.nodes().create_many(nodes, return_objects=False)
+    client.pods().create_many(assigned + pods, return_objects=False)
+    svc = SchedulerService(client)
+    metrics, bound = CycleMetrics(), BindCounter()
+    t0 = time.monotonic()
+    sched = svc.start_scheduler(gang_roster_config(), device_mode=True,
+                                max_wave=max_wave, on_decision=bound,
+                                metrics=metrics, device=device)
+    sched.assume_ttl_s = QUIESCE_TTL_S
+    cosched = next(p for p in sched.permit_plugins
+                   if p.name() == "Coscheduling")
+    try:
+        wait_until(lambda: bound.count() >= len(pods) - n_special
+                   and sched.queue.stats()["unschedulable"] == n_special,
+                   timeout_s, f"{len(pods) - n_special} bound", sched)
+        wall_s = time.monotonic() - t0
+        wait_until(lambda: sched.assumed_count() == 0
+                   and not cosched.pending_gangs(),
+                   QUIESCE_TTL_S * 20, "quiesce", sched)
+        phases = split(metrics)
+    finally:
+        svc.close()
+    return GangRun(client, nodes, assigned, pods, wall_s, bound.count(),
+                   n_gangs, sched.loop_errors, sched.assumed_count(),
+                   cosched.pending_gangs(), phases)
+
+
+def audit_gangs(client: Client) -> Dict[str, int]:
+    """Every gang fully bound, none partly (``bench.py`` ``bench_gang``'s
+    audit), plus ``audit_store``'s capacity rules.  Returns the gang
+    count."""
+    members: Dict[str, List[bool]] = defaultdict(list)
+    for p in client.pods().list():
+        key = gang_key(p)
+        if key is not None:
+            members[key].append(bool(p.spec.node_name))
+    partial = [k for k, v in members.items() if any(v) and not all(v)]
+    if partial:
+        raise AssertionError(f"gang audit: partly bound gangs {partial[:5]}")
+    unplaced = [k for k, v in members.items() if not any(v)]
+    if unplaced:
+        raise AssertionError(f"gang audit: gangs never placed {unplaced[:5]}")
+    audit_store(client)
+    return {"gangs": len(members)}
+
+
+def store_choices(client: Client, nodes: Sequence[Any],
+                  pods: Sequence[Any]) -> List[int]:
+    """Each of ``pods``' node row in ``nodes`` from the store (-1 when
+    unbound), for ``audit.one_slice_share``."""
+    row = {n.metadata.name: i for i, n in enumerate(nodes)}
+    where = {p.metadata.key: p.spec.node_name for p in client.pods().list()}
+    return [row.get(where.get(p.metadata.key) or "", -1) for p in pods]

@@ -9,11 +9,12 @@ walking every assigned pod, once per wave or scan chunk.
 O(changes), and ``build_constraint_tables(..., index=...)`` assembles the
 dense planes from it in O(nonzero + planes).
 
-What the port leaves out: the informer wiring (``wire`` and the batch
-event handler), which belongs to the live engine.  The index is driven by
-its direct methods ``add_pod``, ``update_pod``, ``delete_pod``,
-``update_node``, ``claim_changed`` and ``volume_changed``; the node, PVC
-and PV lookups are plain callables given to the constructor.
+A one-shot driver feeds the index through its direct methods
+(``add_pod``, ``update_pod``, ``delete_pod``, ``update_node``,
+``claim_changed``, ``volume_changed``), with node, PVC and PV lookups
+given to the constructor.  The live engine calls ``wire`` instead, which
+registers the index on the informers (the batch pod handler and the node,
+PVC and PV handlers) and points the lookups at the informer caches.
 
 One difference: the JAX index keys pods by ``metadata.uid``.  The port's
 objects default ``uid`` to ``""`` (names are the identity), so this index
@@ -158,6 +159,56 @@ class ConstraintIndex:
         self._records: Dict[str, _PodRecord] = {}
         # node → keys of pods with node-label-sensitive terms on it
         self._node_anti: Dict[str, Set[str]] = {}
+
+    # -- wiring ------------------------------------------------------------
+    def wire(self, informer_factory: Any) -> None:
+        """Register the handlers.  MUST run BEFORE the NodeInfo cache's
+        (``engine/cache.py``): the engine prunes its assume cache against
+        the NodeInfo cache, so an index behind it could drop a
+        just-confirmed bind from one wave's planes.  An index ahead is
+        harmless (the assumed fold checks index membership first)."""
+        from minisched_tpu_torch.controlplane.informer import (
+            ResourceEventHandlers,
+        )
+
+        pvc_inf = informer_factory.informer_for("PersistentVolumeClaim")
+        pv_inf = informer_factory.informer_for("PersistentVolume")
+        node_inf = informer_factory.informer_for("Node")
+        # informer cache keys are "namespace/name"; cluster-scoped kinds
+        # (Node, PV) key as "/<name>"
+        self._pvc_lister = pvc_inf.get
+        self._pv_lister = lambda name: pv_inf.get(f"/{name}")
+        self._node_get = lambda name: node_inf.get(f"/{name}")
+        informer_factory.informer_for("Pod").add_event_handlers(
+            ResourceEventHandlers(on_batch=self._pod_batch))
+        node_inf.add_event_handlers(ResourceEventHandlers(
+            # ADD matters too: informers dispatch on separate threads, so
+            # a pod's event can beat its node's
+            on_add=lambda node: self.update_node(None, node),
+            on_update=self.update_node))
+        pvc_inf.add_event_handlers(ResourceEventHandlers(
+            on_add=lambda pvc: self.claim_changed(pvc.metadata.key),
+            on_update=lambda old, new: self.claim_changed(new.metadata.key),
+            on_delete=lambda pvc: self.claim_changed(pvc.metadata.key)))
+        pv_inf.add_event_handlers(ResourceEventHandlers(
+            on_add=lambda pv: self.volume_changed(pv.metadata.name),
+            on_update=lambda old, new: self.volume_changed(new.metadata.name),
+            on_delete=lambda pv: self.volume_changed(pv.metadata.name)))
+
+    def _pod_batch(self, events: List[Any]) -> None:
+        """One informer batch under one lock hold; pending pods never
+        touch the planes."""
+        from minisched_tpu_torch.controlplane.store import EventType
+
+        with self._mu:
+            for ev in events:
+                pod = ev.obj
+                if not pod.spec.node_name:
+                    continue
+                if ev.type != EventType.ADDED:
+                    self._remove(pod_key(pod))
+                if ev.type != EventType.DELETED:
+                    self._add(pod)
 
     # -- changes -----------------------------------------------------------
     def add_pod(self, pod: Any) -> None:
@@ -507,8 +558,14 @@ class ConstraintIndex:
         return self._mu
 
     def assigned_keys(self) -> Set[str]:
+        """The keys of the held pods (``pod_key``: the uid when set)."""
         with self._mu:
             return set(self._node_of)
+
+    def assigned_uids(self) -> Set[str]:
+        """The uids of the held pods, as the engine's assume cache keys
+        them (store objects always carry a uid, so a key is the uid)."""
+        return self.assigned_keys()
 
     def ex_term_list(self) -> List[Tuple[ExKey, Any, Set[str]]]:
         """Live reverse anti-affinity terms: (key, selector, owner nodes)."""

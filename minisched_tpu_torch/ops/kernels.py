@@ -40,6 +40,9 @@ UINT32_MAX = 0xFFFFFFFF
 #: launches of each kernel since the last ``reset_launch_counts``; a
 #: wrapper adds one where it launches its kernel and nowhere else
 launch_counts = {"select_hosts": 0, "nodenumber_select_hosts": 0}
+#: calls the dispatchers below routed to a plain twin (CPU tensors): a
+#: path that runs on the card must leave these at 0
+plain_calls = {"select_hosts": 0, "nodenumber_select_hosts": 0}
 #: calls made while a CUDA graph was being captured: each records its
 #: kernel into the graph, which launches it at every replay; whoever
 #: replays the graph counts those launches (``count_replays``)
@@ -47,8 +50,10 @@ captured_counts = {"select_hosts": 0, "nodenumber_select_hosts": 0}
 
 
 def reset_launch_counts() -> None:
+    """Set the launch counts and the plain-twin calls to 0."""
     for name in launch_counts:
         launch_counts[name] = 0
+        plain_calls[name] = 0
 
 
 def count_replays(captured: Dict[str, int], replays: int) -> None:
@@ -287,6 +292,7 @@ def select_hosts(
     if scores.device.type == "cuda":
         return select_hosts_cuda(scores, mask, seeds)
     if scores.device.type == "cpu":
+        plain_calls["select_hosts"] += 1
         return select_hosts_plain(scores, mask, seeds)
     raise ValueError(f"no select_hosts route for tensors on {scores.device}")
 
@@ -300,5 +306,6 @@ def nodenumber_select_hosts(
     if device.type == "cuda":
         return nodenumber_select_hosts_cuda(pods, nodes, match_score)
     if device.type == "cpu":
+        plain_calls["nodenumber_select_hosts"] += 1
         return nodenumber_select_hosts_plain(pods, nodes, match_score)
     raise ValueError(f"no route for tables on {device}")

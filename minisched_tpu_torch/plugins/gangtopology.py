@@ -27,11 +27,12 @@ state, so the repair loop computes its plane once per wave.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from minisched_tpu_torch.engine.tiebreak import mix32 as mix32_py
+from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
 from minisched_tpu_torch.ops.kernels import mix32_plain
 
@@ -86,6 +87,14 @@ def _ring(coord: torch.Tensor, ssum: torch.Tensor, dim: torch.Tensor,
 
 
 class GangTopology(BatchEvaluable):
+    def events_to_register(self) -> List[ClusterEvent]:
+        """The cluster events that may make a pod this plugin rejected
+        schedulable again (the JAX plugin's registration)."""
+        return [
+            ClusterEvent(GVK.POD, ActionType.UPDATE),
+            ClusterEvent(GVK.NODE, ActionType.ADD),
+        ]
+
     def name(self) -> str:
         return NAME
 

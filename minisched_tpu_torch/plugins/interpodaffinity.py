@@ -43,10 +43,11 @@ CUDA has no integer matmul, so the three products run in floating point:
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 
+from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
 from minisched_tpu_torch.plugins.normalize import minmax_normalize_batch
 
@@ -70,6 +71,15 @@ class InterPodAffinity(BatchEvaluable):
     #: the coupling planes the sequential scan carries for this plugin
     #: (``ops/sequential.py``): the combo aggregates
     scan_carried_planes = ("combos",)
+
+    def events_to_register(self) -> List[ClusterEvent]:
+        """The cluster events that may make a pod this plugin rejected
+        schedulable again (the JAX plugin's registration)."""
+        return [
+            ClusterEvent(GVK.POD, ActionType.ALL),
+            ClusterEvent(GVK.NODE,
+                         ActionType.ADD | ActionType.UPDATE_NODE_LABEL),
+        ]
 
     def name(self) -> str:
         return NAME

@@ -18,10 +18,11 @@ many distinct label sets, as they do when each node has its own
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Sequence
 
 import torch
 
+from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
 from minisched_tpu_torch.models import tables
 
@@ -110,6 +111,12 @@ def required_node_affinity_mask(pods: Any, nodes: Any) -> torch.Tensor:
 
 
 class NodeAffinity(BatchEvaluable):
+    def events_to_register(self) -> List[ClusterEvent]:
+        """The cluster events that may make a pod this plugin rejected
+        schedulable again (the JAX plugin's registration)."""
+        return [ClusterEvent(GVK.NODE,
+                             ActionType.ADD | ActionType.UPDATE_NODE_LABEL)]
+
     def name(self) -> str:
         return NAME
 

@@ -10,10 +10,11 @@ to ``used_port``, so the repair loop re-evaluates the filter every round.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, List
 
 import torch
 
+from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
 from minisched_tpu_torch.utils.reduce import any_last_axis
 
@@ -22,6 +23,11 @@ NAME = "NodePorts"
 
 class NodePorts(BatchEvaluable):
     reads_committed_state = True  # intra-wave commits change the verdict
+
+    def events_to_register(self) -> List[ClusterEvent]:
+        """The cluster events that may make a pod this plugin rejected
+        schedulable again (the JAX plugin's registration)."""
+        return [ClusterEvent(GVK.POD, ActionType.DELETE)]
 
     def name(self) -> str:
         return NAME

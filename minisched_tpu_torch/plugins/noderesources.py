@@ -13,10 +13,11 @@ round (``reads_committed_state``).
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 
+from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import MAX_NODE_SCORE, BatchEvaluable
 from minisched_tpu_torch.models import tables
 
@@ -44,6 +45,15 @@ class NodeResourcesFit(BatchEvaluable):
     scorer through its LeastAllocated scoring strategy."""
 
     reads_committed_state = True  # intra-wave commits change the verdict
+
+    def events_to_register(self) -> List[ClusterEvent]:
+        """The cluster events that may make a pod this plugin rejected
+        schedulable again (the JAX plugin's registration)."""
+        return [
+            ClusterEvent(GVK.POD, ActionType.DELETE),
+            ClusterEvent(GVK.NODE,
+                ActionType.ADD | ActionType.UPDATE_NODE_ALLOCATABLE),
+        ]
 
     def __init__(self, scoring_strategy: str = "LeastAllocated"):
         if scoring_strategy != "LeastAllocated":

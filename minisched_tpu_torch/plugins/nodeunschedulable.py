@@ -6,10 +6,11 @@ Counterpart of ``minisched_tpu/plugins/nodeunschedulable.py:59-81``.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, List
 
 import torch
 
+from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
 from minisched_tpu_torch.models import tables
 from minisched_tpu_torch.utils.hashing import fnv1a32
@@ -22,6 +23,12 @@ _EMPTY_VALUE_HASH = fnv1a32("")
 
 
 class NodeUnschedulable(BatchEvaluable):
+    def events_to_register(self) -> List[ClusterEvent]:
+        """The cluster events that may make a pod this plugin rejected
+        schedulable again (the JAX plugin's registration)."""
+        return [ClusterEvent(GVK.NODE,
+                             ActionType.ADD | ActionType.UPDATE_NODE_TAINT)]
+
     def name(self) -> str:
         return NAME
 

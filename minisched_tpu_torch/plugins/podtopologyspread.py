@@ -30,10 +30,11 @@ the same integers without a product.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 
+from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import MAX_NODE_SCORE, BatchEvaluable
 from minisched_tpu_torch.models.constraints import TS_DO_NOT_SCHEDULE
 from minisched_tpu_torch.plugins.nodeaffinity import required_node_affinity_mask
@@ -56,6 +57,15 @@ class PodTopologySpread(BatchEvaluable):
     #: the coupling planes the sequential scan carries for this plugin
     #: (``ops/sequential.py``): the combo aggregates
     scan_carried_planes = ("combos",)
+
+    def events_to_register(self) -> List[ClusterEvent]:
+        """The cluster events that may make a pod this plugin rejected
+        schedulable again (the JAX plugin's registration)."""
+        return [
+            ClusterEvent(GVK.POD, ActionType.ALL),
+            ClusterEvent(GVK.NODE,
+                         ActionType.ADD | ActionType.UPDATE_NODE_LABEL),
+        ]
 
     def name(self) -> str:
         return NAME

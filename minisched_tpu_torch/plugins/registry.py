@@ -1,12 +1,12 @@
-"""Plugin registry: config → the batch plugin chains of the device half.
+"""Plugin registry: config → the plugin chains of every extension point.
 
 Counterpart of ``minisched_tpu/plugins/registry.py:164-194``: one factory
 per plugin name, one instance per name even when a plugin serves several
-extension points, chains in the config's order.  The port builds the
-chains the device evaluates (filter, pre-score, score).  The host-side
-extension points (post-filter, reserve, permit) run in the scheduling
-engine, which the port does not have yet: their plugin names are returned
-in ``PluginChains.host_side``, not built.  An unknown name raises
+extension points, chains in the config's order.  The device evaluates the
+filter, pre-score and score chains; the live engine runs the host-side
+points (post-filter, reserve, permit).  Instances with an ``h`` attribute
+(NodeNumber, Coscheduling) are listed in ``needs_handle``: the engine
+injects itself there as their waiting-pod handle.  An unknown name raises
 ``KeyError``; nothing is dropped silently.
 """
 
@@ -15,7 +15,18 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List
 
-from minisched_tpu_torch.framework.plugin import BatchEvaluable
+from minisched_tpu_torch.framework.plugin import (
+    BatchEvaluable,
+    implements_permit,
+    implements_post_filter,
+    implements_reserve,
+)
+from minisched_tpu_torch.plugins.coscheduling import Coscheduling
+from minisched_tpu_torch.plugins.defaultpreemption import (
+    DEFAULT_MIN_CANDIDATE_NODES_ABSOLUTE,
+    DEFAULT_MIN_CANDIDATE_NODES_PERCENTAGE,
+    DefaultPreemption,
+)
 from minisched_tpu_torch.plugins.gangtopology import GangTopology
 from minisched_tpu_torch.plugins.imagelocality import ImageLocality
 from minisched_tpu_torch.plugins.interpodaffinity import InterPodAffinity
@@ -41,52 +52,68 @@ from minisched_tpu_torch.plugins.volumerestrictions import VolumeRestrictions
 from minisched_tpu_torch.plugins.volumezone import VolumeZone
 from minisched_tpu_torch.service.config import SchedulerConfig
 
-# factory signature: (args: dict) -> plugin instance
-Factory = Callable[[Dict[str, Any]], Any]
+# factory signature: (args: dict, time_scale: float) -> plugin instance
+Factory = Callable[[Dict[str, Any], float], Any]
 
 _REGISTRY: Dict[str, Factory] = {
-    "NodeUnschedulable": lambda args: NodeUnschedulable(),
-    "NodeNumber": lambda args: NodeNumber(),
-    "NodeName": lambda args: NodeName(),
-    "TaintToleration": lambda args: TaintToleration(),
-    "NodeAffinity": lambda args: NodeAffinity(),
-    "NodePorts": lambda args: NodePorts(),
-    "NodeResourcesFit": lambda args: NodeResourcesFit(
+    "NodeUnschedulable": lambda args, ts: NodeUnschedulable(),
+    "NodeNumber": lambda args, ts: NodeNumber(time_scale=ts),
+    "NodeName": lambda args, ts: NodeName(),
+    "TaintToleration": lambda args, ts: TaintToleration(),
+    "NodeAffinity": lambda args, ts: NodeAffinity(),
+    "NodePorts": lambda args, ts: NodePorts(),
+    "NodeResourcesFit": lambda args, ts: NodeResourcesFit(
         scoring_strategy=args.get("scoring_strategy", "LeastAllocated")),
-    "NodeResourcesLeastAllocated": lambda args: NodeResourcesLeastAllocated(),
+    "NodeResourcesLeastAllocated":
+        lambda args, ts: NodeResourcesLeastAllocated(),
     "NodeResourcesBalancedAllocation":
-        lambda args: NodeResourcesBalancedAllocation(),
-    "ImageLocality": lambda args: ImageLocality(),
-    "InterPodAffinity": lambda args: InterPodAffinity(),
-    "PodTopologySpread": lambda args: PodTopologySpread(),
-    "VolumeBinding": lambda args: VolumeBinding(),
-    "VolumeRestrictions": lambda args: VolumeRestrictions(),
-    "VolumeZone": lambda args: VolumeZone(),
-    "NodeVolumeLimits": lambda args: NodeVolumeLimits(
+        lambda args, ts: NodeResourcesBalancedAllocation(),
+    "ImageLocality": lambda args, ts: ImageLocality(),
+    "InterPodAffinity": lambda args, ts: InterPodAffinity(),
+    "PodTopologySpread": lambda args, ts: PodTopologySpread(),
+    "VolumeBinding": lambda args, ts: VolumeBinding(),
+    "VolumeRestrictions": lambda args, ts: VolumeRestrictions(),
+    "VolumeZone": lambda args, ts: VolumeZone(),
+    "NodeVolumeLimits": lambda args, ts: NodeVolumeLimits(
         max_volumes=args.get("max_volumes")),
-    "EBSLimits": lambda args: EBSLimits(max_volumes=args.get("max_volumes")),
-    "GCEPDLimits": lambda args: GCEPDLimits(
+    "EBSLimits": lambda args, ts: EBSLimits(
         max_volumes=args.get("max_volumes")),
-    "AzureDiskLimits": lambda args: AzureDiskLimits(
+    "GCEPDLimits": lambda args, ts: GCEPDLimits(
         max_volumes=args.get("max_volumes")),
-    "GangTopology": lambda args: GangTopology(),
+    "AzureDiskLimits": lambda args, ts: AzureDiskLimits(
+        max_volumes=args.get("max_volumes")),
+    "GangTopology": lambda args, ts: GangTopology(),
+    "Coscheduling": lambda args, ts: Coscheduling(time_scale=ts),
+    "DefaultPreemption": lambda args, ts: DefaultPreemption(
+        min_candidate_nodes_percentage=args.get(
+            "min_candidate_nodes_percentage",
+            DEFAULT_MIN_CANDIDATE_NODES_PERCENTAGE),
+        min_candidate_nodes_absolute=args.get(
+            "min_candidate_nodes_absolute",
+            DEFAULT_MIN_CANDIDATE_NODES_ABSOLUTE)),
 }
 
-#: extension points the device evaluates; the others run in the engine
-DEVICE_POINTS = ("filter", "pre_score", "score")
 #: the batch method a plugin must define to serve a device point (every
 #: plugin may pre-score: the protocol's default returns no aux)
 _REQUIRED = {"filter": "batch_filter", "score": "batch_score"}
+#: the capability probes of the host points
+_HOST_CHECKS = {
+    "post_filter": implements_post_filter,
+    "reserve": implements_reserve,
+    "permit": implements_permit,
+}
 
 
 @dataclass
 class PluginChains:
     filter: List[Any] = field(default_factory=list)
+    post_filter: List[Any] = field(default_factory=list)
     pre_score: List[Any] = field(default_factory=list)
     score: List[Any] = field(default_factory=list)
-    #: names enabled at the host-side points (post_filter, reserve,
-    #: permit), which the engine runs: not built here
-    host_side: Dict[str, List[str]] = field(default_factory=dict)
+    reserve: List[Any] = field(default_factory=list)
+    permit: List[Any] = field(default_factory=list)
+    #: instances that take the engine as their waiting-pod handle (``h``)
+    needs_handle: List[Any] = field(default_factory=list)
 
 
 def registered_names() -> List[str]:
@@ -97,10 +124,6 @@ def build_plugins(cfg: SchedulerConfig) -> PluginChains:
     chains = PluginChains()
     instances: Dict[str, Any] = {}
     for point, plugin_set in cfg.extension_points().items():
-        if point not in DEVICE_POINTS:
-            if plugin_set.enabled:
-                chains.host_side[point] = [e.name for e in plugin_set.enabled]
-            continue
         for entry in plugin_set.enabled:
             if entry.name not in _REGISTRY:
                 raise KeyError(
@@ -109,11 +132,18 @@ def build_plugins(cfg: SchedulerConfig) -> PluginChains:
                 )
             if entry.name not in instances:
                 instances[entry.name] = _REGISTRY[entry.name](
-                    cfg.plugin_args.get(entry.name, {}))
+                    cfg.plugin_args.get(entry.name, {}), cfg.time_scale)
             inst = instances[entry.name]
             method = _REQUIRED.get(point)
-            if method and getattr(type(inst), method) is getattr(BatchEvaluable, method):
+            if point in _HOST_CHECKS:
+                implemented = _HOST_CHECKS[point](inst)
+            else:
+                implemented = not method or (
+                    getattr(type(inst), method, None)
+                    is not getattr(BatchEvaluable, method))
+            if not implemented:
                 raise TypeError(
                     f"plugin {entry.name!r} does not implement {point}")
             getattr(chains, point).append(inst)
+    chains.needs_handle = [p for p in instances.values() if hasattr(p, "h")]
     return chains

@@ -15,10 +15,11 @@ its pods, (Dp, Tn).
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 
+from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import MAX_NODE_SCORE, BatchEvaluable
 from minisched_tpu_torch.models import tables
 
@@ -42,6 +43,12 @@ def _per_node(per_profile: torch.Tensor, pods: Any,
 
 
 class TaintToleration(BatchEvaluable):
+    def events_to_register(self) -> List[ClusterEvent]:
+        """The cluster events that may make a pod this plugin rejected
+        schedulable again (the JAX plugin's registration)."""
+        return [ClusterEvent(GVK.NODE,
+                             ActionType.ADD | ActionType.UPDATE_NODE_TAINT)]
+
     def name(self) -> str:
         return NAME
 

@@ -20,6 +20,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
 from minisched_tpu_torch.plugins.volumelimits import FAM_GENERIC, VolumeLimitsCore
 
@@ -65,6 +66,18 @@ class VolumeBinding(BatchEvaluable):
     needs_extra = True
     #: claim verdicts do not change as pods commit: nothing to carry
     scan_carried_planes = ()
+
+    def events_to_register(self) -> List[ClusterEvent]:
+        """The cluster events that may make a pod this plugin rejected
+        schedulable again (the JAX plugin's registration)."""
+        return [
+            ClusterEvent(GVK.PERSISTENT_VOLUME,
+                         ActionType.ADD | ActionType.UPDATE),
+            ClusterEvent(GVK.PERSISTENT_VOLUME_CLAIM,
+                         ActionType.ADD | ActionType.UPDATE),
+            ClusterEvent(GVK.NODE,
+                         ActionType.ADD | ActionType.UPDATE_NODE_LABEL),
+        ]
 
     def name(self) -> str:
         return BINDING_NAME

@@ -17,10 +17,11 @@ generic 16.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import torch
 
+from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
 
 #: family axis of the pod_vols_fam/node_vols_fam constraint planes;
@@ -53,6 +54,11 @@ class VolumeLimitsCore(BatchEvaluable):
     volume_family_index = FAM_GENERIC
     #: the scan carries the committed attach counts and mounts for it
     scan_carried_planes = ("volumes",)
+
+    def events_to_register(self) -> List[ClusterEvent]:
+        """The cluster events that may make a pod this plugin rejected
+        schedulable again (the JAX plugin's registration)."""
+        return [ClusterEvent(GVK.POD, ActionType.DELETE)]
 
     def __init__(self, max_volumes: Optional[int] = None):
         self.max_volumes = (max_volumes if max_volumes is not None

@@ -12,10 +12,11 @@ rounds, so pods committed earlier in the same wave count too.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, List
 
 import torch
 
+from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
 from minisched_tpu_torch.plugins.volumebinding import claims_pass
 
@@ -30,6 +31,15 @@ class VolumeRestrictions(BatchEvaluable):
     enforces_volume_restrictions = True
     #: the scan carries the committed mount planes for it
     scan_carried_planes = ("volumes",)
+
+    def events_to_register(self) -> List[ClusterEvent]:
+        """The cluster events that may make a pod this plugin rejected
+        schedulable again (the JAX plugin's registration)."""
+        return [
+            ClusterEvent(GVK.POD, ActionType.DELETE),
+            ClusterEvent(GVK.PERSISTENT_VOLUME_CLAIM,
+                         ActionType.ADD | ActionType.UPDATE),
+        ]
 
     def name(self) -> str:
         return NAME

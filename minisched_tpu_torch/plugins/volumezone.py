@@ -11,10 +11,11 @@ filter gathers the ``claim_zone_ok[C2, N]`` rows.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, List
 
 import torch
 
+from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
 from minisched_tpu_torch.plugins.volumebinding import claims_pass
 
@@ -44,6 +45,18 @@ class VolumeZone(BatchEvaluable):
     needs_extra = True
     #: zone verdicts do not change as pods commit: nothing to carry
     scan_carried_planes = ()
+
+    def events_to_register(self) -> List[ClusterEvent]:
+        """The cluster events that may make a pod this plugin rejected
+        schedulable again (the JAX plugin's registration)."""
+        return [
+            ClusterEvent(GVK.PERSISTENT_VOLUME,
+                         ActionType.ADD | ActionType.UPDATE),
+            ClusterEvent(GVK.PERSISTENT_VOLUME_CLAIM,
+                         ActionType.ADD | ActionType.UPDATE),
+            ClusterEvent(GVK.NODE,
+                         ActionType.ADD | ActionType.UPDATE_NODE_LABEL),
+        ]
 
     def name(self) -> str:
         return NAME

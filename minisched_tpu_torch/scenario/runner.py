@@ -1,0 +1,119 @@
+"""Scenario runner: the README scenario on the port's live engine.
+
+Counterpart of ``minisched_tpu/scenario/runner.py``: ``ScenarioHarness``
+boots a control plane and the scheduler service (without the JAX
+package's PV controller, which no scenario here needs), and
+``readme_scenario`` drives the reference's integration scenario with
+condition-based waits: nine cordoned nodes keep ``pod1`` pending, then
+``node10`` appears and ``pod1`` binds there.
+
+Run it on the card (or ``--device cpu`` on the host)::
+
+    python -m minisched_tpu_torch.scenario.runner
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Callable, Optional
+
+from minisched_tpu_torch.api.objects import make_node, make_pod
+from minisched_tpu_torch.controlplane.client import Client
+from minisched_tpu_torch.service.config import (
+    SchedulerConfig,
+    default_scheduler_config,
+)
+from minisched_tpu_torch.service.service import SchedulerService
+
+
+class ScenarioTimeout(AssertionError):
+    pass
+
+
+class ScenarioHarness:
+    """A client, its store and the scheduler service on ``device`` (None:
+    the card), in device mode with waves of ``max_wave``."""
+
+    def __init__(self, cfg: Optional[SchedulerConfig] = None,
+                 device: Any = None, max_wave: int = 64):
+        self.client = Client()
+        self.service = SchedulerService(self.client)
+        self.cfg = cfg or default_scheduler_config()
+        self.device = device
+        self.max_wave = max_wave
+
+    def __enter__(self) -> "ScenarioHarness":
+        self.service.start_scheduler(self.cfg, device_mode=True,
+                                     max_wave=self.max_wave,
+                                     device=self.device)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.service.close()
+
+    def wait_for(self, pred: Callable[[], bool], timeout: float = 10.0,
+                 interval: float = 0.01, msg: str = "condition") -> None:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if pred():
+                return
+            time.sleep(interval)
+        if pred():
+            return
+        raise ScenarioTimeout(f"timed out waiting for {msg}")
+
+    def pod_node(self, name: str, namespace: str = "default") -> str:
+        return self.client.pods().get(name, namespace).spec.node_name
+
+
+def readme_scenario(harness: ScenarioHarness,
+                    log: Callable[[str], None] = print) -> str:
+    """The reference's integration scenario (sched.go:70-143):
+
+    1. create nodes node0..node8, all unschedulable, and pod1 — the pod
+       must stay pending, parked in the unschedulableQ;
+    2. create schedulable node10 — the Node/Add event requeues pod1 and it
+       binds to node10.
+
+    Returns the bound node name."""
+    client = harness.client
+    for i in range(9):
+        client.nodes().create(make_node(f"node{i}", unschedulable=True))
+    log("created 9 unschedulable nodes")
+    client.pods().create(make_pod("pod1"))
+    log("created pod1")
+    harness.wait_for(
+        lambda: harness.service.scheduler.queue.stats()["unschedulable"] == 1,
+        msg="pod1 parked in unschedulableQ")
+    if harness.pod_node("pod1"):
+        raise AssertionError("pod1 should not be bound yet")
+    log("pod1 is pending (no feasible node)")
+    client.nodes().create(make_node("node10", unschedulable=False))
+    log("created schedulable node10")
+    harness.wait_for(lambda: harness.pod_node("pod1") == "node10",
+                     timeout=15.0, msg="pod1 bound to node10")
+    bound = harness.pod_node("pod1")
+    log(f"pod1 is bound to {bound}")
+    return bound
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args()
+    # time_scale compresses NodeNumber's permit delay (node10's suffix 0
+    # is a zero delay; the timeout is still armed)
+    with ScenarioHarness(default_scheduler_config(time_scale=0.1),
+                         device=args.device) as h:
+        bound = readme_scenario(h)
+        errors = h.service.scheduler.loop_errors
+    if bound != "node10" or errors:
+        raise SystemExit(f"scenario FAILED: bound to {bound!r}, "
+                         f"{errors} loop error(s)")
+    print("scenario OK")
+
+
+if __name__ == "__main__":
+    main()

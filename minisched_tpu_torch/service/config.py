@@ -126,10 +126,10 @@ def gang_roster_config(time_scale: float = 1.0) -> SchedulerConfig:
     no gang present it places exactly as the full roster (GangTopology
     scores 0 everywhere).
 
-    Permit is a host-side point (``PluginChains.host_side``) that the
-    port's live engine will run; until then the port's wave and scan
-    drivers place gang members one by one, without all-or-nothing
-    admission: a gang can end partly placed."""
+    Permit is a host-side point that only the live engine
+    (``engine/device_scheduler.py``) runs: there Coscheduling admits a
+    gang all or nothing.  The one-shot wave and scan drivers place gang
+    members one by one, so a gang can end partly placed."""
     cfg = default_full_roster_config(time_scale=time_scale)
     cfg.pre_score.enabled.append(PluginEnabled("GangTopology"))
     cfg.score.enabled.append(PluginEnabled("GangTopology", weight=1))

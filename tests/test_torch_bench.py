@@ -23,6 +23,7 @@ COUNTERPARTS = {
     "c3": "bench_config3",
     "c4": "bench_config4",
     "c5": "config5_full_chain",
+    "c5_waves": "config5_full_chain",
     "fullchain_parity": "bench_fullchain_parity",
     "c5x": "config5_crosspod",
     "gang": "bench_gang",

@@ -58,9 +58,12 @@ from minisched_tpu_torch.models.constraints import build_constraint_tables
 from minisched_tpu_torch.plugins.registry import build_plugins
 from minisched_tpu_torch.service.config import (
     default_full_roster_config,
+    default_scheduler_config,
     gang_roster_config,
     node_local_roster_config,
 )
+from minisched_tpu_torch import live
+from minisched_tpu_torch.scenario.runner import ScenarioHarness, readme_scenario
 from minisched_tpu_torch.kernel_cases import (
     SELECT_NS,
     garble,
@@ -639,3 +642,31 @@ def test_index_tables_on_card_equal_the_walk(dev):
                       if ex[i].any() or pm[:, i].any())
 
     assert ex_rows(got) == ex_rows(want) and ex_rows(got)
+
+
+def test_readme_scenario_live_on_card(dev):
+    """The live engine on the card (its default device): ``pod1`` parks
+    behind nine cordoned nodes, then binds to ``node10``."""
+    kernels.reset_launch_counts()
+    with ScenarioHarness(default_scheduler_config(time_scale=0.01)) as h:
+        assert readme_scenario(h, log=lambda _: None) == "node10"
+        assert h.service.scheduler.loop_errors == 0
+        assert h.service.scheduler.device.type == "cuda"
+    assert kernels.launch_counts["select_hosts"] >= 2
+    assert not any(kernels.plain_calls.values())
+
+
+def test_live_reduced_config5_on_card(dev):
+    """Config 5 cut to 2,000 nodes and 20,000 pods through the live
+    engine: park, label, requeue, every pod bound; the store audit, no
+    loop error, the assume cache drained, every first-drain bind equal to
+    the one-shot repair waves on the same waves."""
+    kernels.reset_launch_counts()
+    run = live.run_config5_live(2_000, 20_000, max_wave=4_096)
+    assert kernels.launch_counts["select_hosts"] >= run.waves
+    assert not any(kernels.plain_calls.values())
+    assert live.audit_store(run.client, run.labelled)["bound"] == 20_000
+    assert run.loop_errors == 0 and run.assumed_left == 0
+    ref = schedule_repair_waves(run.nodes, run.pods, wave=4_096)
+    want = [ref.node_names[c] if c >= 0 else "" for c in ref.choices]
+    assert [run.first_drain[p.metadata.name] for p in run.pods] == want

@@ -1,0 +1,58 @@
+"""The live drivers of ``chip_smoke.py`` phases 17-18 and the ``c5`` bench
+role (``minisched_tpu_torch/live.py``), at a small size on the CPU.
+
+Config 5 cut to 200 nodes and 2,000 pods goes through the live engine
+(``device="cpu"``): park, label, requeue, every pod bound, the store
+audit passing, and every first-drain bind equal to
+``fullchain.schedule_repair_waves`` on the store's pods in the engine's
+pop order — the check phase 17 makes at full width.  The gang cluster cut
+to 128 nodes and 41 gangs lands every gang whole.  Exact comparisons;
+every wait has a deadline.
+"""
+
+from __future__ import annotations
+
+import pytest
+
+from minisched_tpu_torch import live
+from minisched_tpu_torch.audit import one_slice_share
+from minisched_tpu_torch.fullchain import schedule_repair_waves
+
+
+def test_config5_live_matches_the_wave_driver_and_audits():
+    run = live.run_config5_live(200, 2_000, max_wave=512, device="cpu",
+                                timeout_s=120.0)
+    assert run.loop_errors == 0 and run.assumed_left == 0
+    assert live.audit_store(run.client, run.labelled) == {"bound": 2_000,
+                                                          "nodes": 200}
+    assert run.waves >= 5 and len(run.labelled) == 40
+    ref = schedule_repair_waves(run.nodes, run.pods, wave=512, device="cpu")
+    want = [ref.node_names[c] if c >= 0 else "" for c in ref.choices]
+    assert [run.first_drain[p.metadata.name] for p in run.pods] == want
+    assert sum(1 for w in want if not w) == 40  # the special pods park
+    assert set(run.split) == set(live.SPLIT) and run.split["wave_device"] > 0
+    assert run.ttb_p99_le_s is not None
+
+
+def test_audit_store_catches_a_misplaced_special_pod():
+    run = live.run_config5_live(100, 1_000, max_wave=512, device="cpu",
+                                timeout_s=120.0)
+    special = next(p for p in run.client.pods().list()
+                   if p.metadata.name.startswith("special"))
+    assert special.spec.node_name in run.labelled
+    live.audit_store(run.client, run.labelled)
+    with pytest.raises(AssertionError, match="special pods"):
+        live.audit_store(run.client, [n for n in run.labelled
+                                      if n != special.spec.node_name])
+
+
+def test_gang_live_lands_every_gang_whole():
+    run = live.run_gang_live(128, 1_000, 41, max_wave=512, device="cpu",
+                             timeout_s=120.0)
+    assert run.loop_errors == 0 and run.assumed_left == 0
+    assert run.pending_gangs == {}
+    assert live.audit_gangs(run.client) == {"gangs": 41}
+    share = one_slice_share(run.nodes, run.assigned, run.pods,
+                            live.store_choices(run.client, run.nodes,
+                                               run.pods))
+    assert share["complete"] == 41

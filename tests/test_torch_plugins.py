@@ -470,7 +470,8 @@ def test_build_plugins_matches_jax_chains():
     # one instance per name across points
     fit = [p for p in chains.filter if p.name() == "NodeResourcesFit"]
     assert any(p is fit[0] for p in chains.score)
-    assert chains.host_side == {"post_filter": ["DefaultPreemption"]}
+    assert [p.name() for p in chains.post_filter] == ["DefaultPreemption"]
+    assert chains.reserve == chains.permit == []
 
 
 def test_build_plugins_builds_the_full_roster_as_jax():
@@ -494,13 +495,14 @@ def test_build_plugins_builds_the_full_roster_as_jax():
     ipa = [p for p in chains.filter if p.name() == "InterPodAffinity"]
     assert any(p is ipa[0] for p in chains.score)
     assert any(p is ipa[0] for p in chains.pre_score)
-    assert chains.host_side == {"post_filter": ["DefaultPreemption"]}
+    assert [p.name() for p in chains.post_filter] == ["DefaultPreemption"]
+    assert chains.reserve == chains.permit == []
 
 
 def test_gang_roster_builds_the_jax_chains():
     """``gang_roster_config`` gives the JAX roster's device chains (the
     full roster plus GangTopology at pre-score and score), weights, and
-    its host-side points by name (Coscheduling at Permit)."""
+    and its host-side points (Coscheduling at Permit)."""
     cfg, jcfg = tconfig.gang_roster_config(), jconfig.gang_roster_config()
     chains = tregistry.build_plugins(cfg)
     jchains = jregistry.build_plugins(jcfg)
@@ -512,10 +514,11 @@ def test_gang_roster_builds_the_jax_chains():
     assert cfg.score_weights()["GangTopology"] == 1
     gang = [p for p in chains.score if p.name() == "GangTopology"]
     assert any(p is gang[0] for p in chains.pre_score)
-    assert chains.host_side == {
-        point: [p.name() for p in getattr(jchains, point)]
-        for point in ("post_filter", "permit")}
-    assert chains.host_side["permit"] == ["Coscheduling"]
+    for point in ("post_filter", "reserve", "permit"):
+        assert ([p.name() for p in getattr(chains, point)]
+                == [p.name() for p in getattr(jchains, point)]), point
+    assert [p.name() for p in chains.permit] == ["Coscheduling"]
+    assert chains.needs_handle == chains.permit
 
 
 def test_build_plugins_refuses_the_full_roster_and_unknown_names():
