@@ -127,7 +127,8 @@ Phases, each of which raises on failure (nothing catches it):
    (``time_scale=0.01``), waves of 64; nine cordoned nodes leave ``pod1``
    parked in the unschedulableQ, then ``node10`` appears and ``pod1``
    binds there; no exception in the engine loop.
-17. Config 5 live at full width (``live.run_config5_live``, the flow of
+17. Config 5 live at full width on the serial engine
+   (``live.run_config5_live(pipeline=False)``, the flow of
    ``bench.py``'s ``_bench_config5_fullchain_once``): 10,000 nodes and
    100,000 pods created in the store, the full default roster in waves of
    16,384; the first drain binds the 98,000 plain pods and parks the
@@ -155,6 +156,35 @@ Phases, each of which raises on failure (nothing catches it):
    Coscheduling ledger and the assume cache empty, no node over its
    allocatable, no exception in the loop.  Printed: the share of gangs on
    one slice beside phase 14's wave-driver share at the same size.
+19. Config 5 live at full width on the pipelined engine (the JAX
+   default): phase 17's run with the build worker packing wave N+1 on the
+   host while wave N is on the card and every winner re-arbitrated at
+   commit; node tables from the cached builder.  Checks: every pod bound,
+   phase 17's audit, the assume cache and Coscheduling's ledger empty, no
+   loop error.  Placements are not held to phase 17's (the full roster
+   depends on binds, and a pipelined wave is built before the previous
+   one commits).  Printed beside phase 17: first drain, tail, total,
+   pods/s and the split, with the pipeline stall, the re-arbitrated
+   winners and the builder's reused builds and dirty rows.
+20. Config 5 with 5,000 spread pods live, pipelined
+   (``run_config5_live(n_crosspod=5_000)``, ``bench.py`` with
+   ``BENCH_C5_CROSSPOD=5000``): the spread pods deferred into the backlog
+   and placed by the blocked lane (and the exact scan for whatever the
+   blocked rounds leave), the 2,000 ``special*`` pods through park and
+   requeue.  Checks: every pod bound, phase 17's audit, ``bench.py``'s
+   spread audit (max skew 4 per app over the eligible zones), no loop
+   error.  Printed: each lane's pods, calls, blocks and rounds, the pods
+   left to the exact scan, the scan phases of the split, the step-graph
+   capture seconds and ``select_hosts`` launches at P = 32 and P = 1.
+21. The same reduced copy as phase 13 (1,520 nodes, here 18,000 pods
+   with 1,000 spread pods, waves of 4,096) through the serial live engine
+   to the end of its first drain, then one more spread pod alone
+   (``live.run_crosspod_drain``: the burst takes the blocked lane, the
+   lone pod the exact scan), on the card and on the CPU twins: every
+   binding equal, pod for pod.  A mismatch whose runs differ in waves or
+   lane calls is a timing race and is retried, up to 3 attempts, each
+   attempt's cause printed; any other mismatch fails.  Then the pipelined
+   engine on the card over the same cluster, held to the audits.
 
 Phase 2 also holds ``select_hosts`` against its twin on the repair
 route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
@@ -168,7 +198,8 @@ The launch counters are set to 0 just before each path of the main path
 hostname labels, config 4, the mixed cluster's card run, the exact scan
 of configs 3 and 5, the blocked lane of phase 13, the gang waves, the
 gang roster without gangs, the gang exact scan, each ``Evaluate``
-call and the three live-engine runs) and read just after it.  A scan's step is captured once in a CUDA graph and replayed;
+call and the six live-engine runs of phases 16-21) and read just after
+it.  A scan's step is captured once in a CUDA graph and replayed;
 each replay counts the ``select_hosts`` launch recorded in the graph.  The last three lines of output are the card's
 name and power limit, one JSON object describing every kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -372,9 +403,12 @@ def main() -> int:
     from minisched_tpu_torch.profile_repair import profile_repair
     from minisched_tpu_torch.live import (
         SPLIT,
+        SPLIT_MORE,
         audit_gangs,
+        audit_spread,
         audit_store,
         run_config5_live,
+        run_crosspod_drain,
         run_gang_live,
         store_choices,
     )
@@ -1331,6 +1365,17 @@ def main() -> int:
         f"matrices equal card vs CPU")
     del d_card, d_cpu
 
+    def counters_line(cnt) -> str:
+        return ", ".join(f"{k} {v}" for k, v in cnt.items())
+
+    def lanes_line(stats) -> str:
+        return "; ".join(
+            f"{name}: {st.placed} pods placed in {st.calls} calls, "
+            f"{st.steps} {'blocks' if name == 'blocked' else 'steps'}, "
+            f"{st.rounds} rounds, {st.to_exact} left to the exact scan, "
+            f"capture {st.capture_s:.3f}s, select_hosts {st.select_hosts}"
+            for name, st in stats.items())
+
     def live_launches(what: str, min_launches: int) -> int:
         """The ``select_hosts`` launches of the live run just finished;
         raises unless it launched on the card and called no plain twin."""
@@ -1358,7 +1403,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    c5l = run_config5_live(N_NODES, N_PODS, max_wave=C5_WAVE)
+    c5l = run_config5_live(N_NODES, N_PODS, max_wave=C5_WAVE, pipeline=False)
     launches["select_hosts"]["live-c5"] = live_launches("live config 5",
                                                         c5l.waves)
     c5l_peak = torch.cuda.max_memory_allocated()
@@ -1394,7 +1439,10 @@ def main() -> int:
         f"{c5l_peak / 2**30:.2f} GiB; time to bind p50 <= "
         f"{c5l.ttb_p50_le_s}s, p99 <= {c5l.ttb_p99_le_s}s; audit passed, "
         f"assume cache drained, loop errors 0, select_hosts launches "
-        f"{launches['select_hosts']['live-c5']}, plain-twin calls 0")
+        f"{launches['select_hosts']['live-c5']}, plain-twin calls 0; "
+        f"builder: {counters_line(c5l.counters)}")
+    serial17 = (c5l.first_drain_s, c5l.total_s - c5l.first_drain_s,
+                c5l.total_s, dict(c5l.split))
     del c5l
 
     # -- phase 18: gangs, live, all or nothing -----------------------------
@@ -1419,6 +1467,129 @@ def main() -> int:
         f"wave driver; select_hosts launches "
         f"{launches['select_hosts']['live-gang']}")
     del gl
+
+    # -- phase 19: config 5 live, pipelined --------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    c5p = run_config5_live(N_NODES, N_PODS, max_wave=C5_WAVE)
+    launches["select_hosts"]["live-c5-pipelined"] = live_launches(
+        "pipelined config 5", c5p.waves)
+    c5p_peak = torch.cuda.max_memory_allocated()
+    audited = audit_store(c5p.client, c5p.labelled)
+    if (audited["bound"] != N_PODS or c5p.loop_errors or c5p.assumed_left
+            or not c5p.pipelined or not c5p.counters["wave_pipeline.waves"]):
+        raise AssertionError(f"pipelined config 5: {audited['bound']} bound, "
+                             f"{c5p.loop_errors} loop errors, "
+                             f"{c5p.assumed_left} assumed left, counters "
+                             f"{c5p.counters}")
+    fd17, tail17, total17, split17 = serial17
+    keys = SPLIT + SPLIT_MORE
+    split_line = ", ".join(f"{k} {c5p.split[k]:.3f}s (serial {split17[k]:.3f})"
+                           for k in keys)
+    log(f"[live-c5-pipelined] {card}: config 5 live, pipelined, {N_NODES} "
+        f"nodes x {N_PODS} pods, waves of {C5_WAVE} ({c5p.waves} waves): "
+        f"first drain {c5p.first_drain_s:.3f}s (serial {fd17:.3f}s); tail "
+        f"{c5p.total_s - c5p.first_drain_s:.3f}s (serial {tail17:.3f}s); "
+        f"total {c5p.total_s:.3f}s = {N_PODS / c5p.total_s:,.0f} pods/s "
+        f"(serial {total17:.3f}s = {N_PODS / total17:,.0f} pods/s); split: "
+        f"{split_line}; counters: {counters_line(c5p.counters)}; peak "
+        f"device memory {c5p_peak / 2**30:.2f} GiB; time to bind p50 <= "
+        f"{c5p.ttb_p50_le_s}s, p99 <= {c5p.ttb_p99_le_s}s; audit passed, "
+        f"assume cache drained, loop errors 0, select_hosts launches "
+        f"{launches['select_hosts']['live-c5-pipelined']}")
+    del c5p
+
+    # -- phase 20: config 5 with 5,000 spread pods, live, pipelined --------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    c5x = run_config5_live(N_NODES, N_PODS, max_wave=C5_WAVE,
+                           n_crosspod=C5X_SPREAD)
+    launches["select_hosts"]["live-c5x"] = live_launches(
+        "live config 5 with spread pods", c5x.waves)
+    c5x_peak = torch.cuda.max_memory_allocated()
+    audited = audit_store(c5x.client, c5x.labelled)
+    apps = audit_spread(c5x.client, C5_MAX_SKEW)
+    lanes = c5x.scan_stats
+    lane_placed = lanes["blocked"].placed + lanes["exact"].placed
+    if (audited["bound"] != N_PODS or c5x.loop_errors or c5x.assumed_left
+            or lane_placed != C5X_SPREAD or not lanes["blocked"].calls):
+        raise AssertionError(f"live config 5 with spread pods: "
+                             f"{audited['bound']} bound, {c5x.loop_errors} "
+                             f"loop errors, {c5x.assumed_left} assumed left, "
+                             f"lanes {lanes}")
+    scan_line = ", ".join(f"{k} {c5x.split[k]:.3f}s" for k in keys)
+    log(f"[live-c5x] {card}: config 5 with {C5X_SPREAD} spread pods live, "
+        f"pipelined, {N_NODES} nodes x {N_PODS} pods ({c5x.waves} waves): "
+        f"first drain {c5x.first_drain_s:.3f}s, tail "
+        f"{c5x.total_s - c5x.first_drain_s:.3f}s, total {c5x.total_s:.3f}s "
+        f"= {N_PODS / c5x.total_s:,.0f} pods/s; lanes: {lanes_line(lanes)}; "
+        f"select_hosts launches at P = 32: {lanes['blocked'].select_hosts}, "
+        f"at P = 1: {lanes['exact'].select_hosts}, all "
+        f"{launches['select_hosts']['live-c5x']}; split: {scan_line}; "
+        f"counters: {counters_line(c5x.counters)}; peak device memory "
+        f"{c5x_peak / 2**30:.2f} GiB; audit and spread audit ({apps} apps, "
+        f"max skew {C5_MAX_SKEW}) passed, every special pod bound through "
+        f"requeue, loop errors 0")
+    del c5x
+
+    # -- phase 21: reduced, serial engine, card against CPU ----------------
+    r21 = (C5X_REDUCED_NODES, 18_000, 1_000)
+    for attempt in range(1, 4):
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        d_card = run_crosspod_drain(*r21, max_wave=4_096)
+        card_s = time.monotonic() - t0
+        launches["select_hosts"]["live-reduced"] = live_launches(
+            "reduced live, card", d_card.waves)
+        t0 = time.monotonic()
+        d_cpu = run_crosspod_drain(*r21, max_wave=4_096, device="cpu")
+        cpu_s = time.monotonic() - t0
+        if d_card.loop_errors or d_cpu.loop_errors:
+            raise AssertionError(f"reduced live: loop errors card "
+                                 f"{d_card.loop_errors}, CPU "
+                                 f"{d_cpu.loop_errors}")
+        bad = [k for k, v in d_card.placements.items()
+               if d_cpu.placements.get(k) != v]
+        shape = [(d.waves, {k: (v.calls, v.steps, v.rounds)
+                            for k, v in d.scan_stats.items()})
+                 for d in (d_card, d_cpu)]
+        if not bad:
+            log(f"[live-reduced] attempt {attempt}: every binding equal")
+            break
+        if shape[0] == shape[1]:
+            raise AssertionError(f"reduced live: {len(bad)} bindings differ "
+                                 f"card vs CPU on equal waves and lane calls, "
+                                 f"first {bad[:3]}")
+        log(f"[live-reduced] attempt {attempt}: {len(bad)} bindings differ; "
+            f"cause: a timing race (waves and lane calls card {shape[0]}, "
+            f"CPU {shape[1]})")
+    else:
+        raise AssertionError("reduced live: card and CPU differ in 3 attempts")
+    n_bound = sum(1 for v in d_card.placements.values() if v)
+    lanes = d_card.scan_stats
+    if lanes["exact"].placed < 1 or lanes["blocked"].rounds < 2:
+        raise AssertionError(f"reduced live: lanes {lanes}: the lone pod "
+                             f"skipped the exact scan or no blocked retry")
+    kernels.reset_launch_counts()
+    d_pipe = run_crosspod_drain(*r21, max_wave=4_096, pipeline=True)
+    launches["select_hosts"]["live-reduced-pipelined"] = live_launches(
+        "reduced live, pipelined", d_pipe.waves)
+    audit_store(d_pipe.client)
+    apps = audit_spread(d_pipe.client, C5_MAX_SKEW)
+    if d_pipe.loop_errors or not d_pipe.placements["lone"]:
+        raise AssertionError(f"reduced live, pipelined: {d_pipe.loop_errors} "
+                             f"loop errors, lone pod on "
+                             f"{d_pipe.placements['lone']!r}")
+    log(f"[live-reduced] {C5X_REDUCED_NODES:,} nodes x {r21[1]:,} pods with "
+        f"{r21[2]:,} spread pods, serial engine, to the first drain and a "
+        f"lone spread pod: card and CPU twins bind alike ({n_bound} bound, "
+        f"every binding equal; {d_card.waves} waves; lanes: "
+        f"{lanes_line(lanes)}); {card_s:.2f}s on the card, {cpu_s:.2f}s on "
+        f"the CPU; pipelined on the card: {d_pipe.wall_s:.2f}s, "
+        f"{d_pipe.waves} waves, audits passed ({apps} apps), lone pod bound")
+    del d_card, d_cpu, d_pipe
 
     report = []
     replaces = {

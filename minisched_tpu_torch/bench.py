@@ -17,11 +17,15 @@ One role for each ``bench.py`` role the port can run (``ROLES``):
 ``c4``                  ``bench_config4`` (``:294``): the affinity and
                         spread wave
 ``c5``                  config 5 (``:469-640``) through the live engine
-                        (``live.run_config5_live``): first drain, the
-                        label update that requeues the parked pods,
-                        requeue tail, total, the engine's
-                        ``CycleMetrics`` split and the audit from the
-                        store
+                        (``live.run_config5_live``, pipelined as the JAX
+                        engine runs by default): first drain, the label
+                        update that requeues the parked pods, requeue
+                        tail, total, the engine's ``CycleMetrics`` split
+                        and the audit from the store
+``c5x_live``            config 5 with 5,000 spread pods through the live
+                        engine (``BENCH_C5_CROSSPOD=5000``): the spread
+                        pods deferred into the backlog and placed by the
+                        scan lanes, with the spread audit
 ``c5_waves``            config 5 in full-roster repair waves through the
                         one-shot wave driver, with config 5's audit
 ``fullchain_parity``    ``bench_fullchain_parity`` (``:810``): the exact
@@ -63,7 +67,7 @@ import numpy as np
 import torch
 
 ROLES = ("headline", "c2", "c3", "c4", "c5", "c5_waves", "fullchain_parity",
-         "c5x", "gang")
+         "c5x", "gang", "c5x_live")
 
 GIB = 2**30
 
@@ -236,37 +240,57 @@ def role_c4() -> Dict[str, Any]:
             "peak_mem_gib": _peak_gib()}
 
 
-def role_c5() -> Dict[str, Any]:
+def _live_record(n_crosspod: int) -> Dict[str, Any]:
+    """Config 5 with ``n_crosspod`` spread pods through the pipelined
+    live engine: ``bench.py``'s ``config5_full_chain`` record."""
     from minisched_tpu_torch.headline import make_step
-    from minisched_tpu_torch.live import SPLIT, audit_store, run_config5_live
+    from minisched_tpu_torch.live import (
+        SPLIT,
+        SPLIT_MORE,
+        audit_spread,
+        audit_store,
+        run_config5_live,
+    )
     from minisched_tpu_torch.profile_repair import profile_repair
     from minisched_tpu_torch.service.config import default_full_roster_config
 
     _peak_reset()
-    run = run_config5_live()
+    run = run_config5_live(n_crosspod=n_crosspod)
     peak = _peak_gib()
     audited = audit_store(run.client, run.labelled)
+    apps = audit_spread(run.client) if n_crosspod else 0
     if run.loop_errors or run.assumed_left:
-        raise AssertionError(f"c5: {run.loop_errors} loop errors, "
-                             f"{run.assumed_left} assumed left")
+        raise AssertionError(f"live config 5: {run.loop_errors} loop "
+                             f"errors, {run.assumed_left} assumed left")
     n_pods = len(run.pods)
     wave = run.pods[:16_384]
     device_ms = profile_repair(make_step("repair", default_full_roster_config()),
                                run.nodes, [wave], torch.device("cuda"),
                                reps=0)["device_ms_per_round"]
     return {"pods_per_sec_e2e": n_pods / run.total_s, "waves": run.waves,
-            "requeued": len(run.labelled),
+            "requeued": len(run.labelled), "crosspod_pods": n_crosspod,
+            "pipelined": run.pipelined,
             "first_drain_s": run.first_drain_s,
             "requeue_tail_s": run.total_s - run.first_drain_s,
             "requeue_label_loop_s": run.label_loop_s,
             "requeue_bound_wait_s": run.bound_wait_s,
             "total_s": run.total_s, "setup_s": run.setup_s,
             "service_start_s": run.start_s,
-            "split_s": {k: run.split[k] for k in SPLIT},
+            "split_s": {k: run.split[k] for k in SPLIT + SPLIT_MORE},
+            "counters": run.counters,
+            "scan_lanes": {k: vars(v) for k, v in run.scan_stats.items()},
             "time_to_bind_p50_le_s": run.ttb_p50_le_s,
             "time_to_bind_p99_le_s": run.ttb_p99_le_s,
-            "bound": audited["bound"], "device_ms_per_round": device_ms,
-            "peak_mem_gib": peak}
+            "bound": audited["bound"], "spread_apps_audited": apps,
+            "device_ms_per_round": device_ms, "peak_mem_gib": peak}
+
+
+def role_c5() -> Dict[str, Any]:
+    return _live_record(0)
+
+
+def role_c5x_live() -> Dict[str, Any]:
+    return _live_record(5_000)
 
 
 def role_c5_waves() -> Dict[str, Any]:

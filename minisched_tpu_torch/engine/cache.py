@@ -1,10 +1,13 @@
 """Incremental scheduler cache: NodeInfos maintained by informer events.
 
-A copy of ``minisched_tpu/engine/cache.py`` (``:27-309``) without the
-incremental-build feed (the dirty node-set, the mutation epoch,
-``snapshot_for_tables`` and ``capacity_view``), which belongs to the
-cached node-table builder and the pipeline (ROADMAP item 10d): the port's
-wave packs its node table from ``snapshot_with_assigned`` every wave.
+A copy of ``minisched_tpu/engine/cache.py`` (``:27-309``), with the feed
+of the cached node-table builder (``models/tables.CachedNodeTableBuilder``)
+and the pipeline: the dirty node-set, drained atomically with a snapshot
+by ``snapshot_for_tables``; the mutation ``epoch``; and ``capacity_view``,
+the pipelined wave's re-arbitration base.  One deliberate difference: a
+Node update through the batch path bumps the epoch here as it does
+through ``update_node`` (the JAX ``_node_batch`` does not, so an idle
+wave there could reuse tables built before a node's labels changed).
 
 The upstream scheduler keeps a ``cache.Cache`` of NodeInfos updated by
 informer events so each cycle's snapshot is O(changes), not O(cluster);
@@ -25,8 +28,9 @@ is O(nodes), not O(pods).
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Set, Tuple
 
+from minisched_tpu_torch.api.objects import MIB
 from minisched_tpu_torch.framework.nodeinfo import NodeInfo
 
 
@@ -39,6 +43,15 @@ class SchedulerCache:
         #: tolerance: a pod bound to a node whose ADD arrives later)
         self._orphans: Dict[str, Any] = {}
         self._sorted: Optional[List[NodeInfo]] = None
+        # names of nodes whose assigned-pod aggregates changed since the
+        # last drain; None = everything (first drain, or node membership
+        # changed and row indices shifted).  Drained only by
+        # snapshot_for_tables (the wave path); plain snapshots leave it
+        self._dirty: Optional[Set[str]] = None
+        # bumped on every mutation that can change what a node-table build
+        # produces; an equal epoch (with the same assume-delta) lets the
+        # builder reuse its last tables.  Orphan staging does not bump.
+        self._epoch = 0
 
     # -- node events -------------------------------------------------------
     def _create_node(self, node: Any) -> None:
@@ -49,6 +62,8 @@ class SchedulerCache:
         ni = NodeInfo(node)
         self._nodes[node.metadata.name] = ni
         self._sorted = None
+        self._dirty = None  # membership changed: row indices shifted
+        self._epoch += 1
         for uid, pod in list(self._orphans.items()):
             if pod.spec.node_name == node.metadata.name:
                 del self._orphans[uid]
@@ -62,12 +77,14 @@ class SchedulerCache:
                 self._create_node(node)
             else:
                 ni.node = node
+                self._epoch += 1
 
     def update_node(self, old: Any, new: Any) -> None:
         with self._mu:
             ni = self._nodes.get(new.metadata.name)
             if ni is not None:
                 ni.node = new
+                self._epoch += 1
             else:  # update for a node we never saw: treat as add
                 self._create_node(new)
 
@@ -78,6 +95,8 @@ class SchedulerCache:
     def _delete_node_locked(self, node: Any) -> None:
         ni = self._nodes.pop(node.metadata.name, None)
         self._sorted = None
+        self._dirty = None  # membership changed: row indices shifted
+        self._epoch += 1
         if ni is not None:
             # the pods are still bound in the cluster view and will
             # emit no further events — re-orphan them so a node
@@ -106,9 +125,15 @@ class SchedulerCache:
             if ni is not None:
                 ni.remove_pod(new)
                 ni.add_pod(new)
+                self._mark_dirty(prev)
             return
         self._remove(new)
         self._place(new)
+
+    def _mark_dirty(self, name: str) -> None:
+        self._epoch += 1  # every caller just changed a node's aggregates
+        if self._dirty is not None:
+            self._dirty.add(name)
 
     def delete_pod(self, pod: Any) -> None:
         with self._mu:
@@ -124,6 +149,7 @@ class SchedulerCache:
             return
         ni.add_pod(pod)
         self._pod_node[uid] = pod.spec.node_name
+        self._mark_dirty(pod.spec.node_name)
 
     def _remove(self, pod: Any) -> None:
         uid = pod.metadata.uid
@@ -133,6 +159,7 @@ class SchedulerCache:
             ni = self._nodes.get(name)
             if ni is not None:
                 ni.remove_pod(pod)
+                self._mark_dirty(name)
 
     # -- reads -------------------------------------------------------------
     def snapshot(self) -> List[NodeInfo]:
@@ -151,6 +178,60 @@ class SchedulerCache:
                     self._nodes.values(), key=lambda ni: ni.name
                 )
             return [ni.clone() for ni in self._sorted], set(self._pod_node)
+
+    def snapshot_for_tables(self):
+        """(snapshot, assigned-pod uids, dirty node names, epoch) from ONE
+        locked read: the wave table builder's entry point.  ``dirty`` is
+        the set of nodes whose aggregates changed since the previous drain
+        (None: rebuild everything); draining it with the snapshot is what
+        keeps the builder's incremental aggregate base exact.  ``epoch``
+        is the mutation counter at the snapshot: an equal epoch later
+        means a byte-identical snapshot."""
+        with self._mu:
+            if self._sorted is None:
+                self._sorted = sorted(
+                    self._nodes.values(), key=lambda ni: ni.name
+                )
+            dirty = self._dirty
+            self._dirty = set()
+            return (
+                [ni.clone() for ni in self._sorted],
+                set(self._pod_node),
+                dirty,
+                self._epoch,
+            )
+
+    @property
+    def epoch(self) -> int:
+        """The mutation counter (see ``snapshot_for_tables``)."""
+        with self._mu:
+            return self._epoch
+
+    def capacity_view(
+        self, names: Any
+    ) -> Tuple[Dict[str, List[int]], Dict[str, Set[str]]]:
+        """({name: [free milli-CPU, free memory MiB, free ephemeral MiB,
+        free pod slots]}, {name: uids of the pods the cache counts there})
+        for the given nodes, from the live NodeInfos under one lock hold:
+        the pipelined wave's re-arbitration base.  The uid sets let the
+        caller fold its assume cache without subtracting a pod whose bind
+        event already landed.  MiB-floored as the table builders."""
+        free: Dict[str, List[int]] = {}
+        counted: Dict[str, Set[str]] = {}
+        with self._mu:
+            for name in names:
+                ni = self._nodes.get(name)
+                if ni is None:
+                    continue
+                alloc = ni.node.status.allocatable
+                free[name] = [
+                    alloc.milli_cpu - ni.requested.milli_cpu,
+                    alloc.memory // MIB - ni.req_mem_mib,
+                    alloc.ephemeral_storage // MIB - ni.req_eph_mib,
+                    alloc.pods - len(ni.pods),
+                ]
+                counted[name] = {p.metadata.uid for p in ni.pods}
+        return free, counted
 
     # -- batch ingestion (informer on_batch fast path) ---------------------
     def _pod_batch(self, events: List[Any]) -> None:
@@ -193,6 +274,7 @@ class SchedulerCache:
                         self._create_node(node)
                     else:
                         ni.node = node
+                        self._epoch += 1
                 except Exception:
                     import traceback
 

@@ -132,6 +132,7 @@ class Scheduler:
         #: exceptions the run loop caught and survived, and the last one
         self.loop_errors = 0
         self.last_loop_error: Optional[BaseException] = None
+        self._loop_error_lock = threading.Lock()
 
         # engine-specific handlers that must register before the cache's
         # (the device engine's indexes: the assume cache is pruned against
@@ -192,9 +193,15 @@ class Scheduler:
                     self.queue.flush_unschedulable_leftover()
                 self.schedule_one()
             except Exception as err:  # the loop must survive anything
-                self.loop_errors += 1
-                self.last_loop_error = err
-                traceback.print_exc()
+                self.note_loop_error(err)
+
+    def note_loop_error(self, err: BaseException) -> None:
+        """Count an exception a loop survived (the run loop, or the device
+        engine's build worker) and print its traceback."""
+        with self._loop_error_lock:
+            self.loop_errors += 1
+            self.last_loop_error = err
+        traceback.print_exc()
 
     def schedule_one(self, timeout: Optional[float] = 0.5) -> bool:
         raise NotImplementedError(

@@ -71,6 +71,7 @@ from minisched_tpu_torch.api.objects import (
     make_node,
     make_pod,
 )
+from minisched_tpu_torch.engine.device_scheduler import DeviceScheduler
 from minisched_tpu_torch.engine.gang import PlacedGangs
 from minisched_tpu_torch.engine.scan_groups import (
     interaction_sets,
@@ -108,11 +109,13 @@ WAVE = 16_384  # pods per wave of the config-5 run
 C5_REQUESTS = {"cpu": "500m", "memory": "256Mi"}
 C5_MAX_SKEW = 4  # max_skew of config 5's spread pods (``bench.py``)
 
-# the live engine's lane constants (engine/device_scheduler.py)
-SCAN_MAX_CHUNK = 1024  # pods per exact-scan chunk
-SCAN_BLOCK_SIZE = 32  # pods per block of the blocked lane
-SCAN_BLOCK_RETRIES = 3  # blocked attempts before the exact scan
-BLOCKED_MAX_CHUNK = 8192  # rows per blocked call
+# the live engine's lane constants
+SCAN_MAX_CHUNK = DeviceScheduler.SCAN_MAX_CHUNK  # pods per exact-scan chunk
+SCAN_BLOCK_SIZE = DeviceScheduler.SCAN_BLOCK_SIZE  # pods per block
+SCAN_BLOCK_RETRIES = DeviceScheduler.SCAN_BLOCK_RETRIES  # blocked attempts
+BLOCKED_MAX_CHUNK = DeviceScheduler.BLOCKED_MAX_CHUNK  # rows per blocked call
+#: the blocked lane's capacity tiers: 128, 1,024, 8,192 rows
+_blocked_cap = DeviceScheduler._blocked_cap
 
 
 def c3_roster_config() -> SchedulerConfig:
@@ -157,19 +160,23 @@ def mk_c5_cluster(n_nodes: int = 10_000, n_pods: int = 100_000,
     n_special = max(n_pods // 50, 1)
     pods = [make_pod(f"pod{i:06d}", requests=C5_REQUESTS)
             for i in range(n_pods - n_special - n_crosspod)]
-    for i in range(n_crosspod):
-        app = f"app{i % 32}"
-        pod = make_pod(f"spread{i:05d}", requests=C5_REQUESTS,
-                       labels={"app": app})
-        pod.spec.topology_spread_constraints = [TopologySpreadConstraint(
-            max_skew=C5_MAX_SKEW, topology_key="zone",
-            when_unsatisfiable="DoNotSchedule",
-            label_selector=LabelSelector(match_labels={"app": app}))]
-        pods.append(pod)
+    pods += [c5_spread_pod(f"spread{i:05d}", f"app{i % 32}")
+             for i in range(n_crosspod)]
     pods += [make_pod(f"special{i:05d}", requests=C5_REQUESTS,
                       node_selector={"special": "true"})
              for i in range(n_special)]
     return nodes, pods
+
+
+def c5_spread_pod(name: str, app: str) -> Any:
+    """A spread pod of config 5: 500m and 256 Mi, labelled ``app``, with a
+    DoNotSchedule zone spread of max skew 4 over its app."""
+    pod = make_pod(name, requests=C5_REQUESTS, labels={"app": app})
+    pod.spec.topology_spread_constraints = [TopologySpreadConstraint(
+        max_skew=C5_MAX_SKEW, topology_key="zone",
+        when_unsatisfiable="DoNotSchedule",
+        label_selector=LabelSelector(match_labels={"app": app}))]
+    return pod
 
 
 def _c5_nodes(n_nodes: int, sliced: bool = False) -> List[Any]:
@@ -555,14 +562,6 @@ def schedule_scan(nodes: Sequence[Any], pods: Sequence[Any],
         constraint_build_s=feed.build_s if feed else 0.0,
         chunks=-(-len(pods) // SCAN_MAX_CHUNK), log=log,
         gang_views=gangs.views if gangs else [])
-
-
-def _blocked_cap(n: int) -> int:
-    """The blocked lane's capacity tiers (the live engine's): 128, 1,024,
-    8,192 rows."""
-    if n <= 128:
-        return 128
-    return SCAN_MAX_CHUNK if n <= SCAN_MAX_CHUNK else BLOCKED_MAX_CHUNK
 
 
 def schedule_crosspod(nodes: Sequence[Any], pods: Sequence[Any],

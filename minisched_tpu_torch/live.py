@@ -14,6 +14,12 @@ then 2,000 schedulable nodes (``random.Random(55)``, as ``bench.py``
 draws them) get the label ``special=true`` and the Node label updates
 requeue the parked pods until all 100,000 are bound.
 
+With ``n_crosspod`` spread pods (``bench.py`` with ``BENCH_C5_CROSSPOD``)
+the engine defers them into its backlog and places them through the scan
+lanes; ``audit_spread`` is ``bench.py``'s spread audit (``:655-688``).
+``pipeline`` picks the engine's loop: the pipelined default, or the
+serial loop whose first drain ``schedule_repair_waves`` reproduces.
+
 ``run_gang_live`` drives ``fullchain.mk_c5_gang_cluster`` (gangs of 8,
 a quarter with 4 members already bound) with ``gang_roster_config``:
 Coscheduling admits each gang all or nothing at Permit.
@@ -30,8 +36,13 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from minisched_tpu_torch.api.objects import gang_key
 from minisched_tpu_torch.controlplane.client import Client
-from minisched_tpu_torch.fullchain import mk_c5_cluster, mk_c5_gang_cluster
-from minisched_tpu_torch.observability import hist
+from minisched_tpu_torch.fullchain import (
+    C5_MAX_SKEW,
+    c5_spread_pod,
+    mk_c5_cluster,
+    mk_c5_gang_cluster,
+)
+from minisched_tpu_torch.observability import counters, hist
 from minisched_tpu_torch.observability.profiling import CycleMetrics
 from minisched_tpu_torch.service.config import (
     default_full_roster_config,
@@ -43,6 +54,15 @@ from minisched_tpu_torch.service.service import SchedulerService
 SPLIT = ("loop_pop", "wave", "wave_snapshot", "wave_build_tables",
          "wave_build_constraints", "wave_device", "wave_winners", "bind",
          "loop_gc")
+#: the pipeline's and the scan lanes' phases, reported beside ``SPLIT``
+#: (``wave_place``: the pipelined wave's tables copied to the card;
+#: ``wave_pipeline_build``: the worker's whole build of a wave)
+SPLIT_MORE = ("wave_place", "wave_pipeline_stall", "wave_pipeline_build",
+              "scan_flush", "scan_grouping", "scan_build", "scan_evaluate")
+#: the engine's counters a live run reports
+COUNTERS = ("wave_pipeline.waves", "wave_pipeline.rearb_requeued",
+            "wave_pipeline.build_fallback", "wave_build.skipped",
+            "wave_build.full", "wave_build.dirty_rows")
 #: assume-lease TTL of the live runs: at quiesce the last wave's
 #: assumptions drain when their leases run out (``bench.py`` ``bench_gang``
 #: sets the same)
@@ -81,9 +101,11 @@ class BindCounter:
 
 
 def split(metrics: CycleMetrics) -> Dict[str, float]:
-    """Seconds in each of ``SPLIT``'s engine phases."""
+    """Seconds in each of the engine phases of ``SPLIT`` and
+    ``SPLIT_MORE``."""
     snap = metrics.snapshot()
-    return {name: snap.get(name, {}).get("total_s", 0.0) for name in SPLIT}
+    return {name: snap.get(name, {}).get("total_s", 0.0)
+            for name in SPLIT + SPLIT_MORE}
 
 
 def label_sample(n_nodes: int, n_special: int,
@@ -119,13 +141,20 @@ class LiveRun:
     #: ``sched.time_to_bind_s`` bucket upper bounds, seconds
     ttb_p50_le_s: Optional[float] = None
     ttb_p99_le_s: Optional[float] = None
+    #: the engine's ``scan_stats`` (the exact and blocked lanes) and its
+    #: ``COUNTERS`` over the run
+    scan_stats: Dict[str, Any] = field(default_factory=dict)
+    counters: Dict[str, int] = field(default_factory=dict)
+    pipelined: bool = True
 
 
 def run_config5_live(n_nodes: int = 10_000, n_pods: int = 100_000,
                      max_wave: int = 16_384, device: Any = None,
-                     timeout_s: float = 900.0) -> LiveRun:
-    """Config 5 through the live engine, park and requeue included."""
-    nodes, pods = mk_c5_cluster(n_nodes, n_pods)
+                     timeout_s: float = 900.0, n_crosspod: int = 0,
+                     pipeline: bool = True) -> LiveRun:
+    """Config 5 (with ``n_crosspod`` spread pods) through the live engine,
+    park and requeue included; ``pipeline=False`` runs the serial loop."""
+    nodes, pods = mk_c5_cluster(n_nodes, n_pods, n_crosspod=n_crosspod)
     n_special = sum(p.metadata.name.startswith("special") for p in pods)
     client = Client()
     t0 = time.monotonic()
@@ -134,13 +163,15 @@ def run_config5_live(n_nodes: int = 10_000, n_pods: int = 100_000,
     stored = client.pods().list()
     setup_s = time.monotonic() - t0
     hist.reset()
+    counters.reset()
     svc = SchedulerService(client)
     metrics, bound = CycleMetrics(), BindCounter()
     t0 = time.monotonic()
     sched = svc.start_scheduler(default_full_roster_config(),
                                 device_mode=True, max_wave=max_wave,
                                 on_decision=bound, metrics=metrics,
-                                device=device)
+                                device=device, prewarm_scan=n_crosspod > 0,
+                                pipeline=pipeline)
     sched.assume_ttl_s = QUIESCE_TTL_S
     t_loop = time.monotonic()
     try:
@@ -177,7 +208,10 @@ def run_config5_live(n_nodes: int = 10_000, n_pods: int = 100_000,
                    first_drain_s, label_loop_s, bound_wait_s, total_s,
                    int(waves), phases, sched.loop_errors,
                    sched.assumed_count(), labelled,
-                   p50[1] if p50 else None, p99[1] if p99 else None)
+                   p50[1] if p50 else None, p99[1] if p99 else None,
+                   dict(sched.scan_stats),
+                   {name: counters.get(name) for name in COUNTERS},
+                   sched.pipeline_enabled)
 
 
 def audit_store(client: Client,
@@ -212,6 +246,85 @@ def audit_store(client: Client,
         raise AssertionError(f"audit: special pods off the labelled nodes: "
                              f"{misplaced[:5]}")
     return {"bound": sum(cnt.values()), "nodes": len(nodes)}
+
+
+@dataclass
+class DrainRun:
+    client: Client
+    #: pod name → node for every pod ('' = parked), the lone pod included
+    placements: Dict[str, str]
+    waves: int
+    wall_s: float
+    loop_errors: int
+    scan_stats: Dict[str, Any]
+    pipelined: bool
+
+
+def run_crosspod_drain(n_nodes: int, n_pods: int, n_crosspod: int,
+                       max_wave: int = 4_096, device: Any = None,
+                       pipeline: bool = False,
+                       timeout_s: float = 900.0) -> DrainRun:
+    """Config 5 with ``n_crosspod`` spread pods through the live engine to
+    the end of its first drain (the ``special*`` pods parked, no label
+    update), then one more spread pod, ``lone``, created alone, so its
+    flush takes the exact scan.  On the serial engine every binding
+    follows from the store order: two runs on two devices bind alike."""
+    nodes, pods = mk_c5_cluster(n_nodes, n_pods, n_crosspod=n_crosspod)
+    n_special = sum(p.metadata.name.startswith("special") for p in pods)
+    client = Client()
+    client.nodes().create_many(nodes, return_objects=False)
+    client.pods().create_many(pods, return_objects=False)
+    svc = SchedulerService(client)
+    metrics, bound = CycleMetrics(), BindCounter()
+    t0 = time.monotonic()
+    sched = svc.start_scheduler(default_full_roster_config(),
+                                device_mode=True, max_wave=max_wave,
+                                on_decision=bound, metrics=metrics,
+                                device=device, pipeline=pipeline)
+    sched.assume_ttl_s = QUIESCE_TTL_S
+    try:
+        wait_until(lambda: bound.count() >= n_pods - n_special
+                   and sched.queue.stats()["unschedulable"] == n_special,
+                   timeout_s, f"{n_pods - n_special} bound", sched)
+        client.pods().create(c5_spread_pod("lone", "app0"))
+        wait_until(lambda: bound.count() > n_pods - n_special, timeout_s,
+                   "the lone spread pod bound", sched)
+        wall_s = time.monotonic() - t0
+        waves = metrics.snapshot().get("wave", {}).get("count", 0)
+    finally:
+        svc.close()
+    return DrainRun(client, {p.metadata.name: p.spec.node_name
+                             for p in client.pods().list()},
+                    int(waves), wall_s, sched.loop_errors,
+                    dict(sched.scan_stats), sched.pipeline_enabled)
+
+
+def audit_spread(client: Client, max_skew: int = C5_MAX_SKEW,
+                 prefix: str = "spread") -> int:
+    """``bench.py``'s spread audit from the store's final state: per app
+    of the ``prefix*`` pods, the pods in each zone that has a schedulable
+    node differ by at most ``max_skew`` (a cordoned-only zone stays at
+    0).  Returns the apps audited."""
+    zone_of, eligible = {}, set()
+    for n in client.nodes().list():
+        zone = n.metadata.labels.get("zone")
+        zone_of[n.metadata.name] = zone
+        if zone and not n.spec.unschedulable:
+            eligible.add(zone)
+    per_app: Dict[str, Dict[str, int]] = defaultdict(lambda: defaultdict(int))
+    for p in client.pods().list():
+        if p.metadata.name.startswith(prefix):
+            per_app[p.metadata.labels.get("app")][
+                zone_of.get(p.spec.node_name)] += 1
+    zones = sorted(eligible)
+    bad = [(app, [by_zone.get(z, 0) for z in zones])
+           for app, by_zone in per_app.items()
+           if max(by_zone.get(z, 0) for z in zones)
+           - min(by_zone.get(z, 0) for z in zones) > max_skew]
+    if bad:
+        raise AssertionError(f"spread audit: skew above {max_skew}: "
+                             f"{bad[:3]}")
+    return len(per_app)
 
 
 @dataclass

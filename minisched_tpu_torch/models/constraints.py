@@ -726,14 +726,20 @@ def _volume_columns(pending_pods, nodes, assigned, node_idx, P: int, N: int,
     )
 
 
+def pack_constraint_tables(cols: Dict[str, Any]) -> HostTable:
+    """The host half of ``constraint_tables_from_numpy``: the columns in
+    one flat buffer, ``in_use`` read from them (host work only)."""
+    cols = {name: np.asarray(cols[name]) for name in _COLUMNS}
+    host = HostTable.pack(ConstraintTables, cols)
+    host.host_fields["in_use"] = constraint_use(cols)
+    return host
+
+
 def constraint_tables_from_numpy(cols: Dict[str, Any],
                                  device) -> ConstraintTables:
     """ConstraintTables on ``device`` from numpy columns (the port's own,
     or a JAX table's ``np.asarray`` per field): one host→device copy."""
-    device = resolve_device(device)
-    cols = {name: np.asarray(cols[name]) for name in _COLUMNS}
-    tables = HostTable.pack(ConstraintTables, cols).to_device(device)
-    return replace(tables, in_use=constraint_use(cols))
+    return pack_constraint_tables(cols).to_device(resolve_device(device))
 
 
 def build_constraint_tables(

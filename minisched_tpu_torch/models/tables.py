@@ -18,6 +18,7 @@ table's.  Two deliberate differences:
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass, fields, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -32,6 +33,7 @@ from minisched_tpu_torch.api.objects import (
     ResourceList,
     gang_key,
 )
+from minisched_tpu_torch.observability import counters
 from minisched_tpu_torch.utils.hashing import (
     fnv1a32,
     name_suffix_batch,
@@ -286,6 +288,11 @@ class HostTable:
     def to_device(self, device) -> Any:
         """One host→device copy of the flat buffer (pinned and
         non-blocking on a card), then a split into column views."""
+        return self.cls(**self.columns_on(device), **self.host_fields)
+
+    def columns_on(self, device) -> Dict[str, torch.Tensor]:
+        """The columns on ``device`` by name: what ``to_device`` builds
+        its table from."""
         device = torch.device(device)
         flat = torch.from_numpy(self.flat)
         if device.type == "cuda":
@@ -302,7 +309,7 @@ class HostTable:
         for name, kind, shape in self.zero_metas:
             dtype = torch.bool if kind == "bool" else torch.int32
             cols[name] = torch.zeros(shape, dtype=dtype, device=device)
-        return self.cls(**cols, **self.host_fields)
+        return cols
 
 
 def tables_from_numpy(node_cols: Dict[str, Any], pod_cols: Dict[str, Any],
@@ -501,6 +508,353 @@ def build_node_table(
     device = resolve_device(device)
     host, names = pack_node_table(nodes, pods_by_node, capacity, prof_capacity)
     return host.to_device(device), names
+
+
+# ---------------------------------------------------------------------------
+# The cached node-table builder (the live engine's waves and scan lanes)
+# ---------------------------------------------------------------------------
+
+#: NodeTable columns of the assigned-pod aggregates, re-filled per build
+#: from NodeInfo's incremental sums; every other column comes from the
+#: Node object and is cached across builds
+NODE_AGG_COLS = (
+    "req_cpu", "req_mem", "req_eph", "req_pods", "nzreq_cpu", "nzreq_mem",
+    "used_port", "num_used_ports",
+)
+NODE_STATIC_COLS = tuple(f.name for f in fields(NodeTable)
+                         if f.name not in NODE_AGG_COLS)
+
+#: a caller outside the dirty protocol (scan lanes, prewarm, one-shot
+#: builds); distinct from None, which means "rebuild the base fully"
+DIRTY_UNTRACKED = object()
+
+
+def _fill_aggregate_row(t: Dict[str, np.ndarray], i: int, ni: Any) -> None:
+    """The aggregate columns of row ``i`` from a NodeInfo (which keeps
+    them incrementally, ports included)."""
+    t["req_cpu"][i] = ni.requested.milli_cpu
+    t["req_mem"][i] = ni.req_mem_mib
+    t["req_eph"][i] = ni.req_eph_mib
+    t["req_pods"][i] = len(ni.pods)
+    t["nzreq_cpu"][i] = ni.non_zero_requested.milli_cpu
+    t["nzreq_mem"][i] = ni.nzreq_mem_mib
+    ports = ni.used_ports
+    if len(ports) > MAX_PORTS:
+        raise ValueError(f"node {ni.name}: >{MAX_PORTS} used ports")
+    for j, port in enumerate(ports):
+        t["used_port"][i, j] = port
+    t["num_used_ports"][i] = len(ports)
+
+
+def _agg_delta_fp(agg_delta) -> Tuple:
+    """Canonical fingerprint of a per-node assume delta: two builds that
+    fold the same surviving assumptions give identical aggregates."""
+    if not agg_delta:
+        return ()
+    return tuple(sorted((name, tuple(d[:6]), tuple(d[6]))
+                        for name, d in agg_delta.items()))
+
+
+@dataclass(frozen=True)
+class NodeTableHost:
+    """A node table still on the host: the static columns of one static
+    version and the aggregate columns of one build, each packed into one
+    flat buffer (``CachedNodeTableBuilder.build_host``)."""
+
+    static: HostTable
+    static_version: int
+    agg: HostTable
+    names: Tuple[str, ...]
+
+    @property
+    def capacity(self) -> int:
+        return int(self.agg.metas[0][2][0])
+
+
+class CachedNodeTableBuilder:
+    """Per-wave NodeTable builds with the static columns cached: the
+    counterpart of the JAX ``CachedNodeTableBuilder``
+    (``minisched_tpu/models/tables.py:882-1395``) without ``build_packed``
+    and the mesh.
+
+    The static encode (names, labels, taints, images of every node) runs
+    again only when the name-sorted (name, resource_version) signature
+    changes, and then only for the changed rows when the membership is
+    the same (``_patch_rows``).  The aggregate columns live in a
+    persistent host base re-encoded only for the rows a snapshot's
+    drained dirty set names; the wave's assume delta folds into a copy,
+    never the base.  A tracked build whose snapshot provably changes
+    nothing (empty dirty set, same cache epoch, same delta) returns the
+    previous tables (``last_build_skipped``).
+
+    Which thread touches CUDA: ``build_host`` produces host buffers only
+    and may run on any thread (the pipeline's build worker calls it);
+    ``place`` does every host→device copy and keeps the static columns on
+    the card, uploaded again only when a table of another static version
+    is placed.  Only the engine thread calls ``place`` (``build`` is both,
+    for the engine thread's own builds), so no stream or event crosses
+    threads.  Every method serialises on one re-entrant lock: the waves
+    and the scan lanes share one builder."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self._build_lock = threading.RLock()
+        self._sig: Optional[Tuple] = None
+        self._host_static: Dict[str, np.ndarray] = {}
+        self._static_packed: Optional[HostTable] = None
+        self._static_version = 0
+        self._reg: Optional[_ProfileRegistry] = None
+        self._prof_cap_val = 0
+        self._names: Tuple[str, ...] = ()
+        self._name_index: Dict[str, int] = {}
+        self._static_dev: Dict[str, torch.Tensor] = {}
+        self._static_dev_version = -1
+        self._agg_base: Optional[Dict[str, np.ndarray]] = None
+        self._agg_base_names: Tuple[str, ...] = ()
+        self._agg_scratch: Optional[Dict[str, np.ndarray]] = None
+        self._reuse: Optional[NodeTableHost] = None
+        self._reuse_key: Optional[Tuple] = None
+        self._reuse_epoch: Optional[int] = None
+        #: rows the last tracked build re-encoded (a full fill counts every
+        #: node); True when it reused the previous tables wholesale
+        self.last_dirty_rows = 0
+        self.last_build_skipped = False
+
+    # -- static columns ----------------------------------------------------
+    @staticmethod
+    def _static_sig(node_infos: Sequence[Any], cap: int,
+                    prof_capacity: Optional[int]) -> Tuple:
+        return (cap, prof_capacity, tuple(
+            (ni.node.metadata.name, ni.node.metadata.resource_version)
+            for ni in node_infos))
+
+    def _drop_reuse(self) -> None:
+        self._reuse = self._reuse_key = self._reuse_epoch = None
+
+    def _publish_static(self, sig: Tuple) -> None:
+        self._static_packed = HostTable.pack(NodeTable, self._host_static)
+        self._static_version += 1
+        self._sig = sig
+
+    def _ensure_static(self, node_infos: Sequence[Any], cap: int,
+                       prof_capacity: Optional[int]) -> None:
+        sig = self._static_sig(node_infos, cap, prof_capacity)
+        if sig == self._sig:
+            return
+        self._drop_reuse()
+        if self._patch_rows(node_infos, sig):
+            return
+        reg = _ProfileRegistry()
+        pids = [reg.pid_for(ni.node) for ni in node_infos]
+        t = _node_table_skeleton(cap, _prof_cap(reg, prof_capacity))
+        reg.encode_rows(t)
+        for i, ni in enumerate(node_infos):
+            _encode_node_static(t, i, ni.node, pids[i])
+        self._host_static = {k: t[k] for k in NODE_STATIC_COLS}
+        self._reg = reg
+        self._prof_cap_val = _prof_cap(reg, prof_capacity)
+        self._names = tuple(ni.name for ni in node_infos)
+        self._name_index = {name: i for i, name in enumerate(self._names)}
+        self._publish_static(sig)
+
+    def _patch_rows(self, node_infos: Sequence[Any], sig: Tuple) -> bool:
+        """Same nodes in the same order at the same capacities, some
+        resource_versions changed: re-encode just those rows.  False (the
+        caller rebuilds fully) on a membership or capacity change, a
+        stepped profile capacity or an encode error."""
+        cap, prof_capacity, rows = sig
+        old = self._sig
+        if (old is None or not self._host_static or old[0] != cap
+                or old[1] != prof_capacity or len(old[2]) != len(rows)
+                or any(a[0] != b[0] for a, b in zip(old[2], rows))):
+            return False
+        changed = [i for i, (a, b) in enumerate(zip(old[2], rows))
+                   if a[1] != b[1]]
+        t = self._host_static
+        try:
+            for i in changed:
+                node = node_infos[i].node
+                pid = self._reg.pid_for(node)
+                if _prof_cap(self._reg, prof_capacity) != self._prof_cap_val:
+                    return False  # the profile planes grew: rebuild
+                # clear the variable-length slots a shorter row leaves
+                t["image_key"][i] = 0
+                t["image_size_mb"][i] = 0
+                _encode_node_static(t, i, node, pid)
+        except ValueError:
+            return False
+        self._reg.encode_rows(t)
+        self._publish_static(sig)
+        return True
+
+    # -- aggregate columns -------------------------------------------------
+    @staticmethod
+    def _fill_aggregates(node_infos: Sequence[Any], cap: int
+                         ) -> Dict[str, np.ndarray]:
+        t = {k: (np.zeros((cap, MAX_PORTS), np.int32) if k == "used_port"
+                 else np.zeros(cap, np.int32)) for k in NODE_AGG_COLS}
+        for i, ni in enumerate(node_infos):
+            _fill_aggregate_row(t, i, ni)
+        return t
+
+    def _apply_agg_delta(self, t: Dict[str, np.ndarray], agg_delta) -> None:
+        """Fold the assume cache's per-node delta ``[milli_cpu, mem_mib,
+        eph_mib, pods, nz_milli_cpu, nz_mem_mib, ports]`` into the
+        aggregate columns (NodeInfo.add_pod's quantization)."""
+        for name, d in agg_delta.items():
+            i = self._name_index.get(name)
+            if i is None:
+                continue  # left the roster; the assumption prunes next
+            t["req_cpu"][i] += d[0]
+            t["req_mem"][i] += d[1]
+            t["req_eph"][i] += d[2]
+            t["req_pods"][i] += d[3]
+            t["nzreq_cpu"][i] += d[4]
+            t["nzreq_mem"][i] += d[5]
+            ports = d[6]
+            if ports:
+                n = int(t["num_used_ports"][i])
+                if n + len(ports) > MAX_PORTS:
+                    raise ValueError(f"node {name}: >{MAX_PORTS} used ports")
+                for j, port in enumerate(ports, start=n):
+                    t["used_port"][i, j] = port
+                t["num_used_ports"][i] = n + len(ports)
+
+    def _update_agg_base(self, node_infos: Sequence[Any], cap: int,
+                         dirty) -> Dict[str, np.ndarray]:
+        """Bring the persistent base up to this snapshot; any failure
+        drops it (a half-applied base must not survive)."""
+        names = tuple(ni.name for ni in node_infos)
+        base = self._agg_base
+        self._drop_reuse()
+        try:
+            if (base is None or dirty is None or self._agg_base_names != names
+                    or base["req_cpu"].shape[0] != cap):
+                base = self._agg_base = self._fill_aggregates(node_infos, cap)
+                self._agg_base_names = names
+                self.last_dirty_rows = len(node_infos)
+                counters.inc("wave_build.full")
+                return base
+            n = 0
+            for name in dirty:
+                i = self._name_index.get(name)
+                if i is None:
+                    continue  # a stray name: membership changes come as None
+                base["used_port"][i] = 0
+                _fill_aggregate_row(base, i, node_infos[i])
+                n += 1
+            self.last_dirty_rows = n
+            return base
+        except Exception:
+            self._agg_base = None
+            raise
+
+    def _wave_agg_copy(self, base: Dict[str, np.ndarray], cap: int
+                       ) -> Dict[str, np.ndarray]:
+        """The base copied into a reused scratch buffer; packing copies
+        out of it before the lock is released."""
+        buf = self._agg_scratch
+        if buf is None or buf["req_cpu"].shape[0] != cap:
+            buf = self._agg_scratch = {k: np.empty_like(v)
+                                       for k, v in base.items()}
+        for k, v in base.items():
+            np.copyto(buf[k], v)
+        return buf
+
+    def _try_reuse(self, node_infos, cap, prof_capacity, dirty, agg_delta,
+                   epoch) -> Optional[NodeTableHost]:
+        """The idle-wave gate: the previous tracked build's tables when
+        this snapshot changes nothing.  Untracked builds leave the wave
+        statistics alone (the pipeline reads them after its build)."""
+        if dirty is DIRTY_UNTRACKED:
+            return None
+        self.last_build_skipped = False
+        key = self._reuse_key
+        if (dirty is None or dirty or self._reuse is None
+                or self._agg_base is None or key is None
+                or key != (cap, prof_capacity, _agg_delta_fp(agg_delta))):
+            return None
+        if epoch is not None and self._reuse_epoch is not None:
+            if epoch != self._reuse_epoch:
+                return None
+        elif self._static_sig(node_infos, cap, prof_capacity) != self._sig:
+            return None
+        counters.inc("wave_build.skipped")
+        self.last_dirty_rows = 0
+        self.last_build_skipped = True
+        return self._reuse
+
+    # -- builds ------------------------------------------------------------
+    def node_capacity(self, n: int) -> int:
+        return pad_to(max(n, 1))
+
+    def build_host(self, node_infos: Sequence[Any],
+                   capacity: Optional[int] = None,
+                   prof_capacity: Optional[int] = None, agg_delta=None,
+                   dirty=DIRTY_UNTRACKED, epoch=None
+                   ) -> Tuple[NodeTableHost, List[str]]:
+        """(host tables, node names) for the name-sorted ``node_infos``
+        plus the assume delta ``agg_delta``.  ``dirty``: the snapshot's
+        drained dirty set (``SchedulerCache.snapshot_for_tables``), which
+        makes the build tracked; ``epoch``: the cache epoch of that
+        snapshot.  Host work only."""
+        with self._build_lock:
+            try:
+                n = len(node_infos)
+                cap = capacity or pad_to(n)
+                if n > cap:
+                    raise ValueError(f"{n} nodes exceed table capacity {cap}")
+                reused = self._try_reuse(node_infos, cap, prof_capacity,
+                                         dirty, agg_delta, epoch)
+                if reused is not None:
+                    return reused, list(reused.names)
+                self._ensure_static(node_infos, cap, prof_capacity)
+                if dirty is DIRTY_UNTRACKED:
+                    t = self._fill_aggregates(node_infos, cap)
+                else:
+                    base = self._update_agg_base(node_infos, cap, dirty)
+                    t = self._wave_agg_copy(base, cap)
+                if agg_delta:
+                    self._apply_agg_delta(t, agg_delta)
+                out = NodeTableHost(self._static_packed,
+                                    self._static_version,
+                                    HostTable.pack(NodeTable, t),
+                                    self._names)
+                if dirty is not DIRTY_UNTRACKED:
+                    counters.inc("wave_build.dirty_rows", self.last_dirty_rows)
+                    self._reuse = out
+                    self._reuse_key = (cap, prof_capacity,
+                                       _agg_delta_fp(agg_delta))
+                    self._reuse_epoch = epoch
+                return out, list(out.names)
+            except Exception:
+                # a tracked build consumed its snapshot's dirty set: a
+                # failure before the base holds those rows must not strand
+                # them, so the next tracked build refills fully
+                if dirty is not DIRTY_UNTRACKED:
+                    self._agg_base = None
+                self._drop_reuse()
+                raise
+
+    def place(self, host: NodeTableHost) -> NodeTable:
+        """``host`` on the builder's device: the aggregate columns in one
+        copy; the static columns from the device-resident set, uploaded
+        first when ``host`` is of another static version."""
+        with self._build_lock:
+            if host.static_version != self._static_dev_version:
+                self._static_dev = host.static.columns_on(self.device)
+                self._static_dev_version = host.static_version
+            cols = dict(self._static_dev)
+        cols.update(host.agg.columns_on(self.device))
+        return NodeTable(**cols)
+
+    def build(self, node_infos: Sequence[Any], capacity: Optional[int] = None,
+              prof_capacity: Optional[int] = None, agg_delta=None,
+              dirty=DIRTY_UNTRACKED, epoch=None) -> Tuple[NodeTable, List[str]]:
+        """``build_host`` then ``place``: (NodeTable, node names)."""
+        host, names = self.build_host(node_infos, capacity, prof_capacity,
+                                      agg_delta, dirty, epoch)
+        return self.place(host), names
 
 
 # ---------------------------------------------------------------------------

@@ -7,11 +7,14 @@ and restarts or shuts it all down.
 
 Only the device engine is ported: ``start_scheduler(device_mode=True)``
 runs ``engine/device_scheduler.DeviceScheduler`` on ``device`` (None: the
-card; the tests pass ``"cpu"``).  The scalar engine (``device_mode=False``)
+card; the tests pass ``"cpu"``), pipelined unless ``pipeline=False`` or
+``MINISCHED_PIPELINE=0``.  The scalar engine (``device_mode=False``)
 raises until ROADMAP item 10e; ``record_results``, the mesh and the HA
-shard filter are not ported.  The engine's evaluator and kernels are
-built on the calling thread before the loop starts (``prewarm``): the
-engine thread is the only one that then touches the card.
+shard filter are not ported.  The engine's evaluator and kernels, and
+with ``prewarm_scan`` (the default, as in JAX) both scan lanes with one
+step each, are built on the calling thread before the loop starts
+(``prewarm``): a build or capture failure raises here, and the engine
+thread is the only one that then touches the card.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ class SchedulerService:
         self.recorder = EventRecorder(store=client.store)
         self._max_wave = 1024
         self._device: Any = None
+        self._pipeline: Optional[bool] = None
 
     def start_scheduler(
         self,
@@ -49,6 +53,8 @@ class SchedulerService:
         on_decision=None,
         metrics=None,
         device: Any = None,
+        prewarm_scan: bool = True,
+        pipeline: Optional[bool] = None,
     ) -> DeviceScheduler:
         """Build the engine for ``cfg`` (default: the reference's default
         wiring), start and sync the informers, then the run loop.
@@ -66,7 +72,8 @@ class SchedulerService:
         cfg = (cfg or default_scheduler_config()).clone()
         self._factory = SharedInformerFactory(self._client.store)
         sched = new_device_scheduler(self._client, self._factory, cfg,
-                                     max_wave=max_wave, device=device)
+                                     max_wave=max_wave, device=device,
+                                     pipeline=pipeline)
         self.recorder.eventf(None, "Normal", "SchedulerStarted",
                              "scheduler starting")
         self._factory.start()
@@ -90,12 +97,13 @@ class SchedulerService:
                         "; ".join(status.reasons) or status.code.name)
 
             sched.on_decision = emit
-        sched.prewarm()
+        sched.prewarm(scan=prewarm_scan)
         sched.run()
         self._scheduler = sched
         self._current_cfg = cfg.clone()
         self._max_wave = max_wave
         self._device = device
+        self._pipeline = pipeline
         return sched
 
     def restart_scheduler(self, cfg: Optional[SchedulerConfig] = None
@@ -104,7 +112,8 @@ class SchedulerService:
         return self.start_scheduler(cfg or self._current_cfg,
                                     device_mode=True,
                                     max_wave=self._max_wave,
-                                    device=self._device)
+                                    device=self._device,
+                                    pipeline=self._pipeline)
 
     def shutdown_scheduler(self) -> None:
         if self._scheduler is not None:

@@ -27,6 +27,7 @@ COUNTERPARTS = {
     "fullchain_parity": "bench_fullchain_parity",
     "c5x": "config5_crosspod",
     "gang": "bench_gang",
+    "c5x_live": "BENCH_C5_CROSSPOD",
 }
 
 

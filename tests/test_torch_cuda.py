@@ -657,12 +657,12 @@ def test_readme_scenario_live_on_card(dev):
 
 
 def test_live_reduced_config5_on_card(dev):
-    """Config 5 cut to 2,000 nodes and 20,000 pods through the live
+    """Config 5 cut to 2,000 nodes and 20,000 pods through the serial live
     engine: park, label, requeue, every pod bound; the store audit, no
     loop error, the assume cache drained, every first-drain bind equal to
     the one-shot repair waves on the same waves."""
     kernels.reset_launch_counts()
-    run = live.run_config5_live(2_000, 20_000, max_wave=4_096)
+    run = live.run_config5_live(2_000, 20_000, max_wave=4_096, pipeline=False)
     assert kernels.launch_counts["select_hosts"] >= run.waves
     assert not any(kernels.plain_calls.values())
     assert live.audit_store(run.client, run.labelled)["bound"] == 20_000
@@ -670,3 +670,85 @@ def test_live_reduced_config5_on_card(dev):
     ref = schedule_repair_waves(run.nodes, run.pods, wave=4_096)
     want = [ref.node_names[c] if c >= 0 else "" for c in ref.choices]
     assert [run.first_drain[p.metadata.name] for p in run.pods] == want
+
+
+def test_cached_node_table_builder_on_card_equals_full_pack(dev):
+    """``CachedNodeTableBuilder`` on the card: host builds made on another
+    thread (as the pipeline's worker makes them) and placed on this one,
+    after a full build, dirty-row builds, a build with an assume delta
+    (host ports included) and a reused one, each equal column for column
+    to a full pack of the same state (the assumed pods packed as pods)."""
+    import threading
+
+    from minisched_tpu_torch.framework.nodeinfo import build_node_infos
+
+    nodes = [make_node(f"n{i:03d}", labels={"zone": f"z{i % 4}"})
+             for i in range(300)]
+    infos = build_node_infos(nodes, [])
+    by_name = {ni.name: ni for ni in infos}
+    builder = tables.CachedNodeTableBuilder(dev)
+    assigned = {n.metadata.name: [] for n in nodes}
+
+    def pod(name, node, cpu="500m", ports=()):
+        p = make_pod(name, requests={"cpu": cpu, "memory": "256Mi"})
+        p.metadata.uid = name
+        p.spec.node_name = node
+        if ports:
+            p.spec.containers[0].ports = list(ports)
+        return p
+
+    def check(delta=None, assumed=(), **kw):
+        out = {}
+        worker = threading.Thread(target=lambda: out.update(
+            host=builder.build_host(infos, agg_delta=delta, **kw)))
+        worker.start()
+        worker.join()
+        got = builder.place(out["host"][0])
+        by_node = {k: list(v) for k, v in assigned.items()}
+        for a in assumed:
+            by_node[a.spec.node_name].append(a)
+        want, _ = tables.build_node_table(nodes, by_node, device=dev)
+        torch.cuda.synchronize()
+        for name, col in tables.table_columns(want).items():
+            assert torch.equal(getattr(got, name), col), name
+        return builder.last_build_skipped
+
+    assert not check(dirty=None, epoch=1)
+    for i in range(40):
+        node = f"n{(7 * i) % 300:03d}"
+        p = pod(f"b{i}", node, ports=(8000 + i,) if i % 9 == 0 else ())
+        by_name[node].add_pod(p)
+        assigned[node].append(p)
+    dirty = {f"n{(7 * i) % 300:03d}" for i in range(40)}
+    assert not check(dirty=dirty, epoch=2)
+    extra = [pod(f"a{i}", f"n{(11 * i) % 300:03d}", cpu="1",
+                 ports=(9000 + i,) if i % 5 == 0 else ()) for i in range(30)]
+    delta = {}
+    for a in extra:
+        d = delta.setdefault(a.spec.node_name, [0, 0, 0, 0, 0, 0, []])
+        d[0] += 1000
+        d[1] += 256
+        d[3] += 1
+        d[4] += 1000
+        d[5] += 256
+        d[6].extend(a.spec.containers[0].ports)
+    assert not check(delta=delta, assumed=extra, dirty=set(), epoch=3)
+    assert check(delta=delta, assumed=extra, dirty=set(), epoch=3)
+
+
+def test_pipelined_live_run_on_card(dev):
+    """Config 5 cut to 500 nodes and 5,000 pods with 200 spread pods
+    through the pipelined live engine on the card: every pod bound, the
+    audits pass, no loop error, no CUDA error at the end, the scan lanes
+    and the waves launched ``select_hosts`` and no plain twin ran."""
+    kernels.reset_launch_counts()
+    run = live.run_config5_live(500, 5_000, max_wave=1_024, n_crosspod=200)
+    torch.cuda.synchronize()
+    assert run.pipelined and run.loop_errors == 0 and run.assumed_left == 0
+    assert live.audit_store(run.client, run.labelled)["bound"] == 5_000
+    assert live.audit_spread(run.client) == 32
+    lanes = run.scan_stats
+    assert lanes["blocked"].placed + lanes["exact"].placed == 200
+    assert lanes["blocked"].select_hosts > 0
+    assert kernels.launch_counts["select_hosts"] > run.waves
+    assert not any(kernels.plain_calls.values())

@@ -9,17 +9,19 @@ on the same node on both engines — placements are discrete, so the
 comparison is exact.  Where a case depends on wave compositions, the
 test records them on both engines and asserts them equal first.
 
-Also here: the port's node table for a snapshot with assumed pods against
-the JAX ``CachedNodeTableBuilder``, and the engine's two deliberate raises
-(cross-pod pods: ROADMAP item 10c; a preemption body: item 10e), each
-counted once in ``loop_errors``.  Every wait has a deadline; no test
-asserts a wall time.
+Also here: the port's ``CachedNodeTableBuilder`` against the JAX one on
+the engines' own snapshots with assumed pods, and the engine's deliberate
+raise (a preemption body: item 10e), counted once in ``loop_errors``.
+The cross-pod backlog and the pipeline are held against the JAX engine in
+``test_torch_backlog.py`` and ``test_torch_pipeline.py``.  Every wait has
+a deadline; no test asserts a wall time.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+from dataclasses import fields, replace
 
 import numpy as np
 import pytest
@@ -247,10 +249,27 @@ def test_anti_affinity_bound_between_waves(monkeypatch):
     assert got["lone"] == "n3" and got["web"] != "n3"
 
 
+def frozen(built):
+    """(table, names) with every column copied to the host now: a JAX
+    table on the CPU can alias its builder's scratch buffer, which the
+    next build overwrites."""
+    import torch
+
+    def copy(col):
+        return col.clone() if isinstance(col, torch.Tensor) else np.array(col)
+
+    table, names = built
+    return replace(table, **{f.name: copy(getattr(table, f.name))
+                             for f in fields(table) if f.name != "use"}), names
+
+
 def test_node_table_with_assumed_pods_matches_jax_cached_builder():
-    """A snapshot with bound pods plus assumed ones: the port packs the
-    assumed pods in as pods, the JAX engine adds them as a numeric delta;
-    the node tables are equal column for column."""
+    """A snapshot with bound pods plus assumed ones (some with host
+    ports), taken by each engine: each engine's assume delta through its
+    package's ``CachedNodeTableBuilder``, tracked (the cache's drained
+    dirty set and epoch) as the wave path builds, gives node tables equal
+    column for column; so does a second tracked build after more binds,
+    which re-encodes only the rows they dirtied."""
     from minisched_tpu.controlplane.informer import (
         SharedInformerFactory as JFactory,
     )
@@ -262,6 +281,9 @@ def test_node_table_with_assumed_pods_matches_jax_cached_builder():
     )
     from minisched_tpu_torch.engine.device_scheduler import (
         new_device_scheduler as t_new,
+    )
+    from minisched_tpu_torch.models.tables import (
+        CachedNodeTableBuilder as TBuilder,
     )
 
     tables = {}
@@ -282,9 +304,11 @@ def test_node_table_with_assumed_pods_matches_jax_cached_builder():
             factory = TFactory(client.store)
             sched = t_new(client, factory, config.default_full_roster_config(),
                           device="cpu")
+            builder = TBuilder("cpu")
         else:
             factory = JFactory(client.store)
             sched = j_new(client, factory, config.default_full_roster_config())
+            builder = CachedNodeTableBuilder(device_static=False)
         factory.start()
         try:
             assert factory.wait_for_cache_sync(timeout=30.0)
@@ -293,47 +317,27 @@ def test_node_table_with_assumed_pods_matches_jax_cached_builder():
             for i, p in enumerate(pods[40:60]):
                 sched._assume(client.pods().get(p.metadata.name),
                               nodes[(7 * i) % 20].metadata.name)
-            if side == "port":
-                infos, assumed = sched._snapshot_for_wave()
-                assert len(assumed) == 20
-                tables[side] = sched._node_table(
-                    infos, [ni.node for ni in infos], assumed)
-            else:
-                infos, delta, leftover, _, _ = sched._snapshot_for_tables()
-                assert len(leftover) == 20
-                tables[side] = CachedNodeTableBuilder(
-                    device_static=False).build(infos, agg_delta=delta)
+            infos, delta, leftover, dirty, epoch = sched._snapshot_for_tables()
+            assert len(leftover) == 20 and dirty is None
+            first = frozen(builder.build(infos, agg_delta=delta, dirty=dirty,
+                                         epoch=epoch))
+            targets = [nodes[(5 * i + 1) % 20].metadata.name for i in range(6)]
+            for p, node in zip(pods[60:66], targets):
+                client.pods().bind(objs.Binding(p.metadata.name,
+                                                p.metadata.namespace, node))
+            assert wait_for(lambda: len(sched.cache.snapshot_with_assigned()[1])
+                            == 46)
+            infos, delta, leftover, dirty, epoch = sched._snapshot_for_tables()
+            assert dirty == set(targets)
+            second = frozen(builder.build(infos, agg_delta=delta,
+                                          dirty=dirty, epoch=epoch))
+            tables[side] = (first, second, builder.last_dirty_rows)
         finally:
             factory.shutdown()
-    assert tables["port"][1] == tables["jax"][1]
-    assert_tables_equal(tables["port"][0], tables["jax"][0])
-
-
-def test_cross_pod_pod_raises_item_10c(monkeypatch):
-    """A pod with a spread constraint is parked and its wave raises, once:
-    nothing requeues it while no pod binds.  A plain pod created next
-    still binds (its bind event then requeues the parked pod, whose next
-    wave raises again)."""
-    nodes = [tobj.make_node(f"n{i}", labels={"zone": f"z{i % 2}"})
-             for i in range(4)]
-    spread = tobj.make_pod("spread", labels={"app": "a"})
-    spread.metadata.uid = "pod-spread"
-    spread.spec.topology_spread_constraints = [tobj.TopologySpreadConstraint(
-        max_skew=1, topology_key="zone",
-        label_selector=tobj.LabelSelector(match_labels={"app": "a"}))]
-    with live("port", "default_full_roster_config", monkeypatch, nodes,
-              [spread]) as (client, sched, _):
-        assert wait_for(lambda: sched.loop_errors == 1
-                        and sched.queue.stats()["unschedulable"] == 1)
-        assert isinstance(sched.last_loop_error, NotImplementedError)
-        assert "10c" in str(sched.last_loop_error)
-        time.sleep(0.3)
-        assert sched.loop_errors == 1
-        plain = tobj.make_pod("plain")
-        plain.metadata.uid = "pod-plain"
-        client.pods().create(plain)
-        assert wait_for(lambda: client.pods().get("plain").spec.node_name)
-        assert client.pods().get("spread").spec.node_name == ""
+    for k in (0, 1):
+        assert tables["port"][k][1] == tables["jax"][k][1]
+        assert_tables_equal(tables["port"][k][0], tables["jax"][k][0])
+    assert tables["port"][2] == tables["jax"][2] == 4  # distinct targets
 
 
 def _preemption_run(side, monkeypatch, priority):

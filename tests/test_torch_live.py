@@ -1,11 +1,11 @@
 """The live drivers of ``chip_smoke.py`` phases 17-18 and the ``c5`` bench
 role (``minisched_tpu_torch/live.py``), at a small size on the CPU.
 
-Config 5 cut to 200 nodes and 2,000 pods goes through the live engine
-(``device="cpu"``): park, label, requeue, every pod bound, the store
-audit passing, and every first-drain bind equal to
-``fullchain.schedule_repair_waves`` on the store's pods in the engine's
-pop order — the check phase 17 makes at full width.  The gang cluster cut
+Config 5 cut to 200 nodes and 2,000 pods goes through the serial live
+engine (``device="cpu"``, ``pipeline=False``): park, label, requeue,
+every pod bound, the store audit passing, and every first-drain bind
+equal to ``fullchain.schedule_repair_waves`` on the store's pods in the
+engine's pop order — the check phase 17 makes at full width.  The gang cluster cut
 to 128 nodes and 41 gangs lands every gang whole.  Exact comparisons;
 every wait has a deadline.
 """
@@ -21,7 +21,7 @@ from minisched_tpu_torch.fullchain import schedule_repair_waves
 
 def test_config5_live_matches_the_wave_driver_and_audits():
     run = live.run_config5_live(200, 2_000, max_wave=512, device="cpu",
-                                timeout_s=120.0)
+                                timeout_s=120.0, pipeline=False)
     assert run.loop_errors == 0 and run.assumed_left == 0
     assert live.audit_store(run.client, run.labelled) == {"bound": 2_000,
                                                           "nodes": 200}
@@ -30,7 +30,8 @@ def test_config5_live_matches_the_wave_driver_and_audits():
     want = [ref.node_names[c] if c >= 0 else "" for c in ref.choices]
     assert [run.first_drain[p.metadata.name] for p in run.pods] == want
     assert sum(1 for w in want if not w) == 40  # the special pods park
-    assert set(run.split) == set(live.SPLIT) and run.split["wave_device"] > 0
+    assert set(run.split) == set(live.SPLIT + live.SPLIT_MORE)
+    assert run.split["wave_device"] > 0 and not run.pipelined
     assert run.ttb_p99_le_s is not None
 
 
