@@ -185,6 +185,35 @@ Phases, each of which raises on failure (nothing catches it):
    lane calls is a timing race and is retried, up to 3 attempts, each
    attempt's cause printed; any other mismatch fails.  Then the pipelined
    engine on the card over the same cluster, held to the audits.
+22. Preemption bursts on config 5, chained onto phase 19's run
+   (``run_config5_live(preempt_burst=64)``): once all 100,000 pods are
+   bound, every schedulable node with 4 CPU free is topped up with
+   ``fill*`` pods of config 5's shape at priority 0 (config 5's waves
+   leave nodes unevenly full) and the store is checked to hold no node
+   with 4 CPU free; then 64 ``high*`` pods of 4 CPU and 1 Gi at priority
+   100 arrive at once (the JAX scale test's preemptors), each of which
+   must evict through the wave-loser pass and ``DefaultPreemption``.
+   Checks: all 64 bound; the pods gone from the store are exactly the
+   victims ``last_victims`` reported, each of priority 0; phase 17's
+   audit on the final store; the assume cache drained; no loop error;
+   ``select_hosts`` launched on the card during the burst and no
+   plain-twin call.  Printed: the burst's wall from the first create to
+   the last bind, the fillers, the PostFilter passes and victims,
+   ``losers_handle`` and ``wave_preempt_eligible``, seconds per pass and
+   the launches.  Then a reduced copy (1,024 nodes, 10,000 pods in
+   config 5's proportions, 16 preemptors) on the serial engine, once on
+   the card and once on the CPU twins: every binding, every nomination
+   and every victim set equal; a mismatch whose runs differ in waves or
+   passes is a timing race and is retried, up to 3 attempts, as in
+   phase 21.
+23. A scalar ground truth for the exact scan lane: the first 64 pods of
+   ``fullchain.mk_mixed_cluster`` (every feature of the full roster)
+   through ``schedule_scan`` on the card, every placement equal to the
+   port's own ``schedule_pods_sequentially`` (the scalar halves, the
+   volume filters reading the claims and PVs from a store).  Then the
+   README scenario on the scalar engine
+   (``start_scheduler(device_mode=False)``), which is host only: no
+   kernel launch and no plain-twin call.
 
 Phase 2 also holds ``select_hosts`` against its twin on the repair
 route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
@@ -198,8 +227,9 @@ The launch counters are set to 0 just before each path of the main path
 hostname labels, config 4, the mixed cluster's card run, the exact scan
 of configs 3 and 5, the blocked lane of phase 13, the gang waves, the
 gang roster without gangs, the gang exact scan, each ``Evaluate``
-call and the six live-engine runs of phases 16-21) and read just after
-it.  A scan's step is captured once in a CUDA graph and replayed;
+call, the six live-engine runs of phases 16-21, the burst of phase 22
+and its reduced card run, and the exact scan of phase 23) and read just
+after it.  A scan's step is captured once in a CUDA graph and replayed;
 each replay counts the ``select_hosts`` launch recorded in the graph.  The last three lines of output are the card's
 name and power limit, one JSON object describing every kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -238,6 +268,9 @@ C5X_REDUCED_NODES = 1_520  # phase 13's card-vs-CPU run: full enough to race
 GANG_REDUCED_NODES = 1_024  # phase 14's card-vs-CPU run: 64 slices
 GANG_REDUCED_GANGS = 410  # 10,000 pending pods in config 5's proportions
 GANG_SCAN_PODS = 2_048  # phase 14's exact scan, card against CPU
+PREEMPT_BURST = 64  # phase 22's preemptors
+PREEMPT_REDUCED = (1_024, 10_000, 16)  # nodes, pods, preemptors
+MIXED_SCALAR_PODS = 64  # phase 23's scan against the scalar loop
 
 
 def log(msg: str) -> None:
@@ -350,6 +383,9 @@ def main() -> int:
     from minisched_tpu_torch.controlplane.codec import _encode
     from minisched_tpu_torch.controlplane.evaluate import evaluate_cluster
     from minisched_tpu_torch.engine.gang import gang_keys, gang_view_from_infos
+    from minisched_tpu_torch.engine.scheduler import schedule_pods_sequentially
+    from minisched_tpu_torch.controlplane.client import Client
+    from minisched_tpu_torch.framework.nodeinfo import build_node_infos
     from minisched_tpu_torch.fullchain import (
         C5_MAX_SKEW,
         HOST_KEY,
@@ -402,6 +438,8 @@ def main() -> int:
     from minisched_tpu_torch.plugins.registry import build_plugins
     from minisched_tpu_torch.profile_repair import profile_repair
     from minisched_tpu_torch.live import (
+        BURST_CPU_M,
+        BURST_PRIORITY,
         SPLIT,
         SPLIT_MORE,
         audit_gangs,
@@ -1385,6 +1423,21 @@ def main() -> int:
                                  f"calls {plain}")
         return counts["select_hosts"]
 
+    def check_burst(what: str, b, n_burst: int) -> None:
+        """Phase 22's checks of a burst: every preemptor bound; the pods
+        gone from the store exactly the reported victims, each of
+        priority 0."""
+        highs = [k for k, v in b.placements.items()
+                 if k.startswith("high") and v]
+        low = [k for k, prio in b.deleted.items() if prio != 0]
+        if (len(highs) != n_burst or set(b.deleted) != set(b.reported)
+                or low or not b.deleted or not b.passes):
+            raise AssertionError(
+                f"{what} burst: {len(highs)}/{n_burst} bound, deleted "
+                f"{sorted(b.deleted)[:5]} ({len(b.deleted)}), reported "
+                f"{sorted(b.reported)[:5]} ({len(b.reported)}), priority "
+                f"above 0: {low[:5]}, passes {b.passes}")
+
     # -- phase 16: the README scenario on the live engine ------------------
     kernels.reset_launch_counts()
     with ScenarioHarness(default_scheduler_config(time_scale=0.01),
@@ -1469,15 +1522,32 @@ def main() -> int:
     del gl
 
     # -- phase 19: config 5 live, pipelined --------------------------------
+    # (phase 22's burst follows on the same run: the counts of phase 19
+    # are read, and set to 0, just before the preemptors arrive)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    c5p = run_config5_live(N_NODES, N_PODS, max_wave=C5_WAVE)
-    launches["select_hosts"]["live-c5-pipelined"] = live_launches(
-        "pipelined config 5", c5p.waves)
-    c5p_peak = torch.cuda.max_memory_allocated()
+    phase19 = {}
+
+    def end_of_phase19() -> None:
+        phase19["launches"] = live_launches("pipelined config 5", 1)
+        phase19["peak"] = torch.cuda.max_memory_allocated()
+        kernels.reset_launch_counts()
+
+    c5p = run_config5_live(N_NODES, N_PODS, max_wave=C5_WAVE,
+                           preempt_burst=PREEMPT_BURST,
+                           before_burst=end_of_phase19)
+    burst = c5p.burst
+    launches["select_hosts"]["live-preempt"] = live_launches(
+        "preemption burst", burst.waves)
+    if phase19["launches"] < c5p.waves:
+        raise AssertionError(f"pipelined config 5: {phase19['launches']} "
+                             f"launches for {c5p.waves} waves")
+    launches["select_hosts"]["live-c5-pipelined"] = phase19["launches"]
+    c5p_peak = phase19["peak"]
     audited = audit_store(c5p.client, c5p.labelled)
-    if (audited["bound"] != N_PODS or c5p.loop_errors or c5p.assumed_left
+    n_final = N_PODS + burst.fillers + PREEMPT_BURST - len(burst.deleted)
+    if (audited["bound"] != n_final or c5p.loop_errors or c5p.assumed_left
             or not c5p.pipelined or not c5p.counters["wave_pipeline.waves"]):
         raise AssertionError(f"pipelined config 5: {audited['bound']} bound, "
                              f"{c5p.loop_errors} loop errors, "
@@ -1498,7 +1568,23 @@ def main() -> int:
         f"{c5p.ttb_p50_le_s}s, p99 <= {c5p.ttb_p99_le_s}s; audit passed, "
         f"assume cache drained, loop errors 0, select_hosts launches "
         f"{launches['select_hosts']['live-c5-pipelined']}")
-    del c5p
+    check_burst("config 5", burst, PREEMPT_BURST)
+    per_pass = burst.post_filter_s / max(burst.passes, 1)
+    log(f"[live-preempt] {card}: phase 19's config 5, all {N_PODS} bound, "
+        f"most CPU free on a node {burst.max_free_cpu_m}m; {burst.fillers} "
+        f"fill pods (500m, priority 0) topped nodes up to at most "
+        f"{burst.max_free_filled_cpu_m}m free; {PREEMPT_BURST} preemptors "
+        f"of {BURST_CPU_M}m and 1Gi at priority {BURST_PRIORITY}: all "
+        f"bound, burst wall {burst.wall_s:.3f}s (first create to last "
+        f"bind) in {burst.waves} waves; PostFilter passes {burst.passes}, "
+        f"{per_pass:.3f}s a pass ({burst.post_filter_s:.3f}s); victims "
+        f"{len(burst.deleted)}, every one reported in last_victims and of "
+        f"priority 0; losers_handle {burst.losers_handle_s:.3f}s, "
+        f"wave_preempt_eligible {burst.preempt_eligible}; audit passed "
+        f"({audited['bound']} bound), assume cache drained, loop errors 0, "
+        f"select_hosts launches {launches['select_hosts']['live-preempt']}, "
+        f"plain-twin calls 0")
+    del c5p, burst
 
     # -- phase 20: config 5 with 5,000 spread pods, live, pipelined --------
     torch.cuda.synchronize()
@@ -1590,6 +1676,113 @@ def main() -> int:
         f"the CPU; pipelined on the card: {d_pipe.wall_s:.2f}s, "
         f"{d_pipe.waves} waves, audits passed ({apps} apps), lone pod bound")
     del d_card, d_cpu, d_pipe
+
+    # -- phase 22, reduced: serial engine, card against CPU ----------------
+    n22, p22, b22 = PREEMPT_REDUCED
+    for attempt in range(1, 4):
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        r_card = run_config5_live(n22, p22, max_wave=4_096, pipeline=False,
+                                  preempt_burst=b22)
+        card_s = time.monotonic() - t0
+        launches["select_hosts"]["live-preempt-reduced"] = live_launches(
+            "reduced preemption, card", r_card.waves + r_card.burst.waves)
+        t0 = time.monotonic()
+        r_cpu = run_config5_live(n22, p22, max_wave=4_096, pipeline=False,
+                                 preempt_burst=b22, device="cpu")
+        cpu_s = time.monotonic() - t0
+        for what, r in (("card", r_card), ("CPU", r_cpu)):
+            if r.loop_errors or r.assumed_left:
+                raise AssertionError(f"reduced preemption, {what}: "
+                                     f"{r.loop_errors} loop errors, "
+                                     f"{r.assumed_left} assumed left")
+            check_burst(f"reduced ({what})", r.burst, b22)
+            audit_store(r.client, r.labelled)
+        bc, bp = r_card.burst, r_cpu.burst
+        diff = {k: getattr(bc, k) != getattr(bp, k)
+                for k in ("placements", "nominations", "reported")}
+        shape = [(r.waves, r.burst.waves, r.burst.passes)
+                 for r in (r_card, r_cpu)]
+        if not any(diff.values()):
+            log(f"[live-preempt-reduced] attempt {attempt}: every binding, "
+                f"nomination and victim equal")
+            break
+        if shape[0] == shape[1]:
+            raise AssertionError(f"reduced preemption: {diff} differ card "
+                                 f"vs CPU on equal waves and passes {shape}")
+        log(f"[live-preempt-reduced] attempt {attempt}: {diff} differ; "
+            f"cause: a timing race (waves, burst waves, passes: card "
+            f"{shape[0]}, CPU {shape[1]})")
+    else:
+        raise AssertionError("reduced preemption: card and CPU differ in 3 "
+                             "attempts")
+    log(f"[live-preempt-reduced] {n22:,} nodes x {p22:,} pods, serial "
+        f"engine, {bc.fillers} fill pods, {b22} preemptors: card and CPU "
+        f"twins alike ({len(bc.placements)} bindings, {len(bc.nominations)} "
+        f"nominations, {len(bc.deleted)} victims, every one reported and of "
+        f"priority 0); burst wall {bc.wall_s:.3f}s on the card, "
+        f"{bp.wall_s:.3f}s on the CPU; {bc.passes} passes, "
+        f"{bc.post_filter_s / max(bc.passes, 1):.3f}s a pass on the card; "
+        f"whole runs {card_s:.2f}s and {cpu_s:.2f}s")
+    del r_card, r_cpu, bc, bp
+
+    # -- phase 23: the exact scan against the scalar loop, mixed cluster ---
+    x_nodes, x_assigned, x_pods, x_pvcs, x_pvs = mk_mixed_cluster()
+    x_pods = x_pods[:MIXED_SCALAR_PODS]
+    x_log = StepLog()
+    kernels.reset_launch_counts()
+    x_scan = schedule_scan(x_nodes, x_pods, assigned=x_assigned, pvcs=x_pvcs,
+                           pvs=x_pvs, log=x_log)
+    x_counts = dict(kernels.launch_counts)
+    check_scan_counts("mixed scan", x_log, x_counts)
+    launches["select_hosts"]["scan-mixed-scalar"] = x_counts["select_hosts"]
+    x_cfg = default_full_roster_config()
+    x_chains = build_plugins(x_cfg)
+    x_client = Client()
+    for pvc in x_pvcs:
+        x_client.store.create("PersistentVolumeClaim", pvc)
+    for pv in x_pvs:
+        x_client.store.create("PersistentVolume", pv)
+    for p in x_chains.needs_client:
+        p.store_client = x_client
+    t0 = time.monotonic()
+    x_want = schedule_pods_sequentially(
+        x_chains.filter, x_chains.pre_score, x_chains.score,
+        x_cfg.score_weights(), x_pods,
+        build_node_infos(sorted(x_nodes, key=lambda n: n.metadata.name),
+                         x_assigned))
+    x_scalar_s = time.monotonic() - t0
+    x_got = [x_scan.node_names[c] if c >= 0 else "" for c in x_scan.choices]
+    bad = [i for i, (g_, w) in enumerate(zip(x_got, x_want)) if g_ != w]
+    if bad:
+        raise AssertionError(f"mixed scan: {len(bad)}/{len(x_pods)} "
+                             f"placements differ from "
+                             f"schedule_pods_sequentially, first at pod "
+                             f"{bad[0]}")
+    kernels.reset_launch_counts()
+    with ScenarioHarness(default_scheduler_config(time_scale=0.01),
+                         device_mode=False) as h:
+        scalar_node = readme_scenario(h, log=lambda m: None)
+        scalar_errors = h.service.scheduler.loop_errors
+    scalar_counts = dict(kernels.launch_counts)
+    scalar_plain = dict(kernels.plain_calls)
+    if (scalar_node != "node10" or scalar_errors
+            or any(scalar_counts.values()) or any(scalar_plain.values())):
+        raise AssertionError(f"README scenario, scalar engine: pod1 on "
+                             f"{scalar_node!r}, {scalar_errors} loop errors, "
+                             f"launches {scalar_counts}, plain-twin calls "
+                             f"{scalar_plain}")
+    log(f"[scan-mixed-scalar] {len(x_nodes)} nodes x the first "
+        f"{len(x_pods)} pods of the mixed cluster ({len(x_assigned)} "
+        f"assigned, {len(x_pvcs)} claims), full roster: every exact-scan "
+        f"placement on the card equal to schedule_pods_sequentially "
+        f"({sum(1 for g_ in x_got if g_)} placed; scan "
+        f"{x_scan.schedule_s:.3f}s, scalar loop {x_scalar_s:.3f}s on the "
+        f"host); select_hosts launches "
+        f"{launches['select_hosts']['scan-mixed-scalar']}; README scenario "
+        f"on the scalar engine (device_mode=False): pod1 bound to node10, "
+        f"host only (0 kernel launches, 0 plain-twin calls), loop errors 0")
+    del x_scan, x_client
 
     report = []
     replaces = {

@@ -162,6 +162,11 @@ class SchedulerCache:
                 self._mark_dirty(name)
 
     # -- reads -------------------------------------------------------------
+    def assigned_count(self) -> int:
+        """How many pods the cache holds on a node."""
+        with self._mu:
+            return len(self._pod_node)
+
     def snapshot(self) -> List[NodeInfo]:
         """Name-sorted clones of every NodeInfo — caller-owned."""
         return self.snapshot_with_assigned()[0]

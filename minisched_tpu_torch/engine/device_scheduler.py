@@ -1416,8 +1416,10 @@ def new_device_scheduler(client: Any, informer_factory: Any, cfg: Any = None,
                          pipeline: Optional[bool] = None) -> DeviceScheduler:
     """A DeviceScheduler from a SchedulerConfig (default: the full
     roster).  ``device=None`` is the card; ``pipeline=None`` follows
-    ``MINISCHED_PIPELINE`` (on unless "0"); the plugins with a waiting-pod
-    handle (NodeNumber, Coscheduling) get the engine as theirs."""
+    ``MINISCHED_PIPELINE`` (on unless "0"); the plugins with a handle
+    (NodeNumber, Coscheduling, DefaultPreemption) get the engine as
+    theirs, and the volume filters the client (DefaultPreemption's dry
+    run calls their scalar halves)."""
     from minisched_tpu_torch.plugins.registry import build_plugins
     from minisched_tpu_torch.service.config import default_full_roster_config
 
@@ -1441,4 +1443,6 @@ def new_device_scheduler(client: Any, informer_factory: Any, cfg: Any = None,
         sched.pipeline_enabled = pipeline
     for p in chains.needs_handle:
         p.h = sched
+    for p in chains.needs_client:
+        p.store_client = client
     return sched

@@ -1,17 +1,21 @@
-"""The scheduling engine's host loop: plugin wiring, Permit, bind, requeue.
+"""The scalar scheduling engine and the host loop every engine stands on.
 
-A copy of the ``Scheduler`` base of ``minisched_tpu/engine/scheduler.py``
-(``:255-828``) that the device engine (``engine/device_scheduler.py``)
-stands on: the event map built from the plugins' ``events_to_register``,
-the scheduling queue, the NodeInfo cache and the informer wiring (in the
-JAX order: the subclass's indexes, then the cache, then the queue
-handlers), the run loop, the PostFilter / Reserve / Permit runners, the
-waiting-pod registry (the ``Handle`` plugins call back into) and the
-binding cycle with its requeue paths.
+A copy of ``minisched_tpu/engine/scheduler.py``: the module-level
+extension-point runners and ``schedule_pod_once`` (filter → pre-score →
+score → normalize → seeded select-host for one pod, the one-pod loop of
+the reference) with ``schedule_pods_sequentially`` (each placement
+committed into the snapshot before the next pod: the ground truth of the
+exact scan lane), and the ``Scheduler``: the event map built from the
+plugins' ``events_to_register``, the scheduling queue, the NodeInfo cache
+and the informer wiring (in the JAX order: the subclass's indexes, then
+the cache, then the queue handlers), the run loop with the scalar
+``schedule_one`` cycle (``engine/device_scheduler.py`` overrides it with
+the device waves), the PostFilter / Reserve / Permit runners, the
+waiting-pod registry (the ``Handle`` plugins call back into), the binding
+cycle with its requeue paths, and ``new_scheduler`` (the reference's
+default wiring).  The scalar engine is host code: it touches no tensor.
 
-Left out: the scalar one-pod cycle (``schedule_one`` / ``_schedule_pod``)
-and ``new_scheduler``, which need every plugin's scalar filter and score
-half (ROADMAP item 10e); the HA shard filter; trace spans.
+Left out: the HA shard filter; trace spans.
 
 One addition over the JAX loop, so a card run can see what the loop
 swallows: ``_loop`` still survives every exception (it prints the
@@ -36,6 +40,7 @@ from minisched_tpu_torch.controlplane.informer import SharedInformerFactory
 from minisched_tpu_torch.controlplane.store import Conflict, StorageDegraded
 from minisched_tpu_torch.engine import eventhandlers
 from minisched_tpu_torch.engine.cache import SchedulerCache
+from minisched_tpu_torch.engine.tiebreak import select_host
 from minisched_tpu_torch.engine.waitingpod import WaitingPod
 from minisched_tpu_torch.framework.events import (
     ClusterEventMap,
@@ -43,18 +48,167 @@ from minisched_tpu_torch.framework.events import (
     unioned_gvks,
 )
 from minisched_tpu_torch.framework.nodeinfo import NodeInfo
-from minisched_tpu_torch.framework.plugin import implements_enqueue
+from minisched_tpu_torch.framework.plugin import (
+    implements_enqueue,
+    implements_pre_filter,
+)
 from minisched_tpu_torch.framework.types import (
     CycleState,
     Diagnosis,
     FitError,
+    NodeScore,
     QueuedPodInfo,
     Status,
+    is_success,
 )
 from minisched_tpu_torch.observability import counters
 from minisched_tpu_torch.observability.profiling import CycleMetrics
 from minisched_tpu_torch.plugins.coscheduling import is_gang_ttl_status
 from minisched_tpu_torch.queue.queue import SchedulingQueue
+from minisched_tpu_torch.utils.hashing import pod_seed
+
+
+def run_pre_filter_plugins(filter_plugins: List[Any], state: CycleState,
+                           pod: Pod, node_infos: List[NodeInfo]
+                           ) -> Tuple[Status, str]:
+    """Once-per-pod PreFilter pass of the filter plugins that have one.
+    Returns the first non-success status and the plugin that gave it."""
+    for pl in filter_plugins:
+        if implements_pre_filter(pl):
+            status = pl.pre_filter(state, pod, node_infos)
+            if not is_success(status):
+                return status.with_plugin(status.plugin or pl.name()), pl.name()
+    return Status.success(), ""
+
+
+def run_filter_plugins(filter_plugins: List[Any], state: CycleState, pod: Pod,
+                       node_infos: List[NodeInfo]
+                       ) -> Tuple[List[NodeInfo], Diagnosis]:
+    """Per node, per plugin, short-circuiting a node at its first failure
+    (minisched.go:115-151); the Diagnosis feeds the event-gated requeue.
+    An Error status raises."""
+    feasible: List[NodeInfo] = []
+    diagnosis = Diagnosis()
+    for ni in node_infos:
+        ok = True
+        for pl in filter_plugins:
+            status = pl.filter(state, pod, ni)
+            if not is_success(status):
+                ok = False
+                status.with_plugin(status.plugin or pl.name())
+                diagnosis.node_to_status[ni.name] = status
+                diagnosis.unschedulable_plugins.add(pl.name())
+                if status.code.name == "ERROR":
+                    raise status.as_error()
+                break
+        if ok:
+            feasible.append(ni)
+    return feasible, diagnosis
+
+
+def run_pre_score_plugins(pre_score_plugins: List[Any], state: CycleState,
+                          pod: Pod, nodes: List[Any]) -> Status:
+    for pl in pre_score_plugins:
+        status = pl.pre_score(state, pod, nodes)
+        if not is_success(status):
+            return status.with_plugin(status.plugin or pl.name())
+    return Status.success()
+
+
+def run_score_plugins(score_plugins: List[Any], score_weights: Dict[str, int],
+                      state: CycleState, pod: Pod,
+                      node_names: List[str]) -> Dict[str, int]:
+    """Score, normalize and the weighted sum (minisched.go:164-199, with
+    the weights applied)."""
+    totals: Dict[str, int] = {name: 0 for name in node_names}
+    for pl in score_plugins:
+        scores: List[int] = []
+        for name in node_names:
+            s, status = pl.score(state, pod, name)
+            if not is_success(status):
+                raise status.as_error()
+            scores.append(s)
+        ext = (pl.score_extensions() if hasattr(pl, "score_extensions")
+               else None)
+        if ext is not None:
+            lst = [NodeScore(n, s) for n, s in zip(node_names, scores)]
+            status = ext.normalize_score(state, pod, lst)
+            if not is_success(status):
+                raise status.as_error()
+            scores = [ns.score for ns in lst]
+        weight = score_weights.get(pl.name(), 1)
+        for name, s in zip(node_names, scores):
+            totals[name] += s * weight
+    return totals
+
+
+def schedule_pod_once(filter_plugins: List[Any], pre_score_plugins: List[Any],
+                      score_plugins: List[Any], score_weights: Dict[str, int],
+                      pod: Pod, node_infos: List[NodeInfo],
+                      state: Optional[CycleState] = None) -> str:
+    """One decision: pre-filter → filter → pre-score → score → select host
+    (minisched.go:50-80).  Raises FitError or a plugin's error; returns
+    the chosen node's name.  ``node_infos`` is the name-sorted snapshot:
+    the tie-break is keyed on a node's index there, as the device
+    kernels key it on the node table's row, so both agree even though
+    scoring ran on the feasible nodes only."""
+    state = state if state is not None else CycleState()
+    # the snapshot lister: plugins read a node's aggregates under
+    # "nodeinfo/<name>" and the whole snapshot under "nodeinfos"
+    for ni in node_infos:
+        state.write("nodeinfo/" + ni.name, ni)
+    state.write("nodeinfos", node_infos)
+    pf_status, pf_plugin = run_pre_filter_plugins(filter_plugins, state, pod,
+                                                  node_infos)
+    if not is_success(pf_status):
+        if pf_status.code.name == "ERROR":
+            raise pf_status.as_error()
+        diagnosis = Diagnosis()
+        diagnosis.unschedulable_plugins.add(pf_plugin)
+        raise FitError(pod, len(node_infos), diagnosis)
+    feasible, diagnosis = run_filter_plugins(filter_plugins, state, pod,
+                                             node_infos)
+    if not feasible:
+        raise FitError(pod, len(node_infos), diagnosis)
+    status = run_pre_score_plugins(pre_score_plugins, state, pod,
+                                   [ni.node for ni in feasible])
+    if not is_success(status):
+        raise status.as_error()
+    totals = run_score_plugins(score_plugins, score_weights, state, pod,
+                               [ni.name for ni in feasible])
+    seed = pod_seed(pod.metadata.uid or pod.metadata.name)
+    feasible_names = {ni.name for ni in feasible}
+    idx = select_host([totals.get(ni.name, 0) for ni in node_infos],
+                      [ni.name in feasible_names for ni in node_infos], seed)
+    return node_infos[idx].name
+
+
+def schedule_pods_sequentially(filter_plugins: List[Any],
+                               pre_score_plugins: List[Any],
+                               score_plugins: List[Any],
+                               score_weights: Dict[str, int],
+                               pods: List[Pod],
+                               node_infos: List[NodeInfo]) -> List[str]:
+    """``schedule_pod_once`` for each pod in turn, each placement
+    committed into the snapshot (``node_infos``, updated in place) before
+    the next pod: the reference loop's visibility.  One node name per pod
+    ('' = unschedulable).  The ground truth of the exact scan lane
+    (``ops/sequential.py``)."""
+    by_name = {ni.name: ni for ni in node_infos}
+    out: List[str] = []
+    for pod in pods:
+        try:
+            name = schedule_pod_once(filter_plugins, pre_score_plugins,
+                                     score_plugins, score_weights, pod,
+                                     node_infos)
+        except FitError:
+            out.append("")
+            continue
+        out.append(name)
+        bound = pod.clone()
+        bound.spec.node_name = name
+        by_name[name].add_pod(bound)
+    return out
 
 
 def run_post_filter_plugins(
@@ -203,10 +357,67 @@ class Scheduler:
             self.last_loop_error = err
         traceback.print_exc()
 
+    def snapshot_nodes(self) -> List[NodeInfo]:
+        """Name-sorted NodeInfo snapshot from the incremental cache."""
+        return self.cache.snapshot()
+
     def schedule_one(self, timeout: Optional[float] = 0.5) -> bool:
-        raise NotImplementedError(
-            "the scalar one-pod cycle needs the plugins' scalar filter and "
-            "score halves: ROADMAP item 10e")
+        """One scalar cycle (minisched.go:32-113): pop a pod, snapshot,
+        schedule, then reserve, permit and fork the binding cycle.
+        Returns False when the queue gave nothing within ``timeout``."""
+        qpi = self.queue.pop(timeout=timeout)
+        if qpi is None:
+            return False
+        pod = qpi.pod
+        state = CycleState()
+        t_cycle = time.monotonic()
+        with self.metrics.timed("snapshot"):
+            node_infos = self.snapshot_nodes()
+        try:
+            with self.metrics.timed("schedule"):
+                node_name = self._schedule_pod(state, pod, node_infos, qpi)
+        except Exception as err:
+            # park the pod BEFORE preempting: the victims' DELETE events
+            # must find it in the unschedulableQ
+            self.error_func(qpi, err)
+            if isinstance(err, FitError):
+                self.run_post_filter(state, pod, node_infos, err.diagnosis)
+            if self.on_decision:
+                self.on_decision(pod, None, Status.from_error(err))
+            self.metrics.observe("cycle_failed", time.monotonic() - t_cycle)
+            return True
+        forked = self._reserve_permit_and_fork(qpi, pod, node_name, state)
+        self.metrics.observe("cycle" if forked else "cycle_failed",
+                             time.monotonic() - t_cycle)
+        return True
+
+    def _reserve_permit_and_fork(self, qpi: QueuedPodInfo, pod: Pod,
+                                 node_name: str, state: CycleState) -> bool:
+        """Reserve (rolled back on any later failure), permit, then the
+        binding cycle on its own thread.  False when the pod failed (it
+        already went through ``error_func``)."""
+        status = self.run_reserve_plugins(state, pod, node_name)
+        if not status.is_success():
+            self.error_func(qpi, status.as_error(), plugin=status.plugin)
+            if self.on_decision:
+                self.on_decision(pod, None, status)
+            return False
+        with self.metrics.timed("permit"):
+            status = self.run_permit_plugins(state, pod, node_name)
+        if not status.is_success() and not status.is_wait():
+            self.run_unreserve_plugins(state, pod, node_name)
+            self.error_func(qpi, status.as_error(), plugin=status.plugin)
+            if self.on_decision:
+                self.on_decision(pod, None, status)
+            return False
+        self._fork_binding_cycle(qpi, pod, node_name, state)
+        return True
+
+    def _schedule_pod(self, state: CycleState, pod: Pod,
+                      node_infos: List[NodeInfo], qpi: QueuedPodInfo) -> str:
+        return schedule_pod_once(self.filter_plugins, self.pre_score_plugins,
+                                 self.score_plugins, self.score_weights, pod,
+                                 node_infos, state=state)
 
     def stop(self) -> None:
         self._stop.set()
@@ -230,16 +441,16 @@ class Scheduler:
     ) -> Optional[str]:
         """Run the PostFilter chain on a scheduling failure; on success the
         nominated node lands in status.nominated_node_name through the
-        API.  A plugin failure is printed, never raised (the pod is
-        already parked) — except NotImplementedError, the port's marker
-        for a plugin body it does not have yet, which the loop counts."""
+        API.  A plugin failure is printed, never raised: a preemption
+        failure must not mask the pod's FitError path (it is already
+        parked).  Each pass is timed as ``post_filter``."""
         if not self.post_filter_plugins:
             return None
         try:
-            nominated, status = run_post_filter_plugins(
-                self.post_filter_plugins, state, pod, node_infos, diagnosis)
-        except NotImplementedError:
-            raise
+            with self.metrics.timed("post_filter"):
+                nominated, status = run_post_filter_plugins(
+                    self.post_filter_plugins, state, pod, node_infos,
+                    diagnosis)
         except Exception:
             traceback.print_exc()
             return None
@@ -417,3 +628,22 @@ class Scheduler:
         elif plugin:
             qpi.unschedulable_plugins = {plugin}
         self.queue.add_unschedulable(qpi)
+
+
+def new_scheduler(client: Client, informer_factory: SharedInformerFactory,
+                  time_scale: float = 1.0,
+                  queue_opts: Optional[dict] = None) -> Scheduler:
+    """The reference's default wiring (initialize.go:44-66): filter
+    [NodeUnschedulable], pre-score, score and permit [NodeNumber], on the
+    scalar engine."""
+    from minisched_tpu_torch.plugins.nodenumber import NodeNumber
+    from minisched_tpu_torch.plugins.nodeunschedulable import NodeUnschedulable
+
+    node_number = NodeNumber(time_scale=time_scale)
+    sched = Scheduler(client, informer_factory,
+                      filter_plugins=[NodeUnschedulable()],
+                      pre_score_plugins=[node_number],
+                      score_plugins=[node_number],
+                      permit_plugins=[node_number], queue_opts=queue_opts)
+    node_number.h = sched  # the Scheduler is the waiting-pod Handle
+    return sched

@@ -1,11 +1,13 @@
-"""The plugin protocol: the batch (device) half and the host extension points.
+"""The plugin protocol: the scalar and batch halves and the host points.
 
-A copy of ``minisched_tpu/framework/plugin.py``'s ``BatchEvaluable``,
-``Plugin`` and capability probes.  The live engine runs the host points
-(permit, reserve, post-filter) and reads each plugin's
-``events_to_register`` (the cluster events that may make a pod the plugin
-rejected schedulable again) for its event-gated requeue.  The scalar
-per-(pod, node) filter and score halves are not ported.
+A copy of ``minisched_tpu/framework/plugin.py``: the scalar protocol
+(per-(pod, node) methods mirroring the upstream signatures, which the
+scalar engine ``engine/scheduler.py`` and DefaultPreemption's dry run
+call, one pod at a time), ``BatchEvaluable`` (the device half) and the
+capability probes.  The live engines run the host points (permit,
+reserve, post-filter) and read each plugin's ``events_to_register`` (the
+cluster events that may make a pod the plugin rejected schedulable
+again) for their event-gated requeue.
 
 ``BatchEvaluable`` methods take a ``BatchContext``, a ``PodTable`` and a ``NodeTable`` whose
 columns are torch tensors, and return tensors.
@@ -20,9 +22,57 @@ Conventions:
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Protocol, Tuple
 
-MAX_NODE_SCORE = 100
+from minisched_tpu_torch.framework.types import (
+    MAX_NODE_SCORE,
+    CycleState,
+    NodeScoreList,
+    Status,
+)
+
+
+class PreFilterPlugin(Protocol):
+    """Once-per-pod prep before the per-node filter loop (cross-pod
+    plugins aggregate cluster-wide state here)."""
+
+    def pre_filter(self, state: CycleState, pod: Any,
+                   node_infos: List[Any]) -> Status: ...
+
+
+class FilterPlugin(Protocol):
+    def filter(self, state: CycleState, pod: Any, node_info: Any) -> Status:
+        """Reject or accept one (pod, node) pair."""
+        ...
+
+
+class PostFilterPlugin(Protocol):
+    def post_filter(self, state: CycleState, pod: Any, node_infos: List[Any],
+                    diagnosis: Any) -> Tuple[Optional[str], Status]:
+        """Try to make the pod schedulable (by evicting victims): returns
+        the nominated node or None, and a status.  An evicting plugin
+        records the pods it deleted in ``last_victims``, reset at the
+        start of each call."""
+        ...
+
+
+class PreScorePlugin(Protocol):
+    def pre_score(self, state: CycleState, pod: Any,
+                  nodes: List[Any]) -> Status: ...
+
+
+class ScoreExtensions(Protocol):
+    def normalize_score(self, state: CycleState, pod: Any,
+                        scores: NodeScoreList) -> Status:
+        """Rescale a plugin's raw node scores in place."""
+        ...
+
+
+class ScorePlugin(Protocol):
+    def score(self, state: CycleState, pod: Any,
+              node_name: str) -> Tuple[int, Status]: ...
+
+    def score_extensions(self) -> Optional[ScoreExtensions]: ...
 
 
 class BatchEvaluable:
@@ -59,6 +109,18 @@ class Plugin:
 
     def name(self) -> str:
         return type(self).__name__
+
+
+def implements_filter(p: Any) -> bool:
+    return callable(getattr(p, "filter", None))
+
+
+def implements_pre_score(p: Any) -> bool:
+    return callable(getattr(p, "pre_score", None))
+
+
+def implements_score(p: Any) -> bool:
+    return callable(getattr(p, "score", None))
 
 
 def implements_post_filter(p: Any) -> bool:

@@ -4,10 +4,10 @@ A copy of ``minisched_tpu/framework/types.py``: the re-creation of the types the
 ``k8s.io/kubernetes/pkg/scheduler/framework`` (see SURVEY.md §2 tail):
 ``Status`` + codes (reference usage: minisched/minisched.go:90,215,
 minisched/waitingpod/waitingpod.go:96,112), ``CycleState``
-(minisched/minisched.go:37, nodenumber.go:46-61), ``FitError`` /
+(minisched/minisched.go:37, nodenumber.go:46-61), ``NodeScore`` /
+``NodeScoreList`` (minisched/minisched.go:164-199), ``FitError`` /
 ``Diagnosis`` (minisched/minisched.go:143-148,287-290), and
-``QueuedPodInfo`` (minisched/queue/queue.go:156-164).  The score-list
-types of the scalar cycle wait for ROADMAP item 10e.
+``QueuedPodInfo`` (minisched/queue/queue.go:156-164).
 
 These are host-side control-plane types in plain Python; device-side
 state lives in the tables of ``minisched_tpu_torch.models.tables``.
@@ -20,6 +20,9 @@ import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Set
+
+MAX_NODE_SCORE = 100
+
 
 class Code(enum.IntEnum):
     """Status codes, mirroring the upstream scheduler framework's enum.
@@ -132,6 +135,14 @@ class Status:
         return f"Status({self.code.name}, {self.reasons!r}, plugin={self.plugin!r})"
 
 
+def status_code(status: Optional[Status]) -> Code:
+    return Code.SUCCESS if status is None else status.code
+
+
+def is_success(status: Optional[Status]) -> bool:
+    return status is None or status.is_success()
+
+
 class CycleState:
     """Per-scheduling-cycle scratch state shared between extension points.
 
@@ -157,6 +168,17 @@ class CycleState:
     def delete(self, key: str) -> None:
         with self._lock:
             self._storage.pop(key, None)
+
+
+@dataclass
+class NodeScore:
+    """Score of one node from one plugin (framework.NodeScore)."""
+
+    name: str
+    score: int
+
+
+NodeScoreList = List[NodeScore]
 
 
 @dataclass

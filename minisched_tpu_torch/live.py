@@ -19,6 +19,15 @@ the engine defers them into its backlog and places them through the scan
 lanes; ``audit_spread`` is ``bench.py``'s spread audit (``:655-688``).
 ``pipeline`` picks the engine's loop: the pipelined default, or the
 serial loop whose first drain ``schedule_repair_waves`` reproduces.
+With ``preempt_burst`` the run goes on once every pod is bound: that
+many ``high*`` pods of 4 CPU and 1 Gi at priority 100 arrive at once (the
+JAX scale test's preemptors, ``tests/test_preemption.py``), and each must
+preempt its way in through the wave-loser pass and DefaultPreemption
+(``BurstRun``).  Config 5's waves leave nodes unevenly full (many with 4
+CPU or more free), so first every schedulable node with 4 CPU free is
+topped up with ``fill*`` pods of config 5's shape at priority 0, bound
+where they are created, until it has less; the store is then checked to
+hold no such node.
 
 ``run_gang_live`` drives ``fullchain.mk_c5_gang_cluster`` (gangs of 8,
 a quarter with 4 members already bound) with ``gang_roster_config``:
@@ -32,12 +41,13 @@ import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
-from minisched_tpu_torch.api.objects import gang_key
+from minisched_tpu_torch.api.objects import gang_key, make_pod
 from minisched_tpu_torch.controlplane.client import Client
 from minisched_tpu_torch.fullchain import (
     C5_MAX_SKEW,
+    C5_REQUESTS,
     c5_spread_pod,
     mk_c5_cluster,
     mk_c5_gang_cluster,
@@ -67,6 +77,9 @@ COUNTERS = ("wave_pipeline.waves", "wave_pipeline.rearb_requeued",
 #: assumptions drain when their leases run out (``bench.py`` ``bench_gang``
 #: sets the same)
 QUIESCE_TTL_S = 3.0
+#: a preemptor of the burst: 4 CPU and 1 Gi at priority 100
+BURST_CPU_M = 4_000
+BURST_PRIORITY = 100
 
 
 def wait_until(pred, timeout_s: float, what: str, sched: Any) -> None:
@@ -84,16 +97,19 @@ def wait_until(pred, timeout_s: float, what: str, sched: Any) -> None:
 
 
 class BindCounter:
-    """``on_decision`` hook counting binds (installed before the loop)."""
+    """``on_decision`` hook counting binds (installed before the loop),
+    with the monotonic time of the last."""
 
     def __init__(self) -> None:
         self.n = 0
+        self.last_t = 0.0
         self._mu = threading.Lock()
 
     def __call__(self, pod, node_name, status) -> None:
         if node_name:
             with self._mu:
                 self.n += 1
+                self.last_t = time.monotonic()
 
     def count(self) -> int:
         with self._mu:
@@ -146,14 +162,144 @@ class LiveRun:
     scan_stats: Dict[str, Any] = field(default_factory=dict)
     counters: Dict[str, int] = field(default_factory=dict)
     pipelined: bool = True
+    burst: Optional["BurstRun"] = None
+
+
+@dataclass
+class BurstRun:
+    """A preemption burst after config 5 is bound (``preempt_burst``)."""
+
+    #: the most CPU (millicores) any schedulable node had free after
+    #: config 5, the ``fill*`` pods that topped nodes up, and the most
+    #: free after them
+    max_free_cpu_m: int
+    fillers: int
+    max_free_filled_cpu_m: int
+    #: first create to last bind, seconds
+    wall_s: float
+    waves: int
+    #: PostFilter passes and their seconds
+    passes: int
+    post_filter_s: float
+    #: the wave-loser pass: its seconds and the preemption-eligible losers
+    losers_handle_s: float
+    preempt_eligible: int
+    #: the pods DefaultPreemption reported in ``last_victims``, and the
+    #: pods gone from the store, name → priority before the burst
+    reported: Dict[str, int]
+    deleted: Dict[str, int]
+    #: pod name → node for every pod after the burst (the preemptors'
+    #: included), and the nominations PostFilter returned, pass by pass
+    #: (pod name, node or None)
+    placements: Dict[str, str]
+    nominations: List[Any]
+
+
+def free_cpu(client: Client) -> Dict[str, int]:
+    """CPU (millicores) free on each schedulable node, from the store."""
+    used: Dict[str, int] = defaultdict(int)
+    for p in client.pods().list():
+        if p.spec.node_name:
+            used[p.spec.node_name] += p.resource_requests().milli_cpu
+    return {n.metadata.name: n.status.allocatable.milli_cpu
+            - used[n.metadata.name]
+            for n in client.nodes().list() if not n.spec.unschedulable}
+
+
+def fill_below(client: Client, cpu_m: int) -> int:
+    """Bind ``fill*`` pods of config 5's shape (priority 0) onto every
+    schedulable node with ``cpu_m`` or more CPU free until it has less.
+    Returns how many were created."""
+    each = make_pod("fill", requests=C5_REQUESTS).resource_requests().milli_cpu
+    fillers = []
+    for name, free in sorted(free_cpu(client).items()):
+        while free >= cpu_m:
+            fillers.append(make_pod(f"fill{len(fillers):06d}",
+                                    requests=C5_REQUESTS, node_name=name))
+            free -= each
+    if fillers:
+        client.pods().create_many(fillers, return_objects=False)
+    return len(fillers)
+
+
+def _record_post_filter(sched: Any, reported: List[Any],
+                        nominations: List[Any]) -> None:
+    """Wrap each PostFilter plugin so every victim it reports in
+    ``last_victims`` is also appended to ``reported`` (the engine's loser
+    pass consumes and clears the plugin's list), and each nomination it
+    returns to ``nominations`` (a bind clears the pod's own)."""
+    for pl in sched.post_filter_plugins:
+        def recorded(state, pod, node_infos, diagnosis, _pl=pl,
+                     _orig=pl.post_filter):
+            out = _orig(state, pod, node_infos, diagnosis)
+            reported.extend(getattr(_pl, "last_victims", ()))
+            nominations.append((pod.metadata.name, out[0]))
+            return out
+
+        pl.post_filter = recorded
+
+
+def _metric(metrics: CycleMetrics, name: str) -> Dict[str, float]:
+    snap = metrics.snapshot().get(name, {})
+    return {"count": snap.get("count", 0), "total_s": snap.get("total_s", 0.0)}
+
+
+def _run_burst(client: Client, sched: Any, metrics: CycleMetrics,
+               bound: BindCounter, n_burst: int, timeout_s: float,
+               before_burst: Optional[Callable[[], None]]) -> BurstRun:
+    free = max(free_cpu(client).values())
+    n0 = bound.count()
+    fillers = fill_below(client, BURST_CPU_M)
+    filled = max(free_cpu(client).values())
+    if filled >= BURST_CPU_M:
+        raise AssertionError(f"preemption burst: a schedulable node has "
+                             f"{filled}m CPU free, a preemptor would fit")
+    pods = client.pods().list()
+    on_nodes = sum(1 for p in pods if p.spec.node_name)
+    # the engine's cache holds the fillers before the preemptors arrive
+    wait_until(lambda: sched.cache.assigned_count() >= on_nodes, timeout_s,
+               f"{fillers} fill pods in the engine's cache", sched)
+    before = {p.metadata.name: p.spec.priority for p in pods}
+    reported: List[Any] = []
+    nominations: List[Any] = []
+    _record_post_filter(sched, reported, nominations)
+    names = ("wave", "post_filter", "losers_handle", "wave_preempt_eligible")
+    m0 = {k: _metric(metrics, k) for k in names}
+    highs = [make_pod(f"high{i:03d}", requests={
+        "cpu": f"{BURST_CPU_M}m", "memory": "1Gi"}, priority=BURST_PRIORITY)
+        for i in range(n_burst)]
+    if before_burst is not None:
+        before_burst()
+    t0 = time.monotonic()
+    client.pods().create_many(highs, return_objects=False)
+    wait_until(lambda: bound.count() >= n0 + n_burst, timeout_s,
+               f"{n_burst} preemptors bound", sched)
+    wall_s = bound.last_t - t0
+    m1 = {k: _metric(metrics, k) for k in names}
+    d = {k: {f: m1[k][f] - m0[k][f] for f in ("count", "total_s")}
+         for k in names}
+    pods = client.pods().list()
+    left = {p.metadata.name for p in pods}
+    return BurstRun(
+        free, fillers, filled, wall_s, int(d["wave"]["count"]), int(d["post_filter"]["count"]),
+        d["post_filter"]["total_s"], d["losers_handle"]["total_s"],
+        int(round(d["wave_preempt_eligible"]["total_s"])),
+        {v.metadata.name: v.spec.priority for v in reported},
+        {k: v for k, v in before.items() if k not in left},
+        {p.metadata.name: p.spec.node_name for p in pods}, nominations)
 
 
 def run_config5_live(n_nodes: int = 10_000, n_pods: int = 100_000,
                      max_wave: int = 16_384, device: Any = None,
                      timeout_s: float = 900.0, n_crosspod: int = 0,
-                     pipeline: bool = True) -> LiveRun:
+                     pipeline: bool = True, preempt_burst: int = 0,
+                     before_burst: Optional[Callable[[], None]] = None
+                     ) -> LiveRun:
     """Config 5 (with ``n_crosspod`` spread pods) through the live engine,
-    park and requeue included; ``pipeline=False`` runs the serial loop."""
+    park and requeue included; ``pipeline=False`` runs the serial loop.
+    ``preempt_burst`` preemptors follow once every pod is bound
+    (``LiveRun.burst``); ``before_burst`` is called just before they are
+    created (the run's other fields stop there)."""
     nodes, pods = mk_c5_cluster(n_nodes, n_pods, n_crosspod=n_crosspod)
     n_special = sum(p.metadata.name.startswith("special") for p in pods)
     client = Client()
@@ -200,18 +346,25 @@ def run_config5_live(n_nodes: int = 10_000, n_pods: int = 100_000,
         waves = metrics.snapshot().get("wave", {}).get("count", 0)
         wait_until(lambda: sched.assumed_count() == 0,
                    QUIESCE_TTL_S * 20, "the assume cache to drain", sched)
+        p50 = hist.quantile_bounds("sched.time_to_bind_s", 0.5)
+        p99 = hist.quantile_bounds("sched.time_to_bind_s", 0.99)
+        scan_stats = dict(sched.scan_stats)
+        counts = {name: counters.get(name) for name in COUNTERS}
+        burst = None
+        if preempt_burst:
+            burst = _run_burst(client, sched, metrics, bound, preempt_burst,
+                               timeout_s, before_burst)
+            wait_until(lambda: sched.assumed_count() == 0,
+                       QUIESCE_TTL_S * 20, "the assume cache to drain",
+                       sched)
     finally:
         svc.close()
-    p50 = hist.quantile_bounds("sched.time_to_bind_s", 0.5)
-    p99 = hist.quantile_bounds("sched.time_to_bind_s", 0.99)
     return LiveRun(client, nodes, stored, first, setup_s, t_loop - t0,
                    first_drain_s, label_loop_s, bound_wait_s, total_s,
                    int(waves), phases, sched.loop_errors,
                    sched.assumed_count(), labelled,
                    p50[1] if p50 else None, p99[1] if p99 else None,
-                   dict(sched.scan_stats),
-                   {name: counters.get(name) for name in COUNTERS},
-                   sched.pipeline_enabled)
+                   scan_stats, counts, sched.pipeline_enabled, burst)
 
 
 def audit_store(client: Client,

@@ -1,10 +1,13 @@
-"""GangTopology, batch form: torus locality for gang members.
+"""GangTopology: torus locality for gang members.
 
-Counterpart of ``minisched_tpu/plugins/gangtopology.py:156-193``.  A score
-plugin (no filter half: locality is a preference, never feasibility) that
-pulls each gang member toward its placed peers.  The gang's placed
-aggregate rides in five pod-table columns (``engine/gang.py``); the node
-side is the static slice columns.
+Counterpart of ``minisched_tpu/plugins/gangtopology.py``, both halves.  A
+score plugin (no filter half: locality is a preference, never
+feasibility) that pulls each gang member toward its placed peers.  The
+scalar half builds the gang's placed aggregate from the snapshot in
+PreScore (``engine.gang.gang_view_from_infos``) and scores each node with
+``_score_one``; in the batch form the aggregate rides in five pod-table
+columns (``engine/gang.py``) and the node side is the static slice
+columns.
 
 Scoring rule, in pure integers:
 
@@ -31,12 +34,16 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from minisched_tpu_torch.api.objects import gang_key
 from minisched_tpu_torch.engine.tiebreak import mix32 as mix32_py
 from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
+from minisched_tpu_torch.framework.types import CycleState, Status
 from minisched_tpu_torch.ops.kernels import mix32_plain
+from minisched_tpu_torch.utils.hashing import fnv1a32
 
 NAME = "GangTopology"
+PRE_SCORE_STATE_KEY = "PreScore" + NAME
 
 #: same-slice bonus: dominates the proximity term, so members pack onto
 #: one slice before optimizing the distance inside it
@@ -97,6 +104,40 @@ class GangTopology(BatchEvaluable):
 
     def name(self) -> str:
         return NAME
+
+    def pre_score(self, state: CycleState, pod: Any,
+                  nodes: List[Any]) -> Status:
+        key = gang_key(pod)
+        if key is None:
+            return Status.success()
+        from minisched_tpu_torch.engine.gang import gang_view_from_infos
+
+        try:
+            node_infos = state.read("nodeinfos")
+        except KeyError:
+            return Status.success()  # no snapshot: the cold-start rule
+        state.write(PRE_SCORE_STATE_KEY,
+                    gang_view_from_infos(node_infos, keys={key}).get(key))
+        return Status.success()
+
+    def score(self, state: CycleState, pod: Any,
+              node_name: str) -> Tuple[int, Status]:
+        key = gang_key(pod)
+        if key is None:
+            return 0, Status.success()
+        try:
+            agg = state.read(PRE_SCORE_STATE_KEY)
+        except KeyError:
+            agg = None
+        from minisched_tpu_torch.engine.gang import node_dims, node_topo
+
+        node = state.read("nodeinfo/" + node_name).node
+        sh, x, y, z = node_topo(node)
+        return (_score_one(fnv1a32(key), agg, sh, x, y, z, node_dims(node)),
+                Status.success())
+
+    def score_extensions(self) -> None:
+        return None
 
     def batch_score(self, ctx: Any, pods: Any, nodes: Any,
                     aux: Dict[str, Any]) -> torch.Tensor:

@@ -1,14 +1,17 @@
-"""ImageLocality, batch form: favor nodes that already cache the pod's
-container images.
+"""ImageLocality: favor nodes that already cache the pod's container
+images.
 
-Counterpart of ``minisched_tpu/plugins/imagelocality.py:88-115``, with the
-same integer formula:
+Counterpart of ``minisched_tpu/plugins/imagelocality.py``, both halves,
+with the same integer formula:
 
     scaled(image) = size_mb * nodes_with_image // total_nodes
     sum(p, n)     = Σ over the pod's containers whose image node n has
     score(p, n)   = clamp((sum - 23*C) * 100 // (1000*C - 23*C), 0, 100)
 
-The JAX kernel broadcasts a (P, C, N, I) predicate that XLA fuses away;
+The scalar half aggregates each image's node count and canonical size
+(the largest size any node advertises) in PreScore over the whole
+snapshot, and Score sums over the pod's containers.  The JAX kernel
+broadcasts a (P, C, N, I) predicate that XLA fuses away;
 eager PyTorch would write it out (5.3 G elements at 16,384 pods × 10,112
 nodes).  Here the work is split so the largest intermediate is one
 (P, N, I) compare, for one container slot at a time:
@@ -24,14 +27,21 @@ Bit-identical to the JAX kernel, hash collisions included.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 
-from minisched_tpu_torch.framework.plugin import MAX_NODE_SCORE, BatchEvaluable
+from minisched_tpu_torch.framework.nodeinfo import MIB
+from minisched_tpu_torch.framework.plugin import BatchEvaluable
+from minisched_tpu_torch.framework.types import (
+    MAX_NODE_SCORE,
+    CycleState,
+    Status,
+)
 from minisched_tpu_torch.utils.reduce import any_last_axis
 
 NAME = "ImageLocality"
+STATE_KEY = "PreScore" + NAME
 
 MIN_THRESHOLD_MB = 23
 MAX_THRESHOLD_MB = 1000
@@ -61,9 +71,54 @@ def _canonical_sizes(pod_keys: torch.Tensor, node_keys: torch.Tensor,
     return torch.where(found, run_max[pos], 0).reshape(pod_keys.shape)
 
 
+def _priority(sum_scores: int, num_containers: int) -> int:
+    lo = MIN_THRESHOLD_MB * num_containers
+    hi = MAX_THRESHOLD_MB * num_containers
+    if sum_scores < lo:
+        return 0
+    if sum_scores > hi:
+        return MAX_NODE_SCORE
+    return (sum_scores - lo) * MAX_NODE_SCORE // (hi - lo)
+
+
 class ImageLocality(BatchEvaluable):
     def name(self) -> str:
         return NAME
+
+    def pre_score(self, state: CycleState, pod: Any,
+                  nodes: List[Any]) -> Status:
+        """Image → (node count, largest size in MiB) over the whole
+        snapshot (not the feasible nodes ``nodes``, which is used only
+        without a snapshot)."""
+        try:
+            all_nodes = [ni.node for ni in state.read("nodeinfos")]
+        except KeyError:
+            all_nodes = nodes
+        spread: Dict[str, Tuple[int, int]] = {}
+        for node in all_nodes:
+            for img, size in node.status.images.items():
+                count, max_size = spread.get(img, (0, 0))
+                spread[img] = (count + 1, max(max_size, size // MIB))
+        state.write(STATE_KEY, (spread, len(all_nodes)))
+        return Status.success()
+
+    def score(self, state: CycleState, pod: Any,
+              node_name: str) -> Tuple[int, Status]:
+        try:
+            spread, total_nodes = state.read(STATE_KEY)
+        except KeyError as e:
+            return 0, Status.from_error(e).with_plugin(NAME)
+        node_images = state.read("nodeinfo/" + node_name).node.status.images
+        total = 0
+        containers = pod.spec.containers
+        for c in containers:
+            if c.image and c.image in node_images:
+                count, size_mb = spread[c.image]
+                total += size_mb * count // max(total_nodes, 1)
+        return _priority(total, len(containers)), Status.success()
+
+    def score_extensions(self) -> None:
+        return None
 
     def batch_score(self, ctx: Any, pods: Any, nodes: Any,
                     aux: Dict[str, Any]) -> torch.Tensor:

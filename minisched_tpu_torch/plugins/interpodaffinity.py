@@ -1,7 +1,11 @@
-"""InterPodAffinity, batch form: required and preferred pod
-(anti-)affinity in both directions.
+"""InterPodAffinity: required and preferred pod (anti-)affinity in both
+directions.
 
-Counterpart of ``minisched_tpu/plugins/interpodaffinity.py:212-289``:
+Counterpart of ``minisched_tpu/plugins/interpodaffinity.py``, both
+halves.  The scalar half counts matching assigned pods per topology
+domain in PreFilter and PreScore (walking the snapshot's pods) and reads
+the counts per node; its status reasons are the JAX strings.  The batch
+half:
 
 * The filter rejects a node when an ASSIGNED pod's required
   anti-affinity term matches the incoming pod and the node shares that
@@ -43,15 +47,58 @@ CUDA has no integer matmul, so the three products run in floating point:
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
 
 from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
-from minisched_tpu_torch.plugins.normalize import minmax_normalize_batch
+from minisched_tpu_torch.framework.types import (
+    CycleState,
+    NodeScoreList,
+    Status,
+)
+from minisched_tpu_torch.models.constraints import (
+    _matches,
+    _term_namespaces,
+    rev_pref_terms_of,
+)
+from minisched_tpu_torch.plugins.normalize import (
+    minmax_normalize_batch,
+    minmax_normalize_scalar,
+)
 
 NAME = "InterPodAffinity"
+PRE_FILTER_KEY = "PreFilter" + NAME
+PRE_SCORE_KEY = "PreScore" + NAME
+
+REASON_AFFINITY = "node(s) didn't match pod affinity rules"
+REASON_ANTI = "node(s) didn't satisfy existing pods anti-affinity rules"
+
+
+def _domain_counts(term: Any, pod_ns: str, node_infos: List[Any]):
+    """(counts per topology value, global count) of the assigned pods
+    matching the term's selector in the term's namespaces."""
+    nss = _term_namespaces(term, pod_ns)
+    counts: Dict[str, int] = {}
+    total = 0
+    for ni in node_infos:
+        val = ni.node.metadata.labels.get(term.topology_key)
+        for p in ni.pods:
+            if _matches(term.label_selector, nss, p):
+                total += 1
+                if val is not None:
+                    counts[val] = counts.get(val, 0) + 1
+    return counts, total
+
+
+class _Normalize:
+    """Min-max to [0, 100]; all equal → 0."""
+
+    def normalize_score(self, state: CycleState, pod: Any,
+                        scores: NodeScoreList) -> Status:
+        minmax_normalize_scalar(scores, reverse=False, fill=0)
+        return Status.success()
 
 
 def _rows(plane: torch.Tensor, combo: torch.Tensor) -> torch.Tensor:
@@ -83,6 +130,103 @@ class InterPodAffinity(BatchEvaluable):
 
     def name(self) -> str:
         return NAME
+
+    def pre_filter(self, state: CycleState, pod: Any,
+                   node_infos: List[Any]) -> Status:
+        ns = pod.metadata.namespace
+        aff = pod.spec.affinity
+        pa = aff.pod_affinity if aff is not None else None
+        pan = aff.pod_anti_affinity if aff is not None else None
+        aff_terms = []  # (term, counts, global count, self match)
+        for term in pa.required if pa is not None else ():
+            counts, total = _domain_counts(term, ns, node_infos)
+            nss = _term_namespaces(term, ns)
+            aff_terms.append(
+                (term, counts, total, _matches(term.label_selector, nss, pod)))
+        anti_terms = []  # (term, counts)
+        for term in pan.required if pan is not None else ():
+            counts, _ = _domain_counts(term, ns, node_infos)
+            anti_terms.append((term, counts))
+        # reverse direction: the assigned pods' required anti-affinity
+        # terms that match the incoming pod forbid their (key, value)
+        forbidden: set = set()
+        for ni in node_infos:
+            for q in ni.pods:
+                qaff = q.spec.affinity
+                qpan = qaff.pod_anti_affinity if qaff is not None else None
+                for term in qpan.required if qpan is not None else ():
+                    nss = _term_namespaces(term, q.metadata.namespace)
+                    if not _matches(term.label_selector, nss, pod):
+                        continue
+                    val = ni.node.metadata.labels.get(term.topology_key)
+                    if val is not None:
+                        forbidden.add((term.topology_key, val))
+        state.write(PRE_FILTER_KEY, (aff_terms, anti_terms, forbidden))
+        return Status.success()
+
+    def filter(self, state: CycleState, pod: Any, node_info: Any) -> Status:
+        aff_terms, anti_terms, forbidden = state.read(PRE_FILTER_KEY)
+        labels = node_info.node.metadata.labels
+        for key, val in forbidden:
+            if labels.get(key) == val:
+                return Status.unresolvable(REASON_ANTI).with_plugin(NAME)
+        for term, counts in anti_terms:
+            val = labels.get(term.topology_key)
+            if val is not None and counts.get(val, 0) > 0:
+                return Status.unresolvable(REASON_ANTI).with_plugin(NAME)
+        for term, counts, total, self_match in aff_terms:
+            val = labels.get(term.topology_key)
+            satisfied = val is not None and (
+                counts.get(val, 0) > 0 or (total == 0 and self_match))
+            if not satisfied:
+                return Status.unschedulable(REASON_AFFINITY).with_plugin(NAME)
+        return Status.success()
+
+    def pre_score(self, state: CycleState, pod: Any,
+                  nodes: List[Any]) -> Status:
+        ns = pod.metadata.namespace
+        node_infos = state.read("nodeinfos")
+        aff = pod.spec.affinity
+        weighted = []  # (topology key, counts, signed weight)
+        if aff is not None and aff.pod_affinity is not None:
+            for wt in aff.pod_affinity.preferred:
+                counts, _ = _domain_counts(wt.term, ns, node_infos)
+                weighted.append((wt.term.topology_key, counts, wt.weight))
+        if aff is not None and aff.pod_anti_affinity is not None:
+            for wt in aff.pod_anti_affinity.preferred:
+                counts, _ = _domain_counts(wt.term, ns, node_infos)
+                weighted.append((wt.term.topology_key, counts, -wt.weight))
+        # symmetric direction: the assigned pods' preferred and required
+        # affinity terms that match THIS pod score over their domain
+        sym: Dict[Tuple[str, str], int] = {}  # (key, value) → Σ w
+        for ni in node_infos:
+            labels = ni.node.metadata.labels
+            for q in ni.pods:
+                for nss, sel, topo, w in rev_pref_terms_of(q):
+                    if not _matches(sel, nss, pod):
+                        continue
+                    val = labels.get(topo)
+                    if val is not None:
+                        sym[(topo, val)] = sym.get((topo, val), 0) + w
+        state.write(PRE_SCORE_KEY, (weighted, sym))
+        return Status.success()
+
+    def score(self, state: CycleState, pod: Any,
+              node_name: str) -> Tuple[int, Status]:
+        weighted, sym = state.read(PRE_SCORE_KEY)
+        labels = state.read("nodeinfo/" + node_name).node.metadata.labels
+        total = 0
+        for topo_key, counts, w in weighted:
+            val = labels.get(topo_key)
+            if val is not None:
+                total += w * counts.get(val, 0)
+        for (topo_key, val), w in sym.items():
+            if labels.get(topo_key) == val:
+                total += w
+        return total, Status.success()
+
+    def score_extensions(self) -> _Normalize:
+        return _Normalize()
 
     def batch_filter(self, ctx: Any, pods: Any, nodes: Any,
                      extra: Any) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""NodeAffinity, batch form: ``spec.nodeSelector`` and required node
-affinity as a filter, weighted preferred terms as a score.
+"""NodeAffinity: ``spec.nodeSelector`` and required node affinity as a
+filter, weighted preferred terms as a score.
 
-Counterpart of ``minisched_tpu/plugins/nodeaffinity.py:88-259``.  The
+Counterpart of ``minisched_tpu/plugins/nodeaffinity.py``, both halves.
+The scalar halves read the node's labels (``node_affinity_eligible`` is
+also PodTopologySpread's eligibility rule).  In the batch form the
 encoded expressions (``models/tables.py``: terms × requirements × values)
 are evaluated against the node LABEL PROFILES (Dp rows) and expanded to
 (P, N) with one gather through ``nodes.profile_id``.
@@ -18,15 +20,31 @@ many distinct label sets, as they do when each node has its own
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
 from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
+from minisched_tpu_torch.framework.types import CycleState, Status
 from minisched_tpu_torch.models import tables
 
 NAME = "NodeAffinity"
+
+
+def node_affinity_eligible(pod: Any, node: Any) -> Tuple[bool, str]:
+    """Does ``node`` pass the pod's spec.nodeSelector and required node
+    affinity?  (eligible, reason)."""
+    labels = node.metadata.labels
+    for k, v in pod.spec.node_selector.items():
+        if labels.get(k) != v:
+            return False, "node(s) didn't match Pod's node selector"
+    aff = pod.spec.affinity
+    na = aff.node_affinity if aff is not None else None
+    if na is not None and na.required_terms is not None:
+        if not any(term.matches(labels) for term in na.required_terms):
+            return False, "node(s) didn't match Pod's node affinity"
+    return True, ""
 
 
 def _per_node(per_profile: torch.Tensor, nodes: Any) -> torch.Tensor:
@@ -119,6 +137,28 @@ class NodeAffinity(BatchEvaluable):
 
     def name(self) -> str:
         return NAME
+
+    def filter(self, state: CycleState, pod: Any, node_info: Any) -> Status:
+        node = node_info.node
+        if node is None:
+            return Status.unresolvable("node not found")
+        ok, reason = node_affinity_eligible(pod, node)
+        if not ok:
+            return Status.unresolvable(reason).with_plugin(NAME)
+        return Status.success()
+
+    def score(self, state: CycleState, pod: Any,
+              node_name: str) -> Tuple[int, Status]:
+        labels = state.read("nodeinfo/" + node_name).node.metadata.labels
+        aff = pod.spec.affinity
+        na = aff.node_affinity if aff is not None else None
+        if na is None:
+            return 0, Status.success()
+        return (sum(p.weight for p in na.preferred
+                    if p.preference.matches(labels)), Status.success())
+
+    def score_extensions(self) -> None:
+        return None
 
     def batch_filter(self, ctx: Any, pods: Any, nodes: Any) -> torch.Tensor:
         return required_node_affinity_mask(pods, nodes)

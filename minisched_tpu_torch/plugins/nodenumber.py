@@ -1,9 +1,10 @@
 """NodeNumber: favor nodes whose trailing digit equals the pod name's
 (score 10 vs 0), and delay each bind by the chosen node's digit.
 
-Counterpart of ``minisched_tpu/plugins/nodenumber.py``.  Batch form
-(``:97-105``): the pre-score state is the pod suffix column; the score is
-one compare.  Permit (``:77-91``) stays on the host: it answers Wait and
+Counterpart of ``minisched_tpu/plugins/nodenumber.py``.  Scalar form:
+PreScore writes the pod's digit into the CycleState (nothing without one,
+and then Score errors, as the reference does).  Batch form (``:97-105``): the
+pre-score state is the pod suffix column; the score is one compare.  Permit (``:77-91``) stays on the host: it answers Wait and
 arms a timer that Allows the pod after {node suffix} × ``time_scale``
 seconds, with a 10 s × ``time_scale`` timeout; ``h`` is the engine's
 waiting-pod handle, injected by ``new_device_scheduler``.
@@ -21,6 +22,7 @@ from minisched_tpu_torch.framework.plugin import BatchEvaluable
 from minisched_tpu_torch.framework.types import CycleState, Status
 
 NAME = "NodeNumber"
+PRE_SCORE_STATE_KEY = "PreScore" + NAME
 MATCH_SCORE = 10
 PERMIT_TIMEOUT_S = 10.0
 
@@ -39,6 +41,28 @@ class NodeNumber(BatchEvaluable):
 
     def name(self) -> str:
         return NAME
+
+    def pre_score(self, state: CycleState, pod: Any,
+                  nodes: List[Any]) -> Status:
+        num = _suffix_number(pod.metadata.name)
+        if num is not None:  # success even without a digit suffix
+            state.write(PRE_SCORE_STATE_KEY, num)
+        return Status.success()
+
+    def score(self, state: CycleState, pod: Any,
+              node_name: str) -> Tuple[int, Status]:
+        try:
+            podnum = state.read(PRE_SCORE_STATE_KEY)
+        except KeyError as e:
+            # the reference errors when PreScore wrote nothing
+            return 0, Status.from_error(e).with_plugin(NAME)
+        nodenum = _suffix_number(node_name)
+        if nodenum is not None and podnum == nodenum:
+            return MATCH_SCORE, Status.success()
+        return 0, Status.success()
+
+    def score_extensions(self) -> None:
+        return None
 
     def events_to_register(self) -> List[ClusterEvent]:
         """The cluster events that may make a pod this plugin rejected

@@ -1,7 +1,9 @@
-"""NodeUnschedulable, batch form: reject nodes with ``spec.unschedulable``
-unless the pod tolerates the ``node.kubernetes.io/unschedulable`` taint.
+"""NodeUnschedulable: reject nodes with ``spec.unschedulable`` unless the
+pod tolerates the ``node.kubernetes.io/unschedulable`` taint.
 
-Counterpart of ``minisched_tpu/plugins/nodeunschedulable.py:59-81``.
+Counterpart of ``minisched_tpu/plugins/nodeunschedulable.py``, both
+halves: the scalar filter, and the batch filter as pure masking over
+table columns.
 """
 
 from __future__ import annotations
@@ -10,8 +12,10 @@ from typing import Any, List
 
 import torch
 
+from minisched_tpu_torch.api.objects import Taint
 from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
+from minisched_tpu_torch.framework.types import CycleState, Status
 from minisched_tpu_torch.models import tables
 from minisched_tpu_torch.utils.hashing import fnv1a32
 
@@ -20,6 +24,8 @@ NAME = "NodeUnschedulable"
 TAINT_NODE_UNSCHEDULABLE = "node.kubernetes.io/unschedulable"
 _UNSCHED_KEY_HASH = fnv1a32(TAINT_NODE_UNSCHEDULABLE)
 _EMPTY_VALUE_HASH = fnv1a32("")
+
+REASON = "node(s) were unschedulable"
 
 
 class NodeUnschedulable(BatchEvaluable):
@@ -31,6 +37,17 @@ class NodeUnschedulable(BatchEvaluable):
 
     def name(self) -> str:
         return NAME
+
+    def filter(self, state: CycleState, pod: Any, node_info: Any) -> Status:
+        node = node_info.node
+        if node is None:
+            return Status.unresolvable("node not found")
+        if not node.spec.unschedulable:
+            return Status.success()
+        taint = Taint(key=TAINT_NODE_UNSCHEDULABLE, effect="NoSchedule")
+        if any(t.tolerates(taint) for t in pod.spec.tolerations):
+            return Status.success()
+        return Status.unresolvable(REASON).with_plugin(NAME)
 
     def batch_filter(self, ctx: Any, pods: Any, nodes: Any) -> torch.Tensor:
         """mask[p, n] = ~node.unschedulable | pod-tolerates-unschedulable."""

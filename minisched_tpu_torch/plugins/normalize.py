@@ -1,20 +1,37 @@
-"""Min-max score normalization, batch form.
+"""Min-max score normalization, scalar and batch forms.
 
-Counterpart of ``minisched_tpu/plugins/normalize.py:36-47``: both
-cross-pod plugins rescale raw scores to [0, MAX_NODE_SCORE] over the
-feasible nodes; InterPodAffinity keeps the direction, PodTopologySpread
-reverses it.  int32 throughout, wrapping and flooring as ``jnp`` does:
-rows with no feasible node (whose result no one reads) come out the
-same too.
+Counterpart of ``minisched_tpu/plugins/normalize.py``: both cross-pod
+plugins rescale raw scores to [0, MAX_NODE_SCORE] over the feasible
+nodes; InterPodAffinity keeps the direction, PodTopologySpread reverses
+it.  One implementation per form keeps the two plugins' rounding
+identical.  The batch form is int32 throughout, wrapping and flooring as
+``jnp`` does: rows with no feasible node (whose result no one reads)
+come out the same too.
 """
 
 from __future__ import annotations
 
 import torch
 
-from minisched_tpu_torch.framework.plugin import MAX_NODE_SCORE
+from minisched_tpu_torch.framework.types import MAX_NODE_SCORE, NodeScoreList
 
 _BIG = torch.iinfo(torch.int32).max
+
+
+def minmax_normalize_scalar(scores: NodeScoreList, reverse: bool,
+                            fill: int) -> None:
+    """In-place min-max rescale of a NodeScoreList; all-equal → ``fill``."""
+    if not scores:
+        return
+    lo = min(ns.score for ns in scores)
+    hi = max(ns.score for ns in scores)
+    for ns in scores:
+        if hi == lo:
+            ns.score = fill
+        elif reverse:
+            ns.score = MAX_NODE_SCORE * (hi - ns.score) // (hi - lo)
+        else:
+            ns.score = MAX_NODE_SCORE * (ns.score - lo) // (hi - lo)
 
 
 def minmax_normalize_batch(scores: torch.Tensor, mask: torch.Tensor,

@@ -1,6 +1,9 @@
-"""PodTopologySpread, batch form: even spreading across topology domains.
+"""PodTopologySpread: even spreading across topology domains.
 
-Counterpart of ``minisched_tpu/plugins/podtopologyspread.py:183-337``:
+Counterpart of ``minisched_tpu/plugins/podtopologyspread.py``, both
+halves.  The scalar half counts matching assigned pods per domain in
+PreFilter and PreScore and reads the counts per node; its status reasons
+are the JAX strings.  Both halves:
 
 * Filter (DoNotSchedule): domains are counted over the nodes that pass
   the pod's nodeSelector and required node affinity (eligible nodes);
@@ -30,19 +33,69 @@ the same integers without a product.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
-from minisched_tpu_torch.framework.plugin import MAX_NODE_SCORE, BatchEvaluable
-from minisched_tpu_torch.models.constraints import TS_DO_NOT_SCHEDULE
-from minisched_tpu_torch.plugins.nodeaffinity import required_node_affinity_mask
-from minisched_tpu_torch.plugins.normalize import minmax_normalize_batch
+from minisched_tpu_torch.framework.plugin import BatchEvaluable
+from minisched_tpu_torch.framework.types import (
+    MAX_NODE_SCORE,
+    CycleState,
+    NodeScoreList,
+    Status,
+)
+from minisched_tpu_torch.models.constraints import TS_DO_NOT_SCHEDULE, _matches
+from minisched_tpu_torch.plugins.nodeaffinity import (
+    node_affinity_eligible,
+    required_node_affinity_mask,
+)
+from minisched_tpu_torch.plugins.normalize import (
+    minmax_normalize_batch,
+    minmax_normalize_scalar,
+)
 
 NAME = "PodTopologySpread"
+PRE_FILTER_KEY = "PreFilter" + NAME
+PRE_SCORE_KEY = "PreScore" + NAME
+
+REASON_SKEW = "node(s) didn't match pod topology spread constraints"
+REASON_KEY = ("node(s) didn't match pod topology spread constraints "
+              "(missing required label)")
 
 _INF = 1 << 30
+
+
+def _constraint_counts(constraint: Any, pod: Any, node_infos: List[Any],
+                       eligible: Optional[Dict[str, bool]] = None
+                       ) -> Dict[str, int]:
+    """Assigned pods matching the constraint's selector (same namespace)
+    per topology value; ``eligible`` (node name → passes the pod's node
+    selector and required node affinity) restricts the count to those
+    nodes, as the filter's counts are."""
+    nss = (pod.metadata.namespace,)
+    counts: Dict[str, int] = {}
+    for ni in node_infos:
+        val = ni.node.metadata.labels.get(constraint.topology_key)
+        if val is None:
+            continue
+        if eligible is not None and not eligible.get(ni.name, False):
+            continue
+        n = sum(1 for p in ni.pods
+                if _matches(constraint.label_selector, nss, p))
+        if n:
+            counts[val] = counts.get(val, 0) + n
+    return counts
+
+
+class _Normalize:
+    """Reversed min-max: fewer co-located matching pods, higher score;
+    all equal → MAX_NODE_SCORE."""
+
+    def normalize_score(self, state: CycleState, pod: Any,
+                        scores: NodeScoreList) -> Status:
+        minmax_normalize_scalar(scores, reverse=True, fill=MAX_NODE_SCORE)
+        return Status.success()
 
 
 def _need(extra: Any) -> None:
@@ -69,6 +122,71 @@ class PodTopologySpread(BatchEvaluable):
 
     def name(self) -> str:
         return NAME
+
+    def pre_filter(self, state: CycleState, pod: Any,
+                   node_infos: List[Any]) -> Status:
+        hard = []  # (constraint, counts, min count or None)
+        eligible = None
+        if any(c.when_unsatisfiable == "DoNotSchedule"
+               for c in pod.spec.topology_spread_constraints):
+            # one eligibility verdict per node, shared by the constraints
+            eligible = {ni.name: node_affinity_eligible(pod, ni.node)[0]
+                        for ni in node_infos}
+        for c in pod.spec.topology_spread_constraints:
+            if c.when_unsatisfiable != "DoNotSchedule":
+                continue
+            counts = _constraint_counts(c, pod, node_infos, eligible=eligible)
+            # min over the domains of the eligible nodes with the key
+            min_count = None
+            for ni in node_infos:
+                if not eligible.get(ni.name, False):
+                    continue
+                val = ni.node.metadata.labels.get(c.topology_key)
+                if val is None:
+                    continue
+                cnt = counts.get(val, 0)
+                if min_count is None or cnt < min_count:
+                    min_count = cnt
+            hard.append((c, counts, min_count))
+        state.write(PRE_FILTER_KEY, hard)
+        return Status.success()
+
+    def filter(self, state: CycleState, pod: Any, node_info: Any) -> Status:
+        labels = node_info.node.metadata.labels
+        for c, counts, min_count in state.read(PRE_FILTER_KEY):
+            val = labels.get(c.topology_key)
+            if val is None:
+                return Status.unresolvable(REASON_KEY).with_plugin(NAME)
+            if min_count is None:  # no eligible domain anywhere
+                return Status.unschedulable(REASON_SKEW).with_plugin(NAME)
+            if counts.get(val, 0) + 1 - min_count > c.max_skew:
+                return Status.unschedulable(REASON_SKEW).with_plugin(NAME)
+        return Status.success()
+
+    def pre_score(self, state: CycleState, pod: Any,
+                  nodes: List[Any]) -> Status:
+        node_infos = state.read("nodeinfos")
+        soft = []  # (topology key, counts, worst count)
+        for c in pod.spec.topology_spread_constraints:
+            if c.when_unsatisfiable != "ScheduleAnyway":
+                continue
+            counts = _constraint_counts(c, pod, node_infos)
+            soft.append((c.topology_key, counts,
+                         max(counts.values(), default=0)))
+        state.write(PRE_SCORE_KEY, soft)
+        return Status.success()
+
+    def score(self, state: CycleState, pod: Any,
+              node_name: str) -> Tuple[int, Status]:
+        labels = state.read("nodeinfo/" + node_name).node.metadata.labels
+        total = 0
+        for topo_key, counts, worst in state.read(PRE_SCORE_KEY):
+            val = labels.get(topo_key)
+            total += counts.get(val, 0) if val is not None else worst
+        return total, Status.success()
+
+    def score_extensions(self) -> _Normalize:
+        return _Normalize()
 
     def batch_filter(self, ctx: Any, pods: Any, nodes: Any,
                      extra: Any) -> torch.Tensor:

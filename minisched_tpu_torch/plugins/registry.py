@@ -2,12 +2,17 @@
 
 Counterpart of ``minisched_tpu/plugins/registry.py:164-194``: one factory
 per plugin name, one instance per name even when a plugin serves several
-extension points, chains in the config's order.  The device evaluates the
-filter, pre-score and score chains; the live engine runs the host-side
-points (post-filter, reserve, permit).  Instances with an ``h`` attribute
-(NodeNumber, Coscheduling) are listed in ``needs_handle``: the engine
-injects itself there as their waiting-pod handle.  An unknown name raises
-``KeyError``; nothing is dropped silently.
+extension points, chains in the config's order.  The device engine
+evaluates the filter, pre-score and score chains through their batch
+halves and the scalar engine through their scalar halves, so a plugin in
+those chains must have both; either engine runs the host-side points
+(post-filter, reserve, permit).  Instances with an ``h`` attribute
+(NodeNumber, Coscheduling, DefaultPreemption) are listed in
+``needs_handle``: the engine injects itself there as their handle.  Those
+with a ``store_client`` attribute (the volume filters, which read PVs and
+PVCs) are listed in ``needs_client``: the engine's builder injects the
+client.  An unknown name raises ``KeyError``; nothing is dropped
+silently.
 """
 
 from __future__ import annotations
@@ -17,9 +22,12 @@ from typing import Any, Callable, Dict, List
 
 from minisched_tpu_torch.framework.plugin import (
     BatchEvaluable,
+    implements_filter,
     implements_permit,
     implements_post_filter,
+    implements_pre_score,
     implements_reserve,
+    implements_score,
 )
 from minisched_tpu_torch.plugins.coscheduling import Coscheduling
 from minisched_tpu_torch.plugins.defaultpreemption import (
@@ -94,10 +102,14 @@ _REGISTRY: Dict[str, Factory] = {
 }
 
 #: the batch method a plugin must define to serve a device point (every
-#: plugin may pre-score: the protocol's default returns no aux)
+#: plugin may batch-pre-score: the protocol's default returns no aux)
 _REQUIRED = {"filter": "batch_filter", "score": "batch_score"}
-#: the capability probes of the host points
-_HOST_CHECKS = {
+#: the capability probes of every point, as the JAX registry's (the
+#: scalar halves of the device points, the host points)
+_CHECKS = {
+    "filter": implements_filter,
+    "pre_score": implements_pre_score,
+    "score": implements_score,
     "post_filter": implements_post_filter,
     "reserve": implements_reserve,
     "permit": implements_permit,
@@ -112,8 +124,10 @@ class PluginChains:
     score: List[Any] = field(default_factory=list)
     reserve: List[Any] = field(default_factory=list)
     permit: List[Any] = field(default_factory=list)
-    #: instances that take the engine as their waiting-pod handle (``h``)
+    #: instances that take the engine as their handle (``h``)
     needs_handle: List[Any] = field(default_factory=list)
+    #: instances that read the PV/PVC store through ``store_client``
+    needs_client: List[Any] = field(default_factory=list)
 
 
 def registered_names() -> List[str]:
@@ -135,15 +149,14 @@ def build_plugins(cfg: SchedulerConfig) -> PluginChains:
                     cfg.plugin_args.get(entry.name, {}), cfg.time_scale)
             inst = instances[entry.name]
             method = _REQUIRED.get(point)
-            if point in _HOST_CHECKS:
-                implemented = _HOST_CHECKS[point](inst)
-            else:
-                implemented = not method or (
-                    getattr(type(inst), method, None)
-                    is not getattr(BatchEvaluable, method))
+            implemented = _CHECKS[point](inst) and (
+                not method or getattr(type(inst), method, None)
+                is not getattr(BatchEvaluable, method))
             if not implemented:
                 raise TypeError(
                     f"plugin {entry.name!r} does not implement {point}")
             getattr(chains, point).append(inst)
     chains.needs_handle = [p for p in instances.values() if hasattr(p, "h")]
+    chains.needs_client = [p for p in instances.values()
+                           if hasattr(p, "store_client")]
     return chains

@@ -1,9 +1,10 @@
-"""TaintToleration, batch form: filter on NoSchedule/NoExecute taints the
-pod does not tolerate, score by intolerable PreferNoSchedule taints with
-a reversed normalize.
+"""TaintToleration: filter on NoSchedule/NoExecute taints the pod does not
+tolerate, score by intolerable PreferNoSchedule taints with a reversed
+normalize.
 
-Counterpart of ``minisched_tpu/plugins/tainttoleration.py:103-184``.
-Taint-by-toleration matching runs over the node TAINT PROFILES (Dp rows,
+Counterpart of ``minisched_tpu/plugins/tainttoleration.py``, both halves.
+The scalar filter and score walk the node's taints.  In the batch form,
+taint-by-toleration matching runs over the node TAINT PROFILES (Dp rows,
 unrolled over the pod's toleration slots so the largest intermediate is
 (P, Dp, Tn)) and expands to (P, N) with one gather through
 ``nodes.profile_id``.  Padded node rows point at profile 0, so the gather
@@ -15,15 +16,47 @@ its pods, (Dp, Tn).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
 
+from minisched_tpu_torch.api.objects import (
+    TAINT_EFFECT_NO_EXECUTE,
+    TAINT_EFFECT_NO_SCHEDULE,
+    TAINT_EFFECT_PREFER_NO_SCHEDULE,
+    Toleration,
+)
 from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
-from minisched_tpu_torch.framework.plugin import MAX_NODE_SCORE, BatchEvaluable
+from minisched_tpu_torch.framework.plugin import BatchEvaluable
+from minisched_tpu_torch.framework.types import (
+    MAX_NODE_SCORE,
+    CycleState,
+    NodeScoreList,
+    Status,
+)
 from minisched_tpu_torch.models import tables
 
 NAME = "TaintToleration"
+
+
+def _tolerated(taint: Any, tolerations: List[Toleration]) -> bool:
+    return any(t.tolerates(taint) for t in tolerations)
+
+
+class _Normalize:
+    """DefaultNormalizeScore reversed: more intolerable taints, lower
+    score; all-zero counts give every node MAX_NODE_SCORE."""
+
+    def normalize_score(self, state: CycleState, pod: Any,
+                        scores: NodeScoreList) -> Status:
+        max_count = max((ns.score for ns in scores), default=0)
+        for ns in scores:
+            if max_count == 0:
+                ns.score = MAX_NODE_SCORE
+            else:
+                ns.score = (MAX_NODE_SCORE
+                            - ns.score * MAX_NODE_SCORE // max_count)
+        return Status.success()
 
 
 def _taint_in_range(nodes: Any) -> torch.Tensor:
@@ -51,6 +84,35 @@ class TaintToleration(BatchEvaluable):
 
     def name(self) -> str:
         return NAME
+
+    def filter(self, state: CycleState, pod: Any, node_info: Any) -> Status:
+        node = node_info.node
+        if node is None:
+            return Status.unresolvable("node not found")
+        for taint in node.spec.taints:
+            if taint.effect not in (TAINT_EFFECT_NO_SCHEDULE,
+                                    TAINT_EFFECT_NO_EXECUTE):
+                continue
+            if not _tolerated(taint, pod.spec.tolerations):
+                return Status.unresolvable(
+                    f"node(s) had untolerated taint {{{taint.key}: "
+                    f"{taint.value}}}").with_plugin(NAME)
+        return Status.success()
+
+    def score(self, state: CycleState, pod: Any,
+              node_name: str) -> Tuple[int, Status]:
+        ni = state.read("nodeinfo/" + node_name)
+        # the tolerations that can cover PreferNoSchedule taints (effect ""
+        # or PreferNoSchedule)
+        tols = [t for t in pod.spec.tolerations
+                if t.effect in ("", TAINT_EFFECT_PREFER_NO_SCHEDULE)]
+        count = sum(1 for taint in ni.node.spec.taints
+                    if taint.effect == TAINT_EFFECT_PREFER_NO_SCHEDULE
+                    and not _tolerated(taint, tols))
+        return count, Status.success()
+
+    def score_extensions(self) -> _Normalize:
+        return _Normalize()
 
     @staticmethod
     def _tolerates_matrix(pods: Any, nodes: Any,

@@ -1,7 +1,6 @@
-"""Volume scheduling plugins, batch form: VolumeBinding and
-NodeVolumeLimits.
+"""Volume scheduling plugins: VolumeBinding and NodeVolumeLimits.
 
-Counterpart of ``minisched_tpu/plugins/volumebinding.py:44-162``:
+Counterpart of ``minisched_tpu/plugins/volumebinding.py``, both halves:
 
 * ``VolumeBinding``: every claim the pod mounts must exist; a BOUND claim
   restricts the pod to nodes carrying its PV's required node labels; an
@@ -9,7 +8,8 @@ Counterpart of ``minisched_tpu/plugins/volumebinding.py:44-162``:
   node satisfies.  ``claim_node_mask`` is the one definition of that
   verdict, run on the host by the constraint-table build
   (``models/constraints.py``); the batch filter gathers its
-  ``claim_mask[C2, N]`` rows.
+  ``claim_mask[C2, N]`` rows, and the scalar filter reads the claims and
+  PVs through the injected ``store_client``.
 * ``NodeVolumeLimits``: the generic member of the volume-limit family
   (``plugins/volumelimits.py``).
 """
@@ -22,10 +22,15 @@ import torch
 
 from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
+from minisched_tpu_torch.framework.types import CycleState, Status
 from minisched_tpu_torch.plugins.volumelimits import FAM_GENERIC, VolumeLimitsCore
 
 BINDING_NAME = "VolumeBinding"
 LIMITS_NAME = "NodeVolumeLimits"
+
+REASON_UNBOUND = "pod has unbound immediate PersistentVolumeClaims"
+REASON_CONFLICT = "node(s) had volume node affinity conflict"
+REASON_NO_PV = "node(s) didn't find available persistent volumes to bind"
 
 
 def _labels_ok(required: Dict[str, str], node: Any) -> bool:
@@ -67,6 +72,9 @@ class VolumeBinding(BatchEvaluable):
     #: claim verdicts do not change as pods commit: nothing to carry
     scan_carried_planes = ()
 
+    def __init__(self):
+        self.store_client: Any = None  # injected by the engine's builder
+
     def events_to_register(self) -> List[ClusterEvent]:
         """The cluster events that may make a pod this plugin rejected
         schedulable again (the JAX plugin's registration)."""
@@ -81,6 +89,42 @@ class VolumeBinding(BatchEvaluable):
 
     def name(self) -> str:
         return BINDING_NAME
+
+    def filter(self, state: CycleState, pod: Any, node_info: Any) -> Status:
+        if not pod.spec.volumes:
+            return Status.success()
+        if self.store_client is None:
+            return Status.error(f"{BINDING_NAME}: no store client injected")
+        store = self.store_client.store
+        node = node_info.node
+        pvs = None  # listed lazily: a pod of bound claims never lists PVs
+        for vol in pod.spec.volumes:
+            try:
+                pvc = store.get("PersistentVolumeClaim",
+                                pod.metadata.namespace, vol)
+            except KeyError:
+                return Status.unresolvable(REASON_UNBOUND).with_plugin(
+                    BINDING_NAME)
+            if pvc.spec.volume_name:
+                try:
+                    pv = store.get("PersistentVolume", "",
+                                   pvc.spec.volume_name)
+                except KeyError:
+                    return Status.unresolvable(REASON_UNBOUND).with_plugin(
+                        BINDING_NAME)
+                if not _labels_ok(pv.spec.required_node_labels, node):
+                    return Status.unschedulable(REASON_CONFLICT).with_plugin(
+                        BINDING_NAME)
+            else:
+                if pvs is None:
+                    pvs = store.list("PersistentVolume")
+                if not any(not pv.spec.claim_ref
+                           and pv.spec.capacity >= pvc.spec.request
+                           and _labels_ok(pv.spec.required_node_labels, node)
+                           for pv in pvs):
+                    return Status.unschedulable(REASON_NO_PV).with_plugin(
+                        BINDING_NAME)
+        return Status.success()
 
     def batch_filter(self, ctx: Any, pods: Any, nodes: Any,
                      extra: Any) -> torch.Tensor:

@@ -1,13 +1,16 @@
-"""Per-cloud volume attach limits, batch form: EBSLimits, GCEPDLimits,
+"""Per-cloud volume attach limits: EBSLimits, GCEPDLimits,
 AzureDiskLimits, and the shared counting core.
 
-Counterpart of ``minisched_tpu/plugins/volumelimits.py:36-203``.  Each
+Counterpart of ``minisched_tpu/plugins/volumelimits.py``, both halves.
+Each
 plugin counts only the volumes of its own driver family against that
 family's per-node limit; the generic counter (``NodeVolumeLimits``, every
 volume no named cloud family claims) lives in ``plugins/volumebinding.py``
 as in the JAX package.  A volume's family is the ``driver`` of the PV its
 claim is bound to; unbound or unresolvable claims count as generic.  The
-family resolution runs on the host (``models/constraints.py``); the batch
+scalar filter resolves claims through the injected ``store_client`` (with
+none injected every volume is generic, keyed by its claim).  For the
+batch form the family resolution runs on the host (``models/constraints.py``); the batch
 filter reads the ``pod_vols_fam``-side slot planes and the carried
 ``node_vols_fam``/``vol_any`` planes of the wave's ConstraintTables.
 
@@ -23,14 +26,37 @@ import torch
 
 from minisched_tpu_torch.framework.events import ActionType, ClusterEvent, GVK
 from minisched_tpu_torch.framework.plugin import BatchEvaluable
+from minisched_tpu_torch.framework.types import CycleState, Status
 
 #: family axis of the pod_vols_fam/node_vols_fam constraint planes;
 #: index 0 is the generic (non-cloud / CSI / unbound) family
 FAMILIES = ("", "ebs", "gcepd", "azuredisk")
 FAM_GENERIC, FAM_EBS, FAM_GCEPD, FAM_AZURE = range(len(FAMILIES))
 
+REASON_LIMIT = "node(s) exceed max volume count"
+
 DEFAULT_MAX_VOLUMES = 16  # generic / GCE PD / Azure Disk
 DEFAULT_MAX_EBS = 39  # AWS attach limit
+
+
+class _PVLookup:
+    """``get(name)``: the PersistentVolume of that name from the store, or
+    None, each name read once.  The JAX filter lists every PV per call;
+    the port's store clones each object it returns, so the filter reads
+    only the PVs its claims name (the same answers)."""
+
+    def __init__(self, store: Any):
+        self._store = store
+        self._seen: dict = {}
+
+    def get(self, name: str) -> Optional[Any]:
+        if name not in self._seen:
+            try:
+                self._seen[name] = self._store.get("PersistentVolume", "",
+                                                   name)
+            except KeyError:
+                self._seen[name] = None
+        return self._seen[name]
 
 
 def volume_family(pvc: Optional[Any], pv_by_name: Any) -> int:
@@ -63,10 +89,62 @@ class VolumeLimitsCore(BatchEvaluable):
     def __init__(self, max_volumes: Optional[int] = None):
         self.max_volumes = (max_volumes if max_volumes is not None
                             else self.default_max())
+        self.store_client: Any = None  # injected by the engine's builder
 
     @classmethod
     def default_max(cls) -> int:
         return DEFAULT_MAX_VOLUMES
+
+    def _family_keys(self, pod: Any, store: Any, pv_by_name: Any):
+        """(the counting keys of this family's volumes the pod mounts, the
+        number of its unresolvable mounts).  A key names a VOLUME (the
+        bound PV, or the claim while unbound), so mounts of one volume
+        count once; an unresolvable mount has no identity and counts one
+        (generic family)."""
+        f = self.volume_family_index
+        if store is None:
+            # no control plane: every volume is generic, keyed by its claim
+            if f != FAM_GENERIC:
+                return set(), 0
+            return {(pod.metadata.namespace, v) for v in pod.spec.volumes}, 0
+        keys = set()
+        missing = 0
+        for vol in pod.spec.volumes:
+            try:
+                pvc = store.get("PersistentVolumeClaim",
+                                pod.metadata.namespace, vol)
+            except KeyError:
+                missing += 1
+                continue
+            if volume_family(pvc, pv_by_name) != f:
+                continue
+            keys.add(("pv", pvc.spec.volume_name) if pvc.spec.volume_name
+                     else ("pvc", f"{pod.metadata.namespace}/{vol}"))
+        return keys, (missing if f == FAM_GENERIC else 0)
+
+    def filter(self, state: CycleState, pod: Any, node_info: Any) -> Status:
+        if not pod.spec.volumes:
+            return Status.success()
+        store = (self.store_client.store if self.store_client is not None
+                 else None)
+        # one PV lookup per call, shared by the pod and the node's pods
+        pv_by_name = _PVLookup(store) if store is not None else {}
+        pod_keys, pod_missing = self._family_keys(pod, store, pv_by_name)
+        node_keys: set = set()
+        node_missing = 0
+        for p in node_info.pods:
+            if not p.spec.volumes:
+                continue
+            k, m = self._family_keys(p, store, pv_by_name)
+            node_keys |= k
+            node_missing += m
+        # only volumes not already attached to the node are new
+        new = len(pod_keys - node_keys) + pod_missing
+        if new == 0:
+            return Status.success()
+        if len(node_keys) + node_missing + new > self.max_volumes:
+            return Status.unschedulable(REASON_LIMIT).with_plugin(self.name())
+        return Status.success()
 
     def batch_filter(self, ctx: Any, pods: Any, nodes: Any,
                      extra: Any) -> torch.Tensor:

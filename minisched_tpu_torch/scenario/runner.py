@@ -1,4 +1,4 @@
-"""Scenario runner: the README scenario on the port's live engine.
+"""Scenario runner: the README scenario on the port's live engines.
 
 Counterpart of ``minisched_tpu/scenario/runner.py``: ``ScenarioHarness``
 boots a control plane and the scheduler service (without the JAX
@@ -7,9 +7,11 @@ package's PV controller, which no scenario here needs), and
 condition-based waits: nine cordoned nodes keep ``pod1`` pending, then
 ``node10`` appears and ``pod1`` binds there.
 
-Run it on the card (or ``--device cpu`` on the host)::
+Run it on the device engine on the card (or ``--device cpu`` on the
+host), or on the scalar engine, the JAX runner's default, which is host
+only (``--scalar``)::
 
-    python -m minisched_tpu_torch.scenario.runner
+    python -m minisched_tpu_torch.scenario.runner [--scalar]
 """
 
 from __future__ import annotations
@@ -32,19 +34,22 @@ class ScenarioTimeout(AssertionError):
 
 
 class ScenarioHarness:
-    """A client, its store and the scheduler service on ``device`` (None:
-    the card), in device mode with waves of ``max_wave``."""
+    """A client, its store and the scheduler service: the device engine on
+    ``device`` (None: the card) with waves of ``max_wave``, or with
+    ``device_mode=False`` the scalar engine."""
 
     def __init__(self, cfg: Optional[SchedulerConfig] = None,
-                 device: Any = None, max_wave: int = 64):
+                 device: Any = None, max_wave: int = 64,
+                 device_mode: bool = True):
         self.client = Client()
         self.service = SchedulerService(self.client)
         self.cfg = cfg or default_scheduler_config()
         self.device = device
         self.max_wave = max_wave
+        self.device_mode = device_mode
 
     def __enter__(self) -> "ScenarioHarness":
-        self.service.start_scheduler(self.cfg, device_mode=True,
+        self.service.start_scheduler(self.cfg, device_mode=self.device_mode,
                                      max_wave=self.max_wave,
                                      device=self.device)
         return self
@@ -101,12 +106,16 @@ def readme_scenario(harness: ScenarioHarness,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the card)")
+                    help="torch device of the device engine (default: the "
+                         "card)")
+    ap.add_argument("--scalar", action="store_true",
+                    help="run the scalar engine (host only)")
     args = ap.parse_args()
     # time_scale compresses NodeNumber's permit delay (node10's suffix 0
     # is a zero delay; the timeout is still armed)
     with ScenarioHarness(default_scheduler_config(time_scale=0.1),
-                         device=args.device) as h:
+                         device=args.device,
+                         device_mode=not args.scalar) as h:
         bound = readme_scenario(h)
         errors = h.service.scheduler.loop_errors
     if bound != "node10" or errors:

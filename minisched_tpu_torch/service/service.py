@@ -5,16 +5,23 @@ the informer factory and the event recorder, builds the engine from a
 ``SchedulerConfig``, starts and syncs the informers, spawns the run loop,
 and restarts or shuts it all down.
 
-Only the device engine is ported: ``start_scheduler(device_mode=True)``
-runs ``engine/device_scheduler.DeviceScheduler`` on ``device`` (None: the
-card; the tests pass ``"cpu"``), pipelined unless ``pipeline=False`` or
-``MINISCHED_PIPELINE=0``.  The scalar engine (``device_mode=False``)
-raises until ROADMAP item 10e; ``record_results``, the mesh and the HA
-shard filter are not ported.  The engine's evaluator and kernels, and
-with ``prewarm_scan`` (the default, as in JAX) both scan lanes with one
-step each, are built on the calling thread before the loop starts
-(``prewarm``): a build or capture failure raises here, and the engine
-thread is the only one that then touches the card.
+Unlike the JAX service, whose default is the scalar engine,
+``start_scheduler`` defaults to ``device_mode=True``: the entry point runs
+on the card unless the caller asks otherwise.
+``start_scheduler(device_mode=True)`` runs
+``engine/device_scheduler.DeviceScheduler`` on ``device`` (None: the
+card, and without one it raises; the tests pass ``"cpu"``), pipelined
+unless ``pipeline=False`` or ``MINISCHED_PIPELINE=0``.  The engine's
+evaluator and kernels, and with ``prewarm_scan`` (the default, as in JAX)
+both scan lanes with one step each, are built on the calling thread
+before the loop starts (``prewarm``): a build or capture failure raises
+here, and the engine thread is the only one that then touches the card.
+``device_mode=False`` runs the scalar engine
+(``build_scheduler_from_config``: ``engine/scheduler.Scheduler``, one pod
+a cycle through the plugins' scalar halves), which is host only and
+ignores ``device``, ``max_wave``, ``prewarm_scan`` and ``pipeline``.
+Nothing falls back from one engine to the other.  ``record_results``,
+the mesh and the HA shard filter are not ported.
 """
 
 from __future__ import annotations
@@ -23,10 +30,9 @@ from typing import Any, Optional
 
 from minisched_tpu_torch.controlplane.client import Client, EventRecorder
 from minisched_tpu_torch.controlplane.informer import SharedInformerFactory
-from minisched_tpu_torch.engine.device_scheduler import (
-    DeviceScheduler,
-    new_device_scheduler,
-)
+from minisched_tpu_torch.engine.device_scheduler import new_device_scheduler
+from minisched_tpu_torch.engine.scheduler import Scheduler
+from minisched_tpu_torch.plugins.registry import build_plugins
 from minisched_tpu_torch.service.config import (
     SchedulerConfig,
     default_scheduler_config,
@@ -37,10 +43,11 @@ class SchedulerService:
     def __init__(self, client: Client):
         self._client = client
         self._current_cfg: Optional[SchedulerConfig] = None
-        self._scheduler: Optional[DeviceScheduler] = None
+        self._scheduler: Optional[Scheduler] = None
         self._factory: Optional[SharedInformerFactory] = None
         # events land in the store as Event objects
         self.recorder = EventRecorder(store=client.store)
+        self._device_mode = True
         self._max_wave = 1024
         self._device: Any = None
         self._pipeline: Optional[bool] = None
@@ -48,32 +55,33 @@ class SchedulerService:
     def start_scheduler(
         self,
         cfg: Optional[SchedulerConfig] = None,
-        device_mode: bool = False,
+        device_mode: bool = True,
         max_wave: int = 1024,
         on_decision=None,
         metrics=None,
         device: Any = None,
         prewarm_scan: bool = True,
         pipeline: Optional[bool] = None,
-    ) -> DeviceScheduler:
+    ) -> Scheduler:
         """Build the engine for ``cfg`` (default: the reference's default
-        wiring), start and sync the informers, then the run loop.
+        wiring), start and sync the informers, then the run loop: the
+        device engine, or with ``device_mode=False`` the scalar engine.
         ``on_decision`` (pod, node name or None, status) and ``metrics``
         are installed before the loop starts.  The sync replays every
         pod already in the store through the queue handlers, so the loop
         starts with every pending pod queued, in store order."""
-        if not device_mode:
-            raise NotImplementedError(
-                "the scalar engine needs the plugins' scalar filter and "
-                "score halves: ROADMAP item 10e; pass device_mode=True")
         if self._scheduler is not None:
             raise RuntimeError(
                 "scheduler already running; use restart_scheduler")
         cfg = (cfg or default_scheduler_config()).clone()
         self._factory = SharedInformerFactory(self._client.store)
-        sched = new_device_scheduler(self._client, self._factory, cfg,
-                                     max_wave=max_wave, device=device,
-                                     pipeline=pipeline)
+        if device_mode:
+            sched = new_device_scheduler(self._client, self._factory, cfg,
+                                         max_wave=max_wave, device=device,
+                                         pipeline=pipeline)
+        else:
+            sched = build_scheduler_from_config(self._client, self._factory,
+                                                cfg)
         self.recorder.eventf(None, "Normal", "SchedulerStarted",
                              "scheduler starting")
         self._factory.start()
@@ -97,20 +105,22 @@ class SchedulerService:
                         "; ".join(status.reasons) or status.code.name)
 
             sched.on_decision = emit
-        sched.prewarm(scan=prewarm_scan)
+        if device_mode:
+            sched.prewarm(scan=prewarm_scan)
         sched.run()
         self._scheduler = sched
         self._current_cfg = cfg.clone()
+        self._device_mode = device_mode
         self._max_wave = max_wave
         self._device = device
         self._pipeline = pipeline
         return sched
 
     def restart_scheduler(self, cfg: Optional[SchedulerConfig] = None
-                          ) -> DeviceScheduler:
+                          ) -> Scheduler:
         self.shutdown_scheduler()
         return self.start_scheduler(cfg or self._current_cfg,
-                                    device_mode=True,
+                                    device_mode=self._device_mode,
                                     max_wave=self._max_wave,
                                     device=self._device,
                                     pipeline=self._pipeline)
@@ -135,9 +145,34 @@ class SchedulerService:
         return self._current_cfg
 
     @property
-    def scheduler(self) -> Optional[DeviceScheduler]:
+    def scheduler(self) -> Optional[Scheduler]:
         return self._scheduler
 
     @property
     def informer_factory(self) -> Optional[SharedInformerFactory]:
         return self._factory
+
+
+def build_scheduler_from_config(client: Client,
+                                factory: SharedInformerFactory,
+                                cfg: SchedulerConfig) -> Scheduler:
+    """The scalar engine for a SchedulerConfig (plugin enablement and
+    weights; initialize.go:35-78), its handles and the client injected."""
+    chains = build_plugins(cfg)
+    sched = Scheduler(
+        client,
+        factory,
+        filter_plugins=chains.filter,
+        post_filter_plugins=chains.post_filter,
+        pre_score_plugins=chains.pre_score,
+        score_plugins=chains.score,
+        permit_plugins=chains.permit,
+        reserve_plugins=chains.reserve,
+        score_weights=cfg.score_weights(),
+        queue_opts=cfg.queue_opts,
+    )
+    for p in chains.needs_handle:
+        p.h = sched
+    for p in chains.needs_client:
+        p.store_client = client
+    return sched

@@ -10,8 +10,8 @@ comparison is exact.  Where a case depends on wave compositions, the
 test records them on both engines and asserts them equal first.
 
 Also here: the port's ``CachedNodeTableBuilder`` against the JAX one on
-the engines' own snapshots with assumed pods, and the engine's deliberate
-raise (a preemption body: item 10e), counted once in ``loop_errors``.
+the engines' own snapshots with assumed pods, and preemption through the
+wave-loser pass, above and at the priority floor, on both engines.
 The cross-pod backlog and the pipeline are held against the JAX engine in
 ``test_torch_backlog.py`` and ``test_torch_pipeline.py``.  Every wait has
 a deadline; no test asserts a wall time.
@@ -342,8 +342,8 @@ def test_node_table_with_assumed_pods_matches_jax_cached_builder():
 
 def _preemption_run(side, monkeypatch, priority):
     """One 2-CPU node held by a priority-0 pod; a pod of ``priority``
-    asking for 1 CPU arrives.  The JAX engine preempts when the newcomer
-    outranks the holder; below or at the floor the pass ends first."""
+    asking for 1 CPU arrives.  Each engine preempts when the newcomer
+    outranks the holder; at the floor the pass ends first."""
     objs = SIDES[side][0]
     node = objs.make_node("n0", capacity={"cpu": "2", "memory": "8Gi",
                                           "pods": 110})
@@ -357,28 +357,26 @@ def _preemption_run(side, monkeypatch, priority):
         assert wait_for(lambda: sched.queue.stats()["unschedulable"] == 1
                         or client.pods().get("high").spec.node_name
                         or getattr(sched, "loop_errors", 0))
-        if side == "jax" and priority:
+        if priority:
             assert wait_for(lambda: client.pods().get("high").spec.node_name)
-        if side == "port" and priority:
-            assert wait_for(lambda: sched.loop_errors == 1)
         time.sleep(0.3)
         names = {p.metadata.name for p in client.pods().list()}
-        return names, getattr(sched, "loop_errors", 0), sched
+        high = client.pods().get("high")
+        return (names, high.spec.node_name, high.status.nominated_node_name,
+                getattr(sched, "loop_errors", 0))
 
 
-def test_preemption_raises_item_10e_only_where_jax_preempts(monkeypatch):
-    # above the priority floor: JAX evicts the holder, the port raises
-    names, _, _ = _preemption_run("jax", monkeypatch, priority=10)
-    assert names == {"high"}
-    names, errors, sched = _preemption_run("port", monkeypatch, priority=10)
-    assert names == {"holder", "high"} and errors == 1, errors
-    assert isinstance(sched.last_loop_error, NotImplementedError)
-    assert "10e" in str(sched.last_loop_error)
+def test_preemption_matches_jax(monkeypatch):
+    # above the priority floor both engines evict the holder and bind high
+    want = _preemption_run("jax", monkeypatch, priority=10)
+    assert want[:2] == ({"high"}, "n0")
+    got = _preemption_run("port", monkeypatch, priority=10)
+    assert got[:3] == want[:3] and got[3] == 0, (got, want)
     # at the floor (config 5: every pod at priority 0) neither preempts
-    names, _, _ = _preemption_run("jax", monkeypatch, priority=0)
-    assert names == {"holder", "high"}
-    names, errors, _ = _preemption_run("port", monkeypatch, priority=0)
-    assert names == {"holder", "high"} and errors == 0
+    want = _preemption_run("jax", monkeypatch, priority=0)
+    assert want[:2] == ({"holder", "high"}, "")
+    got = _preemption_run("port", monkeypatch, priority=0)
+    assert got[:3] == want[:3] and got[3] == 0, (got, want)
 
 
 def test_failed_evaluation_parks_the_wave_and_counts(monkeypatch):
@@ -400,22 +398,36 @@ def test_failed_evaluation_parks_the_wave_and_counts(monkeypatch):
 
 
 def test_service_runs_on_the_card_unless_asked_and_restarts(monkeypatch):
-    """``device=None`` is the card: without one, starting raises before a
-    thread starts; ``device_mode=False`` (the scalar engine, item 10e)
-    raises; a restarted scheduler keeps scheduling on the same store."""
+    """``device_mode`` defaults to True and ``device=None`` is the card:
+    without one, starting raises before a thread starts;
+    ``device_mode=False`` starts the scalar engine, which schedules; a
+    restarted scheduler keeps its engine and scheduling on the same
+    store."""
     import torch
 
     svc = TService(TClient())
     if torch.cuda.is_available():
-        sched = svc.start_scheduler(device_mode=True)
+        sched = svc.start_scheduler()
         assert sched.device.type == "cuda"
         svc.shutdown_scheduler()
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            svc.start_scheduler(device_mode=True)
+            svc.start_scheduler()
         assert svc.scheduler is None
-    with pytest.raises(NotImplementedError, match="10e"):
-        svc.start_scheduler(device_mode=False)
+    svc.close()
+    client = TClient()
+    client.nodes().create(tobj.make_node("n0"))
+    svc = TService(client)
+    sched = svc.start_scheduler(tconfig.default_full_roster_config(),
+                                device_mode=False)
+    assert not isinstance(sched, TEngine)
+    client.pods().create(tobj.make_pod("s"))
+    assert wait_for(lambda: client.pods().get("s").spec.node_name == "n0")
+    sched = svc.restart_scheduler()
+    assert not isinstance(sched, TEngine)
+    client.pods().create(tobj.make_pod("s2"))
+    assert wait_for(lambda: client.pods().get("s2").spec.node_name == "n0")
+    assert sched.loop_errors == 0
     svc.close()
     client = TClient()
     client.nodes().create(tobj.make_node("n0"))

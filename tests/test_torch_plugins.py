@@ -518,7 +518,11 @@ def test_gang_roster_builds_the_jax_chains():
         assert ([p.name() for p in getattr(chains, point)]
                 == [p.name() for p in getattr(jchains, point)]), point
     assert [p.name() for p in chains.permit] == ["Coscheduling"]
-    assert chains.needs_handle == chains.permit
+    for attr in ("needs_handle", "needs_client"):
+        assert ([p.name() for p in getattr(chains, attr)]
+                == [p.name() for p in getattr(jchains, attr)]), attr
+    assert chains.permit[0] in chains.needs_handle
+    assert chains.post_filter[0] in chains.needs_handle
 
 
 def test_build_plugins_refuses_the_full_roster_and_unknown_names():
