@@ -214,6 +214,33 @@ Phases, each of which raises on failure (nothing catches it):
    README scenario on the scalar engine
    (``start_scheduler(device_mode=False)``), which is host only: no
    kernel launch and no plain-twin call.
+24. ``record_results`` on the card against the CPU
+   (``live.run_mixed_recorded``): the mixed cluster at 512 nodes x 512
+   pods, with its claims and PVs in the store, through the serial engine
+   with the full roster in waves of 128, once on the card and once on the
+   CPU twins, explicit uids on both.  Checks: every binding equal, every
+   pod's parsed ``scheduler-simulator/*`` annotations equal; every bound
+   pod carries a record exactly when a wave or an exact-scan chunk
+   recorded it, and one without was placed by the blocked lane
+   (``live.audit_records``); no record error and no loop error; the same
+   run without ``record_results`` places alike.  A mismatch whose runs
+   differ in waves, records or lane calls is a timing race and is
+   retried, up to 3 attempts, as in phase 21.  Printed: the wall with and
+   without the record, the record's evaluation and host-ingest seconds,
+   the entries and annotation bytes.
+25. The standalone process.  (a) ``__main__.start`` in this process (the
+   device engine, pipelined, its default waves of 1,024) fed config 5
+   over HTTP in batch creates of 10,000, watched over an HTTP pod watch
+   opened first (``live.run_config5_http``): every plain pod seen bound,
+   one HTTP list audited by ``audit_store``'s rules, ``/metrics`` parsed
+   with the port's parser counting every bind in
+   ``sched_time_to_bind_seconds`` (the registries reset first), no loop
+   error, and ``stop()`` leaving no non-daemon thread.  Printed: the
+   create wall, first create to last bind and pods/s beside phase 19's.
+   (b) ``python3 -m minisched_tpu_torch`` as a child with ``PORT`` and
+   ``FRONTEND_URL``: its "API on" line, the README scenario over
+   ``HTTPClient``, ``python3 -m minisched_tpu_torch metrics <url>`` exit
+   0, and exit 0 within 30 s of SIGTERM.
 
 Phase 2 also holds ``select_hosts`` against its twin on the repair
 route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
@@ -228,8 +255,9 @@ hostname labels, config 4, the mixed cluster's card run, the exact scan
 of configs 3 and 5, the blocked lane of phase 13, the gang waves, the
 gang roster without gangs, the gang exact scan, each ``Evaluate``
 call, the six live-engine runs of phases 16-21, the burst of phase 22
-and its reduced card run, and the exact scan of phase 23) and read just
-after it.  A scan's step is captured once in a CUDA graph and replayed;
+and its reduced card run, the exact scan of phase 23, the card runs of
+phase 24 with and without the record, and phase 25's process) and read
+just after it.  A scan's step is captured once in a CUDA graph and replayed;
 each replay counts the ``select_hosts`` launch recorded in the graph.  The last three lines of output are the card's
 name and power limit, one JSON object describing every kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -240,9 +268,12 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from dataclasses import replace
 from types import SimpleNamespace
@@ -271,6 +302,9 @@ GANG_SCAN_PODS = 2_048  # phase 14's exact scan, card against CPU
 PREEMPT_BURST = 64  # phase 22's preemptors
 PREEMPT_REDUCED = (1_024, 10_000, 16)  # nodes, pods, preemptors
 MIXED_SCALAR_PODS = 64  # phase 23's scan against the scalar loop
+#: phase 24: record_results on the mixed cluster, card against CPU; 512
+#: nodes keep the 4,200 assigned web pods of zone z0 under a node's 110
+RECORD_NODES, RECORD_PODS, RECORD_WAVE = 512, 512, 128
 
 
 def log(msg: str) -> None:
@@ -444,15 +478,24 @@ def main() -> int:
         SPLIT_MORE,
         audit_gangs,
         audit_spread,
+        audit_records,
         audit_store,
+        free_port,
+        run_config5_http,
         run_config5_live,
+        run_mixed_recorded,
         run_crosspod_drain,
         run_gang_live,
         store_choices,
     )
+    from minisched_tpu_torch.controlplane.httpserver import HTTPClient
+    from minisched_tpu_torch.observability.hist import (
+        parsed_histogram_quantile,
+    )
     from minisched_tpu_torch.scenario.runner import (
         ScenarioHarness,
         readme_scenario,
+        readme_scenario_http,
     )
     from minisched_tpu_torch.service.config import (
         default_full_roster_config,
@@ -1568,6 +1611,7 @@ def main() -> int:
         f"{c5p.ttb_p50_le_s}s, p99 <= {c5p.ttb_p99_le_s}s; audit passed, "
         f"assume cache drained, loop errors 0, select_hosts launches "
         f"{launches['select_hosts']['live-c5-pipelined']}")
+    phase19.update(first_drain_s=c5p.first_drain_s, total_s=c5p.total_s)
     check_burst("config 5", burst, PREEMPT_BURST)
     per_pass = burst.post_filter_s / max(burst.passes, 1)
     log(f"[live-preempt] {card}: phase 19's config 5, all {N_PODS} bound, "
@@ -1783,6 +1827,168 @@ def main() -> int:
         f"on the scalar engine (device_mode=False): pod1 bound to node10, "
         f"host only (0 kernel launches, 0 plain-twin calls), loop errors 0")
     del x_scan, x_client
+
+    # -- phase 24: record_results, the mixed cluster, card against CPU ------
+    for attempt in range(1, 4):
+        kernels.reset_launch_counts()
+        rec_card = run_mixed_recorded(RECORD_NODES, RECORD_PODS,
+                                      max_wave=RECORD_WAVE)
+        launches["select_hosts"]["live-record"] = live_launches(
+            "record_results, card", rec_card.waves + rec_card.record_calls)
+        rec_cpu = run_mixed_recorded(RECORD_NODES, RECORD_PODS,
+                                     max_wave=RECORD_WAVE, device="cpu")
+        for what, r in (("card", rec_card), ("CPU", rec_cpu)):
+            if r.loop_errors or r.record_errors:
+                raise AssertionError(f"record_results, {what}: "
+                                     f"{r.loop_errors} loop errors, "
+                                     f"{r.record_errors} record errors")
+        bad = [k for k, v in rec_card.placements.items()
+               if rec_cpu.placements.get(k) != v]
+        bad_ann = [k for k, v in rec_card.annotations.items()
+                   if rec_cpu.annotations.get(k) != v]
+        shape = [(r.waves, r.record_calls,
+                  {k: (v.calls, v.steps, v.rounds)
+                   for k, v in r.scan_stats.items()})
+                 for r in (rec_card, rec_cpu)]
+        if not bad and not bad_ann:
+            log(f"[live-record] attempt {attempt}: every binding and every "
+                f"annotation equal")
+            break
+        if shape[0] == shape[1]:
+            raise AssertionError(f"record_results: {len(bad)} bindings and "
+                                 f"{len(bad_ann)} annotations differ card "
+                                 f"vs CPU on equal waves and lane calls, "
+                                 f"first {(bad + bad_ann)[:3]}")
+        log(f"[live-record] attempt {attempt}: {len(bad)} bindings and "
+            f"{len(bad_ann)} annotations differ; cause: a timing race "
+            f"(waves, records and lane calls card {shape[0]}, CPU "
+            f"{shape[1]})")
+    else:
+        raise AssertionError("record_results: card and CPU differ in 3 "
+                             "attempts")
+    rec_counts = audit_records(rec_card)
+    audit_records(rec_cpu)
+    kernels.reset_launch_counts()
+    rec_off = run_mixed_recorded(RECORD_NODES, RECORD_PODS,
+                                 max_wave=RECORD_WAVE, record=False)
+    launches["select_hosts"]["live-record-off"] = live_launches(
+        "record_results off, card", rec_off.waves)
+    if rec_off.placements != rec_card.placements or rec_off.loop_errors:
+        raise AssertionError(f"record_results changed placements or the "
+                             f"run without it failed ({rec_off.loop_errors} "
+                             f"loop errors)")
+    entries = sum(len(plugins) for ann in rec_card.annotations.values()
+                  for plane in ann if plane for plugins in plane.values())
+    n_rec_bound = sum(1 for v in rec_card.placements.values() if v)
+    log(f"[live-record] {card}: the mixed cluster, {RECORD_NODES} nodes x "
+        f"{RECORD_PODS} pods, serial engine, waves of {RECORD_WAVE}, full "
+        f"roster with record_results: card and CPU twins alike "
+        f"({n_rec_bound} bound; {rec_counts['with_record']} with a record, "
+        f"{rec_counts['without_record']} placed by the blocked lane without "
+        f"one; {rec_card.record_calls} records over {rec_card.waves} waves "
+        f"and the exact-scan chunks); wall {rec_card.wall_s:.3f}s with "
+        f"record_results, {rec_off.wall_s:.3f}s without (same placements), "
+        f"{rec_cpu.wall_s:.3f}s on the CPU; record evaluate "
+        f"{rec_card.record_evaluate_s:.3f}s, host ingest "
+        f"{rec_card.record_ingest_s:.3f}s; {entries:,} recorded entries, "
+        f"annotations {rec_card.annotation_bytes:,} bytes "
+        f"({rec_card.annotation_bytes / max(n_rec_bound, 1):,.0f} a bound "
+        f"pod); record errors 0, loop errors 0, select_hosts launches "
+        f"{launches['select_hosts']['live-record']} (without: "
+        f"{launches['select_hosts']['live-record-off']}), plain-twin calls 0")
+    del rec_card, rec_cpu, rec_off
+
+    # -- phase 25: the standalone process -----------------------------------
+    # (a) in process: __main__.start, config 5 over HTTP
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    hr = run_config5_http(N_NODES, N_PODS)
+    launches["select_hosts"]["process-c5"] = live_launches(
+        "config 5 over HTTP", hr.waves)
+    n_plain = hr.n_plain
+    types, samples = hr.metrics
+    ttb = "sched_time_to_bind_seconds"
+    ttb_count = sum(v for n_, _l, v in samples if n_ == ttb + "_count")
+    if (hr.bound < n_plain or hr.audit["bound"] != n_plain or hr.loop_errors
+            or types.get(ttb) != "histogram" or ttb_count != n_plain
+            or hr.threads_left):
+        raise AssertionError(f"config 5 over HTTP: {hr.bound} seen bound, "
+                             f"audit {hr.audit}, {hr.loop_errors} loop "
+                             f"errors, {ttb_count} binds in /metrics, "
+                             f"threads left {hr.threads_left}")
+    p50 = parsed_histogram_quantile(samples, ttb, 0.5)
+    p99 = parsed_histogram_quantile(samples, ttb, 0.99)
+    log(f"[process-c5] {card}: __main__.start (device engine, pipelined, "
+        f"waves of 1,024), config 5 over HTTP: {N_NODES} nodes and "
+        f"{N_PODS} pods in batch creates, create wall {hr.create_s:.3f}s; "
+        f"first create to last bind {hr.bind_s:.3f}s = "
+        f"{n_plain / hr.bind_s:,.0f} pods/s ({hr.waves} waves; phase 19 in "
+        f"process: first drain {phase19['first_drain_s']:.3f}s, total "
+        f"{phase19['total_s']:.3f}s); boot {hr.setup_s:.3f}s; "
+        f"{hr.bound} pods seen bound over the HTTP watch "
+        f"({hr.watch_events} events, the watch's JSON decode "
+        f"{hr.watch_decode_s:.3f}s); split: "
+        f"{', '.join(f'{k} {v:.3f}s' for k, v in hr.split.items())}; "
+        f"façade handlers: "
+        f"{', '.join(f'{k} {v:.3f}s' for k, v in sorted(hr.handler_s.items()))}; "
+        f"HTTP list audited in {hr.list_s:.3f}s ({hr.audit['bound']} "
+        f"bound); /metrics counts {int(ttb_count)} binds, time to bind p50 "
+        f"in ({p50[0]}, {p50[1]}]s, p99 in ({p99[0]}, {p99[1]}]s; loop "
+        f"errors 0, stop() left no non-daemon thread, select_hosts launches "
+        f"{launches['select_hosts']['process-c5']}, plain-twin calls 0")
+    del hr, samples
+
+    # (b) the child process, python3 -m minisched_tpu_torch
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, PORT=str(port),
+               FRONTEND_URL="http://localhost:3000")
+    t0 = time.monotonic()
+    child = subprocess.Popen([sys.executable, "-m", "minisched_tpu_torch"],
+                             env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    try:
+        lines: list = []
+        up = threading.Event()
+
+        def read_child() -> None:
+            # read to the end, so the child never blocks on a full pipe
+            for line in child.stdout:
+                lines.append(line)
+                up.set()
+            up.set()
+
+        reader = threading.Thread(target=read_child, daemon=True)
+        reader.start()
+        up.wait(300)
+        if not lines or f"API on {base}" not in lines[0]:
+            raise AssertionError(f"child process: no API line ({lines[-20:]}"
+                                 f", exit {child.poll()})")
+        boot_s = time.monotonic() - t0
+        node = readme_scenario_http(HTTPClient(base), log=lambda m: None)
+        scrape = subprocess.run(
+            [sys.executable, "-m", "minisched_tpu_torch", "metrics", base],
+            capture_output=True, text=True, timeout=120)
+        if node != "node10" or scrape.returncode != 0:
+            raise AssertionError(f"child process: pod1 on {node!r}, metrics "
+                                 f"exit {scrape.returncode}: {scrape.stderr}")
+        t1 = time.monotonic()
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=30)
+        stop_s = time.monotonic() - t1
+        reader.join(10)
+        if rc != 0:
+            raise AssertionError(f"child process: exit {rc} on SIGTERM")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    log(f"[process-child] {card}: python3 -m minisched_tpu_torch (device "
+        f"engine on the card): API line after {boot_s:.3f}s; the README "
+        f"scenario over HTTPClient: pod1 pending, then bound to node10; "
+        f"'metrics {base}' exit 0 ({len(scrape.stdout.splitlines())} "
+        f"lines); exit 0 {stop_s:.3f}s after SIGTERM")
 
     report = []
     replaces = {

@@ -10,6 +10,14 @@ Routing is decided by the tensor's device, never by a global flag: a
 CUDA tensor goes to the hand-written kernel (``ops/kernels.py``,
 ``csrc/*.cu``) or the call raises; a CPU tensor takes the kernel's plain
 PyTorch twin.  Entry points take ``device=None``, which means the card.
+
+The port runs as a process (``python -m minisched_tpu_torch``,
+``__main__.py``: the REST façade, the PV controller and the live engine,
+``/metrics``) or as a library (``service.service.SchedulerService``,
+with ``record_results`` for the simulator's per-plugin annotations).
+Still to come: the trace ring, the durable, remote, replicated and
+sharded stores, the gRPC servicer, ``ha/``, ``faults/`` and a device
+mesh (ROADMAP.md §1).
 """
 
 from __future__ import annotations

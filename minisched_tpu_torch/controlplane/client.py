@@ -30,6 +30,8 @@ from minisched_tpu_torch.controlplane.store import Conflict, ObjectStore
 KIND_POD = "Pod"
 KIND_NODE = "Node"
 KIND_EVENT = "Event"
+KIND_PV = "PersistentVolume"
+KIND_PVC = "PersistentVolumeClaim"
 
 
 class AlreadyBound(Exception):

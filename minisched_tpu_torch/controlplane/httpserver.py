@@ -1,0 +1,770 @@
+"""HTTP API façade: the control plane served over REST.
+
+A copy of ``minisched_tpu/controlplane/httpserver.py`` over the port's
+in-memory ``ObjectStore``.  It re-creates the reference's L1 boundary, a
+kube-apiserver served through an ``httptest.Server`` with health polling
+(k8sapiserver/k8sapiserver.go:43-71, :231-249), as a stdlib
+ThreadingHTTPServer.  Kubernetes-shaped routes:
+
+    GET    /healthz                                   → 200 "ok"
+    GET    /metrics                                   → Prometheus text
+    GET    /api/v1/nodes                              → list
+    GET    /api/v1/nodes/{name}                       → get
+    POST   /api/v1/nodes                              → create (one, or
+                                                        {"items": [...]})
+    PUT    /api/v1/nodes/{name}                       → update
+    DELETE /api/v1/nodes/{name}                       → delete
+    (the same under /api/v1/namespaces/{ns}/pods, persistentvolumes,
+    /api/v1/namespaces/{ns}/persistentvolumeclaims and events)
+    POST   /api/v1/namespaces/{ns}/pods/{name}/binding → bind subresource
+    POST   /api/v1/bindings                           → batch bind
+    GET    /api/v1/...?watch=true[&resource_version=N] → JSON-lines stream
+
+Objects travel in the control plane's JSON codec (``codec.py``), the
+namespace rules and the error codes are JAX's (409 conflict, 404
+missing, 400 malformed, 410 a watch resume past the history, 507 a store
+that cannot persist), and ``start_api_server`` mirrors
+``StartAPIServer(etcdURL) → (config, shutdownFn)``: it returns (server,
+base_url, shutdown_fn) once ``/healthz`` answers.  ``HTTPClient`` is the
+in-process ``Client``'s facade over the wire.
+
+Left out, each answering 404 as the JAX façade does when it is not
+enabled: shards (``/shards/*``), replication (``/repl/*``), the
+partition nemesis (``/net/partition``) and the trace ring
+(``/debug/trace``); leases (``/api/v1/leases``) wait for the port of
+``ha/``.  There is no selector stream loop: each watch stream holds a
+handler thread, JAX's ``MINISCHED_STREAMLOOP=0`` path.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+import urllib.error
+import urllib.request
+from collections import deque
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable, List, Optional, Tuple
+from urllib.parse import parse_qs
+
+from minisched_tpu_torch.api import objects
+from minisched_tpu_torch.api.objects import Binding, Node, Pod
+from minisched_tpu_torch.controlplane.client import (
+    AlreadyBound,
+    Client,
+    OutOfCapacity,
+)
+from minisched_tpu_torch.controlplane.codec import KIND_TYPES, _decode, _encode
+from minisched_tpu_torch.controlplane.store import (
+    Conflict,
+    HistoryCompacted,
+    ObjectStore,
+    StorageDegraded,
+)
+from minisched_tpu_torch.observability import counters, hist
+
+#: the kinds the REST façade serves: the codec's plus the Event kind the
+#: scheduler's recorder writes (scheduler/scheduler.go:55-59)
+REST_KINDS = {**KIND_TYPES, "Event": objects.Event}
+
+_COLLECTIONS = {"nodes": "Node", "pods": "Pod",
+                "persistentvolumes": "PersistentVolume",
+                "persistentvolumeclaims": "PersistentVolumeClaim",
+                "events": "Event"}
+
+#: kinds stored under namespace "" whatever the URL or body (kube
+#: semantics)
+_CLUSTER_SCOPED = {"Node", "PersistentVolume"}
+
+#: bound on the binding-ack registry (entries, FIFO): every in-flight
+#: wave's retries land inside it, and a long run never grows without bound
+_ACK_REGISTRY_CAP = 65536
+
+
+def _fixup_namespace(kind: str, ns: str, obj: Any) -> None:
+    """The one namespace rule for creates (single and batch): cluster-
+    scoped kinds normalize to ""; otherwise the URL namespace wins, else
+    the body's, else "default"."""
+    if kind in _CLUSTER_SCOPED:
+        obj.metadata.namespace = ""
+    elif ns:
+        obj.metadata.namespace = ns
+    elif not obj.metadata.namespace:
+        obj.metadata.namespace = "default"
+
+
+def _route(path: str):
+    """→ (kind, namespace, name, subresource); name and sub may be ''."""
+    parts = [p for p in path.split("/") if p]
+    # api/v1/nodes[/name]  |  api/v1/namespaces/ns/pods[/name[/binding]]
+    if parts[:2] != ["api", "v1"] or len(parts) < 3:
+        raise KeyError(path)
+    rest = parts[2:]
+    try:
+        if rest[0] == "namespaces":
+            ns, collection, *tail = rest[1:]
+        else:
+            ns, (collection, *tail) = "", rest
+    except (IndexError, ValueError):
+        raise KeyError(path)
+    name = tail[0] if tail else ""
+    sub = tail[1] if len(tail) > 1 else ""
+    return _COLLECTIONS[collection], ns, name, sub
+
+
+def _route_label(path: str) -> str:
+    """Low-cardinality route label for ``http.request_s``: the shape of
+    the path, never an object's name."""
+    if not path.startswith("/api/"):
+        return path if path in ("/healthz", "/metrics") else "other"
+    try:
+        kind, _ns, name, sub = _route(path)
+    except KeyError:
+        return "unroutable"
+    label = kind.lower()
+    if name:
+        label += "/{name}"
+    if sub:
+        label += "/" + sub
+    return label
+
+
+def _chunk_frame(data: bytes) -> bytes:
+    """One chunked-transfer frame of the watch stream."""
+    return f"{len(data):X}\r\n".encode() + data + b"\r\n"
+
+
+def event_wire_chunk(ev: Any) -> bytes:
+    """The watch stream's framed bytes for one event, encoded once and
+    memoized on the event: the store hands every watcher the same event,
+    so N streams of one mutation cost one encode.  ``watch.fanout.encoded``
+    counts first encodes, ``watch.fanout.shared`` the reuses."""
+    wire = ev.wire
+    if wire is None:
+        wire = _chunk_frame(json.dumps(
+            {"type": ev.type.value, "object": _encode(ev.obj), "rv": ev.rv}
+        ).encode() + b"\n")
+        ev.wire = wire
+        counters.inc("watch.fanout.encoded")
+    else:
+        counters.inc("watch.fanout.shared")
+    return wire
+
+
+class _Server(ThreadingHTTPServer):
+    #: the default listen backlog (5) drops a burst of watch connects
+    request_queue_size = 1024
+    daemon_threads = True
+
+
+class _Handler(BaseHTTPRequestHandler):
+    store: ObjectStore = None  # set by start_api_server
+    active_watches: set = None
+    watch_lock: threading.Lock = None
+    ack_registry: dict = None  # ack id → response entry
+    ack_order: deque = None  # FIFO of ack ids for eviction
+    ack_lock: threading.Lock = None
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, *args) -> None:  # quiet
+        pass
+
+    def _send(self, code: int, payload: Any, rv: Optional[int] = None
+              ) -> None:
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        if rv is not None:
+            # the resource_version the response's state reflects
+            self.send_header("X-Minisched-RV", str(rv))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _body(self) -> Any:
+        n = int(self.headers.get("Content-Length", 0))
+        return json.loads(self.rfile.read(n)) if n else {}
+
+    def _error(self, code: int, msg: str) -> None:
+        self._send(code, {"error": msg})
+
+    def _int_param(self, query: str, name: str) -> Optional[int]:
+        """One integer query parameter (None when absent).  A non-integer
+        answers 400 here and raises ValueError, so the handler returns."""
+        params = parse_qs(query) if query else {}
+        if name not in params:
+            return None
+        try:
+            return int(params[name][0])
+        except ValueError:
+            self._error(400, f"{name} must be an integer")
+            raise
+
+    def _observe_request(self, verb: str, path: str, t0: float) -> None:
+        hist.observe("http.request_s", time.monotonic() - t0, verb=verb,
+                     route=_route_label(path))
+
+    # -- GET ---------------------------------------------------------------
+    def do_GET(self) -> None:  # noqa: N802 (http.server API)
+        t0 = time.monotonic()
+        path, _, query = self.path.partition("?")
+        try:
+            self._handle_get(path, query)
+        finally:
+            # a watch stream is not a request: its latency is not one
+            if "watch=true" not in query:
+                self._observe_request("GET", path, t0)
+
+    def _handle_get(self, path: str, query: str) -> None:
+        if path == "/healthz":
+            self._send(200, "ok")
+            return
+        if path == "/metrics":
+            body = hist.render_prometheus().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; version=0.0.4")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            return
+        try:
+            kind, ns, name, _ = _route(path)
+        except KeyError:
+            self._error(404, f"no route {path}")
+            return
+        if "watch=true" in query:
+            try:
+                resume_rv = self._int_param(query, "resource_version")
+            except ValueError:
+                return  # 400 already sent
+            self._watch(kind, ns, resume_rv)
+            return
+        try:
+            min_rv = self._int_param(query, "min_rv")
+        except ValueError:
+            return  # 400 already sent
+        applied = self.store.resource_version
+        if min_rv is not None and min_rv > applied:
+            # a read bounded ahead of the store: refused, retryably
+            self._send(504, {"error": (
+                f"resource_version {min_rv} not yet observed by this "
+                f"replica (applied {applied})")}, rv=applied)
+            return
+        try:
+            if name:
+                self._send(200, _encode(self.store.get(kind, ns, name)),
+                           rv=applied)
+            else:
+                self._list(kind, ns)
+        except KeyError as e:
+            self._error(404, str(e))
+
+    def _list(self, kind: str, ns: str) -> None:
+        """A list whose ``resource_version`` reflects exactly its items
+        (one store lock hold); a namespaced path filters."""
+        t0 = time.monotonic()
+        counters.inc("wire.relist_requests")
+        try:
+            items, rv = self.store.list_with_rv(kind)
+            if ns:
+                items = [o for o in items if o.metadata.namespace == ns]
+            self._send(200, {"items": [_encode(o) for o in items],
+                             "resource_version": rv}, rv=rv)
+        finally:
+            hist.observe("http.list_s", time.monotonic() - t0,
+                         kind=kind.lower())
+
+    def _watch(self, kind: str, ns: str, resume_rv: Optional[int]) -> None:
+        """JSON-lines event stream (chunked) until the client hangs up or
+        the server shuts down.  The first line is SYNC: how many snapshot
+        events follow (namespace-filtered), counted atomically with the
+        registration, and the rv they reflect.  ``resume_rv`` (the
+        ``?resource_version=N`` query) replays the retained history after
+        N instead, SYNC count 0; past the history: 410 Gone."""
+        try:
+            watch, snapshot = self.store.watch(
+                kind, send_initial=resume_rv is None, resume_rv=resume_rv,
+                clone_snapshot=False)
+        except HistoryCompacted as e:
+            self._error(410, str(e))
+            return
+        with self.watch_lock:
+            self.active_watches.add(watch)
+        self.send_response(200)
+        self.send_header("Content-Type", "application/jsonlines")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        n_initial = sum(1 for o in snapshot
+                        if not ns or o.metadata.namespace == ns)
+        try:
+            self.wfile.write(_chunk_frame(json.dumps(
+                {"type": "SYNC", "count": n_initial, "rv": watch.start_rv}
+            ).encode() + b"\n"))
+            self.wfile.flush()
+            while True:
+                events = watch.next_batch(timeout=0.5)
+                if not events:
+                    if watch.stopped:
+                        break
+                    self.wfile.write(_chunk_frame(b"\n"))  # keepalive
+                    self.wfile.flush()
+                    continue
+                for ev in events:
+                    if ns and ev.obj.metadata.namespace != ns:
+                        continue
+                    self.wfile.write(event_wire_chunk(ev))
+                self.wfile.flush()
+            # orderly end of stream: the terminal chunk
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
+        except OSError:
+            # the client hung up mid-chunk: counted, and the watch is
+            # unregistered at once below
+            counters.inc("watch.disconnects")
+        finally:
+            self.close_connection = True
+            watch.stop()
+            with self.watch_lock:
+                self.active_watches.discard(watch)
+
+    # -- POST --------------------------------------------------------------
+    def do_POST(self) -> None:  # noqa: N802
+        t0 = time.monotonic()
+        try:
+            self._handle_post()
+        finally:
+            self._observe_request("POST", self.path.partition("?")[0], t0)
+
+    def _handle_post(self) -> None:
+        path = self.path.partition("?")[0]
+        if path == "/api/v1/bindings":
+            self._bind_many()
+            return
+        try:
+            kind, ns, name, sub = _route(path)
+        except KeyError:
+            self._error(404, f"no route {self.path}")
+            return
+        if sub == "binding":
+            self._bind_one(ns or "default", name)
+            return
+        try:
+            body = self._body()
+        except ValueError as e:
+            self._error(400, f"malformed body: {e}")
+            return
+        # a collection POST with an "items" list is a batch create (single
+        # objects never encode with a top-level "items" key)
+        if isinstance(body, dict) and isinstance(body.get("items"), list):
+            self._create_many(kind, ns, body["items"],
+                              return_objects=body.get("return_objects", True))
+            return
+        try:
+            obj = _decode(REST_KINDS[kind], body)
+        except Exception as e:  # any decode failure is the client's
+            self._error(400, f"malformed body: {e}")
+            return
+        _fixup_namespace(kind, ns, obj)
+        try:
+            self._send(201, _encode(self.store.create(kind, obj)))
+        except StorageDegraded as e:
+            self._error(507, str(e))
+        except KeyError as e:
+            self._error(409, str(e))
+
+    def _bind_one(self, namespace: str, name: str) -> None:
+        try:
+            data = self._body()
+            node_name = data.get("node_name")
+        except (ValueError, AttributeError) as e:
+            self._error(400, f"malformed body: {e}")
+            return
+        if not node_name:
+            self._error(400, "binding body requires node_name")
+            return
+        try:
+            pod = Client(self.store).pods(namespace).bind(Binding(
+                name, namespace, node_name,
+                expected_rv=data.get("expected_rv")))
+            self._send(201, _encode(pod))
+        except AlreadyBound as e:
+            self._send(409, self._already_bound_entry(e, namespace, name))
+        except (Conflict, OutOfCapacity) as e:
+            self._error(409, str(e))
+        except StorageDegraded as e:
+            self._error(507, str(e))
+        except KeyError as e:
+            self._error(404, str(e))
+
+    def _already_bound_entry(self, err: BaseException, namespace: str,
+                             name: str) -> dict:
+        """The 409 AlreadyBound body, with the node the pod is bound to as
+        a field: a retrying client compares it with the node it asked
+        for."""
+        entry = {"error": str(err), "type": "AlreadyBound"}
+        try:
+            entry["node"] = self.store.get("Pod", namespace,
+                                           name).spec.node_name
+        except KeyError:
+            pass  # the pod vanished between the bind and the lookup
+        return entry
+
+    def _create_many(self, kind: str, ns: str, items: list,
+                     return_objects: bool = True) -> None:
+        """Batch create: decode each item (the single create's namespace
+        rule), then one store transaction; one response entry per item:
+        {"object"} (bare {} without ``return_objects``) or {"error",
+        "type"}."""
+        out: List[Any] = [None] * len(items)
+        decoded = []
+        for i, raw in enumerate(items):
+            try:
+                obj = _decode(REST_KINDS[kind], raw)
+            except Exception as e:  # any decode failure is the client's
+                out[i] = {"error": f"malformed item: {e}",
+                          "type": "BadRequest"}
+                continue
+            _fixup_namespace(kind, ns, obj)
+            decoded.append((i, obj))
+        try:
+            results = self.store.create_many(
+                kind, [o for _, o in decoded], return_objects=return_objects)
+        except StorageDegraded as e:
+            self._error(507, str(e))
+            return
+        for (i, _), res in zip(decoded, results):
+            if isinstance(res, KeyError):
+                out[i] = {"error": str(res), "type": "Conflict"}
+            elif isinstance(res, StorageDegraded):
+                out[i] = {"error": str(res), "type": "StorageDegraded"}
+            elif isinstance(res, BaseException):
+                out[i] = {"error": str(res), "type": "Error"}
+            elif res is None:
+                out[i] = {}
+            else:
+                out[i] = {"object": _encode(res)}
+        self._send(200, {"items": out})
+
+    def _bind_many(self) -> None:
+        """Batch binding: a wave's placements in one request and one store
+        transaction; per-item errors come back per entry.
+
+        A request with a ``batch_id`` records each entry's outcome under
+        ``{batch_id}/{index}`` (or the item's ``ack``).  A retried batch
+        (the response to the first attempt was lost) answers the entries
+        already decided from that registry, marked ``"acked": true``,
+        and runs only the rest.  The registry is in memory (bounded FIFO)
+        and does not outlive the server."""
+        try:
+            data = self._body()
+            items = data.get("items", [])
+            return_objects = data.get("return_objects", True)
+            batch_id = str(data.get("batch_id") or "")
+            bindings = []
+            ack_keys = []
+            for i, it in enumerate(items):
+                if not it.get("name") or not it.get("node_name"):
+                    self._error(400,
+                                "each binding requires name and node_name")
+                    return
+                bindings.append(Binding(
+                    it["name"], it.get("namespace") or "default",
+                    it["node_name"], expected_rv=it.get("expected_rv")))
+                ack_keys.append(str(it.get("ack", i)))
+        except (ValueError, AttributeError, TypeError) as e:
+            # malformed JSON, a non-dict body or items: a 400, not a
+            # dropped connection
+            self._error(400, f"malformed body: {e}")
+            return
+        replayed: dict = {}
+        if batch_id:
+            with self.ack_lock:
+                for i in range(len(bindings)):
+                    entry = self.ack_registry.get(f"{batch_id}/{ack_keys[i]}")
+                    if entry is not None:
+                        replayed[i] = entry
+        todo = [i for i in range(len(bindings)) if i not in replayed]
+        try:
+            results = Client(self.store).pods().bind_many(
+                [bindings[i] for i in todo], return_objects=return_objects)
+        except StorageDegraded as e:
+            # the whole transaction was refused before commit: retryable
+            self._error(507, str(e))
+            return
+        out: List[Any] = [None] * len(bindings)
+        fresh: dict = {}
+        for i, res in zip(todo, results):
+            b = bindings[i]
+            if isinstance(res, AlreadyBound):
+                entry = self._already_bound_entry(res, b.pod_namespace,
+                                                  b.pod_name)
+            elif isinstance(res, Conflict):
+                entry = {"error": str(res), "type": "Conflict"}
+            elif isinstance(res, OutOfCapacity):
+                entry = {"error": str(res), "type": "OutOfCapacity"}
+            elif isinstance(res, StorageDegraded):
+                entry = {"error": str(res), "type": "StorageDegraded"}
+            elif isinstance(res, BaseException):
+                entry = {"error": str(res), "type": "NotFound"}
+            elif res is not None:
+                entry = {"object": _encode(res)}
+            else:
+                entry = {}
+            out[i] = entry
+            # the registry keeps the outcome, not the encoded pod; a
+            # degraded entry never ran, so it is not an outcome
+            if entry.get("type") != "StorageDegraded":
+                fresh[i] = entry if "error" in entry else {"committed": True}
+        for i, entry in replayed.items():
+            if entry.get("committed"):
+                ack: dict = {"acked": True}
+                if return_objects:
+                    b = bindings[i]
+                    try:
+                        ack["object"] = _encode(self.store.get(
+                            "Pod", b.pod_namespace, b.pod_name))
+                    except KeyError:
+                        pass  # deleted since: the ack alone says it landed
+                out[i] = ack
+            else:
+                out[i] = dict(entry, acked=True)
+        if batch_id and fresh:
+            with self.ack_lock:
+                for i, entry in fresh.items():
+                    ack_id = f"{batch_id}/{ack_keys[i]}"
+                    if ack_id not in self.ack_registry:
+                        self.ack_order.append(ack_id)
+                    self.ack_registry[ack_id] = entry
+                while len(self.ack_order) > _ACK_REGISTRY_CAP:
+                    self.ack_registry.pop(self.ack_order.popleft(), None)
+        self._send(200, {"items": out})
+
+    # -- PUT, DELETE -------------------------------------------------------
+    def do_PUT(self) -> None:  # noqa: N802
+        t0 = time.monotonic()
+        try:
+            self._handle_put()
+        finally:
+            self._observe_request("PUT", self.path.partition("?")[0], t0)
+
+    def _handle_put(self) -> None:
+        path, _, query = self.path.partition("?")
+        try:
+            kind, ns, name, _ = _route(path)
+        except KeyError:
+            self._error(404, f"no route {path}")
+            return
+        try:
+            expected_rv = self._int_param(query, "expected_rv")
+        except ValueError:
+            return  # 400 already sent
+        try:
+            obj = _decode(REST_KINDS[kind], self._body())
+        except Exception as e:  # any decode failure is the client's
+            self._error(400, f"malformed body: {e}")
+            return
+        # the URL is authoritative: a body naming another object is a
+        # client error, not an update of that object
+        if name and obj.metadata.name != name:
+            self._error(400, f"body names {obj.metadata.name!r}, path "
+                             f"names {name!r}")
+            return
+        if ns and obj.metadata.namespace != ns:
+            self._error(400, f"body namespace {obj.metadata.namespace!r} "
+                             f"!= {ns!r}")
+            return
+        try:
+            self._send(200, _encode(self.store.update(
+                kind, obj, expected_rv=expected_rv)))
+        except Conflict as e:
+            self._error(409, str(e))
+        except StorageDegraded as e:
+            self._error(507, str(e))
+        except KeyError as e:
+            self._error(404, str(e))
+
+    def do_DELETE(self) -> None:  # noqa: N802
+        t0 = time.monotonic()
+        try:
+            self._handle_delete()
+        finally:
+            self._observe_request("DELETE", self.path.partition("?")[0], t0)
+
+    def _handle_delete(self) -> None:
+        try:
+            kind, ns, name, _ = _route(self.path)
+            self.store.delete(kind, ns, name)
+            self._send(200, {})
+        except StorageDegraded as e:
+            self._error(507, str(e))
+        except KeyError as e:
+            self._error(404, str(e))
+
+
+def start_api_server(store: Optional[ObjectStore] = None, port: int = 0
+                     ) -> Tuple[ThreadingHTTPServer, str, Callable[[], None]]:
+    """Boot the REST façade on ``port`` (0: ephemeral) and poll
+    ``/healthz`` until it answers (k8sapiserver.go:231-249's readiness
+    loop: 100 ms apart, 30 s at most).  Returns (server, base_url,
+    shutdown_fn); the shutdown ends every watch stream first."""
+    store = store or ObjectStore()
+    handler = type("BoundHandler", (_Handler,), {
+        "store": store, "active_watches": set(),
+        "watch_lock": threading.Lock(), "ack_registry": {},
+        "ack_order": deque(), "ack_lock": threading.Lock()})
+    server = _Server(("127.0.0.1", port), handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True,
+                              name="api-server")
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    deadline = time.monotonic() + 30.0
+    while time.monotonic() < deadline:
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=1.0) as r:
+                if r.status == 200:
+                    break
+        except OSError:
+            pass
+        time.sleep(0.1)
+    else:
+        server.shutdown()
+        server.server_close()
+        raise RuntimeError("API server failed /healthz within 30s")
+
+    def shutdown() -> None:
+        # end the watch streams first: their handler threads would
+        # otherwise hold their store registrations forever
+        with handler.watch_lock:
+            watches = list(handler.active_watches)
+        for w in watches:
+            w.stop()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=2.0)
+
+    return server, base, shutdown
+
+
+class HTTPClient:
+    """The in-process ``Client``'s facade over the wire (what the
+    reference's scenario does with client-go against the httptest server,
+    sched.go:70-143): the same methods, the same exceptions."""
+
+    def __init__(self, base_url: str, timeout: float = 60.0):
+        self._base = base_url.rstrip("/")
+        self._timeout = timeout
+
+    def _req(self, method: str, path: str, payload: Any = None) -> Any:
+        data = json.dumps(payload).encode() if payload is not None else None
+        req = urllib.request.Request(
+            self._base + path, data=data, method=method,
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=self._timeout) as r:
+                return json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            status, body = e.code, e.read().decode(errors="replace")
+        if status == 409 and "already bound" in body:
+            raise AlreadyBound(body)
+        if status == 409 and "stale resource_version" in body:
+            raise Conflict(body)  # == update(expected_rv) in process
+        if status == 409 and "out of capacity" in body:
+            raise OutOfCapacity(body)
+        if status == 409 and "already exists" in body:
+            raise KeyError(body)  # == store.create in process
+        if status == 404:
+            raise KeyError(body)
+        if status == 410:
+            raise HistoryCompacted(body)
+        if status == 507:
+            raise StorageDegraded(body)
+        raise RuntimeError(f"HTTP {status}: {body}")
+
+    def _create_many(self, path: str, objs: List[Any],
+                     return_objects: bool) -> List[Any]:
+        """One batch-create request; the in-process ``create_many``'s
+        result shape (the object, None without ``return_objects``, or
+        the entry's exception)."""
+        tp = type(objs[0]) if objs else None
+        out = self._req("POST", path, {
+            "items": [_encode(o) for o in objs],
+            "return_objects": return_objects})["items"]
+        res: List[Any] = []
+        for entry in out:
+            if "error" in entry:
+                res.append(KeyError(entry["error"])
+                           if entry.get("type") == "Conflict"
+                           else RuntimeError(entry["error"]))
+            else:
+                res.append(_decode(tp, entry["object"])
+                           if "object" in entry else None)
+        return res
+
+    class _Nodes:
+        def __init__(self, c: "HTTPClient"):
+            self._c = c
+
+        def create(self, node: Node) -> Node:
+            return _decode(Node, self._c._req("POST", "/api/v1/nodes",
+                                              _encode(node)))
+
+        def create_many(self, nodes: List[Node],
+                        return_objects: bool = True) -> List[Any]:
+            return self._c._create_many("/api/v1/nodes", nodes,
+                                        return_objects)
+
+        def get(self, name: str) -> Node:
+            return _decode(Node, self._c._req("GET", f"/api/v1/nodes/{name}"))
+
+        def list(self) -> List[Node]:
+            out = self._c._req("GET", "/api/v1/nodes")
+            return [_decode(Node, o) for o in out["items"]]
+
+        def delete(self, name: str) -> None:
+            self._c._req("DELETE", f"/api/v1/nodes/{name}")
+
+    class _Pods:
+        def __init__(self, c: "HTTPClient", ns: str):
+            self._c = c
+            self._ns = ns
+
+        def _path(self, name: str = "", namespace: Optional[str] = None
+                  ) -> str:
+            p = f"/api/v1/namespaces/{namespace or self._ns}/pods"
+            return f"{p}/{name}" if name else p
+
+        def create(self, pod: Pod) -> Pod:
+            return _decode(Pod, self._c._req("POST", self._path(),
+                                             _encode(pod)))
+
+        def create_many(self, pods: List[Pod],
+                        return_objects: bool = True) -> List[Any]:
+            return self._c._create_many(self._path(), pods, return_objects)
+
+        def get(self, name: str, namespace: Optional[str] = None) -> Pod:
+            return _decode(Pod, self._c._req("GET",
+                                             self._path(name, namespace)))
+
+        def list(self) -> List[Pod]:
+            out = self._c._req("GET", self._path())
+            return [_decode(Pod, o) for o in out["items"]]
+
+        def update(self, pod: Pod) -> Pod:
+            return _decode(Pod, self._c._req(
+                "PUT", self._path(pod.metadata.name), _encode(pod)))
+
+        def delete(self, name: str, namespace: Optional[str] = None) -> None:
+            self._c._req("DELETE", self._path(name, namespace))
+
+        def bind(self, binding: Binding) -> Pod:
+            return _decode(Pod, self._c._req(
+                "POST", self._path(binding.pod_name,
+                                   binding.pod_namespace) + "/binding",
+                {"node_name": binding.node_name}))
+
+    def nodes(self) -> "HTTPClient._Nodes":
+        return HTTPClient._Nodes(self)
+
+    def pods(self, namespace: str = "default") -> "HTTPClient._Pods":
+        return HTTPClient._Pods(self, namespace)

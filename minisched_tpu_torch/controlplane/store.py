@@ -16,11 +16,17 @@ One lock guards the maps, and events are queued to watchers while it is
 held, so every watcher sees mutation order.  Delivery is decoupled
 through per-watcher queues: a slow consumer never stalls a mutator.
 
-Left out, as no engine path needs them: the durable (WAL), replicated,
-sharded and remote stores, watch resume from history (an in-process
-watch never breaks), the copy-on-write read plane and the fault hooks.
-Without resume the per-watcher queues are unbounded: a watcher is never
-evicted, because nothing could reconnect it.
+Watch resume (JAX ``store.py:1138-1200``): every event is also kept in
+a per-kind history ring, bounded by count and by an estimate of its
+bytes; ``watch(kind, resume_rv=N)`` replays the retained events after N
+instead of the snapshot, and raises ``HistoryCompacted`` (the REST
+façade's 410) when the ring no longer reaches back to N or N is ahead of
+the store.
+
+Left out: the durable (WAL), replicated, sharded and remote stores, the
+copy-on-write read plane and the fault hooks.  The per-watcher queues
+are unbounded: the in-process informers never reconnect, so a watcher is
+never evicted.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from __future__ import annotations
 import enum
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -43,6 +50,21 @@ class Conflict(Exception):
     precondition did not match the stored object's resource_version."""
 
 
+class HistoryCompacted(Exception):
+    """A watch resume asked for history older than the store retains
+    (ring overflow) or newer than it holds: the apiserver's 410 Gone.
+    The consumer must relist."""
+
+
+#: events retained for watch resume, per kind (JAX's defaults): a kind's
+#: ring overflowing advances that kind's floor, below which a resume is
+#: refused with HistoryCompacted
+DEFAULT_HISTORY_EVENTS = 65536
+#: the same ring's budget in estimated bytes, per kind; whichever cap
+#: trips first evicts
+DEFAULT_HISTORY_BYTES = 64 * 1024 * 1024
+
+
 class StorageDegraded(Exception):
     """The store cannot persist mutations.  The in-memory store never
     raises it; the engine parks and retries on it, as it does against
@@ -56,6 +78,9 @@ class WatchEvent:
     old_obj: Any = None
     #: the resource_version of the mutation that produced this event
     rv: int = 0
+    #: the REST façade's framed wire bytes, encoded once per event and
+    #: shared by every stream (``httpserver.event_wire_chunk``)
+    wire: Optional[bytes] = None
 
 
 class Watch:
@@ -67,6 +92,9 @@ class Watch:
         self._cond = threading.Condition()
         self._events: List[WatchEvent] = []
         self._stopped = False
+        #: the resource_version the watch starts after: the snapshot's
+        #: for a full open, the resume cursor for a resumed one
+        self.start_rv = 0
 
     # called by the store while it holds its lock; only touches this
     # watch's own condition and queue, so it cannot block on user code
@@ -115,6 +143,48 @@ class Watch:
         return self._stopped
 
 
+def _walk_bytes(x: Any) -> int:
+    """Footprint estimate (proportional, not exact): strings and
+    containers by length, objects through ``__dict__``, private fields
+    skipped."""
+    if x is None:
+        return 8
+    if isinstance(x, str):
+        return 56 + len(x)
+    if isinstance(x, (int, float, bool)):
+        return 32
+    if isinstance(x, dict):
+        return 64 + sum(_walk_bytes(k) + _walk_bytes(v) for k, v in x.items())
+    if isinstance(x, (list, tuple, set, frozenset)):
+        return 56 + sum(_walk_bytes(v) for v in x)
+    d = getattr(x, "__dict__", None)
+    if d is not None:
+        return 64 + sum(_walk_bytes(v) for k, v in d.items()
+                        if not k.startswith("_"))
+    return 64
+
+
+def approx_obj_bytes(obj: Any) -> int:
+    """The history ring's per-object size estimate.  The spec walk is
+    memoized on the spec, which is never mutated once stored and which a
+    bind shares between the pending and the bound pod."""
+    total = 256
+    meta = getattr(obj, "metadata", None)
+    if meta is not None:
+        total += 128 + _walk_bytes(meta.labels) + _walk_bytes(meta.annotations)
+    spec = getattr(obj, "spec", None)
+    if spec is not None:
+        d = getattr(spec, "__dict__", None)
+        if d is None:
+            total += _walk_bytes(spec)
+        else:
+            memo = d.get("_approx_bytes_memo")
+            if memo is None:
+                memo = d["_approx_bytes_memo"] = _walk_bytes(spec)
+            total += memo
+    return total
+
+
 def compute_node_agg(pods) -> Dict[str, List[int]]:
     """Per-node ``[milli_cpu, memory, pods]`` summed over BOUND pods —
     the independent recompute of ``ObjectStore._pod_node_agg``."""
@@ -136,8 +206,16 @@ def compute_node_agg(pods) -> Dict[str, List[int]]:
 class ObjectStore:
     """Versioned multi-kind object store + watch hub."""
 
-    def __init__(self) -> None:
+    def __init__(self, history_events: int = DEFAULT_HISTORY_EVENTS,
+                 history_bytes: int = DEFAULT_HISTORY_BYTES) -> None:
         self._lock = threading.RLock()
+        # per kind: (event, estimated bytes) in mutation order, and the
+        # highest rv no longer retained (a resume below it is refused)
+        self._history: Dict[str, deque] = {}
+        self._history_cap = max(int(history_events), 0)
+        self._history_byte_cap = max(int(history_bytes), 0)
+        self._history_bytes_used: Dict[str, int] = {}
+        self._history_floors: Dict[str, int] = {}
         self._objects: Dict[str, Dict[str, Any]] = {}  # kind -> key -> obj
         self._watches: Dict[str, List[Watch]] = {}
         self._rv = 0
@@ -189,9 +267,41 @@ class ObjectStore:
             if sign < 0 and not (a[0] or a[1] or a[2]):
                 del agg[node]  # bound pods all gone: don't accrete names
 
+    def _record_history(self, kind: str, event: WatchEvent) -> None:
+        """Append one event to the kind's resume ring (caller holds the
+        lock); overflow by count or by bytes advances the kind's floor.
+        The ring keeps its own event without ``old_obj`` (a resume never
+        sends it) and apart from the fanned-out one (whose memoized wire
+        bytes must not stay pinned in the ring)."""
+        if self._history_cap <= 0:
+            return
+        ring = self._history.get(kind)
+        if ring is None:
+            ring = self._history[kind] = deque()
+        event = WatchEvent(event.type, event.obj, rv=event.rv)
+        cost = approx_obj_bytes(event.obj) + 96
+        used = self._history_bytes_used.get(kind, 0) + cost
+        while ring and (len(ring) >= self._history_cap
+                        or (self._history_byte_cap > 0
+                            and used > self._history_byte_cap)):
+            dropped, dropped_cost = ring.popleft()
+            used -= dropped_cost
+            self._history_floors[kind] = max(
+                self._history_floors.get(kind, 0), dropped.rv)
+        ring.append((event, cost))
+        self._history_bytes_used[kind] = used
+
+    def history_stats(self, kind: str) -> Dict[str, int]:
+        """(events retained, estimated bytes retained) for one kind."""
+        with self._lock:
+            return {"events": len(self._history.get(kind, ())),
+                    "bytes": self._history_bytes_used.get(kind, 0)}
+
     def _fanout(self, kind: str, events: List[WatchEvent]) -> None:
         # events carry the STORED objects: the store never mutates an
         # object after it lands, so observers can never see one change
+        for ev in events:
+            self._record_history(kind, ev)
         for w in list(self._watches.get(kind, ())):
             w._deliver_many(events)
 
@@ -354,13 +464,39 @@ class ObjectStore:
             return self._rv
 
     # -- watch -------------------------------------------------------------
-    def watch(self, kind: str,
-              send_initial: bool = True) -> Tuple[Watch, List[Any]]:
+    def watch(self, kind: str, send_initial: bool = True,
+              resume_rv: Optional[int] = None,
+              clone_snapshot: bool = True) -> Tuple[Watch, List[Any]]:
         """Open a watch; returns (watch, current snapshot).
         ``send_initial`` replays the snapshot as ADDED events into the
-        watch (list+watch), atomically with the registration."""
+        watch (list+watch), atomically with the registration.
+
+        ``resume_rv`` resumes instead: the watch first delivers the
+        retained events with rv > resume_rv (copies, no snapshot), then
+        goes live, atomically with the registration.  HistoryCompacted
+        when the ring no longer reaches back to resume_rv, or resume_rv
+        is ahead of the store.  ``clone_snapshot=False`` returns the
+        stored objects themselves, for a caller that only counts them."""
         with self._lock:
             w = Watch(self, kind)
+            if resume_rv is not None:
+                floor = self._history_floors.get(kind, 0)
+                if resume_rv < floor:
+                    raise HistoryCompacted(
+                        f"resource_version {resume_rv} compacted away "
+                        f"for {kind} (floor {floor})")
+                if resume_rv > self._rv:
+                    raise HistoryCompacted(
+                        f"resource_version {resume_rv} is ahead of this "
+                        f"server (at {self._rv}); relist required")
+                w.start_rv = resume_rv
+                w._deliver_many([
+                    WatchEvent(ev.type, ev.obj, rv=ev.rv)
+                    for ev, _cost in self._history.get(kind, ())
+                    if ev.rv > resume_rv])
+                self._watches.setdefault(kind, []).append(w)
+                return w, []
+            w.start_rv = self._rv
             objs = list(self._objects.get(kind, {}).values())
             if send_initial:
                 w._deliver_many([
@@ -368,7 +504,7 @@ class ObjectStore:
                                rv=obj.metadata.resource_version)
                     for obj in objs])
             self._watches.setdefault(kind, []).append(w)
-            return w, [o.clone() for o in objs]
+            return w, [o.clone() for o in objs] if clone_snapshot else objs
 
     def _remove_watch(self, kind: str, w: Watch) -> None:
         with self._lock:

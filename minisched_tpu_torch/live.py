@@ -32,26 +32,40 @@ hold no such node.
 ``run_gang_live`` drives ``fullchain.mk_c5_gang_cluster`` (gangs of 8,
 a quarter with 4 members already bound) with ``gang_roster_config``:
 Coscheduling admits each gang all or nothing at Permit.
+
+``run_mixed_recorded`` is ``record_results`` on the mixed cluster
+(``fullchain.mk_mixed_cluster``, with its claims and PVs) on the serial
+engine: each pod's bindings and parsed ``scheduler-simulator/*``
+annotations, and which pods a record call carried.  ``run_config5_http``
+is the standalone process (``__main__.start``) fed config 5 over its REST
+façade and watched over it until the plain pods are bound.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
 import random
+import socket
 import threading
 import time
+import urllib.request
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from minisched_tpu_torch.api.objects import gang_key, make_pod
 from minisched_tpu_torch.controlplane.client import Client
+from minisched_tpu_torch.engine.device_scheduler import DeviceScheduler
 from minisched_tpu_torch.fullchain import (
     C5_MAX_SKEW,
     C5_REQUESTS,
     c5_spread_pod,
     mk_c5_cluster,
     mk_c5_gang_cluster,
+    mk_mixed_cluster,
 )
+from minisched_tpu_torch.observability import annotation
 from minisched_tpu_torch.observability import counters, hist
 from minisched_tpu_torch.observability.profiling import CycleMetrics
 from minisched_tpu_torch.service.config import (
@@ -559,3 +573,293 @@ def store_choices(client: Client, nodes: Sequence[Any],
     row = {n.metadata.name: i for i, n in enumerate(nodes)}
     where = {p.metadata.key: p.spec.node_name for p in client.pods().list()}
     return [row.get(where.get(p.metadata.key) or "", -1) for p in pods]
+
+
+# -- record_results on the mixed cluster ------------------------------------
+
+
+@dataclass
+class RecordRun:
+    client: Client
+    #: pod name → node ('' = parked), the pending pods only
+    placements: Dict[str, str]
+    #: pod name → the three annotations parsed (None where absent)
+    annotations: Dict[str, tuple]
+    #: keys of the pods some ``_record_wave`` call carried
+    recorded: set
+    #: keys of the pods in some blocked-lane chunk
+    blocked: set
+    record_calls: int
+    waves: int
+    wall_s: float
+    #: seconds in the record's evaluations and in its host ingest
+    record_evaluate_s: float
+    record_ingest_s: float
+    annotation_bytes: int
+    loop_errors: int
+    record_errors: int
+    scan_stats: Dict[str, Any]
+
+
+@contextlib.contextmanager
+def _lane_log():
+    """For the engines running inside the block: the pods each record
+    call carried and the pods of each blocked-lane chunk (the engine
+    methods wrapped at class level, restored on exit)."""
+    log = {"recorded": set(), "calls": 0, "blocked": set()}
+    orig_record = DeviceScheduler._record_wave
+    orig_chunk = DeviceScheduler._run_blocked_chunk
+
+    def record(self, pods_, *args):
+        log["calls"] += 1
+        log["recorded"].update(p.metadata.key for p in pods_)
+        return orig_record(self, pods_, *args)
+
+    def chunk(self, part, *args):
+        log["blocked"].update(q.pod.metadata.key for q in part
+                              if q is not None)
+        return orig_chunk(self, part, *args)
+
+    DeviceScheduler._record_wave = record
+    DeviceScheduler._run_blocked_chunk = chunk
+    try:
+        yield log
+    finally:
+        DeviceScheduler._record_wave = orig_record
+        DeviceScheduler._run_blocked_chunk = orig_chunk
+
+
+def _parsed_annotations(pod: Any) -> tuple:
+    ann = pod.metadata.annotations
+    return tuple(json.loads(ann[k]) if k in ann else None
+                 for k in (annotation.FILTER_RESULT, annotation.SCORE_RESULT,
+                           annotation.FINAL_SCORE_RESULT))
+
+
+def run_mixed_recorded(n_nodes: int, n_pods: int, max_wave: int = 128,
+                       device: Any = None, record: bool = True,
+                       timeout_s: float = 900.0) -> RecordRun:
+    """The mixed cluster through the serial engine with the full roster
+    and (``record``) ``record_results``, to the end of its first drain:
+    every pending pod bound or parked and, with ``record``, every bound
+    pod's record flushed.  Pods carry explicit uids and the store's order
+    fixes the waves, so two runs on two devices bind alike."""
+    nodes, assigned, pods, pvcs, pvs = mk_mixed_cluster(n_nodes, n_pods)
+    client = Client()
+    for pvc in pvcs:
+        client.store.create("PersistentVolumeClaim", pvc)
+    for pv in pvs:
+        client.store.create("PersistentVolume", pv)
+    client.nodes().create_many(nodes, return_objects=False)
+    for i, p in enumerate(assigned):
+        p.metadata.uid = f"assigned-{i:08d}"
+    for i, p in enumerate(pods):
+        p.metadata.uid = f"pod-{i:08d}"
+    client.pods().create_many(assigned + pods, return_objects=False)
+    keys = {p.metadata.key for p in pods}
+    svc = SchedulerService(client)
+    metrics = CycleMetrics()
+    with _lane_log() as log:
+        t0 = time.monotonic()
+        sched = svc.start_scheduler(
+            default_full_roster_config(), record_results=record,
+            device_mode=True, max_wave=max_wave, metrics=metrics,
+            device=device, pipeline=False)
+        sched.assume_ttl_s = QUIESCE_TTL_S
+
+        def settled() -> bool:
+            st = sched.queue.stats()
+            mine = [p for p in client.pods().list()
+                    if p.metadata.key in keys]
+            bound = [p for p in mine if p.spec.node_name]
+            flushed = not record or all(
+                not svc.result_store.has_data(p.metadata.key)
+                for p in bound)
+            return (st["active"] == 0 and st["backoff"] == 0
+                    and not sched._scan_backlog and flushed
+                    and len(bound) + st["unschedulable"] == len(mine))
+
+        try:
+            wait_until(settled, timeout_s, f"{n_pods} pods settled", sched)
+            wall_s = time.monotonic() - t0
+            snap = metrics.snapshot()
+        finally:
+            svc.close()
+    mine = [p for p in client.pods().list() if p.metadata.key in keys]
+    ann_bytes = sum(len(p.metadata.annotations.get(k, ""))
+                    for p in mine for k in (annotation.FILTER_RESULT,
+                                            annotation.SCORE_RESULT,
+                                            annotation.FINAL_SCORE_RESULT))
+    return RecordRun(
+        client, {p.metadata.name: p.spec.node_name for p in mine},
+        {p.metadata.name: _parsed_annotations(p) for p in mine},
+        log["recorded"], log["blocked"], log["calls"],
+        int(snap.get("wave", {}).get("count", 0)), wall_s,
+        snap.get("record_evaluate", {}).get("total_s", 0.0),
+        snap.get("record_ingest", {}).get("total_s", 0.0), ann_bytes,
+        sched.loop_errors, sched.record_errors, dict(sched.scan_stats))
+
+
+def audit_records(run: RecordRun) -> Dict[str, int]:
+    """Every bound pod carries a record exactly when some record call (a
+    wave, an exact-scan chunk) carried it; a bound pod without one was in
+    a blocked-lane chunk (the blocked lane records nothing, as in JAX).
+    Returns the counts."""
+    with_rec = without = 0
+    for name, node in run.placements.items():
+        if not node:
+            continue
+        key = f"default/{name}"
+        has = run.annotations[name][0] is not None
+        if has != (key in run.recorded):
+            raise AssertionError(f"record audit: {key} record {has}, "
+                                 f"recorded {key in run.recorded}")
+        if not has and key not in run.blocked:
+            raise AssertionError(f"record audit: {key} bound without a "
+                                 f"record outside the blocked lane")
+        with_rec += has
+        without += not has
+    return {"with_record": with_rec, "without_record": without}
+
+
+# -- the standalone process, config 5 over HTTP -----------------------------
+
+
+@dataclass
+class HttpRun:
+    n_plain: int  # the pods awaited: config 5's plain ones
+    bound: int
+    #: first create request to the last create's answer
+    create_s: float
+    #: first create request to the watch's last awaited bind
+    bind_s: float
+    setup_s: float  # ``__main__.start``: façade, PV controller, engine
+    waves: int
+    loop_errors: int
+    #: the parsed ``/metrics`` scrape: (types, samples)
+    metrics: tuple
+    audit: Dict[str, int]
+    threads_left: List[str]
+    watch_events: int
+    #: seconds: the engine's phases (``split``), the façade's handlers by
+    #: verb and route shape (from ``/metrics``), the test watch's JSON
+    #: decode on its own thread, and the audit's HTTP list
+    split: Dict[str, float]
+    handler_s: Dict[str, float]
+    watch_decode_s: float
+    list_s: float
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _PodWatch:
+    """An HTTP watch on every pod, read on a thread: the names seen bound
+    and the monotonic time of the last first-seen bind."""
+
+    def __init__(self, base: str):
+        self.bound: set = set()
+        self.events = 0
+        self.decode_s = 0.0
+        self.last_bind_t = 0.0
+        self.error: Optional[BaseException] = None
+        self._resp = urllib.request.urlopen(
+            base + "/api/v1/namespaces/default/pods?watch=true", timeout=600)
+        first = json.loads(self._resp.readline())
+        if first.get("type") != "SYNC":
+            raise AssertionError(f"watch: first line {first}")
+        self._thread = threading.Thread(target=self._read, daemon=True,
+                                        name="http-pod-watch")
+        self._thread.start()
+
+    def _read(self) -> None:
+        try:
+            for line in self._resp:
+                if not line.strip():
+                    continue  # keepalive
+                t0 = time.monotonic()
+                ev = json.loads(line)
+                self.decode_s += time.monotonic() - t0
+                self.events += 1
+                obj = ev["object"]
+                if obj["spec"]["node_name"]:
+                    name = obj["metadata"]["name"]
+                    if name not in self.bound:
+                        self.bound.add(name)
+                        self.last_bind_t = time.monotonic()
+        except (OSError, ValueError) as err:
+            self.error = err
+
+    def join(self) -> None:
+        """Wait for the stream's end (the server's shutdown ends it)."""
+        self._thread.join(timeout=30)
+        self._resp.close()
+
+
+def run_config5_http(n_nodes: int = 10_000, n_pods: int = 100_000,
+                     device: Any = None, chunk: int = 10_000,
+                     timeout_s: float = 900.0) -> HttpRun:
+    """``__main__.start`` on a free port (the device engine, its defaults),
+    an HTTP watch on the pods opened first, then config 5 created over
+    HTTP in batch creates of ``chunk`` objects; done when the watch has
+    seen every plain pod bound (the ``special*`` pods park: no node
+    carries their label).  Then one HTTP list audited by
+    ``audit_store``'s rules and one ``/metrics`` scrape.  The
+    process-global counters and histograms are reset first."""
+    from minisched_tpu_torch.__main__ import start
+    from minisched_tpu_torch.controlplane.httpserver import HTTPClient
+    from minisched_tpu_torch.service.config import ProcessConfig
+
+    nodes, pods = mk_c5_cluster(n_nodes, n_pods)
+    n_plain = sum(not p.metadata.name.startswith("special") for p in pods)
+    hist.reset()
+    counters.reset()
+    before = set(threading.enumerate())
+    t0 = time.monotonic()
+    _client, base, stop = start(ProcessConfig(port=free_port(),
+                                              frontend_url="http://x"),
+                                device_mode=True, device=device)
+    setup_s = time.monotonic() - t0
+    sched = stop.service.scheduler
+    metrics = sched.metrics = CycleMetrics()  # the loop idles until pods come
+    watch = None
+    try:
+        http = HTTPClient(base)
+        watch = _PodWatch(base)
+        t_first = time.monotonic()
+        for i in range(0, len(nodes), chunk):
+            http.nodes().create_many(nodes[i:i + chunk],
+                                     return_objects=False)
+        for i in range(0, len(pods), chunk):
+            http.pods().create_many(pods[i:i + chunk], return_objects=False)
+        create_s = time.monotonic() - t_first
+        wait_until(lambda: len(watch.bound) >= n_plain or watch.error,
+                   timeout_s, f"{n_plain} pods seen bound over the watch",
+                   sched)
+        if watch.error is not None:
+            raise AssertionError(f"the pod watch failed: {watch.error!r}")
+        bind_s = watch.last_bind_t - t_first
+        phases = split(metrics)
+        waves = metrics.snapshot().get("wave", {}).get("count", 0)
+        t1 = time.monotonic()
+        audited = audit_store(http)
+        list_s = time.monotonic() - t1
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            scraped = hist.parse_prometheus(r.read().decode())
+    finally:
+        stop()
+        if watch is not None:
+            watch.join()
+    left = sorted(t.name for t in set(threading.enumerate()) - before
+                  if t.is_alive() and not t.daemon)
+    handler_s: Dict[str, float] = defaultdict(float)
+    for name, labels, val in scraped[1]:
+        if name == "http_request_seconds_sum":
+            handler_s[f"{labels['verb']} {labels['route']}"] += val
+    return HttpRun(n_plain, len(watch.bound), create_s, bind_s, setup_s,
+                   int(waves), sched.loop_errors, scraped, audited, left,
+                   watch.events, phases, dict(handler_s), watch.decode_s,
+                   list_s)

@@ -1,26 +1,38 @@
 """Process-wide event counters.
 
-The part of ``minisched_tpu/observability/counters.py`` the engine calls:
-named integer counters bumped on rare control paths (assume-lease expiry,
-gang admission and TTL release, bind-batch failures), read by tests and
-bench audits.  The JAX module's Prometheus exposition and gauges are not
-ported.
+A copy of ``minisched_tpu/observability/counters.py``: named integer
+counters bumped on rare control paths (assume-lease expiry, gang
+admission and TTL release, bind-batch failures), read by tests and bench
+audits, and last-write-wins gauges (``set_gauge``), which the Prometheus
+exposition (``hist.render_prometheus``) types as ``gauge``.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Set
 
 
 class Counters:
     def __init__(self) -> None:
         self._mu = threading.Lock()
         self._counts: Dict[str, int] = {}
+        self._gauge_names: Set[str] = set()
 
     def inc(self, name: str, n: int = 1) -> None:
         with self._mu:
             self._counts[name] = self._counts.get(name, 0) + n
+
+    def set_gauge(self, name: str, n: int) -> None:
+        """Last-write-wins value for a state-shaped entry; the name is
+        remembered as gauge-typed for the exposition's ``# TYPE``."""
+        with self._mu:
+            self._counts[name] = n
+            self._gauge_names.add(name)
+
+    def gauge_names(self) -> Set[str]:
+        with self._mu:
+            return set(self._gauge_names)
 
     def get(self, name: str) -> int:
         with self._mu:
@@ -33,6 +45,7 @@ class Counters:
     def reset(self) -> None:
         with self._mu:
             self._counts.clear()
+            self._gauge_names.clear()
 
 
 GLOBAL = Counters()
@@ -40,6 +53,10 @@ GLOBAL = Counters()
 
 def inc(name: str, n: int = 1) -> None:
     GLOBAL.inc(name, n)
+
+
+def set_gauge(name: str, n: int) -> None:
+    GLOBAL.set_gauge(name, n)
 
 
 def get(name: str) -> int:

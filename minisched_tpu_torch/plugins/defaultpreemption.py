@@ -47,6 +47,7 @@ from minisched_tpu_torch.framework.plugin import Plugin, implements_pre_filter
 from minisched_tpu_torch.framework.types import CycleState, Status, is_success
 from minisched_tpu_torch.observability import counters
 from minisched_tpu_torch.plugins.noderesources import NodeResourcesFit
+from minisched_tpu_torch.plugins.simulator import SUFFIX
 
 NAME = "DefaultPreemption"
 
@@ -75,11 +76,16 @@ NODE_STATIC_PLUGINS = frozenset(
 
 def preemption_might_help(diagnosis: Any) -> bool:
     """False when every recorded failure is a node-static filter (see
-    NODE_STATIC_PLUGINS).  An empty failure set is conservatively True."""
+    NODE_STATIC_PLUGINS).  An empty failure set is conservatively True.
+
+    Simulator-wrapped plugins fail under their ``<name>ForSimulator``
+    alias (``plugins/simulator.py``): the comparison strips the suffix, so
+    ``record_results`` keeps the same preemption gating."""
     failed = getattr(diagnosis, "unschedulable_plugins", None)
     if not failed:
         return True
-    return bool(set(failed) - NODE_STATIC_PLUGINS)
+    return bool({name.removesuffix(SUFFIX) for name in failed}
+                - NODE_STATIC_PLUGINS)
 
 
 class DefaultPreemption(Plugin):

@@ -13,6 +13,12 @@ with a ``store_client`` attribute (the volume filters, which read PVs and
 PVCs) are listed in ``needs_client``: the engine's builder injects the
 client.  An unknown name raises ``KeyError``; nothing is dropped
 silently.
+
+``register`` adds a factory under a new name: the simulator layer
+(``plugins/simulator.py``) registers a ``<name>ForSimulator`` wrapper for
+every built-in.  A wrapper (it keeps its plugin in ``_inner``) passes the
+batch checks when the plugin it wraps does.  ``canonical_filter_reasons``
+gives each filter's rejection message for the wave-path record.
 """
 
 from __future__ import annotations
@@ -37,7 +43,10 @@ from minisched_tpu_torch.plugins.defaultpreemption import (
 )
 from minisched_tpu_torch.plugins.gangtopology import GangTopology
 from minisched_tpu_torch.plugins.imagelocality import ImageLocality
-from minisched_tpu_torch.plugins.interpodaffinity import InterPodAffinity
+from minisched_tpu_torch.plugins.interpodaffinity import (
+    REASON_AFFINITY,
+    InterPodAffinity,
+)
 from minisched_tpu_torch.plugins.nodeaffinity import NodeAffinity
 from minisched_tpu_torch.plugins.nodename import NodeName
 from minisched_tpu_torch.plugins.nodenumber import NodeNumber
@@ -47,17 +56,31 @@ from minisched_tpu_torch.plugins.noderesources import (
     NodeResourcesFit,
     NodeResourcesLeastAllocated,
 )
+from minisched_tpu_torch.plugins.nodeunschedulable import (
+    REASON as REASON_UNSCHED,
+)
 from minisched_tpu_torch.plugins.nodeunschedulable import NodeUnschedulable
-from minisched_tpu_torch.plugins.podtopologyspread import PodTopologySpread
+from minisched_tpu_torch.plugins.podtopologyspread import (
+    REASON_SKEW,
+    PodTopologySpread,
+)
 from minisched_tpu_torch.plugins.tainttoleration import TaintToleration
-from minisched_tpu_torch.plugins.volumebinding import NodeVolumeLimits, VolumeBinding
+from minisched_tpu_torch.plugins.volumebinding import (
+    REASON_NO_PV,
+    NodeVolumeLimits,
+    VolumeBinding,
+)
 from minisched_tpu_torch.plugins.volumelimits import (
+    REASON_LIMIT,
     AzureDiskLimits,
     EBSLimits,
     GCEPDLimits,
 )
-from minisched_tpu_torch.plugins.volumerestrictions import VolumeRestrictions
-from minisched_tpu_torch.plugins.volumezone import VolumeZone
+from minisched_tpu_torch.plugins.volumerestrictions import (
+    REASON_CONFLICT,
+    VolumeRestrictions,
+)
+from minisched_tpu_torch.plugins.volumezone import REASON_ZONE, VolumeZone
 from minisched_tpu_torch.service.config import SchedulerConfig
 
 # factory signature: (args: dict, time_scale: float) -> plugin instance
@@ -130,6 +153,17 @@ class PluginChains:
     needs_client: List[Any] = field(default_factory=list)
 
 
+def inject(plugin: Any, attr: str, value: Any) -> None:
+    """Set an injected dependency (``h``, ``store_client``) on the plugin
+    itself: a simulator wrapper reads attributes through to the plugin it
+    wraps, but a plain setattr would land on the wrapper."""
+    setattr(getattr(plugin, "_inner", plugin), attr, value)
+
+
+def register(name: str, factory: Factory) -> None:
+    _REGISTRY[name] = factory
+
+
 def registered_names() -> List[str]:
     return sorted(_REGISTRY)
 
@@ -149,8 +183,9 @@ def build_plugins(cfg: SchedulerConfig) -> PluginChains:
                     cfg.plugin_args.get(entry.name, {}), cfg.time_scale)
             inst = instances[entry.name]
             method = _REQUIRED.get(point)
+            inner = getattr(inst, "_inner", inst)  # a simulator wrapper's
             implemented = _CHECKS[point](inst) and (
-                not method or getattr(type(inst), method, None)
+                not method or getattr(type(inner), method, None)
                 is not getattr(BatchEvaluable, method))
             if not implemented:
                 raise TypeError(
@@ -160,3 +195,31 @@ def build_plugins(cfg: SchedulerConfig) -> PluginChains:
     chains.needs_client = [p for p in instances.values()
                            if hasattr(p, "store_client")]
     return chains
+
+
+def canonical_filter_reasons() -> Dict[str, str]:
+    """Plugin name → the canonical rejection message its scalar filter
+    emits: the ``reasons`` of ``Store.record_batch_result``, so wave-path
+    annotations carry the strings scalar cycles do (JAX
+    ``registry.py:197``).  The plugins' own REASON constants where one
+    exists; a summary string where the scalar message is per case
+    (resources, ports)."""
+    return {
+        "NodeUnschedulable": REASON_UNSCHED,
+        "NodeName": "node(s) didn't match the requested node name",
+        "TaintToleration": "node(s) had taints that the pod didn't tolerate",
+        "NodeAffinity": "node(s) didn't match Pod's node affinity/selector",
+        "NodePorts":
+            "node(s) didn't have free ports for the requested pod ports",
+        "NodeResourcesFit": "node(s) didn't have enough resources",
+        "VolumeRestrictions": REASON_CONFLICT,
+        "EBSLimits": REASON_LIMIT,
+        "GCEPDLimits": REASON_LIMIT,
+        "NodeVolumeLimits": REASON_LIMIT,
+        "AzureDiskLimits": REASON_LIMIT,
+        "VolumeBinding": REASON_NO_PV,
+        "VolumeZone": REASON_ZONE,
+        "PodTopologySpread": REASON_SKEW,
+        "InterPodAffinity": REASON_AFFINITY,
+        "NodeNumber": "node(s) rejected by nodenumber",
+    }

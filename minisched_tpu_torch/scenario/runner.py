@@ -5,7 +5,8 @@ boots a control plane and the scheduler service (without the JAX
 package's PV controller, which no scenario here needs), and
 ``readme_scenario`` drives the reference's integration scenario with
 condition-based waits: nine cordoned nodes keep ``pod1`` pending, then
-``node10`` appears and ``pod1`` binds there.
+``node10`` appears and ``pod1`` binds there.  ``readme_scenario_http``
+drives it over a running process's REST façade.
 
 Run it on the device engine on the card (or ``--device cpu`` on the
 host), or on the scalar engine, the JAX runner's default, which is host
@@ -101,6 +102,40 @@ def readme_scenario(harness: ScenarioHarness,
     bound = harness.pod_node("pod1")
     log(f"pod1 is bound to {bound}")
     return bound
+
+
+def readme_scenario_http(http: Any, timeout: float = 30.0,
+                         log: Callable[[str], None] = print) -> str:
+    """The same scenario against a running process, through its REST
+    façade (``controlplane.httpserver.HTTPClient``): ``pod1`` counts as
+    pending once its FailedScheduling event is listed.  Returns the bound
+    node name."""
+
+    def wait(pred: Callable[[], bool], msg: str) -> None:
+        deadline = time.monotonic() + timeout
+        while not pred():
+            if time.monotonic() > deadline:
+                raise ScenarioTimeout(f"timed out waiting for {msg}")
+            time.sleep(0.02)
+
+    def failed() -> bool:
+        events = http._req("GET", "/api/v1/namespaces/default/events")
+        return any(e["reason"] == "FailedScheduling"
+                   and e["regarding"] == "default/pod1"
+                   for e in events["items"])
+
+    for i in range(9):
+        http.nodes().create(make_node(f"node{i}", unschedulable=True))
+    http.pods().create(make_pod("pod1"))
+    wait(failed, "pod1's FailedScheduling event")
+    if http.pods().get("pod1").spec.node_name:
+        raise AssertionError("pod1 should not be bound yet")
+    log("pod1 is pending (no feasible node)")
+    http.nodes().create(make_node("node10", unschedulable=False))
+    wait(lambda: http.pods().get("pod1").spec.node_name == "node10",
+         "pod1 bound to node10")
+    log("pod1 is bound to node10")
+    return http.pods().get("pod1").spec.node_name
 
 
 def main() -> None:

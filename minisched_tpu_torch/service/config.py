@@ -1,10 +1,17 @@
-"""Scheduler configuration: per-extension-point plugin sets and weights.
+"""Configuration: the process's environment and the scheduler's plugins.
 
-A copy of the scheduler half of ``minisched_tpu/service/config.py``: the
-KubeSchedulerConfiguration analog with enable/disable lists (``"*"``
-wildcard), per-plugin weights and args, the two rosters the JAX package
-ships and its merge of a user's customization over a default.  The
-mesh-pinning fields wait for the multi-device slice of the port.
+A copy of ``minisched_tpu/service/config.py``, in two tiers as the
+reference has them:
+
+* ``ProcessConfig``: the required environment variables
+  (``config/config.go:22-75``: PORT and FRONTEND_URL, each required or
+  ``EmptyEnvError``), and the optional external store URL
+  (``MINISCHED_TPU_STORE_URL``) in place of the etcd URL;
+* ``SchedulerConfig``: the KubeSchedulerConfiguration analog with
+  enable/disable lists (``"*"`` wildcard), per-plugin weights and args,
+  the two rosters the JAX package ships and its merge of a user's
+  customization over a default.  The mesh-pinning fields wait for the
+  multi-device slice of the port.
 
 ``node_local_roster_config`` is the full default roster without the
 plugins that read the wave's constraint tables (volumes, topology spread,
@@ -15,8 +22,37 @@ gang subsystem.
 from __future__ import annotations
 
 import copy
+import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
+
+
+class EmptyEnvError(Exception):
+    """config/config.go:12's ErrEmptyEnv."""
+
+
+@dataclass
+class ProcessConfig:
+    port: int
+    frontend_url: str
+    external_store_url: str = ""
+
+    @staticmethod
+    def from_env(env: Optional[Dict[str, str]] = None) -> "ProcessConfig":
+        env = env if env is not None else dict(os.environ)
+
+        def require(key: str) -> str:
+            v = env.get(key, "")
+            if not v:
+                raise EmptyEnvError(
+                    f"env variable {key} is required but empty")
+            return v
+
+        return ProcessConfig(
+            port=int(require("PORT")),
+            frontend_url=require("FRONTEND_URL"),
+            external_store_url=env.get("MINISCHED_TPU_STORE_URL", ""),
+        )
 
 
 @dataclass

@@ -20,8 +20,18 @@ here, and the engine thread is the only one that then touches the card.
 (``build_scheduler_from_config``: ``engine/scheduler.Scheduler``, one pod
 a cycle through the plugins' scalar halves), which is host only and
 ignores ``device``, ``max_wave``, ``prewarm_scan`` and ``pipeline``.
-Nothing falls back from one engine to the other.  ``record_results``,
-the mesh and the HA shard filter are not ported.
+Nothing falls back from one engine to the other.
+
+``record_results=True`` (JAX ``service.py:43-110``) builds a result store
+(``self.result_store``), registers the ``<name>ForSimulator`` wrappers of
+every plugin with the config's score weights and converts the config to
+them, and puts the store's flush on the pod informer's updates, so each
+pod's per-plugin verdicts land on its ``scheduler-simulator/*``
+annotations when its bind does.  The scalar engine records per cycle
+through the wrappers; the device engine, whose loop then stays serial,
+records per wave and per exact-scan chunk with one diagnostics
+evaluation.  ``restart_scheduler`` keeps recording.  The mesh and the HA
+shard filter are not ported.
 """
 
 from __future__ import annotations
@@ -29,10 +39,18 @@ from __future__ import annotations
 from typing import Any, Optional
 
 from minisched_tpu_torch.controlplane.client import Client, EventRecorder
-from minisched_tpu_torch.controlplane.informer import SharedInformerFactory
+from minisched_tpu_torch.controlplane.informer import (
+    ResourceEventHandlers,
+    SharedInformerFactory,
+)
 from minisched_tpu_torch.engine.device_scheduler import new_device_scheduler
 from minisched_tpu_torch.engine.scheduler import Scheduler
-from minisched_tpu_torch.plugins.registry import build_plugins
+from minisched_tpu_torch.observability.resultstore import Store
+from minisched_tpu_torch.plugins.registry import build_plugins, inject
+from minisched_tpu_torch.plugins.simulator import (
+    convert_configuration_for_simulator,
+    register_simulator_plugins,
+)
 from minisched_tpu_torch.service.config import (
     SchedulerConfig,
     default_scheduler_config,
@@ -47,6 +65,9 @@ class SchedulerService:
         self._factory: Optional[SharedInformerFactory] = None
         # events land in the store as Event objects
         self.recorder = EventRecorder(store=client.store)
+        #: set by ``start_scheduler(record_results=True)``
+        self.result_store: Optional[Store] = None
+        self._record_results = False
         self._device_mode = True
         self._max_wave = 1024
         self._device: Any = None
@@ -55,6 +76,7 @@ class SchedulerService:
     def start_scheduler(
         self,
         cfg: Optional[SchedulerConfig] = None,
+        record_results: bool = False,
         device_mode: bool = True,
         max_wave: int = 1024,
         on_decision=None,
@@ -69,16 +91,31 @@ class SchedulerService:
         ``on_decision`` (pod, node name or None, status) and ``metrics``
         are installed before the loop starts.  The sync replays every
         pod already in the store through the queue handlers, so the loop
-        starts with every pending pod queued, in store order."""
+        starts with every pending pod queued, in store order.
+        ``record_results``: see the module docstring."""
         if self._scheduler is not None:
             raise RuntimeError(
                 "scheduler already running; use restart_scheduler")
         cfg = (cfg or default_scheduler_config()).clone()
+        orig_cfg = cfg.clone()  # before conversion: what restart re-applies
         self._factory = SharedInformerFactory(self._client.store)
+        if record_results:
+            self.result_store = Store(self._client)
+            register_simulator_plugins(
+                self.result_store,
+                {e.name: e.weight for e in cfg.score.enabled})
+            cfg = convert_configuration_for_simulator(cfg)
+            # flush hook: pod Update events write the results onto the
+            # pod's annotations (store.go:62-67)
+            self._factory.informer_for("Pod").add_event_handlers(
+                ResourceEventHandlers(
+                    on_update=self.result_store.add_scheduling_result_to_pod))
         if device_mode:
             sched = new_device_scheduler(self._client, self._factory, cfg,
                                          max_wave=max_wave, device=device,
                                          pipeline=pipeline)
+            if record_results:
+                sched.result_store = self.result_store
         else:
             sched = build_scheduler_from_config(self._client, self._factory,
                                                 cfg)
@@ -109,7 +146,8 @@ class SchedulerService:
             sched.prewarm(scan=prewarm_scan)
         sched.run()
         self._scheduler = sched
-        self._current_cfg = cfg.clone()
+        self._current_cfg = orig_cfg
+        self._record_results = record_results
         self._device_mode = device_mode
         self._max_wave = max_wave
         self._device = device
@@ -120,6 +158,7 @@ class SchedulerService:
                           ) -> Scheduler:
         self.shutdown_scheduler()
         return self.start_scheduler(cfg or self._current_cfg,
+                                    record_results=self._record_results,
                                     device_mode=self._device_mode,
                                     max_wave=self._max_wave,
                                     device=self._device,
@@ -172,7 +211,7 @@ def build_scheduler_from_config(client: Client,
         queue_opts=cfg.queue_opts,
     )
     for p in chains.needs_handle:
-        p.h = sched
+        inject(p, "h", sched)
     for p in chains.needs_client:
-        p.store_client = client
+        inject(p, "store_client", client)
     return sched

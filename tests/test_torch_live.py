@@ -57,3 +57,42 @@ def test_gang_live_lands_every_gang_whole():
                             live.store_choices(run.client, run.nodes,
                                                run.pods))
     assert share["complete"] == 41
+
+
+def test_mixed_recorded_run_records_waves_and_exact_scan():
+    """``chip_smoke.py`` phase 24's runner on the CPU at a small size:
+    the mixed cluster through the serial engine with ``record_results``;
+    every bound pod carries a record exactly when a wave or an exact-scan
+    chunk recorded it, the others were placed by the blocked lane, and the
+    same run without the record places alike."""
+    run = live.run_mixed_recorded(64, 96, max_wave=32, device="cpu",
+                                  timeout_s=120.0)
+    assert run.loop_errors == 0 and run.record_errors == 0
+    counts = live.audit_records(run)
+    assert counts["with_record"] > 0 and counts["without_record"] > 0
+    assert run.scan_stats["blocked"].placed == counts["without_record"]
+    assert run.record_calls >= run.waves > 0
+    assert run.annotation_bytes > 0 and run.record_ingest_s > 0
+    off = live.run_mixed_recorded(64, 96, max_wave=32, device="cpu",
+                                  record=False, timeout_s=120.0)
+    assert off.placements == run.placements
+    assert off.record_calls == 0 and off.annotation_bytes == 0
+    assert all(ann == (None, None, None) for ann in off.annotations.values())
+
+
+def test_config5_over_http_into_the_process():
+    """Phase 25(a)'s runner on the CPU at a small size:
+    ``__main__.start`` fed config 5 over HTTP, every plain pod seen bound
+    over the watch, the HTTP list audited, ``/metrics`` counting every
+    bind, and no non-daemon thread left after ``stop``."""
+    run = live.run_config5_http(200, 2_000, device="cpu", chunk=500,
+                                timeout_s=120.0)
+    assert run.bound == run.n_plain == 1_960
+    assert run.audit == {"bound": 1_960, "nodes": 200}
+    assert run.loop_errors == 0 and run.threads_left == []
+    types, samples = run.metrics
+    assert types["sched_time_to_bind_seconds"] == "histogram"
+    assert sum(v for n, _l, v in samples
+               if n == "sched_time_to_bind_seconds_count") == 1_960
+    assert run.handler_s["POST pod"] > 0 and run.waves > 0
+    assert run.create_s <= run.bind_s
