@@ -76,10 +76,11 @@ Phases, each of which raises on failure (nothing catches it):
    pods (pod i depends only on the pods before it).
 12. Config 5 with the full default roster through the exact scan
    (``fullchain.schedule_scan``, chunks of 1,024, ``scan_planes`` tables):
-   config 5 uncut, 10,000 nodes and all 100,000 pods (the last 2% are
-   ``special*`` pods); every placement equal to
-   ``fullchain_scan_oracle``, the card equal to the CPU twins on the
-   first 64 pods.
+   10,000 nodes and the first 32,768 pods of config 5 (``C5_SCAN_PODS``:
+   32 chunks; the scan's cost a step does not depend on how many chunks
+   run, and the full 100,000 take about two minutes); every placement
+   equal to ``fullchain_scan_oracle``, the card equal to the CPU twins on
+   the first 64 pods.
 13. Config 5 with 5,000 spread pods (``mk_c5_cluster(n_crosspod=5_000)``):
    the plain and special pods in full-roster repair waves, then the
    spread pods through the blocked lane (``fullchain.schedule_crosspod``);
@@ -240,7 +241,43 @@ Phases, each of which raises on failure (nothing catches it):
    (b) ``python3 -m minisched_tpu_torch`` as a child with ``PORT`` and
    ``FRONTEND_URL``: its "API on" line, the README scenario over
    ``HTTPClient``, ``python3 -m minisched_tpu_torch metrics <url>`` exit
-   0, and exit 0 within 30 s of SIGTERM.
+   0, and exit 0 within 30 s of SIGTERM.  The process's client is
+   throttled at the reference's 5,000 requests a second (burst 5,000);
+   the façade serves the store beneath the limiter.
+26. The gRPC servicer (``controlplane/grpcserver.py``; grpcio is imported
+   at the top of the phase, which fails without it).  (a) Config 4 (2,048
+   nodes, 512 assigned, 2,048 pods; a request of about 3.56 MB, under
+   grpc's default 4 MiB) through ``EvaluatorClient.evaluate`` into
+   ``start_grpc_server()`` in both modes: the answer equals phase 15's
+   in-process ``evaluate_cluster`` on the card and on the CPU twins, with
+   ``select_hosts`` launched at least once a round; printed: the call's
+   wall split into the client's encode, the server's handler, the
+   client's decode and the rest (wire and grpc), beside phase 15's
+   in-process call.  Phase 15's mixed request (over 4 MiB) is refused
+   ``RESOURCE_EXHAUSTED``.  (b) Phase 17's routine (config 5 live,
+   serial, full roster) in waves of 2,048 with one gRPC ``Watch`` on Pods
+   served from its store, opened after the creates and read by a watcher
+   in its own process (``live.count_grpc_binds``): phase 17's audit;
+   every event the watcher read in resource_version order, every bind it
+   saw on the node the store holds; and the stream either carried all
+   100,000 binds with no eviction, or ended ``OUT_OF_RANGE`` once it fell
+   8,192 events behind, counted by ``grpc.watch.evicted`` (the servicer
+   shares the engine's interpreter lock, and a stream yields one message
+   at a time).  Printed: which of the two, the binds and events seen,
+   the stream's events a second and the engine's binds a second.
+27. The trace ring, on phase 25(a)'s process: once config 5 is bound, 256
+   more pods are created over HTTP; when the watch has seen them bound,
+   ``GET /debug/trace`` answers at most ``MINISCHED_TRACE_CAP`` spans, and
+   each of the 256 pods has enqueue, pop, bind and bind_ack in that order,
+   its bind's wave id named by a ``wave_build`` span (and a
+   ``wave_evaluate`` span when the wave was pipelined).
+28. The ``churn`` and ``gang`` bench roles (``minisched_tpu_torch.bench``)
+   on the card with ``bench.py``'s defaults and gates: churn's p99 time
+   to bind within 45 s and agreeing with ``sched.time_to_bind_s``, no
+   namespace-quota violation and no held pod at drain, every gang whole,
+   the idle-wave gate, the shared watch encode, no double bind or
+   overcommit; gang's no stranded partial gang, empty assume and Permit
+   ledgers and the deadlock probe resolved.  Both records printed.
 
 Phase 2 also holds ``select_hosts`` against its twin on the repair
 route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
@@ -256,8 +293,9 @@ of configs 3 and 5, the blocked lane of phase 13, the gang waves, the
 gang roster without gangs, the gang exact scan, each ``Evaluate``
 call, the six live-engine runs of phases 16-21, the burst of phase 22
 and its reduced card run, the exact scan of phase 23, the card runs of
-phase 24 with and without the record, and phase 25's process) and read
-just after it.  A scan's step is captured once in a CUDA graph and replayed;
+phase 24 with and without the record, phase 25's process, phase 26's
+gRPC calls and watched run, and each role of phase 28) and read just
+after it.  A scan's step is captured once in a CUDA graph and replayed;
 each replay counts the ``select_hosts`` launch recorded in the graph.  The last three lines of output are the card's
 name and power limit, one JSON object describing every kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -268,6 +306,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import signal
 import statistics
@@ -293,6 +332,13 @@ MIX32_OPS = 11
 WAVE = 8192
 N_NODES, N_PODS = 10_000, 100_000
 C5_WAVE = 16_384  # repair waves of config 5
+C5_SCAN_PODS = 32_768  # phase 12's exact scan: the first 32 chunks
+#: phase 26(b): config 5's serial waves under a gRPC watch.  The servicer
+#: evicts a stream that falls DEFAULT_WATCH_STREAM_EVENTS (8,192) behind,
+#: as JAX's does; a wave of 16,384 binds is one batch over that bound, so
+#: waves of 2,048 let the stream carry events before it falls behind
+GRPC_WATCH_WAVE = 2_048
+TRACE_PODS = 256  # phase 27: pods created after phase 25(a)'s config 5
 MIXED_WAVE = 4_096  # repair waves of the mixed cluster (phase 10)
 C5X_SPREAD = 5_000  # config 5's spread pods (phase 13)
 C5X_REDUCED_NODES = 1_520  # phase 13's card-vs-CPU run: full enough to race
@@ -305,6 +351,14 @@ MIXED_SCALAR_PODS = 64  # phase 23's scan against the scalar loop
 #: phase 24: record_results on the mixed cluster, card against CPU; 512
 #: nodes keep the 4,200 assigned web pods of zone z0 under a node's 110
 RECORD_NODES, RECORD_PODS, RECORD_WAVE = 512, 512, 128
+
+
+T0 = time.monotonic()
+
+
+def stamp(phase: str) -> None:
+    """The seconds since the script started, as each phase begins."""
+    log(f"[clock] phase {phase} at {time.monotonic() - T0:.1f}s")
 
 
 def log(msg: str) -> None:
@@ -480,6 +534,8 @@ def main() -> int:
         audit_spread,
         audit_records,
         audit_store,
+        audit_trace,
+        count_grpc_binds,
         free_port,
         run_config5_http,
         run_config5_live,
@@ -504,11 +560,14 @@ def main() -> int:
         node_local_roster_config,
     )
     from minisched_tpu_torch.utils import build
+    from minisched_tpu_torch import bench as port_bench
+    from minisched_tpu_torch.observability import trace as trace_ring
 
     dev = torch.device("cuda")
     torch.cuda.init()
 
     # -- phase 1: build ----------------------------------------------------
+    stamp("1")
     t0 = time.monotonic()
     build.load_library()
     log(f"[build] kernels built in {time.monotonic() - t0:.2f}s "
@@ -524,6 +583,7 @@ def main() -> int:
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # -- phase 2: kernels against their twins ------------------------------
+    stamp("2")
     gen = torch.Generator(device=dev)
 
     def plane_case(seed: int, P: int, N: int, tie_heavy: bool,
@@ -662,6 +722,7 @@ def main() -> int:
     del later_scores, later_mask
 
     # -- phases 3 and 4: the main path, both routes ------------------------
+    stamp("3 and 4")
     want = headline_oracle(pods, nodes)
     runs, launches = {}, {}
     for route in ("fused", "generic"):
@@ -698,6 +759,7 @@ def main() -> int:
     log("[routes] equal choices; final node tables equal column for column")
 
     # -- phase 5: time per wave at the main-path shapes --------------------
+    stamp("5")
     def candidates(scores, mask) -> int:
         best = scores.masked_fill(~mask, torch.iinfo(torch.int32).min)
         return int((mask & (best == best.max(dim=1, keepdim=True).values))
@@ -790,6 +852,7 @@ def main() -> int:
     del main_scores, main_mask
 
     # -- phase 6: config 5 at full size, repair waves ----------------------
+    stamp("6")
     kernels.reset_launch_counts()
     c5 = schedule_repair_waves(c5_nodes, c5_pods, wave=C5_WAVE,
                                cfg=node_local_roster_config())
@@ -822,6 +885,7 @@ def main() -> int:
                     "fused": launches["nodenumber_select_hosts"]}}
 
     # -- phase 7: reduced config 5, the card against the twins -------------
+    stamp("7")
     r_nodes, r_pods = mk_c5_cluster(2_000, 20_000)
     t0 = time.monotonic()
     on_card = schedule_repair_waves(r_nodes, r_pods, wave=4_096,
@@ -838,6 +902,7 @@ def main() -> int:
         f"{card_s:.2f}s on the card, {cpu_s:.2f}s on the CPU")
 
     # -- phase 8: config 5 at full size, the full default roster -----------
+    stamp("8")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     c5f = schedule_repair_waves(c5_nodes, c5_pods, wave=C5_WAVE)
@@ -917,6 +982,7 @@ def main() -> int:
     launches["select_hosts"]["full-roster-hostnames"] = c5h_counts["select_hosts"]
 
     # -- phase 9: config 4 at its own size ---------------------------------
+    stamp("9")
     c4_nodes, c4_assigned, c4_pods = mk_c4_cluster()
 
     def config4(device):
@@ -964,6 +1030,7 @@ def main() -> int:
     del c4_extra
 
     # -- phase 10: the mixed cluster, the card against the twins -----------
+    stamp("10")
     m_nodes, m_assigned, m_pods, m_pvcs, m_pvs = mk_mixed_cluster()
     probe = build_constraint_tables(
         m_pods[:MIXED_WAVE], m_nodes, m_assigned, pod_capacity=MIXED_WAVE,
@@ -1043,6 +1110,7 @@ def main() -> int:
                                  f"{counts['select_hosts']} for {steps} steps")
 
     # -- phase 11: config 3, the exact scan ---------------------------------
+    stamp("11")
     c3_nodes, c3_pods = mk_c3_cluster()
     c3_chains = build_plugins(c3_roster_config())
     c3_sched = SequentialScheduler(c3_chains.filter, c3_chains.pre_score,
@@ -1089,9 +1157,10 @@ def main() -> int:
     del c3_pt, c3_nt
 
     # -- phase 12: config 5, the full roster, the exact scan ----------------
-    # all of config 5: about two minutes of scan at the 1.10 ms a step of
-    # an H100 80GB HBM3 at 700 W (PERF.md §6)
-    s5_nodes, s5_pods = c5_nodes, c5_pods
+    stamp("12")
+    # the first C5_SCAN_PODS pods: all 100,000 take about two minutes at
+    # the 1.10 ms a step of an H100 80GB HBM3 at 700 W (PERF.md §5)
+    s5_nodes, s5_pods = c5_nodes, c5_pods[:C5_SCAN_PODS]
     full_cfg = default_full_roster_config()
     full_chains = build_plugins(full_cfg)
     full_scan = SequentialScheduler(full_chains.filter, full_chains.pre_score,
@@ -1129,8 +1198,8 @@ def main() -> int:
             and np.array_equal(s5_cpu.best, s5.best[:C5_PREFIX])):
         raise AssertionError("config 5 scan: card and CPU twins differ on "
                              f"the first {C5_PREFIX} pods")
-    log(f"[scan-c5] {N_NODES} nodes x {len(s5_pods)} pods (all of config "
-        f"5), full roster, exact scan in {s5.chunks} chunks of "
+    log(f"[scan-c5] {N_NODES} nodes x {len(s5_pods)} pods (the first of "
+        f"config 5), full roster, exact scan in {s5.chunks} chunks of "
         f"{SCAN_MAX_CHUNK}: all placements equal fullchain_scan_oracle "
         f"({int((s5.choices >= 0).sum())} placed; oracle {oracle_s:.1f}s); "
         f"card = CPU twins on the first {C5_PREFIX}; host node table "
@@ -1141,6 +1210,7 @@ def main() -> int:
     del s5
 
     # -- phase 13: config 5 with 5,000 spread pods, the blocked lane --------
+    stamp("13")
     def crosspod_run(nodes, pods, device, wave, lg=None):
         """Repair waves of ``wave`` for the plain and special pods, then
         the blocked lane for the spread pods: (waves, lane run, choices of
@@ -1241,6 +1311,7 @@ def main() -> int:
         f"{card_s:.2f}s on the card, {cpu_s:.2f}s on the CPU")
 
     # -- phase 14: config 5 with gangs, repair waves -----------------------
+    stamp("14")
     g_nodes, g_assigned, g_pods = mk_c5_gang_cluster()
     gang_cfg = gang_roster_config()
     torch.cuda.synchronize()
@@ -1377,6 +1448,7 @@ def main() -> int:
     del rg_card, rg_cpu, sg_card, sg_cpu
 
     # -- phase 15: Evaluate ------------------------------------------------
+    stamp("15")
     def request(nodes_, pods_, assigned_=(), pvcs_=(), pvs_=(), mode="repair"):
         return {"nodes": [_encode(o) for o in nodes_],
                 "pods": [_encode(o) for o in pods_],
@@ -1391,6 +1463,7 @@ def main() -> int:
                                 m_pvcs, m_pvs),
     }
     ev_launches = 0
+    ev_results = {}  # name -> (card answer, CPU answer, wall, times)
     for name, req in ev_cases.items():
         evaluate_cluster(req)  # first launches of this shape
         times = {}
@@ -1411,6 +1484,7 @@ def main() -> int:
         if counts["select_hosts"] < card_out["rounds"]:
             raise AssertionError(f"evaluate {name}: select_hosts {counts}")
         ev_launches += counts["select_hosts"]
+        ev_results[name] = (card_out, cpu_out, wall, times)
         placed_n = sum(v is not None for v in card_out["placements"].values())
         log(f"[evaluate] {name}: {len(req['nodes'])} nodes x "
             f"{len(req['pods'])} pods, rounds {card_out['rounds']}, "
@@ -1482,6 +1556,7 @@ def main() -> int:
                 f"above 0: {low[:5]}, passes {b.passes}")
 
     # -- phase 16: the README scenario on the live engine ------------------
+    stamp("16")
     kernels.reset_launch_counts()
     with ScenarioHarness(default_scheduler_config(time_scale=0.01),
                          max_wave=64) as h:
@@ -1496,6 +1571,7 @@ def main() -> int:
         f"{launches['select_hosts']['live-readme']}")
 
     # -- phase 17: config 5, live, full width ------------------------------
+    stamp("17")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1542,6 +1618,7 @@ def main() -> int:
     del c5l
 
     # -- phase 18: gangs, live, all or nothing -----------------------------
+    stamp("18")
     kernels.reset_launch_counts()
     gl = run_gang_live(GANG_REDUCED_NODES, 10_000, GANG_REDUCED_GANGS)
     launches["select_hosts"]["live-gang"] = live_launches("live gangs", 1)
@@ -1565,6 +1642,7 @@ def main() -> int:
     del gl
 
     # -- phase 19: config 5 live, pipelined --------------------------------
+    stamp("19")
     # (phase 22's burst follows on the same run: the counts of phase 19
     # are read, and set to 0, just before the preemptors arrive)
     torch.cuda.synchronize()
@@ -1631,6 +1709,7 @@ def main() -> int:
     del c5p, burst
 
     # -- phase 20: config 5 with 5,000 spread pods, live, pipelined --------
+    stamp("20")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1665,6 +1744,7 @@ def main() -> int:
     del c5x
 
     # -- phase 21: reduced, serial engine, card against CPU ----------------
+    stamp("21")
     r21 = (C5X_REDUCED_NODES, 18_000, 1_000)
     for attempt in range(1, 4):
         kernels.reset_launch_counts()
@@ -1722,6 +1802,7 @@ def main() -> int:
     del d_card, d_cpu, d_pipe
 
     # -- phase 22, reduced: serial engine, card against CPU ----------------
+    stamp("22")
     n22, p22, b22 = PREEMPT_REDUCED
     for attempt in range(1, 4):
         kernels.reset_launch_counts()
@@ -1771,6 +1852,7 @@ def main() -> int:
     del r_card, r_cpu, bc, bp
 
     # -- phase 23: the exact scan against the scalar loop, mixed cluster ---
+    stamp("23")
     x_nodes, x_assigned, x_pods, x_pvcs, x_pvs = mk_mixed_cluster()
     x_pods = x_pods[:MIXED_SCALAR_PODS]
     x_log = StepLog()
@@ -1829,6 +1911,7 @@ def main() -> int:
     del x_scan, x_client
 
     # -- phase 24: record_results, the mixed cluster, card against CPU ------
+    stamp("24")
     for attempt in range(1, 4):
         kernels.reset_launch_counts()
         rec_card = run_mixed_recorded(RECORD_NODES, RECORD_PODS,
@@ -1899,11 +1982,12 @@ def main() -> int:
     del rec_card, rec_cpu, rec_off
 
     # -- phase 25: the standalone process -----------------------------------
+    stamp("25")
     # (a) in process: __main__.start, config 5 over HTTP
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    hr = run_config5_http(N_NODES, N_PODS)
+    hr = run_config5_http(N_NODES, N_PODS, trace_pods=TRACE_PODS)
     launches["select_hosts"]["process-c5"] = live_launches(
         "config 5 over HTTP", hr.waves)
     n_plain = hr.n_plain
@@ -1937,6 +2021,21 @@ def main() -> int:
         f"in ({p50[0]}, {p50[1]}]s, p99 in ({p99[0]}, {p99[1]}]s; loop "
         f"errors 0, stop() left no non-daemon thread, select_hosts launches "
         f"{launches['select_hosts']['process-c5']}, plain-twin calls 0")
+
+    # -- phase 27: the trace ring, on phase 25(a)'s process -----------------
+    stamp("27")
+    cap = trace_ring._default_cap()
+    if len(hr.trace) > cap:
+        raise AssertionError(f"/debug/trace: {len(hr.trace)} spans over the "
+                             f"cap {cap}")
+    chains = audit_trace(hr.trace, hr.trace_pods)
+    stages = sorted({sp["stage"] for sp in hr.trace})
+    log(f"[trace] {card}: GET /debug/trace on phase 25(a)'s process after "
+        f"{TRACE_PODS} more pods bound over HTTP: {chains['spans']} spans "
+        f"(cap {cap}; stages {', '.join(stages)}); every one of the "
+        f"{chains['pods']} pods has enqueue -> pop -> bind -> bind_ack in "
+        f"order, bound in {chains['waves']} waves each named by a "
+        f"wave_build span (and wave_evaluate when pipelined)")
     del hr, samples
 
     # (b) the child process, python3 -m minisched_tpu_torch
@@ -1990,6 +2089,176 @@ def main() -> int:
         f"'metrics {base}' exit 0 ({len(scrape.stdout.splitlines())} "
         f"lines); exit 0 {stop_s:.3f}s after SIGTERM")
 
+    # -- phase 26: the gRPC servicer ----------------------------------------
+    stamp("26")
+    # grpcio is part of the card machine's installation: without it the
+    # phase fails here
+    import grpc
+
+    from minisched_tpu_torch.controlplane.grpcserver import (
+        DEFAULT_WATCH_STREAM_EVENTS,
+        EvaluatorClient,
+        _unwrap_json,
+        _wrap_json,
+        start_grpc_server,
+    )
+    from minisched_tpu_torch.observability import counters as tcounters
+    from minisched_tpu_torch.observability import hist as thist
+
+    # (a) config 4 over EvaluatorClient.evaluate, in both modes
+    _srv, grpc_addr, grpc_stop = start_grpc_server()
+    ec = EvaluatorClient(grpc_addr)
+    try:
+        if ec.health() != {"ok": True}:
+            raise AssertionError("gRPC Health")
+        grpc_launches = 0
+        for mode in ("wave", "repair"):
+            name = f"config4 {mode}"
+            card_want, cpu_want, in_wall, in_times = ev_results[name]
+            req = ev_cases[name]
+            child = thist.GLOBAL.get("grpc.request_s", method="Evaluate")
+            served0 = child.sum if child is not None else 0.0
+            kernels.reset_launch_counts()
+            t0 = time.monotonic()
+            got = ec.evaluate(c4_nodes, c4_pods, assigned=c4_assigned,
+                              mode=mode)
+            wall = time.monotonic() - t0
+            counts = dict(kernels.launch_counts)
+            served = (thist.GLOBAL.get("grpc.request_s", method="Evaluate")
+                      .sum - served0)
+            if got != card_want or got != cpu_want:
+                raise AssertionError(f"gRPC {name}: the answer differs from "
+                                     "in-process evaluate_cluster")
+            if counts["select_hosts"] < got["rounds"] or any(
+                    kernels.plain_calls.values()):
+                raise AssertionError(f"gRPC {name}: launches {counts}")
+            grpc_launches += counts["select_hosts"]
+            # the split: the client's encode (objects to framed bytes),
+            # the server's handler (decode, evaluate, encode), the
+            # client's decode of an answer of the same bytes; the rest is
+            # the wire and grpc's own work
+            t0 = time.monotonic()
+            body = _wrap_json(json.dumps(
+                {"nodes": [_encode(n_) for n_ in c4_nodes],
+                 "pods": [_encode(p_) for p_ in c4_pods],
+                 "assigned": [_encode(a_) for a_ in c4_assigned],
+                 "pvcs": [], "pvs": [], "mode": mode}).encode())
+            enc_s = time.monotonic() - t0
+            answer = _wrap_json(json.dumps(got).encode())
+            t0 = time.monotonic()
+            json.loads(_unwrap_json(answer).decode("utf-8"))
+            dec_s = time.monotonic() - t0
+            log(f"[grpc-evaluate] {card}: {name} over gRPC "
+                f"({len(body):,} request bytes, {len(answer):,} answer "
+                f"bytes): equal to evaluate_cluster on the card and on the "
+                f"CPU twins (rounds {got['rounds']}); a call {wall:.3f}s = "
+                f"client encode {enc_s:.3f} + server handler {served:.3f} "
+                f"+ client decode {dec_s:.3f} + wire and grpc "
+                f"{wall - enc_s - served - dec_s:.3f}s; in process "
+                f"{in_wall:.3f}s (decode {in_times['decode']:.3f} + build "
+                f"{in_times['build']:.3f} + evaluate "
+                f"{in_times['evaluate']:.3f}s); select_hosts launches "
+                f"{counts['select_hosts']}")
+        launches["select_hosts"]["grpc-evaluate"] = grpc_launches
+        big = ev_cases["mixed repair"]
+        big_bytes = len(_wrap_json(json.dumps(big).encode()))
+        if big_bytes <= 4 * 2**20:
+            raise AssertionError(f"the mixed request is {big_bytes} bytes, "
+                                 "not over grpc's 4 MiB default")
+        try:
+            ec._call("Evaluate", big)
+        except grpc.RpcError as err:
+            refused = err.code()
+        else:
+            refused = None
+        if refused != grpc.StatusCode.RESOURCE_EXHAUSTED:
+            raise AssertionError(f"gRPC over-limit request: {refused}")
+        log(f"[grpc-evaluate] the mixed request ({big_bytes:,} bytes, over "
+            f"grpc's default 4 MiB) refused RESOURCE_EXHAUSTED")
+    finally:
+        ec.close()
+        grpc_stop()
+
+    # (b) phase 17's routine under a gRPC Watch on Pods from its store,
+    # read by an external watcher in its own process
+    gw: dict = {}
+    ctx = multiprocessing.get_context("spawn")
+    from_watcher, to_parent = ctx.Pipe(duplex=False)
+
+    def attach_watch(client_) -> None:
+        _s, addr, stop_fn = start_grpc_server(store=client_.store)
+        proc = ctx.Process(target=count_grpc_binds,
+                           args=(addr, N_PODS, to_parent), daemon=True)
+        proc.start()
+        gw.update(stop=stop_fn, proc=proc)
+        if not from_watcher.poll(180):
+            raise AssertionError("the gRPC watcher never opened its stream")
+        gw["sync"] = from_watcher.recv()
+
+    kernels.reset_launch_counts()
+    try:
+        c5w = run_config5_live(N_NODES, N_PODS, max_wave=GRPC_WATCH_WAVE,
+                               pipeline=False, after_setup=attach_watch)
+        launches["select_hosts"]["live-c5-grpc-watch"] = live_launches(
+            "config 5 under a gRPC watch", c5w.waves)
+        if not from_watcher.poll(180):
+            raise AssertionError("the gRPC watcher sent no result")
+        seen = from_watcher.recv()
+        evicted = tcounters.get("grpc.watch.evicted")
+    finally:
+        if gw:
+            gw["proc"].join(30)
+            if gw["proc"].is_alive():
+                gw["proc"].terminate()
+                gw["proc"].join(10)
+            gw["stop"]()
+    audited = audit_store(c5w.client, c5w.labelled)
+    final = {p_.metadata.name: p_.spec.node_name
+             for p_ in c5w.client.pods().list()}
+    wrong = [n_ for n_, node in seen["bound"].items() if final[n_] != node]
+    whole = (len(seen["bound"]) == N_PODS and seen["error"] is None
+             and not evicted)
+    cut = (seen["error"] or "").startswith("OUT_OF_RANGE") and evicted >= 1
+    if (not (whole or cut) or wrong or not seen["rv_ordered"]
+            or audited["bound"] != N_PODS or c5w.loop_errors
+            or c5w.assumed_left):
+        raise AssertionError(
+            f"config 5 under a gRPC watch: {len(seen['bound'])} binds seen "
+            f"over the stream, ended {seen['error']}, {evicted} evicted, "
+            f"{len(wrong)} on another node than the store's, rv order "
+            f"{seen['rv_ordered']}; {audited['bound']} bound, "
+            f"{c5w.loop_errors} loop errors")
+    ended = ("every bind seen, none evicted" if whole else
+             f"the stream evicted with OUT_OF_RANGE once it fell "
+             f"{DEFAULT_WATCH_STREAM_EVENTS} events behind "
+             f"(grpc.watch.evicted {evicted})")
+    log(f"[grpc-watch] {card}: config 5 live, serial, waves of "
+        f"{GRPC_WATCH_WAVE} ({c5w.waves} waves), {N_PODS} bound in "
+        f"{c5w.total_s:.3f}s = {N_PODS / c5w.total_s:,.0f} binds/s, under "
+        f"one gRPC Watch on Pods read by a watcher process, opened after "
+        f"the creates (sync {gw['sync']['sync']}, rv "
+        f"{gw['sync']['resource_version']}): {len(seen['bound'])} binds seen "
+        f"over the stream, {seen['events']} events in "
+        f"{seen['span_s']:.3f}s = "
+        f"{seen['events'] / max(seen['span_s'], 1e-9):,.0f} events/s, in "
+        f"resource_version order, each on the node the store holds; "
+        f"{ended}; audit passed, loop errors 0, select_hosts launches "
+        f"{launches['select_hosts']['live-c5-grpc-watch']}")
+    del c5w, final
+
+    # -- phase 28: the churn and gang roles on the card --------------------
+    stamp("28")
+    for role in ("churn", "gang"):
+        kernels.reset_launch_counts()
+        rec = getattr(port_bench, f"role_{role}")()
+        launches["select_hosts"][f"bench-{role}"] = live_launches(
+            f"the {role} role", 1)
+        rec.pop("metrics_snapshot", None)
+        log(f"[bench-{role}] {card}: gates met; select_hosts launches "
+            f"{launches['select_hosts'][f'bench-{role}']}; "
+            + json.dumps(rec, sort_keys=True))
+
+    stamp("end")
     report = []
     replaces = {
         "select_hosts": "minisched_tpu/ops/pallas_kernels.py:221",

@@ -37,9 +37,14 @@ import threading
 from typing import Any, Callable, Tuple
 
 from minisched_tpu_torch import resolve_device
-from minisched_tpu_torch.controlplane.client import Client
+from minisched_tpu_torch.controlplane.client import (
+    DEFAULT_BURST,
+    DEFAULT_QPS,
+    Client,
+)
 from minisched_tpu_torch.controlplane.httpserver import start_api_server
 from minisched_tpu_torch.controlplane.pvcontroller import start_pv_controller
+from minisched_tpu_torch.controlplane.store import ObjectStore
 from minisched_tpu_torch.service.config import (
     ProcessConfig,
     default_full_roster_config,
@@ -70,10 +75,11 @@ def start(cfg: ProcessConfig, device_mode: bool = True, mesh_devices: int = 0,
                          f"(file://<path> only)")
     if device_mode:
         resolve_device(device)
-    client = Client()
-    # the HTTP façade serves the store the in-process client uses
-    _server, base, shutdown_api = start_api_server(client.store,
-                                                   port=cfg.port)
+    store = ObjectStore()
+    # the reference's client limits (k8sapiserver.go:57-62: QPS/Burst 5000)
+    client = Client(store=store, qps=DEFAULT_QPS, burst=DEFAULT_BURST)
+    # the HTTP façade serves the store beneath the client's rate limiter
+    _server, base, shutdown_api = start_api_server(store, port=cfg.port)
     pv = start_pv_controller(client)
     service = SchedulerService(client)
     try:

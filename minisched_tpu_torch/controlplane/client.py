@@ -1,11 +1,12 @@
 """Client facade over the control plane — the client-go surface.
 
-A copy of ``minisched_tpu/controlplane/client.py`` (``:95-606``) without
-the rate limiter (the engine runs unthrottled, as ``bench.py`` runs it):
-``nodes()`` and ``pods()`` with create, get, list, update and delete, the
-binding subresource (``bind``, and ``bind_many``: a wave's placements in
-one capacity-checked store transaction), and the ``EventRecorder`` that
-writes scheduler events into the store.
+A copy of ``minisched_tpu/controlplane/client.py``: ``nodes()`` and
+``pods()`` with create, get, list, update and delete, the binding
+subresource (``bind``, and ``bind_many``: a wave's placements in one
+capacity-checked store transaction), the ``EventRecorder`` that writes
+scheduler events into the store, and the client-side QPS/Burst rate
+limiter the reference configures at 5000/5000 (k8sapiserver.go:57-62) —
+off by default, enabled per client.
 """
 
 from __future__ import annotations
@@ -26,6 +27,75 @@ from minisched_tpu_torch.api.objects import (
     POD_RUNNING,
 )
 from minisched_tpu_torch.controlplane.store import Conflict, ObjectStore
+
+#: the reference's client limits (k8sapiserver.go:60-61)
+DEFAULT_QPS = 5000.0
+DEFAULT_BURST = 5000
+
+
+class TokenBucket:
+    """client-go flowcontrol-style token bucket: ``burst`` capacity
+    refilled at ``qps`` tokens/sec; ``acquire`` blocks until a token is
+    available."""
+
+    def __init__(self, qps: float, burst: int):
+        if qps <= 0:
+            raise ValueError(f"qps must be positive, got {qps}")
+        self._qps = float(qps)
+        # a bucket that can never hold one whole token would block every
+        # acquire forever — clamp like client-go's flowcontrol does
+        self._burst = float(max(burst, 1))
+        self._tokens = self._burst
+        self._last = time.monotonic()
+        self._lock = threading.Lock()
+
+    def acquire(self) -> None:
+        while True:
+            with self._lock:
+                now = time.monotonic()
+                self._tokens = min(
+                    self._burst, self._tokens + (now - self._last) * self._qps
+                )
+                self._last = now
+                if self._tokens >= 1.0:
+                    self._tokens -= 1.0
+                    return
+                wait = (1.0 - self._tokens) / self._qps
+            time.sleep(wait)
+
+
+class _ThrottledStore:
+    """Store proxy acquiring one rate-limit token per API operation (the
+    client-go rate limiter gates every request; watch STREAMS pay one
+    token at subscription, not per event — matching client-go, where the
+    limiter covers requests, not watch deliveries)."""
+
+    _THROTTLED = frozenset(
+        # mutate_many / create_many are ONE API request each (batch
+        # bind / batch create), so one token
+        ("create", "create_many", "get", "list", "list_with_rv", "update",
+         "delete", "mutate", "mutate_many", "watch")
+    )
+
+    def __init__(self, store: ObjectStore, limiter: TokenBucket):
+        object.__setattr__(self, "_store", store)
+        object.__setattr__(self, "_limiter", limiter)
+
+    def __getattr__(self, name: str) -> Any:
+        attr = getattr(self._store, name)
+        if name in self._THROTTLED:
+            limiter = self._limiter
+
+            def gated(*args: Any, **kwargs: Any) -> Any:
+                limiter.acquire()
+                return attr(*args, **kwargs)
+
+            return gated
+        return attr
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        setattr(self._store, name, value)
+
 
 KIND_POD = "Pod"
 KIND_NODE = "Node"
@@ -208,6 +278,15 @@ class _PodAPI:
 
             return apply
 
+        # The rate-limit token (one per batch, matching _ThrottledStore)
+        # is taken BEFORE the transaction: TokenBucket.acquire can sleep,
+        # and sleeping while holding the store lock would stall every
+        # other client and informer fanout behind this binder's throttle.
+        # The transaction runs against the RAW store.
+        limiter = getattr(self._store, "_limiter", None)
+        if limiter is not None:
+            limiter.acquire()
+        raw = getattr(self._store, "_store", self._store)
         budgets: Dict[str, list] = {}
         items = [(b.pod_namespace, b.pod_name, apply_for(b, budgets))
                  for b in bindings]
@@ -216,16 +295,34 @@ class _PodAPI:
             budgets.update(
                 self._node_budgets(store, {b.node_name for b in bindings}))
 
-        return self._store.mutate_many(
+        return raw.mutate_many(
             KIND_POD, items, return_objects=return_objects,
             clone_for_write=False, prepare=prepare)
 
 
 class Client:
-    """clientset.Interface equivalent over an in-process ``ObjectStore``."""
+    """clientset.Interface equivalent over an in-process ``ObjectStore``.
 
-    def __init__(self, store: Optional[ObjectStore] = None):
-        self.store = store or ObjectStore()
+    ``qps``/``burst`` enable the client-side rate limiter (the reference
+    sets QPS/Burst 5000, k8sapiserver.go:57-62 — use DEFAULT_QPS /
+    DEFAULT_BURST for that); None (default) = unlimited.
+    """
+
+    def __init__(
+        self,
+        store: Optional[ObjectStore] = None,
+        qps: Optional[float] = None,
+        burst: Optional[int] = None,
+    ):
+        raw = store or ObjectStore()
+        if qps:
+            self.rate_limiter: Optional[TokenBucket] = TokenBucket(
+                qps, burst if burst is not None else int(qps)
+            )
+            self.store: Any = _ThrottledStore(raw, self.rate_limiter)
+        else:
+            self.rate_limiter = None
+            self.store = raw
 
     def nodes(self) -> _NodeAPI:
         return _NodeAPI(self.store)

@@ -10,7 +10,7 @@ conflict-repairing rounds (``"repair"``, the default:
 
     {"placements": {"namespace/name": node name or None}, "rounds": n}
 
-The gRPC servicer around it waits for a later slice of the port.
+The gRPC servicer around it is ``controlplane/grpcserver.py``.
 
 Usage::
 

@@ -8,6 +8,7 @@ ThreadingHTTPServer.  Kubernetes-shaped routes:
 
     GET    /healthz                                   → 200 "ok"
     GET    /metrics                                   → Prometheus text
+    GET    /debug/trace                               → the span ring (JSONL)
     GET    /api/v1/nodes                              → list
     GET    /api/v1/nodes/{name}                       → get
     POST   /api/v1/nodes                              → create (one, or
@@ -28,10 +29,12 @@ that cannot persist), and ``start_api_server`` mirrors
 base_url, shutdown_fn) once ``/healthz`` answers.  ``HTTPClient`` is the
 in-process ``Client``'s facade over the wire.
 
+``GET /debug/trace`` dumps the flight-recorder span ring
+(``observability/trace.py``) as JSONL.
+
 Left out, each answering 404 as the JAX façade does when it is not
-enabled: shards (``/shards/*``), replication (``/repl/*``), the
-partition nemesis (``/net/partition``) and the trace ring
-(``/debug/trace``); leases (``/api/v1/leases``) wait for the port of
+enabled: shards (``/shards/*``), replication (``/repl/*``) and the
+partition nemesis (``/net/partition``); leases (``/api/v1/leases``) wait for the port of
 ``ha/``.  There is no selector stream loop: each watch stream holds a
 handler thread, JAX's ``MINISCHED_STREAMLOOP=0`` path.
 """
@@ -62,7 +65,7 @@ from minisched_tpu_torch.controlplane.store import (
     ObjectStore,
     StorageDegraded,
 )
-from minisched_tpu_torch.observability import counters, hist
+from minisched_tpu_torch.observability import counters, hist, trace
 
 #: the kinds the REST façade serves: the codec's plus the Event kind the
 #: scheduler's recorder writes (scheduler/scheduler.go:55-59)
@@ -117,7 +120,9 @@ def _route_label(path: str) -> str:
     """Low-cardinality route label for ``http.request_s``: the shape of
     the path, never an object's name."""
     if not path.startswith("/api/"):
-        return path if path in ("/healthz", "/metrics") else "other"
+        return path if path in (
+            "/healthz", "/metrics", "/debug/trace"
+        ) else "other"
     try:
         kind, _ns, name, sub = _route(path)
     except KeyError:
@@ -224,6 +229,15 @@ class _Handler(BaseHTTPRequestHandler):
             body = hist.render_prometheus().encode()
             self.send_response(200)
             self.send_header("Content-Type", "text/plain; version=0.0.4")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            return
+        if path == "/debug/trace":
+            # flight-recorder dump: the bounded span ring as JSONL
+            body = trace.dump_jsonl().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)

@@ -23,6 +23,10 @@ instead of the snapshot, and raises ``HistoryCompacted`` (the REST
 façade's 410) when the ring no longer reaches back to N or N is ahead of
 the store.
 
+``applied_rv()`` and ``NotYetObserved`` are the surface the gRPC
+servicer reads; in process the applied rv is the current rv and
+``NotYetObserved`` is never raised.
+
 Left out: the durable (WAL), replicated, sharded and remote stores, the
 copy-on-write read plane and the fault hooks.  The per-watcher queues
 are unbounded: the in-process informers never reconnect, so a watcher is
@@ -65,6 +69,13 @@ DEFAULT_HISTORY_EVENTS = 65536
 DEFAULT_HISTORY_BYTES = 64 * 1024 * 1024
 
 
+class NotYetObserved(Exception):
+    """An rv-bounded read reached a replica whose applied rv is still
+    below the bound: retryable (gRPC ``UNAVAILABLE``, the REST 504),
+    unlike HistoryCompacted.  The in-process store is its own leader and
+    never raises it; the gRPC servicer catches it as JAX's does."""
+
+
 class StorageDegraded(Exception):
     """The store cannot persist mutations.  The in-memory store never
     raises it; the engine parks and retries on it, as it does against
@@ -81,6 +92,9 @@ class WatchEvent:
     #: the REST façade's framed wire bytes, encoded once per event and
     #: shared by every stream (``httpserver.event_wire_chunk``)
     wire: Optional[bytes] = None
+    #: the gRPC servicer's framed bytes, likewise encoded once per event
+    #: (``grpcserver._event_wire``)
+    grpc_wire: Optional[bytes] = None
 
 
 class Watch:
@@ -95,6 +109,9 @@ class Watch:
         #: the resource_version the watch starts after: the snapshot's
         #: for a full open, the resume cursor for a resumed one
         self.start_rv = 0
+        #: edge-trigger hook (``set_notify``): called on each delivery
+        #: and on stop, so one hub thread can drain many watches
+        self._notify_cb: Optional[Callable[[], None]] = None
 
     # called by the store while it holds its lock; only touches this
     # watch's own condition and queue, so it cannot block on user code
@@ -106,6 +123,8 @@ class Watch:
                 return
             self._events.extend(events)
             self._cond.notify_all()
+            if self._notify_cb is not None:
+                self._notify_cb()
 
     def _wait_locked(self, timeout: Optional[float]) -> None:
         deadline = None if timeout is None else time.monotonic() + timeout
@@ -136,7 +155,20 @@ class Watch:
         with self._cond:
             self._stopped = True
             self._cond.notify_all()
+            if self._notify_cb is not None:
+                self._notify_cb()
         self._store._remove_watch(self._kind, self)
+
+    def set_notify(self, cb: Optional[Callable[[], None]]) -> None:
+        """Install the edge-trigger hook.  Fires once immediately when
+        events are already queued or the watch is already stopped, so a
+        registration can never miss the edge that happened just before
+        it."""
+        with self._cond:
+            self._notify_cb = cb
+            pending = bool(self._events) or self._stopped
+            if pending and cb is not None:
+                cb()
 
     @property
     def stopped(self) -> bool:
@@ -460,6 +492,13 @@ class ObjectStore:
 
     @property
     def resource_version(self) -> int:
+        with self._lock:
+            return self._rv
+
+    def applied_rv(self) -> int:
+        """The rv watermark of the state this store would serve right
+        now.  In process every commit is visible at once, so it is the
+        current rv (JAX's read-plane stamp, without the plane)."""
         with self._lock:
             return self._rv
 

@@ -113,7 +113,7 @@ from minisched_tpu_torch.models.tables import (
     pack_pod_table,
     pad_to,
 )
-from minisched_tpu_torch.observability import counters
+from minisched_tpu_torch.observability import counters, trace
 from minisched_tpu_torch.ops.fused import FusedEvaluator
 from minisched_tpu_torch.ops.repair import RepairingEvaluator
 from minisched_tpu_torch.ops.sequential import (
@@ -224,6 +224,8 @@ class DeviceScheduler(Scheduler):
         self.device: torch.device = resolve_device(device)
         super().__init__(*args, **kwargs)
         self.max_wave = max_wave
+        #: per-engine monotonic wave id, stamped on the trace spans
+        self._wave_seq = 0
         #: assume-lease TTL: an assumption the informer has not confirmed
         #: by then is re-checked against the store — bound: renew (the
         #: informer lags) or forget (it caught up); unbound: release the
@@ -425,6 +427,20 @@ class DeviceScheduler(Scheduler):
                 self._forget(uid)
                 self.queue.add(cur, requeue=True)
                 counters.inc("assume.lease_requeued")
+
+    def snapshot_nodes(self):
+        """Object-level snapshot (scalar cycles, tests): the surviving
+        assumptions are folded INTO the cloned NodeInfos.  One prune
+        implementation — this is _snapshot_for_wave plus the per-pod
+        fold the wave path replaces with the numeric delta."""
+        infos, _delta, leftover = self._snapshot_for_wave()
+        if leftover:
+            by_name = {ni.name: ni for ni in infos}
+            for assumed in leftover:
+                ni = by_name.get(assumed.spec.node_name)
+                if ni is not None:
+                    ni.add_pod(assumed)
+        return infos
 
     def _snapshot_for_wave(self):
         """(node infos, assume delta, surviving assumed pods): the scan
@@ -962,6 +978,10 @@ class DeviceScheduler(Scheduler):
         qpis = prepared.qpis
         # the worker skips lease expiry; the engine thread keeps the cadence
         self._expire_assume_leases()
+        self._wave_seq += 1
+        wave_id = self._wave_seq
+        trace.span("wave_build", wave=wave_id, size=len(qpis),
+                   build_s=round(prepared.build_s, 6))
         # the previous wave's held bind events drain against the device
         # call, and the worker gets the GIL for the next build
         self.informer_factory.resume_dispatch()
@@ -972,9 +992,13 @@ class DeviceScheduler(Scheduler):
         except Exception as err:
             # tables were built already, so no encode retry applies: park
             # the batch as the serial path does, and let the loop count it
+            trace.span("wave_park", wave=wave_id, size=len(qpis),
+                       cause=type(err).__name__, error=str(err)[:200])
+            trace.flight_dump("wave-park")
             for qpi in qpis:
                 self.error_func(qpi, err)
             raise
+        trace.span("wave_evaluate", wave=wave_id, size=len(qpis))
         node_names = prepared.tables[1]
         losers: List[Any] = []
         winners: List[Any] = []
@@ -991,6 +1015,8 @@ class DeviceScheduler(Scheduler):
                 # capacity the overlapped wave committed while this one was
                 # on the device: feasible, it raced — back through the
                 # active queue, to be placed against a fresh snapshot
+                trace.span_pod("rearb_requeue", pod, wave=wave_id,
+                               cause="capacity_raced")
                 self.queue.add(pod, requeue=True)
         self._commit_winners(winners)
         if losers:
@@ -1129,6 +1155,9 @@ class DeviceScheduler(Scheduler):
         # 'wave' is observed on every exit path: loop_pop + wave +
         # scan_flush + loop_gc add up to the loop's wall
         t_wave = time.monotonic()
+        self._wave_seq += 1
+        trace.span("wave_build", wave=self._wave_seq, size=len(qpis),
+                   serial=True)
         self.metrics.observe("wave_size", float(len(qpis)))
         try:
             self._schedule_wave_inner(qpis)
@@ -1432,6 +1461,8 @@ class DeviceScheduler(Scheduler):
                         self.on_decision(pod, None, status)
                     continue
                 if status.is_wait():
+                    trace.span_pod("permit_wait", pod, wave=self._wave_seq,
+                                   node=node_name, plugin=status.plugin)
                     self._fork_binding_cycle(qpi, pod, node_name, state)
                     continue
                 ready.append((qpi, pod, node_name, state))
@@ -1463,6 +1494,8 @@ class DeviceScheduler(Scheduler):
         self.queue.note_move_request(ClusterEvent(GVK.POD, ActionType.UPDATE))
         for (qpi, pod, node_name, state), res in zip(ready, results):
             if isinstance(res, BaseException):
+                trace.span_pod("bind_failed", pod, wave=self._wave_seq,
+                               node=node_name, cause=type(res).__name__)
                 self.run_unreserve_plugins(state, pod, node_name)
                 if self._is_bind_race(res) and self._bind_race_refresh(qpi):
                     self._forget(pod.metadata.uid)
@@ -1473,6 +1506,8 @@ class DeviceScheduler(Scheduler):
                 if self.on_decision:
                     self.on_decision(pod, None, Status.from_error(res))
             else:
+                trace.span_pod("bind", pod, wave=self._wave_seq,
+                               node=node_name)
                 self.queue.observe_bind(pod, node_name)
                 if self.on_decision:
                     self.on_decision(pod, node_name, Status.success())

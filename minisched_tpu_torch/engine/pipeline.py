@@ -33,7 +33,8 @@ from minisched_tpu_torch.observability import counters
 class PreparedWave:
     """One wave's build-stage output, handed to the engine thread."""
 
-    __slots__ = ("qpis", "constrained", "partial", "node_infos", "tables")
+    __slots__ = ("qpis", "constrained", "partial", "node_infos", "tables",
+                 "build_s")
 
     def __init__(self) -> None:
         self.qpis: List[Any] = []
@@ -44,6 +45,8 @@ class PreparedWave:
         #: the packed constraint tables or None):
         #: ``DeviceScheduler._build_host_tables``
         self.tables: Any = None
+        #: the build stage's host seconds (the ``wave_build`` trace span)
+        self.build_s = 0.0
 
 
 class _BuildFallback(Exception):
@@ -162,8 +165,10 @@ class WavePipeline:
 
     def _build_item(self, qpis: List[Any], partial: bool):
         try:
+            t0 = time.monotonic()
             with self._sched.metrics.timed("wave_pipeline_build"):
                 prepared = self._build(qpis)
+            prepared.build_s = time.monotonic() - t0
             prepared.partial = partial
             return ("wave", prepared)
         except _BuildFallback:

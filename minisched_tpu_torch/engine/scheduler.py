@@ -15,7 +15,7 @@ waiting-pod registry (the ``Handle`` plugins call back into), the binding
 cycle with its requeue paths, and ``new_scheduler`` (the reference's
 default wiring).  The scalar engine is host code: it touches no tensor.
 
-Left out: the HA shard filter; trace spans.
+Left out: the HA shard filter.
 
 One addition over the JAX loop, so a card run can see what the loop
 swallows: ``_loop`` still survives every exception (it prints the
@@ -61,7 +61,7 @@ from minisched_tpu_torch.framework.types import (
     Status,
     is_success,
 )
-from minisched_tpu_torch.observability import counters
+from minisched_tpu_torch.observability import counters, trace
 from minisched_tpu_torch.observability.profiling import CycleMetrics
 from minisched_tpu_torch.plugins.coscheduling import is_gang_ttl_status
 from minisched_tpu_torch.queue.queue import SchedulingQueue
@@ -467,6 +467,23 @@ class Scheduler:
             return nominated
         return None
 
+    def run_filter_plugins(
+        self, state: CycleState, pod: Pod, node_infos: List[NodeInfo]
+    ) -> Tuple[List[NodeInfo], Diagnosis]:
+        return run_filter_plugins(self.filter_plugins, state, pod, node_infos)
+
+    def run_pre_score_plugins(
+        self, state: CycleState, pod: Pod, nodes: List[Any]
+    ) -> Status:
+        return run_pre_score_plugins(self.pre_score_plugins, state, pod, nodes)
+
+    def run_score_plugins(
+        self, state: CycleState, pod: Pod, node_names: List[str]
+    ) -> Dict[str, int]:
+        return run_score_plugins(
+            self.score_plugins, self.score_weights, state, pod, node_names
+        )
+
     def run_permit_plugins(self, state: CycleState, pod: Pod,
                            node_name: str) -> Status:
         """minisched.go:201-237: statuses Wait are pooled into one
@@ -590,6 +607,10 @@ class Scheduler:
                 return
             with self.metrics.timed("bind"):
                 self.bind(pod, node_name)
+            trace.span_pod(
+                "bind", pod, node=node_name,
+                wave=getattr(self, "_wave_seq", None),
+            )
             self.queue.observe_bind(pod, node_name)
             if self.on_decision:
                 self.on_decision(pod, node_name, Status.success())

@@ -38,7 +38,10 @@ Coscheduling admits each gang all or nothing at Permit.
 engine: each pod's bindings and parsed ``scheduler-simulator/*``
 annotations, and which pods a record call carried.  ``run_config5_http``
 is the standalone process (``__main__.start``) fed config 5 over its REST
-façade and watched over it until the plain pods are bound.
+façade and watched over it until the plain pods are bound; with
+``trace_pods`` it then reads the span ring off ``/debug/trace``, whose
+chains ``audit_trace`` checks.  ``count_grpc_binds`` is an external gRPC
+watcher, the body of a process of its own, for a run's ``after_setup``.
 """
 
 from __future__ import annotations
@@ -307,13 +310,16 @@ def run_config5_live(n_nodes: int = 10_000, n_pods: int = 100_000,
                      max_wave: int = 16_384, device: Any = None,
                      timeout_s: float = 900.0, n_crosspod: int = 0,
                      pipeline: bool = True, preempt_burst: int = 0,
-                     before_burst: Optional[Callable[[], None]] = None
+                     before_burst: Optional[Callable[[], None]] = None,
+                     after_setup: Optional[Callable[[Client], None]] = None
                      ) -> LiveRun:
     """Config 5 (with ``n_crosspod`` spread pods) through the live engine,
     park and requeue included; ``pipeline=False`` runs the serial loop.
     ``preempt_burst`` preemptors follow once every pod is bound
     (``LiveRun.burst``); ``before_burst`` is called just before they are
-    created (the run's other fields stop there)."""
+    created (the run's other fields stop there).  ``after_setup`` is
+    called with the client once the cluster is in the store, just before
+    the engine starts (a watch opened there sees every bind)."""
     nodes, pods = mk_c5_cluster(n_nodes, n_pods, n_crosspod=n_crosspod)
     n_special = sum(p.metadata.name.startswith("special") for p in pods)
     client = Client()
@@ -324,6 +330,8 @@ def run_config5_live(n_nodes: int = 10_000, n_pods: int = 100_000,
     setup_s = time.monotonic() - t0
     hist.reset()
     counters.reset()
+    if after_setup is not None:
+        after_setup(client)
     svc = SchedulerService(client)
     metrics, bound = CycleMetrics(), BindCounter()
     t0 = time.monotonic()
@@ -748,6 +756,10 @@ class HttpRun:
     handler_s: Dict[str, float]
     watch_decode_s: float
     list_s: float
+    #: ``trace_pods`` created after config 5 bound: their names, and the
+    #: spans ``GET /debug/trace`` answered once they were seen bound
+    trace_pods: List[str]
+    trace: List[Dict[str, Any]]
 
 
 def free_port() -> int:
@@ -801,14 +813,19 @@ class _PodWatch:
 
 def run_config5_http(n_nodes: int = 10_000, n_pods: int = 100_000,
                      device: Any = None, chunk: int = 10_000,
-                     timeout_s: float = 900.0) -> HttpRun:
+                     timeout_s: float = 900.0,
+                     trace_pods: int = 0) -> HttpRun:
     """``__main__.start`` on a free port (the device engine, its defaults),
     an HTTP watch on the pods opened first, then config 5 created over
     HTTP in batch creates of ``chunk`` objects; done when the watch has
     seen every plain pod bound (the ``special*`` pods park: no node
     carries their label).  Then one HTTP list audited by
     ``audit_store``'s rules and one ``/metrics`` scrape.  The
-    process-global counters and histograms are reset first."""
+    process-global counters and histograms are reset first.  With
+    ``trace_pods``, that many more pods (``trace-*``) are created over
+    HTTP once config 5 is bound, and when the watch has seen them bound
+    the span ring is read off ``GET /debug/trace``: their whole chains
+    fit in the ring, where config 5's enqueues were evicted long ago."""
     from minisched_tpu_torch.__main__ import start
     from minisched_tpu_torch.controlplane.httpserver import HTTPClient
     from minisched_tpu_torch.service.config import ProcessConfig
@@ -849,6 +866,20 @@ def run_config5_http(n_nodes: int = 10_000, n_pods: int = 100_000,
         list_s = time.monotonic() - t1
         with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
             scraped = hist.parse_prometheus(r.read().decode())
+        probes = [make_pod(f"trace-{i:04d}", requests={"cpu": "500m",
+                                                      "memory": "256Mi"})
+                  for i in range(trace_pods)]
+        spans: List[Dict[str, Any]] = []
+        if probes:
+            http.pods().create_many(probes, return_objects=False)
+            names = {p.metadata.name for p in probes}
+            wait_until(lambda: names <= watch.bound or watch.error,
+                       timeout_s, f"{trace_pods} trace pods seen bound",
+                       sched)
+            with urllib.request.urlopen(base + "/debug/trace",
+                                        timeout=60) as r:
+                spans = [json.loads(line)
+                         for line in r.read().decode().splitlines()]
     finally:
         stop()
         if watch is not None:
@@ -859,7 +890,84 @@ def run_config5_http(n_nodes: int = 10_000, n_pods: int = 100_000,
     for name, labels, val in scraped[1]:
         if name == "http_request_seconds_sum":
             handler_s[f"{labels['verb']} {labels['route']}"] += val
-    return HttpRun(n_plain, len(watch.bound), create_s, bind_s, setup_s,
+    seen = len(watch.bound - {p.metadata.name for p in probes})
+    return HttpRun(n_plain, seen, create_s, bind_s, setup_s,
                    int(waves), sched.loop_errors, scraped, audited, left,
                    watch.events, phases, dict(handler_s), watch.decode_s,
-                   list_s)
+                   list_s, [p.metadata.name for p in probes], spans)
+
+
+def count_grpc_binds(address: str, n_binds: int, conn: Any) -> None:
+    """The body of an external gRPC watcher, run in its own process
+    (``multiprocessing`` spawn): a ``Watch`` on Pods at ``address``
+    (``send_initial=False``), its sync line sent on ``conn`` once the
+    stream is registered, then every message read and decoded until
+    ``n_binds`` pods were seen bound or the stream ends.  Sends on
+    ``conn``: ``bound`` (pod name to node of every bind seen), ``events``,
+    ``span_s`` (first to last message), ``rv_ordered`` (every message's
+    resource_version above the one before) and ``error`` (the stream's
+    status when it ended, None when ``n_binds`` were seen)."""
+    import grpc
+
+    from minisched_tpu_torch.controlplane.grpcserver import EvaluatorClient
+
+    client = EvaluatorClient(address)
+    stream = client.watch("Pod", send_initial=False)
+    conn.send(next(stream))
+    bound: Dict[str, str] = {}
+    events, first_t, last_t, last_rv, ordered = 0, 0.0, 0.0, 0, True
+    error = None
+    try:
+        for msg in stream:
+            last_t = time.monotonic()
+            first_t = first_t or last_t
+            events += 1
+            ordered = ordered and msg["resource_version"] > last_rv
+            last_rv = msg["resource_version"]
+            obj = msg["object"]
+            if msg["type"] == "MODIFIED" and obj["spec"]["node_name"]:
+                bound[obj["metadata"]["name"]] = obj["spec"]["node_name"]
+                if len(bound) >= n_binds:
+                    break
+    except grpc.RpcError as err:
+        error = f"{err.code().name}: {err.details()}"
+    finally:
+        stream.cancel()
+        client.close()
+    conn.send({"bound": bound, "events": events, "span_s": last_t - first_t,
+               "rv_ordered": ordered, "error": error})
+
+
+def audit_trace(spans: List[Dict[str, Any]],
+                pods: Sequence[str]) -> Dict[str, int]:
+    """Each default-namespace pod's chain in the span ring: enqueue, then
+    pop, bind and
+    bind_ack in that order, its bind's wave id named by a ``wave_build``
+    span (and by a ``wave_evaluate`` span when the wave was pipelined).
+    Raises on the first pod whose chain is broken; returns counts."""
+    built = {s["wave"] for s in spans if s["stage"] == "wave_build"}
+    evaluated = {s["wave"] for s in spans if s["stage"] == "wave_evaluate"}
+    serial = {s["wave"] for s in spans
+              if s["stage"] == "wave_build" and s.get("serial")}
+    at: Dict[str, Dict[str, int]] = defaultdict(dict)
+    bind_wave: Dict[str, Any] = {}
+    for i, s in enumerate(spans):
+        pod = s.get("pod")
+        if pod is None:
+            continue
+        at[pod].setdefault(s["stage"], i)
+        if s["stage"] == "bind":
+            bind_wave[pod] = s.get("wave")
+    chain = ("enqueue", "pop", "bind", "bind_ack")
+    for name in pods:
+        key = f"default/{name}"
+        idx = [at[key].get(stage) for stage in chain]
+        if None in idx or idx != sorted(idx):
+            raise AssertionError(f"trace: {key} chain {dict(at[key])}")
+        wave = bind_wave[key]
+        if wave not in built or (wave not in serial
+                                 and wave not in evaluated):
+            raise AssertionError(f"trace: {key} bound in wave {wave}, "
+                                 "which no wave_build/wave_evaluate names")
+    return {"spans": len(spans), "pods": len(pods),
+            "waves": len({bind_wave[f"default/{n}"] for n in pods})}

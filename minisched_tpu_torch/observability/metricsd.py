@@ -5,10 +5,9 @@ A copy of ``minisched_tpu/observability/metricsd.py``.  The REST façade
 serves ``/metrics`` itself; an engine run without one (a bench, a script
 around ``SchedulerService``) can serve the same exposition with
 ``start_metrics_server``: a daemon HTTP server with ``/metrics``,
-``/healthz`` and ``/debug/metrics.json`` off the process-global
-registries.  ``scrape_main`` is ``python -m minisched_tpu_torch metrics
-<url>``.  ``/debug/trace`` waits for the port of
-``observability/trace.py`` and answers 404.
+``/debug/trace`` (the span ring as JSONL), ``/healthz`` and
+``/debug/metrics.json`` off the process-global registries.
+``scrape_main`` is ``python -m minisched_tpu_torch metrics <url>``.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Tuple
 
-from minisched_tpu_torch.observability import hist
+from minisched_tpu_torch.observability import hist, trace
 
 
 class _MetricsHandler(BaseHTTPRequestHandler):
@@ -34,6 +33,9 @@ class _MetricsHandler(BaseHTTPRequestHandler):
         if path == "/metrics":
             body = hist.render_prometheus().encode()
             ctype = "text/plain; version=0.0.4"
+        elif path == "/debug/trace":
+            body = trace.dump_jsonl().encode()
+            ctype = "application/x-ndjson"
         elif path == "/healthz":
             body = b"ok"
             ctype = "text/plain"

@@ -19,6 +19,7 @@ ROOT = Path(__file__).resolve().parent.parent
 #: role → the ``bench.py`` role it ports (``bench.py``'s own names)
 COUNTERPARTS = {
     "headline": "bench_headline",
+    "c1": "bench_config1",
     "c2": "bench_config2",
     "c3": "bench_config3",
     "c4": "bench_config4",
@@ -26,8 +27,11 @@ COUNTERPARTS = {
     "c5_waves": "config5_full_chain",
     "fullchain_parity": "bench_fullchain_parity",
     "c5x": "config5_crosspod",
-    "gang": "bench_gang",
+    "gang_waves": "config5_full_chain",
     "c5x_live": "BENCH_C5_CROSSPOD",
+    "wave": "bench_wave_pipeline",
+    "gang": "bench_gang",
+    "churn": "bench_churn",
 }
 
 
@@ -73,3 +77,28 @@ def test_module_entry_point_exits_zero():
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout) == {"role": "c2",
                                        "skipped": "no CUDA device is available"}
+
+
+def test_wave_role_skips_with_the_pipeline_off(monkeypatch):
+    """``MINISCHED_PIPELINE=0`` skips the ``wave`` role before it builds
+    anything, with ``bench.py``'s reason; with a card the record is
+    ``{"role": "wave", "skipped": ...}``."""
+    monkeypatch.setenv("MINISCHED_PIPELINE", "0")
+    with pytest.raises(bench.Skip, match="MINISCHED_PIPELINE=0"):
+        bench.role_wave()
+    monkeypatch.setattr(bench.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(bench, "card_line", lambda: "card, 700.00 W")
+    from minisched_tpu_torch.utils import build
+
+    monkeypatch.setattr(build, "load_library", lambda: None)
+    assert bench.run_role("wave") == {
+        "role": "wave",
+        "skipped": "MINISCHED_PIPELINE=0: pipeline disabled by env"}
+
+
+def test_percentile_is_nearest_rank_as_bench_py():
+    """``_pct`` is ``bench.py``'s nearest rank (ceil(p·n)−1)."""
+    samples = sorted(float(i) for i in range(1, 101))
+    assert bench._pct(samples, 0.99) == 99.0
+    assert bench._pct(samples, 0.50) == 50.0
+    assert bench._pct([3.0], 0.99) == 3.0

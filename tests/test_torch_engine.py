@@ -447,3 +447,28 @@ def test_service_runs_on_the_card_unless_asked_and_restarts(monkeypatch):
     assert sched.loop_errors == 0
     svc.close()
     assert svc.scheduler is None and svc.informer_factory is None
+
+
+def _snapshot_with_assumption(side, monkeypatch):
+    objs = SIDES[side][0]
+    nodes = [objs.make_node("node1", unschedulable=True), objs.make_node("n2")]
+    pods = with_uids([objs.make_pod("pod1", node_selector={"pin": "none"})])
+    with live(side, "default_full_roster_config", monkeypatch, nodes, pods,
+              time_scale=0.01) as (client, sched, _):
+        assert wait_for(lambda: sched.queue.stats()["unschedulable"] == 1)
+        before = [(ni.name, len(ni.pods)) for ni in sched.snapshot_nodes()]
+        sched._assume(client.pods().get("pod1"), "node1")
+        after = [(ni.name, sorted(p.metadata.name for p in ni.pods))
+                 for ni in sched.snapshot_nodes()]
+        return before, after
+
+
+def test_snapshot_nodes_folds_assumed_pods_as_jax(monkeypatch):
+    """``DeviceScheduler.snapshot_nodes`` folds the surviving assumptions
+    into the cloned NodeInfos, as JAX's override does: one node, one
+    assumed pod, one pod on it in the snapshot on both engines."""
+    got = _snapshot_with_assumption("port", monkeypatch)
+    want = _snapshot_with_assumption("jax", monkeypatch)
+    assert got == want
+    assert want[0] == [("n2", 0), ("node1", 0)]
+    assert want[1] == [("n2", []), ("node1", ["pod1"])]

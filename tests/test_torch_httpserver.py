@@ -44,6 +44,7 @@ from minisched_tpu_torch.controlplane.httpserver import (
 from minisched_tpu_torch.controlplane.store import HistoryCompacted, ObjectStore
 from minisched_tpu_torch.observability import counters as tcounters
 from minisched_tpu_torch.observability import hist as thist
+from minisched_tpu_torch.observability import trace as ttrace
 from minisched_tpu_torch.scenario.runner import ScenarioHarness, readme_scenario
 from minisched_tpu_torch.service.config import default_scheduler_config
 from minisched_tpu_torch.service.service import SchedulerService
@@ -455,9 +456,8 @@ def test_metrics_text_equal_to_jax_and_parsed_back(api):
 
 def test_metricsd_serves_the_registries():
     """``start_metrics_server`` for an engine without a façade: the same
-    exposition on ``/metrics``, ``/healthz``, the JSON snapshot, and 404
-    for what it does not serve (``/debug/trace`` waits for the trace
-    ring)."""
+    exposition on ``/metrics``, ``/healthz``, the JSON snapshot and the
+    trace ring on ``/debug/trace``, and 404 for what it does not serve."""
     from minisched_tpu_torch.observability.metricsd import (
         start_metrics_server,
     )
@@ -475,8 +475,13 @@ def test_metricsd_serves_the_registries():
         with urllib.request.urlopen(base + "/debug/metrics.json",
                                     timeout=10) as r:
             assert json.loads(r.read())["test.metricsd_s"]["count"] == 1
+        ttrace.span("test_metricsd", wave=999999)
+        with urllib.request.urlopen(base + "/debug/trace", timeout=10) as r:
+            assert "ndjson" in r.headers["Content-Type"]
+            assert any(json.loads(ln).get("wave") == 999999
+                       for ln in r.read().decode().splitlines())
         with pytest.raises(urllib.error.HTTPError) as e:
-            urllib.request.urlopen(base + "/debug/trace", timeout=10)
+            urllib.request.urlopen(base + "/debug/nothing", timeout=10)
         assert e.value.code == 404
     finally:
         shutdown()

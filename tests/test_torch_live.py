@@ -84,9 +84,13 @@ def test_config5_over_http_into_the_process():
     """Phase 25(a)'s runner on the CPU at a small size:
     ``__main__.start`` fed config 5 over HTTP, every plain pod seen bound
     over the watch, the HTTP list audited, ``/metrics`` counting every
-    bind, and no non-daemon thread left after ``stop``."""
+    bind, and no non-daemon thread left after ``stop``; then phase 27's
+    trace probe: 32 more pods, whose whole span chains ``GET
+    /debug/trace`` returns within the ring's cap."""
+    from minisched_tpu_torch.observability import trace
+
     run = live.run_config5_http(200, 2_000, device="cpu", chunk=500,
-                                timeout_s=120.0)
+                                timeout_s=120.0, trace_pods=32)
     assert run.bound == run.n_plain == 1_960
     assert run.audit == {"bound": 1_960, "nodes": 200}
     assert run.loop_errors == 0 and run.threads_left == []
@@ -96,3 +100,6 @@ def test_config5_over_http_into_the_process():
                if n == "sched_time_to_bind_seconds_count") == 1_960
     assert run.handler_s["POST pod"] > 0 and run.waves > 0
     assert run.create_s <= run.bind_s
+    assert len(run.trace_pods) == 32
+    assert 0 < len(run.trace) <= trace._default_cap()
+    assert live.audit_trace(run.trace, run.trace_pods)["pods"] == 32

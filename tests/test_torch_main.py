@@ -13,6 +13,7 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import pytest
@@ -157,3 +158,117 @@ def test_child_process_device_mode_needs_a_card():
 def test_metrics_cli_usage_and_unreachable():
     assert tmain.main(["metrics"]) == 2
     assert tmain.main(["metrics", f"http://127.0.0.1:{free_port()}"]) == 1
+
+
+# -- the client's rate limiter (JAX ``client.py``, ``tests/test_durable.py``)
+
+
+def test_client_rate_limiter_paces_requests():
+    from minisched_tpu_torch.api.objects import make_node
+    from minisched_tpu_torch.controlplane.client import Client
+
+    client = Client(qps=50, burst=1)
+    client.nodes().create(make_node("n1"))  # consumes the burst token
+    t0 = time.monotonic()
+    for _ in range(5):
+        client.nodes().get("n1")
+    # 5 requests at 50 qps take at least ~0.1 s; unlimited, microseconds
+    assert time.monotonic() - t0 >= 0.08
+
+
+def test_client_rate_limiter_burst_is_immediate():
+    from minisched_tpu_torch.api.objects import make_node
+    from minisched_tpu_torch.controlplane.client import Client
+
+    client = Client(qps=1, burst=10)
+    t0 = time.monotonic()
+    client.nodes().create(make_node("n1"))
+    for _ in range(8):
+        client.nodes().get("n1")
+    assert time.monotonic() - t0 < 0.5
+
+
+def test_limiter_surface_equal_to_jax():
+    """The reference's limits, the throttled set, the default client
+    unthrottled, and ``TokenBucket``'s refusals and clamp, as JAX's."""
+    from minisched_tpu.controlplane import client as jclient
+
+    from minisched_tpu_torch.controlplane import client as tclient
+
+    assert (tclient.DEFAULT_QPS, tclient.DEFAULT_BURST) == (
+        jclient.DEFAULT_QPS, jclient.DEFAULT_BURST) == (5000.0, 5000)
+    assert tclient._ThrottledStore._THROTTLED == \
+        jclient._ThrottledStore._THROTTLED
+    assert tclient.Client().rate_limiter is None
+    assert jclient.Client().rate_limiter is None
+    for mod in (tclient, jclient):
+        with pytest.raises(ValueError):
+            mod.TokenBucket(0, 1)
+        bucket = mod.TokenBucket(1000.0, 0)  # clamped to one token
+        assert bucket._burst == 1.0
+        c = mod.Client(qps=100.0)
+        assert c.rate_limiter._burst == 100.0  # burst defaults to qps
+
+
+@pytest.mark.parametrize("side", ["jax", "port"])
+def test_throttled_store_takes_one_token_per_request(side):
+    """Every throttled store call and every ``bind_many`` batch take one
+    token; a watch takes one at subscription and none per event; the
+    untouched surface (``resource_version``) takes none.  Counted on a
+    bucket that records its acquires, on both packages."""
+    if side == "jax":
+        from minisched_tpu.api.objects import Binding, make_node, make_pod
+        from minisched_tpu.controlplane import client as mod
+    else:
+        from minisched_tpu_torch.api.objects import Binding, make_node, \
+            make_pod
+        from minisched_tpu_torch.controlplane import client as mod
+
+    client = mod.Client(qps=1e9, burst=10**9)
+    taken = []
+    real = client.rate_limiter.acquire
+    client.rate_limiter.acquire = lambda: (taken.append(1), real())[1]
+    client.nodes().create(make_node("n1"))
+    client.pods().create_many([make_pod(f"p{i}") for i in range(3)])
+    client.pods().get("p0")
+    client.pods().list()
+    w, _ = client.store.watch("Pod", send_initial=False)
+    client.pods().bind_many([Binding("p0", "default", "n1")])
+    events = w.next_batch(timeout=1.0)
+    w.stop()
+    _ = client.store.resource_version
+    assert len(events) == 1
+    assert len(taken) == 6  # create, create_many, get, list, watch, bind
+
+
+def test_start_throttles_the_client_and_serves_the_raw_store():
+    """``__main__.start`` builds its client with the reference's limits
+    (as JAX's ``__main__`` does) and the façade serves the store under
+    the limiter, unwrapped: an HTTP request takes no client token."""
+    from minisched_tpu_torch.controlplane.client import (
+        DEFAULT_BURST,
+        DEFAULT_QPS,
+        _ThrottledStore,
+    )
+    from minisched_tpu_torch.controlplane.store import ObjectStore
+
+    cfg = tconfig.ProcessConfig(port=free_port(), frontend_url="http://x")
+    client, base, stop = tmain.start(cfg, device_mode=False)
+    try:
+        assert isinstance(client.store, _ThrottledStore)
+        assert client.rate_limiter._qps == DEFAULT_QPS
+        assert client.rate_limiter._burst == float(DEFAULT_BURST)
+        assert stop.service._client is client
+        raw = client.store._store
+        assert isinstance(raw, ObjectStore)
+        taken = []
+        real = client.rate_limiter.acquire
+        client.rate_limiter.acquire = lambda: (taken.append(1), real())[1]
+        http = HTTPClient(base)
+        from minisched_tpu_torch.api.objects import make_node
+
+        http.nodes().create(make_node("via-http"))
+        assert raw.get("Node", "", "via-http").metadata.name == "via-http"
+        assert taken == []
+    finally:
+        stop()
