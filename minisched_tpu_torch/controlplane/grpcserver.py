@@ -22,6 +22,17 @@ each event once and fans it into per-stream buffers of
 ``OUT_OF_RANGE``).  Client and server keep grpc's default 4 MiB message
 limit, as JAX's do: a larger request is refused ``RESOURCE_EXHAUSTED``.
 
+One addition to JAX's wire: a Watch request may carry ``"batch": n``,
+and the stream then sends up to ``n`` events a message as
+``{"events": [event, ...]}`` (each event the one-event message's dict,
+built from its memoized encode).  The sync line, the errors and a request
+without ``batch`` are JAX's byte for byte, and a JAX server ignores the
+key, so ``EvaluatorWatch`` reads both framings.  Why: the stream's
+generator and grpc's completion-queue thread share the interpreter lock
+with whatever else runs in the server's process, and each message costs
+them lock hand-offs; beside the live engine binding config 5, one event a
+message fell behind and was evicted, while batches keep up (PERF.md).
+
 Usage::
 
     server, address, shutdown = start_grpc_server(store=client.store)
@@ -133,6 +144,36 @@ class _SnapListCache:
 #: store keeps mutating gets EVICTED (OUT_OF_RANGE → relist), never
 #: buffered without limit on the server's heap.
 DEFAULT_WATCH_STREAM_EVENTS = 8192
+
+
+#: the most bytes of event JSON one batched watch message carries, well
+#: under grpc's default 4 MiB receive limit; a larger event goes alone
+WATCH_BATCH_BYTES = 1 << 20
+
+
+def _batched(frames: list, batch: int) -> list:
+    """A stream's messages for ``frames`` (each one event's
+    ``_event_wire``): the frames themselves when ``batch`` is 1 (JAX's
+    wire), else messages ``{"events": [...]}`` of at most ``batch`` events
+    and ``WATCH_BATCH_BYTES`` of event JSON, joined from the memoized
+    lines without a second encode."""
+    if batch <= 1:
+        return frames
+    out: list = []
+    group: list = []
+    size = 0
+    for frame in frames:
+        line = _unwrap_json(frame)
+        if group and (len(group) >= batch
+                      or size + len(line) > WATCH_BATCH_BYTES):
+            out.append(_wrap_json(b'{"events": [' + b", ".join(group)
+                                  + b"]}"))
+            group, size = [], 0
+        group.append(line)
+        size += len(line)
+    if group:
+        out.append(_wrap_json(b'{"events": [' + b", ".join(group) + b"]}"))
+    return out
 
 
 def _event_wire(ev: Any) -> bytes:
@@ -345,6 +386,7 @@ def _handlers(store: Any = None, device: Any = None):
                     raise ValueError(f"unknown kind {kind!r}")
                 resume_rv = request.get("resume_rv")
                 send_initial = bool(request.get("send_initial", True))
+                batch = int(request.get("batch", 1) or 1)
             except (ValueError, KeyError) as err:
                 context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(err))
             try:
@@ -387,8 +429,8 @@ def _handlers(store: Any = None, device: Any = None):
                                 break
                         frames, hs.buf = hs.buf, []
                         evicted, ended = hs.evicted, hs.ended
-                    for frame in frames:
-                        yield frame
+                    for message in _batched(frames, batch):
+                        yield message
                     if evicted:
                         context.abort(
                             grpc.StatusCode.OUT_OF_RANGE,
@@ -435,18 +477,30 @@ def start_grpc_server(
 
 class EvaluatorWatch:
     """Iterator half of ``EvaluatorClient.watch``: decodes each framed
-    stream message to its JSON dict; ``cancel()`` aborts the rpc (the
-    server's generator unwinds and stops the store watch)."""
+    stream message to its JSON dict, one dict an event whether the server
+    sent one event a message or batches (``messages`` counts the
+    messages read); ``cancel()`` aborts the rpc (the server's generator
+    unwinds and stops the store watch)."""
 
     def __init__(self, call: Any):
         self._call = call
+        self._pending: list = []
+        self.messages = 0
 
     def __iter__(self) -> "EvaluatorWatch":
         return self
 
     def __next__(self) -> dict:
+        if self._pending:
+            return self._pending.pop()
         raw = next(self._call)
-        return json.loads(_unwrap_json(raw).decode("utf-8"))
+        self.messages += 1
+        msg = json.loads(_unwrap_json(raw).decode("utf-8"))
+        events = msg.get("events")
+        if events is None:
+            return msg
+        self._pending = events[::-1]
+        return self._pending.pop()
 
     def cancel(self) -> None:
         self._call.cancel()
@@ -490,11 +544,14 @@ class EvaluatorClient:
         send_initial: bool = True,
         resume_rv: Optional[int] = None,
         timeout: Optional[float] = None,
+        batch: int = 1,
     ) -> "EvaluatorWatch":
         """Open the server-streaming Watch rpc; returns an iterator of
         decoded JSON messages — the sync line first, then one dict per
-        event (schema: the .proto's comments).  ``cancel()`` tears the
-        stream down server-side."""
+        event (schema: the .proto's comments).  ``batch`` > 1 asks the
+        server for up to that many events a message (the iterator still
+        yields one dict an event).  ``cancel()`` tears the stream down
+        server-side."""
         fn = self._channel.unary_stream(
             f"/{SERVICE}/Watch",
             request_serializer=lambda b: b,
@@ -503,6 +560,8 @@ class EvaluatorClient:
         payload: dict = {"kind": kind, "send_initial": send_initial}
         if resume_rv is not None:
             payload["resume_rv"] = int(resume_rv)
+        if batch > 1:
+            payload["batch"] = int(batch)
         call = fn(
             _wrap_json(json.dumps(payload).encode()), timeout=timeout
         )

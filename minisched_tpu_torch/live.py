@@ -897,22 +897,24 @@ def run_config5_http(n_nodes: int = 10_000, n_pods: int = 100_000,
                    list_s, [p.metadata.name for p in probes], spans)
 
 
-def count_grpc_binds(address: str, n_binds: int, conn: Any) -> None:
+def count_grpc_binds(address: str, n_binds: int, conn: Any,
+                     batch: int = 1) -> None:
     """The body of an external gRPC watcher, run in its own process
     (``multiprocessing`` spawn): a ``Watch`` on Pods at ``address``
-    (``send_initial=False``), its sync line sent on ``conn`` once the
-    stream is registered, then every message read and decoded until
-    ``n_binds`` pods were seen bound or the stream ends.  Sends on
-    ``conn``: ``bound`` (pod name to node of every bind seen), ``events``,
-    ``span_s`` (first to last message), ``rv_ordered`` (every message's
-    resource_version above the one before) and ``error`` (the stream's
-    status when it ended, None when ``n_binds`` were seen)."""
+    (``send_initial=False``, up to ``batch`` events a message), its sync
+    line sent on ``conn`` once the stream is registered, then every event
+    read and decoded until ``n_binds`` pods were seen bound or the stream
+    ends.  Sends on ``conn``: ``bound`` (pod name to node of every bind
+    seen), ``events``, ``messages``, ``span_s`` (first to last event),
+    ``rv_ordered`` (every event's resource_version above the one before)
+    and ``error`` (the stream's status when it ended, None when
+    ``n_binds`` were seen)."""
     import grpc
 
     from minisched_tpu_torch.controlplane.grpcserver import EvaluatorClient
 
     client = EvaluatorClient(address)
-    stream = client.watch("Pod", send_initial=False)
+    stream = client.watch("Pod", send_initial=False, batch=batch)
     conn.send(next(stream))
     bound: Dict[str, str] = {}
     events, first_t, last_t, last_rv, ordered = 0, 0.0, 0.0, 0, True
@@ -934,7 +936,8 @@ def count_grpc_binds(address: str, n_binds: int, conn: Any) -> None:
     finally:
         stream.cancel()
         client.close()
-    conn.send({"bound": bound, "events": events, "span_s": last_t - first_t,
+    conn.send({"bound": bound, "events": events,
+               "messages": stream.messages - 1, "span_s": last_t - first_t,
                "rv_ordered": ordered, "error": error})
 
 

@@ -464,3 +464,124 @@ def test_external_watcher_process_sees_every_bind():
     assert seen["error"] is None and seen["rv_ordered"]
     assert seen["bound"] == {p.metadata.name: "n1" for p in pods}
     assert seen["events"] == len(pods)
+
+
+# -- the port's one addition: several watch events a message ---------------
+
+
+@pytest.mark.parametrize("batch,cap", [(2, 1 << 20), (64, 1 << 20),
+                                       (64, 2048)])
+def test_batched_frames_hold_every_event_in_order(monkeypatch, batch, cap):
+    """``_batched`` groups the memoized event frames into messages of at
+    most ``batch`` events and ``WATCH_BATCH_BYTES`` of event JSON (a
+    larger event alone), in order; at ``batch`` 1 it returns the frames
+    themselves, JAX's wire."""
+    monkeypatch.setattr(tgrpc, "WATCH_BATCH_BYTES", cap)
+    rng = random.Random(batch + cap)
+    lines = [json.dumps({"type": "MODIFIED", "resource_version": i,
+                         "object": {"pad": "x" * rng.randrange(1, 3000)}}
+                        ).encode() for i in range(300)]
+    frames = [tgrpc._wrap_json(line) for line in lines]
+    assert tgrpc._batched(frames, 1) is frames
+    messages = tgrpc._batched(frames, batch)
+    got = []
+    for message in messages:
+        events = json.loads(tgrpc._unwrap_json(message))["events"]
+        sizes = [len(json.dumps(e)) for e in events]
+        assert 1 <= len(events) <= batch
+        assert len(events) == 1 or sum(sizes) <= cap
+        got += events
+    assert got == [json.loads(line) for line in lines]
+    assert len(messages) < len(frames)
+
+
+@pytest.mark.parametrize("batch", [2, 64])
+def test_batched_watch_equal_to_one_event_a_message(store_server, batch):
+    """Two streams on one store, one event a message and ``batch`` events
+    a message, through a seeded sequence of mutations with a batch create
+    of 100 pods: the iterators yield the same events in the same order,
+    and the batched stream reads fewer messages."""
+    store, address = store_server
+    client = EvaluatorClient(address)
+    single = client.watch("Pod", send_initial=False)
+    batched = client.watch("Pod", send_initial=False, batch=batch)
+    try:
+        assert next(single)["sync"] == next(batched)["sync"] == 0
+        store.create_many("Pod", [make_pod(f"bw{batch}-{i:03d}")
+                                  for i in range(100)])
+        rng = random.Random(batch)
+        for i in range(20):
+            pod = store.get("Pod", "default",
+                            f"bw{batch}-{rng.randrange(100):03d}")
+            pod.metadata.labels["step"] = str(i)
+            store.update("Pod", pod)
+        n = 100 + 20
+        assert _drain(batched, n) == _drain(single, n)
+        assert batched.messages < single.messages == n + 1
+    finally:
+        single.cancel()
+        batched.cancel()
+        client.close()
+
+
+def test_batched_request_to_jax_server_reads_as_one_event_a_message():
+    """A JAX server ignores ``batch`` and sends one event a message; the
+    port's client reads the same events from it either way."""
+    store = JStore()
+    _srv, address, shutdown = jgrpc.start_grpc_server(store=store)
+    client = EvaluatorClient(address)
+    try:
+        plain = client.watch("Pod", send_initial=False)
+        asked = client.watch("Pod", send_initial=False, batch=64)
+        assert next(plain)["sync"] == next(asked)["sync"] == 0
+        store.create_many("Pod", [jobj.make_pod(f"j{i}") for i in range(10)])
+        assert _drain(asked, 10) == _drain(plain, 10)
+        assert asked.messages == plain.messages == 11
+        plain.cancel()
+        asked.cancel()
+    finally:
+        client.close()
+        shutdown()
+
+
+def test_external_watcher_process_sees_every_bind_batched():
+    """Phase 26(b)'s watcher asking for up to 64 events a message, in its
+    own process, against a store binding 300 pods in batches of 100:
+    every bind seen on its node, in resource_version order, no error, in
+    fewer messages than events."""
+    import multiprocessing
+
+    from minisched_tpu_torch.live import count_grpc_binds
+
+    store = ObjectStore()
+    store.create("Node", make_node("n1"))
+    pods = [make_pod(f"c{i:03d}") for i in range(300)]
+    store.create_many("Pod", pods)
+    _srv, address, shutdown = start_grpc_server(store=store, device="cpu")
+    ctx = multiprocessing.get_context("spawn")
+    from_watcher, to_parent = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=count_grpc_binds,
+                       args=(address, len(pods), to_parent, 64), daemon=True)
+    proc.start()
+    try:
+        assert from_watcher.poll(120)
+        assert from_watcher.recv()["sync"] == 0
+
+        def bind(p):
+            p.spec.node_name = "n1"
+            return p
+
+        for i in range(0, len(pods), 100):
+            store.mutate_many("Pod", [(p.metadata.namespace, p.metadata.name,
+                                       bind) for p in pods[i:i + 100]])
+        assert from_watcher.poll(120)
+        seen = from_watcher.recv()
+    finally:
+        proc.join(30)
+        if proc.is_alive():
+            proc.terminate()
+        shutdown()
+    assert seen["error"] is None and seen["rv_ordered"]
+    assert seen["bound"] == {p.metadata.name: "n1" for p in pods}
+    assert seen["events"] == len(pods)
+    assert 3 <= seen["messages"] < len(pods)

@@ -119,8 +119,16 @@ def test_facade_serves_metrics_and_trace():
         assert status == 200 and "ndjson" in ctype
         assert any(json.loads(ln).get("wave") == 424242
                    for ln in body.strip().splitlines())
-        child = hist.GLOBAL.get("http.request_s", verb="GET",
-                                route="/debug/trace")
+        # the handler observes its latency after the body is sent, so the
+        # client can read the answer before the observation lands
+        deadline = time.monotonic() + 10
+        while True:
+            child = hist.GLOBAL.get("http.request_s", verb="GET",
+                                    route="/debug/trace")
+            if (child is not None and child.count >= 1
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.01)
         assert child is not None and child.count >= 1
     finally:
         shutdown()
