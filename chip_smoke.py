@@ -76,10 +76,11 @@ Phases, each of which raises on failure (nothing catches it):
    pods (pod i depends only on the pods before it).
 12. Config 5 with the full default roster through the exact scan
    (``fullchain.schedule_scan``, chunks of 1,024, ``scan_planes`` tables):
-   10,000 nodes, the first 30,768 plain pods of config 5 and all 2,000
-   ``special*`` pods after them (``C5_SCAN_PLAIN``: 32 chunks; with all
+   10,000 nodes, the first 2,096 plain pods of config 5 and all 2,000
+   ``special*`` pods after them (``C5_SCAN_PLAIN``: 4 chunks; with all
    100,000 pods the whole script took 1,131 s of its 1,200 on an H100
-   80GB HBM3 at 700 W); every placement equal to
+   80GB HBM3 at 700 W, and with 30,768 plain pods and phase 29 1,100-
+   1,296 s); every placement equal to
    ``fullchain_scan_oracle``, every ``special*`` pod unplaced, the card
    equal to the CPU twins on the first 64 pods.
 13. Config 5 with 5,000 spread pods (``mk_c5_cluster(n_crosspod=5_000)``):
@@ -170,7 +171,10 @@ Phases, each of which raises on failure (nothing catches it):
    winners and the builder's reused builds and dirty rows.
 20. Config 5 with 5,000 spread pods live, pipelined
    (``run_config5_live(n_crosspod=5_000)``, ``bench.py`` with
-   ``BENCH_C5_CROSSPOD=5000``): the spread pods deferred into the backlog
+   ``BENCH_C5_CROSSPOD=5000``), on config 5's 10,000 nodes with
+   ``LIVE_C5X_PODS`` (50,000) pods (100,000 until phase 29 took the
+   script to 1,081-1,296 s on an H100): the spread pods deferred into the
+   backlog
    and placed by the blocked lane (and the exact scan for whatever the
    blocked rounds leave), the 2,000 ``special*`` pods through park and
    requeue.  Checks: every pod bound, phase 17's audit, ``bench.py``'s
@@ -188,14 +192,14 @@ Phases, each of which raises on failure (nothing catches it):
    attempt's cause printed; any other mismatch fails.  Then the pipelined
    engine on the card over the same cluster, held to the audits.
 22. Preemption bursts on config 5, chained onto phase 19's run
-   (``run_config5_live(preempt_burst=64)``): once all 100,000 pods are
+   (``run_config5_live(preempt_burst=8)``): once all 100,000 pods are
    bound, every schedulable node with 4 CPU free is topped up with
    ``fill*`` pods of config 5's shape at priority 0 (config 5's waves
    leave nodes unevenly full) and the store is checked to hold no node
-   with 4 CPU free; then 64 ``high*`` pods of 4 CPU and 1 Gi at priority
+   with 4 CPU free; then 8 ``high*`` pods of 4 CPU and 1 Gi at priority
    100 arrive at once (the JAX scale test's preemptors), each of which
    must evict through the wave-loser pass and ``DefaultPreemption``.
-   Checks: all 64 bound; the pods gone from the store are exactly the
+   Checks: all 8 bound; the pods gone from the store are exactly the
    victims ``last_victims`` reported, each of priority 0; phase 17's
    audit on the final store; the assume cache drained; no loop error;
    ``select_hosts`` launched on the card during the burst and no
@@ -231,8 +235,10 @@ Phases, each of which raises on failure (nothing catches it):
    without the record, the record's evaluation and host-ingest seconds,
    the entries and annotation bytes.
 25. The standalone process.  (a) ``__main__.start`` in this process (the
-   device engine, pipelined, its default waves of 1,024) fed config 5
-   over HTTP in batch creates of 10,000, watched over an HTTP pod watch
+   device engine, pipelined, its default waves of 1,024) fed config 5's
+   10,000 nodes with ``PROCESS_PODS`` (50,000) pods (``mk_c5_cluster``:
+   49,000 plain, 1,000 ``special*``) over HTTP in batch creates of
+   10,000, watched over an HTTP pod watch
    opened first (``live.run_config5_http``): every plain pod seen bound,
    one HTTP list audited by ``audit_store``'s rules, ``/metrics`` parsed
    with the port's parser counting every bind in
@@ -280,6 +286,34 @@ Phases, each of which raises on failure (nothing catches it):
    the idle-wave gate, the shared watch encode, no double bind or
    overcommit; gang's no stranded partial gang, empty assume and Permit
    ledgers and the deadlock probe resolved.  Both records printed.
+29. The durable store (``controlplane/durable.py``), config 5 surviving
+   a SIGKILL (``live.run_config5_durable``).  (a) ``python3 -m
+   minisched_tpu_torch`` as a child with
+   ``MINISCHED_TPU_STORE_URL=file://<tmp>/c5.wal`` and its defaults
+   otherwise (the device engine on the card, pipelined, waves of 1,024;
+   fsync off), an HTTP watch on the pods opened first, config 5 (10,000
+   nodes, 98,000 plain and 2,000 ``special*`` pods) created over HTTP in
+   batch creates of 10,000; SIGKILLed once every create was answered and
+   the watch has seen ``DURABLE_KILL_BINDS`` (2,000) binds.  The
+   creates' answers gate the kill, which lands mid-run (the watch trails
+   the engine: on an H100 it had seen 30,008 binds when 81,905 were in
+   the WAL); the phase fails if the watch saw every plain pod bound by
+   then, or if the recovered store holds fewer than a tenth of them
+   unbound (``live.MIN_LEFT_AT_BOOT``).  (b) ``__main__.start`` in this
+   process
+   over the same URL, on the card: every bind the watch saw is on the
+   same node after the replay and after the recovered engine bound the
+   rest; every created object exists; all 98,000 plain pods bound and no
+   ``special*`` pod; phase 17's audit; no loop error; the assume and
+   Permit ledgers empty; ``select_hosts`` launched at least once a wave
+   of (b) and no plain twin called.  Then the scheduler stops, the live
+   store compacts, and after ``stop()`` a ``readonly=True`` reopen holds
+   the same objects and resource_version; ``python3 -m
+   minisched_tpu_torch fsck <wal>`` exits 0.  Printed: the WAL's bytes
+   and records at the kill, (b)'s replay, boot and first-bind-to-last
+   seconds with pods/s beside phase 25(a)'s, the group-commit counters,
+   the compaction seconds and checkpoint bytes, the read-only reopen,
+   fsck's records and objects, and peak memory.
 
 Phase 2 also holds ``select_hosts`` against its twin on the repair
 route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
@@ -296,8 +330,8 @@ gang roster without gangs, the gang exact scan, each ``Evaluate``
 call, the six live-engine runs of phases 16-21, the burst of phase 22
 and its reduced card run, the exact scan of phase 23, the card runs of
 phase 24 with and without the record, phase 25's process, phase 26's
-gRPC calls and watched run, and each role of phase 28) and read just
-after it.  A scan's step is captured once in a CUDA graph and replayed;
+gRPC calls and watched run, each role of phase 28 and phase 29's
+recovered engine) and read just after it.  A scan's step is captured once in a CUDA graph and replayed;
 each replay counts the ``select_hosts`` launch recorded in the graph.  The last three lines of output are the card's
 name and power limit, one JSON object describing every kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -334,7 +368,7 @@ MIX32_OPS = 11
 WAVE = 8192
 N_NODES, N_PODS = 10_000, 100_000
 C5_WAVE = 16_384  # repair waves of config 5
-C5_SCAN_PLAIN = 30_768  # phase 12: plain pods scanned before the specials
+C5_SCAN_PLAIN = 2_096  # phase 12: plain pods scanned before the specials
 #: phase 26(b): config 5's serial waves under a gRPC watch.  The servicer
 #: evicts a stream that falls DEFAULT_WATCH_STREAM_EVENTS (8,192) behind,
 #: as JAX's does; a wave of 16,384 binds is one batch over that bound, so
@@ -351,12 +385,20 @@ C5X_REDUCED_NODES = 1_520  # phase 13's card-vs-CPU run: full enough to race
 GANG_REDUCED_NODES = 1_024  # phase 14's card-vs-CPU run: 64 slices
 GANG_REDUCED_GANGS = 410  # 10,000 pending pods in config 5's proportions
 GANG_SCAN_PODS = 2_048  # phase 14's exact scan, card against CPU
-PREEMPT_BURST = 64  # phase 22's preemptors
+#: phase 22's preemptors (64 until phase 29 took the script to 1,081-
+#: 1,296 s on an H100)
+PREEMPT_BURST = 8
 PREEMPT_REDUCED = (1_024, 10_000, 16)  # nodes, pods, preemptors
 MIXED_SCALAR_PODS = 64  # phase 23's scan against the scalar loop
 #: phase 24: record_results on the mixed cluster, card against CPU; 512
 #: nodes keep the 4,200 assigned web pods of zone z0 under a node's 110
 RECORD_NODES, RECORD_PODS, RECORD_WAVE = 512, 512, 128
+#: phase 29: binds the watch must have seen before the SIGKILL; with so
+#: few, the creates' answers gate the kill, and it lands mid-run
+DURABLE_KILL_BINDS = 2_000
+#: config 5's pods in phases 20 and 25(a) (100,000 until phase 29 took
+#: the script to 1,081-1,296 s on an H100)
+PROCESS_PODS = LIVE_C5X_PODS = 50_000
 
 
 T0 = time.monotonic()
@@ -543,6 +585,7 @@ def main() -> int:
         audit_trace,
         count_grpc_binds,
         free_port,
+        run_config5_durable,
         run_config5_http,
         run_config5_live,
         run_mixed_recorded,
@@ -1726,7 +1769,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    c5x = run_config5_live(N_NODES, N_PODS, max_wave=C5_WAVE,
+    c5x = run_config5_live(N_NODES, LIVE_C5X_PODS, max_wave=C5_WAVE,
                            n_crosspod=C5X_SPREAD)
     launches["select_hosts"]["live-c5x"] = live_launches(
         "live config 5 with spread pods", c5x.waves)
@@ -1735,18 +1778,20 @@ def main() -> int:
     apps = audit_spread(c5x.client, C5_MAX_SKEW)
     lanes = c5x.scan_stats
     lane_placed = lanes["blocked"].placed + lanes["exact"].placed
-    if (audited["bound"] != N_PODS or c5x.loop_errors or c5x.assumed_left
-            or lane_placed != C5X_SPREAD or not lanes["blocked"].calls):
+    if (audited["bound"] != LIVE_C5X_PODS or c5x.loop_errors
+            or c5x.assumed_left or lane_placed != C5X_SPREAD or not lanes["blocked"].calls):
         raise AssertionError(f"live config 5 with spread pods: "
                              f"{audited['bound']} bound, {c5x.loop_errors} "
                              f"loop errors, {c5x.assumed_left} assumed left, "
                              f"lanes {lanes}")
     scan_line = ", ".join(f"{k} {c5x.split[k]:.3f}s" for k in keys)
     log(f"[live-c5x] {card}: config 5 with {C5X_SPREAD} spread pods live, "
-        f"pipelined, {N_NODES} nodes x {N_PODS} pods ({c5x.waves} waves): "
+        f"pipelined, {N_NODES} nodes x {LIVE_C5X_PODS} pods ({c5x.waves} "
+        f"waves): "
         f"first drain {c5x.first_drain_s:.3f}s, tail "
         f"{c5x.total_s - c5x.first_drain_s:.3f}s, total {c5x.total_s:.3f}s "
-        f"= {N_PODS / c5x.total_s:,.0f} pods/s; lanes: {lanes_line(lanes)}; "
+        f"= {LIVE_C5X_PODS / c5x.total_s:,.0f} pods/s; lanes: "
+        f"{lanes_line(lanes)}; "
         f"select_hosts launches at P = 32: {lanes['blocked'].select_hosts}, "
         f"at P = 1: {lanes['exact'].select_hosts}, all "
         f"{launches['select_hosts']['live-c5x']}; split: {scan_line}; "
@@ -2000,7 +2045,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    hr = run_config5_http(N_NODES, N_PODS, trace_pods=TRACE_PODS)
+    hr = run_config5_http(N_NODES, PROCESS_PODS, trace_pods=TRACE_PODS)
     launches["select_hosts"]["process-c5"] = live_launches(
         "config 5 over HTTP", hr.waves)
     n_plain = hr.n_plain
@@ -2016,9 +2061,11 @@ def main() -> int:
                              f"threads left {hr.threads_left}")
     p50 = parsed_histogram_quantile(samples, ttb, 0.5)
     p99 = parsed_histogram_quantile(samples, ttb, 0.99)
+    phase25_pods_s = n_plain / hr.bind_s
     log(f"[process-c5] {card}: __main__.start (device engine, pipelined, "
         f"waves of 1,024), config 5 over HTTP: {N_NODES} nodes and "
-        f"{N_PODS} pods in batch creates, create wall {hr.create_s:.3f}s; "
+        f"{PROCESS_PODS} pods in batch creates, create wall "
+        f"{hr.create_s:.3f}s; "
         f"first create to last bind {hr.bind_s:.3f}s = "
         f"{n_plain / hr.bind_s:,.0f} pods/s ({hr.waves} waves; phase 19 in "
         f"process: first drain {phase19['first_drain_s']:.3f}s, total "
@@ -2267,6 +2314,54 @@ def main() -> int:
         log(f"[bench-{role}] {card}: gates met; select_hosts launches "
             f"{launches['select_hosts'][f'bench-{role}']}; "
             + json.dumps(rec, sort_keys=True))
+
+    # -- phase 29: the durable store, config 5 through a SIGKILL ------------
+    stamp("29")
+    import resource
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="c5-wal-") as workdir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        dr = run_config5_durable(workdir, N_NODES, N_PODS,
+                                 kill_binds=DURABLE_KILL_BINDS)
+        launches["select_hosts"]["durable-c5"] = live_launches(
+            "recovered config 5", max(dr.waves, 1))
+    dr_peak = torch.cuda.max_memory_allocated()
+    if (dr.waves < 1 or dr.threads_left or dr.loop_errors
+            or dr.assumed_left or dr.waiting_left):
+        raise AssertionError(f"recovered config 5: {dr.waves} waves, "
+                             f"threads left {dr.threads_left}, "
+                             f"{dr.loop_errors} loop errors, "
+                             f"{dr.assumed_left} assumed and "
+                             f"{dr.waiting_left} waiting left")
+    rest = dr.left_at_boot
+    log(f"[durable-c5] {card}: python3 -m minisched_tpu_torch over "
+        f"file://<tmp>/c5.wal (device engine, pipelined, waves of 1,024, "
+        f"fsync off): config 5 created over HTTP in {dr.create_s:.3f}s; "
+        f"SIGKILL {dr.kill_s:.3f}s after the first create with "
+        f"{dr.seen_at_kill} binds seen; WAL {dr.wal_bytes} bytes, "
+        f"{dr.wal_records} records.  Recovery in process: replay "
+        f"{dr.replay_s:.3f}s, boot {dr.boot_s:.3f}s, {rest} plain pods "
+        f"left, bound in {dr.bind_s:.3f}s after boot = "
+        f"{rest / dr.bind_s:,.0f} pods/s ({dr.waves} waves; phase 25(a), "
+        f"over HTTP at {PROCESS_PODS} pods: {phase25_pods_s:,.0f} pods/s); "
+        f"every watched bind on its node "
+        f"after replay and at the end, all {dr.n_plain} plain pods bound, "
+        f"no special pod, audit {dr.audit}; group commit: {dr.groups} "
+        f"groups, {dr.records} records; compaction {dr.compact_s:.3f}s, "
+        f"checkpoint {dr.ckpt_bytes} bytes; read-only reopen "
+        f"{dr.reopen_s:.3f}s, same objects and resource_version "
+        f"{dr.resource_version}; fsck exit 0 in {dr.fsck_s:.3f}s "
+        f"({dr.fsck_records} WAL records, objects {dr.fsck_objects}); "
+        f"peak device memory {dr_peak / 2**30:.2f} GiB, host peak RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} "
+        f"GiB (this process), "
+        f"{resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 2**20:.2f}"
+        f" GiB (largest child); loop errors 0, assume and Permit ledgers "
+        f"empty, select_hosts launches "
+        f"{launches['select_hosts']['durable-c5']}, plain-twin calls 0")
 
     stamp("end")
     report = []

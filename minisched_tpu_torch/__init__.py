@@ -13,11 +13,12 @@ PyTorch twin.  Entry points take ``device=None``, which means the card.
 
 The port runs as a process (``python -m minisched_tpu_torch``,
 ``__main__.py``: the REST façade, the PV controller and the live engine,
-``/metrics``) or as a library (``service.service.SchedulerService``,
-with ``record_results`` for the simulator's per-plugin annotations).
-Still to come: the trace ring, the durable, remote, replicated and
-sharded stores, the gRPC servicer, ``ha/``, ``faults/`` and a device
-mesh (ROADMAP.md §1).
+``/metrics``, over the in-memory store or the durable WAL store of
+``controlplane/durable.py``) or as a library
+(``service.service.SchedulerService``, with ``record_results`` for the
+simulator's per-plugin annotations); the gRPC servicer and the trace
+ring serve beside it.  Still to come: the remote, replicated and sharded
+stores, ``ha/``, ``faults/`` and a device mesh (ROADMAP.md §1).
 """
 
 from __future__ import annotations

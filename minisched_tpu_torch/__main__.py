@@ -2,11 +2,17 @@
 
 A copy of ``minisched_tpu/__main__.py``, which re-creates ``sched.go``'s
 boot order (sched.go:21-68): read the env config (PORT, FRONTEND_URL),
-bring up the control plane (the REST façade on PORT, over the in-memory
-store), start the PV controller, start the scheduler service, then serve
-until SIGINT or SIGTERM, which stop all three and exit 0.
+bring up the control plane (the REST façade on PORT, over the store),
+start the PV controller, start the scheduler service, then serve until
+SIGINT or SIGTERM, which stop all three, close the store and exit 0.
 
     PORT=10251 FRONTEND_URL=http://localhost:3000 python -m minisched_tpu_torch
+
+The store is the in-memory one unless ``MINISCHED_TPU_STORE_URL`` names
+a WAL: with ``file://<path>`` it is ``durable.DurableObjectStore``, so
+every write lands in the log before its call returns and a restart on
+the same path recovers every node, pod and bind (fsync off, group commit
+on, as ``store_from_url`` gives).  Any other scheme is refused.
 
 The scheduler is the device engine with the full default roster
 (``default_full_roster_config``) on the card, as ``start_scheduler``'s
@@ -15,7 +21,15 @@ non-zero (there is no fallback to the CPU).  ``MINISCHED_DEVICE_MODE=0``
 runs the host-only scalar engine with the reference's default chain
 (``default_scheduler_config``) instead.
 
-Subcommand:
+Subcommands:
+
+    python -m minisched_tpu_torch fsck <wal> [--repair [--accept-loss]]
+
+        verify a durable store's files offline (``controlplane/fsck.py``):
+        frames, checkpoint digests, a read-only replay, rv and uid
+        monotonicity, the per-node aggregates and the double-bind audit;
+        prints the JSON report and exits 0 when it is clean.  It boots
+        neither the scheduler nor the card.
 
     python -m minisched_tpu_torch metrics <url>
 
@@ -23,9 +37,8 @@ Subcommand:
         listener) and print the snapshot: counters, gauges, and each
         histogram's count and p50/p99 bucket bounds.
 
-Not ported yet, and refused: the durable store
-(``MINISCHED_TPU_STORE_URL=file://...`` and the ``fsck`` subcommand) and
-a device mesh (``MINISCHED_MESH_DEVICES`` > 0).
+Not ported yet, and refused: a device mesh (``MINISCHED_MESH_DEVICES``
+> 0).
 """
 
 from __future__ import annotations
@@ -42,6 +55,7 @@ from minisched_tpu_torch.controlplane.client import (
     DEFAULT_QPS,
     Client,
 )
+from minisched_tpu_torch.controlplane.durable import store_from_url
 from minisched_tpu_torch.controlplane.httpserver import start_api_server
 from minisched_tpu_torch.controlplane.pvcontroller import start_pv_controller
 from minisched_tpu_torch.controlplane.store import ObjectStore
@@ -51,11 +65,6 @@ from minisched_tpu_torch.service.config import (
     default_scheduler_config,
 )
 from minisched_tpu_torch.service.service import SchedulerService
-
-DURABLE_NOT_PORTED = (
-    "the durable store (controlplane/durable.py, walio.py, checkpoint.py, "
-    "fsck.py) is a later slice of the port")
-
 
 def start(cfg: ProcessConfig, device_mode: bool = True, mesh_devices: int = 0,
           device: Any = None) -> Tuple[Client, str, Callable[[], None]]:
@@ -67,15 +76,11 @@ def start(cfg: ProcessConfig, device_mode: bool = True, mesh_devices: int = 0,
     if mesh_devices:
         raise ValueError("MINISCHED_MESH_DEVICES: a device mesh is not "
                          "ported yet (ROADMAP item 12)")
-    if cfg.external_store_url.startswith("file://"):
-        raise ValueError(f"MINISCHED_TPU_STORE_URL={cfg.external_store_url}:"
-                         f" {DURABLE_NOT_PORTED}")
-    if cfg.external_store_url:
-        raise ValueError(f"unsupported store url {cfg.external_store_url!r} "
-                         f"(file://<path> only)")
     if device_mode:
         resolve_device(device)
-    store = ObjectStore()
+    # empty: the in-memory store; file://<path>: the WAL (replayed here);
+    # any other scheme raises before anything boots
+    store = store_from_url(cfg.external_store_url) or ObjectStore()
     # the reference's client limits (k8sapiserver.go:57-62: QPS/Burst 5000)
     client = Client(store=store, qps=DEFAULT_QPS, burst=DEFAULT_BURST)
     # the HTTP façade serves the store beneath the client's rate limiter
@@ -91,22 +96,30 @@ def start(cfg: ProcessConfig, device_mode: bool = True, mesh_devices: int = 0,
         service.close()
         pv.stop()
         shutdown_api()
+        store.close()
         raise
 
     def stop() -> None:
         service.close()
         pv.stop()
         shutdown_api()
+        store.close()
 
-    # the running service, for a caller that reads its engine's counters
+    # the running service, for a caller that reads its engine's counters,
+    # and the store beneath the client
     stop.service = service
+    stop.store = store
     return client, base, stop
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "fsck":
-        raise ValueError(f"fsck: {DURABLE_NOT_PORTED}")
+        # the integrity CLI boots neither the scheduler nor the card: it
+        # runs against dead files, often on a box mid-incident
+        from minisched_tpu_torch.controlplane.fsck import main as fsck_main
+
+        return fsck_main(argv[1:])
     if argv and argv[0] == "metrics":
         # a scrape boots nothing of the scheduler
         from minisched_tpu_torch.observability.metricsd import scrape_main

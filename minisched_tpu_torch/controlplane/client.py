@@ -26,7 +26,12 @@ from minisched_tpu_torch.api.objects import (
     PodStatus,
     POD_RUNNING,
 )
-from minisched_tpu_torch.controlplane.store import Conflict, ObjectStore
+from minisched_tpu_torch.controlplane.store import (
+    Conflict,
+    ObjectStore,
+    StorageDegraded,
+)
+from minisched_tpu_torch.observability import counters
 
 #: the reference's client limits (k8sapiserver.go:60-61)
 DEFAULT_QPS = 5000.0
@@ -390,9 +395,16 @@ class EventRecorder:
                 self._live.append((evt.metadata.namespace, evt.metadata.name))
                 if len(self._live) > self._max_events:
                     ns, name = self._live.popleft()
-                    self._store.delete(KIND_EVENT, ns, name)
-            except KeyError:
-                pass  # already gone: nothing to keep in step
+                    try:
+                        self._store.delete(KIND_EVENT, ns, name)
+                    except KeyError:
+                        pass  # already gone: nothing to keep in step
+            except Exception as err:
+                # a full or closed store must not kill the writer; an
+                # event shed to a degraded disk is counted, so an ENOSPC
+                # episode shows in the recovery ledger, not as silence
+                if isinstance(err, StorageDegraded):
+                    counters.inc("storage.event_dropped_degraded")
             finally:
                 self._q.task_done()
 

@@ -1,7 +1,9 @@
 """HTTP API façade: the control plane served over REST.
 
 A copy of ``minisched_tpu/controlplane/httpserver.py`` over the port's
-in-memory ``ObjectStore``.  It re-creates the reference's L1 boundary, a
+``ObjectStore`` (in memory, or ``durable.DurableObjectStore``: then the
+batch bind's ack outcomes are also written to the WAL, and the registry
+starts from the ones the WAL recovered).  It re-creates the reference's L1 boundary, a
 kube-apiserver served through an ``httptest.Server`` with health polling
 (k8sapiserver/k8sapiserver.go:43-71, :231-249), as a stdlib
 ThreadingHTTPServer.  Kubernetes-shaped routes:
@@ -468,8 +470,9 @@ class _Handler(BaseHTTPRequestHandler):
         ``{batch_id}/{index}`` (or the item's ``ack``).  A retried batch
         (the response to the first attempt was lost) answers the entries
         already decided from that registry, marked ``"acked": true``,
-        and runs only the rest.  The registry is in memory (bounded FIFO)
-        and does not outlive the server."""
+        and runs only the rest.  The registry is in memory (bounded FIFO);
+        over a durable store each outcome is also written to the WAL
+        (``record_acks``), so the registry outlives a restart."""
         try:
             data = self._body()
             items = data.get("items", [])
@@ -552,6 +555,18 @@ class _Handler(BaseHTTPRequestHandler):
                     self.ack_registry[ack_id] = entry
                 while len(self.ack_order) > _ACK_REGISTRY_CAP:
                     self.ack_registry.pop(self.ack_order.popleft(), None)
+            # a durable store persists each outcome as a volatile ``ack``
+            # record, so a batch retried across a server restart answers
+            # from the recovered outcomes.  Best-effort: the bind's own
+            # preconditions stay the backstop on a degraded disk or the
+            # in-memory store
+            record_acks = getattr(self.store, "record_acks", None)
+            if record_acks is not None:
+                try:
+                    record_acks({f"{batch_id}/{ack_keys[i]}": e
+                                 for i, e in fresh.items()})
+                except Exception:
+                    pass  # never fail a response whose binds committed
         self._send(200, {"items": out})
 
     # -- PUT, DELETE -------------------------------------------------------
@@ -623,10 +638,15 @@ def start_api_server(store: Optional[ObjectStore] = None, port: int = 0
     loop: 100 ms apart, 30 s at most).  Returns (server, base_url,
     shutdown_fn); the shutdown ends every watch stream first."""
     store = store or ObjectStore()
+    # seed the binding-ack registry from the WAL's ``ack`` records (a
+    # durable store replays them): a batch retried across a restart then
+    # answers from the recovered outcomes instead of re-executing
+    recovered = getattr(store, "recovered_acks", None)
+    acks = dict(recovered()) if recovered is not None else {}
     handler = type("BoundHandler", (_Handler,), {
         "store": store, "active_watches": set(),
-        "watch_lock": threading.Lock(), "ack_registry": {},
-        "ack_order": deque(), "ack_lock": threading.Lock()})
+        "watch_lock": threading.Lock(), "ack_registry": acks,
+        "ack_order": deque(acks), "ack_lock": threading.Lock()})
     server = _Server(("127.0.0.1", port), handler)
     thread = threading.Thread(target=server.serve_forever, daemon=True,
                               name="api-server")

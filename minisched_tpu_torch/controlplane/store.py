@@ -27,10 +27,23 @@ the store.
 servicer reads; in process the applied rv is the current rv and
 ``NotYetObserved`` is never raised.
 
-Left out: the durable (WAL), replicated, sharded and remote stores, the
-copy-on-write read plane and the fault hooks.  The per-watcher queues
-are unbounded: the in-process informers never reconnect, so a watcher is
-never evicted.
+The durability seams (JAX ``store.py:1048-1136``) are hooks the base
+store leaves empty and ``durable.DurableObjectStore`` fills: every
+mutation calls ``_commit_record`` (or ``_on_batch_commit`` per batch
+item) BEFORE its object enters the maps, and a batch calls
+``_flush_log`` before its fanout, so no watcher sees a version a crash
+could roll back; ``_visible_rv`` stamps snapshots with the published rv.
+``restore_object``, ``set_resource_version``, the history floor
+(``set_history_floor``: a reopened store refuses resumes from before its
+checkpoint) and ``_rebuild_node_agg`` are recovery's surface.
+``fault_injector`` (called as (op, kind, key) before each mutation and
+read) and ``faults`` are None; the port of ``faults/`` fills them.
+
+Left out: the copy-on-write read plane (ROADMAP item 6;
+``_cow_publish`` is a no-op: JAX's ``MINISCHED_COW_READS=0`` path, where
+reads take the lock), and the replicated, sharded and remote stores.  The
+per-watcher queues are unbounded: the in-process informers never
+reconnect, so a watcher is never evicted.
 """
 
 from __future__ import annotations
@@ -52,6 +65,12 @@ class EventType(enum.Enum):
 class Conflict(Exception):
     """Optimistic-concurrency failure: the caller's ``expected_rv``
     precondition did not match the stored object's resource_version."""
+
+
+class NotLeader(Exception):
+    """A mutation reached a fenced replica, one that follows a leader's
+    replicated WAL and must not accept writes of its own.  The port has
+    no replication yet, so no port store is ever fenced or raises it."""
 
 
 class HistoryCompacted(Exception):
@@ -77,9 +96,13 @@ class NotYetObserved(Exception):
 
 
 class StorageDegraded(Exception):
-    """The store cannot persist mutations.  The in-memory store never
-    raises it; the engine parks and retries on it, as it does against
-    the JAX package's durable store."""
+    """The durable store cannot persist mutations (ENOSPC or EIO on the
+    WAL append, or the degraded latch a prior failure set).  The store
+    stays readable; every mutation is refused with this error before it
+    touches memory, so nothing is acknowledged that a restart would lose.
+    The REST façade answers 507; the engine parks the pod and retries
+    once the store's recovery probe re-arms appends.  The in-memory store
+    never raises it."""
 
 
 @dataclass
@@ -248,6 +271,9 @@ class ObjectStore:
         self._history_byte_cap = max(int(history_bytes), 0)
         self._history_bytes_used: Dict[str, int] = {}
         self._history_floors: Dict[str, int] = {}
+        #: the floor of every kind whatever its ring holds: a durable
+        #: reopen sets it to the checkpoint's rv
+        self._history_floor_min = 0
         self._objects: Dict[str, Dict[str, Any]] = {}  # kind -> key -> obj
         self._watches: Dict[str, List[Watch]] = {}
         self._rv = 0
@@ -257,8 +283,20 @@ class ObjectStore:
         # node name → [milli_cpu, memory bytes, pod count] summed over the
         # pods bound there, folded in by every Pod commit
         self._pod_node_agg: Dict[str, List[int]] = {}
+        #: fault-injection hook, called as (op, kind, key) before every
+        #: mutation and read; raising fails the call as a flaky store
+        #: would.  None until the port of ``faults/`` wires a fabric
+        self.fault_injector: Optional[Callable[[str, str, str], None]] = None
+        #: the fault fabric the durable store's disk points read
+        #: (``disk.enospc``, ``wal.append``, ``wal.bitflip``, ...); None
+        self.faults: Any = None
 
     # -- helpers -----------------------------------------------------------
+    def _maybe_fault(self, op: str, kind: str, key: str) -> None:
+        fi = self.fault_injector  # one read: the hook may be cleared
+        if fi is not None:
+            fi(op, kind, key)
+
     def _bump(self) -> int:
         self._rv += 1
         return self._rv
@@ -299,6 +337,21 @@ class ObjectStore:
             if sign < 0 and not (a[0] or a[1] or a[2]):
                 del agg[node]  # bound pods all gone: don't accrete names
 
+    def _rebuild_node_agg(self) -> None:
+        """Recompute the per-node aggregates from the live objects: the
+        recovery paths (WAL replay, checkpoint restore) write
+        ``_objects`` directly and call this once at the end."""
+        with self._lock:
+            self._pod_node_agg = {}
+            for pod in self._objects.get("Pod", {}).values():
+                self._node_agg_track("Pod", None, pod)
+
+    def _cow_publish(self, kinds) -> None:
+        """The copy-on-write read plane's publish point (JAX
+        ``store.py:586``), called after each commit's fanout.  The port
+        has no read plane: reads take the lock, as with JAX's
+        ``MINISCHED_COW_READS=0``."""
+
     def _record_history(self, kind: str, event: WatchEvent) -> None:
         """Append one event to the kind's resume ring (caller holds the
         lock); overflow by count or by bytes advances the kind's floor.
@@ -329,6 +382,23 @@ class ObjectStore:
             return {"events": len(self._history.get(kind, ())),
                     "bytes": self._history_bytes_used.get(kind, 0)}
 
+    def _floor_for(self, kind: str) -> int:
+        return max(self._history_floor_min, self._history_floors.get(kind, 0))
+
+    def set_history_floor(self, rv: int) -> None:
+        """Raise the resume floor of every kind (never lowers it): the
+        durable store's replay sets it to the checkpoint's rv, since the
+        events at or before it cannot be replayed."""
+        with self._lock:
+            self._history_floor_min = max(self._history_floor_min, rv)
+
+    @property
+    def history_floor(self) -> int:
+        """The floor of every kind (a kind's ring overflow can sit higher;
+        ``watch`` checks both)."""
+        with self._lock:
+            return self._history_floor_min
+
     def _fanout(self, kind: str, events: List[WatchEvent]) -> None:
         # events carry the STORED objects: the store never mutates an
         # object after it lands, so observers can never see one change
@@ -342,13 +412,20 @@ class ObjectStore:
         with self._lock:
             objs = self._objects.setdefault(kind, {})
             key = obj.metadata.key
+            self._maybe_fault("create", kind, key)
             if key in objs:
                 raise KeyError(f"{kind} {key!r} already exists")
             stored = self._stamp_new(kind, obj)
+            # durability before commit: the record lands before the object
+            # enters the maps, so a failed append means the mutation never
+            # happened (the rv it took is a gap; gaps are legal)
+            self._commit_record(kind, "put", stored,
+                                stored.metadata.resource_version)
             objs[key] = stored
             self._node_agg_track(kind, None, stored)
             self._fanout(kind, [WatchEvent(
                 EventType.ADDED, stored, rv=stored.metadata.resource_version)])
+            self._cow_publish((kind,))
             return stored.clone()
 
     def create_many(self, kind: str, objs: List[Any],
@@ -356,28 +433,38 @@ class ObjectStore:
         """Batch create under ONE lock hold and one fanout.  Returns a list
         aligned with ``objs``: the stored clone (None with
         ``return_objects=False``), or the exception for that entry
-        (KeyError on conflict) — one failed item never aborts the rest."""
+        (KeyError on conflict) — one failed item never aborts the rest.
+        Every record lands (``_on_batch_commit``, then one ``_flush_log``)
+        before the batch's fanout."""
         out: List[Any] = []
         events: List[WatchEvent] = []
         with self._lock:
             objs_map = self._objects.setdefault(kind, {})
             for obj in objs:
                 key = obj.metadata.key
-                if key in objs_map:
-                    out.append(KeyError(f"{kind} {key!r} already exists"))
-                    continue
-                stored = self._stamp_new(kind, obj)
-                objs_map[key] = stored
-                self._node_agg_track(kind, None, stored)
-                out.append(stored.clone() if return_objects else None)
-                events.append(WatchEvent(
-                    EventType.ADDED, stored,
-                    rv=stored.metadata.resource_version))
+                try:
+                    self._maybe_fault("create", kind, key)
+                    if key in objs_map:
+                        raise KeyError(f"{kind} {key!r} already exists")
+                    stored = self._stamp_new(kind, obj)
+                    # a refused append fails this item only
+                    self._on_batch_commit(kind, stored)
+                    objs_map[key] = stored
+                    self._node_agg_track(kind, None, stored)
+                    out.append(stored.clone() if return_objects else None)
+                    events.append(WatchEvent(
+                        EventType.ADDED, stored,
+                        rv=stored.metadata.resource_version))
+                except Exception as err:  # returned per item, not lost
+                    out.append(err)
+            self._flush_log()
             self._fanout(kind, events)
+            self._cow_publish((kind,))
         return out
 
     def get(self, kind: str, namespace: str, name: str) -> Any:
         with self._lock:
+            self._maybe_fault("get", kind, f"{namespace}/{name}")
             obj = self._objects.get(kind, {}).get(f"{namespace}/{name}")
             if obj is None:
                 raise KeyError(f"{kind} {namespace}/{name} not found")
@@ -385,13 +472,14 @@ class ObjectStore:
 
     def list(self, kind: str) -> List[Any]:
         with self._lock:
+            self._maybe_fault("list", kind, "")
             return [o.clone() for o in self._objects.get(kind, {}).values()]
 
     def list_with_rv(self, kind: str) -> Tuple[List[Any], int]:
         """(snapshot, the resource_version it reflects), under one lock
-        hold."""
+        hold; the rv is the published one (``_visible_rv``)."""
         with self._lock:
-            return self.list(kind), self._rv
+            return self.list(kind), self._visible_rv()
 
     def update(self, kind: str, obj: Any,
                expected_rv: Optional[int] = None) -> Any:
@@ -400,6 +488,7 @@ class ObjectStore:
         with self._lock:
             objs = self._objects.setdefault(kind, {})
             key = obj.metadata.key
+            self._maybe_fault("update", kind, key)
             old = objs.get(key)
             if old is None:
                 raise KeyError(f"{kind} {key!r} not found")
@@ -412,23 +501,30 @@ class ObjectStore:
             stored.metadata.uid = old.metadata.uid
             stored.metadata.creation_timestamp = old.metadata.creation_timestamp
             stored.metadata.resource_version = self._bump()
+            self._commit_record(kind, "put", stored,
+                                stored.metadata.resource_version)
             objs[key] = stored
             self._node_agg_track(kind, old, stored)
             self._fanout(kind, [WatchEvent(
                 EventType.MODIFIED, stored, old,
                 rv=stored.metadata.resource_version)])
+            self._cow_publish((kind,))
             return stored.clone()
 
     def delete(self, kind: str, namespace: str, name: str) -> None:
         with self._lock:
             objs = self._objects.get(kind, {})
             key = f"{namespace}/{name}"
-            old = objs.pop(key, None)
+            self._maybe_fault("delete", kind, key)
+            old = objs.get(key)
             if old is None:
                 raise KeyError(f"{kind} {key!r} not found")
             rv = self._bump()
+            self._commit_record(kind, "del", old, rv)
+            objs.pop(key, None)
             self._node_agg_track(kind, old, None)
             self._fanout(kind, [WatchEvent(EventType.DELETED, old, rv=rv)])
+            self._cow_publish((kind,))
 
     def mutate(self, kind: str, namespace: str, name: str,
                fn: Callable[[Any], Any]) -> Any:
@@ -467,6 +563,7 @@ class ObjectStore:
             for namespace, name, fn in items:
                 key = f"{namespace}/{name}"
                 try:
+                    self._maybe_fault("update", kind, key)
                     old = objs.get(key)
                     if old is None:
                         raise KeyError(f"{kind} {key!r} not found")
@@ -479,6 +576,9 @@ class ObjectStore:
                     work.metadata.creation_timestamp = (
                         old.metadata.creation_timestamp)
                     work.metadata.resource_version = self._bump()
+                    # durability before commit: a refused append fails
+                    # this item, memory stays clean
+                    self._on_batch_commit(kind, work)
                     objs[key] = work
                     self._node_agg_track(kind, old, work)
                     out.append(work.clone() if return_objects else None)
@@ -487,20 +587,88 @@ class ObjectStore:
                         rv=work.metadata.resource_version))
                 except Exception as err:  # returned per item, not lost
                     out.append(err)
+            # the batch's records are forced to disk before its events
+            # become visible; one batched fanout, under the lock
+            self._flush_log()
             self._fanout(kind, events)
+            self._cow_publish((kind,))
         return out
+
+    # -- durability hooks (the durable store overrides them) ---------------
+    def _on_batch_commit(self, kind: str, obj: Any) -> None:
+        """Per-item durability hook of the batch paths (``create_many``,
+        ``mutate_many``), called with the lock held before the item's
+        object enters the maps."""
+
+    def _commit_record(self, kind: str, op: str, obj: Any, rv: int) -> None:
+        """Single-op durability hook, called with the lock held before
+        the in-memory commit and the fanout.  ``op`` is "put" or "del";
+        ``obj`` is the stored object (put) or the removed one (del)."""
+
+    def _flush_log(self) -> None:
+        """The batch paths' durability barrier: force the pending records
+        to disk before their events become visible."""
+
+    def _visible_rv(self) -> int:
+        """The resource_version the published state reflects (caller
+        holds the lock): ``_rv`` here; the group-commit durable store
+        publishes reserved rvs only after its barrier, so its visible rv
+        lags the counter while mutations are staged.  Snapshot stamps
+        (``watch``'s start_rv, ``list_with_rv``) use this."""
+        return self._rv
 
     @property
     def resource_version(self) -> int:
         with self._lock:
             return self._rv
 
+    def is_fenced(self) -> bool:
+        """True when the store refuses writes because it follows a
+        leader's replicated stream; the port's stores always lead."""
+        return False
+
     def applied_rv(self) -> int:
         """The rv watermark of the state this store would serve right
-        now.  In process every commit is visible at once, so it is the
-        current rv (JAX's read-plane stamp, without the plane)."""
+        now: the published rv (JAX's read-plane stamp, without the
+        plane)."""
         with self._lock:
-            return self._rv
+            return self._visible_rv()
+
+    def locked(self):
+        """The store's lock as a context manager, for multi-call reads
+        that need one consistent view."""
+        return self._lock
+
+    def restore_object(self, kind: str, obj: Any) -> None:
+        """Checkpoint-restore insert: keeps the object's uid and
+        resource_version (``create`` would re-stamp both) and fans out
+        ADDED."""
+        with self._lock:
+            objs = self._objects.setdefault(kind, {})
+            key = obj.metadata.key
+            if key in objs:
+                raise KeyError(f"{kind} {key!r} already exists")
+            stored = obj.clone()
+            self._commit_record(kind, "put", stored,
+                                stored.metadata.resource_version)
+            objs[key] = stored
+            self._node_agg_track(kind, None, stored)
+            self._rv = max(self._rv, stored.metadata.resource_version)
+            self._fanout(kind, [WatchEvent(
+                EventType.ADDED, stored,
+                rv=stored.metadata.resource_version)])
+            self._cow_publish((kind,))
+
+    def set_resource_version(self, rv: int) -> None:
+        """Fast-forward the version counter (checkpoint restore), never
+        backwards."""
+        with self._lock:
+            self._rv = max(self._rv, rv)
+            self._cow_publish(())
+
+    def close(self) -> None:
+        """Release the store's resources: nothing in memory (the durable
+        store closes its log)."""
 
     # -- watch -------------------------------------------------------------
     def watch(self, kind: str, send_initial: bool = True,
@@ -519,15 +687,21 @@ class ObjectStore:
         with self._lock:
             w = Watch(self, kind)
             if resume_rv is not None:
-                floor = self._history_floors.get(kind, 0)
+                floor = self._floor_for(kind)
                 if resume_rv < floor:
                     raise HistoryCompacted(
                         f"resource_version {resume_rv} compacted away "
                         f"for {kind} (floor {floor})")
                 if resume_rv > self._rv:
+                    if self.is_fenced():
+                        raise NotYetObserved(
+                            f"resource_version {resume_rv} not yet "
+                            f"observed by this replica (applied {self._rv})")
+                    # the consumer saw versions a crash rolled back
                     raise HistoryCompacted(
                         f"resource_version {resume_rv} is ahead of this "
-                        f"server (at {self._rv}); relist required")
+                        f"server (at {self._rv}): recovered from older "
+                        f"state; relist required")
                 w.start_rv = resume_rv
                 w._deliver_many([
                     WatchEvent(ev.type, ev.obj, rv=ev.rv)
@@ -535,7 +709,7 @@ class ObjectStore:
                     if ev.rv > resume_rv])
                 self._watches.setdefault(kind, []).append(w)
                 return w, []
-            w.start_rv = self._rv
+            w.start_rv = self._visible_rv()
             objs = list(self._objects.get(kind, {}).values())
             if send_initial:
                 w._deliver_many([

@@ -84,6 +84,7 @@ from minisched_tpu_torch.api.objects import (
     make_node,
     make_pod,
 )
+from minisched_tpu_torch.controlplane.store import StorageDegraded
 from minisched_tpu_torch.engine.gang import GangIndex
 from minisched_tpu_torch.engine.scan_groups import (
     interaction_sets,
@@ -1492,10 +1493,19 @@ class DeviceScheduler(Scheduler):
         # the binds changed cluster state NOW; their events land later.
         # Losers whose attempts overlapped go through backoff, not park.
         self.queue.note_move_request(ClusterEvent(GVK.POD, ActionType.UPDATE))
+        degraded_dumped = False
         for (qpi, pod, node_name, state), res in zip(ready, results):
             if isinstance(res, BaseException):
                 trace.span_pod("bind_failed", pod, wave=self._wave_seq,
                                node=node_name, cause=type(res).__name__)
+                if isinstance(res, StorageDegraded):
+                    # the durable store's disk gave out: the pod parks
+                    # (error_func forgets the assumption and requeues) and
+                    # retries once the store's recovery probe re-arms
+                    counters.inc("storage.degraded_parks")
+                    if not degraded_dumped:
+                        degraded_dumped = True
+                        trace.flight_dump("storage-degraded-park")
                 self.run_unreserve_plugins(state, pod, node_name)
                 if self._is_bind_race(res) and self._bind_race_refresh(qpi):
                     self._forget(pod.metadata.uid)

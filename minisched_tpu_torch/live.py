@@ -40,22 +40,30 @@ annotations, and which pods a record call carried.  ``run_config5_http``
 is the standalone process (``__main__.start``) fed config 5 over its REST
 façade and watched over it until the plain pods are bound; with
 ``trace_pods`` it then reads the span ring off ``/debug/trace``, whose
-chains ``audit_trace`` checks.  ``count_grpc_binds`` is an external gRPC
-watcher, the body of a process of its own, for a run's ``after_setup``.
+chains ``audit_trace`` checks.  ``run_config5_durable`` is the same
+process over a ``file://`` WAL, SIGKILLed mid-run as a child and
+recovered in this process, where the recovered engine binds the rest.
+``count_grpc_binds`` is an external gRPC watcher, the body of a process
+of its own, for a run's ``after_setup``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
+import os
 import random
+import signal
 import socket
+import subprocess
+import sys
 import threading
 import time
 import urllib.request
 from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from minisched_tpu_torch.api.objects import gang_key, make_pod
 from minisched_tpu_torch.controlplane.client import Client
@@ -390,15 +398,17 @@ def run_config5_live(n_nodes: int = 10_000, n_pods: int = 100_000,
 
 
 def audit_store(client: Client,
-                labelled: Optional[Sequence[str]] = None) -> Dict[str, int]:
+                labelled: Optional[Sequence[str]] = None,
+                pods: Optional[List[Any]] = None) -> Dict[str, int]:
     """Config 5's audit from the store's final state: no node over its
     allocatable CPU, memory or pod count, no pod on a cordoned node, and
     (given ``labelled``) every ``special*`` pod bound on one of those
-    nodes.  Returns the bound and node counts."""
+    nodes.  ``pods``: a listing the caller already took.  Returns the
+    bound and node counts."""
     cpu: Dict[str, int] = defaultdict(int)
     mem: Dict[str, int] = defaultdict(int)
     cnt: Dict[str, int] = defaultdict(int)
-    pods = client.pods().list()
+    pods = client.pods().list() if pods is None else pods
     for p in pods:
         if p.spec.node_name:
             r = p.resource_requests()
@@ -768,12 +778,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-class _PodWatch:
-    """An HTTP watch on every pod, read on a thread: the names seen bound
-    and the monotonic time of the last first-seen bind."""
+class PodWatch:
+    """An HTTP watch on every pod, read on a thread: the names seen bound,
+    the node each was first seen bound to, and the monotonic time of the
+    last first-seen bind."""
 
     def __init__(self, base: str):
         self.bound: set = set()
+        self.nodes: Dict[str, str] = {}
         self.events = 0
         self.decode_s = 0.0
         self.last_bind_t = 0.0
@@ -800,6 +812,7 @@ class _PodWatch:
                 if obj["spec"]["node_name"]:
                     name = obj["metadata"]["name"]
                     if name not in self.bound:
+                        self.nodes[name] = obj["spec"]["node_name"]
                         self.bound.add(name)
                         self.last_bind_t = time.monotonic()
         except (OSError, ValueError) as err:
@@ -845,7 +858,7 @@ def run_config5_http(n_nodes: int = 10_000, n_pods: int = 100_000,
     watch = None
     try:
         http = HTTPClient(base)
-        watch = _PodWatch(base)
+        watch = PodWatch(base)
         t_first = time.monotonic()
         for i in range(0, len(nodes), chunk):
             http.nodes().create_many(nodes[i:i + chunk],
@@ -895,6 +908,284 @@ def run_config5_http(n_nodes: int = 10_000, n_pods: int = 100_000,
                    int(waves), sched.loop_errors, scraped, audited, left,
                    watch.events, phases, dict(handler_s), watch.decode_s,
                    list_s, [p.metadata.name for p in probes], spans)
+
+
+@dataclass
+class DurableRun:
+    n_plain: int
+    #: (a): binds the test watch had seen at the SIGKILL (the kill waits
+    #: for ``kill_binds`` of them and for every create's answer), the
+    #: seconds from the first create to the kill, and the WAL then
+    seen_at_kill: int
+    kill_s: float
+    create_s: float
+    wal_bytes: int
+    wal_records: int
+    #: (b): the reopen's replay, ``__main__.start`` as a whole (replay,
+    #: façade, engine), and from start's return to the last plain bind
+    replay_s: float
+    boot_s: float
+    left_at_boot: int  # plain pods unbound when (b) booted
+    bind_s: float
+    waves: int
+    loop_errors: int
+    assumed_left: int
+    waiting_left: int
+    audit: Dict[str, int]
+    #: the group-commit counters of (b): groups and records
+    groups: int
+    records: int
+    compact_s: float
+    ckpt_bytes: int
+    #: the read-only reopen after stop(): its replay seconds; the objects
+    #: and resource_version equal the listing's (else the run raised)
+    reopen_s: float
+    resource_version: int
+    #: ``python -m minisched_tpu_torch fsck <wal>``: exit code, seconds,
+    #: and the report's records (WAL) and objects (replayed state)
+    fsck_rc: int
+    fsck_s: float
+    fsck_records: int
+    fsck_objects: Dict[str, int]
+    threads_left: List[str]
+
+
+#: run_config5_durable: the share of the plain pods the recovered engine
+#: must find unbound, or the kill did not land mid-run
+MIN_LEFT_AT_BOOT = 0.1
+
+
+def _bound_count(store: Any) -> int:
+    """Pods bound in ``store``: the per-node aggregates' pod counts (a
+    config-5 pod counts 1), read under the lock without a listing."""
+    with store.locked():
+        return sum(a[2] for a in store._pod_node_agg.values())
+
+
+def _state_digest(store: Any) -> Tuple[str, int]:
+    """(sha256 of the checkpoint document of every object, the store's
+    resource_version), under one lock hold."""
+    from minisched_tpu_torch.controlplane.checkpoint import build_snapshot_doc
+
+    with store.locked():
+        doc = build_snapshot_doc(store._objects, store.resource_version)
+        body = json.dumps(doc, sort_keys=True).encode()
+        return hashlib.sha256(body).hexdigest(), store.resource_version
+
+
+def run_config5_durable(workdir: str, n_nodes: int = 10_000,
+                        n_pods: int = 100_000, kill_binds: int = 2_000,
+                        device: Any = None, chunk: int = 10_000,
+                        timeout_s: float = 900.0,
+                        child_env: Optional[Dict[str, str]] = None
+                        ) -> DurableRun:
+    """Config 5 over a ``file://`` WAL that survives a SIGKILL.
+
+    (a) ``python3 -m minisched_tpu_torch`` as a child with
+    ``MINISCHED_TPU_STORE_URL=file://<workdir>/c5.wal`` and its defaults
+    otherwise (the device engine on the card, pipelined, waves of 1,024;
+    the store with fsync off), plus ``child_env``; an HTTP watch on the
+    pods opened first, then config 5 created over HTTP in batch creates
+    of ``chunk``.  The child is SIGKILLed as soon as every create was
+    answered and the watch has seen ``kill_binds`` binds; the run fails
+    if the watch saw every plain pod bound by then, or if the recovered
+    store holds fewer than ``MIN_LEFT_AT_BOOT`` of them unbound.
+
+    (b) ``__main__.start(ProcessConfig(external_store_url=<same>))`` in
+    this process (``device``: the engine's), which replays the WAL; every
+    bind the watch saw must be on the same node; the recovered engine
+    binds the rest.  Then: every created object exists, every plain pod
+    is bound and no ``special*`` pod is, ``audit_store``'s rules, and the
+    engine's assume and Permit ledgers drain.  The scheduler is stopped,
+    the store compacted, and the whole state digested; after ``stop()``
+    a ``readonly=True`` reopen must digest the same, with the same
+    resource_version; ``python -m minisched_tpu_torch fsck`` must exit 0.
+    The process-global counters and histograms are reset before (b)."""
+    from minisched_tpu_torch.__main__ import start
+    from minisched_tpu_torch.controlplane import walio
+    from minisched_tpu_torch.controlplane.durable import DurableObjectStore
+    from minisched_tpu_torch.controlplane.httpserver import HTTPClient
+    from minisched_tpu_torch.service.config import ProcessConfig
+
+    nodes, pods = mk_c5_cluster(n_nodes, n_pods)
+    plain = [p.metadata.name for p in pods
+             if not p.metadata.name.startswith("special")]
+    wal = os.path.join(workdir, "c5.wal")
+    url = f"file://{wal}"
+    # -- (a) the first life, in a child ------------------------------------
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, PORT=str(port), FRONTEND_URL="http://x",
+               MINISCHED_TPU_STORE_URL=url, **(child_env or {}))
+    child = subprocess.Popen([sys.executable, "-m", "minisched_tpu_torch"],
+                             env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    lines: List[str] = []
+    up = threading.Event()
+
+    def read_child() -> None:
+        # read to the end, so the child never blocks on a full pipe
+        for line in child.stdout:
+            lines.append(line)
+            up.set()
+        up.set()
+
+    reader = threading.Thread(target=read_child, daemon=True)
+    reader.start()
+    watch = None
+    try:
+        up.wait(300)
+        if not lines or f"API on {base}" not in lines[0]:
+            raise AssertionError(f"durable child: no API line "
+                                 f"({lines[-20:]}, exit {child.poll()})")
+        http = HTTPClient(base)
+        watch = PodWatch(base)
+        t_first = time.monotonic()
+        for i in range(0, len(nodes), chunk):
+            http.nodes().create_many(nodes[i:i + chunk],
+                                     return_objects=False)
+        for i in range(0, len(pods), chunk):
+            http.pods().create_many(pods[i:i + chunk], return_objects=False)
+        create_s = time.monotonic() - t_first
+        deadline = time.monotonic() + timeout_s
+        while (len(watch.nodes) < kill_binds and watch.error is None
+               and child.poll() is None and time.monotonic() < deadline):
+            time.sleep(0.01)
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=60)
+        kill_s = time.monotonic() - t_first
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        reader.join(10)
+        if watch is not None:
+            watch.join()
+    seen = dict(watch.nodes)
+    if watch.error is not None and len(seen) < kill_binds:
+        raise AssertionError(f"durable child: the watch failed after "
+                             f"{len(seen)} binds: {watch.error!r}")
+    if len(seen) < kill_binds:
+        raise AssertionError(f"durable child: {len(seen)} binds seen, not "
+                             f"{kill_binds} (exit {child.returncode}, "
+                             f"{lines[-20:]})")
+    if len(seen) >= len(plain):
+        raise AssertionError("durable child: every plain pod was bound "
+                             "before the kill")
+    wal_bytes = os.path.getsize(wal)
+    wal_records = walio.count_records(wal)
+    # -- (b) the second life, in this process ------------------------------
+    hist.reset()
+    counters.reset()
+    before = set(threading.enumerate())
+    t0 = time.monotonic()
+    client, _base, stop = start(ProcessConfig(
+        port=free_port(), frontend_url="http://x", external_store_url=url),
+        device_mode=True, device=device)
+    t_boot = time.monotonic()
+    boot_s = t_boot - t0
+    store, service = stop.store, stop.service
+    sched = service.scheduler
+    # the last wave's assumptions drain at quiesce when their leases run out
+    sched.assume_ttl_s = QUIESCE_TTL_S
+    try:
+        moved = []
+        for name, node in seen.items():
+            got = store.get("Pod", "default", name).spec.node_name
+            if got != node:
+                moved.append((name, node, got))
+        if moved:
+            raise AssertionError(f"recovery: {len(moved)} watched binds "
+                                 f"lost or moved, first {moved[:3]}")
+        # the store, not the watch (which trails the engine), says
+        # whether the kill landed mid-run
+        left_at_boot = len(plain) - _bound_count(store)
+        if left_at_boot < len(plain) * MIN_LEFT_AT_BOOT:
+            raise AssertionError(
+                f"durable child: {left_at_boot} of {len(plain)} plain pods "
+                f"left unbound at the kill, under "
+                f"{MIN_LEFT_AT_BOOT:.0%}: the kill did not land mid-run")
+        last_t, last_n = t_boot, -1
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            n = _bound_count(store)
+            if n != last_n:
+                last_t, last_n = time.monotonic(), n
+            if n >= len(plain):
+                break
+            time.sleep(0.02)
+        bind_s = last_t - t_boot
+        wait_until(lambda: sched.assumed_count() == 0, QUIESCE_TTL_S * 20,
+                   "the assume cache drained", sched)
+        waves = int(sched.metrics.snapshot().get("wave", {}).get("count", 0))
+        waiting_left = len(sched._waiting_pods)
+        pod_list = client.pods().list()
+        audit = audit_store(client, pods=pod_list)
+        listed = {p.metadata.name: p.spec.node_name for p in pod_list}
+        del pod_list
+        missing = [p.metadata.name for p in pods
+                   if p.metadata.name not in listed]
+        unbound = [n for n in plain if not listed[n]]
+        special_bound = [n for n, node in listed.items()
+                         if n.startswith("special") and node]
+        moved = [n for n, node in seen.items() if listed[n] != node]
+        if (missing or unbound or special_bound or moved
+                or audit["nodes"] != n_nodes or sched.loop_errors):
+            raise AssertionError(
+                f"recovered config 5: missing {missing[:3]} "
+                f"({len(missing)}), unbound {unbound[:3]} ({len(unbound)}), "
+                f"special bound {special_bound[:3]}, moved {moved[:3]}, "
+                f"{audit['nodes']} nodes, {sched.loop_errors} loop errors")
+        groups = counters.get("storage.group_commit.groups")
+        records = counters.get("storage.group_commit.records")
+        loop_errors, assumed_left = sched.loop_errors, sched.assumed_count()
+        # nothing may write once the listing is taken: the scheduler (and
+        # its event writer) stops first
+        service.close()
+        t1 = time.monotonic()
+        store.compact()
+        compact_s = time.monotonic() - t1
+        ckpt_bytes = os.path.getsize(wal + ".ckpt")
+        digest = _state_digest(store)
+    finally:
+        stop()
+    left = sorted(t.name for t in set(threading.enumerate()) - before
+                  if t.is_alive() and not t.daemon)
+    # fsck (a process of its own) and the read-only reopen both only read
+    # the files: they run side by side
+    t_fsck = time.monotonic()
+    fsck_proc = subprocess.Popen(
+        [sys.executable, "-m", "minisched_tpu_torch", "fsck", wal],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t1 = time.monotonic()
+        reopened = DurableObjectStore(wal, readonly=True)
+        reopen_s = time.monotonic() - t1
+        if _state_digest(reopened) != digest:
+            raise AssertionError("the read-only reopen after compaction "
+                                 "differs from the listing taken before "
+                                 "stop()")
+        reopened.close()
+        del reopened
+        out, err = fsck_proc.communicate(timeout=600)
+    finally:
+        if fsck_proc.poll() is None:
+            fsck_proc.kill()
+            fsck_proc.wait()
+    fsck_s = time.monotonic() - t_fsck
+    fsck = subprocess.CompletedProcess(fsck_proc.args, fsck_proc.returncode,
+                                       out, err)
+    if fsck.returncode != 0:
+        raise AssertionError(f"fsck exit {fsck.returncode}: "
+                             f"{fsck.stdout[-3000:]}{fsck.stderr[-2000:]}")
+    report = json.loads(fsck.stdout)
+    return DurableRun(
+        len(plain), len(seen), kill_s, create_s, wal_bytes, wal_records,
+        store.replay_s, boot_s, left_at_boot, bind_s, waves, loop_errors,
+        assumed_left, waiting_left, audit, groups, records, compact_s,
+        ckpt_bytes, reopen_s, digest[1], fsck.returncode, fsck_s,
+        report["files"][os.path.basename(wal)]["records"],
+        report["state"]["objects"], left)
 
 
 def count_grpc_binds(address: str, n_binds: int, conn: Any,

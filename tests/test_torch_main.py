@@ -2,8 +2,8 @@
 against JAX's, ``__main__.start`` driven through the README scenario over
 HTTP, a child ``python -m minisched_tpu_torch`` on the host-only scalar
 engine (the scenario, ``metrics <url>``, SIGTERM and exit 0), device mode
-refusing to boot without a card, and what is not ported refusing to
-start.  Every wait has a deadline; every child is killed in a
+refusing to boot without a card, ``start`` over the durable store and
+the ``fsck`` subcommand, and what is not ported refusing to start.  Every wait has a deadline; every child is killed in a
 ``finally``."""
 
 from __future__ import annotations
@@ -72,9 +72,10 @@ def test_start_device_mode_readme_over_http_and_stop():
 
 
 @pytest.mark.parametrize("kw, match", [
-    ({"mesh_devices": 8}, "ROADMAP item 12"),
-    ({"external_store_url": "file:///tmp/x.wal"}, "durable store"),
-    ({"external_store_url": "etcd://host:2379"}, "unsupported store url"),
+    pytest.param({"mesh_devices": 8}, "ROADMAP item 12",
+                 id="kw0-ROADMAP item 12"),
+    pytest.param({"external_store_url": "etcd://host:2379"},
+                 "unsupported store url", id="kw2-unsupported store url"),
 ])
 def test_start_refuses_what_is_not_ported(kw, match):
     store_url = kw.pop("external_store_url", "")
@@ -86,9 +87,70 @@ def test_start_refuses_what_is_not_ported(kw, match):
     assert set(threading.enumerate()) - before == set()  # nothing booted
 
 
-def test_fsck_refused():
-    with pytest.raises(ValueError, match="durable store"):
-        tmain.main(["fsck", "/tmp/x.wal"])
+def test_process_entry_boots_stack_with_store_url(tmp_path):
+    """``start`` with ``file://`` (JAX ``tests/test_durable.py``'s test of
+    the same name): the durable store beneath the façade, the PV
+    controller and the engine (the CPU twins); the bind survives
+    ``stop()``, which closes the store, and a reopen."""
+    import json
+    import urllib.request
+
+    from minisched_tpu_torch.api.objects import make_node, make_pod
+    from minisched_tpu_torch.controlplane.durable import DurableObjectStore
+
+    wal = tmp_path / "cluster.wal"
+    cfg = tconfig.ProcessConfig(port=free_port(), frontend_url="http://x",
+                                external_store_url=f"file://{wal}")
+    client, base, stop = tmain.start(cfg, device_mode=True, device="cpu")
+    try:
+        assert isinstance(stop.store, DurableObjectStore)
+        client.nodes().create(make_node("node0"))
+        client.pods().create(make_pod("pod1"))
+        with urllib.request.urlopen(base + "/api/v1/nodes", timeout=5) as r:
+            names = [o["metadata"]["name"] for o in json.load(r)["items"]]
+        assert names == ["node0"]
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            if client.pods().get("pod1").spec.node_name:
+                break
+            time.sleep(0.05)
+        assert client.pods().get("pod1").spec.node_name == "node0"
+    finally:
+        stop()
+    with pytest.raises(RuntimeError, match="closed"):
+        stop.store.create("Node", make_node("late"))
+    reopened = DurableObjectStore(str(wal))
+    assert reopened.get("Pod", "default", "pod1").spec.node_name == "node0"
+    reopened.close()
+
+
+def test_fsck_cli_clean_and_flipped_bit(tmp_path, capsys):
+    """``main(["fsck", wal])`` runs the integrity check without booting the
+    scheduler: exit 0 on a clean WAL, 1 once a bit flipped mid-file, as
+    JAX's ``python -m minisched_tpu fsck`` answers the same file."""
+    import json
+
+    from minisched_tpu.controlplane import fsck as jfsck
+
+    from minisched_tpu_torch.api.objects import make_node, make_pod
+    from minisched_tpu_torch.controlplane.durable import DurableObjectStore
+
+    wal = str(tmp_path / "f.wal")
+    store = DurableObjectStore(wal)
+    store.create("Node", make_node("n0"))
+    for i in range(6):
+        store.create("Pod", make_pod(f"p{i}"))
+    store.close()
+    assert tmain.main(["fsck", wal]) == 0
+    assert json.loads(capsys.readouterr().out)["ok"] is True
+    data = bytearray(open(wal, "rb").read())
+    data[len(data) // 2] ^= 0x04
+    open(wal, "wb").write(bytes(data))
+    assert tmain.main(["fsck", wal]) == 1
+    report = json.loads(capsys.readouterr().out)
+    assert not report["ok"] and report["errors"]
+    assert jfsck.main([wal]) == 1
+    assert json.loads(capsys.readouterr().out) == report
 
 
 def _child(port: int, **env):
