@@ -236,8 +236,8 @@ Phases, each of which raises on failure (nothing catches it):
    the entries and annotation bytes.
 25. The standalone process.  (a) ``__main__.start`` in this process (the
    device engine, pipelined, its default waves of 1,024) fed config 5's
-   10,000 nodes with ``PROCESS_PODS`` (50,000) pods (``mk_c5_cluster``:
-   49,000 plain, 1,000 ``special*``) over HTTP in batch creates of
+   10,000 nodes with ``PROCESS_PODS`` (25,000) pods (``mk_c5_cluster``:
+   24,500 plain, 500 ``special*``) over HTTP in batch creates of
    10,000, watched over an HTTP pod watch
    opened first (``live.run_config5_http``): every plain pod seen bound,
    one HTTP list audited by ``audit_store``'s rules, ``/metrics`` parsed
@@ -279,20 +279,25 @@ Phases, each of which raises on failure (nothing catches it):
    each of the 256 pods has enqueue, pop, bind and bind_ack in that order,
    its bind's wave id named by a ``wave_build`` span (and a
    ``wave_evaluate`` span when the wave was pipelined).
-28. The ``churn`` and ``gang`` bench roles (``minisched_tpu_torch.bench``)
-   on the card with ``bench.py``'s defaults and gates: churn's p99 time
-   to bind within 45 s and agreeing with ``sched.time_to_bind_s``, no
-   namespace-quota violation and no held pod at drain, every gang whole,
-   the idle-wave gate, the shared watch encode, no double bind or
-   overcommit; gang's no stranded partial gang, empty assume and Permit
-   ledgers and the deadlock probe resolved.  Both records printed.
+28. The ``churn``, ``gang`` and ``wire`` bench roles
+   (``minisched_tpu_torch.bench``) on the card with ``bench.py``'s
+   defaults and gates: churn's p99 time to bind within 45 s and agreeing
+   with ``sched.time_to_bind_s``, no namespace-quota violation and no
+   held pod at drain, every gang whole, the idle-wave gate, the shared
+   watch encode, no double bind or overcommit; gang's no stranded partial
+   gang, empty assume and Permit ledgers and the deadlock probe resolved;
+   wire's 1,000 nodes and 10,000 pods all bound by the device engine
+   behind ``RemoteClient`` and the REST façade (every informer event and
+   bind over the wire).  Each record printed.
 29. The durable store (``controlplane/durable.py``), config 5 surviving
    a SIGKILL (``live.run_config5_durable``).  (a) ``python3 -m
    minisched_tpu_torch`` as a child with
    ``MINISCHED_TPU_STORE_URL=file://<tmp>/c5.wal`` and its defaults
    otherwise (the device engine on the card, pipelined, waves of 1,024;
    fsync off), an HTTP watch on the pods opened first, config 5 (10,000
-   nodes, 98,000 plain and 2,000 ``special*`` pods) created over HTTP in
+   nodes and ``PROCESS_PODS``: 24,500 plain and 500 ``special*`` pods;
+   100,000 pods until phase 30 took the script past 1,100 s on an H100)
+   created over HTTP in
    batch creates of 10,000; SIGKILLed once every create was answered and
    the watch has seen ``DURABLE_KILL_BINDS`` (2,000) binds.  The
    creates' answers gate the kill, which lands mid-run (the watch trails
@@ -303,7 +308,7 @@ Phases, each of which raises on failure (nothing catches it):
    process
    over the same URL, on the card: every bind the watch saw is on the
    same node after the replay and after the recovered engine bound the
-   rest; every created object exists; all 98,000 plain pods bound and no
+   rest; every created object exists; every plain pod bound and no
    ``special*`` pod; phase 17's audit; no loop error; the assume and
    Permit ledgers empty; ``select_hosts`` launched at least once a wave
    of (b) and no plain twin called.  Then the scheduler stops, the live
@@ -314,6 +319,35 @@ Phases, each of which raises on failure (nothing catches it):
    seconds with pods/s beside phase 25(a)'s, the group-commit counters,
    the compaction seconds and checkpoint bytes, the read-only reopen,
    fsck's records and objects, and peak memory.
+30. The remote control plane (``controlplane/remote.py``), config 5
+   scheduled over the wire through a restart of the API server
+   (``live.run_config5_remote``).  The port's ``start_api_server`` runs in
+   a child (``python3 -c``) over ``store_from_url("file://<tmp>/
+   remote.wal")`` on a free port, its defaults otherwise (the stream loop
+   on, fsync off); config 5's 10,000 nodes and ``LIVE_C5X_PODS`` (50,000)
+   pods are created with ``RemoteClient(base)`` in batch creates of
+   10,000; then ``SchedulerService(RemoteClient(base, retries=10))``
+   starts the full roster with ``device_mode=True`` at its defaults
+   (pipelined, waves of 1,024) on the card, every informer event and bind
+   crossing the child's façade.  Once a ``PodWatch`` over the wire has
+   seen ``REMOTE_KILL_BINDS`` (10,000) binds the child is SIGKILLed and
+   started again on the same port over the same WAL; the scheduler rides
+   through on its own (retries, resume or 410 and relist, the assume
+   ledger revalidated, a retried bind that had landed answered as ours).
+   Checks: at least a tenth of the plain pods unbound when the server
+   came back; every plain pod (and 64 created after the restart, with new
+   uids) bound, no ``special*`` pod; every bind the first watch saw on
+   the same node at the end; phase 17's audit; both the Pod and the Node
+   informer reconnected; no loop error, the assume and Permit ledgers
+   empty; ``select_hosts`` launched at least once a wave and no plain
+   twin called; ``fsck.wal_double_binds`` empty and ``python3 -m
+   minisched_tpu_torch fsck <wal>`` exit 0.  Printed: the creates' wall,
+   pods/s before the kill and after the restart beside phases 25(a) and
+   17, the restart's replay and boot seconds, the time from the restart
+   to the next bind, the reconnect, resume and relist counters and
+   ``assume.revalidate_on_reconnect``, the pool's reuse and stale
+   reopens, the Pod streams' decode seconds, evictions, and peak device
+   memory.
 
 Phase 2 also holds ``select_hosts`` against its twin on the repair
 route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
@@ -330,8 +364,8 @@ gang roster without gangs, the gang exact scan, each ``Evaluate``
 call, the six live-engine runs of phases 16-21, the burst of phase 22
 and its reduced card run, the exact scan of phase 23, the card runs of
 phase 24 with and without the record, phase 25's process, phase 26's
-gRPC calls and watched run, each role of phase 28 and phase 29's
-recovered engine) and read just after it.  A scan's step is captured once in a CUDA graph and replayed;
+gRPC calls and watched run, each role of phase 28, phase 29's
+recovered engine and phase 30's remote engine) and read just after it.  A scan's step is captured once in a CUDA graph and replayed;
 each replay counts the ``select_hosts`` launch recorded in the graph.  The last three lines of output are the card's
 name and power limit, one JSON object describing every kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -396,9 +430,15 @@ RECORD_NODES, RECORD_PODS, RECORD_WAVE = 512, 512, 128
 #: phase 29: binds the watch must have seen before the SIGKILL; with so
 #: few, the creates' answers gate the kill, and it lands mid-run
 DURABLE_KILL_BINDS = 2_000
-#: config 5's pods in phases 20 and 25(a) (100,000 until phase 29 took
-#: the script to 1,081-1,296 s on an H100)
-PROCESS_PODS = LIVE_C5X_PODS = 50_000
+#: config 5's pods in phases 20 and 30 (phase 20: 100,000 until phase 29
+#: took the script to 1,081-1,296 s on an H100)
+LIVE_C5X_PODS = 50_000
+#: config 5's pods in phases 25(a) and 29 (100,000 until PR 12's phase 29,
+#: then 50,000 until phase 30 took the script to 1,164 s on an H100)
+PROCESS_PODS = 25_000
+#: phase 30: binds a watch over the wire must have seen before the
+#: SIGKILL of the API server
+REMOTE_KILL_BINDS = 10_000
 
 
 T0 = time.monotonic()
@@ -574,6 +614,7 @@ def main() -> int:
     from minisched_tpu_torch.plugins.registry import build_plugins
     from minisched_tpu_torch.profile_repair import profile_repair
     from minisched_tpu_torch.live import (
+        AFTER_RESTART_PODS,
         BURST_CPU_M,
         BURST_PRIORITY,
         SPLIT,
@@ -588,6 +629,7 @@ def main() -> int:
         run_config5_durable,
         run_config5_http,
         run_config5_live,
+        run_config5_remote,
         run_mixed_recorded,
         run_crosspod_drain,
         run_gang_live,
@@ -1632,6 +1674,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     c5l = run_config5_live(N_NODES, N_PODS, max_wave=C5_WAVE, pipeline=False)
+    phase17_pods_s = N_PODS / c5l.total_s
     launches["select_hosts"]["live-c5"] = live_launches("live config 5",
                                                         c5l.waves)
     c5l_peak = torch.cuda.max_memory_allocated()
@@ -2071,7 +2114,9 @@ def main() -> int:
         f"process: first drain {phase19['first_drain_s']:.3f}s, total "
         f"{phase19['total_s']:.3f}s); boot {hr.setup_s:.3f}s; "
         f"{hr.bound} pods seen bound over the HTTP watch "
-        f"({hr.watch_events} events, the watch's JSON decode "
+        f"({hr.watch_events} events, {hr.watch_reconnects} resumes after "
+        f"an eviction, {hr.watch_relists} of them relists; the watch's "
+        f"JSON decode "
         f"{hr.watch_decode_s:.3f}s); split: "
         f"{', '.join(f'{k} {v:.3f}s' for k, v in hr.split.items())}; "
         f"façade handlers: "
@@ -2305,7 +2350,7 @@ def main() -> int:
 
     # -- phase 28: the churn and gang roles on the card --------------------
     stamp("28")
-    for role in ("churn", "gang"):
+    for role in ("churn", "gang", "wire"):
         kernels.reset_launch_counts()
         rec = getattr(port_bench, f"role_{role}")()
         launches["select_hosts"][f"bench-{role}"] = live_launches(
@@ -2324,7 +2369,7 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        dr = run_config5_durable(workdir, N_NODES, N_PODS,
+        dr = run_config5_durable(workdir, N_NODES, PROCESS_PODS,
                                  kill_binds=DURABLE_KILL_BINDS)
         launches["select_hosts"]["durable-c5"] = live_launches(
             "recovered config 5", max(dr.waves, 1))
@@ -2355,6 +2400,7 @@ def main() -> int:
         f"{dr.reopen_s:.3f}s, same objects and resource_version "
         f"{dr.resource_version}; fsck exit 0 in {dr.fsck_s:.3f}s "
         f"({dr.fsck_records} WAL records, objects {dr.fsck_objects}); "
+        f"the test watch resumed {dr.watch_reconnects} times; "
         f"peak device memory {dr_peak / 2**30:.2f} GiB, host peak RSS "
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} "
         f"GiB (this process), "
@@ -2362,6 +2408,55 @@ def main() -> int:
         f" GiB (largest child); loop errors 0, assume and Permit ledgers "
         f"empty, select_hosts launches "
         f"{launches['select_hosts']['durable-c5']}, plain-twin calls 0")
+
+    # -- phase 30: config 5 over the wire through an API-server restart ----
+    stamp("30")
+    with tempfile.TemporaryDirectory(prefix="c5-remote-") as workdir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        rr = run_config5_remote(workdir, N_NODES, LIVE_C5X_PODS,
+                                kill_binds=REMOTE_KILL_BINDS)
+        launches["select_hosts"]["remote-c5"] = live_launches(
+            "config 5 over the wire", max(rr.waves, 1))
+    rr_peak = torch.cuda.max_memory_allocated()
+    if rr.waves < 1 or rr.threads_left:
+        raise AssertionError(f"remote config 5: {rr.waves} waves, threads "
+                             f"left {rr.threads_left}")
+    rc = rr.counters
+    log(f"[remote-c5] {card}: the port's start_api_server in a child over "
+        f"file://<tmp>/remote.wal (stream loop on, fsync off); the device "
+        f"engine (full roster, pipelined, waves of 1,024) behind "
+        f"RemoteClient(base, retries=10): config 5, {N_NODES} nodes and "
+        f"{LIVE_C5X_PODS} pods, created over the wire in "
+        f"{rr.create_s:.3f}s; start_scheduler (informer sync over the wire) "
+        f"{rr.sync_s:.3f}s; SIGKILL {rr.kill_s:.3f}s after the start with "
+        f"{rr.seen_at_kill} binds watched = "
+        f"{rr.seen_at_kill / rr.kill_s:,.0f} pods/s before the kill; "
+        f"restart on the same port: replay {rr.replay_s:.3f}s, spawn to "
+        f"ready {rr.boot_s:.3f}s, {rr.left_at_boot} plain pods unbound at "
+        f"boot, next bind {rr.next_bind_s:.3f}s after the spawn, the rest "
+        f"(and {AFTER_RESTART_PODS} pods created after the restart) bound "
+        f"{rr.bind_s:.3f}s after ready = "
+        f"{(rr.left_at_boot + AFTER_RESTART_PODS) / rr.bind_s:,.0f} "
+        f"pods/s after the "
+        f"restart (phase 25(a) over HTTP in process "
+        f"{phase25_pods_s:,.0f}, phase 17 in process "
+        f"{phase17_pods_s:,.0f}); {rr.waves} waves; informers "
+        f"{rr.reconnects}; counters {json.dumps(rc, sort_keys=True)}; "
+        f"the scheduler's watch streams decoded "
+        f"{rr.decoded.get('Pod', 0)} Pod events in "
+        f"{rr.decode_s.get('Pod', 0.0):.3f}s and "
+        f"{rr.decoded.get('Node', 0)} Node events in "
+        f"{rr.decode_s.get('Node', 0.0):.3f}s (RemoteWatch._read); the "
+        f"test watches resumed {rr.watch_reconnects} times; every "
+        f"watched bind on its node, all {rr.n_plain} plain pods bound once, "
+        f"no special pod, audit {rr.audit}, double binds 0, fsck exit 0 in "
+        f"{rr.fsck_s:.3f}s; split "
+        + ", ".join(f"{k} {rr.split.get(k, 0.0):.3f}s" for k in SPLIT)
+        + f"; peak device memory {rr_peak / 2**30:.2f} GiB; loop errors 0, "
+        f"assume and Permit ledgers empty, select_hosts launches "
+        f"{launches['select_hosts']['remote-c5']}, plain-twin calls 0")
 
     stamp("end")
     report = []

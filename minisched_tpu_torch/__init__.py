@@ -17,8 +17,11 @@ The port runs as a process (``python -m minisched_tpu_torch``,
 ``controlplane/durable.py``) or as a library
 (``service.service.SchedulerService``, with ``record_results`` for the
 simulator's per-plugin annotations); the gRPC servicer and the trace
-ring serve beside it.  Still to come: the remote, replicated and sharded
-stores, ``ha/``, ``faults/`` and a device mesh (ROADMAP.md §1).
+ring serve beside it.  ``SchedulerService(RemoteClient(base))``
+(``controlplane/remote.py``) runs the whole scheduling path against a
+REST façade over the wire, riding through the façade's restart.  Still
+to come: the replicated and sharded stores with the multi-endpoint
+client, ``ha/``, ``faults/`` and a device mesh (ROADMAP.md §1).
 """
 
 from __future__ import annotations

@@ -119,15 +119,38 @@ def _unwrap_json(data: bytes) -> bytes:
 
 class _SnapListCache:
     """Memoized gRPC list encodes keyed off the store's COW read plane:
-    the WRAPPED encode per (kind, ns), validated by snapshot identity.
-    The port's store has no COW read plane yet (``read_plane`` is
-    absent), so every list takes JAX's own ``MINISCHED_COW_READS=0``
-    path: ``list_with_rv`` under the store lock, encoded uncached."""
+    the wrapped encode per (kind, ns), valid while the snapshot object is
+    the current one (``_cow_publish`` replaces it on every publish, so
+    identity proves nothing changed).  With the plane off
+    (``MINISCHED_COW_READS=0``) every list takes the locked
+    ``list_with_rv`` path, encoded uncached."""
 
     def __init__(self, store: Any):
         self._store = store
+        self._mu = threading.Lock()
+        self._cache: dict = {}  # (kind, ns) -> (snap, wrapped bytes)
 
     def list_bytes(self, kind: str, namespace: str) -> bytes:
+        read_plane = getattr(self._store, "read_plane", None)
+        snap = read_plane() if read_plane is not None else None
+        key = (kind, namespace)
+        if snap is not None:
+            with self._mu:
+                hit = self._cache.get(key)
+            if hit is not None and hit[0] is snap:
+                counters.inc("grpc.list_cache.hits")
+                return hit[1]
+            items = [
+                _encode(o) for o in snap.maps.get(kind, {}).values()
+                if not namespace or o.metadata.namespace == namespace
+            ]
+            body = _wrap_json(json.dumps(
+                {"items": items, "resource_version": snap.rv}
+            ).encode())
+            counters.inc("grpc.list_cache.encodes")
+            with self._mu:
+                self._cache[key] = (snap, body)
+            return body
         objs, rv = self._store.list_with_rv(kind)
         items = [
             _encode(o) for o in objs

@@ -34,19 +34,31 @@ in-process ``Client``'s facade over the wire.
 ``GET /debug/trace`` dumps the flight-recorder span ring
 (``observability/trace.py``) as JSONL.
 
+Lists are served from the store's copy-on-write read plane (JAX
+``:500``): one encode per (kind, namespace, rv), streamed chunked from
+the shared bytes to every relisting client; ``MINISCHED_COW_READS=0``
+answers the same bytes from the locked path.  After the handshake and
+the replay, a watch stream's socket is handed to the one-thread selector
+loop (``streamloop.StreamLoop``, JAX ``:632-680``), with an 8 MiB
+out-buffer bound past which a laggard is evicted onto the resume path;
+``MINISCHED_STREAMLOOP=0`` keeps a handler thread for each stream.
+``HTTPClient`` rides the process's shared keep-alive pool
+(``httppool.py``).
+
 Left out, each answering 404 as the JAX façade does when it is not
-enabled: shards (``/shards/*``), replication (``/repl/*``) and the
-partition nemesis (``/net/partition``); leases (``/api/v1/leases``) wait for the port of
-``ha/``.  There is no selector stream loop: each watch stream holds a
-handler thread, JAX's ``MINISCHED_STREAMLOOP=0`` path.
+enabled: shards (``/shards/*``) and replication (``/repl/*``), which
+wait for ROADMAP item 7, and the partition nemesis
+(``/net/partition``) and the ``http.500``/``http.reset`` fault points,
+which wait for item 8; leases (``/api/v1/leases``) wait for the port of
+``ha/``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
-import urllib.error
 import urllib.request
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -64,6 +76,7 @@ from minisched_tpu_torch.controlplane.codec import KIND_TYPES, _decode, _encode
 from minisched_tpu_torch.controlplane.store import (
     Conflict,
     HistoryCompacted,
+    NotYetObserved,
     ObjectStore,
     StorageDegraded,
 )
@@ -85,6 +98,9 @@ _CLUSTER_SCOPED = {"Node", "PersistentVolume"}
 #: bound on the binding-ack registry (entries, FIFO): every in-flight
 #: wave's retries land inside it, and a long run never grows without bound
 _ACK_REGISTRY_CAP = 65536
+
+#: chunk size of a list body streamed from the read plane's shared bytes
+_LIST_CHUNK_BYTES = 256 * 1024
 
 
 def _fixup_namespace(kind: str, ns: str, obj: Any) -> None:
@@ -160,9 +176,35 @@ def event_wire_chunk(ev: Any) -> bytes:
 
 
 class _Server(ThreadingHTTPServer):
+    """A ThreadingHTTPServer that can detach a request's socket: a watch
+    handler hands its connection to the stream loop and returns, and
+    ``shutdown_request`` must then leave the socket open."""
+
     #: the default listen backlog (5) drops a burst of watch connects
     request_queue_size = 1024
     daemon_threads = True
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._detach_lock = threading.Lock()
+        self._detached: set = set()
+
+    def detach_socket(self, sock) -> None:
+        with self._detach_lock:
+            self._detached.add(sock)
+
+    def undetach_socket(self, sock) -> None:
+        """Give a socket back to the normal teardown (the adoption raced
+        the loop's shutdown)."""
+        with self._detach_lock:
+            self._detached.discard(sock)
+
+    def shutdown_request(self, request) -> None:
+        with self._detach_lock:
+            if request in self._detached:
+                self._detached.discard(request)
+                return  # the stream loop owns this socket now
+        super().shutdown_request(request)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -172,7 +214,14 @@ class _Handler(BaseHTTPRequestHandler):
     ack_registry: dict = None  # ack id → response entry
     ack_order: deque = None  # FIFO of ack ids for eviction
     ack_lock: threading.Lock = None
+    #: the ``streamloop.StreamLoop`` that adopts watch streams; None keeps
+    #: a handler thread for each (``MINISCHED_STREAMLOOP=0``)
+    stream_loop = None
     protocol_version = "HTTP/1.1"
+    #: TCP_NODELAY on every connection: a chunked list body ends in small
+    #: writes, which Nagle holds for the client's delayed ACK (about 40 ms
+    #: a list on a kept-alive connection); JAX's façade leaves Nagle on
+    disable_nagle_algorithm = True
 
     def log_message(self, *args) -> None:  # quiet
         pass
@@ -260,7 +309,9 @@ class _Handler(BaseHTTPRequestHandler):
             min_rv = self._int_param(query, "min_rv")
         except ValueError:
             return  # 400 already sent
-        applied = self.store.resource_version
+        # the rv of the state served, taken before the read: only-forward
+        # rv movement keeps "at least this fresh" true
+        applied = self.store.applied_rv()
         if min_rv is not None and min_rv > applied:
             # a read bounded ahead of the store: refused, retryably
             self._send(504, {"error": (
@@ -277,19 +328,57 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(404, str(e))
 
     def _list(self, kind: str, ns: str) -> None:
-        """A list whose ``resource_version`` reflects exactly its items
-        (one store lock hold); a namespaced path filters."""
+        """A list whose ``resource_version`` reflects exactly its items; a
+        namespaced path filters.  Off the read plane the body is encoded
+        once per (kind, namespace, rv) and streamed chunked from the
+        shared bytes; with the plane off (``MINISCHED_COW_READS=0``) it is
+        encoded per request under one lock hold.  The decoded bodies are
+        byte-identical."""
         t0 = time.monotonic()
         counters.inc("wire.relist_requests")
         try:
-            items, rv = self.store.list_with_rv(kind)
-            if ns:
-                items = [o for o in items if o.metadata.namespace == ns]
-            self._send(200, {"items": [_encode(o) for o in items],
-                             "resource_version": rv}, rv=rv)
+            snap = self.store.read_plane()
+            if snap is not None:
+                self.store._maybe_fault("list", kind, "")
+
+                def build() -> bytes:
+                    items = [o for o in snap.maps.get(kind, {}).values()
+                             if not ns or o.metadata.namespace == ns]
+                    return json.dumps({
+                        "items": [_encode(o) for o in items],
+                        "resource_version": snap.rv}).encode()
+
+                body = snap.list_body(kind, ns, build)
+                counters.inc("wire.relist_bytes_shared", len(body))
+                self._send_shared_body(200, body, rv=snap.rv)
+            else:
+                items, rv = self.store.list_with_rv(kind)
+                if ns:
+                    items = [o for o in items if o.metadata.namespace == ns]
+                self._send(200, {"items": [_encode(o) for o in items],
+                                 "resource_version": rv}, rv=rv)
         finally:
             hist.observe("http.list_s", time.monotonic() - t0,
                          kind=kind.lower())
+
+    def _send_shared_body(self, code: int, body: bytes,
+                          rv: Optional[int] = None) -> None:
+        """Stream shared cached bytes chunked, memoryview slices of the
+        one body straight to the socket; ``http.client`` de-chunks them
+        into the bytes ``_send`` would have sent."""
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Transfer-Encoding", "chunked")
+        if rv is not None:
+            self.send_header("X-Minisched-RV", str(rv))
+        self.end_headers()
+        mv = memoryview(body)
+        for off in range(0, len(mv), _LIST_CHUNK_BYTES):
+            piece = mv[off:off + _LIST_CHUNK_BYTES]
+            self.wfile.write(f"{len(piece):X}\r\n".encode())
+            self.wfile.write(piece)
+            self.wfile.write(b"\r\n")
+        self.wfile.write(b"0\r\n\r\n")
 
     def _watch(self, kind: str, ns: str, resume_rv: Optional[int]) -> None:
         """JSON-lines event stream (chunked) until the client hangs up or
@@ -302,6 +391,11 @@ class _Handler(BaseHTTPRequestHandler):
             watch, snapshot = self.store.watch(
                 kind, send_initial=resume_rv is None, resume_rv=resume_rv,
                 clone_snapshot=False)
+        except NotYetObserved as e:
+            # retryable, unlike the 410: this store has not applied the
+            # resume cursor yet
+            self._error(504, str(e))
+            return
         except HistoryCompacted as e:
             self._error(410, str(e))
             return
@@ -313,10 +407,14 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         n_initial = sum(1 for o in snapshot
                         if not ns or o.metadata.namespace == ns)
+        sync_line = _chunk_frame(json.dumps(
+            {"type": "SYNC", "count": n_initial, "rv": watch.start_rv}
+        ).encode() + b"\n")
+        if self.stream_loop is not None:
+            self._adopt(watch, ns, sync_line)
+            return
         try:
-            self.wfile.write(_chunk_frame(json.dumps(
-                {"type": "SYNC", "count": n_initial, "rv": watch.start_rv}
-            ).encode() + b"\n"))
+            self.wfile.write(sync_line)
             self.wfile.flush()
             while True:
                 events = watch.next_batch(timeout=0.5)
@@ -326,10 +424,14 @@ class _Handler(BaseHTTPRequestHandler):
                     self.wfile.write(_chunk_frame(b"\n"))  # keepalive
                     self.wfile.flush()
                     continue
+                now = time.monotonic()
                 for ev in events:
                     if ns and ev.obj.metadata.namespace != ns:
                         continue
                     self.wfile.write(event_wire_chunk(ev))
+                    if ev.born:
+                        hist.observe("watch.delivery_lag_s",
+                                     max(now - ev.born, 0.0))
                 self.wfile.flush()
             # orderly end of stream: the terminal chunk
             self.wfile.write(b"0\r\n\r\n")
@@ -343,6 +445,44 @@ class _Handler(BaseHTTPRequestHandler):
             watch.stop()
             with self.watch_lock:
                 self.active_watches.discard(watch)
+
+    def _adopt(self, watch: Any, ns: str, sync_line: bytes) -> None:
+        """The stream-loop path: the SYNC line and the queued replay are
+        written on this thread (blocking writes suit a large backlog),
+        then the socket is detached into the loop and this thread
+        returns.  The bytes are the thread path's."""
+        handed_off = False
+        try:
+            self.wfile.write(sync_line)
+            for ev in watch.next_batch(timeout=0):
+                if ns and ev.obj.metadata.namespace != ns:
+                    continue
+                self.wfile.write(event_wire_chunk(ev))
+            self.wfile.flush()
+            handed_off = True
+        except OSError:
+            counters.inc("watch.disconnects")
+        finally:
+            if not handed_off:
+                self.close_connection = True
+                watch.stop()
+                with self.watch_lock:
+                    self.active_watches.discard(watch)
+        if not handed_off:
+            return
+        self.close_connection = True
+        with self.watch_lock:
+            # the loop owns the stream now; shutdown reaches it through
+            # StreamLoop.stop
+            self.active_watches.discard(watch)
+        sock = self.connection
+        self.server.detach_socket(sock)
+        try:
+            self.stream_loop.adopt(sock, watch, ns)
+        except RuntimeError:
+            # the loop is stopping: back to the normal teardown
+            self.server.undetach_socket(sock)
+            watch.stop()
 
     # -- POST --------------------------------------------------------------
     def do_POST(self) -> None:  # noqa: N802
@@ -631,13 +771,32 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(404, str(e))
 
 
-def start_api_server(store: Optional[ObjectStore] = None, port: int = 0
+def start_api_server(store: Optional[ObjectStore] = None, port: int = 0,
+                     stream_buffer_bytes: Optional[int] = None,
+                     stream_sndbuf_bytes: Optional[int] = None
                      ) -> Tuple[ThreadingHTTPServer, str, Callable[[], None]]:
     """Boot the REST façade on ``port`` (0: ephemeral) and poll
     ``/healthz`` until it answers (k8sapiserver.go:231-249's readiness
     loop: 100 ms apart, 30 s at most).  Returns (server, base_url,
-    shutdown_fn); the shutdown ends every watch stream first."""
+    shutdown_fn); the shutdown ends every watch stream first.
+
+    Watch streams are handed to a selector stream loop (N watchers cost N
+    sockets and one thread); ``MINISCHED_STREAMLOOP=0`` keeps a handler
+    thread for each.  ``stream_buffer_bytes`` and ``stream_sndbuf_bytes``
+    override the loop's out-buffer eviction bound and the adopted
+    sockets' send buffer."""
     store = store or ObjectStore()
+    stream_loop = None
+    if os.environ.get("MINISCHED_STREAMLOOP", "1") != "0":
+        from minisched_tpu_torch.controlplane.streamloop import (
+            DEFAULT_MAX_BUFFER_BYTES,
+            DEFAULT_STREAM_SNDBUF_BYTES,
+            StreamLoop,
+        )
+
+        stream_loop = StreamLoop(
+            max_buffer_bytes=stream_buffer_bytes or DEFAULT_MAX_BUFFER_BYTES,
+            sndbuf_bytes=stream_sndbuf_bytes or DEFAULT_STREAM_SNDBUF_BYTES)
     # seed the binding-ack registry from the WAL's ``ack`` records (a
     # durable store replays them): a batch retried across a restart then
     # answers from the recovered outcomes instead of re-executing
@@ -646,7 +805,8 @@ def start_api_server(store: Optional[ObjectStore] = None, port: int = 0
     handler = type("BoundHandler", (_Handler,), {
         "store": store, "active_watches": set(),
         "watch_lock": threading.Lock(), "ack_registry": acks,
-        "ack_order": deque(acks), "ack_lock": threading.Lock()})
+        "ack_order": deque(acks), "ack_lock": threading.Lock(),
+        "stream_loop": stream_loop})
     server = _Server(("127.0.0.1", port), handler)
     thread = threading.Thread(target=server.serve_forever, daemon=True,
                               name="api-server")
@@ -664,6 +824,8 @@ def start_api_server(store: Optional[ObjectStore] = None, port: int = 0
     else:
         server.shutdown()
         server.server_close()
+        if stream_loop is not None:
+            stream_loop.stop()
         raise RuntimeError("API server failed /healthz within 30s")
 
     def shutdown() -> None:
@@ -673,6 +835,8 @@ def start_api_server(store: Optional[ObjectStore] = None, port: int = 0
             watches = list(handler.active_watches)
         for w in watches:
             w.stop()
+        if stream_loop is not None:
+            stream_loop.stop()  # ends each adopted stream, closes it
         server.shutdown()
         server.server_close()
         thread.join(timeout=2.0)
@@ -683,37 +847,52 @@ def start_api_server(store: Optional[ObjectStore] = None, port: int = 0
 class HTTPClient:
     """The in-process ``Client``'s facade over the wire (what the
     reference's scenario does with client-go against the httptest server,
-    sched.go:70-143): the same methods, the same exceptions."""
+    sched.go:70-143): the same methods, the same exceptions.  Requests
+    ride the process's shared keep-alive pool for the endpoint (its
+    default timeout is ``RemoteStore``'s, so both share one pool)."""
 
-    def __init__(self, base_url: str, timeout: float = 60.0):
+    def __init__(self, base_url: str, timeout: float = 30.0):
+        from minisched_tpu_torch.controlplane.httppool import shared_pool
+
         self._base = base_url.rstrip("/")
-        self._timeout = timeout
+        self._pool = shared_pool(self._base, timeout_s=timeout)
 
     def _req(self, method: str, path: str, payload: Any = None) -> Any:
         data = json.dumps(payload).encode() if payload is not None else None
-        req = urllib.request.Request(
-            self._base + path, data=data, method=method,
-            headers={"Content-Type": "application/json"})
-        try:
-            with urllib.request.urlopen(req, timeout=self._timeout) as r:
-                return json.loads(r.read())
-        except urllib.error.HTTPError as e:
-            status, body = e.code, e.read().decode(errors="replace")
+        status, raw, replayed = self._pool.request(method, path, body=data)
+        if status < 400:
+            return json.loads(raw)
+        body = raw.decode(errors="replace")
+        # every error carries whether the pool retransmitted the request
+        # (a stale keep-alive socket): ``bind`` needs it
         if status == 409 and "already bound" in body:
-            raise AlreadyBound(body)
+            raise self._mark(AlreadyBound(body), replayed)
         if status == 409 and "stale resource_version" in body:
-            raise Conflict(body)  # == update(expected_rv) in process
+            # == update(expected_rv) in process
+            raise self._mark(Conflict(body), replayed)
         if status == 409 and "out of capacity" in body:
-            raise OutOfCapacity(body)
+            raise self._mark(OutOfCapacity(body), replayed)
         if status == 409 and "already exists" in body:
-            raise KeyError(body)  # == store.create in process
+            # == store.create in process
+            raise self._mark(KeyError(body), replayed)
         if status == 404:
-            raise KeyError(body)
+            raise self._mark(KeyError(body), replayed)
         if status == 410:
-            raise HistoryCompacted(body)
+            raise self._mark(HistoryCompacted(body), replayed)
         if status == 507:
-            raise StorageDegraded(body)
+            raise self._mark(StorageDegraded(body), replayed)
+        if status == 504 and "not yet observed" in body:
+            raise self._mark(NotYetObserved(body), replayed)
         raise RuntimeError(f"HTTP {status}: {body}")
+
+    @staticmethod
+    def _mark(err: BaseException, replayed: bool) -> BaseException:
+        err.replayed = replayed
+        return err
+
+    def close(self) -> None:
+        """Drop the pool's idle keep-alive sockets (this reference's)."""
+        self._pool.close()
 
     def _create_many(self, path: str, objs: List[Any],
                      return_objects: bool) -> List[Any]:
@@ -792,10 +971,42 @@ class HTTPClient:
             self._c._req("DELETE", self._path(name, namespace))
 
         def bind(self, binding: Binding) -> Pod:
-            return _decode(Pod, self._c._req(
-                "POST", self._path(binding.pod_name,
-                                   binding.pod_namespace) + "/binding",
-                {"node_name": binding.node_name}))
+            try:
+                return _decode(Pod, self._c._req(
+                    "POST", self._path(binding.pod_name,
+                                       binding.pod_namespace) + "/binding",
+                    {"node_name": binding.node_name}))
+            except AlreadyBound as e:
+                # an AlreadyBound answering a pool retransmission and
+                # naming the node asked for is our first attempt having
+                # committed before its socket died: success (one rule
+                # with bind_many_remote: httppool.bind_already_ours)
+                if getattr(e, "replayed", False):
+                    from minisched_tpu_torch.controlplane.httppool import (
+                        bind_already_ours,
+                    )
+
+                    try:
+                        doc = json.loads(str(e))
+                    except ValueError:
+                        doc = {}
+                    if bind_already_ours(doc.get("node") or "",
+                                         doc.get("error") or str(e),
+                                         binding.node_name):
+                        try:
+                            return self.get(binding.pod_name,
+                                            binding.pod_namespace)
+                        except KeyError:
+                            # deleted since: the bind landed all the same
+                            from minisched_tpu_torch.api.objects import (
+                                make_pod,
+                            )
+
+                            p = make_pod(binding.pod_name,
+                                         namespace=binding.pod_namespace)
+                            p.spec.node_name = binding.node_name
+                            return p
+                raise
 
     def nodes(self) -> "HTTPClient._Nodes":
         return HTTPClient._Nodes(self)

@@ -39,20 +39,32 @@ checkpoint) and ``_rebuild_node_agg`` are recovery's surface.
 ``fault_injector`` (called as (op, kind, key) before each mutation and
 read) and ``faults`` are None; the port of ``faults/`` fills them.
 
-Left out: the copy-on-write read plane (ROADMAP item 6;
-``_cow_publish`` is a no-op: JAX's ``MINISCHED_COW_READS=0`` path, where
-reads take the lock), and the replicated, sharded and remote stores.  The
-per-watcher queues are unbounded: the in-process informers never
-reconnect, so a watcher is never evicted.
+The copy-on-write read plane (JAX ``store.py:428-610``): every publish
+point swaps in one immutable ``_ReadSnapshot`` (maps and the rv they
+reflect), and ``get``, ``list``, ``list_with_rv``, ``applied_rv`` and a
+full-snapshot ``watch`` read it without the lock; the snapshot memoizes
+the encoded REST list body per (kind, namespace) and the shared replay
+events of a watch open.  ``MINISCHED_COW_READS=0`` (read at
+construction) keeps the locked reads.
+
+Per-watcher queues are bounded (``DEFAULT_WATCH_QUEUE_EVENTS``, JAX
+``:162-262``): a watcher whose live backlog reaches the bound is evicted
+(``watch.fanout.evicted_slow``) and dies like a dropped stream; the
+snapshot or resume replay it was registered with is exempt.  Its
+consumer reconnects through resume or 410 and relist.
+
+Left out: the replicated and sharded stores (ROADMAP item 7), and the
+``watch.drop`` fault point (item 8).
 """
 
 from __future__ import annotations
 
 import enum
+import os
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
@@ -118,23 +130,59 @@ class WatchEvent:
     #: the gRPC servicer's framed bytes, likewise encoded once per event
     #: (``grpcserver._event_wire``)
     grpc_wire: Optional[bytes] = None
+    #: monotonic birth stamp (the fanout's time), from which the delivery
+    #: paths observe ``watch.delivery_lag_s``; 0 on replayed events
+    born: float = field(default=0.0, repr=False, compare=False)
+
+    def __post_init__(self) -> None:
+        if not self.born:
+            self.born = time.monotonic()
+
+
+#: per-watcher queue bound, in events: a watcher whose live backlog
+#: reaches it is evicted and recovers through resume or 410 and relist,
+#: so one wedged stream never pins every event for the process's life.
+#: Well above one wave's bind fanout
+DEFAULT_WATCH_QUEUE_EVENTS = 65536
 
 
 class Watch:
     """A subscription to one kind's event stream."""
 
-    def __init__(self, store: "ObjectStore", kind: str):
+    def __init__(self, store: "ObjectStore", kind: str,
+                 max_queued: int = DEFAULT_WATCH_QUEUE_EVENTS):
         self._store = store
         self._kind = kind
         self._cond = threading.Condition()
         self._events: List[WatchEvent] = []
         self._stopped = False
+        self._max_queued = max(int(max_queued), 1)
+        #: set once the watch is registered: the replay delivered before
+        #: registration is exempt from eviction, only live lag evicts
+        self._live = False
+        #: queued events that are still that replay (consumed first): the
+        #: bound applies to the queue minus these
+        self._replay_pending = 0
         #: the resource_version the watch starts after: the snapshot's
         #: for a full open, the resume cursor for a resumed one
         self.start_rv = 0
-        #: edge-trigger hook (``set_notify``): called on each delivery
-        #: and on stop, so one hub thread can drain many watches
+        #: edge-trigger hook (``set_notify``): called on each delivery,
+        #: eviction and stop, so one thread can drain many watches
         self._notify_cb: Optional[Callable[[], None]] = None
+
+    def _evict_locked(self) -> None:
+        """Slow-watcher eviction (caller holds the condition): stop, free
+        the queue and wake the consumer with end of stream; the store's
+        fanout prunes the registration."""
+        from minisched_tpu_torch.observability import counters
+
+        self._stopped = True
+        self._events.clear()
+        self._replay_pending = 0
+        counters.inc("watch.fanout.evicted_slow")
+        self._cond.notify_all()
+        if self._notify_cb is not None:
+            self._notify_cb()
 
     # called by the store while it holds its lock; only touches this
     # watch's own condition and queue, so it cannot block on user code
@@ -143,6 +191,12 @@ class Watch:
             return
         with self._cond:
             if self._stopped:
+                return
+            # gated on the lag already queued, not on this batch's size:
+            # one large batch never evicts a watcher that has caught up
+            if (self._live and len(self._events) - self._replay_pending
+                    >= self._max_queued):
+                self._evict_locked()
                 return
             self._events.extend(events)
             self._cond.notify_all()
@@ -163,7 +217,11 @@ class Watch:
     def next(self, timeout: Optional[float] = None) -> Optional[WatchEvent]:
         with self._cond:
             self._wait_locked(timeout)
-            return self._events.pop(0) if self._events else None
+            if not self._events:
+                return None
+            if self._replay_pending:
+                self._replay_pending -= 1  # the replay drains first
+            return self._events.pop(0)
 
     def next_batch(self, timeout: Optional[float] = None) -> List[WatchEvent]:
         """Drain everything queued in one condvar hold (empty list on
@@ -172,14 +230,20 @@ class Watch:
         with self._cond:
             self._wait_locked(timeout)
             out, self._events = self._events, []
+            self._replay_pending = 0
             return out
 
-    def stop(self) -> None:
+    def kill(self) -> None:
+        """Die as a dropped stream would: stop and wake the consumer with
+        end of stream, without deregistering (the fanout prunes it)."""
         with self._cond:
             self._stopped = True
             self._cond.notify_all()
             if self._notify_cb is not None:
                 self._notify_cb()
+
+    def stop(self) -> None:
+        self.kill()
         self._store._remove_watch(self._kind, self)
 
     def set_notify(self, cb: Optional[Callable[[], None]]) -> None:
@@ -258,12 +322,73 @@ def compute_node_agg(pods) -> Dict[str, List[int]]:
     return agg
 
 
+class _ReadSnapshot:
+    """One immutable view of the published store state: ``maps`` (kind →
+    {key → stored object}) and the ``rv`` they reflect, swapped in as one
+    reference at every publish point.  A reader grabs ``store._snap``
+    once and holds a consistent epoch without the store lock; sharing the
+    stored objects is safe because the store never mutates one.
+
+    Two memos live and die with the snapshot, filled lazily off the store
+    lock; a miss serializes on the snapshot's own ``_mu`` so a relist
+    storm encodes once.  ``list_bodies``: (kind, namespace) → the encoded
+    REST list body (``store.list_cache.encodes`` / ``.hits``).
+    ``replay_events``: kind → the shared ADDED events a full-snapshot
+    watch open replays (``born`` 0: a replay is not fanout), so the wire
+    memo encodes each object once however many streams replay it."""
+
+    __slots__ = ("maps", "rv", "list_bodies", "replay_events", "_mu")
+
+    def __init__(self, maps: Dict[str, Dict[str, Any]], rv: int) -> None:
+        self.maps = maps
+        self.rv = rv
+        self.list_bodies: Dict[Tuple[str, str], bytes] = {}
+        self.replay_events: Dict[str, List[WatchEvent]] = {}
+        self._mu = threading.Lock()
+
+    def list_body(self, kind: str, ns: str,
+                  build: Callable[[], bytes]) -> bytes:
+        """The memoized encoded list payload for (kind, namespace)."""
+        from minisched_tpu_torch.observability import counters
+
+        body = self.list_bodies.get((kind, ns))
+        if body is None:
+            with self._mu:
+                body = self.list_bodies.get((kind, ns))
+                if body is None:
+                    body = build()
+                    self.list_bodies[(kind, ns)] = body
+                    counters.inc("store.list_cache.encodes")
+                    return body
+        counters.inc("store.list_cache.hits")
+        return body
+
+    def replay_events_for(self, kind: str) -> List[WatchEvent]:
+        evs = self.replay_events.get(kind)
+        if evs is None:
+            with self._mu:
+                evs = self.replay_events.get(kind)
+                if evs is None:
+                    evs = []
+                    for obj in self.maps.get(kind, {}).values():
+                        ev = WatchEvent(EventType.ADDED, obj,
+                                        rv=obj.metadata.resource_version)
+                        ev.born = 0.0  # replay, not fanout
+                        evs.append(ev)
+                    self.replay_events[kind] = evs
+        return evs
+
+
 class ObjectStore:
     """Versioned multi-kind object store + watch hub."""
 
     def __init__(self, history_events: int = DEFAULT_HISTORY_EVENTS,
-                 history_bytes: int = DEFAULT_HISTORY_BYTES) -> None:
+                 history_bytes: int = DEFAULT_HISTORY_BYTES,
+                 watch_queue_events: int = DEFAULT_WATCH_QUEUE_EVENTS
+                 ) -> None:
         self._lock = threading.RLock()
+        #: per-watcher queue bound (``DEFAULT_WATCH_QUEUE_EVENTS``)
+        self._watch_queue_events = max(int(watch_queue_events), 1)
         # per kind: (event, estimated bytes) in mutation order, and the
         # highest rv no longer retained (a resume below it is refused)
         self._history: Dict[str, deque] = {}
@@ -290,6 +415,11 @@ class ObjectStore:
         #: the fault fabric the durable store's disk points read
         #: (``disk.enospc``, ``wal.append``, ``wal.bitflip``, ...); None
         self.faults: Any = None
+        #: the copy-on-write read plane: the published view lock-free
+        #: readers serve from; None with ``MINISCHED_COW_READS=0``
+        self._snap: Optional[_ReadSnapshot] = (
+            _ReadSnapshot({}, 0)
+            if os.environ.get("MINISCHED_COW_READS", "1") != "0" else None)
 
     # -- helpers -----------------------------------------------------------
     def _maybe_fault(self, op: str, kind: str, key: str) -> None:
@@ -347,10 +477,27 @@ class ObjectStore:
                 self._node_agg_track("Pod", None, pod)
 
     def _cow_publish(self, kinds) -> None:
-        """The copy-on-write read plane's publish point (JAX
-        ``store.py:586``), called after each commit's fanout.  The port
-        has no read plane: reads take the lock, as with JAX's
-        ``MINISCHED_COW_READS=0``."""
+        """Swap the read-plane snapshot (caller holds the lock, after the
+        commit and its fanout): fresh copies of the maps of ``kinds``,
+        every other kind's frozen map reused, the published rv, installed
+        as one reference.  Readers of the old snapshot keep their epoch;
+        a publisher's own mutation is in the snapshot before its call
+        returns.  Empty ``kinds`` refreshes the rv only."""
+        snap = self._snap
+        if snap is None:
+            return  # MINISCHED_COW_READS=0: reads take the lock
+        if kinds:
+            maps = dict(snap.maps)
+            for kind in kinds:
+                maps[kind] = dict(self._objects.get(kind, ()))
+        else:
+            maps = snap.maps
+        self._snap = _ReadSnapshot(maps, self._visible_rv())
+
+    def read_plane(self) -> Optional[_ReadSnapshot]:
+        """The current read snapshot (None with the plane off): the REST
+        façade and the gRPC servicer serve list bodies from it."""
+        return self._snap
 
     def _record_history(self, kind: str, event: WatchEvent) -> None:
         """Append one event to the kind's resume ring (caller holds the
@@ -405,6 +552,10 @@ class ObjectStore:
         for ev in events:
             self._record_history(kind, ev)
         for w in list(self._watches.get(kind, ())):
+            if w.stopped:
+                # killed or evicted: pruned here, as a dropped stream
+                self._remove_watch(kind, w)
+                continue
             w._deliver_many(events)
 
     # -- CRUD --------------------------------------------------------------
@@ -463,6 +614,14 @@ class ObjectStore:
         return out
 
     def get(self, kind: str, namespace: str, name: str) -> Any:
+        snap = self._snap
+        if snap is not None:
+            # lock-free: one reference grab is the whole read
+            self._maybe_fault("get", kind, f"{namespace}/{name}")
+            obj = snap.maps.get(kind, {}).get(f"{namespace}/{name}")
+            if obj is None:
+                raise KeyError(f"{kind} {namespace}/{name} not found")
+            return obj.clone()
         with self._lock:
             self._maybe_fault("get", kind, f"{namespace}/{name}")
             obj = self._objects.get(kind, {}).get(f"{namespace}/{name}")
@@ -471,15 +630,27 @@ class ObjectStore:
             return obj.clone()
 
     def list(self, kind: str) -> List[Any]:
+        snap = self._snap
+        if snap is not None:
+            self._maybe_fault("list", kind, "")
+            return [o.clone() for o in snap.maps.get(kind, {}).values()]
         with self._lock:
             self._maybe_fault("list", kind, "")
             return [o.clone() for o in self._objects.get(kind, {}).values()]
 
     def list_with_rv(self, kind: str) -> Tuple[List[Any], int]:
-        """(snapshot, the resource_version it reflects), under one lock
-        hold; the rv is the published one (``_visible_rv``)."""
+        """(snapshot, the resource_version it reflects): off the read
+        plane, whose maps and rv were published together; with the plane
+        off, under one lock hold (the published rv, ``_visible_rv``)."""
+        snap = self._snap
+        if snap is not None:
+            self._maybe_fault("list", kind, "")
+            return ([o.clone() for o in snap.maps.get(kind, {}).values()],
+                    snap.rv)
         with self._lock:
-            return self.list(kind), self._visible_rv()
+            self._maybe_fault("list", kind, "")
+            return ([o.clone() for o in self._objects.get(kind, {}).values()],
+                    self._visible_rv())
 
     def update(self, kind: str, obj: Any,
                expected_rv: Optional[int] = None) -> Any:
@@ -629,8 +800,11 @@ class ObjectStore:
 
     def applied_rv(self) -> int:
         """The rv watermark of the state this store would serve right
-        now: the published rv (JAX's read-plane stamp, without the
-        plane)."""
+        now: the read plane's stamp, or the published rv under the lock
+        with the plane off."""
+        snap = self._snap
+        if snap is not None:
+            return snap.rv
         with self._lock:
             return self._visible_rv()
 
@@ -683,9 +857,14 @@ class ObjectStore:
         goes live, atomically with the registration.  HistoryCompacted
         when the ring no longer reaches back to resume_rv, or resume_rv
         is ahead of the store.  ``clone_snapshot=False`` returns the
-        stored objects themselves, for a caller that only counts them."""
+        stored objects themselves, for a caller that only counts them.
+        A full open reads the read plane (``_watch_cow``) when it is on.
+        The replay queued at the open is exempt from the queue bound."""
+        snap = self._snap
+        if snap is not None and resume_rv is None:
+            return self._watch_cow(kind, snap, send_initial, clone_snapshot)
         with self._lock:
-            w = Watch(self, kind)
+            w = Watch(self, kind, self._watch_queue_events)
             if resume_rv is not None:
                 floor = self._floor_for(kind)
                 if resume_rv < floor:
@@ -708,6 +887,9 @@ class ObjectStore:
                     for ev, _cost in self._history.get(kind, ())
                     if ev.rv > resume_rv])
                 self._watches.setdefault(kind, []).append(w)
+                with w._cond:
+                    w._replay_pending = len(w._events)
+                    w._live = True
                 return w, []
             w.start_rv = self._visible_rv()
             objs = list(self._objects.get(kind, {}).values())
@@ -717,7 +899,36 @@ class ObjectStore:
                                rv=obj.metadata.resource_version)
                     for obj in objs])
             self._watches.setdefault(kind, []).append(w)
+            with w._cond:
+                w._replay_pending = len(w._events)
+                w._live = True
             return w, [o.clone() for o in objs] if clone_snapshot else objs
+
+    def _watch_cow(self, kind: str, snap: _ReadSnapshot, send_initial: bool,
+                   clone_snapshot: bool) -> Tuple[Watch, List[Any]]:
+        """A full-snapshot open off the read plane: the replay (shared per
+        snapshot) and the returned snapshot come from the immutable view
+        off the lock; only the registration takes it, and it starts over
+        from the fresh view if a publish swapped the snapshot meanwhile
+        (those events are not in this replay)."""
+        w = Watch(self, kind, self._watch_queue_events)
+        while True:
+            events = snap.replay_events_for(kind) if send_initial else None
+            with self._lock:
+                if self._snap is not snap:
+                    snap = self._snap
+                    continue  # lost the race with a publish
+                w.start_rv = snap.rv
+                if events:
+                    w._deliver_many(events)
+                self._watches.setdefault(kind, []).append(w)
+                with w._cond:
+                    w._replay_pending = len(w._events)
+                    w._live = True
+            objs = snap.maps.get(kind, {}).values()
+            if clone_snapshot:
+                return w, [o.clone() for o in objs]
+            return w, list(objs)
 
     def _remove_watch(self, kind: str, w: Watch) -> None:
         with self._lock:

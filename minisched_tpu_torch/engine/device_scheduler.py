@@ -283,12 +283,18 @@ class DeviceScheduler(Scheduler):
             self._revalidate_assume_ledger)
 
     def _revalidate_assume_ledger(self) -> None:
-        """After a watch reconnect every lease is due at once: the next
-        snapshot re-checks each assumption against the store."""
+        """After a watch reconnect (a server restart may sit behind it)
+        every lease is due at once: the next snapshot re-checks each
+        assumption against the store, releasing and requeuing a bind the
+        dead server never committed and confirming one it did.  Counted
+        in ``assume.revalidate_on_reconnect``, as in JAX."""
         now = time.monotonic()
         with self._assumed_lock:
+            n = len(self._assumed_expiry)
             for uid in self._assumed_expiry:
                 self._assumed_expiry[uid] = now
+        if n:
+            counters.inc("assume.revalidate_on_reconnect", n)
 
     def _wire_pre_cache(self, informer_factory: Any) -> None:
         """The constraint index (when a chain reads constraint tables) and

@@ -60,6 +60,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -770,6 +771,9 @@ class HttpRun:
     #: spans ``GET /debug/trace`` answered once they were seen bound
     trace_pods: List[str]
     trace: List[Dict[str, Any]]
+    #: the test watch's resumes after an eviction, and of them relists
+    watch_reconnects: int = 0
+    watch_relists: int = 0
 
 
 def free_port() -> int:
@@ -781,47 +785,96 @@ def free_port() -> int:
 class PodWatch:
     """An HTTP watch on every pod, read on a thread: the names seen bound,
     the node each was first seen bound to, and the monotonic time of the
-    last first-seen bind."""
+    last first-seen bind and of the first bind after the SYNC line's rv
+    (a live one, not the snapshot replay's).
+
+    A stream that ends while the server still answers (the store's queue
+    bound or the stream loop's out-buffer bound evicted this slow reader)
+    is resumed from the last rv seen, or on 410 relisted and resumed from
+    the list's rv, as an informer would: ``reconnects`` and ``relists``
+    count them.  ``error`` is set when the server no longer answers."""
 
     def __init__(self, base: str):
+        self.base = base
         self.bound: set = set()
         self.nodes: Dict[str, str] = {}
         self.events = 0
         self.decode_s = 0.0
         self.last_bind_t = 0.0
+        self.first_live_bind_t = 0.0
+        self.reconnects = 0
+        self.relists = 0
         self.error: Optional[BaseException] = None
-        self._resp = urllib.request.urlopen(
-            base + "/api/v1/namespaces/default/pods?watch=true", timeout=600)
-        first = json.loads(self._resp.readline())
-        if first.get("type") != "SYNC":
-            raise AssertionError(f"watch: first line {first}")
+        self._closing = False
+        self.start_rv = self._open(None)
         self._thread = threading.Thread(target=self._read, daemon=True,
                                         name="http-pod-watch")
         self._thread.start()
 
+    def _open(self, resume_rv: Optional[int]) -> int:
+        """Open the stream (resuming after ``resume_rv``); the SYNC rv."""
+        path = self.base + "/api/v1/namespaces/default/pods?watch=true"
+        if resume_rv is not None:
+            path += f"&resource_version={resume_rv}"
+        self._resp = urllib.request.urlopen(path, timeout=600)
+        first = json.loads(self._resp.readline())
+        if first.get("type") != "SYNC":
+            raise AssertionError(f"watch: first line {first}")
+        self.rv = int(first.get("rv", 0))
+        return self.rv
+
+    def _seen(self, obj: Dict[str, Any], rv: int) -> None:
+        if obj["spec"]["node_name"]:
+            name = obj["metadata"]["name"]
+            if name not in self.bound:
+                self.nodes[name] = obj["spec"]["node_name"]
+                self.bound.add(name)
+                self.last_bind_t = time.monotonic()
+                if not self.first_live_bind_t and rv > self.start_rv:
+                    self.first_live_bind_t = self.last_bind_t
+
     def _read(self) -> None:
-        try:
-            for line in self._resp:
-                if not line.strip():
-                    continue  # keepalive
-                t0 = time.monotonic()
-                ev = json.loads(line)
-                self.decode_s += time.monotonic() - t0
-                self.events += 1
-                obj = ev["object"]
-                if obj["spec"]["node_name"]:
-                    name = obj["metadata"]["name"]
-                    if name not in self.bound:
-                        self.nodes[name] = obj["spec"]["node_name"]
-                        self.bound.add(name)
-                        self.last_bind_t = time.monotonic()
-        except (OSError, ValueError) as err:
-            self.error = err
+        while True:
+            ended: Optional[BaseException] = None
+            try:
+                for line in self._resp:
+                    if not line.strip():
+                        continue  # keepalive
+                    t0 = time.monotonic()
+                    ev = json.loads(line)
+                    self.decode_s += time.monotonic() - t0
+                    self.events += 1
+                    rv = int(ev.get("rv", 0))
+                    self.rv = max(self.rv, rv)
+                    self._seen(ev["object"], rv)
+            except Exception as err:  # evicted, or the server died
+                ended = err
+            if self._closing:
+                return
+            try:
+                try:
+                    self._open(self.rv)
+                except urllib.error.HTTPError as err:
+                    if err.code != 410:
+                        raise
+                    with urllib.request.urlopen(
+                            self.base + "/api/v1/namespaces/default/pods",
+                            timeout=600) as r:
+                        listed = json.loads(r.read())
+                    for obj in listed["items"]:
+                        self._seen(obj, 0)
+                    self.relists += 1
+                    self._open(int(listed["resource_version"]))
+                self.reconnects += 1
+            except Exception as err:  # the server no longer answers
+                self.error = ended or err
+                return
 
     def join(self) -> None:
         """Wait for the stream's end (the server's shutdown ends it)."""
-        self._thread.join(timeout=30)
+        self._closing = True
         self._resp.close()
+        self._thread.join(timeout=30)
 
 
 def run_config5_http(n_nodes: int = 10_000, n_pods: int = 100_000,
@@ -907,7 +960,8 @@ def run_config5_http(n_nodes: int = 10_000, n_pods: int = 100_000,
     return HttpRun(n_plain, seen, create_s, bind_s, setup_s,
                    int(waves), sched.loop_errors, scraped, audited, left,
                    watch.events, phases, dict(handler_s), watch.decode_s,
-                   list_s, [p.metadata.name for p in probes], spans)
+                   list_s, [p.metadata.name for p in probes], spans,
+                   watch.reconnects, watch.relists)
 
 
 @dataclass
@@ -948,6 +1002,8 @@ class DurableRun:
     fsck_records: int
     fsck_objects: Dict[str, int]
     threads_left: List[str]
+    #: the first life's test watch: resumes after an eviction
+    watch_reconnects: int = 0
 
 
 #: run_config5_durable: the share of the plain pods the recovered engine
@@ -1185,7 +1241,7 @@ def run_config5_durable(workdir: str, n_nodes: int = 10_000,
         assumed_left, waiting_left, audit, groups, records, compact_s,
         ckpt_bytes, reopen_s, digest[1], fsck.returncode, fsck_s,
         report["files"][os.path.basename(wal)]["records"],
-        report["state"]["objects"], left)
+        report["state"]["objects"], left, watch.reconnects)
 
 
 def count_grpc_binds(address: str, n_binds: int, conn: Any,
@@ -1265,3 +1321,330 @@ def audit_trace(spans: List[Dict[str, Any]],
                                  "which no wave_build/wave_evaluate names")
     return {"spans": len(spans), "pods": len(pods),
             "waves": len({bind_wave[f"default/{n}"] for n in pods})}
+
+
+# -- the scheduler over the wire, through a restart of its API server -------
+
+#: ``python3 -c`` body of the façade child: ``start_api_server`` over
+#: ``store_from_url(argv[1])`` on port ``argv[2]``; prints one JSON line
+#: (base URL, the store's replay seconds, the plain pods unbound at boot)
+#: once ``/healthz`` answers, and stops cleanly on SIGTERM
+FACADE_CHILD = """
+import json, signal, sys, threading, time
+from minisched_tpu_torch.controlplane.durable import store_from_url
+from minisched_tpu_torch.controlplane.httpserver import start_api_server
+store = store_from_url(sys.argv[1])
+with store.locked():
+    pods = list(store._objects.get("Pod", {}).values())
+unbound = sum(1 for p in pods if not p.spec.node_name
+              and not p.metadata.name.startswith("special"))
+del pods
+_server, base, stop = start_api_server(store, port=int(sys.argv[2]))
+done = threading.Event()
+signal.signal(signal.SIGTERM, lambda *_: done.set())
+print(json.dumps({"base": base, "replay_s": store.replay_s,
+                  "unbound": unbound}), flush=True)
+done.wait()
+stop()
+store.close()
+"""
+
+
+class FacadeChild:
+    """The port's REST façade in a child process over a ``file://`` WAL
+    (``FACADE_CHILD``); ``info`` is its JSON line, ``boot_s`` the seconds
+    from the spawn to that line."""
+
+    def __init__(self, url: str, port: int, timeout_s: float = 300.0):
+        t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", FACADE_CHILD, url, str(port)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines: List[str] = []
+        ready = threading.Event()
+        self.info: Dict[str, Any] = {}
+
+        def read() -> None:
+            # read to the end, so the child never blocks on a full pipe
+            for line in self.proc.stdout:
+                self.lines.append(line)
+                if not self.info and line.startswith('{"base"'):
+                    self.info = json.loads(line)
+                    ready.set()
+            ready.set()
+
+        self._reader = threading.Thread(target=read, daemon=True)
+        self._reader.start()
+        ready.wait(timeout_s)
+        if not self.info:
+            self.kill()
+            raise AssertionError(f"façade child: no ready line "
+                                 f"({self.lines[-20:]})")
+        self.boot_s = time.monotonic() - t0
+
+    def kill(self) -> None:
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(timeout=60)
+        self._reader.join(10)
+
+    def stop(self) -> int:
+        """SIGTERM, then the exit code (SIGKILL after 60 s)."""
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            return self.proc.returncode
+        finally:
+            self._reader.join(10)
+
+
+@dataclass
+class RemoteRun:
+    n_plain: int
+    create_s: float  # the creates over the wire, first to last answer
+    sync_s: float  # start_scheduler: informer sync over the wire included
+    #: binds the first watch had seen at the SIGKILL, and the seconds from
+    #: the scheduler's start to the kill
+    seen_at_kill: int
+    kill_s: float
+    #: the restarted child: the store's replay, spawn to ready, the plain
+    #: pods it found unbound, and spawn to the next bind a watch saw
+    replay_s: float
+    boot_s: float
+    left_at_boot: int
+    next_bind_s: float
+    #: from the restarted child's ready line to the last plain bind
+    bind_s: float
+    waves: int
+    loop_errors: int
+    assumed_left: int
+    waiting_left: int
+    audit: Dict[str, int]
+    #: per kind: the informer's reconnects and resumes
+    reconnects: Dict[str, Dict[str, int]]
+    counters: Dict[str, int]
+    #: seconds the scheduler's watch streams spent decoding, per kind, and
+    #: the events they decoded
+    decode_s: Dict[str, float]
+    decoded: Dict[str, int]
+    double_binds: int
+    fsck_rc: int
+    fsck_s: float
+    split: Dict[str, float]
+    threads_left: List[str]
+    #: the test watches' resumes after an eviction (both lives)
+    watch_reconnects: int = 0
+
+
+#: the counters ``run_config5_remote`` reports
+REMOTE_COUNTERS = (
+    "informer.reconnect", "informer.resume", "informer.relist_on_410",
+    "informer.open_retry", "informer.relist_jitter_s",
+    "assume.revalidate_on_reconnect", "assume.lease_requeued",
+    "assume.lease_confirmed", "assume.lease_expired",
+    "assume.lease_renewed_bound",
+    "remote.retry", "remote.bind_retry_dedup", "remote.bind_ack_replayed",
+    "wire.pool_open", "wire.pool_reuse", "wire.pool_stale_retry",
+    "watch.fanout.evicted_slow", "wire.evicted_outbuf")
+
+
+#: the scheduler's ``RemoteStore`` retries in ``run_config5_remote``: JAX's
+#: crash-restart flow's (``ha/proc.py:64``); the default 4 gives up in
+#: about 0.75 s, sooner than a restart
+REMOTE_RETRIES = 10
+#: pods ``run_config5_remote`` creates once the API server is back
+AFTER_RESTART_PODS = 64
+
+
+def run_config5_remote(workdir: str, n_nodes: int = 10_000,
+                       n_pods: int = 50_000, kill_binds: int = 10_000,
+                       device: Any = None, chunk: int = 10_000,
+                       timeout_s: float = 900.0,
+                       max_wave: int = 1024) -> RemoteRun:
+    """Config 5 scheduled over the wire through a SIGKILL and restart of
+    the API server.
+
+    The port's ``start_api_server`` runs in a child (``FacadeChild``) over
+    ``store_from_url("file://<workdir>/remote.wal")`` on a ``free_port``
+    (the stream loop on, fsync off).  A ``PodWatch`` opens first; config
+    5's nodes and pods are created with ``RemoteClient(base)`` in batch
+    creates of ``chunk`` (``return_objects=False``).  Then
+    ``SchedulerService(RemoteClient(base, retries=REMOTE_RETRIES))`` starts
+    ``default_full_roster_config()`` with ``device_mode=True`` at its
+    defaults (pipelined, waves of ``max_wave``, 1,024) on ``device``:
+    every informer event and every bind crosses the child's REST
+    façade.
+
+    Once the watch has seen ``kill_binds`` binds the child is SIGKILLed
+    and started again on the same port over the same WAL; nothing in
+    this process is touched.  The scheduler rides through: the remote
+    store retries, each informer resumes or relists, the engine's assume
+    ledger is revalidated.  ``AFTER_RESTART_PODS`` more pods are created
+    once the child is back (their uids must be new).  The run raises unless
+    every plain pod ends bound and no ``special*`` pod, every bind the
+    first watch saw is on the same node, the child found at least
+    ``MIN_LEFT_AT_BOOT`` of the plain pods unbound, both informers
+    reconnected, the WAL holds no double bind and ``python3 -m
+    minisched_tpu_torch fsck`` exits 0.  Counters and histograms are
+    reset first."""
+    from minisched_tpu_torch.controlplane.fsck import wal_double_binds
+    from minisched_tpu_torch.controlplane.remote import RemoteClient
+    from minisched_tpu_torch.service.config import (
+        default_full_roster_config,
+    )
+
+    nodes, pods = mk_c5_cluster(n_nodes, n_pods)
+    plain = [p.metadata.name for p in pods
+             if not p.metadata.name.startswith("special")]
+    wal = os.path.join(workdir, "remote.wal")
+    url = f"file://{wal}"
+    port = free_port()
+    hist.reset()
+    counters.reset()
+    before = set(threading.enumerate())
+    child = FacadeChild(url, port)
+    base = child.info["base"]
+    svc = watch = watch2 = None
+    try:
+        client = RemoteClient(base)
+        watch = PodWatch(base)
+        t0 = time.monotonic()
+        for i in range(0, len(nodes), chunk):
+            client.nodes().create_many(nodes[i:i + chunk],
+                                       return_objects=False)
+        for i in range(0, len(pods), chunk):
+            client.pods().create_many(pods[i:i + chunk],
+                                      return_objects=False)
+        create_s = time.monotonic() - t0
+        sched_client = RemoteClient(base, retries=REMOTE_RETRIES)
+        svc = SchedulerService(sched_client)
+        t0 = time.monotonic()
+        sched = svc.start_scheduler(default_full_roster_config(),
+                                    device_mode=True, max_wave=max_wave,
+                                    device=device)
+        t_loop = time.monotonic()
+        sync_s = t_loop - t0
+        metrics = sched.metrics = CycleMetrics()
+        sched.assume_ttl_s = QUIESCE_TTL_S
+        deadline = time.monotonic() + timeout_s
+        while (len(watch.nodes) < kill_binds and watch.error is None
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        child.kill()
+        kill_s = time.monotonic() - t_loop
+        seen = dict(watch.nodes)
+        watch.join()
+        if len(seen) < kill_binds:
+            raise AssertionError(f"remote config 5: {len(seen)} binds seen "
+                                 f"before the kill, not {kill_binds} "
+                                 f"(watch {watch.error!r})")
+        # -- the restart: same port, same WAL ---------------------------------
+        child = FacadeChild(url, port)
+        t_ready = time.monotonic()
+        left_at_boot = int(child.info["unbound"])
+        if left_at_boot < len(plain) * MIN_LEFT_AT_BOOT:
+            raise AssertionError(
+                f"remote config 5: {left_at_boot} of {len(plain)} plain "
+                f"pods unbound when the server came back, under "
+                f"{MIN_LEFT_AT_BOOT:.0%}: the kill did not land mid-run")
+        watch2 = PodWatch(base)
+        extra = [make_pod(f"after-{i:04d}", requests={"cpu": "500m",
+                                                      "memory": "256Mi"})
+                 for i in range(AFTER_RESTART_PODS)]
+        client.pods().create_many(extra, return_objects=False)
+        want = set(plain) | {p.metadata.name for p in extra}
+        wait_until(lambda: want <= watch2.bound or watch2.error is not None,
+                   timeout_s, f"{len(want)} pods seen bound after the "
+                   "restart", sched)
+        if watch2.error is not None:
+            raise AssertionError(f"the second pod watch failed: "
+                                 f"{watch2.error!r}")
+        bind_s = watch2.last_bind_t - t_ready
+        next_bind_s = (watch2.first_live_bind_t - t_ready
+                       + child.boot_s if watch2.first_live_bind_t else -1.0)
+        wait_until(lambda: sched.assumed_count() == 0, QUIESCE_TTL_S * 20,
+                   "the assume cache drained", sched)
+        waves = int(metrics.snapshot().get("wave", {}).get("count", 0))
+        waiting_left = len(sched._waiting_pods)
+        loop_errors, assumed_left = sched.loop_errors, sched.assumed_count()
+        phases = split(metrics)
+        informers = {kind: svc._factory.informer_for(kind)
+                     for kind in ("Pod", "Node")}
+        reconnects = {kind: {"reconnects": inf.reconnects,
+                             "resumes": inf.resumes}
+                      for kind, inf in informers.items()}
+        svc.shutdown_scheduler()
+        svc.recorder.close()
+        svc = None
+        pod_list = client.pods().list()
+        audit = audit_store(client, pods=pod_list)
+        listed = {p.metadata.name: p for p in pod_list}
+        del pod_list
+        missing = [n for n in want if n not in listed]
+        unbound = [n for n in want if n in listed
+                   and not listed[n].spec.node_name]
+        special_bound = [n for n, p in listed.items()
+                         if n.startswith("special") and p.spec.node_name]
+        moved = [(n, node, listed[n].spec.node_name)
+                 for n, node in seen.items()
+                 if listed[n].spec.node_name != node]
+        uids = [p.metadata.uid for p in listed.values()]
+        reused = len(uids) - len(set(uids))
+        no_reconnect = [k for k, v in reconnects.items()
+                        if v["reconnects"] < 1]
+        if (missing or unbound or special_bound or moved or reused
+                or no_reconnect or loop_errors or assumed_left
+                or waiting_left or audit["nodes"] != n_nodes):
+            raise AssertionError(
+                f"remote config 5: missing {missing[:3]} ({len(missing)}), "
+                f"unbound {unbound[:3]} ({len(unbound)}), special bound "
+                f"{special_bound[:3]}, moved {moved[:3]} ({len(moved)}), "
+                f"{reused} reused uids, no reconnect for {no_reconnect}, "
+                f"{loop_errors} loop errors, {assumed_left} assumed and "
+                f"{waiting_left} waiting left, {audit['nodes']} nodes")
+        client.store.close()
+    finally:
+        if svc is not None:
+            svc.shutdown_scheduler()
+        for w in (watch, watch2):
+            if w is not None:
+                w._closing = True
+                w._resp.close()
+        rc = child.stop() if child.proc.poll() is None else None
+    if rc != 0:
+        raise AssertionError(f"façade child exit {rc}: "
+                             f"{''.join(child.lines[-20:])}")
+    for w in (watch, watch2):
+        w._thread.join(timeout=30)
+    left = sorted(t.name for t in set(threading.enumerate()) - before
+                  if t.is_alive() and not t.daemon)
+    # fsck (a process of its own) and the double-bind audit both only
+    # read the WAL: they run side by side
+    t1 = time.monotonic()
+    fsck_proc = subprocess.Popen(
+        [sys.executable, "-m", "minisched_tpu_torch", "fsck", wal],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        double = wal_double_binds(wal)
+        out, err = fsck_proc.communicate(timeout=600)
+    finally:
+        if fsck_proc.poll() is None:
+            fsck_proc.kill()
+            fsck_proc.wait()
+    fsck_s = time.monotonic() - t1
+    if double or fsck_proc.returncode != 0:
+        raise AssertionError(f"remote config 5: {len(double)} double binds "
+                             f"{double[:3]}, fsck exit "
+                             f"{fsck_proc.returncode}: {out[-2000:]}"
+                             f"{err[-2000:]}")
+    decode_s = dict(sched_client.store.decode_s)
+    decoded = dict(sched_client.store.decoded)
+    snap = counters.snapshot()
+    return RemoteRun(
+        len(plain), create_s, sync_s, len(seen), kill_s,
+        float(child.info["replay_s"]), child.boot_s, left_at_boot,
+        next_bind_s, bind_s, waves, loop_errors, assumed_left, waiting_left,
+        audit, reconnects, {k: snap.get(k, 0) for k in REMOTE_COUNTERS},
+        decode_s, decoded, len(double), fsck_proc.returncode, fsck_s,
+        phases, left, watch.reconnects + watch2.reconnects)

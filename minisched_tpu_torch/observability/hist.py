@@ -10,7 +10,10 @@ gauges, histograms: ``render_prometheus``, which the REST façade's and
 for the same registry contents.  The queue feeds
 ``sched.time_to_bind_s`` (arrival to bind, per priority class; exposed
 as ``sched_time_to_bind_seconds``) and ``CycleMetrics`` the wave
-phases.
+phases; the REST façade ``http.request_s`` (by verb and route shape) and
+``http.list_s`` (LIST latency by kind, in both read modes), and the
+watch streams ``watch.delivery_lag_s`` (fanout to socket write, on both
+delivery paths), as JAX's ``hist.py:40-44``.
 """
 
 from __future__ import annotations

@@ -32,6 +32,10 @@ COUNTERPARTS = {
     "wave": "bench_wave_pipeline",
     "gang": "bench_gang",
     "churn": "bench_churn",
+    "wire": "bench_wire",
+    "wire_fanout": "bench_wire_fanout",
+    "relist": "bench_relist",
+    "wal": "bench_wal",
 }
 
 

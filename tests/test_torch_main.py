@@ -323,6 +323,9 @@ def test_start_throttles_the_client_and_serves_the_raw_store():
         assert stop.service._client is client
         raw = client.store._store
         assert isinstance(raw, ObjectStore)
+        # the recorder's SchedulerStarted event takes its token on the
+        # recorder's thread: let it land before counting
+        stop.service.recorder.flush()
         taken = []
         real = client.rate_limiter.acquire
         client.rate_limiter.acquire = lambda: (taken.append(1), real())[1]
