@@ -236,8 +236,9 @@ Phases, each of which raises on failure (nothing catches it):
    the entries and annotation bytes.
 25. The standalone process.  (a) ``__main__.start`` in this process (the
    device engine, pipelined, its default waves of 1,024) fed config 5's
-   10,000 nodes with ``PROCESS_PODS`` (25,000) pods (``mk_c5_cluster``:
-   24,500 plain, 500 ``special*``) over HTTP in batch creates of
+   10,000 nodes with ``EARLY_C5_PODS`` (12,500; 25,000 until phase 31)
+   pods (``mk_c5_cluster``: 12,250 plain, 250 ``special*``) over HTTP in
+   batch creates of
    10,000, watched over an HTTP pod watch
    opened first (``live.run_config5_http``): every plain pod seen bound,
    one HTTP list audited by ``audit_store``'s rules, ``/metrics`` parsed
@@ -295,8 +296,9 @@ Phases, each of which raises on failure (nothing catches it):
    ``MINISCHED_TPU_STORE_URL=file://<tmp>/c5.wal`` and its defaults
    otherwise (the device engine on the card, pipelined, waves of 1,024;
    fsync off), an HTTP watch on the pods opened first, config 5 (10,000
-   nodes and ``PROCESS_PODS``: 24,500 plain and 500 ``special*`` pods;
-   100,000 pods until phase 30 took the script past 1,100 s on an H100)
+   nodes and ``EARLY_C5_PODS``: 12,250 plain and 250 ``special*`` pods;
+   100,000 pods until phase 30 took the script past 1,100 s on an H100,
+   25,000 until phase 31 did)
    created over HTTP in
    batch creates of 10,000; SIGKILLed once every create was answered and
    the watch has seen ``DURABLE_KILL_BINDS`` (2,000) binds.  The
@@ -324,13 +326,14 @@ Phases, each of which raises on failure (nothing catches it):
    (``live.run_config5_remote``).  The port's ``start_api_server`` runs in
    a child (``python3 -c``) over ``store_from_url("file://<tmp>/
    remote.wal")`` on a free port, its defaults otherwise (the stream loop
-   on, fsync off); config 5's 10,000 nodes and ``LIVE_C5X_PODS`` (50,000)
-   pods are created with ``RemoteClient(base)`` in batch creates of
+   on, fsync off); config 5's 10,000 nodes and ``EARLY_C5_PODS`` (12,500;
+   50,000 until phase 31 needed the time) pods are created with
+   ``RemoteClient(base)`` in batch creates of
    10,000; then ``SchedulerService(RemoteClient(base, retries=10))``
    starts the full roster with ``device_mode=True`` at its defaults
    (pipelined, waves of 1,024) on the card, every informer event and bind
    crossing the child's façade.  Once a ``PodWatch`` over the wire has
-   seen ``REMOTE_KILL_BINDS`` (10,000) binds the child is SIGKILLed and
+   seen ``REMOTE_KILL_BINDS`` (2,500) binds the child is SIGKILLed and
    started again on the same port over the same WAL; the scheduler rides
    through on its own (retries, resume or 410 and relist, the assume
    ledger revalidated, a retried bind that had landed answered as ours).
@@ -348,6 +351,36 @@ Phases, each of which raises on failure (nothing catches it):
    ``assume.revalidate_on_reconnect``, the pool's reuse and stale
    reopens, the Pod streams' decode seconds, evictions, and peak device
    memory.
+31. The replicated control plane (``controlplane/repl.py``,
+   ``replproc.py``), config 5 scheduled through a SIGKILL of the store
+   leader (``live.run_config5_replicated``).  ``ReplicatedPlane`` starts
+   three replica children (fsync off, JAX's lease TTL of 2 s; host code,
+   no CUDA context), ``r0`` bootstrapping as leader; a ``PodWatch`` opens
+   on follower ``r2``, which is never killed; config 5's 10,000 nodes and
+   ``PROCESS_PODS`` (25,000) pods are created with ``RemoteClient(r0)`` in
+   batch creates of 10,000, each group waiting for a follower's ack; then
+   ``SchedulerService(RemoteClient(r0, endpoints=[r1, r2], retries=10))``
+   starts the full roster with ``device_mode=True`` at its defaults
+   (pipelined, waves of 1,024) on the card.  Once the watch has seen
+   ``REPL_KILL_BINDS`` (5,000) binds, ``r0`` is SIGKILLed; the engine
+   goes on without a restart, its writes finding the new leader by
+   discovery and its informers resuming on a live replica.  When every
+   plain pod is seen bound, ``r0`` restarts and must serve as a fenced
+   follower at the new leader's rv.  Checks: a new leader within ``2·TTL
+   + 1 s`` of the kill; every bind watched before the kill on the new
+   leader, on the same node; every plain pod bound and no ``special*``
+   pod; phase 17's audit; both informers reconnected; no loop error, the
+   assume and Permit ledgers empty; the three WALs identical or prefixes
+   of each other (``fsck.wal_compare``); no double bind in any WAL, the
+   killed leader's as the kill left it included; ``python3 -m
+   minisched_tpu_torch fsck`` exit 0 on the new leader's WAL;
+   ``select_hosts`` launched at least once a wave and no plain twin
+   called.  Printed: the creates' wall, ``storage.quorum_wait_s`` p50/p99
+   off the old leader's ``/metrics`` before the kill and the new one's at
+   the end, pods/s before the kill, kill to promotion, kill to the next
+   bind, pods/s after, the restarted replica's catch-up seconds, the
+   informer and routing counters, ``assume.revalidate_on_reconnect``,
+   waves, launches and peak device memory.
 
 Phase 2 also holds ``select_hosts`` against its twin on the repair
 route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
@@ -365,7 +398,8 @@ call, the six live-engine runs of phases 16-21, the burst of phase 22
 and its reduced card run, the exact scan of phase 23, the card runs of
 phase 24 with and without the record, phase 25's process, phase 26's
 gRPC calls and watched run, each role of phase 28, phase 29's
-recovered engine and phase 30's remote engine) and read just after it.  A scan's step is captured once in a CUDA graph and replayed;
+recovered engine, phase 30's remote engine and phase 31's engine behind
+the replicated plane) and read just after it.  A scan's step is captured once in a CUDA graph and replayed;
 each replay counts the ``select_hosts`` launch recorded in the graph.  The last three lines of output are the card's
 name and power limit, one JSON object describing every kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -430,15 +464,22 @@ RECORD_NODES, RECORD_PODS, RECORD_WAVE = 512, 512, 128
 #: phase 29: binds the watch must have seen before the SIGKILL; with so
 #: few, the creates' answers gate the kill, and it lands mid-run
 DURABLE_KILL_BINDS = 2_000
-#: config 5's pods in phases 20 and 30 (phase 20: 100,000 until phase 29
-#: took the script to 1,081-1,296 s on an H100)
+#: config 5's pods in phase 20 (100,000 until phase 29 took the script to
+#: 1,081-1,296 s on an H100; 25,000 took it as long as 50,000)
 LIVE_C5X_PODS = 50_000
-#: config 5's pods in phases 25(a) and 29 (100,000 until PR 12's phase 29,
-#: then 50,000 until phase 30 took the script to 1,164 s on an H100)
+#: config 5's pods in phase 31 (phases 25(a) and 29 ran as many, 100,000
+#: until PR 12's phase 29, then 50,000 until phase 30 took the script to
+#: 1,164 s on an H100)
 PROCESS_PODS = 25_000
+#: config 5's pods in phases 25(a), 29 and 30 since phase 31 took the
+#: script to 1,136-1,297 s on an H100 (phase 30: 50,000 before)
+EARLY_C5_PODS = 12_500
 #: phase 30: binds a watch over the wire must have seen before the
-#: SIGKILL of the API server
-REMOTE_KILL_BINDS = 10_000
+#: SIGKILL of the API server (10,000 at 50,000 pods)
+REMOTE_KILL_BINDS = 2_500
+#: phase 31: binds the watch on follower r2 must have seen before the
+#: SIGKILL of the store leader
+REPL_KILL_BINDS = 5_000
 
 
 T0 = time.monotonic()
@@ -630,6 +671,7 @@ def main() -> int:
         run_config5_http,
         run_config5_live,
         run_config5_remote,
+        run_config5_replicated,
         run_mixed_recorded,
         run_crosspod_drain,
         run_gang_live,
@@ -2088,7 +2130,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    hr = run_config5_http(N_NODES, PROCESS_PODS, trace_pods=TRACE_PODS)
+    hr = run_config5_http(N_NODES, EARLY_C5_PODS, trace_pods=TRACE_PODS)
     launches["select_hosts"]["process-c5"] = live_launches(
         "config 5 over HTTP", hr.waves)
     n_plain = hr.n_plain
@@ -2107,7 +2149,7 @@ def main() -> int:
     phase25_pods_s = n_plain / hr.bind_s
     log(f"[process-c5] {card}: __main__.start (device engine, pipelined, "
         f"waves of 1,024), config 5 over HTTP: {N_NODES} nodes and "
-        f"{PROCESS_PODS} pods in batch creates, create wall "
+        f"{EARLY_C5_PODS} pods in batch creates, create wall "
         f"{hr.create_s:.3f}s; "
         f"first create to last bind {hr.bind_s:.3f}s = "
         f"{n_plain / hr.bind_s:,.0f} pods/s ({hr.waves} waves; phase 19 in "
@@ -2369,7 +2411,7 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        dr = run_config5_durable(workdir, N_NODES, PROCESS_PODS,
+        dr = run_config5_durable(workdir, N_NODES, EARLY_C5_PODS,
                                  kill_binds=DURABLE_KILL_BINDS)
         launches["select_hosts"]["durable-c5"] = live_launches(
             "recovered config 5", max(dr.waves, 1))
@@ -2391,7 +2433,7 @@ def main() -> int:
         f"{dr.replay_s:.3f}s, boot {dr.boot_s:.3f}s, {rest} plain pods "
         f"left, bound in {dr.bind_s:.3f}s after boot = "
         f"{rest / dr.bind_s:,.0f} pods/s ({dr.waves} waves; phase 25(a), "
-        f"over HTTP at {PROCESS_PODS} pods: {phase25_pods_s:,.0f} pods/s); "
+        f"over HTTP at {EARLY_C5_PODS} pods: {phase25_pods_s:,.0f} pods/s); "
         f"every watched bind on its node "
         f"after replay and at the end, all {dr.n_plain} plain pods bound, "
         f"no special pod, audit {dr.audit}; group commit: {dr.groups} "
@@ -2415,7 +2457,7 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        rr = run_config5_remote(workdir, N_NODES, LIVE_C5X_PODS,
+        rr = run_config5_remote(workdir, N_NODES, EARLY_C5_PODS,
                                 kill_binds=REMOTE_KILL_BINDS)
         launches["select_hosts"]["remote-c5"] = live_launches(
             "config 5 over the wire", max(rr.waves, 1))
@@ -2428,7 +2470,7 @@ def main() -> int:
         f"file://<tmp>/remote.wal (stream loop on, fsync off); the device "
         f"engine (full roster, pipelined, waves of 1,024) behind "
         f"RemoteClient(base, retries=10): config 5, {N_NODES} nodes and "
-        f"{LIVE_C5X_PODS} pods, created over the wire in "
+        f"{EARLY_C5_PODS} pods, created over the wire in "
         f"{rr.create_s:.3f}s; start_scheduler (informer sync over the wire) "
         f"{rr.sync_s:.3f}s; SIGKILL {rr.kill_s:.3f}s after the start with "
         f"{rr.seen_at_kill} binds watched = "
@@ -2457,6 +2499,57 @@ def main() -> int:
         + f"; peak device memory {rr_peak / 2**30:.2f} GiB; loop errors 0, "
         f"assume and Permit ledgers empty, select_hosts launches "
         f"{launches['select_hosts']['remote-c5']}, plain-twin calls 0")
+
+    # -- phase 31: config 5 through a SIGKILL of the store leader ---------
+    stamp("31")
+    from minisched_tpu_torch.controlplane.replproc import DEFAULT_TTL_S
+
+    with tempfile.TemporaryDirectory(prefix="c5-repl-") as workdir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        pr = run_config5_replicated(workdir, N_NODES, PROCESS_PODS,
+                                    kill_binds=REPL_KILL_BINDS)
+        launches["select_hosts"]["repl-c5"] = live_launches(
+            "config 5 through a leader kill", max(pr.waves, 1))
+    pr_peak = torch.cuda.max_memory_allocated()
+    if pr.waves < 1 or pr.threads_left:
+        raise AssertionError(f"replicated config 5: {pr.waves} waves, "
+                             f"threads left {pr.threads_left}")
+    qb, qa = pr.quorum_wait["before"], pr.quorum_wait["after"]
+    left = pr.n_plain - pr.seen_at_kill
+    log(f"[repl-c5] {card}: ReplicatedPlane of 3 replica children (fsync "
+        f"off, lease TTL {DEFAULT_TTL_S} s); the device engine (full "
+        f"roster, pipelined, waves of 1,024) behind RemoteClient(r0, "
+        f"endpoints=[r1, r2], retries=10), a pod watch on follower r2: "
+        f"config 5, {N_NODES} nodes and {PROCESS_PODS} pods, created over "
+        f"the wire in {pr.create_s:.3f}s; start_scheduler "
+        f"{pr.sync_s:.3f}s; storage.quorum_wait_s before the kill "
+        f"({pr.old_leader}'s /metrics) p50 <= {qb['p50_le_s']}s, p99 <= "
+        f"{qb['p99_le_s']}s over {qb['groups']} groups, at the end "
+        f"({pr.new_leader}'s) p50 <= {qa['p50_le_s']}s, p99 <= "
+        f"{qa['p99_le_s']}s over {qa['groups']} groups; SIGKILL of "
+        f"{pr.old_leader} {pr.kill_s:.3f}s after the start with "
+        f"{pr.seen_at_kill} binds watched = "
+        f"{pr.seen_at_kill / pr.kill_s:,.0f} pods/s before the kill; "
+        f"{pr.new_leader} promoted {pr.promote_s:.3f}s after the kill "
+        f"(gate {2 * DEFAULT_TTL_S + 1:.1f}s); next bind "
+        f"{pr.next_bind_s:.3f}s after the kill; the other {left} plain "
+        f"pods bound {pr.after_s:.3f}s after the kill = "
+        f"{left / pr.after_s:,.0f} pods/s after it (phase 30 before its "
+        f"kill {rr.seen_at_kill / rr.kill_s:,.0f}); {pr.old_leader} "
+        f"restarted, a fenced follower at the leader's rv in "
+        f"{pr.catchup_s:.3f}s; {pr.waves} waves; informers "
+        f"{pr.reconnects}; counters "
+        f"{json.dumps(pr.counters, sort_keys=True)}; WALs {pr.wal_pairs}; "
+        f"double binds {pr.double_binds}; fsck exit 0 in "
+        f"{pr.fsck_s:.3f}s; every watched bind on its node, all "
+        f"{pr.n_plain} plain pods bound once, no special pod, audit "
+        f"{pr.audit}; split "
+        + ", ".join(f"{k} {pr.split.get(k, 0.0):.3f}s" for k in SPLIT)
+        + f"; peak device memory {pr_peak / 2**30:.2f} GiB; loop errors 0, "
+        f"assume and Permit ledgers empty, select_hosts launches "
+        f"{launches['select_hosts']['repl-c5']}, plain-twin calls 0")
 
     stamp("end")
     report = []

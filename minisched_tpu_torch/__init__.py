@@ -19,24 +19,37 @@ The port runs as a process (``python -m minisched_tpu_torch``,
 simulator's per-plugin annotations); the gRPC servicer and the trace
 ring serve beside it.  ``SchedulerService(RemoteClient(base))``
 (``controlplane/remote.py``) runs the whole scheduling path against a
-REST façade over the wire, riding through the façade's restart.  Still
-to come: the replicated and sharded stores with the multi-endpoint
-client, ``ha/``, ``faults/`` and a device mesh (ROADMAP.md §1).
+REST façade over the wire, riding through the façade's restart; with
+``RemoteClient(leader, endpoints=[...])`` it rides a SIGKILL of the
+leader of a replicated plane (``controlplane/repl.py``: quorum WAL
+shipping, arbiter-lease failover; ``controlplane/replproc.py``: three
+replica children), with ``ha/lease.py`` and ``faults/`` (the fabric and
+the network-fault layer) under it.  Still to come (ROADMAP.md §1):
+sharding (item 7b), the rest of ``ha/`` (membership, the HA engines) and
+of ``faults/`` (the killable child, the wire and watch fault points),
+the compile cache and a device mesh.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 __version__ = "0.1.0"
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The device an entry point runs on: ``None`` means the card.
 
     Raises ``RuntimeError`` when no card is present and the caller did not
     ask for the CPU explicitly — an entry point never carries on quietly
-    on the host."""
+    on the host.  (``torch`` is imported here, not with the package: the
+    control plane's processes, the store replicas among them, are host
+    code and start without it.)"""
+    import torch
+
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

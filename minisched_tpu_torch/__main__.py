@@ -47,7 +47,7 @@ import os
 import signal
 import sys
 import threading
-from typing import Any, Callable, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Tuple
 
 from minisched_tpu_torch import resolve_device
 from minisched_tpu_torch.controlplane.client import (
@@ -57,14 +57,10 @@ from minisched_tpu_torch.controlplane.client import (
 )
 from minisched_tpu_torch.controlplane.durable import store_from_url
 from minisched_tpu_torch.controlplane.httpserver import start_api_server
-from minisched_tpu_torch.controlplane.pvcontroller import start_pv_controller
 from minisched_tpu_torch.controlplane.store import ObjectStore
-from minisched_tpu_torch.service.config import (
-    ProcessConfig,
-    default_full_roster_config,
-    default_scheduler_config,
-)
-from minisched_tpu_torch.service.service import SchedulerService
+
+if TYPE_CHECKING:
+    from minisched_tpu_torch.service.config import ProcessConfig
 
 def start(cfg: ProcessConfig, device_mode: bool = True, mesh_devices: int = 0,
           device: Any = None) -> Tuple[Client, str, Callable[[], None]]:
@@ -76,6 +72,17 @@ def start(cfg: ProcessConfig, device_mode: bool = True, mesh_devices: int = 0,
     if mesh_devices:
         raise ValueError("MINISCHED_MESH_DEVICES: a device mesh is not "
                          "ported yet (ROADMAP item 12)")
+    # the scheduler's modules (torch with them) load here, not with the
+    # module: ``fsck`` and ``metrics`` run without them
+    from minisched_tpu_torch.controlplane.pvcontroller import (
+        start_pv_controller,
+    )
+    from minisched_tpu_torch.service.config import (
+        default_full_roster_config,
+        default_scheduler_config,
+    )
+    from minisched_tpu_torch.service.service import SchedulerService
+
     if device_mode:
         resolve_device(device)
     # empty: the in-memory store; file://<path>: the WAL (replayed here);
@@ -125,6 +132,8 @@ def main(argv=None) -> int:
         from minisched_tpu_torch.observability.metricsd import scrape_main
 
         return scrape_main(argv[1:])
+    from minisched_tpu_torch.service.config import ProcessConfig
+
     cfg = ProcessConfig.from_env()
     device_mode = os.environ.get("MINISCHED_DEVICE_MODE", "1") != "0"
     mesh_devices = int(os.environ.get("MINISCHED_MESH_DEVICES", "0"))

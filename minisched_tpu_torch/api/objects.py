@@ -6,7 +6,8 @@ identity (``uid`` defaults to ``""``, so tie-break seeds come from names),
 taints and tolerations, node affinity, pod (anti-)affinity, topology
 spread constraints, the volumes a pod mounts with their claims and
 PersistentVolumes, and gang membership (``GangSpec``) with the slice
-topology of nodes.  The table encoders read these objects duck-typed, so
+topology of nodes, and the ``Lease`` the replicated plane's election
+rides.  The table encoders read these objects duck-typed, so
 the JAX package's objects build the same tables.
 """
 
@@ -500,6 +501,45 @@ class PersistentVolumeClaim:
         return PersistentVolumeClaim(
             self.metadata.clone(), copy.copy(self.spec),
             PVCStatus(self.status.phase))
+
+
+@dataclass
+class LeaseSpec:
+    """coordination.k8s.io/v1 Lease subset (JAX ``api/objects.py:695``):
+    a TTL'd, CAS-renewed claim.  Expiry is evaluated by READERS
+    (``renew_time + ttl_s < now``): the store never reaps leases, and
+    whoever observes one stale may try a takeover (another
+    ``expected_rv`` CAS, 409-arbitrated)."""
+
+    #: identity of the current holder ('' = unheld)
+    holder: str = ""
+    #: seconds a renewal stays valid (leaseDurationSeconds)
+    ttl_s: float = 10.0
+    #: wall-clock (time.time) of the holder's acquisition
+    acquire_time: float = 0.0
+    #: wall-clock (time.time) of the last renewal — the expiry anchor
+    renew_time: float = 0.0
+    #: number of holder changes (leaseTransitions)
+    transitions: int = 0
+    #: the holder's published epoch
+    epoch: int = 0
+
+
+@dataclass
+class Lease:
+    metadata: ObjectMeta
+    spec: LeaseSpec = field(default_factory=LeaseSpec)
+    kind = "Lease"
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    def expired(self, now: float) -> bool:
+        return self.spec.renew_time + self.spec.ttl_s < now
+
+    def clone(self) -> "Lease":
+        return Lease(self.metadata.clone(), copy.copy(self.spec))
 
 
 @dataclass

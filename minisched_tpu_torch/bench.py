@@ -82,6 +82,22 @@ One role for each ``bench.py`` role the port can run (``ROLES``):
                         group commit against ``MINISCHED_GROUP_COMMIT=0``;
                         gated on coalescing, a 3x speedup, fsck clean and
                         a full replay
+``repl``                ``bench_repl`` (``:2664``), host only, opt-in
+                        (``BENCH_REPL=1``): 8 writers against a leader
+                        whose groups wait for one of two followers' acks,
+                        against the single store; then a fresh follower
+                        bootstrapping from shipped checkpoint generations
+                        under load; gated on no acked write lost, the
+                        followers' WALs identical, no quorum timeout,
+                        bootstrap within ``BENCH_REPL_BOOTSTRAP_S`` (20
+                        s) without an offset-0 re-tail, and the leader's
+                        WAL bounded by its compactions
+``readscale``           ``bench_readscale`` (``:4242``), host only,
+                        opt-in (``BENCH_READSCALE=1``): list storms on
+                        one replica and on three (gate 1.7x on 4 cores or
+                        more), reads across a leader SIGKILL (no error,
+                        no rv regression, no gap over 2 s) and encode-once
+                        on every serving replica
 ======================  ==================================================
 
 The live roles read ``bench.py``'s environment knobs with its defaults
@@ -95,8 +111,8 @@ from ``torch.cuda.max_memory_allocated``),
 ``bench.py``'s key where it names the same quantity, and the card's name
 and power limit (``nvidia-smi``).  Without a card a role prints
 ``{"skipped": reason}`` and exits 0: it never runs on the CPU instead.
-The host-only roles (``wire_fanout``, ``relist``, ``wal``) touch no
-card but keep that rule; their functions (``role_relist()``, ...) run
+The host-only roles (``wire_fanout``, ``relist``, ``wal``, ``repl``,
+``readscale``) touch no card but keep that rule; their functions (``role_relist()``, ...) run
 anywhere.
 """
 
@@ -120,7 +136,8 @@ import torch
 
 ROLES = ("headline", "c1", "c2", "c3", "c4", "c5", "c5_waves",
          "fullchain_parity", "c5x", "gang_waves", "c5x_live", "wave", "gang",
-         "churn", "wire", "wire_fanout", "relist", "wal")
+         "churn", "wire", "wire_fanout", "relist", "wal", "repl",
+         "readscale")
 
 GIB = 2**30
 
@@ -1870,6 +1887,783 @@ def role_wal() -> Dict[str, Any]:
         "fsck_clean": True,
     }
 
+
+
+def role_repl() -> Dict[str, Any]:
+    """Replicated control plane (DESIGN.md §27): one leader
+    plus two followers tailing the WAL stream over real HTTP, quorum
+    (1 follower ack) armed at the group-commit barrier, versus the same
+    writer load with ``MINISCHED_REPL=0`` semantics (no hub — today's
+    single-store plane).  The record carries the replication tax (mutate
+    p50/p99 + ``storage.quorum_wait_s``) and the correctness evidence:
+    every acked mutation on BOTH followers and follower WALs
+    byte-identical to the leader's (``fsck.wal_compare``).  Phase 3
+    (DESIGN.md §28) is bootstrap-under-load: writers hammer a
+    leader whose background compaction ships checkpoint generations; a
+    FRESH follower attaches mid-load and must catch up to the leader's
+    rv within ``BENCH_REPL_BOOTSTRAP_S`` by seeding from the shipped
+    checkpoint — zero offset-0 re-tails — while the leader's WAL stays
+    bounded by the compaction interval, not by history.  Opt-in via
+    ``BENCH_REPL=1`` — the role boots four HTTP servers and three
+    fsync-armed stores, which is chaos-tier cost, not headline-tier."""
+    import tempfile
+    import threading
+
+    from minisched_tpu_torch.api.objects import make_pod
+    from minisched_tpu_torch.controlplane.durable import DurableObjectStore
+    from minisched_tpu_torch.controlplane.fsck import wal_compare
+    from minisched_tpu_torch.controlplane.httpserver import start_api_server
+    from minisched_tpu_torch.controlplane.remote import RemoteClient
+    from minisched_tpu_torch.controlplane.repl import ReplRuntime, WalFollower
+    from minisched_tpu_torch.observability import counters, hist
+
+    if os.environ.get("BENCH_REPL", "0") == "0":
+        raise Skip("BENCH_REPL unset: replicated-plane role is opt-in")
+
+    n_writers = int(os.environ.get("BENCH_REPL_WRITERS", "8"))
+    per_writer = int(os.environ.get("BENCH_REPL_PODS_PER_WRITER", "25"))
+    n_muts = n_writers * per_writer
+
+    def run_writers(base: str) -> list:
+        lat: list = []
+        errs: list = []
+        mu = threading.Lock()
+
+        def writer(w: int) -> None:
+            client = RemoteClient(base)
+            mine = []
+            try:
+                for i in range(per_writer):
+                    t0 = time.monotonic()
+                    client.pods().create(
+                        make_pod(
+                            f"rp{w:02d}-{i:04d}",
+                            requests={"cpu": "100m", "memory": "64Mi"},
+                        )
+                    )
+                    mine.append(time.monotonic() - t0)
+            except Exception as e:
+                errs.append(f"writer {w}: {e!r}")
+            with mu:
+                lat.extend(mine)
+
+        threads = [
+            threading.Thread(target=writer, args=(w,), name=f"repl-w{w}")
+            for w in range(n_writers)
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errs:
+            raise AssertionError(f"[repl] WRITER FAILED: {errs[:3]}")
+        return sorted(lat)
+
+    # -- phase 1: kill-switch baseline (no hub, single store) ---------------
+    base_dir = tempfile.mkdtemp(prefix="minisched-repl-")
+    base_wal = os.path.join(base_dir, "baseline.wal")
+    store_b = DurableObjectStore(base_wal, fsync=True)
+    server_b, url_b, shutdown_b = start_api_server(store_b, port=0)
+    t0 = time.monotonic()
+    lat_b = run_writers(url_b)
+    elapsed_b = time.monotonic() - t0
+    shutdown_b()
+    store_b.close()
+
+    # -- phase 2: 3-replica plane, quorum armed -----------------------------
+    counters.reset()
+    leader_wal = os.path.join(base_dir, "leader.wal")
+    leader = DurableObjectStore(leader_wal, fsync=True)
+    runtime = ReplRuntime(
+        leader, "r0", peers=[], cluster_size=3, ack_timeout_s=15.0
+    )
+    runtime.promote()
+    server_l, url_l, shutdown_l = start_api_server(
+        leader, port=0, repl=runtime
+    )
+    followers = []
+    for fid in ("r1", "r2"):
+        fstore = DurableObjectStore(
+            os.path.join(base_dir, f"{fid}.wal"), fsync=True
+        )
+        fstore.fence("r0")
+        tail = WalFollower(fstore, url_l, fid)
+        tail.start()
+        followers.append((fid, fstore, tail))
+    t0 = time.monotonic()
+    lat_r = run_writers(url_l)
+    elapsed_r = time.monotonic() - t0
+    # quorum means ONE follower proved durability per group; wait for
+    # both to finish catching up before auditing the full copies
+    deadline = time.monotonic() + 30.0
+    while time.monotonic() < deadline and any(
+        f[1].resource_version < leader.resource_version for f in followers
+    ):
+        time.sleep(0.05)
+    qp = hist.quantile_bounds("storage.quorum_wait_s", 0.99) or (None, None)
+    shutdown_l()
+    for _fid, fstore, tail in followers:
+        tail.stop()
+        fstore.close()
+    leader.close()
+    runtime.close()
+
+    # -- audits -------------------------------------------------------------
+    lost = []
+    for fid, fstore, _tail in followers:
+        replayed = DurableObjectStore(fstore._path)
+        n = sum(1 for _ in replayed.list("Pod"))
+        replayed.close()
+        if n != n_muts:
+            lost.append(f"{fid}: {n}/{n_muts} pods")
+        cmp = wal_compare(leader_wal, fstore._path)
+        if not (cmp.get("identical") or cmp.get("prefix")):
+            lost.append(f"{fid}: WAL diverged {cmp.get('diverged')}")
+    if lost:
+        raise AssertionError(f"[repl] ACKED WRITES MISSING ON FOLLOWERS: {lost}")
+    if counters.get("storage.repl.quorum_timeouts"):
+        raise AssertionError("[repl] QUORUM TIMEOUTS on a healthy local plane")
+
+    # -- phase 3: fresh-follower bootstrap under load (DESIGN.md §28) -------
+    compact_every_s = float(
+        os.environ.get("BENCH_REPL_COMPACT_EVERY_S", "0.5")
+    )
+    bootstrap_budget_s = float(
+        os.environ.get("BENCH_REPL_BOOTSTRAP_S", "20.0")
+    )
+    boot_writers = int(os.environ.get("BENCH_REPL_BOOT_WRITERS", "6"))
+    counters.reset()
+    wal3 = os.path.join(base_dir, "leader3.wal")
+    leader3 = DurableObjectStore(wal3, fsync=True)
+    runtime3 = ReplRuntime(
+        leader3, "r0", peers=[], cluster_size=3, ack_timeout_s=15.0
+    )
+    runtime3.promote()
+    server3, url3, shutdown3 = start_api_server(
+        leader3, port=0, repl=runtime3
+    )
+    standing = DurableObjectStore(
+        os.path.join(base_dir, "standing.wal"), fsync=True
+    )
+    standing.fence("r0")
+    standing_tail = WalFollower(standing, url3, "r1", leader_id="r0")
+    standing_tail.start()
+
+    stop = threading.Event()
+    errs3: list = []
+
+    def boot_writer(w: int) -> None:
+        client = RemoteClient(url3, timeout_s=30.0)
+        i = 0
+        try:
+            while not stop.is_set():
+                client.pods().create(
+                    make_pod(
+                        f"bl{w:02d}-{i:05d}",
+                        requests={"cpu": "100m", "memory": "64Mi"},
+                    )
+                )
+                i += 1
+        except Exception as e:
+            errs3.append(f"boot writer {w}: {e!r}")
+
+    def compactor() -> None:
+        while not stop.is_set():
+            stop.wait(compact_every_s)
+            if stop.is_set():
+                return
+            try:
+                leader3.compact()
+            except Exception as e:  # pragma: no cover - audit below
+                errs3.append(f"compactor: {e!r}")
+                return
+
+    wal_samples: list = []
+    total_growth = [0]
+
+    def sampler() -> None:
+        prev = 0
+        while not stop.is_set():
+            cur = leader3.wal_end()
+            wal_samples.append(cur)
+            if cur > prev:
+                total_growth[0] += cur - prev
+            prev = cur
+            stop.wait(0.05)
+
+    threads3 = [
+        threading.Thread(target=boot_writer, args=(w,), name=f"boot-w{w}")
+        for w in range(boot_writers)
+    ]
+    threads3 += [
+        threading.Thread(target=compactor, name="boot-compactor"),
+        threading.Thread(target=sampler, name="boot-sampler"),
+    ]
+    for t in threads3:
+        t.start()
+    # wait for ≥2 shipped generations so the fresh follower's seed is a
+    # MID-STREAM checkpoint, not the boot state
+    deadline = time.monotonic() + 60.0
+    while time.monotonic() < deadline and (
+        counters.get("storage.repl.ckpt_published") < 2 and not errs3
+    ):
+        time.sleep(0.05)
+    if errs3 or counters.get("storage.repl.ckpt_published") < 2:
+        stop.set()
+        raise AssertionError(
+            f"[repl] PHASE-3 WARMUP FAILED: {errs3[:3] or 'no generations'}"
+        )
+    bstore = DurableObjectStore(
+        os.path.join(base_dir, "boot.wal"), fsync=True
+    )
+    bstore.fence("r0")
+    target_rv = leader3.resource_version
+    t_attach = time.monotonic()
+    boot_tail = WalFollower(bstore, url3, "boot", leader_id="r0")
+    boot_tail.start()
+    deadline = time.monotonic() + bootstrap_budget_s
+    while time.monotonic() < deadline and (
+        bstore.resource_version < target_rv and not errs3
+    ):
+        time.sleep(0.02)
+    bootstrap_s = time.monotonic() - t_attach
+    caught_up = bstore.resource_version >= target_rv
+    stop.set()
+    for t in threads3:
+        t.join(timeout=30.0)
+    # let the tails drain the last groups before auditing convergence
+    deadline = time.monotonic() + 30.0
+    while time.monotonic() < deadline and (
+        bstore.resource_version < leader3.resource_version
+        or standing.resource_version < leader3.resource_version
+    ):
+        time.sleep(0.05)
+    bq = hist.quantile_bounds("storage.repl.bootstrap_s", 0.99) or (
+        None, None,
+    )
+    # stop the tails BEFORE the server so their stream sockets close
+    # client-side (no reset noise from the handler threads)
+    for tail in (standing_tail, boot_tail):
+        tail.stop()
+        tail.join(timeout=5.0)
+    shutdown3()
+    runtime3.close()
+
+    if errs3:
+        raise AssertionError(f"[repl] PHASE-3 WRITERS FAILED: {errs3[:3]}")
+    if not caught_up:
+        raise AssertionError(
+            f"[repl] BOOTSTRAP BLEW THE BUDGET: follower at rv "
+            f"{bstore.resource_version} < {target_rv} after "
+            f"{bootstrap_budget_s}s"
+        )
+    if counters.get("storage.repl.full_retails"):
+        raise AssertionError(
+            "[repl] OFFSET-0 RE-TAIL: a follower replayed history "
+            "instead of seeding from the shipped checkpoint"
+        )
+    if counters.get("storage.repl.ckpt_seeds") < 2 or not (
+        bstore.checkpoint_rv > 0
+    ):
+        raise AssertionError(
+            "[repl] fresh follower did not seed from a shipped checkpoint"
+        )
+    if counters.get("storage.repl.compact_deferred"):
+        raise AssertionError(
+            "[repl] COMPACTION DEFERRED under a hub — the WAL is unbounded"
+        )
+    # WAL boundedness: the peak never reaches the full appended history
+    # and stays within ~2 compaction intervals of growth
+    drops, seg, max_seg = 0, 0, 0
+    prev = 0
+    for cur in wal_samples:
+        if cur < prev:
+            drops += 1
+            max_seg = max(max_seg, seg)
+            seg = cur
+        else:
+            seg += cur - prev
+        prev = cur
+    max_seg = max(max_seg, seg)
+    peak = max(wal_samples) if wal_samples else 0
+    if drops < 2:
+        raise AssertionError(
+            f"[repl] WAL NEVER TRUNCATED under load ({drops} drops)"
+        )
+    if peak > 2 * max_seg + 65536 or peak >= total_growth[0]:
+        raise AssertionError(
+            f"[repl] WAL UNBOUNDED: peak {peak}B vs per-interval growth "
+            f"{max_seg}B (total appended {total_growth[0]}B)"
+        )
+    if bstore.resource_version != leader3.resource_version or (
+        standing.resource_version != leader3.resource_version
+    ):
+        raise AssertionError("[repl] PHASE-3 REPLICAS NEVER CONVERGED")
+    boot_pods = {p.metadata.name for p in bstore.list("Pod")}
+    lead_pods = {p.metadata.name for p in leader3.list("Pod")}
+    if boot_pods != lead_pods:
+        raise AssertionError(
+            f"[repl] BOOTSTRAPPED STATE DIVERGED: "
+            f"{len(lead_pods ^ boot_pods)} names differ"
+        )
+    n_boot = len(lead_pods)
+    leader3.close()
+    standing.close()
+    bstore.close()
+    _log(
+        f"[repl] bootstrap-under-load: fresh follower caught "
+        f"{n_boot} pods / rv {target_rv} in {bootstrap_s:.2f}s "
+        f"(budget {bootstrap_budget_s}s) off generation "
+        f"{counters.get('storage.repl.ckpt_published')} ships; WAL peak "
+        f"{peak}B ≤ 2× interval growth {max_seg}B across {drops} "
+        f"truncations; zero offset-0 re-tails"
+    )
+
+    def _p(lat: list, q: float) -> float:
+        return round(lat[min(len(lat) - 1, int(q * len(lat)))], 4)
+
+    tax = _p(lat_r, 0.50) - _p(lat_b, 0.50)
+    _log(
+        f"[repl] {n_writers} writers × {per_writer} pods: quorum plane "
+        f"{n_muts / elapsed_r:.0f}/s (p50 {_p(lat_r, 0.50)}s, p99 "
+        f"{_p(lat_r, 0.99)}s) vs kill-switch {n_muts / elapsed_b:.0f}/s "
+        f"(p50 {_p(lat_b, 0.50)}s); quorum-wait p99 ≤ {qp[1]}s; both "
+        f"followers byte-identical, zero acked writes lost"
+    )
+    return {
+        "writers": n_writers,
+        "mutations": n_muts,
+        "baseline": {
+            "throughput_per_s": round(n_muts / elapsed_b, 1),
+            "mutate_p50_s": _p(lat_b, 0.50),
+            "mutate_p99_s": _p(lat_b, 0.99),
+        },
+        "replicated": {
+            "throughput_per_s": round(n_muts / elapsed_r, 1),
+            "mutate_p50_s": _p(lat_r, 0.50),
+            "mutate_p99_s": _p(lat_r, 0.99),
+            "quorum_wait_p99_bucket_s": qp[1],
+            "groups": counters.get("storage.repl.groups"),
+            "acks": counters.get("storage.repl.acks"),
+            "resyncs": counters.get("storage.repl.resyncs"),
+        },
+        "replication_tax_p50_s": round(tax, 4),
+        "followers_identical": True,
+        "acked_writes_lost": 0,
+        "bootstrap": {
+            "budget_s": bootstrap_budget_s,
+            "bootstrap_s": round(bootstrap_s, 3),
+            "bootstrap_p99_bucket_s": bq[1],
+            "target_rv": target_rv,
+            "generations_shipped": counters.get(
+                "storage.repl.ckpt_published"
+            ),
+            "ckpt_seeds": counters.get("storage.repl.ckpt_seeds"),
+            "full_retails": 0,
+            "wal_peak_bytes": peak,
+            "wal_interval_growth_bytes": max_seg,
+            "wal_truncations": drops,
+        },
+    }
+
+
+def role_readscale() -> Dict[str, Any]:
+    """The read-scaling role (DESIGN.md §29): the
+    follower-serving read plane must BUY capacity, not just redundancy.
+    Opt-in via ``BENCH_READSCALE=1`` — the role boots a 3-replica
+    process plane twice over plus an in-process triple.  Three phases:
+
+    * **scaling storm** — the process plane seeded with
+      BENCH_READSCALE_OBJECTS pods; W keep-alive clients run the same
+      fixed list window twice: every client on the leader alone, then
+      spread across all three replica façades.  Gate: spread rate ≥
+      BENCH_READSCALE_GATE × the single-replica rate (default 1.7×).
+    * **encode-once everywhere** — an IN-PROCESS leader + two served
+      followers (counters are process-global there, so the deltas are
+      visible) absorb a quiet list storm spread across all three
+      façades at one rv.  Gate: every serving replica answered from
+      its own memoized COW payload — ``store.list_cache.encodes``
+      delta between 1 and 2 per replica for hundreds of requests.
+    * **read availability across leader kill** — endpoint-aware
+      readers (min_rv-bounded, session-monotonic rv) list continuously
+      for BENCH_READ_FAILOVER_S while the leader is SIGKILLed
+      mid-window and a writer keeps advancing rv through the failover.
+      Gates: zero read errors, zero rv regressions, and the longest
+      gap between successive successful reads ≤ BENCH_READSCALE_GAP_S
+      (reads must ride the surviving followers THROUGH the election,
+      not wait it out).
+    """
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from minisched_tpu_torch.api.objects import make_pod
+    from minisched_tpu_torch.controlplane.durable import DurableObjectStore
+    from minisched_tpu_torch.controlplane.httpserver import start_api_server
+    from minisched_tpu_torch.controlplane.remote import RemoteClient, RemoteStore
+    from minisched_tpu_torch.controlplane.repl import ReplRuntime, WalFollower
+    from minisched_tpu_torch.controlplane.replproc import ReplicatedPlane
+    from minisched_tpu_torch.observability import counters
+
+    if os.environ.get("BENCH_READSCALE", "0") == "0":
+        raise Skip("BENCH_READSCALE unset: read-scaling role is opt-in")
+
+    P = int(os.environ.get("BENCH_READSCALE_PROCS", "4"))
+    W = int(os.environ.get("BENCH_READSCALE_CLIENTS", "8"))  # per proc
+    n_obj = int(os.environ.get("BENCH_READSCALE_OBJECTS", "300"))
+    window_s = float(os.environ.get("BENCH_READSCALE_WINDOW_S", "2.0"))
+    gate = float(os.environ.get("BENCH_READSCALE_GATE", "1.7"))
+    fail_s = float(os.environ.get("BENCH_READ_FAILOVER_S", "6.0"))
+    gap_gate_s = float(os.environ.get("BENCH_READSCALE_GAP_S", "2.0"))
+    ttl_s = 1.0
+
+    counters.reset()
+
+    # ---- phase 1+3 topology: the real process plane -------------------
+    tmp = tempfile.mkdtemp(prefix="bench-readscale-")
+
+    # the storm drives from SEPARATE client processes: the replicas are
+    # each their own process, so a single GIL-bound bench client would
+    # measure its own ceiling, not the plane's serving capacity
+    helper = os.path.join(tmp, "_list_storm.py")
+    with open(helper, "w") as f:
+        f.write(
+            "import http.client, sys, threading, time, urllib.parse\n"
+            "urls = sys.argv[1].split(',')\n"
+            "window_s, W, off = float(sys.argv[2]), int(sys.argv[3]), "
+            "int(sys.argv[4])\n"
+            "counts = [0] * W\n"
+            "stop = threading.Event()\n"
+            "errs = []\n"
+            "def client(i):\n"
+            "    u = urllib.parse.urlparse(urls[(off + i) % len(urls)])\n"
+            "    conn = http.client.HTTPConnection(u.hostname, u.port,"
+            " timeout=10)\n"
+            "    try:\n"
+            "        while not stop.is_set():\n"
+            "            conn.request('GET', '/api/v1/pods')\n"
+            "            r = conn.getresponse()\n"
+            "            body = r.read()\n"
+            "            if r.status != 200:\n"
+            "                errs.append('HTTP %d: %r' % (r.status,"
+            " body[:80]))\n"
+            "                return\n"
+            "            counts[i] += 1\n"
+            "    except Exception as e:\n"
+            "        if not stop.is_set():\n"
+            "            errs.append(repr(e))\n"
+            "    finally:\n"
+            "        conn.close()\n"
+            "threads = [threading.Thread(target=client, args=(i,))"
+            " for i in range(W)]\n"
+            "for t in threads:\n"
+            "    t.start()\n"
+            "time.sleep(window_s)\n"
+            "stop.set()\n"
+            "for t in threads:\n"
+            "    t.join(timeout=30)\n"
+            "if errs:\n"
+            "    print(errs[0], file=sys.stderr)\n"
+            "    sys.exit(1)\n"
+            "print(sum(counts))\n"
+        )
+
+    def storm(urls: list, label: str) -> float:
+        """Fixed-window keep-alive list storm: P client processes × W
+        connections each, round-robin across façades; returns lists/s."""
+        procs = [
+            subprocess.Popen(
+                [
+                    sys.executable, helper, ",".join(urls),
+                    str(window_s), str(W), str(k),
+                ],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            )
+            for k in range(P)
+        ]
+        total = 0
+        for p in procs:
+            out, err = p.communicate(timeout=window_s + 60)
+            if p.returncode != 0:
+                raise AssertionError(
+                    f"[readscale] {label} CLIENT FAILED: "
+                    f"{err.decode(errors='replace')[-200:]}"
+                )
+            total += int(out.strip())
+        rate = total / window_s
+        _log(
+            f"[readscale] {label}: {rate:.0f} lists/s "
+            f"({P}x{W} client connections)"
+        )
+        return rate
+
+    plane = ReplicatedPlane(tmp, n=3, fsync=False, ttl_s=ttl_s)
+    try:
+        url = plane.start()
+        client = RemoteClient(url, timeout_s=10.0)
+        for i in range(n_obj):
+            client.pods().create(make_pod(f"seed-{i:04d}"))
+        seed_rv = int(client.store.list_with_rv("Pod")[1])
+        bases = [r.base_url for r in plane.replicas]
+        # every replica must have applied the seed before the storm —
+        # the bounded read IS the convergence probe
+        for b in bases:
+            deadline = time.monotonic() + 15.0
+            while True:
+                try:
+                    with urllib.request.urlopen(
+                        f"{b}/api/v1/pods?min_rv={seed_rv}"
+                    ) as r:
+                        r.read()
+                    break
+                except urllib.error.HTTPError as e:
+                    e.read()
+                    if e.code != 504 or time.monotonic() > deadline:
+                        raise AssertionError(
+                            f"[readscale] {b} never applied rv {seed_rv} "
+                            f"(HTTP {e.code})"
+                        )
+                    time.sleep(0.05)
+
+        leader = plane.leader()
+        leader_base = leader.base_url
+        rate_1 = storm([leader_base], "1-replica storm")
+        rate_3 = storm(bases, "3-replica storm")
+        scaling = rate_3 / rate_1 if rate_1 else 0.0
+        # the scaling gate needs hardware that can EXPRESS scaling: three
+        # server processes plus the client fleet on fewer than 4 cores
+        # all share the same silicon, so wall-clock throughput is pinned
+        # at ~1x no matter how good the read plane is.  Same philosophy
+        # as the TPU-gap skips: a capability gap is not a regression.
+        cores = os.cpu_count() or 1
+        scaling_gated = cores >= 4
+        if scaling_gated and scaling < gate:
+            raise AssertionError(
+                f"[readscale] SCALING UNDER GATE: {rate_3:.0f}/s across 3 "
+                f"replicas vs {rate_1:.0f}/s on 1 = {scaling:.2f}x < "
+                f"{gate}x — followers are not buying read capacity"
+            )
+        if not scaling_gated:
+            _log(
+                f"[readscale] scaling gate SKIPPED: {cores} CPU core(s) "
+                f"— replicas share the silicon, wall-clock scaling is "
+                f"bounded at ~1x (measured {scaling:.2f}x, recorded "
+                f"informationally; gate re-arms on >=4 cores)"
+            )
+        else:
+            _log(f"[readscale] read scaling 1->3 replicas: {scaling:.2f}x")
+
+        # ---- phase 3: availability across a leader SIGKILL ------------
+        R = int(os.environ.get("BENCH_READSCALE_READERS", "6"))
+        stop_all = threading.Event()
+        rerrs: list = []
+        werrs: list = []
+        done_ts: list = []
+        lats: list = []
+        mu = threading.Lock()
+
+        def reader(i: int) -> None:
+            home = bases[i % len(bases)]
+            rs = RemoteStore(
+                home, endpoints=[b for b in bases if b != home],
+                timeout_s=10.0,
+            )
+            last_rv = 0
+            try:
+                while not stop_all.is_set():
+                    t0 = time.monotonic()
+                    try:
+                        _pods, rv = rs.list_with_rv("Pod")
+                    except Exception as e:
+                        rerrs.append(f"reader {i}: {e!r}")
+                        return
+                    now = time.monotonic()
+                    if rv < last_rv:
+                        rerrs.append(
+                            f"reader {i}: rv regressed {last_rv}->{rv}"
+                        )
+                        return
+                    last_rv = rv
+                    with mu:
+                        done_ts.append(now)
+                        lats.append(now - t0)
+            finally:
+                rs.close()
+
+        def writer() -> None:
+            rs = RemoteStore(bases[1], endpoints=bases, timeout_s=10.0)
+            i = 0
+            acked = 0
+            try:
+                while not stop_all.is_set():
+                    try:
+                        rs.create("Pod", make_pod(f"fo-{i:05d}"))
+                        acked += 1
+                    except Exception:
+                        time.sleep(0.2)  # mid-election: retry fresh
+                    i += 1
+                    time.sleep(0.02)
+            finally:
+                rs.close()
+            if acked == 0:
+                werrs.append("failover writer never acked a write")
+
+        threads = [
+            threading.Thread(target=reader, args=(i,)) for i in range(R)
+        ]
+        wt = threading.Thread(target=writer)
+        _log(
+            f"[readscale] failover window: {R} bounded readers, leader "
+            f"SIGKILL at t+{fail_s / 3:.1f}s of {fail_s:.1f}s"
+        )
+        for t in threads:
+            t.start()
+        wt.start()
+        time.sleep(fail_s / 3)
+        victim = plane.leader()
+        t_kill = time.monotonic()
+        victim.kill()
+        plane.wait_for_leader(
+            timeout_s=10 * ttl_s, exclude=victim.replica_id
+        )
+        time.sleep(max(0.0, fail_s - (time.monotonic() - t_kill)))
+        stop_all.set()
+        for t in threads:
+            t.join(timeout=30)
+        wt.join(timeout=30)
+        if rerrs or werrs:
+            raise AssertionError(
+                f"[readscale] FAILOVER WINDOW FAILED: {(rerrs + werrs)[0]}"
+            )
+        done_ts.sort()
+        gaps = [
+            b - a for a, b in zip(done_ts, done_ts[1:])
+            if b >= t_kill  # only gaps that could span the kill matter
+        ]
+        max_gap_s = max(gaps) if gaps else 0.0
+        if max_gap_s > gap_gate_s:
+            raise AssertionError(
+                f"[readscale] READ GAP {max_gap_s:.2f}s ACROSS THE KILL "
+                f"> {gap_gate_s}s — reads waited out the election "
+                f"instead of riding the followers"
+            )
+        lats.sort()
+        read_p99_s = _pct(lats, 0.99, 4)
+        _log(
+            f"[readscale] {len(done_ts)} reads through the kill, max "
+            f"gap {max_gap_s:.3f}s, p99 {read_p99_s}s"
+        )
+    finally:
+        plane.stop()
+
+    # ---- phase 2: encode-once on EVERY serving replica (in-process,
+    # where the counters of all three stores share one registry) -------
+    tmp2 = tempfile.mkdtemp(prefix="bench-readscale-inproc-")
+    leader = DurableObjectStore(os.path.join(tmp2, "l.wal"), fsync=False)
+    if leader.read_plane() is None:
+        leader.close()
+        raise Skip(
+            "MINISCHED_COW_READS=0: readscale benches the COW read plane"
+        )
+    runtime = ReplRuntime(leader, "r0", peers=[], cluster_size=3)
+    runtime.promote()
+    _srv, lurl, lshutdown = start_api_server(leader, port=0, repl=runtime)
+    followers = []
+    for i in range(2):
+        fid = f"r{i + 1}"
+        fstore = DurableObjectStore(
+            os.path.join(tmp2, f"{fid}.wal"), fsync=False
+        )
+        fstore.fence("r0")
+        tail = WalFollower(fstore, lurl, fid)
+        tail.start()
+        _fs, furl, fshutdown = start_api_server(fstore, port=0)
+        followers.append((fstore, tail, furl, fshutdown))
+    try:
+        for i in range(n_obj):
+            leader.create("Pod", make_pod(f"enc-{i:04d}"))
+        want = leader.resource_version
+        deadline = time.monotonic() + 15.0
+        while any(f[0].resource_version < want for f in followers):
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    "[readscale] in-process followers never converged"
+                )
+            time.sleep(0.02)
+        urls = [lurl] + [f[2] for f in followers]
+        enc0 = counters.get("store.list_cache.encodes")
+        req0 = counters.get("wire.relist_requests")
+        per_url = 60
+
+        def lister(u: str) -> None:
+            for _ in range(per_url):
+                with urllib.request.urlopen(f"{u}/api/v1/pods") as r:
+                    r.read()
+
+        lthreads = [
+            threading.Thread(target=lister, args=(u,))
+            for u in urls for _ in range(3)
+        ]
+        for t in lthreads:
+            t.start()
+        for t in lthreads:
+            t.join(timeout=60)
+        encodes = counters.get("store.list_cache.encodes") - enc0
+        requests = counters.get("wire.relist_requests") - req0
+        if requests < 3 * 3 * per_url:
+            raise AssertionError(
+                f"[readscale] encode-once storm too quiet: {requests} "
+                f"list requests"
+            )
+        if not (3 <= encodes <= 6):
+            raise AssertionError(
+                f"[readscale] ENCODE-ONCE BROKEN ON A REPLICA: {encodes} "
+                f"encodes for {requests} quiet lists across 3 façades "
+                f"(want one per replica, ≤2 with benign races)"
+            )
+        _log(
+            f"[readscale] encode-once everywhere: {encodes} encodes for "
+            f"{requests} lists across 3 serving replicas"
+        )
+    finally:
+        for _fs, _tail, _furl, fshutdown in followers:
+            fshutdown()
+        lshutdown()
+        for fstore, tail, _furl, _sd in followers:
+            tail.stop()
+        for fstore, tail, _furl, _sd in followers:
+            tail.join(timeout=5.0)
+            fstore.close()
+        runtime.close()
+        leader.close()
+
+    return {
+        "clients": W,
+        "objects": n_obj,
+        "window_s": window_s,
+        "rate_1_replica_s": round(rate_1, 1),
+        "rate_3_replicas_s": round(rate_3, 1),
+        "read_scaling_x": round(scaling, 2),
+        "scaling_gate_x": gate,
+        "scaling_gated": scaling_gated,
+        "cpu_cores": cores,
+        "failover_reads": len(done_ts),
+        "failover_read_p99_s": read_p99_s,
+        "failover_max_gap_s": round(max_gap_s, 3),
+        "gap_gate_s": gap_gate_s,
+        "read_failovers": counters.get("remote.read_failover"),
+        "not_yet_observed": counters.get("remote.not_yet_observed"),
+        "leader_discoveries": counters.get("remote.leader_discoveries"),
+        "encode_once_encodes": encodes,
+        "encode_once_requests": requests,
+    }
+
+
+def _log(msg: str) -> None:
+    """A role's progress line, on standard error (``bench.py``'s ``log``):
+    standard output carries one JSON record a role."""
+    print(msg, file=sys.stderr, flush=True)
 
 
 def role_relist() -> Dict[str, Any]:

@@ -26,8 +26,7 @@ argument.
 Left out: ``snapshot_store``, ``save_checkpoint``, ``restore_store`` and
 ``load_checkpoint``, the standalone checkpoint files; the durable
 store's compaction (``durable.DurableObjectStore.compact``) is the
-port's checkpoint.  The ``Lease`` kind waits for the port of ``ha/``: a
-JAX WAL's Lease records are skipped at replay, as a newer schema's are.
+port's checkpoint.
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@ carries.
 A copy of ``_encode``, ``_decode`` and ``KIND_TYPES`` from
 ``minisched_tpu/controlplane/checkpoint.py``: objects become plain JSON
 values field by field, by recursion over the dataclasses' type hints, and
-back.  The port's kinds are Node, Pod, PersistentVolume and
-PersistentVolumeClaim (``Lease`` waits for the port's engine).
+back.  The port's kinds are Node, Pod, PersistentVolume,
+PersistentVolumeClaim and Lease (durable, as in JAX: a recovered plane
+replays leases with their pre-crash ``renew_time``, already expired by
+wall clock).
 
 ``_decode`` keeps only the fields the target dataclass has, as the JAX
 codec does: a document written from the JAX package's objects loses the
@@ -27,6 +29,7 @@ KIND_TYPES = {
     "Pod": objects.Pod,
     "PersistentVolume": objects.PersistentVolume,
     "PersistentVolumeClaim": objects.PersistentVolumeClaim,
+    "Lease": objects.Lease,
 }
 
 

@@ -36,7 +36,8 @@ What it keeps of JAX's, each as JAX has it:
   ``recovered_shard_leases``), which a WAL may hold and replay accepts;
 * the fault fabric's disk points (``wal.append``, ``disk.enospc``,
   ``wal.bitflip``, ``wal.torn_mid``, ``ckpt.corrupt``), read off
-  ``self.faults``, which stays None until the port of ``faults/``.
+  ``self.faults`` (a ``faults.FaultFabric``, None unless armed), as are
+  the replication plane's ``repl.ship`` and ``repl.ack``.
 
 Where the port differs: uids come from the store's own sequence
 (``ObjectStore._uid_seq``), so recovery floors that sequence past every
@@ -44,11 +45,20 @@ recovered uid and the checkpoint's ``uid_floor``, and compaction writes
 the sequence's top as ``uid_floor``.  The port's ``_fanout`` takes a list
 of events.
 
-Left out, for the port of replication (ROADMAP item 7): the follower and
-leader methods ``wal_range_crc32c``, ``promote_leader``, ``fence``,
-``checkpoint_ship_blob``, ``apply_replicated`` and ``replica_reset``, and
-the group-commit barrier's quorum wait.  No port store is fenced:
-``is_fenced()`` is False.
+The replication half (JAX ``:1867-2114``): ``wal_range_crc32c``,
+``promote_leader``, ``fence``, ``checkpoint_ship_blob``,
+``apply_replicated`` (``_apply``'s ``collect`` sink fans a shipped
+group into live watchers) and ``replica_reset``; the checkpoint
+generation counter a leader's compaction publishes (the hub's
+``rebase``); and the group-commit barrier's quorum wait on the attached
+``repl.ReplicationHub`` (``storage.quorum_wait_s``; on timeout the group
+is truncated off the WAL, the hub ``retract``s and every waiter gets a
+typed ``ETIMEDOUT`` under ``StorageDegraded``).  A fenced store (a
+follower, or a leader that lost its arbiter majority) refuses writes
+with ``NotLeader``.
+
+Left out: the shard freeze leases' re-arm and the sharded façade's
+journal wiring (ROADMAP item 7b).
 """
 
 from __future__ import annotations
@@ -85,7 +95,9 @@ from minisched_tpu_torch.controlplane.walio import (
     WalCorrupt,
     WalReader,
     _rec_rv,
+    decode_group,
     encode_frame,
+    group_crc32c,
     resync_scan,
     scan_file,
 )
@@ -231,6 +243,7 @@ class DurableObjectStore(ObjectStore):
         self._defer_flush = False  # batch mutations share one fsync
         self._log = None  # replay must not re-log
         self._ckpt_rv = 0  # WAL records at/below this are pre-snapshot
+        self._ckpt_gen = 0  # checkpoint GENERATION counter (repl shipping)
         self._ckpt_source = "none"  # current | prev | replay | none
         #: binding acks recovered from WAL ``ack`` records (insertion
         #: order == append order; the HTTP façade seeds its registry
@@ -278,11 +291,13 @@ class DurableObjectStore(ObjectStore):
         self._gc_pending: Dict[tuple, tuple] = {}
         self._gc_token = 0
         self._gc_visible_rv = 0  # highest PUBLISHED rv (≤ _rv while staged)
-        # -- replication (DESIGN.md §27; ROADMAP item 7) ------------------
-        # a fenced replica (follower / demoted ex-leader) refuses
-        # mutations typed (NotLeader) so only one history can ever
-        # accept acks; the port has no replication yet, so no store is
-        # ever fenced
+        # -- replication (DESIGN.md §27) -----------------------------------
+        # When a ReplicationHub is attached (controlplane/repl.py, gated
+        # by MINISCHED_REPL), the group-commit barrier ALSO waits for a
+        # follower quorum between its fsync and its publish; a fenced
+        # replica (follower / demoted ex-leader) refuses mutations typed
+        # (NotLeader) so only one history can ever accept acks.
+        self._repl_hub = None
         self._fenced = False
         self._leader_hint = ""
         #: (end, seconds) of the last compaction: the next one waits out
@@ -414,7 +429,8 @@ class DurableObjectStore(ObjectStore):
             return  # replay: the record being applied is already in the log
         self._append_raw(rec)
 
-    def _append_raw(self, rec: dict, probing: bool = False) -> None:
+    def _append_raw(self, rec: dict, probing: bool = False,
+                    ship: bool = True) -> None:
         """Frame and write one record.  The fault fabric's disk points
         live here — AFTER the JSON encode, so the schedule keys on real
         appends:
@@ -428,6 +444,10 @@ class DurableObjectStore(ObjectStore):
         ``wal.torn_mid`` only a prefix of the frame reaches the file and
                          later appends bury it — a torn write replay
                          must locate, not JSONDecodeError past
+
+        ``ship=False`` leaves the replication hub's horizon where it is:
+        a caller appending many records advances it once at the end (the
+        port's own; see ``record_acks``).
         """
         payload = json.dumps(rec).encode()
         frame = encode_frame(payload)
@@ -489,6 +509,16 @@ class DurableObjectStore(ObjectStore):
             self._enter_degraded(e)
             counters.inc("storage.append_error")
             raise StorageDegraded(f"WAL append failed: {e}") from e
+        hub = self._repl_hub
+        if hub is not None and ship:
+            # non-group bytes (rv watermarks, ack records, recovery
+            # probes) advance the shippable horizon too — followers tail
+            # them as raw catch-up chunks; they carry no client-visible
+            # promise, so no quorum is owed on them
+            try:
+                hub.advance(self._log.tell())
+            except OSError:
+                pass
         if self._degraded and probing is False:
             # an organic append succeeded while latched (shouldn't happen
             # — the gate refuses first — but never strand the latch)
@@ -672,6 +702,35 @@ class DurableObjectStore(ObjectStore):
                     except OSError:
                         pass
                 err = e
+        hub = self._repl_hub
+        if err is None and hub is not None and parts:
+            # -- the quorum-ack await (DESIGN.md §27) ----------------------
+            # The group is durable HERE but not yet published: this is
+            # the only point where holding it costs nothing visible.
+            # Ship it (note_group wakes every follower stream), then
+            # park until a follower quorum has it durable too.  A quorum
+            # that never forms fails the WHOLE group typed — the bytes
+            # are truncated back off (an unacked group may not survive,
+            # exactly like a torn tail) and the stream epoch bumps so
+            # followers that buffered it resync.
+            start = pre_end if pre_end is not None else hub.durable_end
+            hub.note_group(start, buf)
+            t0 = time.monotonic()
+            ok = hub.wait_quorum(start + len(buf), timeout=hub.ack_timeout_s)
+            hist.observe("storage.quorum_wait_s", time.monotonic() - t0)
+            if not ok:
+                counters.inc("storage.repl.quorum_timeouts")
+                try:
+                    self._log.truncate(start)
+                except OSError:
+                    pass
+                hub.retract(start)
+                err = OSError(
+                    errno.ETIMEDOUT,
+                    f"replication quorum not reached within "
+                    f"{hub.ack_timeout_s}s "
+                    f"(need {hub.quorum_followers} follower acks)",
+                )
         if err is not None:
             self._gc_fail(group, err)
             return
@@ -1170,7 +1229,8 @@ class DurableObjectStore(ObjectStore):
                 try:
                     for ack_id, entry in entries.items():
                         self._append_raw(
-                            {"op": "ack", "id": str(ack_id), "entry": entry}
+                            {"op": "ack", "id": str(ack_id), "entry": entry},
+                            ship=False,
                         )
                         self._acks[str(ack_id)] = entry
                         while len(self._acks) > ACK_REPLAY_CAP:
@@ -1180,6 +1240,15 @@ class DurableObjectStore(ObjectStore):
                     pass  # latched; the in-memory registry still answers
                 finally:
                     self._defer_flush = False
+                    # the port's own: the batch's records reach the
+                    # followers' streams as one range, not one chunk (and
+                    # one follower apply and ack) a record as in JAX
+                    hub = self._repl_hub
+                    if hub is not None and self._log is not None:
+                        try:
+                            hub.advance(self._log.tell())
+                        except OSError:
+                            pass
 
     def recovered_acks(self) -> Dict[str, dict]:
         """Ack outcomes replayed from the WAL, in append order (the HTTP
@@ -1482,15 +1551,22 @@ class DurableObjectStore(ObjectStore):
             with open(path, "rb+") as f:
                 f.truncate(good_end)
 
-    def _apply(self, rec: dict) -> None:
+    def _apply(self, rec: dict, collect: Optional[list] = None) -> None:
         """Apply one WAL record; also rebuilds the watch-resume history
         ring (replay = the tail of the live event stream).  Records at or
         below the checkpoint's rv are SKIPPED: they are already folded
         into the snapshot, and re-applying a pre-snapshot put would
         resurrect an object a later (also pre-snapshot) delete removed —
         the crash-between-checkpoint-and-truncate window makes such
-        overlap possible.  (No watcher exists yet, so the events go
-        straight into the history ring.)"""
+        overlap possible.
+
+        ``collect`` switches the event sink: recovery replay (None)
+        records straight into the history ring (no watcher exists yet);
+        the replicated-apply path passes a list and gets ``(kind,
+        WatchEvent)`` pairs back, so ``apply_replicated`` runs the full
+        ``_fanout`` (history and live watchers) per kind: a follower's
+        watch streams see replicated mutations as a leader's see local
+        ones."""
         op = rec["op"]
         if op == "rv":
             self._rv = max(self._rv, rec["rv"])
@@ -1534,7 +1610,10 @@ class DurableObjectStore(ObjectStore):
                 EventType.MODIFIED if old is not None else EventType.ADDED,
                 obj, old, rv=rv,
             )
-            self._record_history(kind, event)
+            if collect is not None:
+                collect.append((kind, event))
+            else:
+                self._record_history(kind, event)
         elif op == "del":
             rv = rec.get("rv", 0)
             if rv and rv <= self._ckpt_rv:
@@ -1542,9 +1621,11 @@ class DurableObjectStore(ObjectStore):
             old = self._objects.get(kind, {}).pop(rec["key"], None)
             self._rv = max(self._rv, rv)
             if old is not None:
-                self._record_history(
-                    kind, WatchEvent(EventType.DELETED, old, rv=rv)
-                )
+                event = WatchEvent(EventType.DELETED, old, rv=rv)
+                if collect is not None:
+                    collect.append((kind, event))
+                else:
+                    self._record_history(kind, event)
 
     # -- compaction --------------------------------------------------------
     def compact(self) -> None:
@@ -1571,6 +1652,14 @@ class DurableObjectStore(ObjectStore):
         holding the IO lock keeps the leader out of the log while it is
         closed/truncated/reopened.
 
+        A LEADING replica compacts too (DESIGN.md §28): the checkpoint
+        it just wrote becomes a shipped GENERATION — under the same
+        io+store hold, the hub ``rebase()``s onto the fresh WAL (epoch
+        bump, digest ring + acks cleared, durable_end re-anchored at
+        the post-compaction size), and followers whose cursor predates
+        the rebase reseed from ``GET /repl/checkpoint`` instead of an
+        unbounded offset-0 re-tail.
+
         The port's own addition: a compaction called sooner after the
         last one ended than that one took first sleeps out the rest of
         that time, so compaction holds the locks at most half the time.
@@ -1588,6 +1677,11 @@ class DurableObjectStore(ObjectStore):
                 if self._gc_enabled:
                     self._gc_drain_commit_locked()
                 self._compact_locked()
+                hub = self._repl_hub
+                if hub is not None:
+                    self._ckpt_gen += 1
+                    hub.rebase(self._ckpt_gen, self._ckpt_rv, self.wal_end())
+                    counters.inc("storage.repl.ckpt_published")
         end = time.monotonic()
         self._last_compact = (end, end - t0)
 
@@ -1803,9 +1897,11 @@ class DurableObjectStore(ObjectStore):
                 "ckpt_source": self._ckpt_source,
             }
 
+    # -- replication (DESIGN.md §27) ---------------------------------------
     def wal_end(self) -> int:
-        """Current WAL size in bytes (the replication cursor, when the
-        port has replication)."""
+        """Current WAL size in bytes — the replication cursor: a
+        follower resumes tailing from exactly here, and a leader's hub
+        starts its shippable horizon here."""
         try:
             if self._log is not None:
                 return self._log.tell()
@@ -1813,10 +1909,236 @@ class DurableObjectStore(ObjectStore):
         except OSError:
             return 0
 
+    def wal_range_crc32c(self, start: int, end: int) -> Optional[int]:
+        """CRC32C over a raw byte range of the local WAL — the follower
+        half of digest gossip: re-derived from OUR disk (not a cached
+        value) and compared against the leader's ring, so a disk that
+        lies about already-applied groups is convicted by comparison.
+        None when the range is not fully present."""
+        try:
+            with open(self._path, "rb") as f:
+                f.seek(start)
+                buf = f.read(end - start)
+        except OSError:
+            return None
+        if len(buf) != end - start:
+            return None
+        return group_crc32c(buf)
+
+    def promote_leader(self, hub: Any) -> None:
+        """Attach a ReplicationHub: this store now leads — its barrier
+        owes a follower quorum per group, its WAL is the authoritative
+        byte sequence, and it accepts client writes again."""
+        if not self._gc_enabled:
+            raise RuntimeError(
+                "replication requires group commit "
+                "(MINISCHED_GROUP_COMMIT=0 is incompatible with a "
+                "replicated plane: the quorum barrier lives there)"
+            )
+        with self._io_lock:
+            with self._lock:
+                hub.durable_end = self.wal_end()
+                if self._ckpt_rv > 0 and os.path.exists(self._ckpt_path):
+                    # promoting over a compacted WAL: the on-disk
+                    # checkpoint IS a generation of this leadership —
+                    # our WAL alone is only the tail, so any follower
+                    # without this base must seed from the checkpoint,
+                    # never re-tail from byte 0
+                    if self._ckpt_gen == 0:
+                        self._ckpt_gen = 1
+                    hub.ckpt_gen = self._ckpt_gen
+                    hub.ckpt_rv = self._ckpt_rv
+                self._repl_hub = hub
+                self._fenced = False
+                self._leader_hint = ""
+
+    def fence(self, leader_hint: str = "") -> None:
+        """Stop accepting writes: this replica follows (or was deposed).
+        The hub is closed BEFORE the locks are taken — a barrier parked
+        in wait_quorum holds _io_lock, and closing the hub is what fails
+        its group and frees the lock; taking the lock first would
+        deadlock the fence behind the very wait it needs to cancel."""
+        hub = self._repl_hub
+        if hub is not None:
+            hub.close()
+        with self._io_lock:
+            with self._lock:
+                self._repl_hub = None
+                self._fenced = True
+                self._leader_hint = leader_hint
+
     def is_fenced(self) -> bool:
         return self._fenced
 
+    @property
+    def checkpoint_rv(self) -> int:
+        """The rv watermark of the checkpoint generation this store's
+        WAL tail sits on (0 = full history).  A follower's stream cursor
+        is only meaningful against a leader advertising the same base —
+        repl.WalFollower compares this against /repl/status."""
+        return self._ckpt_rv
+
+    def checkpoint_ship_blob(self) -> Optional[dict]:
+        """The current checkpoint generation as a shippable blob:
+        ``{"body": bytes, "sha256": hex, "rv": snapshot rv}``, or None
+        when there is no generation or the sidecar CONVICTS the bytes —
+        a leader never ships state it cannot prove.  The rv is parsed
+        from the body itself (not ``_ckpt_rv``) so a racing rotation can
+        never pair one generation's rv with another's bytes."""
+        try:
+            with open(self._ckpt_path, "rb") as f:
+                body = f.read()
+        except OSError:
+            return None
+        verdict = checkpoint_digest(self._ckpt_path, body)
+        if verdict["ok"] is False:
+            counters.inc("storage.ckpt_digest_mismatch")
+            return None
+        try:
+            rv = int(json.loads(body).get("resource_version", 0))
+        except (ValueError, json.JSONDecodeError):
+            return None
+        return {"body": body, "sha256": _sha256_hex(body), "rv": rv}
+
+    def apply_replicated(self, data: bytes,
+                         start_offset: Optional[int] = None) -> int:
+        """Follower apply: append one shipped group's raw bytes to the
+        local WAL (fsync when armed) and replay its records through the
+        SAME ``_apply`` path recovery runs — a promoted follower serves
+        state built exactly the way a reopened leader would build it.
+
+        Ordering: the group decodes STRICTLY first (walio.decode_group
+        — a torn or corrupt group never reaches the local disk), then
+        ``start_offset`` must equal our current WAL end (byte-contiguous
+        by contract; a mismatch means the stream and the file diverged
+        and the caller must resync).  Returns the new WAL end — the
+        offset the follower acks."""
+        recs = decode_group(data, self._path)
+        with self._io_lock if self._gc_enabled else _null_ctx():
+            with self._lock:
+                if self._closed or self._log is None:
+                    raise RuntimeError(
+                        f"store {self._path!r} closed; replicated apply "
+                        f"refused"
+                    )
+                end = self._log.tell()
+                if start_offset is not None and start_offset != end:
+                    raise ValueError(
+                        f"replicated group offset {start_offset} != local "
+                        f"WAL end {end} (resync required)"
+                    )
+                try:
+                    n = self._log.write(data)
+                    if n is not None and n != len(data):
+                        raise OSError(
+                            errno.ENOSPC,
+                            f"short WAL write ({n}/{len(data)} bytes)",
+                        )
+                    if self._fsync:
+                        self._fsync_now()
+                except OSError as e:
+                    try:
+                        self._log.truncate(end)
+                    except OSError:
+                        pass
+                    self._enter_degraded(e)
+                    counters.inc("storage.append_error")
+                    raise StorageDegraded(
+                        f"replicated WAL append failed: {e}"
+                    ) from e
+                kinds = set()
+                collected: list = []
+                for rec in recs:
+                    self._apply(rec, collect=collected)
+                    if rec.get("op") in ("put", "del"):
+                        kinds.add(rec.get("kind"))
+                self._gc_visible_rv = max(self._gc_visible_rv, self._rv)
+                # fan the group's events into LIVE watcher queues (and
+                # the history ring) exactly as the leader's publish path
+                # does — follower-attached watch streams observe
+                # replicated mutations, not just future resumes.  One
+                # _fanout per kind preserves intra-kind order and
+                # batches the per-watcher delivery.
+                by_kind: Dict[str, list] = {}
+                for k, ev in collected:
+                    by_kind.setdefault(k, []).append(ev)
+                for k, events in by_kind.items():
+                    self._fanout(k, events)
+                self._cow_publish({k for k in kinds if k})
+                # uids in replicated puts were ISSUED by the leader: floor
+                # our sequence so a promoted follower never re-issues one
+                # (the rule replay applies)
+                self._uid_seq = max(self._uid_seq, self._recovered_uid_max)
+                new_end = self._log.tell()
+        counters.inc("storage.repl.applied_groups")
+        counters.inc("storage.repl.applied_records", len(recs))
+        return new_end
+
+    def replica_reset(self, seed: Optional[dict] = None) -> None:
+        """Wipe this replica (WAL truncated to zero, in-memory state
+        cleared) so a follower can re-tail the leader's stream from
+        byte 0 — the resync path after an epoch bump, offset
+        discontinuity, or digest divergence.  Drastic by design: the
+        authoritative log is the leader's, and reasoning about partial
+        divergence is how replicas rot.
+
+        With ``seed`` (a digest-verified checkpoint blob fetched from
+        the leader — DESIGN.md §28) the wiped replica re-bases on the
+        leader's checkpoint GENERATION instead of empty: the pair lands
+        on our own disk first through the same atomic sequence
+        compaction uses (so our next restart recovers from it), the
+        snapshot restores into the object maps, and the rv-skip
+        watermark moves to the snapshot rv.  The caller then tails the
+        leader's post-compaction WAL from byte 0 — bootstrap is
+        O(state), not O(history).  The uid sequence is never lowered
+        (JAX's process-wide counter is not either)."""
+        doc = None
+        if seed is not None:
+            doc = json.loads(seed["body"])
+            if doc.get("version") != CHECKPOINT_VERSION:
+                raise ValueError(
+                    f"unsupported shipped checkpoint version "
+                    f"{doc.get('version')!r}"
+                )
+        with self._io_lock if self._gc_enabled else _null_ctx():
+            with self._lock:
+                if self._log is not None:
+                    self._log.truncate(0)
+                    self._log.seek(0)
+                kinds = tuple(self._objects)
+                self._objects.clear()
+                self._rv = 0
+                self._gc_visible_rv = 0
+                self._ckpt_rv = 0
+                self._acks.clear()
+                self._history.clear()
+                self._history_bytes_used.clear()
+                self._history_floors.clear()
+                self._history_floor_min = 0
+                self._pod_node_agg.clear()
+                self._recovered_uid_max = 0
+                if doc is not None:
+                    self._land_checkpoint_pair(seed["body"])
+                    rv = self._restore_snapshot_doc(doc)
+                    self._ckpt_rv = rv
+                    self._ckpt_source = "shipped"
+                    self._gc_visible_rv = self._rv
+                    # events at/below the seeded snapshot are not
+                    # reconstructable here: watches resuming from before
+                    # it must 410 and relist (same rule as recovery)
+                    self.set_history_floor(rv)
+                    self._uid_seq = max(self._uid_seq,
+                                        self._recovered_uid_max)
+                    self._rebuild_node_agg()
+                    kinds = tuple(set(kinds) | set(self._objects))
+                self._cow_publish(kinds)
+
     def close(self) -> None:
+        hub = self._repl_hub
+        if hub is not None:
+            # wake any barrier parked in wait_quorum so the drain below
+            # can take _io_lock without waiting out the ack timeout
+            hub.close()
         if getattr(self, "_gc_enabled", False):
             # commit whatever is staged first so no waiter hangs on a
             # barrier that will never run (waiters are acked or failed

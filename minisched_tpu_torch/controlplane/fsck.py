@@ -1,8 +1,7 @@
 """Offline storage-integrity verifier: ``python -m minisched_tpu_torch fsck``.
 
 A whole copy of ``minisched_tpu/controlplane/fsck.py`` over the port's
-durable store, with ``wal_double_binds`` (JAX
-``faults/__init__.py:192``) copied in until the port of ``faults/``.
+durable store; ``wal_double_binds`` comes from ``faults`` as in JAX.
 Its reports equal JAX's on the same files.
 
 The scrub thread (DurableObjectStore.scrub) checks a LIVE store; this
@@ -42,42 +41,10 @@ from minisched_tpu_torch.controlplane.walio import (
     iter_wal_records_lenient,
     scan_file,
 )
+from minisched_tpu_torch.faults import wal_double_binds
 
-
-def wal_double_binds(wal_path: str):
-    """Audit a DurableObjectStore WAL's FULL history for double binds:
-    returns [(uid, first_node, other_node), ...] for every pod that ever
-    appeared bound to two different nodes.  The archived segments
-    (``<path>.history``, then a ``.pending-archive`` a crash left) are
-    read first, in append order, so compaction never shrinks the
-    evidence.  Records ride the frame reader in LENIENT mode: torn tails
-    drop silently and a corrupt region is skipped by magic resync — an
-    audit wants every record it can still prove intact, while REPLAY of
-    the same bytes hard-fails (fsck reports the divergence)."""
-    bound_to: dict = {}
-    violations = []
-    paths = [
-        p
-        for p in (
-            wal_path + ".history",
-            wal_path + ".pending-archive",  # claimed by a compaction a
-            wal_path,                       # crash interrupted mid-copy
-        )
-        if os.path.exists(p)
-    ]
-    for path in paths:
-        for rec in iter_wal_records_lenient(path):
-            if rec.get("op") != "put" or rec.get("kind") != "Pod":
-                continue
-            obj = rec["obj"]
-            node = (obj.get("spec") or {}).get("node_name")
-            uid = (obj.get("metadata") or {}).get("uid")
-            if not node:
-                continue
-            prev = bound_to.setdefault(uid, node)
-            if prev != node:
-                violations.append((uid, prev, node))
-    return violations
+__all__ = ["fsck", "repair", "wal_digests", "wal_compare", "compare_digests",
+           "state_digest", "replica_consistent", "wal_double_binds", "main"]
 
 
 def _check_record_stream(path: str, errors: List[str], warnings: List[str]) -> Dict[str, Any]:
@@ -426,6 +393,7 @@ def wal_digests(path: str) -> Dict[str, Any]:
         WalCorrupt,
         WalReader,
         _crc32c,
+        _crc32c_many,
         _rec_rv,
     )
 
@@ -448,11 +416,16 @@ def wal_digests(path: str) -> Dict[str, Any]:
                 "end": end,
                 "rv": _rec_rv(rec),
                 "op": rec.get("op"),
-                "crc32c": _crc32c(data[prev_end:end]),
             })
             prev_end = end
     except WalCorrupt as e:
         out["corrupt"] = {"offset": e.offset, "reason": e.reason}
+    # every frame's digest in one batch (without the native CRC32C the
+    # port walks them side by side: walio._crc32c_many)
+    crcs = _crc32c_many(data, [(fr["offset"], fr["end"])
+                               for fr in out["frames"]])
+    for fr, crc in zip(out["frames"], crcs):
+        fr["crc32c"] = crc
     out["torn_tail"] = bool(reader.torn_tail)
     out["good_end"] = reader.good_end
     return out
@@ -466,7 +439,13 @@ def wal_compare(path_a: str, path_b: str) -> Dict[str, Any]:
     many frames agree, and — when it does not hold — the exact frame
     and byte offset where the histories forked (epoch-bump debris, a
     lying disk, or a fenced ex-leader's unacked tail)."""
-    a, b = wal_digests(path_a), wal_digests(path_b)
+    return compare_digests(wal_digests(path_a), wal_digests(path_b))
+
+
+def compare_digests(a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:
+    """``wal_compare`` on two ``wal_digests`` reports already taken (the
+    port's split of JAX's function: a caller comparing N WALs pairwise
+    digests each once)."""
     report: Dict[str, Any] = {"a": a, "b": b}
     fa, fb = a.get("frames", []), b.get("frames", [])
     common = 0

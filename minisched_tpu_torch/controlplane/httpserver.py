@@ -45,12 +45,21 @@ out-buffer bound past which a laggard is evicted onto the resume path;
 ``HTTPClient`` rides the process's shared keep-alive pool
 (``httppool.py``).
 
+Replication (JAX ``:225-227``, ``:388-400``, ``:735-751``): with
+``start_api_server(repl=ReplRuntime)`` the ``/repl/*`` routes (status,
+stream, digests, checkpoint, ack) are the runtime's, and without one
+they answer 404, which a multi-endpoint ``RemoteStore`` reads as "not
+replicated".  A fenced store's ``NotLeader`` answers 503 ``not leader``
+on every write route.  ``GET``/``POST /net/partition`` read and drive
+this process's ``faults.net.GLOBAL_NET``.  Leases ride
+``/api/v1/namespaces/{ns}/leases``.  A ``min_rv``-bounded read counts
+``wire.read.bounded_requests``, and one past the applied rv (or a watch
+resume a follower has not applied) ``wire.read.not_yet_observed``.
+
 Left out, each answering 404 as the JAX façade does when it is not
-enabled: shards (``/shards/*``) and replication (``/repl/*``), which
-wait for ROADMAP item 7, and the partition nemesis
-(``/net/partition``) and the ``http.500``/``http.reset`` fault points,
-which wait for item 8; leases (``/api/v1/leases``) wait for the port of
-``ha/``.
+enabled: shards (``shard=``, ``/shards/*``, ROADMAP item 7b); and the
+``http.500``/``http.reset`` fault points (``faults=``), which wait for
+item 8.
 """
 
 from __future__ import annotations
@@ -76,10 +85,12 @@ from minisched_tpu_torch.controlplane.codec import KIND_TYPES, _decode, _encode
 from minisched_tpu_torch.controlplane.store import (
     Conflict,
     HistoryCompacted,
+    NotLeader,
     NotYetObserved,
     ObjectStore,
     StorageDegraded,
 )
+from minisched_tpu_torch.faults.net import GLOBAL_NET
 from minisched_tpu_torch.observability import counters, hist, trace
 
 #: the kinds the REST façade serves: the codec's plus the Event kind the
@@ -89,7 +100,7 @@ REST_KINDS = {**KIND_TYPES, "Event": objects.Event}
 _COLLECTIONS = {"nodes": "Node", "pods": "Pod",
                 "persistentvolumes": "PersistentVolume",
                 "persistentvolumeclaims": "PersistentVolumeClaim",
-                "events": "Event"}
+                "leases": "Lease", "events": "Event"}
 
 #: kinds stored under namespace "" whatever the URL or body (kube
 #: semantics)
@@ -217,6 +228,9 @@ class _Handler(BaseHTTPRequestHandler):
     #: the ``streamloop.StreamLoop`` that adopts watch streams; None keeps
     #: a handler thread for each (``MINISCHED_STREAMLOOP=0``)
     stream_loop = None
+    #: repl.ReplRuntime when this server fronts a replicated store
+    #: (DESIGN.md §27); None = the /repl/* routes answer 404
+    repl = None
     protocol_version = "HTTP/1.1"
     #: TCP_NODELAY on every connection: a chunked list body ends in small
     #: writes, which Nagle holds for the client's delayed ACK (about 40 ms
@@ -268,8 +282,9 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             self._handle_get(path, query)
         finally:
-            # a watch stream is not a request: its latency is not one
-            if "watch=true" not in query:
+            # a watch stream (or the replication tail, the same shape) is
+            # not a request: its latency is not one
+            if "watch=true" not in query and path != "/repl/stream":
                 self._observe_request("GET", path, t0)
 
     def _handle_get(self, path: str, query: str) -> None:
@@ -293,6 +308,17 @@ class _Handler(BaseHTTPRequestHandler):
             self.end_headers()
             self.wfile.write(body)
             return
+        if path == "/net/partition":
+            # the partition nemesis's control surface (faults/net.py):
+            # a test inspects a replica child's link table
+            self._send(200, GLOBAL_NET.describe())
+            return
+        if path.startswith("/repl/"):
+            if self.repl is None:
+                self._error(404, "replication not enabled on this server")
+            else:
+                self.repl.handle_get(self, path, query)
+            return
         try:
             kind, ns, name, _ = _route(path)
         except KeyError:
@@ -312,12 +338,17 @@ class _Handler(BaseHTTPRequestHandler):
         # the rv of the state served, taken before the read: only-forward
         # rv movement keeps "at least this fresh" true
         applied = self.store.applied_rv()
-        if min_rv is not None and min_rv > applied:
-            # a read bounded ahead of the store: refused, retryably
-            self._send(504, {"error": (
-                f"resource_version {min_rv} not yet observed by this "
-                f"replica (applied {applied})")}, rv=applied)
-            return
+        if min_rv is not None:
+            counters.inc("wire.read.bounded_requests")
+            if min_rv > applied:
+                # a read bounded ahead of this replica's applied state:
+                # refused retryably, never served stale — the client
+                # waits out the lag or fails over to a fresher replica
+                counters.inc("wire.read.not_yet_observed")
+                self._send(504, {"error": (
+                    f"resource_version {min_rv} not yet observed by this "
+                    f"replica (applied {applied})")}, rv=applied)
+                return
         try:
             if name:
                 self._send(200, _encode(self.store.get(kind, ns, name)),
@@ -394,6 +425,7 @@ class _Handler(BaseHTTPRequestHandler):
         except NotYetObserved as e:
             # retryable, unlike the 410: this store has not applied the
             # resume cursor yet
+            counters.inc("wire.read.not_yet_observed")
             self._error(504, str(e))
             return
         except HistoryCompacted as e:
@@ -497,6 +529,20 @@ class _Handler(BaseHTTPRequestHandler):
         if path == "/api/v1/bindings":
             self._bind_many()
             return
+        if path == "/net/partition":
+            # cut/heal this process's outbound links (faults/net.py): how
+            # a test partitions replica children it cannot reach into
+            try:
+                self._send(200, GLOBAL_NET.control(self._body()))
+            except (KeyError, ValueError) as e:
+                self._error(400, f"bad partition control: {e}")
+            return
+        if path.startswith("/repl/"):
+            if self.repl is None:
+                self._error(404, "replication not enabled on this server")
+            else:
+                self.repl.handle_post(self, path)
+            return
         try:
             kind, ns, name, sub = _route(path)
         except KeyError:
@@ -524,6 +570,10 @@ class _Handler(BaseHTTPRequestHandler):
         _fixup_namespace(kind, ns, obj)
         try:
             self._send(201, _encode(self.store.create(kind, obj)))
+        except NotLeader as e:
+            # 503 with the "not leader" marker: this replica is fenced;
+            # the client re-discovers the leader, it does not retry here
+            self._error(503, str(e))
         except StorageDegraded as e:
             self._error(507, str(e))
         except KeyError as e:
@@ -548,6 +598,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(409, self._already_bound_entry(e, namespace, name))
         except (Conflict, OutOfCapacity) as e:
             self._error(409, str(e))
+        except NotLeader as e:
+            self._error(503, str(e))
         except StorageDegraded as e:
             self._error(507, str(e))
         except KeyError as e:
@@ -586,6 +638,9 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             results = self.store.create_many(
                 kind, [o for _, o in decoded], return_objects=return_objects)
+        except NotLeader as e:
+            self._error(503, str(e))
+            return
         except StorageDegraded as e:
             self._error(507, str(e))
             return
@@ -645,6 +700,9 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             results = Client(self.store).pods().bind_many(
                 [bindings[i] for i in todo], return_objects=return_objects)
+        except NotLeader as e:
+            self._error(503, str(e))
+            return
         except StorageDegraded as e:
             # the whole transaction was refused before commit: retryable
             self._error(507, str(e))
@@ -748,6 +806,8 @@ class _Handler(BaseHTTPRequestHandler):
                 kind, obj, expected_rv=expected_rv)))
         except Conflict as e:
             self._error(409, str(e))
+        except NotLeader as e:
+            self._error(503, str(e))
         except StorageDegraded as e:
             self._error(507, str(e))
         except KeyError as e:
@@ -765,6 +825,8 @@ class _Handler(BaseHTTPRequestHandler):
             kind, ns, name, _ = _route(self.path)
             self.store.delete(kind, ns, name)
             self._send(200, {})
+        except NotLeader as e:
+            self._error(503, str(e))
         except StorageDegraded as e:
             self._error(507, str(e))
         except KeyError as e:
@@ -773,7 +835,8 @@ class _Handler(BaseHTTPRequestHandler):
 
 def start_api_server(store: Optional[ObjectStore] = None, port: int = 0,
                      stream_buffer_bytes: Optional[int] = None,
-                     stream_sndbuf_bytes: Optional[int] = None
+                     stream_sndbuf_bytes: Optional[int] = None,
+                     repl: Any = None
                      ) -> Tuple[ThreadingHTTPServer, str, Callable[[], None]]:
     """Boot the REST façade on ``port`` (0: ephemeral) and poll
     ``/healthz`` until it answers (k8sapiserver.go:231-249's readiness
@@ -784,7 +847,8 @@ def start_api_server(store: Optional[ObjectStore] = None, port: int = 0,
     sockets and one thread); ``MINISCHED_STREAMLOOP=0`` keeps a handler
     thread for each.  ``stream_buffer_bytes`` and ``stream_sndbuf_bytes``
     override the loop's out-buffer eviction bound and the adopted
-    sockets' send buffer."""
+    sockets' send buffer.  ``repl``: the replica's ``repl.ReplRuntime``,
+    which serves ``/repl/*``."""
     store = store or ObjectStore()
     stream_loop = None
     if os.environ.get("MINISCHED_STREAMLOOP", "1") != "0":
@@ -806,7 +870,7 @@ def start_api_server(store: Optional[ObjectStore] = None, port: int = 0,
         "store": store, "active_watches": set(),
         "watch_lock": threading.Lock(), "ack_registry": acks,
         "ack_order": deque(acks), "ack_lock": threading.Lock(),
-        "stream_loop": stream_loop})
+        "stream_loop": stream_loop, "repl": repl})
     server = _Server(("127.0.0.1", port), handler)
     thread = threading.Thread(target=server.serve_forever, daemon=True,
                               name="api-server")
@@ -883,6 +947,10 @@ class HTTPClient:
             raise self._mark(StorageDegraded(body), replayed)
         if status == 504 and "not yet observed" in body:
             raise self._mark(NotYetObserved(body), replayed)
+        if status == 503 and "not leader" in body:
+            # == the in-process fence refusal: typed, so a leader-aware
+            # caller re-discovers the leader instead of retrying here
+            raise self._mark(NotLeader(body), replayed)
         raise RuntimeError(f"HTTP {status}: {body}")
 
     @staticmethod

@@ -26,9 +26,10 @@ objects suppressed, changed ones MODIFIED, vanished ones DELETED).
 ledger), and ``staleness_s`` reports how long the cache has gone without
 a live stream.
 
-Left out: a lagging replica's ``NotYetObserved`` only backs off here;
-the endpoint rotation it waits for comes with replication (ROADMAP item
-7).
+A lagging replica's ``NotYetObserved`` backs off with the cache kept;
+an endpoint-aware ``RemoteStore`` (``remote.py``) rotates the resume to
+another replica, and the informer feeds it the rvs it delivered
+(``observe_rv``), so reads stay at least as fresh as the cache.
 """
 
 from __future__ import annotations

@@ -21,11 +21,24 @@ that had landed (AlreadyBound to the node asked for) counts as done.
 Every request rides the shared keep-alive pool (``httppool.py``); watch
 streams get their own connections from it.
 
-Left out: the multi-endpoint read policy, leader discovery and the
-shard-freeze budget (``endpoints=``, ``frozen_deadline_s=``), which wait
-for replication (ROADMAP item 7): more than one endpoint raises.  The
-``remote.request`` fault point waits for ``faults/`` (item 8):
-``faults=`` must stay None.
+The multi-endpoint half (JAX ``:313-467``, DESIGN.md §29):
+``RemoteStore(base, endpoints=[...])`` over the replica façades of one
+replicated plane.  Reads ride the current read endpoint with a
+``min_rv`` bound at the session rv (the highest rv the session has seen:
+``observe_rv``, ``_advance_from`` on every answer), so reads never go
+backwards across a switch and read your writes; a dead or lagging
+endpoint rotates (``_rotate_read``).  Writes ride the leader found by
+``_discover_leader`` (each endpoint's ``/repl/status``; a 404 means the
+plane is not replicated and that server leads); a dead leader or a
+``503 not leader`` drops it (``_invalidate_leader``) and the next
+attempt discovers again.  A watch whose open fails rotates to the next
+endpoint, and a resume there replays exactly the events after its rv.
+With one endpoint every path is the single-server one.
+
+Left out: the shard-freeze budget (``frozen_deadline_s``,
+``ShardFrozen``, ``WrongShard``), which waits for sharding (ROADMAP item
+7b), and the ``remote.request`` fault point, which waits for the rest of
+``faults/`` (item 8): ``faults=`` must stay None.
 """
 
 from __future__ import annotations
@@ -269,12 +282,6 @@ class RemoteStore:
         endpoints: Optional[List[str]] = None,
     ):
         self._base = base_url.rstrip("/")
-        others = {e.rstrip("/") for e in endpoints or []} - {self._base}
-        if others:
-            raise ValueError(
-                "RemoteStore: more than one endpoint needs the "
-                "multi-endpoint read policy and leader discovery, which "
-                "wait for replication (ROADMAP item 7)")
         if faults is not None:
             raise ValueError(
                 "RemoteStore: the remote.request fault point waits for "
@@ -294,6 +301,28 @@ class RemoteStore:
         #: only this reference
         self._pool = shared_pool(self._base, max_idle=pool_max_idle,
                                  timeout_s=timeout_s)
+        # -- the multi-endpoint read policy (DESIGN.md §29) --------------
+        # ``endpoints`` lists every replica façade of one replicated
+        # plane; with two or more, reads round-robin-failover across them
+        # bounded by the session rv, and writes route to the discovered
+        # leader.  With one endpoint every path is the single-server one.
+        bases = [self._base]
+        for e in endpoints or []:
+            e = e.rstrip("/")
+            if e not in bases:
+                bases.append(e)
+        self._endpoints = bases
+        self._multi = len(bases) > 1
+        self._pools = {self._base: self._pool}
+        for b in bases[1:]:
+            self._pools[b] = shared_pool(b, max_idle=pool_max_idle,
+                                         timeout_s=timeout_s)
+        self._ep_mu = threading.Lock()
+        #: the highest rv this session has observed (list rvs, object rvs
+        #: on writes): the floor every endpoint-routed read is bounded by
+        self._session_rv = 0
+        self._read_base = self._base
+        self._leader_base: Optional[str] = None if self._multi else self._base
         #: per kind: seconds this store's watch streams spent in
         #: ``json.loads`` and ``_decode`` on their reader threads, and the
         #: events they decoded
@@ -305,6 +334,125 @@ class RemoteStore:
         with self._decode_mu:
             self.decode_s[kind] = self.decode_s.get(kind, 0.0) + seconds
             self.decoded[kind] = self.decoded.get(kind, 0) + events
+
+    # -- endpoint routing ---------------------------------------------------
+    @property
+    def session_rv(self) -> int:
+        with self._ep_mu:
+            return self._session_rv
+
+    def observe_rv(self, rv: int) -> None:
+        """Advance the session rv floor (never backwards): from response
+        bodies, and from consumers that learn an rv out of band (an
+        informer's delivered watch events)."""
+        if rv <= 0:
+            return
+        with self._ep_mu:
+            if rv > self._session_rv:
+                self._session_rv = rv
+
+    def _advance_from(self, out: Any) -> None:
+        """Harvest the rv watermarks of a decoded answer: a list's
+        ``resource_version``, an object's ``metadata.resource_version``,
+        a batch's per item.  An acked write advances the floor, so the
+        next read, wherever routed, observes it."""
+        if not isinstance(out, dict):
+            return
+        rv = out.get("resource_version")
+        if rv is None:
+            md = out.get("metadata")
+            if isinstance(md, dict):
+                rv = md.get("resource_version")
+        best = int(rv or 0)
+        items = out.get("items")
+        if isinstance(items, list):
+            for item in items:
+                if not isinstance(item, dict):
+                    continue
+                obj = item if "metadata" in item else item.get("object")
+                if isinstance(obj, dict):
+                    md = obj.get("metadata")
+                    if isinstance(md, dict):
+                        best = max(best, int(md.get("resource_version") or 0))
+        self.observe_rv(best)
+
+    def _rotate_read(self, failed: str) -> None:
+        """Move the read cursor off a failed or lagging endpoint (no-op
+        when another thread already moved it)."""
+        with self._ep_mu:
+            if self._read_base == failed and self._multi:
+                i = self._endpoints.index(failed)
+                self._read_base = self._endpoints[(i + 1)
+                                                  % len(self._endpoints)]
+                counters.inc("remote.read_failover")
+
+    def _invalidate_leader(self, failed: str) -> None:
+        with self._ep_mu:
+            if self._leader_base == failed and self._multi:
+                self._leader_base = None
+
+    def _discover_leader(self) -> Optional[str]:
+        """Probe every endpoint's ``/repl/status``; the base URL of the
+        replica that leads.  A 404 means the plane is not replicated:
+        that sole server leads.  When no replica claims the role
+        (mid-election), a fenced replica's ``leader_hint`` is followed
+        if it names a probed peer; else None, and the caller's backoff
+        loop discovers again."""
+        statuses: Dict[str, dict] = {}
+        for base in self._endpoints:
+            try:
+                st, raw, _ = self._pools[base].request("GET", "/repl/status")
+            except _TRANSIENT_ERRORS:
+                continue
+            if st == 404:
+                counters.inc("remote.leader_discoveries")
+                return base
+            if st != 200:
+                continue
+            try:
+                doc = json.loads(raw)
+            except ValueError:
+                continue
+            statuses[base] = doc
+            if doc.get("role") == "leader" and not doc.get("fenced"):
+                counters.inc("remote.leader_discoveries")
+                return base
+        by_id = {d.get("replica"): b for b, d in statuses.items()}
+        for doc in statuses.values():
+            hint = doc.get("leader_hint") or doc.get("leader") or ""
+            if hint in by_id:
+                counters.inc("remote.leader_discoveries")
+                return by_id[hint]
+        return None
+
+    def _route(self, is_read: bool,
+               path: str) -> Tuple[HTTPConnectionPool, str, str]:
+        """(pool, base, wire path) for one attempt.  Reads ride the
+        current read endpoint with the session rv's ``min_rv`` bound;
+        writes ride the discovered leader.  Raises OSError (transient:
+        the retry loop backs off) while no leader is discoverable."""
+        if not self._multi:
+            return self._pool, self._base, path
+        if path.startswith("/repl/") or path.startswith("/net/"):
+            return self._pool, self._base, path
+        if is_read:
+            with self._ep_mu:
+                base = self._read_base
+                rv = self._session_rv
+            wire = path
+            if rv > 0:
+                wire += ("&" if "?" in wire else "?") + f"min_rv={rv}"
+            return self._pools[base], base, wire
+        with self._ep_mu:
+            base = self._leader_base
+        if base is None:
+            base = self._discover_leader()
+            if base is None:
+                raise OSError("no leader discoverable among "
+                              f"{len(self._endpoints)} endpoints")
+            with self._ep_mu:
+                self._leader_base = base
+        return self._pools[base], base, path
 
     # -- plumbing -----------------------------------------------------------
     def _path(self, kind: str, namespace: str = "", name: str = "") -> str:
@@ -329,20 +477,34 @@ class RemoteStore:
                                 self._backoff_factor, self._retries + 1,
                                 self._backoff_jitter, self._rng)
         last_err: Optional[BaseException] = None
+        is_read = method == "GET"
         for attempt in range(self._retries + 1):
             status = None
+            base: Optional[str] = None
             try:
+                # routed per attempt: a rotation or a leader discovered
+                # between attempts re-routes the retry
+                pool, base, wire_path = self._route(is_read, path)
                 # a stale pooled socket is reopened inside the pool
                 # without spending one of these attempts, but it is a
                 # retransmission: it counts toward the attempts the bind
                 # dedup reasons about
-                status, raw, replayed = self._pool.request(method, path,
-                                                           body=data)
+                status, raw, replayed = pool.request(method, wire_path,
+                                                     body=data)
             except _TRANSIENT_ERRORS as e:
                 last_err = e
+                if self._multi and base is not None:
+                    # a dead endpoint fails over instead of spending the
+                    # whole backoff budget on one corpse
+                    if is_read:
+                        self._rotate_read(base)
+                    else:
+                        self._invalidate_leader(base)
             if status is not None:
                 if status < 400:
-                    return json.loads(raw), attempt + (1 if replayed else 0)
+                    out = json.loads(raw)
+                    self._advance_from(out)
+                    return out, attempt + (1 if replayed else 0)
                 body = raw.decode(errors="replace")
                 if status == 409 and "already bound" in body:
                     raise AlreadyBound(body)
@@ -354,11 +516,21 @@ class RemoteStore:
                 if status in (404, 409):
                     raise KeyError(body)
                 if status == 503 and "not leader" in body:
-                    # a fenced replica: retrying here never succeeds
+                    # a fenced replica: retrying HERE never succeeds.  One
+                    # endpoint: the typed error at once; several: drop the
+                    # cached leader and let the next attempt re-route
                     counters.inc("storage.repl.not_leader_errors")
-                    raise NotLeader(body)
-                if status == 504 and "not yet observed" in body:
+                    if not self._multi:
+                        raise NotLeader(body)
+                    self._invalidate_leader(base or "")
+                    last_err = NotLeader(body)
+                elif status == 504 and "not yet observed" in body:
+                    # a read bounded past this replica's applied rv:
+                    # retryable; rotate to a (fresher) replica and back
+                    # off — the write the bound comes from is acked
                     counters.inc("remote.not_yet_observed")
+                    if self._multi and base is not None:
+                        self._rotate_read(base)
                     last_err = NotYetObserved(body)
                 elif status == 507:
                     # the server's WAL is degraded; it probes its own
@@ -381,6 +553,10 @@ class RemoteStore:
             raise NotYetObserved(
                 f"remote {method} {path} still unobserved after "
                 f"{self._retries + 1} attempts: {last_err}")
+        if isinstance(last_err, NotLeader):
+            raise NotLeader(
+                f"remote {method} {path} found no writable leader after "
+                f"{self._retries + 1} attempts: {last_err}")
         raise RuntimeError(
             f"remote {method} {path} failed after {self._retries + 1} "
             f"attempts: {last_err}")
@@ -399,14 +575,37 @@ class RemoteStore:
         ``resume_rv`` resumes from that resource_version instead
         (``?resource_version=N``): SYNC count 0, the retained events after
         N stream in as live events.  Raises HistoryCompacted (the 410)
-        when the history no longer reaches back to N."""
+        when the history no longer reaches back to N.
+
+        With several endpoints the stream opens on the current read
+        endpoint and fails over across replicas on a connect failure or
+        a lagging follower's NotYetObserved; with the server's exact
+        rv > resume_rv replay, a consumer that resumes at its last
+        delivered rv gets every event exactly once whichever replica
+        serves it."""
         path = f"{self._path(kind)}?watch=true"
         if resume_rv is not None:
             path += f"&resource_version={int(resume_rv)}"
-        w = RemoteWatch(self._pool, path, kind,
-                        read_timeout_s=self._watch_read_timeout_s,
-                        on_decoded=self._count_decode)
-        return w, [None] * w.initial_count()
+        if not self._multi:
+            w = RemoteWatch(self._pool, path, kind,
+                            read_timeout_s=self._watch_read_timeout_s,
+                            on_decoded=self._count_decode)
+            return w, [None] * w.initial_count()
+        last: Optional[BaseException] = None
+        for _ in range(len(self._endpoints)):
+            with self._ep_mu:
+                base = self._read_base
+            try:
+                w = RemoteWatch(self._pools[base], path, kind,
+                                read_timeout_s=self._watch_read_timeout_s,
+                                on_decoded=self._count_decode)
+                return w, [None] * w.initial_count()
+            except (NotYetObserved,) + _TRANSIENT_ERRORS as e:
+                last = e
+                counters.inc("remote.watch_failover")
+                self._rotate_read(base)
+        raise last if last is not None else RuntimeError(
+            f"watch {kind} open failed on every endpoint")
 
     def list(self, kind: str) -> List[Any]:
         typ = _kind_types()[kind]
@@ -496,8 +695,9 @@ class RemoteStore:
         self._req("DELETE", self._path(kind, namespace, name))
 
     def close(self) -> None:
-        """Drop the pool's idle sockets (watch streams own theirs)."""
-        self._pool.close()
+        """Drop the pools' idle sockets (watch streams own theirs)."""
+        for pool in self._pools.values():
+            pool.close()
 
     def bind_many_remote(self, bindings: List[Binding],
                          return_objects: bool = True,

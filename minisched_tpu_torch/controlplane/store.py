@@ -37,7 +37,8 @@ could roll back; ``_visible_rv`` stamps snapshots with the published rv.
 (``set_history_floor``: a reopened store refuses resumes from before its
 checkpoint) and ``_rebuild_node_agg`` are recovery's surface.
 ``fault_injector`` (called as (op, kind, key) before each mutation and
-read) and ``faults`` are None; the port of ``faults/`` fills them.
+read) and ``faults`` (a ``faults.FaultFabric``) are None until a caller
+arms them.
 
 The copy-on-write read plane (JAX ``store.py:428-610``): every publish
 point swaps in one immutable ``_ReadSnapshot`` (maps and the rv they
@@ -53,8 +54,12 @@ Per-watcher queues are bounded (``DEFAULT_WATCH_QUEUE_EVENTS``, JAX
 snapshot or resume replay it was registered with is exempt.  Its
 consumer reconnects through resume or 410 and relist.
 
-Left out: the replicated and sharded stores (ROADMAP item 7), and the
-``watch.drop`` fault point (item 8).
+``is_fenced()`` is False here; the durable store's replication half
+(``durable.py``) fences a follower, which answers a watch resumed ahead
+of it with ``NotYetObserved``.
+
+Left out: the sharded store (ROADMAP item 7b), and the ``watch.drop``
+fault point (item 8).
 """
 
 from __future__ import annotations
@@ -81,8 +86,8 @@ class Conflict(Exception):
 
 class NotLeader(Exception):
     """A mutation reached a fenced replica, one that follows a leader's
-    replicated WAL and must not accept writes of its own.  The port has
-    no replication yet, so no port store is ever fenced or raises it."""
+    replicated WAL and must not accept writes of its own (a durable
+    store's ``fence``); the REST façade answers it 503 ``not leader``."""
 
 
 class HistoryCompacted(Exception):
@@ -410,7 +415,7 @@ class ObjectStore:
         self._pod_node_agg: Dict[str, List[int]] = {}
         #: fault-injection hook, called as (op, kind, key) before every
         #: mutation and read; raising fails the call as a flaky store
-        #: would.  None until the port of ``faults/`` wires a fabric
+        #: would; ``faults.FaultFabric.as_store_injector()`` is one
         self.fault_injector: Optional[Callable[[str, str, str], None]] = None
         #: the fault fabric the durable store's disk points read
         #: (``disk.enospc``, ``wal.append``, ``wal.bitflip``, ...); None
@@ -795,7 +800,8 @@ class ObjectStore:
 
     def is_fenced(self) -> bool:
         """True when the store refuses writes because it follows a
-        leader's replicated stream; the port's stores always lead."""
+        leader's replicated stream (``durable.DurableObjectStore.fence``);
+        an in-memory store always leads."""
         return False
 
     def applied_rv(self) -> int:

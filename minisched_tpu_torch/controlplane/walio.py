@@ -20,8 +20,12 @@ byte names the checksum: 0 is ``zlib.crc32`` (CRC-32/ISO-HDLC), 1 is
 CRC32C (Castagnoli).  The writer emits CRC32C only when the native
 ``google_crc32c`` library imports (a pure-Python table walk costs about
 1 ms/KB on the batch bind path); without it the writer stays on zlib's
-crc32, and the reader still verifies CRC32C frames another writer made,
-through a pure-Python table.
+crc32, and the reader still verifies CRC32C frames another writer made.
+Without the native library CRC32C (frames, and the replication plane's
+group digests, which are CRC32C always) is the port's own fallback: a
+pure-Python table walk under 8 KB and, from there, numpy lanes combined
+through the CRC's linearity (``_crc32c_np``, about 70 MB/s against the
+walk's 4), bit-exact with the library.
 
 Readers are MIXED-MODE: at every record boundary the next bytes are
 either a v2 frame (magic match) or a legacy v1 line (first byte ``{``).
@@ -104,9 +108,183 @@ def _crc32c_py(payload: bytes) -> int:
     return crc ^ 0xFFFFFFFF
 
 
+#: bytes a lane of the vectorized fallback (``_crc32c_np``), and the
+#: payload size from which it beats the table walk
+_CRC_LANE = 256
+_CRC_NP_MIN = 8192
+#: ``_CRC_MAPS[j]``: the linear map "append 2**j zero bytes" on a CRC
+#: state, as the images of the 32 basis bits (built by ``_crc_zero_map``)
+_CRC_MAPS: List[List[int]] = []
+_CRC_MAP_TABLES: dict = {}
+_CRC_T16: list = []
+
+
+def _crc_table16() -> Any:
+    """The table walk's step over two bytes at once: 65,536 entries, the
+    state's low 16 bits xor the little-endian word to the state after
+    both bytes, less ``state >> 16`` (the slicing-by-2 table)."""
+    if not _CRC_T16:
+        import numpy as np
+
+        _crc32c_py(b"")  # builds the byte table
+        t = np.array(_CRC32C_TABLE, dtype=np.uint32)
+        t1 = (t >> 8) ^ t[t & 0xFF]  # one more zero byte after t
+        x = np.arange(65536, dtype=np.uint32)
+        _CRC_T16.append(t1[x & 0xFF] ^ t[x >> 8])
+    return _CRC_T16[0]
+
+
+def _crc_apply(images: List[int], v: int) -> int:
+    out = 0
+    i = 0
+    while v:
+        if v & 1:
+            out ^= images[i]
+        v >>= 1
+        i += 1
+    return out
+
+
+def _crc_zero_map(j: int) -> List[int]:
+    """The map appending 2**j zero bytes: one zero byte's step of the
+    table walk, squared j times."""
+    if not _CRC_MAPS:
+        _crc32c_py(b"")  # builds the table
+        tab = _CRC32C_TABLE
+        _CRC_MAPS.append([tab[(1 << i) & 0xFF] ^ ((1 << i) >> 8)
+                          for i in range(32)])
+    while len(_CRC_MAPS) <= j:
+        m = _CRC_MAPS[-1]
+        _CRC_MAPS.append([_crc_apply(m, m[i]) for i in range(32)])
+    return _CRC_MAPS[j]
+
+
+def _crc_map_tables(j: int):
+    """``_crc_zero_map(j)`` as four byte tables, to apply it to a numpy
+    vector of states at once."""
+    tables = _CRC_MAP_TABLES.get(j)
+    if tables is None:
+        import numpy as np
+
+        images = np.array(_crc_zero_map(j), dtype=np.uint32)
+        idx = np.arange(256)
+        tables = np.zeros((4, 256), dtype=np.uint32)
+        for k in range(4):
+            for bit in range(8):
+                tables[k][(idx >> bit) & 1 == 1] ^= images[8 * k + bit]
+        _CRC_MAP_TABLES[j] = tables
+    return tables
+
+
+def _crc32c_np(payload: bytes) -> int:
+    """CRC32C with numpy, bit-exact with the table walk: the payload,
+    front-padded with zero bytes (a zero state stays zero through them),
+    is cut into lanes of ``_CRC_LANE`` bytes that are walked side by side
+    from a zero state; lane states combine pairwise up a tree, the left
+    one first carried over its right neighbour's length of zero bytes
+    (the CRC is linear in its state); last, the initial value
+    0xFFFFFFFF is carried over the whole payload and the result
+    inverted.  Each step takes two bytes of every lane (``_crc_table16``).
+    About a hundred MB/s where the table walk is a few."""
+    import numpy as np
+
+    t16 = _crc_table16()
+    n = len(payload)
+    lanes = 1
+    while lanes * _CRC_LANE < n:
+        lanes *= 2
+    data = np.zeros(lanes * _CRC_LANE, dtype=np.uint8)
+    data[lanes * _CRC_LANE - n:] = np.frombuffer(payload, dtype=np.uint8)
+    words = data.view("<u2").reshape(lanes, _CRC_LANE // 2)
+    state = np.zeros(lanes, dtype=np.uint32)
+    for col in np.ascontiguousarray(words.T):
+        state = np.take(t16, state.astype(np.uint16) ^ col) ^ (state >> 16)
+    j = _CRC_LANE.bit_length() - 1  # the map of one lane's length
+    while len(state) > 1:
+        t = _crc_map_tables(j)
+        left = state[0::2]
+        state = (t[0][left & 0xFF] ^ t[1][(left >> 8) & 0xFF]
+                 ^ t[2][(left >> 16) & 0xFF] ^ t[3][left >> 24]
+                 ^ state[1::2])
+        j += 1
+    init = 0xFFFFFFFF
+    bit = 0
+    while (1 << bit) <= n:
+        if n & (1 << bit):
+            init = _crc_apply(_crc_zero_map(bit), init)
+        bit += 1
+    return (int(state[0]) ^ init) ^ 0xFFFFFFFF
+
+
+def _crc_init_shift(lengths: Any) -> Any:
+    """For a numpy vector of byte counts: the initial value 0xFFFFFFFF
+    carried over that many zero bytes (the term ``_crc32c_np`` adds)."""
+    import numpy as np
+
+    out = np.full(len(lengths), 0xFFFFFFFF, dtype=np.uint32)
+    bit = 0
+    top = int(lengths.max()) if len(lengths) else 0
+    while (1 << bit) <= top:
+        sel = (lengths >> bit) & 1 == 1
+        if sel.any():
+            t = _crc_map_tables(bit)
+            v = out[sel]
+            out[sel] = (t[0][v & 0xFF] ^ t[1][(v >> 8) & 0xFF]
+                        ^ t[2][(v >> 16) & 0xFF] ^ t[3][v >> 24])
+        bit += 1
+    return out
+
+
+def _crc32c_many(data: bytes, spans: List[Tuple[int, int]]) -> List[int]:
+    """``_crc32c(data[a:b])`` for every ``(a, b)`` of ``spans`` (a WAL's
+    frames: thousands of small payloads).  Without the native library the
+    spans are walked side by side with numpy, a chunk of similar lengths
+    at a time, each front-padded with zero bytes to the chunk's longest;
+    bit-exact with one call each."""
+    if _crc32c_native is not None or not spans:
+        return [_crc32c(data[a:b]) for a, b in spans]
+    import numpy as np
+
+    t16 = _crc_table16()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    starts = np.array([a for a, _b in spans], dtype=np.int64)
+    lengths = np.array([b - a for a, b in spans], dtype=np.int64)
+    out = np.zeros(len(spans), dtype=np.uint32)
+    order = np.argsort(lengths, kind="stable")
+    sorted_lens = lengths[order]
+    lo = 0
+    while lo < len(order):
+        # a chunk: at most 8,192 spans, none over 1.25 times the first's
+        # length (plus 64 bytes), so the padding stays a small share
+        cap = int(sorted_lens[lo] * 1.25) + 64
+        hi = min(int(np.searchsorted(sorted_lens, cap, side="right")),
+                 lo + 8192)
+        sel = order[lo:hi]
+        lo = hi
+        lens = lengths[sel]
+        width = int(lens.max())
+        width += width & 1  # whole two-byte words
+        if width == 0:
+            continue
+        rows = np.arange(width, dtype=np.int64)[:, None]
+        pad = width - lens[None, :]
+        idx = starts[sel][None, :] - pad + rows
+        cols = np.where(rows >= pad, buf[np.clip(idx, 0, len(buf) - 1)],
+                        0).astype(np.uint16)
+        words = cols[0::2] | (cols[1::2] << 8)
+        state = np.zeros(len(sel), dtype=np.uint32)
+        for col in words:
+            state = np.take(t16, state.astype(np.uint16) ^ col) ^ (state >> 16)
+        out[sel] = state
+    out ^= _crc_init_shift(lengths) ^ np.uint32(0xFFFFFFFF)
+    return [int(v) for v in out]
+
+
 def _crc32c(payload: bytes) -> int:
     if _crc32c_native is not None:
         return _crc32c_native(payload)
+    if len(payload) >= _CRC_NP_MIN:
+        return _crc32c_np(payload)
     return _crc32c_py(payload)
 
 

@@ -43,6 +43,11 @@ façade and watched over it until the plain pods are bound; with
 chains ``audit_trace`` checks.  ``run_config5_durable`` is the same
 process over a ``file://`` WAL, SIGKILLed mid-run as a child and
 recovered in this process, where the recovered engine binds the rest.
+``run_config5_remote`` schedules config 5 over the wire through a
+SIGKILL and restart of the API server, and ``run_config5_replicated``
+through a SIGKILL of the leader of a three-replica plane
+(``controlplane/replproc``), the engine's ``RemoteClient`` finding the
+new leader on its own.
 ``count_grpc_binds`` is an external gRPC watcher, the body of a process
 of its own, for a run's ``after_setup``.
 """
@@ -802,6 +807,8 @@ class PodWatch:
         self.decode_s = 0.0
         self.last_bind_t = 0.0
         self.first_live_bind_t = 0.0
+        #: the monotonic time each first-seen bind was seen, in order
+        self.bind_times: List[float] = []
         self.reconnects = 0
         self.relists = 0
         self.error: Optional[BaseException] = None
@@ -830,6 +837,7 @@ class PodWatch:
                 self.nodes[name] = obj["spec"]["node_name"]
                 self.bound.add(name)
                 self.last_bind_t = time.monotonic()
+                self.bind_times.append(self.last_bind_t)
                 if not self.first_live_bind_t and rv > self.start_rv:
                     self.first_live_bind_t = self.last_bind_t
 
@@ -1648,3 +1656,342 @@ def run_config5_remote(workdir: str, n_nodes: int = 10_000,
         audit, reconnects, {k: snap.get(k, 0) for k in REMOTE_COUNTERS},
         decode_s, decoded, len(double), fsck_proc.returncode, fsck_s,
         phases, left, watch.reconnects + watch2.reconnects)
+
+
+@dataclass
+class ReplicatedRun:
+    n_plain: int
+    old_leader: str
+    new_leader: str
+    create_s: float  # the creates over the wire, first to last answer
+    sync_s: float  # start_scheduler: informer sync over the wire included
+    #: binds the watch on ``r2`` had seen at the SIGKILL of the leader, and
+    #: the seconds from the scheduler's start to the kill
+    seen_at_kill: int
+    kill_s: float
+    #: seconds from the kill: to a new leader serving, to the first bind
+    #: the watch saw after that, and to the last plain bind it saw
+    promote_s: float
+    next_bind_s: float
+    after_s: float
+    #: seconds from the old leader's restart to its façade answering (the
+    #: replay of its own WAL and the imports), and to it serving as a
+    #: fenced follower at the new leader's rv
+    reboot_s: float
+    catchup_s: float
+    waves: int
+    loop_errors: int
+    assumed_left: int
+    waiting_left: int
+    audit: Dict[str, int]
+    #: per kind: the informer's reconnects and resumes
+    reconnects: Dict[str, Dict[str, int]]
+    counters: Dict[str, int]
+    #: ``storage.quorum_wait_s`` off each leader's ``/metrics`` ("before":
+    #: the old leader just before the kill, "after": the new one at the
+    #: end): groups and the p50 and p99 bucket bounds
+    quorum_wait: Dict[str, Dict[str, Any]]
+    #: per WAL (the killed leader's as the kill left it included): double
+    #: binds
+    double_binds: Dict[str, int]
+    #: (replica, replica, "identical" or "prefix") for every pair of WALs
+    wal_pairs: List[Tuple[str, str, str]]
+    fsck_rc: int
+    fsck_s: float
+    #: pod name → node at the end, and the binds the watch saw before the
+    #: kill
+    placements: Dict[str, str]
+    seen: Dict[str, str]
+    split: Dict[str, float]
+    threads_left: List[str]
+    watch_reconnects: int = 0
+
+
+#: the counters ``run_config5_replicated`` reports: the remote run's and
+#: the endpoint routing's
+REPLICATED_COUNTERS = REMOTE_COUNTERS + (
+    "remote.read_failover", "remote.watch_failover",
+    "remote.leader_discoveries", "remote.not_yet_observed",
+    "storage.repl.not_leader_errors", "informer.resume_not_yet_observed")
+
+
+#: one WAL's offline audit in a process of its own: its double binds and,
+#: with "1", its frame digests (``fsck.wal_digests``), as one JSON line
+WAL_AUDIT = """
+import json, sys
+from minisched_tpu_torch.controlplane.fsck import wal_digests
+from minisched_tpu_torch.faults import wal_double_binds
+out = {"double": len(wal_double_binds(sys.argv[1]))}
+if sys.argv[2] == "1":
+    out["digests"] = wal_digests(sys.argv[1])
+print(json.dumps(out))
+"""
+
+
+def _audit_wals(wals: Dict[str, str], digested: set,
+                fsck_wal: str) -> Dict[Any, Any]:
+    """The offline audits of a replicated run, side by side (each is
+    Python JSON over a whole WAL, about 100 µs a record): ``WAL_AUDIT``
+    for every WAL (digests for those in ``digested``) and ``python3 -m
+    minisched_tpu_torch fsck`` on ``fsck_wal``, each a process without
+    the card.  Returns each WAL's answer, and under None fsck's (exit
+    code, the end of its output)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = {None: subprocess.Popen(
+        [sys.executable, "-m", "minisched_tpu_torch", "fsck", fsck_wal],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env)}
+    for name, path in wals.items():
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", WAL_AUDIT, path,
+             "1" if name in digested else "0"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+    out: Dict[Any, Any] = {}
+    try:
+        for name, proc in procs.items():
+            text, err = proc.communicate(timeout=900)
+            if name is None:
+                out[None] = (proc.returncode, text[-2000:])
+            elif proc.returncode != 0:
+                raise AssertionError(f"the audit of {wals[name]} exited "
+                                     f"{proc.returncode}: {err[-2000:]}")
+            else:
+                out[name] = json.loads(text)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def _quorum_wait(base: str) -> Dict[str, Any]:
+    """``storage.quorum_wait_s`` off one replica's ``/metrics``: groups
+    and the p50 and p99 bucket upper bounds (seconds)."""
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        _types, samples = hist.parse_prometheus(r.read().decode())
+    name = "storage_quorum_wait_seconds"
+    p50 = hist.parsed_histogram_quantile(samples, name, 0.5)
+    p99 = hist.parsed_histogram_quantile(samples, name, 0.99)
+    return {"groups": int(sum(v for n, _l, v in samples
+                              if n == name + "_count")),
+            "p50_le_s": p50[1] if p50 else None,
+            "p99_le_s": p99[1] if p99 else None}
+
+
+def run_config5_replicated(workdir: str, n_nodes: int = 10_000,
+                           n_pods: int = 25_000, kill_binds: int = 5_000,
+                           device: Any = None, chunk: int = 10_000,
+                           timeout_s: float = 900.0, max_wave: int = 1024,
+                           ttl_s: Optional[float] = None,
+                           pipeline: bool = True) -> ReplicatedRun:
+    """Config 5 scheduled over the wire through a SIGKILL of the store
+    leader of a three-replica plane.
+
+    ``ReplicatedPlane(workdir, n=3, fsync=False, ttl_s=ttl_s)`` (JAX's
+    TTL, 2 s, by default) starts three replica children (``r0``
+    bootstraps as leader; each child is host code with no CUDA context).
+    A ``PodWatch`` opens on follower ``r2``, the follower read plane,
+    which is never killed.  Config 5's nodes and pods are created with
+    ``RemoteClient(leader)`` in batch creates of ``chunk``; every group
+    waits for a follower's ack.  Then ``SchedulerService(RemoteClient(
+    leader, endpoints=[r1, r2], retries=REMOTE_RETRIES))`` starts
+    ``default_full_roster_config()`` with ``device_mode=True`` (pipelined
+    unless ``pipeline=False``, waves of ``max_wave``) on ``device``.
+
+    Once the watch has seen ``kill_binds`` binds the leader child is
+    SIGKILLed (its WAL copied aside as the kill left it) and a follower
+    must win the arbiter majority.  The engine goes on without a
+    restart: its writes find the new leader by discovery, its informers
+    resume on a live replica.  When the watch has seen every plain pod
+    bound, ``ReplicaSupervisor.restart()`` brings the old leader back; it
+    must serve as a fenced follower at the new leader's rv.
+
+    The run raises unless: a new leader within ``2·TTL + 1 s`` of the
+    kill; every bind watched before the kill on the new leader on the
+    same node; every plain pod bound and no ``special*`` pod;
+    ``audit_store``'s rules; both informers reconnected; no loop error,
+    the assume and Permit ledgers empty; every pair of the three WALs
+    identical or a prefix (``fsck.wal_compare``); no double bind in any
+    WAL, the killed leader's included; ``python3 -m minisched_tpu_torch
+    fsck`` exit 0 on the new leader's WAL.  Counters and histograms of
+    this process are reset first."""
+    import shutil
+
+    from minisched_tpu_torch.controlplane.fsck import compare_digests
+    from minisched_tpu_torch.controlplane.remote import RemoteClient
+    from minisched_tpu_torch.controlplane.replproc import (
+        DEFAULT_TTL_S,
+        ReplicatedPlane,
+    )
+
+    ttl_s = DEFAULT_TTL_S if ttl_s is None else float(ttl_s)
+    nodes, pods = mk_c5_cluster(n_nodes, n_pods)
+    plain = [p.metadata.name for p in pods
+             if not p.metadata.name.startswith("special")]
+    hist.reset()
+    counters.reset()
+    before = set(threading.enumerate())
+    plane = ReplicatedPlane(workdir, n=3, fsync=False, ttl_s=ttl_s)
+    svc = watch = sched_client = None
+    try:
+        leader_url = plane.start()
+        r0, r1, r2 = plane.replicas
+        if leader_url != r0.base_url:
+            raise AssertionError(f"replicated config 5: {leader_url} leads "
+                                 f"at boot, not r0")
+        watch = PodWatch(r2.base_url)
+        client = RemoteClient(leader_url)
+        t0 = time.monotonic()
+        for i in range(0, len(nodes), chunk):
+            client.nodes().create_many(nodes[i:i + chunk],
+                                       return_objects=False)
+        for i in range(0, len(pods), chunk):
+            client.pods().create_many(pods[i:i + chunk],
+                                      return_objects=False)
+        create_s = time.monotonic() - t0
+        client.store.close()
+        sched_client = RemoteClient(leader_url,
+                                    endpoints=[r1.base_url, r2.base_url],
+                                    retries=REMOTE_RETRIES)
+        svc = SchedulerService(sched_client)
+        t0 = time.monotonic()
+        sched = svc.start_scheduler(default_full_roster_config(),
+                                    device_mode=True, max_wave=max_wave,
+                                    device=device, pipeline=pipeline)
+        t_loop = time.monotonic()
+        sync_s = t_loop - t0
+        metrics = sched.metrics = CycleMetrics()
+        sched.assume_ttl_s = QUIESCE_TTL_S
+        deadline = time.monotonic() + timeout_s
+        while (len(watch.nodes) < kill_binds and watch.error is None
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        quorum_before = _quorum_wait(r0.base_url)
+        # -- the kill: the leader, no goodbye -----------------------------
+        seen = dict(watch.nodes)
+        t_kill = time.monotonic()
+        r0.kill()
+        kill_s = t_kill - t_loop
+        if len(seen) < kill_binds or len(seen) >= len(plain):
+            raise AssertionError(f"replicated config 5: {len(seen)} binds "
+                                 f"seen at the kill, not from {kill_binds} "
+                                 f"to under {len(plain)} (watch "
+                                 f"{watch.error!r})")
+        won = plane.wait_for_leader(timeout_s=10 * ttl_s,
+                                    exclude=r0.replica_id)
+        t_promoted = time.monotonic()
+        promote_s = t_promoted - t_kill
+        shutil.copy(r0.wal_path, r0.wal_path + ".killed")
+        want = set(plain)
+        wait_until(lambda: want <= watch.bound or watch.error is not None,
+                   timeout_s, f"{len(want)} plain pods seen bound after "
+                   "the failover", sched)
+        if watch.error is not None:
+            raise AssertionError(f"the pod watch on r2 failed: "
+                                 f"{watch.error!r}")
+        after_s = watch.last_bind_t - t_kill
+        later = [t for t in list(watch.bind_times) if t >= t_promoted]
+        next_bind_s = (later[0] - t_kill) if later else -1.0
+        # -- the old leader back, as a fenced follower --------------------
+        new = next(r for r in plane.replicas
+                   if r.replica_id == won["id"])
+        t_restart = time.monotonic()
+        r0.restart()
+        reboot_s = time.monotonic() - t_restart
+
+        def caught_up() -> bool:
+            # the leader's rv first: the recorder's Event writes keep it
+            # moving, and the follower need only reach what it read
+            lead = new.status()
+            mine = r0.status()
+            return (mine is not None and lead is not None
+                    and mine.get("role") == "follower" and mine.get("fenced")
+                    and int(mine.get("rv", 0)) >= int(lead.get("rv", 0)))
+
+        wait_until(caught_up, timeout_s, "the restarted old leader to "
+                   "catch up as a fenced follower", sched)
+        catchup_s = time.monotonic() - t_restart
+        wait_until(lambda: sched.assumed_count() == 0, QUIESCE_TTL_S * 20,
+                   "the assume cache drained", sched)
+        waves = int(metrics.snapshot().get("wave", {}).get("count", 0))
+        waiting_left = len(sched._waiting_pods)
+        loop_errors, assumed_left = sched.loop_errors, sched.assumed_count()
+        phases = split(metrics)
+        informers = {kind: svc._factory.informer_for(kind)
+                     for kind in ("Pod", "Node")}
+        reconnects = {kind: {"reconnects": inf.reconnects,
+                             "resumes": inf.resumes}
+                      for kind, inf in informers.items()}
+        svc.shutdown_scheduler()
+        svc.recorder.close()
+        svc = None
+        quorum_after = _quorum_wait(new.base_url)
+        reader = RemoteClient(new.base_url)
+        pod_list = reader.pods().list()
+        audit = audit_store(reader, pods=pod_list)
+        reader.store.close()
+        listed = {p.metadata.name: p for p in pod_list}
+        del pod_list
+        placements = {n: p.spec.node_name for n, p in listed.items()}
+        unbound = [n for n in plain if not placements.get(n)]
+        special_bound = [n for n, node in placements.items()
+                         if n.startswith("special") and node]
+        moved = [(n, node, placements.get(n)) for n, node in seen.items()
+                 if placements.get(n) != node]
+        no_reconnect = [k for k, v in reconnects.items()
+                        if v["reconnects"] < 1]
+        if (unbound or special_bound or moved or no_reconnect or loop_errors
+                or assumed_left or waiting_left or promote_s > 2 * ttl_s + 1
+                or audit["nodes"] != n_nodes):
+            raise AssertionError(
+                f"replicated config 5: unbound {unbound[:3]} "
+                f"({len(unbound)}), special bound {special_bound[:3]}, moved "
+                f"{moved[:3]} ({len(moved)}), no reconnect for "
+                f"{no_reconnect}, {loop_errors} loop errors, {assumed_left} "
+                f"assumed and {waiting_left} waiting left, promotion "
+                f"{promote_s:.3f}s (TTL {ttl_s}s), {audit['nodes']} nodes")
+    finally:
+        if svc is not None:
+            svc.shutdown_scheduler()
+        if watch is not None:
+            watch._closing = True
+            watch._resp.close()
+        if sched_client is not None:
+            sched_client.store.close()
+        plane.stop()
+    watch._thread.join(timeout=30)
+    left = sorted(t.name for t in set(threading.enumerate()) - before
+                  if t.is_alive() and not t.daemon)
+    wals = {r.replica_id: r.wal_path for r in plane.replicas}
+    audited = dict(wals, **{f"{r0.replica_id}-killed":
+                            r0.wal_path + ".killed"})
+    t1 = time.monotonic()
+    offline = _audit_wals(audited, digested=set(wals),
+                        fsck_wal=wals[won["id"]])
+    fsck_s = time.monotonic() - t1
+    fsck_rc, fsck_out = offline.pop(None)
+    double = {k: v["double"] for k, v in offline.items()}
+    pairs = []
+    ids = sorted(wals)
+    for i, a in enumerate(ids):
+        for b in ids[i + 1:]:
+            cmp = compare_digests(offline[a]["digests"],
+                                  offline[b]["digests"])
+            if not (cmp["identical"] or cmp["prefix"]):
+                raise AssertionError(f"replicated config 5: the WALs of {a} "
+                                     f"and {b} diverged: {cmp['diverged']}")
+            pairs.append((a, b, "identical" if cmp["identical"]
+                          else "prefix"))
+    if any(double.values()) or fsck_rc != 0:
+        raise AssertionError(f"replicated config 5: double binds {double}, "
+                             f"fsck exit {fsck_rc}: {fsck_out}")
+    snap = counters.snapshot()
+    return ReplicatedRun(
+        len(plain), r0.replica_id, won["id"], create_s, sync_s, len(seen),
+        kill_s, promote_s, next_bind_s, after_s, reboot_s, catchup_s, waves,
+        loop_errors, assumed_left, waiting_left, audit, reconnects,
+        {k: snap.get(k, 0) for k in REPLICATED_COUNTERS},
+        {"before": quorum_before, "after": quorum_after}, double, pairs,
+        fsck_rc, fsck_s, placements, seen, phases, left, watch.reconnects)

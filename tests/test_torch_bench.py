@@ -36,6 +36,8 @@ COUNTERPARTS = {
     "wire_fanout": "bench_wire_fanout",
     "relist": "bench_relist",
     "wal": "bench_wal",
+    "repl": "bench_repl",
+    "readscale": "bench_readscale",
 }
 
 

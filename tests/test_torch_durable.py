@@ -7,7 +7,8 @@ client rate-limiter tests, held in ``test_torch_main.py``) and
 Parity with JAX, on inputs made from a numpy seed: the checkpoint
 codec's documents are byte-equal and each package decodes the other's;
 a WAL and checkpoint written by one package's store open in the other's
-with the same objects, resource_version, history floor, acks and
+with the same objects (Leases a ``LeaseManager`` acquired, renewed and
+took over among them), resource_version, history floor, acks and
 ``watch(resume_rv=N)`` answers; ``fsck`` and ``repair`` give equal
 reports on the same clean or damaged files; one stub fault fabric drives
 both stores through degraded mode alike.  Recovery: the port's device
@@ -38,6 +39,7 @@ from minisched_tpu.controlplane import durable as jdurable
 from minisched_tpu.controlplane import fsck as jfsck
 from minisched_tpu.controlplane import store as jstore
 from minisched_tpu import faults as jfaults
+from minisched_tpu.ha import lease as jlease
 from minisched_tpu.observability import counters as jcounters
 from minisched_tpu.service import config as jconfig
 from minisched_tpu.service.service import SchedulerService as JService
@@ -49,6 +51,7 @@ from minisched_tpu_torch.controlplane import client as tclient
 from minisched_tpu_torch.controlplane import durable as tdurable
 from minisched_tpu_torch.controlplane import fsck as tfsck
 from minisched_tpu_torch.controlplane import store as tstore
+from minisched_tpu_torch.ha import lease as tlease
 from minisched_tpu_torch.controlplane.client import (
     KIND_NODE,
     KIND_POD,
@@ -71,6 +74,8 @@ SIDES = {
     "jax": (jobj, jckpt, jclient, jdurable, jstore, jfsck, jcounters),
     "port": (tobj, tckpt, tclient, tdurable, tstore, tfsck, counters),
 }
+#: per package: the lease protocol (``ha/lease.py``)
+LEASES = {"jax": jlease, "port": tlease}
 
 
 def wait_for(pred, timeout=60.0):
@@ -83,8 +88,8 @@ def wait_for(pred, timeout=60.0):
 
 
 def listing(side, store):
-    """Every kind both packages keep durable (the port has no ``Lease``
-    yet), its objects through the package's codec, by key."""
+    """Every kind both packages keep durable (Lease included), its
+    objects through the package's codec, by key."""
     ckpt = SIDES[side][1]
     return {kind: sorted((o.metadata.key, ckpt._encode(o))
                          for o in store.list(kind))
@@ -147,12 +152,18 @@ def test_snapshot_docs_equal_and_decode_across(seed):
 def _seeded_mix(side, path, seed):
     """A seeded mix on ``side``'s durable store: creates, updates,
     deletes, CAS conflicts, capacity-checked ``bind_many``, volatile
-    Events, an ack record and a ``compact()`` in the middle.  Returns the
-    checkpoint's rv and the writer's final listing and rv."""
+    Events, an ack record, Lease records (an acquire before the
+    ``compact()`` in the middle, a renewal and a takeover after it) and
+    that compaction.  Returns the checkpoint's rv and the writer's final
+    listing and rv."""
     objs, _ckpt, client_mod, durable, store_mod, _f, _c = SIDES[side]
     rng = np.random.default_rng(seed)
     store = durable.DurableObjectStore(path)
     client = client_mod.Client(store=store)
+    clock = [1000.0 + seed]
+    leases = LEASES[side].LeaseManager(client, clock=lambda: clock[0])
+    held = leases.acquire("store-leader", "r0", ttl_s=2.0)
+    assert held is not None
     client.nodes().create_many([objs.make_node(
         f"n{i}", capacity={"cpu": "2", "memory": "4Gi", "pods": 110})
         for i in range(4)])
@@ -164,6 +175,12 @@ def _seeded_mix(side, path, seed):
         if step == 30:
             store.compact()
             ckpt_rv = store.resource_version
+        if step == 40:
+            clock[0] += 1.0
+            held = leases.renew(held, epoch=seed + 1)
+        if step == 50:
+            clock[0] += 5.0
+            assert leases.acquire("store-leader", "r1", ttl_s=2.0)
         op = int(rng.integers(0, 6))
         name = f"p{int(rng.integers(0, 30)):03d}"
         try:
@@ -234,6 +251,9 @@ def test_cross_open(tmp_path, writer, reader, seed):
     assert got[4][ckpt_rv - 3][0] == "410" and got[4][rv + 1][0] == "410"
     assert got[4][ckpt_rv]  # the tail's events replay
     assert got[3] == {f"batch{seed}/0": {"node": "n1", "ok": True}}
+    (_key, lease), = got[0]["Lease"]
+    assert lease["spec"]["holder"] == "r1"
+    assert lease["spec"]["transitions"] == 1
 
 
 # -- fsck and repair on the same files -----------------------------------------

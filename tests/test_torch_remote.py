@@ -8,8 +8,9 @@ package's façade, in both directions: create, list, watch with resume,
 the same answers; the same list bodies with ``MINISCHED_COW_READS`` at 1
 and at 0 from both façades; ``overflow_cluster`` placed by each engine
 behind its own package's ``RemoteClient`` and façade, with the same waves
-and the same node for every pod; and a ``RemoteStore`` given more than
-one endpoint raising.  Comparisons are exact.
+and the same node for every pod; and a ``RemoteStore`` given a dead
+endpoint and a live one routing its reads and writes to the live one.
+Comparisons are exact.
 """
 
 from __future__ import annotations
@@ -661,17 +662,37 @@ def test_list_bodies_byte_equal_across_read_modes_on_both_facades(
 
 
 def test_remote_store_refuses_more_than_one_endpoint():
-    """The multi-endpoint read policy waits for replication: a second
-    endpoint raises, naming ROADMAP item 7; the same endpoint twice is one
-    endpoint."""
-    with pytest.raises(ValueError, match="ROADMAP item 7"):
-        tremote.RemoteStore("http://127.0.0.1:1",
-                            endpoints=["http://127.0.0.1:2"])
+    """Endpoints route (the multi-endpoint half of ``remote.py``): a
+    ``RemoteStore`` whose first endpoint is dead reads off the live one
+    (``remote.read_failover``) and writes to the leader it discovers over
+    ``/repl/status`` (a 404 there means the sole server leads); the same
+    endpoint twice is one endpoint.  ``faults=`` still raises, naming
+    ROADMAP item 8."""
     with pytest.raises(ValueError, match="ROADMAP item 8"):
         tremote.RemoteStore("http://127.0.0.1:1", faults=object())
     store = tremote.RemoteStore("http://127.0.0.1:1",
                                 endpoints=["http://127.0.0.1:1/"])
+    assert not store._multi
     store.close()
+    server_store = tstore.ObjectStore()
+    _server, base, shutdown = thttp.start_api_server(server_store)
+    try:
+        tcounters.reset()
+        dead = "http://127.0.0.1:1"
+        rs = tremote.RemoteStore(dead, endpoints=[base], retries=3,
+                                 backoff_initial_s=0.01, timeout_s=5.0)
+        created = rs.create("Pod", tobj.make_pod("routed"))
+        assert rs._leader_base == base
+        assert tcounters.get("remote.leader_discoveries") == 1
+        assert rs.session_rv == created.metadata.resource_version
+        items, rv = rs.list_with_rv("Pod")
+        assert [p.metadata.name for p in items] == ["routed"]
+        assert rv == server_store.resource_version
+        assert rs._read_base == base
+        assert tcounters.get("remote.read_failover") == 1
+        rs.close()
+    finally:
+        shutdown()
 
 
 # -- placement parity over the wire ------------------------------------------

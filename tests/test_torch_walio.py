@@ -359,3 +359,47 @@ def test_fsck_repair_clean_wal_noop(tmp_path):
     assert rep["repaired"] and rep["action"] == "salvage-covered"
     assert "discarded" not in rep
     assert os.path.getsize(wal) > 0
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 8191, 8192, 65_537,
+                               1_048_576, 3_000_001])
+def test_crc32c_numpy_fallback_equals_the_table_walk(n):
+    """The port's numpy CRC32C (the fallback from 8 KB up where
+    ``google_crc32c`` is missing) equals JAX's table walk and the native
+    library on seeded bytes of every lane and padding shape; the port's
+    ``group_crc32c`` equals JAX's."""
+    data = np.random.default_rng(n).integers(
+        0, 256, n, dtype=np.uint8).tobytes()
+    want = jwalio._crc32c_py(data[:300_000]) if n <= 300_000 else None
+    got = walio._crc32c_np(data)
+    if want is not None:
+        assert got == want
+    if jwalio.HAVE_NATIVE_CRC32C:
+        assert got == jwalio._crc32c(data)
+    assert walio.group_crc32c(data) == jwalio.group_crc32c(data)
+
+
+def test_crc32c_many_and_wal_digests_without_the_native_library(
+        tmp_path, monkeypatch):
+    """With the native CRC32C missing (the port's fallback forced), the
+    batched frame digests equal one table walk each, and the port's
+    ``fsck.wal_digests`` report equals JAX's on the same WAL."""
+    from minisched_tpu.controlplane import fsck as jfsck
+    from minisched_tpu_torch.api.objects import make_pod
+    from minisched_tpu_torch.controlplane import fsck as tfsck
+    from minisched_tpu_torch.controlplane.durable import DurableObjectStore
+
+    rng = np.random.default_rng(5)
+    cuts = np.cumsum(rng.choice([0, 1, 35, 80, 640, 701, 9_000], 300))
+    data = rng.integers(0, 256, int(cuts[-1]), dtype=np.uint8).tobytes()
+    spans = [(int(a), int(b)) for a, b in zip(cuts[:-1], cuts[1:])]
+    want = [jwalio._crc32c_py(data[a:b]) for a, b in spans]
+    path = str(tmp_path / "d.wal")
+    store = DurableObjectStore(path)
+    for i in range(64):
+        store.create("Pod", make_pod(f"p{i}", labels={"i": "x" * i}))
+    store.close()
+    jreport = jfsck.wal_digests(path)
+    monkeypatch.setattr(walio, "_crc32c_native", None)
+    assert walio._crc32c_many(data, spans) == want
+    assert tfsck.wal_digests(path) == jreport
