@@ -357,12 +357,14 @@ Phases, each of which raises on failure (nothing catches it):
    three replica children (fsync off, JAX's lease TTL of 2 s; host code,
    no CUDA context), ``r0`` bootstrapping as leader; a ``PodWatch`` opens
    on follower ``r2``, which is never killed; config 5's 10,000 nodes and
-   ``PROCESS_PODS`` (25,000) pods are created with ``RemoteClient(r0)`` in
+   ``EARLY_C5_PODS`` (12,500; 25,000 until phase 32 needed the time) pods
+   are created with ``RemoteClient(r0)`` in
    batch creates of 10,000, each group waiting for a follower's ack; then
    ``SchedulerService(RemoteClient(r0, endpoints=[r1, r2], retries=10))``
    starts the full roster with ``device_mode=True`` at its defaults
    (pipelined, waves of 1,024) on the card.  Once the watch has seen
-   ``REPL_KILL_BINDS`` (5,000) binds, ``r0`` is SIGKILLed; the engine
+   ``REPL_KILL_BINDS`` (2,500; 5,000 at 25,000 pods) binds, ``r0`` is
+   SIGKILLed; the engine
    goes on without a restart, its writes finding the new leader by
    discovery and its informers resuming on a live replica.  When every
    plain pod is seen bound, ``r0`` restarts and must serve as a fenced
@@ -381,6 +383,42 @@ Phases, each of which raises on failure (nothing catches it):
    bind, pods/s after, the restarted replica's catch-up seconds, the
    informer and routing counters, ``assume.revalidate_on_reconnect``,
    waves, launches and peak device memory.
+32. The sharded write plane (``controlplane/shards.py``), config 5
+   scheduled over two leader groups through a live split
+   (``live.run_config5_sharded``).  ``ShardedPlane(k=2,
+   replicas_per_group=1, fsync=False)`` starts one replica child a group
+   (host code, no CUDA context); config 5's 10,000 nodes land on the home
+   group (the owner of ""), its ``EARLY_C5_PODS`` pods (12,250 plain,
+   250 ``special*``) round-robin over 8 tenant namespaces, 4 owned by
+   each group (``live.shard_tenants``, picked as ``bench.py``'s
+   ``bench_shard`` picks its writers'), all created through
+   ``ShardedClient`` in batch creates of 10,000.  The home group's budget
+   document is fetched and applied to a ``BudgetMirror`` once (its bytes
+   and seconds printed) before ``SchedulerService(ShardedClient(seeds,
+   retries=10))`` starts the full roster with ``device_mode=True`` at its
+   defaults (pipelined, waves of 1,024) on the card; a merged
+   vector-cursor watch (``live.ShardPodWatch``) reads every pod.  Once it
+   has seen ``SHARD_SPLIT_BINDS`` (2,500) binds, ``plane.split`` moves
+   ``hot_ns`` (the home group's tenant with the most pods pending) to
+   the other group: freeze lease, handoff, seed, renewal, topology flip,
+   thaw, keyed purge.  The engine goes on without a restart: its writes
+   chase 421s and wait out the freeze, its informers ride the vector
+   cursor; binds on the non-home group are checked against the capacity
+   mirror.  Checks: every plain pod bound and no ``special*`` pod; 0
+   loop errors, the assume and Permit ledgers empty; ``hot_ns``'s
+   objects all on the target and none on the source; the freeze shorter
+   than ``freeze_ttl_s()`` (30 s); every bind watched before the split on
+   the same node at the end; each plain pod's bind seen exactly once by
+   the merged watch, none on a second node, no plain pod deleted; no
+   node over its allocatable counting both groups' bound pods; no double
+   bind in either WAL and ``python3 -m minisched_tpu_torch fsck`` exit 0
+   on both; the children and the run's threads gone; ``select_hosts``
+   launched at least once a wave and no plain twin called.  Printed: the
+   creates' wall, ``start_scheduler``, pods/s before and after the split,
+   the freeze, handoff and seed seconds, the time to bind of ``hot_ns``'s
+   pods against the other tenants' after the split (p50, p99), the
+   ``shard.*`` counters (chases, frozen retries, mirror checks and
+   refusals), waves, ``shard-c5`` launches and peak device memory.
 
 Phase 2 also holds ``select_hosts`` against its twin on the repair
 route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
@@ -398,8 +436,9 @@ call, the six live-engine runs of phases 16-21, the burst of phase 22
 and its reduced card run, the exact scan of phase 23, the card runs of
 phase 24 with and without the record, phase 25's process, phase 26's
 gRPC calls and watched run, each role of phase 28, phase 29's
-recovered engine, phase 30's remote engine and phase 31's engine behind
-the replicated plane) and read just after it.  A scan's step is captured once in a CUDA graph and replayed;
+recovered engine, phase 30's remote engine, phase 31's engine behind
+the replicated plane and phase 32's behind the sharded one) and read just
+after it.  A scan's step is captured once in a CUDA graph and replayed;
 each replay counts the ``select_hosts`` launch recorded in the graph.  The last three lines of output are the card's
 name and power limit, one JSON object describing every kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -467,19 +506,18 @@ DURABLE_KILL_BINDS = 2_000
 #: config 5's pods in phase 20 (100,000 until phase 29 took the script to
 #: 1,081-1,296 s on an H100; 25,000 took it as long as 50,000)
 LIVE_C5X_PODS = 50_000
-#: config 5's pods in phase 31 (phases 25(a) and 29 ran as many, 100,000
-#: until PR 12's phase 29, then 50,000 until phase 30 took the script to
-#: 1,164 s on an H100)
-PROCESS_PODS = 25_000
-#: config 5's pods in phases 25(a), 29 and 30 since phase 31 took the
-#: script to 1,136-1,297 s on an H100 (phase 30: 50,000 before)
+#: config 5's pods in phases 25(a), 29, 30, 31 and 32: phases 25(a), 29
+#: and 30 since phase 31 took the script to 1,136-1,297 s on an H100
+#: (phase 30: 50,000 before); phase 31 (25,000 before) since phase 32
 EARLY_C5_PODS = 12_500
 #: phase 30: binds a watch over the wire must have seen before the
 #: SIGKILL of the API server (10,000 at 50,000 pods)
 REMOTE_KILL_BINDS = 2_500
 #: phase 31: binds the watch on follower r2 must have seen before the
-#: SIGKILL of the store leader
-REPL_KILL_BINDS = 5_000
+#: SIGKILL of the store leader (5,000 at 25,000 pods)
+REPL_KILL_BINDS = 2_500
+#: phase 32: binds the merged watch must have seen before the split
+SHARD_SPLIT_BINDS = 2_500
 
 
 T0 = time.monotonic()
@@ -672,6 +710,7 @@ def main() -> int:
         run_config5_live,
         run_config5_remote,
         run_config5_replicated,
+        run_config5_sharded,
         run_mixed_recorded,
         run_crosspod_drain,
         run_gang_live,
@@ -2508,7 +2547,7 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        pr = run_config5_replicated(workdir, N_NODES, PROCESS_PODS,
+        pr = run_config5_replicated(workdir, N_NODES, EARLY_C5_PODS,
                                     kill_binds=REPL_KILL_BINDS)
         launches["select_hosts"]["repl-c5"] = live_launches(
             "config 5 through a leader kill", max(pr.waves, 1))
@@ -2522,7 +2561,7 @@ def main() -> int:
         f"off, lease TTL {DEFAULT_TTL_S} s); the device engine (full "
         f"roster, pipelined, waves of 1,024) behind RemoteClient(r0, "
         f"endpoints=[r1, r2], retries=10), a pod watch on follower r2: "
-        f"config 5, {N_NODES} nodes and {PROCESS_PODS} pods, created over "
+        f"config 5, {N_NODES} nodes and {EARLY_C5_PODS} pods, created over "
         f"the wire in {pr.create_s:.3f}s; start_scheduler "
         f"{pr.sync_s:.3f}s; storage.quorum_wait_s before the kill "
         f"({pr.old_leader}'s /metrics) p50 <= {qb['p50_le_s']}s, p99 <= "
@@ -2550,6 +2589,60 @@ def main() -> int:
         + f"; peak device memory {pr_peak / 2**30:.2f} GiB; loop errors 0, "
         f"assume and Permit ledgers empty, select_hosts launches "
         f"{launches['select_hosts']['repl-c5']}, plain-twin calls 0")
+
+    # -- phase 32: config 5 over two leader groups through a live split --
+    stamp("32")
+    from minisched_tpu_torch.controlplane.shards import freeze_ttl_s
+
+    with tempfile.TemporaryDirectory(prefix="c5-shard-") as workdir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        sr = run_config5_sharded(workdir, N_NODES, EARLY_C5_PODS,
+                                 split_binds=SHARD_SPLIT_BINDS)
+        launches["select_hosts"]["shard-c5"] = live_launches(
+            "config 5 over two leader groups", max(sr.waves, 1))
+    sr_peak = torch.cuda.max_memory_allocated()
+    if sr.waves < 1 or sr.threads_left or sr.children_left:
+        raise AssertionError(f"sharded config 5: {sr.waves} waves, threads "
+                             f"left {sr.threads_left}, children left "
+                             f"{sr.children_left}")
+    sp, tt = sr.split, sr.ttb
+    after = sr.n_plain - sr.seen_at_split
+    bd = sr.budget_doc
+    log(f"[shard-c5] {card}: ShardedPlane of 2 leader groups, one replica "
+        f"child each (fsync off); the device engine (full roster, "
+        f"pipelined, waves of 1,024) behind ShardedClient(seeds, "
+        f"retries=10), a merged vector-cursor watch on every pod: config "
+        f"5, {N_NODES} nodes on the home group {sr.source}, "
+        f"{EARLY_C5_PODS} pods over 8 tenants "
+        f"{json.dumps(sr.tenants, sort_keys=True)}, created through the "
+        f"router in {sr.create_s:.3f}s; budget document {bd['bytes']:.0f} "
+        f"bytes, served in {bd['serve_s']:.3f}s, applied to a mirror in "
+        f"{bd['apply_s']:.3f}s; start_scheduler {sr.sync_s:.3f}s; split "
+        f"of {sr.hot_ns} ({sp['objects']} objects) {sr.source} -> "
+        f"{sr.target} {sr.split_at_s:.3f}s after the start with "
+        f"{sr.seen_at_split} binds watched = "
+        f"{sr.seen_at_split / sr.split_at_s:,.0f} pods/s before the split; "
+        f"freeze {sp['freeze_s']:.3f}s (TTL {freeze_ttl_s():.0f}s), "
+        f"handoff {sp['handoff_s']:.3f}s, seed {sp['seed_s']:.3f}s; the "
+        f"other {after} plain pods bound {sr.after_s:.3f}s after the split "
+        f"= {after / sr.after_s:,.0f} pods/s after it (phase 31 before its "
+        f"kill {pr.seen_at_kill / pr.kill_s:,.0f}); time to bind after the "
+        f"split, {sr.hot_ns}'s {tt['hot']['n']:.0f} pods p50 "
+        f"{tt['hot']['p50']:.3f}s p99 {tt['hot']['p99']:.3f}s, the other "
+        f"tenants' {tt['other']['n']:.0f} p50 {tt['other']['p50']:.3f}s "
+        f"p99 {tt['other']['p99']:.3f}s; {sr.waves} waves; merged watch "
+        f"{json.dumps(sr.watch, sort_keys=True)}; counters "
+        f"{json.dumps(sr.counters, sort_keys=True)}; hot_ns left "
+        f"{sr.hot_left}; double binds {sr.double_binds}; fsck exit 0 on "
+        f"both WALs in {sr.fsck_s:.3f}s; every watched bind on its node, "
+        f"all {sr.n_plain} plain pods bound once, no special pod, audit "
+        f"over both groups {sr.audit}; split "
+        + ", ".join(f"{k} {sr.split_phases.get(k, 0.0):.3f}s" for k in SPLIT)
+        + f"; peak device memory {sr_peak / 2**30:.2f} GiB; loop errors 0, "
+        f"assume and Permit ledgers empty, select_hosts launches "
+        f"{launches['select_hosts']['shard-c5']}, plain-twin calls 0")
 
     stamp("end")
     report = []

@@ -24,10 +24,12 @@ REST façade over the wire, riding through the façade's restart; with
 leader of a replicated plane (``controlplane/repl.py``: quorum WAL
 shipping, arbiter-lease failover; ``controlplane/replproc.py``: three
 replica children), with ``ha/lease.py`` and ``faults/`` (the fabric and
-the network-fault layer) under it.  Still to come (ROADMAP.md §1):
-sharding (item 7b), the rest of ``ha/`` (membership, the HA engines) and
-of ``faults/`` (the killable child, the wire and watch fault points),
-the compile cache and a device mesh.
+the network-fault layer) under it; with ``ShardedClient(seeds)``
+(``controlplane/shards.py``) over the leader groups of a sharded write
+plane, through a live split of a tenant.  Still to come (ROADMAP.md §1):
+the rest of ``ha/`` (membership, the HA engines) and of ``faults/`` (the
+killable child, the façade and watch fault points), the compile cache
+and a device mesh.
 """
 
 from __future__ import annotations

@@ -98,6 +98,15 @@ One role for each ``bench.py`` role the port can run (``ROLES``):
                         more), reads across a leader SIGKILL (no error,
                         no rv regression, no gap over 2 s) and encode-once
                         on every serving replica
+``shard``               ``bench_shard`` (``:4636``), host only, opt-in
+                        (``BENCH_SHARD=1``): W (at least 6) writer
+                        processes through the shard router against one
+                        leader group and then two (gate: 1.5x on 4 cores
+                        or more, ``BENCH_SHARD_GATE``); single-group
+                        against two-group bind batches; a skewed load
+                        the autosplit watcher must split within
+                        ``BENCH_AUTOSPLIT_DEADLINE_S`` (60 s), the source
+                        group's windowed group-wait p99 recovering after
 ======================  ==================================================
 
 The live roles read ``bench.py``'s environment knobs with its defaults
@@ -112,7 +121,7 @@ from ``torch.cuda.max_memory_allocated``),
 and power limit (``nvidia-smi``).  Without a card a role prints
 ``{"skipped": reason}`` and exits 0: it never runs on the CPU instead.
 The host-only roles (``wire_fanout``, ``relist``, ``wal``, ``repl``,
-``readscale``) touch no card but keep that rule; their functions (``role_relist()``, ...) run
+``readscale``, ``shard``) touch no card but keep that rule; their functions (``role_relist()``, ...) run
 anywhere.
 """
 
@@ -137,7 +146,7 @@ import torch
 ROLES = ("headline", "c1", "c2", "c3", "c4", "c5", "c5_waves",
          "fullchain_parity", "c5x", "gang_waves", "c5x_live", "wave", "gang",
          "churn", "wire", "wire_fanout", "relist", "wal", "repl",
-         "readscale")
+         "readscale", "shard")
 
 GIB = 2**30
 
@@ -2705,7 +2714,12 @@ def role_relist() -> Dict[str, Any]:
     stall_factor = float(os.environ.get("BENCH_RELIST_STALL_FACTOR", "30"))
     stall_floor_s = float(os.environ.get("BENCH_RELIST_STALL_FLOOR_S", "0.25"))
 
+    from minisched_tpu_torch.observability import hist as _hist
+
     counters.reset()
+    # the lists this role's server observes in ``http.list_s`` count from
+    # here (the histogram is process-wide)
+    lists0 = _hist.GLOBAL.merged("http.list_s")[3]
     store = ObjectStore(history_events=64)
     if store.read_plane() is None:
         raise Skip("MINISCHED_COW_READS=0: the relist role benches the COW plane")
@@ -2896,8 +2910,15 @@ def role_relist() -> Dict[str, Any]:
         # p99 two buckets above it
         import socket
 
-        from minisched_tpu_torch.observability import hist as _hist
-
+        # the server observes a list after its body's last write, so the
+        # storms' last observations can land after their clients return:
+        # wait for every list served so far before the probe resets the
+        # histogram, or they land in the probe's window
+        served = counters.get("wire.relist_requests")
+        deadline = time.monotonic() + 30.0
+        while (_hist.GLOBAL.merged("http.list_s")[3] - lists0 < served
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
         host, port = base.split("//")[1].split(":")
         probe_sock = socket.create_connection((host, int(port)), timeout=30)
         request = b"GET /api/v1/pods HTTP/1.1\r\nHost: x\r\n\r\n"
@@ -2981,6 +3002,341 @@ def role_relist() -> Dict[str, Any]:
         "storm_write_p99_s": storm_write_p99,
         "write_stall_gate_s": round(write_stall_gate_s, 4),
         "parity_bytes": len(parity["1"][0]) + len(parity["1"][1]),
+    }
+
+
+def role_shard() -> Dict[str, Any]:
+    """The sharded write plane must buy write throughput, not just
+    partition it (``bench.py`` ``bench_shard``, DESIGN.md §30-31).
+    Opt-in via ``BENCH_SHARD=1``.  Three phases:
+
+    * **1-vs-2-group write storm** — the same W (at least 6) writer
+      processes, each creating pods in its own namespace through the
+      shard router, against a K=1 plane and then a K=2 plane (one
+      replica a group, fsync on with a ``BENCH_SHARD_FSYNC_FLOOR_US``
+      floor, 2,000 µs).  The namespaces are picked through a probe
+      topology so half land on each K=2 group.  Gate: the K=2 rate at
+      least ``BENCH_SHARD_GATE`` (1.5) times the K=1 rate, armed on 4
+      cores or more, always recorded.
+    * **cross-shard batch tax** — on the K=2 plane, p50/p99 of bind
+      batches within one group against batches spanning both (two round
+      trips and two barriers in parallel).  Recorded, not gated.
+    * **skewed-load autosplit** — every writer hammers one g0 namespace
+      on a fresh K=2 plane with the load watcher armed
+      (``BENCH_AUTOSPLIT_P99_S``).  Gates: the watcher splits the hot
+      namespace to g1 within ``BENCH_AUTOSPLIT_DEADLINE_S`` (60 s) with
+      ``shard.autosplit.triggered`` counted, and the source group's
+      windowed ``storage.group_wait_s`` p99 (from ``/metrics`` bucket
+      deltas) recovers after the flip (armed on 4 cores or more)."""
+    import tempfile
+    import urllib.request
+
+    from minisched_tpu_torch.api.objects import Binding, make_node, make_pod
+    from minisched_tpu_torch.controlplane.shards import (
+        ShardedPlane,
+        ShardTopology,
+    )
+    from minisched_tpu_torch.observability import counters
+
+    if os.environ.get("BENCH_SHARD", "0") == "0":
+        raise Skip("BENCH_SHARD unset: sharded write plane role is opt-in")
+
+    W = max(int(os.environ.get("BENCH_SHARD_WRITERS", "6")), 6)
+    window_s = float(os.environ.get("BENCH_SHARD_WINDOW_S", "2.0"))
+    gate = float(os.environ.get("BENCH_SHARD_GATE", "1.5"))
+    floor_us = os.environ.get("BENCH_SHARD_FSYNC_FLOOR_US", "2000")
+    batches = int(os.environ.get("BENCH_SHARD_BIND_BATCHES", "30"))
+    ttl_s = 1.0
+
+    counters.reset()
+    tmp = tempfile.mkdtemp(prefix="bench-shard-")
+
+    # writer namespaces balanced across the K=2 topology up front, so both
+    # runs carry the same client load and only the group count differs
+    probe = ShardTopology({"g0": ["http://a"], "g1": ["http://b"]})
+    per_group: Dict[str, List[str]] = {"g0": [], "g1": []}
+    i = 0
+    while any(len(v) < (W + 1) // 2 for v in per_group.values()):
+        ns = f"bench-ns-{i:03d}"
+        per_group[probe.owner(ns)].append(ns)
+        i += 1
+    writer_ns = [per_group[gid][j] for j in range((W + 1) // 2)
+                 for gid in ("g0", "g1")][:W]
+
+    helper = os.path.join(tmp, "_write_storm.py")
+    repo_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(helper, "w") as f:
+        f.write(
+            "import sys, time\n"
+            f"sys.path.insert(0, {repo_dir!r})\n"
+            "from minisched_tpu_torch.api.objects import make_pod\n"
+            "from minisched_tpu_torch.controlplane.shards import "
+            "ShardedStore\n"
+            "seed, ns, window_s = sys.argv[1], sys.argv[2], "
+            "float(sys.argv[3])\n"
+            "ss = ShardedStore(seeds=[seed], timeout_s=10.0, retries=2)\n"
+            "n = 0\n"
+            "deadline = time.monotonic() + window_s\n"
+            "try:\n"
+            "    while time.monotonic() < deadline:\n"
+            "        ss.create('Pod', make_pod('%s-%06d' % (ns, n), "
+            "namespace=ns))\n"
+            "        n += 1\n"
+            "finally:\n"
+            "    ss.close()\n"
+            "print(n)\n")
+    writer_env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+
+    def storm(seed_url: str, label: str) -> float:
+        procs = [subprocess.Popen(
+            [sys.executable, helper, seed_url, writer_ns[w], str(window_s)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=writer_env)
+            for w in range(W)]
+        total = 0
+        for proc in procs:
+            out, err = proc.communicate(timeout=window_s + 120)
+            if proc.returncode != 0:
+                raise AssertionError(f"[shard] {label} WRITER FAILED: "
+                                     f"{err.decode(errors='replace')[-300:]}")
+            total += int(out.strip())
+        rate = total / window_s
+        _log(f"[shard] {label}: {rate:.0f} creates/s ({W} writer procs)")
+        return rate
+
+    old_floor = os.environ.get("MINISCHED_FSYNC_FLOOR_US")
+    os.environ["MINISCHED_FSYNC_FLOOR_US"] = floor_us
+    try:
+        rates: Dict[int, float] = {}
+        for k in (1, 2):
+            plane = ShardedPlane(os.path.join(tmp, f"k{k}"), k=k,
+                                 replicas_per_group=1, fsync=True,
+                                 ttl_s=ttl_s)
+            try:
+                seeds = plane.start()
+                rates[k] = storm(seeds[0], f"K={k} write storm")
+            finally:
+                plane.stop()
+        scaling = rates[2] / rates[1] if rates[1] else 0.0
+        cores = os.cpu_count() or 1
+        scaling_gated = cores >= 4
+        if scaling_gated and scaling < gate:
+            raise AssertionError(
+                f"[shard] WRITE SCALING UNDER GATE: {rates[2]:.0f}/s on 2 "
+                f"groups vs {rates[1]:.0f}/s on 1 = {scaling:.2f}x < "
+                f"{gate}x — a second leader group is not buying write "
+                f"throughput")
+        _log(f"[shard] write scaling 1->2 groups: {scaling:.2f}x"
+             + ("" if scaling_gated else
+                f" (gate skipped: {cores} core(s))"))
+
+        # ---- cross-shard batch tax (K=2, measured separately) ---------
+        plane = ShardedPlane(os.path.join(tmp, "tax"), k=2,
+                             replicas_per_group=1, fsync=True, ttl_s=ttl_s)
+        try:
+            plane.start()
+            ss = plane.client(timeout_s=10.0, retries=2)
+            ns0, ns1 = per_group["g0"][0], per_group["g1"][0]
+            ss.create("Node", make_node("bn1", capacity={
+                "cpu": "64", "memory": "256Gi", "pods": 8 * batches}))
+            for b in range(batches):
+                ss.create("Pod", make_pod(f"s{b:03d}", namespace=ns0))
+                ss.create("Pod", make_pod(f"t{b:03d}", namespace=ns0))
+                ss.create("Pod", make_pod(f"x{b:03d}", namespace=ns0))
+                ss.create("Pod", make_pod(f"y{b:03d}", namespace=ns1))
+            single_lat, cross_lat = [], []
+            for b in range(batches):
+                t0 = time.monotonic()
+                res = ss.bind_many_remote(
+                    [Binding(f"s{b:03d}", ns0, "bn1"),
+                     Binding(f"t{b:03d}", ns0, "bn1")],
+                    return_objects=False)
+                single_lat.append(time.monotonic() - t0)
+                if any(isinstance(r, BaseException) for r in res):
+                    raise AssertionError(f"[shard] single-group bind: {res}")
+                t0 = time.monotonic()
+                res = ss.bind_many_remote(
+                    [Binding(f"x{b:03d}", ns0, "bn1"),
+                     Binding(f"y{b:03d}", ns1, "bn1")],
+                    return_objects=False)
+                cross_lat.append(time.monotonic() - t0)
+                if any(isinstance(r, BaseException) for r in res):
+                    raise AssertionError(f"[shard] cross-shard bind: {res}")
+            ss.close()
+        finally:
+            plane.stop()
+        single_lat.sort()
+        cross_lat.sort()
+        single_p50 = _pct(single_lat, 0.50, 4)
+        cross_p50 = _pct(cross_lat, 0.50, 4)
+        tax = cross_p50 / single_p50 if single_p50 else 0.0
+        _log(f"[shard] cross-shard batch tax: single p50 {single_p50}s vs "
+             f"cross p50 {cross_p50}s = {tax:.2f}x")
+
+        # ---- skewed-load autosplit -------------------------------------
+        auto_env = {
+            "MINISCHED_AUTOSPLIT": "1",
+            "MINISCHED_AUTOSPLIT_P99_S": os.environ.get(
+                "BENCH_AUTOSPLIT_P99_S", "0.004"),
+            "MINISCHED_AUTOSPLIT_HOT": "2",
+            "MINISCHED_AUTOSPLIT_INTERVAL_S": "0.25",
+            "MINISCHED_AUTOSPLIT_COOLDOWN_S": "3600",
+        }
+        saved_env = {k: os.environ.get(k) for k in auto_env}
+        os.environ.update(auto_env)
+
+        def scrape_wait(base: str):
+            """(cumulative group-wait buckets {le: count}, the autosplit
+            trigger count) off one replica's ``/metrics``."""
+            with urllib.request.urlopen(base + "/metrics",
+                                        timeout=5.0) as r:
+                text = r.read().decode()
+            buckets: Dict[float, int] = {}
+            fired = 0
+            for line in text.splitlines():
+                if line.startswith("storage_group_wait_seconds_bucket"):
+                    le_s = line.split('le="', 1)[1].split('"', 1)[0]
+                    le = float("inf") if le_s == "+Inf" else float(le_s)
+                    val = line.split("} ", 1)[1].split(" #", 1)[0]
+                    buckets[le] = buckets.get(le, 0) + int(float(val))
+                elif line.startswith("shard_autosplit_triggered "):
+                    fired = int(float(line.split()[1]))
+            return buckets, fired
+
+        def window_p99(before: dict, after: dict) -> float:
+            """Nearest-rank p99 of the observations between two scrapes
+            (cumulative-bucket deltas); 0.0 for an empty window."""
+            bounds = sorted(set(before) | set(after))
+            delta = {le: after.get(le, 0) - before.get(le, 0)
+                     for le in bounds}
+            n = delta.get(float("inf"), 0)
+            if n <= 0:
+                return 0.0
+            rank = max(1, int(n * 0.99 + 0.999999))
+            for le in bounds:
+                if delta[le] >= rank:
+                    return le
+            return float("inf")
+
+        split_deadline_s = float(os.environ.get(
+            "BENCH_AUTOSPLIT_DEADLINE_S", "60"))
+        post_window_s = float(os.environ.get(
+            "BENCH_AUTOSPLIT_POST_WINDOW_S", "3.0"))
+        plane = ShardedPlane(os.path.join(tmp, "auto"), k=2,
+                             replicas_per_group=1, fsync=True, ttl_s=ttl_s)
+        try:
+            plane.start()
+            hot_ns = per_group["g0"][0]
+            g0_url = plane.groups["g0"].replicas[0].base_url
+            stop_evt = threading.Event()
+            write_errors: List[str] = []
+
+            def skew_writer(widx: int) -> None:
+                wss = plane.client(timeout_s=10.0, retries=4)
+                n = 0
+                try:
+                    while not stop_evt.is_set():
+                        try:
+                            wss.create("Pod", make_pod(
+                                f"skew-{widx}-{n:05d}", namespace=hot_ns))
+                            n += 1
+                        except Exception as e:  # noqa: BLE001
+                            write_errors.append(repr(e))
+                            time.sleep(0.1)
+                finally:
+                    wss.close()
+
+            writers = [threading.Thread(target=skew_writer, args=(w,),
+                                        daemon=True) for w in range(W)]
+            for t in writers:
+                t.start()
+            s0, _ = scrape_wait(g0_url)
+            t0 = time.monotonic()
+            fired_at = None
+            while time.monotonic() - t0 < split_deadline_s:
+                try:
+                    with urllib.request.urlopen(g0_url + "/shards/status",
+                                                timeout=5.0) as r:
+                        doc = json.loads(r.read())
+                except OSError:
+                    time.sleep(0.25)
+                    continue
+                if doc["topology"].get("overrides", {}).get(hot_ns) == "g1":
+                    fired_at = time.monotonic() - t0
+                    break
+                time.sleep(0.25)
+            s1, fired_count = scrape_wait(g0_url)
+            if fired_at is None:
+                stop_evt.set()
+                raise AssertionError(
+                    f"[shard] AUTOSPLIT NEVER FIRED within "
+                    f"{split_deadline_s}s (hot p99 threshold "
+                    f"{auto_env['MINISCHED_AUTOSPLIT_P99_S']}s, writer "
+                    f"errors {len(write_errors)})")
+            pre_p99 = window_p99(s0, s1)
+            # the override flips before the watcher's trigger counter
+            # bumps (the split's purge still runs): give it a moment
+            cdl = time.monotonic() + 10.0
+            while fired_count < 1 and time.monotonic() < cdl:
+                time.sleep(0.25)
+                _b, fired_count = scrape_wait(g0_url)
+            time.sleep(1.5)  # the purge's tail and frozen retries
+            s2, _ = scrape_wait(g0_url)
+            time.sleep(post_window_s)
+            s3, _ = scrape_wait(g0_url)
+            post_p99 = window_p99(s2, s3)
+            stop_evt.set()
+            for t in writers:
+                t.join(timeout=30.0)
+            _log(f"[shard] autosplit fired after {fired_at:.1f}s (trigger "
+                 f"count {fired_count}); source group_wait p99 "
+                 f"{pre_p99:.4f}s before -> {post_p99:.4f}s after")
+            if fired_count < 1:
+                raise AssertionError(
+                    "[shard] override flipped but shard.autosplit."
+                    "triggered never counted — split did not come from "
+                    "the watcher")
+            recovered = post_p99 < pre_p99 or post_p99 == 0.0
+            if scaling_gated and not recovered:
+                raise AssertionError(
+                    f"[shard] GROUP WAIT DID NOT RECOVER: p99 "
+                    f"{pre_p99:.4f}s before the split vs {post_p99:.4f}s "
+                    f"after — moving the hot namespace bought nothing")
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            plane.stop()
+    finally:
+        if old_floor is None:
+            os.environ.pop("MINISCHED_FSYNC_FLOOR_US", None)
+        else:
+            os.environ["MINISCHED_FSYNC_FLOOR_US"] = old_floor
+
+    return {
+        "writers": W,
+        "window_s": window_s,
+        "fsync_floor_us": float(floor_us),
+        "rate_1_group_s": round(rates[1], 1),
+        "rate_2_groups_s": round(rates[2], 1),
+        "write_scaling_x": round(scaling, 2),
+        "scaling_gate_x": gate,
+        "scaling_gated": scaling_gated,
+        "cpu_cores": cores,
+        "bind_batches": batches,
+        "single_group_bind_p50_s": single_p50,
+        "single_group_bind_p99_s": _pct(single_lat, 0.99, 4),
+        "cross_shard_bind_p50_s": cross_p50,
+        "cross_shard_bind_p99_s": _pct(cross_lat, 0.99, 4),
+        "cross_shard_tax_x": round(tax, 2),
+        "cross_bind_batches": counters.get("shard.cross_bind_batches"),
+        "wrong_shard_chased": counters.get("shard.wrong_shard_chased"),
+        "autosplit_fired_after_s": round(fired_at, 2),
+        "autosplit_trigger_count": fired_count,
+        "autosplit_pre_p99_s": round(pre_p99, 4),
+        "autosplit_post_p99_s": round(post_p99, 4),
+        "write_errors": len(write_errors),
     }
 
 

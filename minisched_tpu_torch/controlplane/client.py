@@ -3,7 +3,9 @@
 A copy of ``minisched_tpu/controlplane/client.py``: ``nodes()`` and
 ``pods()`` with create, get, list, update and delete, the binding
 subresource (``bind``, and ``bind_many``: a wave's placements in one
-capacity-checked store transaction), the ``EventRecorder`` that writes
+capacity-checked store transaction; on a sharded plane's group the
+budgets of Nodes the group does not hold come from the capacity mirror,
+JAX ``:228-303``), the ``EventRecorder`` that writes
 scheduler events into the store, and the client-side QPS/Burst rate
 limiter the reference configures at 5000/5000 (k8sapiserver.go:57-62) —
 off by default, enabled per client.
@@ -215,18 +217,43 @@ class _PodAPI:
         """Remaining [milli_cpu, memory, pods] per TARGET node from the
         store's live state (the caller holds the store lock): allocatable
         minus the store's per-node aggregates.  Nodes absent from the
-        store get no budget and no check."""
+        store get no budget and no check.
+
+        A sharded group's store carries a ``_shard_budget_view``
+        (``shards.ShardRuntime``): a Node this store does not hold (a
+        non-home group holds none) takes the home group's allocatable
+        minus every other vantage's usage from the rv-stamped mirror, as
+        a 4th element the mirror's rv, which a refusal names; this
+        group's own share is the live aggregate, under this very lock
+        hold.  The home group also debits the board's reported non-home
+        usage from the Nodes it holds."""
         budgets: Dict[str, list] = {}
         nodes = store._objects.get(KIND_NODE, {})
+        view = getattr(store, "_shard_budget_view", None)
         for name in targets:
             node = nodes.get(f"/{name}")
             if node is None:
-                continue
-            alloc = node.status.allocatable
-            b = [alloc.milli_cpu, alloc.memory, alloc.pods]
+                if view is None:
+                    continue
+                counters.inc("shard.budget.mirror_checks")
+                ent = view.budget(name)
+                if ent is None:
+                    counters.inc("shard.budget.unknown_node")
+                    continue
+                alloc, elsewhere, rv = ent
+                b = [alloc[0] - elsewhere[0], alloc[1] - elsewhere[1],
+                     alloc[2] - elsewhere[2], rv]
+            else:
+                alloc = node.status.allocatable
+                b = [alloc.milli_cpu, alloc.memory, alloc.pods]
+                extra = view.extra_used(name) if view is not None else None
+                if extra is not None:
+                    b = [b[0] - extra[0], b[1] - extra[1], b[2] - extra[2]]
             a = store._pod_node_agg.get(name)
             if a is not None:
-                b = [b[0] - a[0], b[1] - a[1], b[2] - a[2]]
+                b[0] -= a[0]
+                b[1] -= a[1]
+                b[2] -= a[2]
             budgets[name] = b
         return budgets
 
@@ -264,11 +291,18 @@ class _PodAPI:
                     req = pod.resource_requests()
                     if (req.milli_cpu > budget[0] or req.memory > budget[1]
                             or req.pods > budget[2]):
+                        # a budget of 4 came from the cross-shard mirror:
+                        # the refusal carries the mirror's rv, so a
+                        # consumer can judge how stale the verdict was
+                        mirror = ""
+                        if len(budget) > 3:
+                            mirror = f", budget-mirror rv={budget[3]}"
+                            counters.inc("shard.budget.refused")
                         raise OutOfCapacity(
                             f"node {binding.node_name} out of capacity for "
                             f"pod {pod.metadata.key} (remaining "
                             f"cpu={budget[0]}m mem={budget[1]} "
-                            f"pods={budget[2]})")
+                            f"pods={budget[2]}{mirror})")
                     budget[0] -= req.milli_cpu
                     budget[1] -= req.memory
                     budget[2] -= req.pods

@@ -57,8 +57,10 @@ typed ``ETIMEDOUT`` under ``StorageDegraded``).  A fenced store (a
 follower, or a leader that lost its arbiter majority) refuses writes
 with ``NotLeader``.
 
-Left out: the shard freeze leases' re-arm and the sharded façade's
-journal wiring (ROADMAP item 7b).
+A sharded façade's ``shards.ShardRuntime`` points its ``ShardInfo``'s
+lease journal at ``record_shard_lease`` and re-arms the leases
+``recovered_shard_leases`` returns (``ShardInfo.adopt_leases``), so a
+replica restarted inside a split's freeze keeps refusing until the TTL.
 """
 
 from __future__ import annotations

@@ -56,10 +56,25 @@ this process's ``faults.net.GLOBAL_NET``.  Leases ride
 ``wire.read.bounded_requests``, and one past the applied rv (or a watch
 resume a follower has not applied) ``wire.read.not_yet_observed``.
 
-Left out, each answering 404 as the JAX façade does when it is not
-enabled: shards (``shard=``, ``/shards/*``, ROADMAP item 7b); and the
-``http.500``/``http.reset`` fault points (``faults=``), which wait for
-item 8.
+Shards (JAX ``:228-232``, ``:308-332``, ``:402-430``, ``:753-879``):
+with ``start_api_server(shard=ShardInfo)`` the façade fronts one leader
+group of a sharded write plane (``shards.py``).  Every write route, each
+entry of a batch create or batch bind included, first asks the group's
+``ShardInfo``: a namespace another group owns answers 421 ``wrong
+shard``, one inside a split's freeze 503 ``shard frozen``, before the
+store runs anything (a batch bind checks only the entries its ack
+registry does not answer).  ``GET /shards/status`` (topology, leases),
+``/shards/handoff?namespace=`` (the source's handoff document),
+``/shards/budget`` (the home group's budget document; 404 elsewhere) and
+``POST /shards/control`` (topology, freeze, unfreeze, budget_report),
+``/shards/seed`` and ``/shards/purge`` are the split's and the capacity
+mirror's surface; the façade's ``shards.ShardRuntime`` (lease journal,
+budget sync, autosplit) starts and stops with it.  Without ``shard=``
+the routes answer 404 and no write is refused.
+
+Left out, answering 404 as the JAX façade does when it is not enabled:
+the ``http.500``/``http.reset`` fault points (``faults=``), which wait
+for ROADMAP item 8.
 """
 
 from __future__ import annotations
@@ -88,7 +103,9 @@ from minisched_tpu_torch.controlplane.store import (
     NotLeader,
     NotYetObserved,
     ObjectStore,
+    ShardFrozen,
     StorageDegraded,
+    WrongShard,
 )
 from minisched_tpu_torch.faults.net import GLOBAL_NET
 from minisched_tpu_torch.observability import counters, hist, trace
@@ -231,6 +248,10 @@ class _Handler(BaseHTTPRequestHandler):
     #: repl.ReplRuntime when this server fronts a replicated store
     #: (DESIGN.md §27); None = the /repl/* routes answer 404
     repl = None
+    #: shards.ShardInfo when this server fronts one leader group of a
+    #: sharded write plane; None = unsharded: /shards/* answer 404 and no
+    #: write is ever refused (the K=1 parity path)
+    shard = None
     protocol_version = "HTTP/1.1"
     #: TCP_NODELAY on every connection: a chunked list body ends in small
     #: writes, which Nagle holds for the client's delayed ACK (about 40 ms
@@ -270,6 +291,31 @@ class _Handler(BaseHTTPRequestHandler):
         except ValueError:
             self._error(400, f"{name} must be an integer")
             raise
+
+    def _shard_guard(self, kind: str, *namespaces: str) -> bool:
+        """Refuse a write whose namespace this leader group does not own
+        (421 ``wrong shard``) or that sits inside a split's freeze (503
+        ``shard frozen``), before the store runs anything, so a refused
+        request is safe to re-route or retry whole.  True: proceed (and
+        the autosplit watcher's tally counts the namespaces)."""
+        sh = self.shard
+        if sh is None:
+            return True
+        eff = ["" if kind in _CLUSTER_SCOPED else (ns or "default")
+               for ns in namespaces]
+        try:
+            for ns in dict.fromkeys(eff):
+                sh.check_write(ns)
+        except WrongShard as e:
+            counters.inc("storage.shard.wrong_shard_refused")
+            self._error(421, str(e))
+            return False
+        except ShardFrozen as e:
+            counters.inc("storage.shard.frozen_refused")
+            self._error(503, str(e))
+            return False
+        sh.note_writes(dict.fromkeys(eff))
+        return True
 
     def _observe_request(self, verb: str, path: str, t0: float) -> None:
         hist.observe("http.request_s", time.monotonic() - t0, verb=verb,
@@ -319,6 +365,9 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self.repl.handle_get(self, path, query)
             return
+        if path.startswith("/shards/"):
+            self._shards_get(path, query)
+            return
         try:
             kind, ns, name, _ = _route(path)
         except KeyError:
@@ -357,6 +406,32 @@ class _Handler(BaseHTTPRequestHandler):
                 self._list(kind, ns)
         except KeyError as e:
             self._error(404, str(e))
+
+    def _shards_get(self, path: str, query: str) -> None:
+        """The sharded plane's discovery and split surface; 404 on an
+        unsharded server, so a router can probe any façade."""
+        from minisched_tpu_torch.controlplane import shards
+
+        sh = self.shard
+        if sh is None:
+            self._error(404, "sharding not enabled on this server")
+        elif path == "/shards/status":
+            self._send(200, sh.describe(), rv=self.store.applied_rv())
+        elif path == "/shards/handoff":
+            ns = (parse_qs(query).get("namespace") or [""])[0]
+            if not ns:
+                self._error(400, "handoff requires ?namespace=")
+                return
+            self._send(200, shards.build_handoff(self.store, ns))
+        elif path == "/shards/budget":
+            # the home group's per-Node budget document; 404 elsewhere so
+            # the mirrors can probe any replica
+            if sh.topology.owner("") != sh.group_id:
+                self._error(404, "budget doc lives on the home group")
+                return
+            self._send(200, shards.build_budget_doc(self.store, sh))
+        else:
+            self._error(404, f"no route {path}")
 
     def _list(self, kind: str, ns: str) -> None:
         """A list whose ``resource_version`` reflects exactly its items; a
@@ -543,6 +618,9 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self.repl.handle_post(self, path)
             return
+        if path.startswith("/shards/"):
+            self._shards_post(path)
+            return
         try:
             kind, ns, name, sub = _route(path)
         except KeyError:
@@ -568,6 +646,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(400, f"malformed body: {e}")
             return
         _fixup_namespace(kind, ns, obj)
+        if not self._shard_guard(kind, obj.metadata.namespace):
+            return
         try:
             self._send(201, _encode(self.store.create(kind, obj)))
         except NotLeader as e:
@@ -589,6 +669,8 @@ class _Handler(BaseHTTPRequestHandler):
         if not node_name:
             self._error(400, "binding body requires node_name")
             return
+        if not self._shard_guard("Pod", namespace):
+            return
         try:
             pod = Client(self.store).pods(namespace).bind(Binding(
                 name, namespace, node_name,
@@ -604,6 +686,47 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(507, str(e))
         except KeyError as e:
             self._error(404, str(e))
+
+    def _shards_post(self, path: str) -> None:
+        """``/shards/control`` (topology, freeze, unfreeze, budget_report
+        on this façade's ShardInfo; the split coordinator sends every op to
+        every replica of every group), ``/shards/seed`` (a handoff
+        document's objects into this group's store, on its leader) and
+        ``/shards/purge`` (the shipped objects out of the source after
+        the flip).  Seed and purge bypass the guard: they move objects
+        the topology says this group does not (yet, or any longer) own."""
+        from minisched_tpu_torch.controlplane import shards
+
+        sh = self.shard
+        if sh is None:
+            self._error(404, "sharding not enabled on this server")
+            return
+        try:
+            body = self._body()
+        except ValueError as e:
+            self._error(400, f"malformed body: {e}")
+            return
+        try:
+            if path == "/shards/control":
+                sh.apply_control(body)
+                self._send(200, sh.describe())
+            elif path == "/shards/seed":
+                self._send(200, shards.apply_seed(self.store, body))
+            elif path == "/shards/purge":
+                ns = body.get("namespace") or ""
+                if not ns:
+                    self._error(400, "purge requires namespace")
+                    return
+                self._send(200, shards.purge_namespace(
+                    self.store, ns, names=body.get("names")))
+            else:
+                self._error(404, f"no route {path}")
+        except NotLeader as e:
+            self._error(503, str(e))
+        except StorageDegraded as e:
+            self._error(507, str(e))
+        except (KeyError, ValueError) as e:
+            self._error(400, f"bad shard control: {e}")
 
     def _already_bound_entry(self, err: BaseException, namespace: str,
                              name: str) -> dict:
@@ -635,6 +758,9 @@ class _Handler(BaseHTTPRequestHandler):
                 continue
             _fixup_namespace(kind, ns, obj)
             decoded.append((i, obj))
+        if not self._shard_guard(
+                kind, *[o.metadata.namespace for _, o in decoded]):
+            return
         try:
             results = self.store.create_many(
                 kind, [o for _, o in decoded], return_objects=return_objects)
@@ -697,6 +823,12 @@ class _Handler(BaseHTTPRequestHandler):
                     if entry is not None:
                         replayed[i] = entry
         todo = [i for i in range(len(bindings)) if i not in replayed]
+        # shard ownership of the entries still to run, before any runs: a
+        # refused request ran nothing, so the router may re-split it, and
+        # the decided entries keep answering from this group's registry
+        if not self._shard_guard(
+                "Pod", *[bindings[i].pod_namespace for i in todo]):
+            return
         try:
             results = Client(self.store).pods().bind_many(
                 [bindings[i] for i in todo], return_objects=return_objects)
@@ -801,6 +933,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(400, f"body namespace {obj.metadata.namespace!r} "
                              f"!= {ns!r}")
             return
+        if not self._shard_guard(kind, ns or obj.metadata.namespace):
+            return
         try:
             self._send(200, _encode(self.store.update(
                 kind, obj, expected_rv=expected_rv)))
@@ -823,6 +957,8 @@ class _Handler(BaseHTTPRequestHandler):
     def _handle_delete(self) -> None:
         try:
             kind, ns, name, _ = _route(self.path)
+            if not self._shard_guard(kind, ns):
+                return
             self.store.delete(kind, ns, name)
             self._send(200, {})
         except NotLeader as e:
@@ -836,7 +972,7 @@ class _Handler(BaseHTTPRequestHandler):
 def start_api_server(store: Optional[ObjectStore] = None, port: int = 0,
                      stream_buffer_bytes: Optional[int] = None,
                      stream_sndbuf_bytes: Optional[int] = None,
-                     repl: Any = None
+                     repl: Any = None, shard: Any = None
                      ) -> Tuple[ThreadingHTTPServer, str, Callable[[], None]]:
     """Boot the REST façade on ``port`` (0: ephemeral) and poll
     ``/healthz`` until it answers (k8sapiserver.go:231-249's readiness
@@ -848,7 +984,10 @@ def start_api_server(store: Optional[ObjectStore] = None, port: int = 0,
     thread for each.  ``stream_buffer_bytes`` and ``stream_sndbuf_bytes``
     override the loop's out-buffer eviction bound and the adopted
     sockets' send buffer.  ``repl``: the replica's ``repl.ReplRuntime``,
-    which serves ``/repl/*``."""
+    which serves ``/repl/*``.  ``shard``: the group's ``shards.ShardInfo``
+    (the guard and ``/shards/*``); its ``ShardRuntime`` (lease journal
+    and re-arm, budget sync, autosplit) is attached to the store here
+    and stopped with the server."""
     store = store or ObjectStore()
     stream_loop = None
     if os.environ.get("MINISCHED_STREAMLOOP", "1") != "0":
@@ -870,7 +1009,14 @@ def start_api_server(store: Optional[ObjectStore] = None, port: int = 0,
         "store": store, "active_watches": set(),
         "watch_lock": threading.Lock(), "ack_registry": acks,
         "ack_order": deque(acks), "ack_lock": threading.Lock(),
-        "stream_loop": stream_loop, "repl": repl})
+        "stream_loop": stream_loop, "repl": repl, "shard": shard})
+    shard_runtime = None
+    if shard is not None:
+        from minisched_tpu_torch.controlplane.shards import (
+            attach_shard_runtime,
+        )
+
+        shard_runtime = attach_shard_runtime(store, shard)
     server = _Server(("127.0.0.1", port), handler)
     thread = threading.Thread(target=server.serve_forever, daemon=True,
                               name="api-server")
@@ -890,6 +1036,8 @@ def start_api_server(store: Optional[ObjectStore] = None, port: int = 0,
         server.server_close()
         if stream_loop is not None:
             stream_loop.stop()
+        if shard_runtime is not None:
+            shard_runtime.stop()
         raise RuntimeError("API server failed /healthz within 30s")
 
     def shutdown() -> None:
@@ -901,6 +1049,8 @@ def start_api_server(store: Optional[ObjectStore] = None, port: int = 0,
             w.stop()
         if stream_loop is not None:
             stream_loop.stop()  # ends each adopted stream, closes it
+        if shard_runtime is not None:
+            shard_runtime.stop()
         server.shutdown()
         server.server_close()
         thread.join(timeout=2.0)
@@ -947,6 +1097,12 @@ class HTTPClient:
             raise self._mark(StorageDegraded(body), replayed)
         if status == 504 and "not yet observed" in body:
             raise self._mark(NotYetObserved(body), replayed)
+        if status == 421:
+            # == the shard-ownership refusal: typed, so a shard-aware
+            # caller re-routes to the owning group
+            raise self._mark(WrongShard(body), replayed)
+        if status == 503 and "shard frozen" in body:
+            raise self._mark(ShardFrozen(body), replayed)
         if status == 503 and "not leader" in body:
             # == the in-process fence refusal: typed, so a leader-aware
             # caller re-discovers the leader instead of retrying here

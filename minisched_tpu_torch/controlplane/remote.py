@@ -35,10 +35,16 @@ attempt discovers again.  A watch whose open fails rotates to the next
 endpoint, and a resume there replays exactly the events after its rv.
 With one endpoint every path is the single-server one.
 
-Left out: the shard-freeze budget (``frozen_deadline_s``,
-``ShardFrozen``, ``WrongShard``), which waits for sharding (ROADMAP item
-7b), and the ``remote.request`` fault point, which waits for the rest of
-``faults/`` (item 8): ``faults=`` must stay None.
+The sharded plane's statuses (JAX ``:281-292``, ``:497``, ``:549-643``):
+a 421 raises ``WrongShard`` at once (the shard router chases it); a 503
+``shard frozen`` is waited out under its own jittered deadline,
+``frozen_deadline_s`` (10 s), apart from the transient-retry budget,
+and past it raises ``ShardFrozenTimeout``.  ``bind_many_remote(batch_id=,
+ack_ids=)`` lets the router post one logical batch across servers.
+
+``faults=`` takes a ``faults.FaultFabric``: its ``remote.request`` point
+is consulted before each attempt leaves the process, and an
+``InjectedFault`` is retried like a reset connection.
 """
 
 from __future__ import annotations
@@ -73,9 +79,13 @@ from minisched_tpu_torch.controlplane.store import (
     HistoryCompacted,
     NotLeader,
     NotYetObserved,
+    ShardFrozen,
+    ShardFrozenTimeout,
     StorageDegraded,
     WatchEvent,
+    WrongShard,
 )
+from minisched_tpu_torch.faults import InjectedFault
 from minisched_tpu_torch.observability import counters
 from minisched_tpu_torch.utils.retry import backoff_delays
 
@@ -245,6 +255,7 @@ _TRANSIENT_ERRORS = (
     ConnectionError,
     TimeoutError,
     http.client.HTTPException,
+    InjectedFault,
     OSError,
 )
 
@@ -280,15 +291,21 @@ class RemoteStore:
         watch_read_timeout_s: float = 3600.0,
         pool_max_idle: int = DEFAULT_MAX_IDLE,
         endpoints: Optional[List[str]] = None,
+        frozen_deadline_s: float = 10.0,
     ):
         self._base = base_url.rstrip("/")
-        if faults is not None:
-            raise ValueError(
-                "RemoteStore: the remote.request fault point waits for "
-                "the port of faults/ (ROADMAP item 8); faults= must be "
-                "None")
         self._timeout_s = timeout_s
         self._retries = max(int(retries), 0)
+        #: how long one call may wait out a frozen namespace (a split's
+        #: window) before ``ShardFrozenTimeout``: its own budget, apart
+        #: from ``retries`` — a healthy freeze is milliseconds, a dead
+        #: coordinator's thaws at its lease TTL
+        self._frozen_deadline_s = max(float(frozen_deadline_s), 0.0)
+        #: the ``faults.FaultFabric`` whose ``remote.request`` point each
+        #: attempt consults before it leaves the process; the informers
+        #: read ``faults`` for their relist jitter seed
+        self._faults = faults
+        self.faults = faults
         self._backoff_initial_s = backoff_initial_s
         self._backoff_factor = backoff_factor
         self._backoff_jitter = backoff_jitter
@@ -478,13 +495,21 @@ class RemoteStore:
                                 self._backoff_jitter, self._rng)
         last_err: Optional[BaseException] = None
         is_read = method == "GET"
-        for attempt in range(self._retries + 1):
+        # a frozen namespace gets its own deadline loop below instead of
+        # spending the transient-failure attempts: hence the manual count
+        attempt = 0
+        frozen_deadline: Optional[float] = None
+        frozen_delays: Any = None
+        while attempt < self._retries + 1:
+            frozen = False
             status = None
             base: Optional[str] = None
             try:
                 # routed per attempt: a rotation or a leader discovered
                 # between attempts re-routes the retry
                 pool, base, wire_path = self._route(is_read, path)
+                if self._faults is not None:
+                    self._faults.check("remote.request", path)
                 # a stale pooled socket is reopened inside the pool
                 # without spending one of these attempts, but it is a
                 # retransmission: it counts toward the attempts the bind
@@ -515,7 +540,18 @@ class RemoteStore:
                     raise OutOfCapacity(body)
                 if status in (404, 409):
                     raise KeyError(body)
-                if status == 503 and "not leader" in body:
+                if status == 421:
+                    # a sharded plane's misdirected write: retrying this
+                    # group never succeeds; the shard router refreshes
+                    # its topology and re-routes
+                    raise WrongShard(body)
+                if status == 503 and "shard frozen" in body:
+                    # a split's write freeze: waited out under the frozen
+                    # deadline below
+                    counters.inc("remote.shard_frozen_retry")
+                    last_err = ShardFrozen(body)
+                    frozen = True
+                elif status == 503 and "not leader" in body:
                     # a fenced replica: retrying HERE never succeeds.  One
                     # endpoint: the typed error at once; several: drop the
                     # cached leader and let the next attempt re-route
@@ -542,7 +578,24 @@ class RemoteStore:
                     raise RuntimeError(f"HTTP {status}: {body}")
                 else:
                     last_err = RuntimeError(f"HTTP {status}: {body}")
-            if attempt < self._retries:
+            if frozen:
+                now = time.monotonic()
+                if frozen_deadline is None:
+                    frozen_deadline = now + self._frozen_deadline_s
+                    frozen_delays = backoff_delays(
+                        self._backoff_initial_s, self._backoff_factor,
+                        1 << 20, self._backoff_jitter, self._rng)
+                if now >= frozen_deadline:
+                    counters.inc("remote.shard_frozen_timeout")
+                    raise ShardFrozenTimeout(
+                        f"remote {method} {path} namespace still frozen "
+                        f"after its {self._frozen_deadline_s:.1f}s "
+                        f"deadline: {last_err}")
+                time.sleep(min(next(frozen_delays),
+                               max(frozen_deadline - now, 0.0)))
+                continue
+            attempt += 1
+            if attempt <= self._retries:
                 counters.inc("remote.retry")
                 time.sleep(next(delays))
         if isinstance(last_err, StorageDegraded):
@@ -552,6 +605,10 @@ class RemoteStore:
         if isinstance(last_err, NotYetObserved):
             raise NotYetObserved(
                 f"remote {method} {path} still unobserved after "
+                f"{self._retries + 1} attempts: {last_err}")
+        if isinstance(last_err, ShardFrozen):
+            raise ShardFrozen(
+                f"remote {method} {path} still frozen after "
                 f"{self._retries + 1} attempts: {last_err}")
         if isinstance(last_err, NotLeader):
             raise NotLeader(

@@ -1,8 +1,8 @@
 """Process-level replicated plane: N killable store replicas (DESIGN.md
 §27).
 
-A copy of ``minisched_tpu/controlplane/replproc.py`` (``:1-384``).  Each
-replica child hosts two façades on fixed ports:
+A copy of ``minisched_tpu/controlplane/replproc.py``.  Each replica
+child hosts two façades on fixed ports:
 
 * the DATA plane — the replicated ``DurableObjectStore`` behind
   ``start_api_server(repl=ReplRuntime)``, serving clients and the
@@ -18,14 +18,17 @@ by polling ``/repl/status``, and SIGKILLs any replica;
 ``ReplicaSupervisor.restart`` brings one back as a follower on the same
 ports over the same WAL.
 
-The child imports the control plane only (store, façade, replication,
-faults): it never resolves a device, and it is started with
-``CUDA_VISIBLE_DEVICES`` empty, so three replicas never open three
-contexts on the card beside the engine's.
+``shard={"group_id", "topology"}`` (JAX ``:56-140``) makes a replica a
+member of one leader group of a sharded write plane
+(``shards.ShardedPlane``): its data façade gets ``shards.ShardInfo``.
+``SplitCoordinator`` (JAX ``:384-517``) runs one ``split_namespace`` in
+a child of its own, so a test can SIGKILL the coordinator inside the
+freeze and watch every replica's lease thaw at its TTL.
 
-Left out: the ``shard=`` membership of a sharded write plane and the
-killable split coordinator (JAX ``:384-517``), which wait for sharding
-(ROADMAP item 7b).
+The children import the control plane only (store, façade, replication,
+shards, faults), never torch: they never resolve a device, and they are
+started with ``CUDA_VISIBLE_DEVICES`` empty, so replicas never open
+contexts on the card beside the engine's.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ def _replica_child_main(
     ttl_s: float = DEFAULT_TTL_S,
     parent_pid: Optional[int] = None,
     compact_every_s: float = 0.0,
+    shard: Optional[dict] = None,
 ) -> None:
     """One replica's whole life: recover the store from its own WAL,
     serve data + arbiter façades on fixed ports, join the plane (lead
@@ -72,7 +76,12 @@ def _replica_child_main(
 
     ``compact_every_s`` > 0 runs a background compaction loop that
     fires only while THIS replica leads with a hub attached — the
-    checkpoint-shipping half of DESIGN.md §28."""
+    checkpoint-shipping half of DESIGN.md §28.
+
+    ``shard`` (``{"group_id": gid, "topology": ShardTopology.as_dict()}``)
+    makes this replica a member of one leader group of a sharded plane:
+    the façade grows ``/shards/*`` and refuses writes for namespaces the
+    topology gives other groups.  None is the unsharded plane."""
     from minisched_tpu_torch.controlplane.durable import DurableObjectStore
     from minisched_tpu_torch.controlplane.httpserver import start_api_server
     from minisched_tpu_torch.controlplane.repl import (
@@ -99,8 +108,13 @@ def _replica_child_main(
             ack_timeout_s=ack_timeout_s,
             ttl_s=ttl_s,
         )
+    shard_info = None
+    if shard:
+        from minisched_tpu_torch.controlplane.shards import ShardInfo
+
+        shard_info = ShardInfo(shard["group_id"], shard["topology"])
     start_api_server(ObjectStore(), port=arbiter_port)
-    start_api_server(store, port=data_port, repl=runtime)
+    start_api_server(store, port=data_port, repl=runtime, shard=shard_info)
     if runtime is not None:
         runtime.start(bootstrap_leader or None)
     if compact_every_s and compact_every_s > 0:
@@ -152,6 +166,7 @@ class ReplicaSupervisor:
         ttl_s: float = DEFAULT_TTL_S,
         boot_timeout_s: float = 30.0,
         compact_every_s: float = 0.0,
+        shard: Optional[dict] = None,
     ):
         self.replica_id = replica_id
         self.wal_path = wal_path
@@ -162,6 +177,9 @@ class ReplicaSupervisor:
         self._ttl_s = ttl_s
         self._boot_timeout_s = boot_timeout_s
         self._compact_every_s = compact_every_s
+        #: the child's shard membership ({"group_id", "topology"}), passed
+        #: through verbatim; None = an unsharded replica
+        self.shard = shard
         self._proc: Any = None
         self._peers: List[dict] = []
         self.kills = 0
@@ -208,6 +226,7 @@ class ReplicaSupervisor:
             "ttl_s": self._ttl_s,
             "parent_pid": os.getpid(),
             "compact_every_s": self._compact_every_s,
+            "shard": self.shard,
         }
         env = dict(os.environ)
         repo_root = os.path.dirname(
@@ -294,10 +313,14 @@ class ReplicatedPlane:
         ack_timeout_s: float = 10.0,
         ttl_s: float = DEFAULT_TTL_S,
         compact_every_s: float = 0.0,
+        shard: Optional[dict] = None,
         replica_prefix: str = "r",
     ):
         self.ttl_s = ttl_s
         os.makedirs(wal_dir, exist_ok=True)
+        # replica ids must be unique across a multi-group plane (the
+        # partition layer and the hub key channels on them), so a sharded
+        # harness prefixes them per group ("g0r0")
         self.replica_prefix = replica_prefix
         self.replicas: List[ReplicaSupervisor] = [
             ReplicaSupervisor(
@@ -307,6 +330,7 @@ class ReplicatedPlane:
                 ack_timeout_s=ack_timeout_s,
                 ttl_s=ttl_s,
                 compact_every_s=compact_every_s,
+                shard=shard,
             )
             for i in range(n)
         ]
@@ -364,3 +388,119 @@ class ReplicatedPlane:
     def stop(self) -> None:
         for r in self.replicas:
             r.kill()
+
+
+# ---------------------------------------------------------------------------
+# killable split coordinator
+# ---------------------------------------------------------------------------
+
+
+def _split_coordinator_child_main(
+    topology: dict,
+    namespace: str,
+    target_gid: str,
+    ttl_s: float,
+    hold_s: float = 0.0,
+) -> None:
+    """One split coordinator's whole life in a fresh interpreter: run
+    ``split_namespace`` against a live sharded plane, optionally parking
+    ``hold_s`` inside the freeze (right after the freeze fanout, before
+    the handoff), where a test SIGKILLs it.  Prints ``FROZEN <lease_id>``
+    once the namespace is frozen and ``DONE <result json>`` at the end."""
+    from minisched_tpu_torch.controlplane.shards import (
+        ShardTopology,
+        split_namespace,
+    )
+
+    topo = ShardTopology.from_dict(topology)
+
+    def after_freeze(lease_id: str) -> None:
+        print(f"FROZEN {lease_id}", flush=True)
+        if hold_s > 0:
+            time.sleep(hold_s)
+
+    result = split_namespace(topo, namespace, target_gid, ttl_s=ttl_s,
+                             _after_freeze=after_freeze)
+    print("DONE " + json.dumps(result), flush=True)
+
+
+_COORD_CMD = (
+    "import json, sys; "
+    "from minisched_tpu_torch.controlplane.replproc import "
+    "_split_coordinator_child_main; "
+    "_split_coordinator_child_main(**json.loads(sys.argv[1]))"
+)
+
+
+class SplitCoordinator:
+    """A killable split-coordinator child: one ``split_namespace`` from its
+    own interpreter, so a test can SIGKILL the coordinator (not just a
+    shard leader) anywhere in the split and check the plane heals itself
+    (leases thaw at their TTL, ownership unchanged, no acked write
+    lost)."""
+
+    def __init__(self, topology: dict, namespace: str, target_gid: str,
+                 ttl_s: float, hold_s: float = 0.0):
+        self._cfg = {"topology": topology, "namespace": namespace,
+                     "target_gid": target_gid, "ttl_s": ttl_s,
+                     "hold_s": hold_s}
+        self._proc: Any = None
+        self.lease_id = ""
+        self.result: Optional[dict] = None
+
+    def start(self) -> "SplitCoordinator":
+        env = dict(os.environ)
+        repo_root = os.path.dirname(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
+        # host code: no CUDA context on the card
+        env["CUDA_VISIBLE_DEVICES"] = ""
+        self._proc = subprocess.Popen(
+            [sys.executable, "-c", _COORD_CMD, json.dumps(self._cfg)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+            text=True)
+        return self
+
+    def wait_frozen(self, timeout_s: float = 30.0) -> str:
+        """Block until the child reports the freeze fanout landed; the
+        lease id."""
+        deadline = time.monotonic() + timeout_s
+        line = ""
+        while time.monotonic() < deadline:
+            line = self._proc.stdout.readline()
+            if line.startswith("FROZEN "):
+                self.lease_id = line.split(None, 1)[1].strip()
+                return self.lease_id
+            if not line and self._proc.poll() is not None:
+                break
+        raise RuntimeError(f"coordinator never froze (last line {line!r}, "
+                           f"exit {self._proc.poll()})")
+
+    def wait_done(self, timeout_s: float = 60.0) -> dict:
+        """Block until the child's split completes; its result."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            line = self._proc.stdout.readline()
+            if line.startswith("DONE "):
+                self.result = json.loads(line[len("DONE "):])
+                self._proc.wait(timeout=10.0)
+                return self.result
+            if not line and self._proc.poll() is not None:
+                raise RuntimeError(f"coordinator exited "
+                                   f"{self._proc.returncode} without "
+                                   "completing the split")
+        raise RuntimeError(f"split not done within {timeout_s}s")
+
+    def alive(self) -> bool:
+        return self._proc is not None and self._proc.poll() is None
+
+    def kill(self) -> None:
+        """SIGKILL mid-split: the lease TTL is then the only thaw."""
+        if self._proc is None:
+            return
+        if self._proc.poll() is None:
+            self._proc.kill()
+        try:
+            self._proc.wait(timeout=10.0)
+        except subprocess.TimeoutExpired:
+            pass

@@ -58,8 +58,11 @@ consumer reconnects through resume or 410 and relist.
 (``durable.py``) fences a follower, which answers a watch resumed ahead
 of it with ``NotYetObserved``.
 
-Left out: the sharded store (ROADMAP item 7b), and the ``watch.drop``
-fault point (item 8).
+``WrongShard``, ``ShardFrozen`` and ``ShardFrozenTimeout`` (JAX
+``:90-125``) are the sharded write plane's refusals (``shards.py``);
+the store itself never raises them, the façade's shard guard does.
+
+Left out: the ``watch.drop`` fault point (ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -88,6 +91,29 @@ class NotLeader(Exception):
     """A mutation reached a fenced replica, one that follows a leader's
     replicated WAL and must not accept writes of its own (a durable
     store's ``fence``); the REST façade answers it 503 ``not leader``."""
+
+
+class WrongShard(Exception):
+    """A write reached a leader group that does not own the object's
+    namespace (the sharded write plane, ``shards.py``): the façade
+    refuses it before executing anything, since accepting it would fork
+    the namespace's history across two WALs.  On the wire: 421 with a
+    ``wrong shard`` marker.  Never retried blindly: the shard router
+    refreshes its topology from ``/shards/status`` and re-routes."""
+
+
+class ShardFrozen(Exception):
+    """A write hit a namespace inside a split's write freeze: the
+    namespace is mid-handoff between leader groups.  On the wire: 503
+    with a ``shard frozen`` marker, transient (the remote client waits
+    the window out under its own deadline).  Reads are never frozen."""
+
+
+class ShardFrozenTimeout(ShardFrozen):
+    """A frozen-namespace wait outlived its deadline
+    (``RemoteStore(frozen_deadline_s=)``): the split is stuck or its
+    coordinator died before the lease expired.  A ShardFrozen, so
+    handlers of "frozen" still catch it, but final for this call."""
 
 
 class HistoryCompacted(Exception):

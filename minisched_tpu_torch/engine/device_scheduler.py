@@ -1504,6 +1504,7 @@ class DeviceScheduler(Scheduler):
             if isinstance(res, BaseException):
                 trace.span_pod("bind_failed", pod, wave=self._wave_seq,
                                node=node_name, cause=type(res).__name__)
+                self._count_mirror_refusal(res)
                 if isinstance(res, StorageDegraded):
                     # the durable store's disk gave out: the pod parks
                     # (error_func forgets the assumption and requeues) and

@@ -572,6 +572,15 @@ class Scheduler:
         return False
 
     @staticmethod
+    def _count_mirror_refusal(err: BaseException) -> None:
+        """A bind a sharded group refused on its capacity mirror's verdict
+        (``budget-mirror rv=`` in the OutOfCapacity) counts apart from a
+        local capacity race: a stale mirror is sync lag, not contention
+        (JAX ``scheduler.py:776-784``)."""
+        if isinstance(err, OutOfCapacity) and "budget-mirror" in str(err):
+            counters.inc("sched.bind_mirror_refusals")
+
+    @staticmethod
     def _is_bind_race(err: BaseException) -> bool:
         return isinstance(err, (AlreadyBound, Conflict, OutOfCapacity))
 
@@ -616,6 +625,7 @@ class Scheduler:
                 self.on_decision(pod, node_name, Status.success())
         except Exception as err:
             self.run_unreserve_plugins(state, pod, node_name)
+            self._count_mirror_refusal(err)
             if self._is_bind_race(err) and self._bind_race_refresh(qpi):
                 # bound elsewhere or gone: no longer schedulable work; the
                 # assumption still releases

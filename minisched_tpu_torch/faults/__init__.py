@@ -48,10 +48,14 @@ interleaving, and equals the JAX fabric's for the same seed and calls.
 ``wal_double_binds`` (JAX ``:192``), the full-history double-bind audit,
 lives here as in JAX; ``controlplane.fsck`` imports it.
 
+``remote.request`` (``RemoteStore(faults=)``: each attempt raises
+InjectedFault before it leaves the process, retried like a reset
+connection; key = the request path) is wired since the sharded plane's
+tests race binds under it.
+
 Left out, for the rest of ROADMAP item 8: ``faults/proc.py`` (the
-killable control-plane child), and the ``remote.request``,
-``http.500``, ``http.reset``, ``watch.drop`` and ``engine.bind`` points
-(``RemoteStore(faults=)`` raises until then).
+killable control-plane child), and the ``http.500``, ``http.reset``,
+``watch.drop`` and ``engine.bind`` points.
 """
 
 from __future__ import annotations

@@ -147,7 +147,9 @@ def mk_c3_cluster(n_nodes: int = 4096,
 
 
 def mk_c5_cluster(n_nodes: int = 10_000, n_pods: int = 100_000,
-                  n_crosspod: int = 0) -> Tuple[List[Any], List[Any]]:
+                  n_crosspod: int = 0,
+                  namespaces: Sequence[str] = ("default",)
+                  ) -> Tuple[List[Any], List[Any]]:
     """The config-5 cluster (the objects of ``bench.py`` ``_c5_cluster``,
     without the control plane): ``n_nodes`` nodes ``node00000`` … of 8
     CPU, 16 Gi and 110 pods, zone labels ``z0`` … ``z15``, each cordoned
@@ -155,7 +157,10 @@ def mk_c5_cluster(n_nodes: int = 10_000, n_pods: int = 100_000,
     for 500m and 256 Mi, in bench's order: plain pods, then
     ``n_crosspod`` pods ``spread*`` of 32 apps (``app{i % 32}``), each with
     a DoNotSchedule zone spread of max skew 4 over its app, then the last
-    2% (``special*``), which carry a node selector no node matches."""
+    2% (``special*``), which carry a node selector no node matches.
+    ``namespaces``: pod i lives in ``namespaces[i % len(namespaces)]``
+    (tenants round-robin; the sharded plane's phase spreads config 5
+    over 8)."""
     nodes = _c5_nodes(n_nodes)
     n_special = max(n_pods // 50, 1)
     pods = [make_pod(f"pod{i:06d}", requests=C5_REQUESTS)
@@ -165,6 +170,9 @@ def mk_c5_cluster(n_nodes: int = 10_000, n_pods: int = 100_000,
     pods += [make_pod(f"special{i:05d}", requests=C5_REQUESTS,
                       node_selector={"special": "true"})
              for i in range(n_special)]
+    if tuple(namespaces) != ("default",):
+        for i, pod in enumerate(pods):
+            pod.metadata.namespace = namespaces[i % len(namespaces)]
     return nodes, pods
 
 

@@ -1729,18 +1729,22 @@ print(json.dumps(out))
 
 
 def _audit_wals(wals: Dict[str, str], digested: set,
-                fsck_wal: str) -> Dict[Any, Any]:
+                fsck_wal: str, more_fsck: Sequence[str] = ()
+                ) -> Dict[Any, Any]:
     """The offline audits of a replicated run, side by side (each is
     Python JSON over a whole WAL, about 100 µs a record): ``WAL_AUDIT``
     for every WAL (digests for those in ``digested``) and ``python3 -m
-    minisched_tpu_torch fsck`` on ``fsck_wal``, each a process without
-    the card.  Returns each WAL's answer, and under None fsck's (exit
-    code, the end of its output)."""
+    minisched_tpu_torch fsck`` on ``fsck_wal`` (and on each of
+    ``more_fsck``), each a process without the card.  Returns each WAL's
+    answer, and under None fsck's (exit code, the end of its output),
+    under ``("fsck", path)`` each of ``more_fsck``'s."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    procs = {None: subprocess.Popen(
-        [sys.executable, "-m", "minisched_tpu_torch", "fsck", fsck_wal],
+    procs = {key: subprocess.Popen(
+        [sys.executable, "-m", "minisched_tpu_torch", "fsck", path],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env)}
+        env=env)
+        for key, path in [(None, fsck_wal)]
+        + [(("fsck", p), p) for p in more_fsck]}
     for name, path in wals.items():
         procs[name] = subprocess.Popen(
             [sys.executable, "-c", WAL_AUDIT, path,
@@ -1751,8 +1755,8 @@ def _audit_wals(wals: Dict[str, str], digested: set,
     try:
         for name, proc in procs.items():
             text, err = proc.communicate(timeout=900)
-            if name is None:
-                out[None] = (proc.returncode, text[-2000:])
+            if name is None or isinstance(name, tuple):
+                out[name] = (proc.returncode, text[-2000:])
             elif proc.returncode != 0:
                 raise AssertionError(f"the audit of {wals[name]} exited "
                                      f"{proc.returncode}: {err[-2000:]}")
@@ -1995,3 +1999,391 @@ def run_config5_replicated(workdir: str, n_nodes: int = 10_000,
         {k: snap.get(k, 0) for k in REPLICATED_COUNTERS},
         {"before": quorum_before, "after": quorum_after}, double, pairs,
         fsck_rc, fsck_s, placements, seen, phases, left, watch.reconnects)
+
+
+@dataclass
+class ShardedRun:
+    n_plain: int
+    #: tenant namespace → its group at the start; the split's namespace,
+    #: its source and target group
+    tenants: Dict[str, str]
+    hot_ns: str
+    source: str
+    target: str
+    create_s: float  # the creates through the router, first to last answer
+    sync_s: float  # start_scheduler: informer sync through the router
+    #: the home group's budget document: bytes, seconds to serve it over
+    #: the wire (encode included) and to apply it to a ``BudgetMirror``
+    budget_doc: Dict[str, float]
+    #: binds the merged watch had seen at the split, the seconds from the
+    #: scheduler's start to the split, and from the split to the last
+    #: plain bind seen
+    seen_at_split: int
+    split_at_s: float
+    after_s: float
+    #: ``split_namespace``'s result: objects, epoch, freeze_s, handoff_s,
+    #: seed_s
+    split: Dict[str, Any]
+    #: time to bind (seconds from the scheduler's start to the bind the
+    #: watch saw): p50 and p99 of the pods of ``hot_ns`` bound after the
+    #: split, and of the other tenants' pods bound after it
+    ttb: Dict[str, Dict[str, float]]
+    waves: int
+    loop_errors: int
+    assumed_left: int
+    waiting_left: int
+    audit: Dict[str, int]
+    #: the merged watch: events, bind transitions, pods seen bound twice
+    #: or on two nodes, plain pods seen deleted, reopens
+    watch: Dict[str, int]
+    #: router counters (this process) and the groups' (each façade's
+    #: ``/metrics``), summed
+    counters: Dict[str, int]
+    #: per group: hot_ns objects on it at the end
+    hot_left: Dict[str, int]
+    double_binds: Dict[str, int]
+    fsck_rc: Dict[str, int]
+    fsck_s: float
+    placements: Dict[str, str]
+    seen: Dict[str, str]
+    split_phases: Dict[str, float]
+    threads_left: List[str]
+    children_left: List[str]
+
+
+#: the counters ``run_config5_sharded`` reports: the router's (this
+#: process) and the façades' (summed off each group's ``/metrics``)
+SHARDED_COUNTERS = (
+    "shard.wrong_shard_chased", "shard.topology_refreshes",
+    "shard.cross_bind_batches", "shard.cross_bind_entries",
+    "shard.events_suppressed", "shard.watch.held", "shard.watch.moves",
+    "shard.watch.aborts", "shard.splits", "remote.shard_frozen_retry",
+    "remote.shard_frozen_timeout", "shard.budget.mirror_checks",
+    "shard.budget.refused", "shard.budget.unknown_node",
+    "shard.budget.mirror_syncs", "shard.budget.reports",
+    "sched.bind_mirror_refusals", "storage.shard.wrong_shard_refused",
+    "storage.shard.frozen_refused", "storage.shard.handoff_objects",
+    "storage.shard.seed_objects", "storage.shard.purged_objects",
+    "informer.reconnect")
+
+
+class ShardPodWatch:
+    """A ``ShardedWatch`` on every pod, read on a thread: per pod the node
+    it was first seen bound to and when, the bind transitions seen
+    (unbound or unseen to bound: exactly one a pod), pods seen on a
+    second node, and plain pods seen deleted."""
+
+    def __init__(self, sstore: Any):
+        self.watch, _ = sstore.watch("Pod", send_initial=True)
+        self.nodes: Dict[str, str] = {}
+        self.bind_t: Dict[str, float] = {}
+        self.transitions: Dict[str, int] = defaultdict(int)
+        self.moved: List[str] = []
+        self.deleted: List[str] = []
+        self.events = 0
+        self.last_bind_t = 0.0
+        self._state: Dict[str, str] = {}
+        self._mu = threading.Lock()
+        self._closing = False
+        self._thread = threading.Thread(target=self._read, daemon=True,
+                                        name="shard-pod-watch")
+        self._thread.start()
+
+    def _read(self) -> None:
+        while not self._closing:
+            batch = self.watch.next_batch(timeout=0.25)
+            if not batch:
+                if self.watch.stopped:
+                    return
+                continue
+            now = time.monotonic()
+            with self._mu:
+                for ev in batch:
+                    self.events += 1
+                    key = (f"{ev.obj.metadata.namespace}/"
+                           f"{ev.obj.metadata.name}")
+                    name = ev.obj.metadata.name
+                    if ev.type.name == "DELETED":
+                        self.deleted.append(key)
+                        self._state.pop(key, None)
+                        continue
+                    node = ev.obj.spec.node_name
+                    if node and not self._state.get(key):
+                        self.transitions[name] += 1
+                        if name not in self.nodes:
+                            self.nodes[name] = node
+                            self.bind_t[name] = now
+                            self.last_bind_t = now
+                    if node and self.nodes.get(name, node) != node:
+                        self.moved.append(name)
+                    self._state[key] = node
+
+    def bound(self) -> int:
+        with self._mu:
+            return len(self.nodes)
+
+    def pending_by_ns(self, pods: Sequence[Any]) -> Dict[str, int]:
+        with self._mu:
+            out: Dict[str, int] = defaultdict(int)
+            for p in pods:
+                if p.metadata.name not in self.nodes:
+                    out[p.metadata.namespace] += 1
+            return dict(out)
+
+    def close(self) -> None:
+        self._closing = True
+        self.watch.stop()
+        self._thread.join(timeout=30)
+
+
+def _metrics_counters(base: str, names: Sequence[str]) -> Dict[str, int]:
+    """``names`` off one façade's ``/metrics`` (0 when absent)."""
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        _types, samples = hist.parse_prometheus(r.read().decode())
+    got = {n: v for n, _l, v in samples}
+    return {name: int(got.get(name.replace(".", "_"), 0)) for name in names}
+
+
+def shard_tenants(n: int = 8, groups: Sequence[str] = ("g0", "g1")
+                  ) -> List[str]:
+    """``n`` tenant namespaces, as many owned by each group, picked as
+    ``bench.py`` ``bench_shard`` picks its writers' (``bench-ns-NNN`` in
+    order through a probe topology: placement hashes only group ids)
+    and interleaved group by group."""
+    from minisched_tpu_torch.controlplane.shards import ShardTopology
+
+    probe = ShardTopology({g: [f"http://{g}"] for g in groups})
+    per: Dict[str, List[str]] = {g: [] for g in groups}
+    i = 0
+    while any(len(v) < n // len(groups) for v in per.values()):
+        ns = f"bench-ns-{i:03d}"
+        if len(per[probe.owner(ns)]) < n // len(groups):
+            per[probe.owner(ns)].append(ns)
+        i += 1
+    return [per[g][j] for j in range(n // len(groups)) for g in groups]
+
+
+def run_config5_sharded(workdir: str, n_nodes: int = 10_000,
+                        n_pods: int = 12_500, split_binds: int = 2_500,
+                        device: Any = None, chunk: int = 10_000,
+                        timeout_s: float = 900.0, max_wave: int = 1024,
+                        pipeline: bool = True, n_tenants: int = 8
+                        ) -> ShardedRun:
+    """Config 5 scheduled over two leader groups of a sharded write plane
+    through a live split of its busiest home tenant.
+
+    ``ShardedPlane(workdir, k=2, replicas_per_group=1, fsync=False)`` (one
+    replica a group, as ``bench_shard``; each child host code with no CUDA
+    context).  Config 5's nodes are cluster-scoped and land on the home
+    group (the owner of ""); its pods are spread round-robin over
+    ``n_tenants`` namespaces, half owned by each group
+    (``shard_tenants``), and carry the uids an unsharded in-process store
+    would mint for the same creates (``pod-{n_nodes + i + 1:08d}``): each
+    group mints from its own sequence.  Everything is created through
+    ``ShardedClient`` in batch creates of ``chunk``.  Then
+    ``SchedulerService(ShardedClient(seeds, retries=REMOTE_RETRIES))``
+    starts ``default_full_roster_config()`` with ``device_mode=True``
+    (pipelined unless ``pipeline=False``, waves of ``max_wave``) on
+    ``device``; a ``ShardPodWatch`` (the merged vector-cursor watch) reads
+    every pod.  Once it has seen ``split_binds`` binds, ``plane.split``
+    moves ``hot_ns``, the home group's tenant with the most pods pending,
+    to the other group.  The engine goes on without a restart: its writes
+    chase 421s and wait out the freeze, its informers ride the vector
+    cursor.
+
+    The run raises unless: every plain pod bound and no ``special*`` pod;
+    0 loop errors, the assume and Permit ledgers empty; ``hot_ns``'s
+    objects all on the target and none on the source; the freeze shorter
+    than ``freeze_ttl_s()``; every bind watched before the split on the
+    same node at the end; each plain pod's bind seen exactly once by the
+    merged watch, none seen on a second node or deleted; no node over its
+    allocatable counting both groups' bound pods (``audit_store`` over
+    both listings); no double bind in either WAL; ``python3 -m
+    minisched_tpu_torch fsck`` exit 0 on both; the children and this
+    run's threads gone.  Counters and histograms of this process are
+    reset first."""
+    from minisched_tpu_torch.controlplane.remote import RemoteStore
+    from minisched_tpu_torch.controlplane.shards import (
+        BudgetMirror,
+        ShardedClient,
+        ShardedPlane,
+        _raw_req,
+        freeze_ttl_s,
+    )
+
+    tenants = shard_tenants(n_tenants)
+    nodes, pods = mk_c5_cluster(n_nodes, n_pods, namespaces=tenants)
+    for i, p in enumerate(pods):
+        p.metadata.uid = f"pod-{n_nodes + i + 1:08d}"
+    plain = [p.metadata.name for p in pods
+             if not p.metadata.name.startswith("special")]
+    hist.reset()
+    counters.reset()
+    before = set(threading.enumerate())
+    plane = ShardedPlane(workdir, k=2, replicas_per_group=1, fsync=False)
+    home = plane.topology.owner("")
+    other = next(g for g in plane.topology.groups if g != home)
+    owners = {ns: plane.topology.owner(ns) for ns in tenants}
+    svc = watch = sched_client = client = None
+    try:
+        seeds = plane.start()
+        client = ShardedClient(seeds, retries=REMOTE_RETRIES)
+        t0 = time.monotonic()
+        for i in range(0, len(nodes), chunk):
+            client.nodes().create_many(nodes[i:i + chunk],
+                                       return_objects=False)
+        for i in range(0, len(pods), chunk):
+            client.pods().create_many(pods[i:i + chunk],
+                                      return_objects=False)
+        create_s = time.monotonic() - t0
+        # the budget document the other group pulls every sync interval
+        home_url = plane.leader(home).base_url
+        t1 = time.monotonic()
+        status, doc = _raw_req(home_url, "GET", "/shards/budget",
+                               timeout_s=120.0)
+        serve_s = time.monotonic() - t1
+        if status != 200 or len(doc.get("nodes") or {}) != n_nodes:
+            raise AssertionError(f"sharded config 5: budget doc HTTP "
+                                 f"{status}, {len(doc.get('nodes') or {})} "
+                                 f"nodes")
+        t1 = time.monotonic()
+        BudgetMirror(other).update(doc)
+        apply_s = time.monotonic() - t1
+        budget_doc = {"bytes": float(len(json.dumps(doc))),
+                      "serve_s": serve_s, "apply_s": apply_s}
+        del doc
+        watch = ShardPodWatch(client.store)
+        sched_client = ShardedClient(seeds, retries=REMOTE_RETRIES)
+        svc = SchedulerService(sched_client)
+        t0 = time.monotonic()
+        sched = svc.start_scheduler(default_full_roster_config(),
+                                    device_mode=True, max_wave=max_wave,
+                                    device=device, pipeline=pipeline)
+        t_loop = time.monotonic()
+        sync_s = t_loop - t0
+        metrics = sched.metrics = CycleMetrics()
+        sched.assume_ttl_s = QUIESCE_TTL_S
+        wait_until(lambda: watch.bound() >= split_binds, timeout_s,
+                   f"{split_binds} binds watched before the split", sched)
+        # -- the split: the home group's busiest tenant moves -----------
+        pending = watch.pending_by_ns(pods)
+        hot_ns = max((ns for ns in tenants if owners[ns] == home),
+                     key=lambda ns: (pending.get(ns, 0), ns))
+        with watch._mu:
+            seen = dict(watch.nodes)
+        t_split = time.monotonic()
+        result = plane.split(hot_ns, other)
+        split_at_s = t_split - t_loop
+        if len(seen) >= len(plain):
+            raise AssertionError(f"sharded config 5: every plain pod bound "
+                                 f"before the split ({len(seen)})")
+        want = set(plain)
+        wait_until(lambda: want <= set(watch.nodes), timeout_s,
+                   f"{len(want)} plain pods seen bound after the split",
+                   sched)
+        after_s = watch.last_bind_t - t_split
+        wait_until(lambda: sched.assumed_count() == 0, QUIESCE_TTL_S * 20,
+                   "the assume cache drained", sched)
+        waves = int(metrics.snapshot().get("wave", {}).get("count", 0))
+        waiting_left = len(sched._waiting_pods)
+        loop_errors, assumed_left = sched.loop_errors, sched.assumed_count()
+        phases = split(metrics)
+        svc.shutdown_scheduler()
+        svc.recorder.close()
+        svc = None
+        watched, watch = watch, None
+        watched.close()
+        # -- the final state, each group read directly ------------------
+        listings: Dict[str, List[Any]] = {}
+        for gid in plane.groups:
+            rs = RemoteStore(plane.leader(gid).base_url, retries=4)
+            try:
+                listings[gid] = rs.list("Pod")
+            finally:
+                rs.close()
+        hot_left = {gid: sum(p.metadata.namespace == hot_ns for p in ps)
+                    for gid, ps in listings.items()}
+        owned = [p for gid, ps in listings.items() for p in ps
+                 if plane.topology.owner(p.metadata.namespace) == gid]
+        audit = audit_store(client, pods=owned)
+        placements = {p.metadata.name: p.spec.node_name for p in owned}
+        group_counters: Dict[str, int] = defaultdict(int)
+        for gid in plane.groups:
+            got = _metrics_counters(plane.leader(gid).base_url,
+                                    SHARDED_COUNTERS)
+            for k, v in got.items():
+                group_counters[k] += v
+    finally:
+        if svc is not None:
+            svc.shutdown_scheduler()
+        if watch is not None:
+            watch.close()
+        for c in (client, sched_client):
+            if c is not None:
+                c.store.close()
+        plane.stop()
+    left = sorted(t.name for t in set(threading.enumerate()) - before
+                  if t.is_alive() and not t.daemon)
+    children_left = [r.replica_id for g in plane.groups.values()
+                     for r in g.replicas if r.alive()]
+    wals = {gid: g.replicas[0].wal_path for gid, g in plane.groups.items()}
+    t1 = time.monotonic()
+    gids = sorted(wals)
+    offline = _audit_wals(wals, digested=set(), fsck_wal=wals[gids[0]],
+                          more_fsck=[wals[g] for g in gids[1:]])
+    fsck_rc = {gids[0]: offline[None][0]}
+    fsck_rc.update({g: offline[("fsck", wals[g])][0] for g in gids[1:]})
+    double = {g: offline[g]["double"] for g in gids}
+    fsck_s = time.monotonic() - t1
+    unbound = [n for n in plain if not placements.get(n)]
+    special_bound = [n for n, node in placements.items()
+                     if n.startswith("special") and node]
+    moved = [(n, node, placements.get(n)) for n, node in seen.items()
+             if placements.get(n) != node]
+    twice = [n for n in plain if watched.transitions.get(n, 0) != 1]
+    deleted = [k for k in watched.deleted
+               if not k.rsplit("/", 1)[1].startswith("special")]
+    ttl = freeze_ttl_s()
+    problems = {
+        "unbound": unbound[:3], "special bound": special_bound[:3],
+        "moved": moved[:3], "binds not seen once": twice[:3],
+        "seen on two nodes": watched.moved[:3], "plain pods deleted":
+        deleted[:3], "hot_ns on the source": hot_left.get(home, 0),
+        "hot_ns missing on the target":
+        hot_left.get(other, 0) != sum(p.metadata.namespace == hot_ns
+                                      for p in pods),
+        "loop errors": loop_errors, "assumed left": assumed_left,
+        "waiting left": waiting_left, "double binds": sum(double.values()),
+        "fsck": {g: rc for g, rc in fsck_rc.items() if rc},
+        "freeze over the TTL": result["freeze_s"] >= ttl,
+        "nodes": audit["nodes"] != n_nodes, "threads left": left,
+        "children left": children_left}
+    bad = {k: v for k, v in problems.items() if v}
+    if bad:
+        raise AssertionError(f"sharded config 5 (split {result}): {bad}")
+    hot_t = [watched.bind_t[n] - t_loop for n, p in
+             ((p.metadata.name, p) for p in pods)
+             if p.metadata.namespace == hot_ns and n in watched.bind_t
+             and watched.bind_t[n] >= t_split]
+    rest_t = [watched.bind_t[n] - t_loop for n, p in
+              ((p.metadata.name, p) for p in pods)
+              if p.metadata.namespace != hot_ns and n in watched.bind_t
+              and watched.bind_t[n] >= t_split]
+    from minisched_tpu_torch.bench import _pct
+
+    ttb = {name: {"p50": _pct(sorted(ts), 0.5, 6) if ts else 0.0,
+                  "p99": _pct(sorted(ts), 0.99, 6) if ts else 0.0,
+                  "n": float(len(ts))}
+           for name, ts in (("hot", hot_t), ("other", rest_t))}
+    snap = counters.snapshot()
+    all_counters = {k: snap.get(k, 0) + group_counters.get(k, 0)
+                    for k in SHARDED_COUNTERS}
+    return ShardedRun(
+        len(plain), owners, hot_ns, home, other, create_s, sync_s,
+        budget_doc, len(seen), split_at_s, after_s, result, ttb, waves,
+        loop_errors, assumed_left, waiting_left, audit,
+        {"events": watched.events,
+         "binds": sum(watched.transitions.values()),
+         "reopens": snap.get("shard.watch_reopen", 0)},
+        all_counters, hot_left, double, fsck_rc, fsck_s, placements, seen,
+        phases, left, children_left)

@@ -40,6 +40,58 @@ The remote control plane's names are JAX's (``counters.py:86-114``):
         that had landed, entries answered from the ack registry
     assume.revalidate_on_reconnect
         assumptions whose lease a watch reconnect made due at once
+
+The sharded write plane's (``controlplane/shards.py``; JAX
+``counters.py:408-500``): the router's under ``shard.``, the façade's
+and store's under ``storage.shard.``:
+
+    shard.topology_refreshes, shard.wrong_shard_chased
+        router re-fetches of ``/shards/status`` (each adopts the highest
+        epoch seen), and writes re-dispatched after a 421 WrongShard
+    shard.cross_bind_batches, shard.cross_bind_entries
+        bind batches that spanned more than one leader group (the
+        two-shard commit), and the bindings in them
+    shard.watch_reopen, shard.events_suppressed
+        merged-watch component streams reopened at their own cursor, and
+        live events dropped because their group does not own their
+        namespace (the cursor still advances)
+    shard.watch.held, shard.watch.moves, shard.watch.aborts
+        the port's: merged-watch groups held from a split's first seed
+        event, and the holds released on the topology flip or dropped
+        with the seed's copies when the split aborted
+    shard.splits, shard.endpoint_discoveries
+        splits completed (freeze, handoff, seed, renewal, flip, thaw,
+        purge), and follower urls the router learned from /repl/status
+    storage.shard.wrong_shard_refused, storage.shard.frozen_refused
+        the façade's refusals: 421 for a namespace another group owns,
+        503 for one inside a split's freeze
+    storage.shard.topology_updates, storage.shard.freezes,
+    storage.shard.freeze_expired
+        topology epochs adopted over /shards/control, freezes imposed
+        there, and freeze leases auto-thawed at their TTL
+    storage.shard.handoff_ships, storage.shard.handoff_objects,
+    storage.shard.seed_objects, storage.shard.purged_objects,
+    storage.shard.purge_skipped
+        handoff documents served and their objects, objects seeded on
+        the target, deleted from the source after the flip, and left
+        there because the handoff manifest did not name them
+    remote.shard_frozen_retry, remote.shard_frozen_timeout
+        remote requests that waited out a 503 shard frozen, and waits
+        that outlived ``frozen_deadline_s`` (ShardFrozenTimeout)
+    shard.budget.mirror_syncs, shard.budget.reports
+        budget documents a non-home group's mirror adopted, and usage
+        reports the home group's board folded in (rv-monotonic each)
+    shard.budget.mirror_checks, shard.budget.unknown_node,
+    shard.budget.refused, sched.bind_mirror_refusals
+        bind budgets answered from the mirror, those it could not answer
+        (no check), binds refused on its verdict (the OutOfCapacity names
+        ``budget-mirror rv=``), and the engine's binds so refused
+    shard.autosplit.samples, shard.autosplit.hot,
+    shard.autosplit.triggered, shard.autosplit.skipped,
+    shard.autosplit.errors
+        the load watcher's ticks, hot ticks, splits it started, hot
+        ticks it let pass (cooldown, fenced, no candidate) and failed
+        splits
 """
 
 from __future__ import annotations

@@ -14,6 +14,15 @@ phases; the REST façade ``http.request_s`` (by verb and route shape) and
 ``http.list_s`` (LIST latency by kind, in both read modes), and the
 watch streams ``watch.delivery_lag_s`` (fanout to socket write, on both
 delivery paths), as JAX's ``hist.py:40-44``.
+
+The sharded write plane's (JAX ``hist.py:79-100``): ``shard.route_s``
+(the router's topology refresh, probing ``/shards/status`` and adopting
+the highest epoch: the time a 421 chase pays before its re-dispatch;
+what is elsewhere called the topology-refresh histogram),
+``shard.crossbind_s`` (a bind batch spanning groups, end to end),
+``shard.freeze_s`` (a split's write freeze, coordinator side) and
+``shard.autosplit.window_p99_s`` (the load watcher's windowed
+``storage.group_wait_s`` p99).
 """
 
 from __future__ import annotations

@@ -38,6 +38,7 @@ COUNTERPARTS = {
     "wal": "bench_wal",
     "repl": "bench_repl",
     "readscale": "bench_readscale",
+    "shard": "bench_shard",
 }
 
 

@@ -666,10 +666,11 @@ def test_remote_store_refuses_more_than_one_endpoint():
     ``RemoteStore`` whose first endpoint is dead reads off the live one
     (``remote.read_failover``) and writes to the leader it discovers over
     ``/repl/status`` (a 404 there means the sole server leads); the same
-    endpoint twice is one endpoint.  ``faults=`` still raises, naming
-    ROADMAP item 8."""
-    with pytest.raises(ValueError, match="ROADMAP item 8"):
-        tremote.RemoteStore("http://127.0.0.1:1", faults=object())
+    endpoint twice is one endpoint.  ``faults=`` arms the
+    ``remote.request`` point: its injected failures are retried like a
+    reset connection."""
+    from minisched_tpu_torch import faults as tfaults
+
     store = tremote.RemoteStore("http://127.0.0.1:1",
                                 endpoints=["http://127.0.0.1:1/"])
     assert not store._multi
@@ -688,6 +689,13 @@ def test_remote_store_refuses_more_than_one_endpoint():
         items, rv = rs.list_with_rv("Pod")
         assert [p.metadata.name for p in items] == ["routed"]
         assert rv == server_store.resource_version
+        fabric = tfaults.FaultFabric(5).on("remote.request", rate=1.0,
+                                           max_fires=2)
+        flaky = tremote.RemoteStore(base, retries=3, backoff_initial_s=0.01,
+                                    faults=fabric)
+        assert [p.metadata.name for p in flaky.list("Pod")] == ["routed"]
+        assert fabric.stats()["fires"]["remote.request"] == 2
+        flaky.close()
         assert rs._read_base == base
         assert tcounters.get("remote.read_failover") == 1
         rs.close()
