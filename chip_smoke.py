@@ -133,11 +133,12 @@ Phases, each of which raises on failure (nothing catches it):
 17. Config 5 live at full width on the serial engine
    (``live.run_config5_live(pipeline=False)``, the flow of
    ``bench.py``'s ``_bench_config5_fullchain_once``): 10,000 nodes and
-   100,000 pods created in the store, the full default roster in waves of
-   16,384; the first drain binds the 98,000 plain pods and parks the
-   2,000 ``special*`` pods; labelling 2,000 schedulable nodes
+   ``LIVE_C5_PODS`` pods (50,000; 100,000 until phases 33-34 needed the
+   time) created in the store, the full default roster in waves of
+   16,384; the first drain binds the plain pods and parks the 2%
+   ``special*`` pods; labelling 2,000 schedulable nodes
    ``special=true`` (``random.Random(55)``) requeues them until all
-   100,000 are bound.  Checks from the store's final state: no node over
+   are bound.  Checks from the store's final state: no node over
    its allocatable CPU, memory or pod count, nothing on a cordoned node,
    every ``special*`` pod on a labelled node; the assume cache drained;
    no exception in the loop; ``select_hosts`` launched on the card and no
@@ -160,10 +161,12 @@ Phases, each of which raises on failure (nothing catches it):
    allocatable, no exception in the loop.  Printed: the share of gangs on
    one slice beside phase 14's wave-driver share at the same size.
 19. Config 5 live at full width on the pipelined engine (the JAX
-   default): phase 17's run with the build worker packing wave N+1 on the
-   host while wave N is on the card and every winner re-arbitrated at
-   commit; node tables from the cached builder.  Checks: every pod bound,
-   phase 17's audit, the assume cache and Coscheduling's ledger empty, no
+   default), at ``LIVE_C5_PODS`` pods (50,000; 100,000 until
+   phases 33-34 needed the time): phase 17's run with the build worker
+   packing wave N+1 on the host while wave N is on the card and every
+   winner re-arbitrated at commit; node tables from
+   ``CachedNodeTableBuilder``.  Checks: every pod bound, phase 17's
+   audit, the assume cache and Coscheduling's ledger empty, no
    loop error.  Placements are not held to phase 17's (the full roster
    depends on binds, and a pipelined wave is built before the previous
    one commits).  Printed beside phase 17: first drain, tail, total,
@@ -182,8 +185,9 @@ Phases, each of which raises on failure (nothing catches it):
    error.  Printed: each lane's pods, calls, blocks and rounds, the pods
    left to the exact scan, the scan phases of the split, the step-graph
    capture seconds and ``select_hosts`` launches at P = 32 and P = 1.
-21. The same reduced copy as phase 13 (1,520 nodes, here 18,000 pods
-   with 1,000 spread pods, waves of 4,096) through the serial live engine
+21. The same reduced copy as phase 13 (1,520 nodes, here
+   ``LIVE_REDUCED_PODS`` pods, 9,000 (18,000 until phases 33-34), with
+   1,000 spread pods, waves of 4,096) through the serial live engine
    to the end of its first drain, then one more spread pod alone
    (``live.run_crosspod_drain``: the burst takes the blocked lane, the
    lone pod the exact scan), on the card and on the CPU twins: every
@@ -192,26 +196,25 @@ Phases, each of which raises on failure (nothing catches it):
    attempt's cause printed; any other mismatch fails.  Then the pipelined
    engine on the card over the same cluster, held to the audits.
 22. Preemption bursts on config 5, chained onto phase 19's run
-   (``run_config5_live(preempt_burst=8)``): once all 100,000 pods are
+   (``run_config5_live(preempt_burst=8)``): once all its 50,000 pods are
    bound, every schedulable node with 4 CPU free is topped up with
-   ``fill*`` pods of config 5's shape at priority 0 (config 5's waves
-   leave nodes unevenly full) and the store is checked to hold no node
-   with 4 CPU free; then 8 ``high*`` pods of 4 CPU and 1 Gi at priority
-   100 arrive at once (the JAX scale test's preemptors), each of which
-   must evict through the wave-loser pass and ``DefaultPreemption``.
-   Checks: all 8 bound; the pods gone from the store are exactly the
-   victims ``last_victims`` reported, each of priority 0; phase 17's
-   audit on the final store; the assume cache drained; no loop error;
-   ``select_hosts`` launched on the card during the burst and no
-   plain-twin call.  Printed: the burst's wall from the first create to
-   the last bind, the fillers, the PostFilter passes and victims,
-   ``losers_handle`` and ``wave_preempt_eligible``, seconds per pass and
-   the launches.  Then a reduced copy (1,024 nodes, 10,000 pods in
-   config 5's proportions, 16 preemptors) on the serial engine, once on
-   the card and once on the CPU twins: every binding, every nomination
-   and every victim set equal; a mismatch whose runs differ in waves or
-   passes is a timing race and is retried, up to 3 attempts, as in
-   phase 21.
+   ``fill*`` pods of config 5's shape at priority 0 (config 5's waves leave
+   nodes unevenly full) and the store is checked to hold no node with 4 CPU
+   free; then 8 ``high*`` pods of 4 CPU and 1 Gi at priority 100 arrive at
+   once (the JAX scale test's preemptors), each of which must evict through
+   the wave-loser pass and ``DefaultPreemption``.  Checks: all 8 bound; the
+   pods gone from the store are exactly the victims ``last_victims``
+   reported, each of priority 0; phase 17's audit on the final store; the
+   assume cache drained; no loop error; ``select_hosts`` launched on the
+   card during the burst and no plain-twin call.  Printed: the burst's wall
+   from the first create to the last bind, the fillers, the PostFilter
+   passes and victims, ``losers_handle`` and ``wave_preempt_eligible``,
+   seconds per pass and the launches.  Then a reduced copy (1,024 nodes,
+   5,000 pods in config 5's proportions (10,000 until phases 33-34), 16
+   preemptors) on the serial engine, once on the card and once on the CPU
+   twins: every binding, every nomination and every victim set equal; a
+   mismatch whose runs differ in waves or passes is a timing race and is
+   retried, up to 3 attempts, as in phase 21.
 23. A scalar ground truth for the exact scan lane: the first 64 pods of
    ``fullchain.mk_mixed_cluster`` (every feature of the full roster)
    through ``schedule_scan`` on the card, every placement equal to the
@@ -221,19 +224,19 @@ Phases, each of which raises on failure (nothing catches it):
    (``start_scheduler(device_mode=False)``), which is host only: no
    kernel launch and no plain-twin call.
 24. ``record_results`` on the card against the CPU
-   (``live.run_mixed_recorded``): the mixed cluster at 512 nodes x 512
-   pods, with its claims and PVs in the store, through the serial engine
-   with the full roster in waves of 128, once on the card and once on the
-   CPU twins, explicit uids on both.  Checks: every binding equal, every
-   pod's parsed ``scheduler-simulator/*`` annotations equal; every bound
-   pod carries a record exactly when a wave or an exact-scan chunk
-   recorded it, and one without was placed by the blocked lane
+   (``live.run_mixed_recorded``): the mixed cluster at 512 nodes x 512 pods,
+   with its claims and PVs in the store, through
+   the serial engine with the full roster in waves of 128, once on the card
+   and once on the CPU twins, explicit uids on both.  Checks: every binding
+   equal, every pod's parsed ``scheduler-simulator/*`` annotations equal;
+   every bound pod carries a record exactly when a wave or an exact-scan
+   chunk recorded it, and one without was placed by the blocked lane
    (``live.audit_records``); no record error and no loop error; the same
    run without ``record_results`` places alike.  A mismatch whose runs
-   differ in waves, records or lane calls is a timing race and is
-   retried, up to 3 attempts, as in phase 21.  Printed: the wall with and
-   without the record, the record's evaluation and host-ingest seconds,
-   the entries and annotation bytes.
+   differ in waves, records or lane calls is a timing race and is retried,
+   up to 3 attempts, as in phase 21.  Printed: the wall with and without
+   the record, the record's evaluation and host-ingest seconds, the entries
+   and annotation bytes.
 25. The standalone process.  (a) ``__main__.start`` in this process (the
    device engine, pipelined, its default waves of 1,024) fed config 5's
    10,000 nodes with ``EARLY_C5_PODS`` (12,500; 25,000 until phase 31)
@@ -266,8 +269,10 @@ Phases, each of which raises on failure (nothing catches it):
    serial, full roster) in waves of 2,048 with one gRPC ``Watch`` on Pods
    served from its store, opened after the creates and read by a watcher
    in its own process (``live.count_grpc_binds``, up to
-   ``GRPC_WATCH_BATCH`` events a message): phase 17's audit; all 100,000
-   binds seen over the stream, none evicted (``grpc.watch.evicted`` 0),
+   ``GRPC_WATCH_BATCH`` events a message), at ``GRPC_WATCH_PODS`` pods
+   (25,000; 100,000 until phases 33-34 needed the time): phase 17's
+   audit; every bind seen over the stream, none evicted
+   (``grpc.watch.evicted`` 0),
    every event in resource_version order, every bind on the node the
    store holds.  A wave's binds reach the servicer's hub as one batch, and
    a batch over the stream's 8,192-event bound is evicted on arrival, so
@@ -324,9 +329,9 @@ Phases, each of which raises on failure (nothing catches it):
 30. The remote control plane (``controlplane/remote.py``), config 5
    scheduled over the wire through a restart of the API server
    (``live.run_config5_remote``).  The port's ``start_api_server`` runs in
-   a child (``python3 -c``) over ``store_from_url("file://<tmp>/
-   remote.wal")`` on a free port, its defaults otherwise (the stream loop
-   on, fsync off); config 5's 10,000 nodes and ``EARLY_C5_PODS`` (12,500;
+   a ``faults.proc.ServerSupervisor`` child over ``<tmp>/remote.wal`` on
+   a free port, its defaults otherwise (the stream loop on, fsync off);
+   config 5's 10,000 nodes and ``EARLY_C5_PODS`` (12,500;
    50,000 until phase 31 needed the time) pods are created with
    ``RemoteClient(base)`` in batch creates of
    10,000; then ``SchedulerService(RemoteClient(base, retries=10))``
@@ -419,6 +424,54 @@ Phases, each of which raises on failure (nothing catches it):
    pods against the other tenants' after the split (p50, p99), the
    ``shard.*`` counters (chases, frozen retries, mirror checks and
    refusals), waves, ``shard-c5`` launches and peak device memory.
+33. The fault points (``faults/``): the ``chaos`` bench role
+   (``bench.role_chaos``, ``bench_chaos``'s defaults: 128 nodes of 64
+   CPU, 1 in 16 cordoned, 2,000 pods of 500m and 64 Mi) with the device
+   engine on the card (full roster) over a ``DurableObjectStore``, while
+   a fabric at seed 1234 fails ``store.update`` (0.10), ``store.get``
+   (0.05), drops Pod and Node watches (``watch.drop`` 0.02, at most 16),
+   refuses WAL appends (``wal.append`` 0.03, at most 16) and fails whole
+   bind batches (``engine.bind`` 0.05, at most 16).  (a) In waves of 512
+   (the role's default), (b) in waves of ``CHAOS_FIRE_WAVE`` (32): at
+   512 the run draws each batch-keyed point about 8 times, and seed
+   1234's schedules fire none of ``watch.drop``, ``wal.append`` and
+   ``engine.bind`` that early.  Checks, each run: every pod bound, no
+   assumed capacity left at quiesce, informer staleness at most 30 s,
+   ``wal_double_binds`` empty (the role's gates), 0 loop errors,
+   ``select_hosts`` launched and no plain twin called; (b) also a fire of
+   each of ``CHAOS_GATED_POINTS`` (``store.get``'s draws come from lease
+   probes, a timing-dependent count: reported only).  Printed: the fires
+   and draws by point, the recovered counters and the wall.
+34. The HA engines (``ha/``, ``faults/proc.py``), config 5 scheduled by
+   three active-active device engines through a SIGKILL of one
+   (``live.run_config5_ha``).  A ``ServerSupervisor`` façade child over a
+   WAL (``archive_history=True``, fsync off); config 5's 10,000 nodes and
+   its ``special*`` pods created over the wire; three
+   ``EngineSupervisor`` children ``engine-0..2`` started side by side,
+   each ``start_ha_engine`` over a ``RemoteClient`` with the device engine
+   on ``cuda`` (a CUDA context each on this card), the full roster,
+   ``max_wave=1024`` and lease TTL 2 s; once all run, the first four
+   fifths of ``EARLY_C5_PODS``'s plain pods are created, each engine
+   admitting its rendezvous shard.  After ``HA_KILL_BINDS`` (2,500)
+   watched binds, with every engine seen to have bound a third of them
+   and launched ``select_hosts``, ``engine-1`` is SIGKILLed, its lease
+   abandoned, and the last fifth is created.  Checks: the survivors drop
+   it and publish new epochs within ``ttl + ttl/3 + 1.5`` s of the kill,
+   and their resyncs have queued its pods within it; no engine dropped a
+   live peer (no ``ha.lease_expired`` or ``ha.member_lost`` anywhere
+   before the kill, one of each on every survivor after it); every
+   plain pod bound, on the
+   node the watch first saw, no ``special*`` pod; phase 17's audit over
+   all binds; ``wal_double_binds`` empty over the archived history;
+   ``fsck`` exit 0; every engine's ``select_hosts`` launches at least 1,
+   no plain-twin call and no loop error in any child (read off each
+   child's ``/metrics``: the victim's before the kill, the survivors' at
+   the end); no child left.  Printed: the creates' wall, each engine's
+   spawn to lease and to a running engine, pods/s before and after the
+   kill, kill to adoption (published, and resynced) and to the next
+   bind, each engine's binds before the kill and in all, the ``ha.*``
+   counters, the renewals, their widest gap and the view ticks, the
+   adopted pods and each child's peak device memory.
 
 Phase 2 also holds ``select_hosts`` against its twin on the repair
 route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
@@ -437,10 +490,13 @@ and its reduced card run, the exact scan of phase 23, the card runs of
 phase 24 with and without the record, phase 25's process, phase 26's
 gRPC calls and watched run, each role of phase 28, phase 29's
 recovered engine, phase 30's remote engine, phase 31's engine behind
-the replicated plane and phase 32's behind the sharded one) and read just
-after it.  A scan's step is captured once in a CUDA graph and replayed;
-each replay counts the ``select_hosts`` launch recorded in the graph.  The last three lines of output are the card's
-name and power limit, one JSON object describing every kernel, and the
+the replicated plane, phase 32's behind the sharded one and both chaos
+runs of phase 33) and read just after it; phase 34's engines are child
+processes, whose counts start at 0 and are read off their
+``/metrics``.  A scan's step is captured once in a CUDA graph and
+replayed; each replay counts the ``select_hosts`` launch recorded in
+the graph.  The last three lines of output are the card's name and
+power limit, one JSON object describing every kernel, and the
 result line ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.
@@ -481,6 +537,11 @@ C5_SCAN_PLAIN = 2_096  # phase 12: plain pods scanned before the specials
 #: as JAX's does; a wave of 16,384 binds is one batch over that bound, so
 #: waves of 2,048 let the stream carry events before it falls behind
 GRPC_WATCH_WAVE = 2_048
+#: config 5's pods in phase 26(b) (100,000 until phases 33-34 needed the
+#: time: the smoke took 1,092.8 s of its 1,200 s on an H100 before them,
+#: and they add about 86 s); 12 waves of 2,048, three times the stream's
+#: 8,192-event bound
+GRPC_WATCH_PODS = 25_000
 #: the most events a message of phase 26(b)'s stream: one event a message
 #: falls behind the engine's binds (the stream's generator and grpc's
 #: completion thread share the engine's interpreter lock; PERF.md §6)
@@ -495,14 +556,24 @@ GANG_SCAN_PODS = 2_048  # phase 14's exact scan, card against CPU
 #: phase 22's preemptors (64 until phase 29 took the script to 1,081-
 #: 1,296 s on an H100)
 PREEMPT_BURST = 8
-PREEMPT_REDUCED = (1_024, 10_000, 16)  # nodes, pods, preemptors
+#: nodes, pods, preemptors (10,000 pods until phases 33-34)
+PREEMPT_REDUCED = (1_024, 5_000, 16)
 MIXED_SCALAR_PODS = 64  # phase 23's scan against the scalar loop
 #: phase 24: record_results on the mixed cluster, card against CPU; 512
-#: nodes keep the 4,200 assigned web pods of zone z0 under a node's 110
+#: nodes keep the 4,200 assigned web pods of zone z0 under a node's 110;
+#: 512 pods, 4 waves of 128
 RECORD_NODES, RECORD_PODS, RECORD_WAVE = 512, 512, 128
 #: phase 29: binds the watch must have seen before the SIGKILL; with so
 #: few, the creates' answers gate the kill, and it lands mid-run
 DURABLE_KILL_BINDS = 2_000
+#: config 5's pods in phases 17 and 19, and so in phase 22's burst on
+#: 19's run (100,000 until phases 33-34: with them and 26(b) cut the
+#: smoke took 1,021.7 s, 1,147.5 s and, with 19 cut, 1,205.1 s on H100
+#: hosts of different speeds)
+LIVE_C5_PODS = 50_000
+#: pods of phase 21's reduced copy (1,520 nodes, 1,000 of them spread
+#: pods), card against CPU (18,000 until phases 33-34)
+LIVE_REDUCED_PODS = 9_000
 #: config 5's pods in phase 20 (100,000 until phase 29 took the script to
 #: 1,081-1,296 s on an H100; 25,000 took it as long as 50,000)
 LIVE_C5X_PODS = 50_000
@@ -518,6 +589,19 @@ REMOTE_KILL_BINDS = 2_500
 REPL_KILL_BINDS = 2_500
 #: phase 32: binds the merged watch must have seen before the split
 SHARD_SPLIT_BINDS = 2_500
+#: phase 33(b): the chaos role's waves (``BENCH_CHAOS_WAVE``, JAX's knob;
+#: the role's default is 512).  At 512 the 2,000 pods take about 8 bind
+#: batches, and seed 1234's schedules of ``watch.drop``, ``wal.append``
+#: and ``engine.bind`` (one draw a batch each) first fire at draws 53, 55
+#: and 34; waves of 32 (``test_chaos_soak.py``'s) give over 60 draws
+CHAOS_FIRE_WAVE = 32
+#: the points phase 33(b) must see fire: ``store.get`` is drawn only by
+#: lease probes after failed binds, a count that depends on timing, and
+#: is reported, not gated (JAX's soak leaves it unasserted for that)
+CHAOS_GATED_POINTS = ("store.update", "watch.drop", "wal.append",
+                      "engine.bind")
+#: phase 34: binds the watch must have seen before the SIGKILL of an engine
+HA_KILL_BINDS = 2_500
 
 
 T0 = time.monotonic()
@@ -705,7 +789,9 @@ def main() -> int:
         audit_trace,
         count_grpc_binds,
         free_port,
+        HA_TTL_S,
         run_config5_durable,
+        run_config5_ha,
         run_config5_http,
         run_config5_live,
         run_config5_remote,
@@ -1754,13 +1840,15 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    c5l = run_config5_live(N_NODES, N_PODS, max_wave=C5_WAVE, pipeline=False)
-    phase17_pods_s = N_PODS / c5l.total_s
+    c5l = run_config5_live(N_NODES, LIVE_C5_PODS, max_wave=C5_WAVE,
+                           pipeline=False)
+    phase17_pods_s = LIVE_C5_PODS / c5l.total_s
     launches["select_hosts"]["live-c5"] = live_launches("live config 5",
                                                         c5l.waves)
     c5l_peak = torch.cuda.max_memory_allocated()
     audited = audit_store(c5l.client, c5l.labelled)
-    if audited["bound"] != N_PODS or c5l.loop_errors or c5l.assumed_left:
+    if (audited["bound"] != LIVE_C5_PODS or c5l.loop_errors
+            or c5l.assumed_left):
         raise AssertionError(f"live config 5: {audited['bound']} bound, "
                              f"{c5l.loop_errors} loop errors, "
                              f"{c5l.assumed_left} assumed left")
@@ -1777,15 +1865,17 @@ def main() -> int:
     c5l_prof = profile_repair(make_step("repair", default_full_roster_config()),
                               c5l.nodes, [c5l.pods[:C5_WAVE]], dev, reps=0)
     split_line = ", ".join(f"{k} {c5l.split[k]:.3f}s" for k in SPLIT)
-    log(f"[live-c5] {card}: config 5 live, {N_NODES} nodes x {N_PODS} pods, "
-        f"full roster, waves of {C5_WAVE} ({c5l.waves} waves): store setup "
-        f"{c5l.setup_s:.2f}s, service start {c5l.start_s:.2f}s; first drain "
-        f"{c5l.first_drain_s:.3f}s ({N_PODS - len(c5l.labelled)} bound, "
+    log(f"[live-c5] {card}: config 5 live, {N_NODES} nodes x "
+        f"{LIVE_C5_PODS} pods, full roster, waves of {C5_WAVE} "
+        f"({c5l.waves} waves): store setup {c5l.setup_s:.2f}s, service "
+        f"start {c5l.start_s:.2f}s; first drain {c5l.first_drain_s:.3f}s "
+        f"({LIVE_C5_PODS - len(c5l.labelled)} bound, "
         f"{len(c5l.labelled)} parked; every bind equal to "
         f"schedule_repair_waves on the same waves); requeue tail "
         f"{c5l.total_s - c5l.first_drain_s:.3f}s (label loop "
         f"{c5l.label_loop_s:.3f}s, bound wait {c5l.bound_wait_s:.3f}s); "
-        f"total {c5l.total_s:.3f}s = {N_PODS / c5l.total_s:,.0f} pods/s; "
+        f"total {c5l.total_s:.3f}s = {LIVE_C5_PODS / c5l.total_s:,.0f} "
+        f"pods/s; "
         f"split: {split_line}; device {c5l_prof['device_ms_per_round']:.3f} "
         f"ms a round (one wave profiled); peak device memory "
         f"{c5l_peak / 2**30:.2f} GiB; time to bind p50 <= "
@@ -1835,7 +1925,8 @@ def main() -> int:
         phase19["peak"] = torch.cuda.max_memory_allocated()
         kernels.reset_launch_counts()
 
-    c5p = run_config5_live(N_NODES, N_PODS, max_wave=C5_WAVE,
+    c5p = run_config5_live(N_NODES, LIVE_C5_PODS,
+                           max_wave=C5_WAVE,
                            preempt_burst=PREEMPT_BURST,
                            before_burst=end_of_phase19)
     burst = c5p.burst
@@ -1847,7 +1938,8 @@ def main() -> int:
     launches["select_hosts"]["live-c5-pipelined"] = phase19["launches"]
     c5p_peak = phase19["peak"]
     audited = audit_store(c5p.client, c5p.labelled)
-    n_final = N_PODS + burst.fillers + PREEMPT_BURST - len(burst.deleted)
+    n_final = (LIVE_C5_PODS + burst.fillers + PREEMPT_BURST
+               - len(burst.deleted))
     if (audited["bound"] != n_final or c5p.loop_errors or c5p.assumed_left
             or not c5p.pipelined or not c5p.counters["wave_pipeline.waves"]):
         raise AssertionError(f"pipelined config 5: {audited['bound']} bound, "
@@ -1859,11 +1951,12 @@ def main() -> int:
     split_line = ", ".join(f"{k} {c5p.split[k]:.3f}s (serial {split17[k]:.3f})"
                            for k in keys)
     log(f"[live-c5-pipelined] {card}: config 5 live, pipelined, {N_NODES} "
-        f"nodes x {N_PODS} pods, waves of {C5_WAVE} ({c5p.waves} waves): "
-        f"first drain {c5p.first_drain_s:.3f}s (serial {fd17:.3f}s); tail "
-        f"{c5p.total_s - c5p.first_drain_s:.3f}s (serial {tail17:.3f}s); "
-        f"total {c5p.total_s:.3f}s = {N_PODS / c5p.total_s:,.0f} pods/s "
-        f"(serial {total17:.3f}s = {N_PODS / total17:,.0f} pods/s); split: "
+        f"nodes x {LIVE_C5_PODS} pods, waves of {C5_WAVE} "
+        f"({c5p.waves} waves): first drain {c5p.first_drain_s:.3f}s (serial "
+        f"{fd17:.3f}s); tail {c5p.total_s - c5p.first_drain_s:.3f}s (serial "
+        f"{tail17:.3f}s); total {c5p.total_s:.3f}s = "
+        f"{LIVE_C5_PODS / c5p.total_s:,.0f} pods/s (serial "
+        f"{total17:.3f}s = {LIVE_C5_PODS / total17:,.0f} pods/s); split: "
         f"{split_line}; counters: {counters_line(c5p.counters)}; peak "
         f"device memory {c5p_peak / 2**30:.2f} GiB; time to bind p50 <= "
         f"{c5p.ttb_p50_le_s}s, p99 <= {c5p.ttb_p99_le_s}s; audit passed, "
@@ -1872,7 +1965,8 @@ def main() -> int:
     phase19.update(first_drain_s=c5p.first_drain_s, total_s=c5p.total_s)
     check_burst("config 5", burst, PREEMPT_BURST)
     per_pass = burst.post_filter_s / max(burst.passes, 1)
-    log(f"[live-preempt] {card}: phase 19's config 5, all {N_PODS} bound, "
+    log(f"[live-preempt] {card}: phase 19's config 5, all "
+        f"{LIVE_C5_PODS} bound, "
         f"most CPU free on a node {burst.max_free_cpu_m}m; {burst.fillers} "
         f"fill pods (500m, priority 0) topped nodes up to at most "
         f"{burst.max_free_filled_cpu_m}m free; {PREEMPT_BURST} preemptors "
@@ -1927,7 +2021,7 @@ def main() -> int:
 
     # -- phase 21: reduced, serial engine, card against CPU ----------------
     stamp("21")
-    r21 = (C5X_REDUCED_NODES, 18_000, 1_000)
+    r21 = (C5X_REDUCED_NODES, LIVE_REDUCED_PODS, 1_000)
     for attempt in range(1, 4):
         kernels.reset_launch_counts()
         t0 = time.monotonic()
@@ -2192,7 +2286,8 @@ def main() -> int:
         f"{hr.create_s:.3f}s; "
         f"first create to last bind {hr.bind_s:.3f}s = "
         f"{n_plain / hr.bind_s:,.0f} pods/s ({hr.waves} waves; phase 19 in "
-        f"process: first drain {phase19['first_drain_s']:.3f}s, total "
+        f"process at {LIVE_C5_PODS} pods: first drain "
+        f"{phase19['first_drain_s']:.3f}s, total "
         f"{phase19['total_s']:.3f}s); boot {hr.setup_s:.3f}s; "
         f"{hr.bound} pods seen bound over the HTTP watch "
         f"({hr.watch_events} events, {hr.watch_reconnects} resumes after "
@@ -2374,7 +2469,8 @@ def main() -> int:
     def attach_watch(client_) -> None:
         _s, addr, stop_fn = start_grpc_server(store=client_.store)
         proc = ctx.Process(target=count_grpc_binds,
-                           args=(addr, N_PODS, to_parent, GRPC_WATCH_BATCH),
+                           args=(addr, GRPC_WATCH_PODS, to_parent,
+                                 GRPC_WATCH_BATCH),
                            daemon=True)
         proc.start()
         gw.update(stop=stop_fn, proc=proc)
@@ -2384,7 +2480,8 @@ def main() -> int:
 
     kernels.reset_launch_counts()
     try:
-        c5w = run_config5_live(N_NODES, N_PODS, max_wave=GRPC_WATCH_WAVE,
+        c5w = run_config5_live(N_NODES, GRPC_WATCH_PODS,
+                               max_wave=GRPC_WATCH_WAVE,
                                pipeline=False, after_setup=attach_watch)
         launches["select_hosts"]["live-c5-grpc-watch"] = live_launches(
             "config 5 under a gRPC watch", c5w.waves)
@@ -2403,9 +2500,10 @@ def main() -> int:
     final = {p_.metadata.name: p_.spec.node_name
              for p_ in c5w.client.pods().list()}
     wrong = [n_ for n_, node in seen["bound"].items() if final[n_] != node]
-    if (len(seen["bound"]) != N_PODS or seen["error"] is not None
+    if (len(seen["bound"]) != GRPC_WATCH_PODS
+            or seen["error"] is not None
             or evicted or wrong or not seen["rv_ordered"]
-            or audited["bound"] != N_PODS or c5w.loop_errors
+            or audited["bound"] != GRPC_WATCH_PODS or c5w.loop_errors
             or c5w.assumed_left):
         raise AssertionError(
             f"config 5 under a gRPC watch: {len(seen['bound'])} binds seen "
@@ -2414,8 +2512,9 @@ def main() -> int:
             f"{seen['rv_ordered']}; {audited['bound']} bound, "
             f"{c5w.loop_errors} loop errors")
     log(f"[grpc-watch] {card}: config 5 live, serial, waves of "
-        f"{GRPC_WATCH_WAVE} ({c5w.waves} waves), {N_PODS} bound in "
-        f"{c5w.total_s:.3f}s = {N_PODS / c5w.total_s:,.0f} binds/s, under "
+        f"{GRPC_WATCH_WAVE} ({c5w.waves} waves), {GRPC_WATCH_PODS} bound "
+        f"in {c5w.total_s:.3f}s = {GRPC_WATCH_PODS / c5w.total_s:,.0f} "
+        f"binds/s, under "
         f"one gRPC Watch on Pods read by a watcher process, opened after "
         f"the creates (sync {gw['sync']['sync']}, rv "
         f"{gw['sync']['resource_version']}): {len(seen['bound'])} binds seen "
@@ -2643,6 +2742,94 @@ def main() -> int:
         + f"; peak device memory {sr_peak / 2**30:.2f} GiB; loop errors 0, "
         f"assume and Permit ledgers empty, select_hosts launches "
         f"{launches['select_hosts']['shard-c5']}, plain-twin calls 0")
+
+    # -- phase 33: the chaos role's cluster on the card ---------------------
+    stamp("33")
+    for label, wave in (("chaos", None), ("chaos-waves-32", CHAOS_FIRE_WAVE)):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        saved = os.environ.pop("BENCH_CHAOS_WAVE", None)
+        if wave is not None:
+            os.environ["BENCH_CHAOS_WAVE"] = str(wave)
+        try:
+            rec = port_bench.role_chaos()
+        finally:
+            os.environ.pop("BENCH_CHAOS_WAVE", None)
+            if saved is not None:
+                os.environ["BENCH_CHAOS_WAVE"] = saved
+        launches["select_hosts"][label] = live_launches(
+            f"the chaos role ({label})", 1)
+        stale = max(r["staleness_s"] for r in rec["staleness"].values())
+        unfired = [p_ for p_ in CHAOS_GATED_POINTS
+                   if wave is not None and not rec["injected"].get(p_)]
+        if rec["loop_errors"] or stale > 30.0 or unfired:
+            raise AssertionError(f"{label}: {rec['loop_errors']} loop "
+                                 f"errors, staleness {stale}s, not fired "
+                                 f"{unfired}: {json.dumps(rec)}")
+        log(f"[{label}] {card}: bench_chaos's cluster ({rec['nodes']} "
+            f"nodes of 64 CPU, 1 in 16 cordoned; {rec['pods']} pods of 500m "
+            f"and 64Mi), the device engine (full roster, waves of "
+            f"{wave or 512}) over a DurableObjectStore, fabric seed "
+            f"{rec['seed']}: all bound in {rec['total_s']:.3f}s; fires "
+            f"{json.dumps(rec['injected'], sort_keys=True)} of draws "
+            f"{json.dumps(rec['draws'], sort_keys=True)}; recovered "
+            f"{json.dumps(rec['recovered'], sort_keys=True)}; no assumed-"
+            f"capacity leak, informer staleness at most {stale:.3f}s, "
+            f"wal_double_binds empty, loop errors 0, select_hosts launches "
+            f"{launches['select_hosts'][label]}, plain-twin calls 0")
+
+    # -- phase 34: config 5 by three HA engine children through a kill ------
+    stamp("34")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="c5-ha-") as workdir:
+        har = run_config5_ha(workdir, N_NODES, EARLY_C5_PODS,
+                             kill_binds=HA_KILL_BINDS)
+    launches["select_hosts"]["ha-c5"] = sum(har.launches.values())
+    before_n = har.seen_at_kill
+    after_n = har.n_plain - before_n
+    log(f"[ha-c5] {card}: a ServerSupervisor façade child over "
+        f"file://<tmp>/ha.wal (archived history, fsync off); "
+        f"{len(har.boot_s)} EngineSupervisor children (the device engine "
+        f"on cuda, full roster, max_wave 1024, lease TTL {HA_TTL_S} s), "
+        f"each with its own CUDA context on this card: spawn to member "
+        f"lease live "
+        + ", ".join(f"{k} {v:.3f}s" for k, v in sorted(har.boot_s.items()))
+        + "; child start to a running engine "
+        + ", ".join(f"{k} {v:.3f}s" for k, v in sorted(har.ready_s.items()))
+        + f"; all running {har.start_s:.3f}s after the first spawn; config "
+        f"5, {N_NODES} nodes and {EARLY_C5_PODS} pods created over the wire "
+        f"(nodes and specials {har.create_s['setup']:.3f}s, four fifths of "
+        f"the plain pods {har.create_s['first']:.3f}s, the last fifth "
+        f"{har.create_s['after_kill']:.3f}s after the kill); SIGKILL of "
+        f"{har.victim} {har.kill_s:.3f}s after the first plain create with "
+        f"{before_n} binds watched = {before_n / har.kill_s:,.0f} pods/s "
+        f"before the kill (binds by engine before it "
+        f"{json.dumps(har.binds_before, sort_keys=True)}, ha counters "
+        f"before it {json.dumps(har.ha_before, sort_keys=True)}); "
+        f"survivors adopted (new epochs, {har.victim} gone) "
+        f"{har.adopt_s:.3f}s after the kill, their resyncs had queued its "
+        f"pods {har.resync_s:.3f}s after it (gate "
+        f"{HA_TTL_S + HA_TTL_S / 3 + 1.5:.3f}s); next bind "
+        f"{har.next_bind_s:.3f}s after the kill; the other {after_n} plain "
+        f"pods bound {har.after_s:.3f}s after it = "
+        f"{after_n / har.after_s:,.0f} pods/s; binds by engine "
+        f"{json.dumps(har.binds, sort_keys=True)} ({har.victim}'s read "
+        f"before the kill); adopted pods {har.adopted}; ha counters "
+        f"{json.dumps(har.ha_counters, sort_keys=True)}, no live peer "
+        f"dropped; renewals (ha.heartbeat_s), their gaps (ha.renew_gap_s, "
+        f"widest gap_max_s) and view ticks (ha.view_s): count, p50 and "
+        f"p99 bucket bounds {json.dumps(har.heartbeat, sort_keys=True)}; "
+        f"peak device memory "
+        + ", ".join(f"{k} {v / 2**30:.2f} GiB"
+                    for k, v in sorted(har.peak_bytes.items()))
+        + f"; every plain pod bound once on the node first watched, no "
+        f"special pod, audit {har.audit}, double binds {har.double_binds} "
+        f"over the archived history, fsck exit 0 in {har.fsck_s:.3f}s; "
+        f"no child left; loop errors "
+        f"{json.dumps(har.loop_errors, sort_keys=True)}, select_hosts "
+        f"launches {json.dumps(har.launches, sort_keys=True)}, plain-twin "
+        f"calls {json.dumps(har.plain_calls, sort_keys=True)}")
 
     stamp("end")
     report = []

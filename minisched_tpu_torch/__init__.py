@@ -26,10 +26,14 @@ shipping, arbiter-lease failover; ``controlplane/replproc.py``: three
 replica children), with ``ha/lease.py`` and ``faults/`` (the fabric and
 the network-fault layer) under it; with ``ShardedClient(seeds)``
 (``controlplane/shards.py``) over the leader groups of a sharded write
-plane, through a live split of a tenant.  Still to come (ROADMAP.md §1):
-the rest of ``ha/`` (membership, the HA engines) and of ``faults/`` (the
-killable child, the façade and watch fault points), the compile cache
-and a device mesh.
+plane, through a live split of a tenant.  ``ha/`` runs active-active
+engines (``ha.plane.start_ha_engine``: a lease-backed ``Membership``
+whose rendezvous map is each engine's queue admission;
+``ha.proc.EngineSupervisor``: an engine as a killable child process,
+on the card by default), and ``faults/`` injects failures at named
+points (store, watch, WAL, disk, façade, engine, replication, network)
+and kills the control plane (``faults.proc.ServerSupervisor``).  Still
+to come (ROADMAP.md §1): the compile cache knobs and a device mesh.
 """
 
 from __future__ import annotations

@@ -107,6 +107,30 @@ One role for each ``bench.py`` role the port can run (``ROLES``):
                         the autosplit watcher must split within
                         ``BENCH_AUTOSPLIT_DEADLINE_S`` (60 s), the source
                         group's windowed group-wait p99 recovering after
+``chaos``               ``bench_chaos`` (``:2219``): the device engine
+                        over a WAL store while the fault fabric (seed
+                        ``BENCH_CHAOS_SEED``, 1234) fails store updates
+                        and gets, drops watches, refuses WAL appends and
+                        fails whole bind batches (``engine.bind``); gated
+                        on every pod bound, no assumed capacity left at
+                        quiesce, informer staleness within
+                        ``BENCH_CHAOS_MAX_STALENESS_S`` (30 s) and no
+                        double bind in the WAL
+``disk``                ``bench_disk`` (``:2361``): the device engine over
+                        an archived WAL store under compaction and scrub
+                        while the disk fabric refuses appends, runs an
+                        ENOSPC episode, flips a bit and rots a
+                        checkpoint; gated on convergence, no leak, no
+                        double bind, the episode fired and every flipped
+                        bit convicted by ``fsck``
+``ha``                  ``bench_ha`` (``:3042``): ``BENCH_HA_ENGINES`` (3)
+                        active-active device engines
+                        (``ha.start_ha_engine``) in this process over one
+                        WAL store, the middle one killed with its lease
+                        abandoned after the first two thirds of the pods
+                        bound; gated on convergence, the survivors
+                        dropping it within ``ttl + ttl/3 + 1.5`` s and no
+                        double bind
 ======================  ==================================================
 
 The live roles read ``bench.py``'s environment knobs with its defaults
@@ -122,7 +146,8 @@ and power limit (``nvidia-smi``).  Without a card a role prints
 ``{"skipped": reason}`` and exits 0: it never runs on the CPU instead.
 The host-only roles (``wire_fanout``, ``relist``, ``wal``, ``repl``,
 ``readscale``, ``shard``) touch no card but keep that rule; their functions (``role_relist()``, ...) run
-anywhere.
+anywhere.  ``role_chaos``, ``role_disk`` and ``role_ha`` take
+``device`` (the tests run them small with ``"cpu"``).
 """
 
 from __future__ import annotations
@@ -146,7 +171,7 @@ import torch
 ROLES = ("headline", "c1", "c2", "c3", "c4", "c5", "c5_waves",
          "fullchain_parity", "c5x", "gang_waves", "c5x_live", "wave", "gang",
          "churn", "wire", "wire_fanout", "relist", "wal", "repl",
-         "readscale", "shard")
+         "readscale", "shard", "chaos", "disk", "ha")
 
 GIB = 2**30
 
@@ -3337,6 +3362,382 @@ def role_shard() -> Dict[str, Any]:
         "autosplit_pre_p99_s": round(pre_p99, 4),
         "autosplit_post_p99_s": round(post_p99, 4),
         "write_errors": len(write_errors),
+    }
+
+
+def _converge(client: Any, sched: Any, n_pods: int,
+              deadline: float) -> int:
+    """``bench.py``'s degraded-mode poll: the bound pods, replaying the
+    parked ones, until all ``n_pods`` are bound or ``deadline`` passes;
+    an injected fault on the poll's own list is skipped."""
+    bound = 0
+    while time.monotonic() < deadline:
+        try:
+            bound = sum(1 for p in client.pods().list() if p.spec.node_name)
+        except Exception:
+            continue  # injected list fault on our own poll
+        if bound >= n_pods:
+            break
+        if sched.queue.stats()["unschedulable"]:
+            sched.queue.flush_unschedulable_leftover()
+            sched.queue.flush_backoff_completed()
+        time.sleep(0.25)
+    return bound
+
+
+def _assume_leaked(sched: Any) -> bool:
+    """True unless the assume ledger drains within 10 assume TTLs."""
+    drain_deadline = time.monotonic() + 10 * sched.assume_ttl_s
+    while time.monotonic() < drain_deadline:
+        with sched._assumed_lock:
+            if not sched._assumed:
+                return False
+        time.sleep(0.25)
+    return True
+
+
+def role_chaos(device: Any = None) -> Dict[str, Any]:
+    """Chaos soak at bench scale (``bench_chaos``): the device engine over
+    a WAL store while the fault fabric injects store, bind, watch and WAL
+    failures on a seeded schedule (``BENCH_CHAOS_SEED`` reproduces the
+    injections).  The record carries convergence, the leak and
+    double-bind audits and the injected and recovered counts."""
+    import tempfile
+
+    from minisched_tpu_torch.api.objects import make_node, make_pod
+    from minisched_tpu_torch.controlplane.client import Client
+    from minisched_tpu_torch.controlplane.durable import DurableObjectStore
+    from minisched_tpu_torch.faults import FaultFabric, wal_double_binds
+    from minisched_tpu_torch.observability import counters
+    from minisched_tpu_torch.service.config import default_full_roster_config
+    from minisched_tpu_torch.service.service import SchedulerService
+
+    seed = int(os.environ.get("BENCH_CHAOS_SEED", "1234"))
+    n_nodes = int(os.environ.get("BENCH_CHAOS_NODES", "128"))
+    n_pods = int(os.environ.get("BENCH_CHAOS_PODS", "2000"))
+    with tempfile.TemporaryDirectory(prefix="minisched-chaos-") as tmp:
+        wal = os.path.join(tmp, "c.wal")
+        store = DurableObjectStore(wal)
+        client = Client(store=store)
+        for i in range(n_nodes):
+            client.nodes().create(make_node(
+                f"node{i:04d}", unschedulable=i % 16 == 0,
+                capacity={"cpu": "64", "memory": "128Gi", "pods": 256}))
+        client.pods().create_many([
+            make_pod(f"cp{i:05d}", requests={"cpu": "500m", "memory": "64Mi"})
+            for i in range(n_pods)])
+        fabric = (
+            FaultFabric(seed)
+            .on("store.update", rate=0.10)
+            .on("store.get", rate=0.05)
+            .on("watch.drop", rate=0.02, max_fires=16, keys={"Pod", "Node"})
+            .on("wal.append", rate=0.03, max_fires=16)
+            .on("engine.bind", rate=0.05, max_fires=16)
+        )
+        counters.reset()
+        svc = SchedulerService(client)
+        sched = svc.start_scheduler(
+            default_full_roster_config(), device_mode=True,
+            max_wave=int(os.environ.get("BENCH_CHAOS_WAVE", "512")),
+            device=device)
+        sched.faults = fabric
+        sched.assume_ttl_s = 3.0
+        store.fault_injector = fabric.as_store_injector()
+        store.faults = fabric
+        t0 = time.monotonic()
+        deadline = t0 + float(os.environ.get("BENCH_CHAOS_DEADLINE_S", "300"))
+        try:
+            bound = _converge(client, sched, n_pods, deadline)
+            elapsed = time.monotonic() - t0
+            # quiesce: the assume ledger must drain (lease confirm path)
+            leaked = _assume_leaked(sched)
+            store.fault_injector = None
+            store.faults = None
+            # per-kind cache staleness and reconnects at quiesce: a cache
+            # still stale past the threshold never re-verified itself
+            staleness = svc.informer_factory.staleness()
+            max_staleness = float(
+                os.environ.get("BENCH_CHAOS_MAX_STALENESS_S", "30"))
+            loop_errors = sched.loop_errors
+            if bound < n_pods:
+                raise AssertionError(
+                    f"[chaos] DID NOT CONVERGE: {bound}/{n_pods} bound; "
+                    f"faults={fabric.stats()} "
+                    f"counters={counters.snapshot()}")
+            if leaked:
+                raise AssertionError("[chaos] ASSUMED-CAPACITY LEAK at "
+                                     "quiesce")
+            for kind, rec in staleness.items():
+                if rec["staleness_s"] > max_staleness:
+                    raise AssertionError(
+                        f"[chaos] STALE INFORMER at quiesce: {kind} "
+                        f"unverified for {rec['staleness_s']}s (> "
+                        f"{max_staleness}s); staleness={staleness}")
+        finally:
+            store.fault_injector = None
+            store.faults = None
+            svc.shutdown_scheduler()
+            store.close()
+        violations = wal_double_binds(wal)
+    if violations:
+        raise AssertionError(f"[chaos] DOUBLE BIND: {violations[:5]}")
+    stats = fabric.stats()
+    _log(f"[chaos] {n_pods} pods converged under "
+         f"{sum(stats['fires'].values())} injected faults in {elapsed:.1f}s "
+         f"(seed={seed}; no leak, no double-bind)")
+    return {
+        "pods": n_pods,
+        "nodes": n_nodes,
+        "total_s": elapsed,
+        "seed": seed,
+        "injected": stats["fires"],
+        # the port's: each point's draws (fabric calls), of which
+        # ``injected`` fired
+        "draws": stats["calls"],
+        "recovered": {k: v for k, v in counters.snapshot().items()
+                      if v and not k.startswith("assume.lease_renewed")},
+        "staleness": staleness,
+        "loop_errors": loop_errors,
+        "leak": False,
+        "double_bind": False,
+    }
+
+
+def role_disk(device: Any = None) -> Dict[str, Any]:
+    """Storage-integrity soak at bench scale (``bench_disk``): the device
+    engine over an archived WAL store with periodic compaction and the
+    scrub while the disk fabric refuses appends, runs an ENOSPC episode,
+    flips a bit and rots a checkpoint.  The record carries the degraded
+    dwell, the scrub and fsck findings (the flip must be convicted) and
+    the exactly-once audit."""
+    import tempfile
+
+    from minisched_tpu_torch.api.objects import make_node, make_pod
+    from minisched_tpu_torch.controlplane.client import Client
+    from minisched_tpu_torch.controlplane.durable import DurableObjectStore
+    from minisched_tpu_torch.controlplane.fsck import fsck
+    from minisched_tpu_torch.faults import FaultFabric, wal_double_binds
+    from minisched_tpu_torch.observability import counters
+    from minisched_tpu_torch.service.config import default_full_roster_config
+    from minisched_tpu_torch.service.service import SchedulerService
+
+    seed = int(os.environ.get("BENCH_CHAOS_SEED", "1234"))
+    n_nodes = int(os.environ.get("BENCH_DISK_NODES", "64"))
+    n_pods = int(os.environ.get("BENCH_DISK_PODS", "1500"))
+    with tempfile.TemporaryDirectory(prefix="minisched-disk-") as tmp:
+        wal = os.path.join(tmp, "d.wal")
+        store = DurableObjectStore(wal, archive_compacted=True,
+                                   probe_interval_s=0.05)
+        store.start_scrub(interval_s=0.5)
+        client = Client(store=store)
+        client.nodes().create_many([
+            make_node(f"node{i:04d}",
+                      capacity={"cpu": "64", "memory": "128Gi", "pods": 256})
+            for i in range(n_nodes)])
+        client.pods().create_many([
+            make_pod(f"dk{i:05d}", requests={"cpu": "500m", "memory": "64Mi"})
+            for i in range(n_pods)])
+        # armed after the seed: the workload, not the setup, takes the
+        # weather
+        fabric = (
+            FaultFabric(seed)
+            .on("wal.append", rate=0.05)
+            .on("disk.enospc", rate=1.0, after=100, max_fires=8)
+            .on("wal.bitflip", rate=1.0, after=250, max_fires=1)
+            .on("ckpt.corrupt", rate=1.0, after=1, max_fires=1)
+        )
+        store.faults = fabric
+        counters.reset()
+        compact_stop = threading.Event()
+
+        def compactor() -> None:
+            while not compact_stop.wait(0.5):
+                try:
+                    store.compact()
+                except Exception:
+                    pass  # ENOSPC mid-compaction is this role's weather
+
+        threading.Thread(target=compactor, daemon=True).start()
+        svc = SchedulerService(client)
+        sched = svc.start_scheduler(
+            default_full_roster_config(), device_mode=True,
+            max_wave=int(os.environ.get("BENCH_DISK_WAVE", "256")),
+            device=device)
+        sched.assume_ttl_s = 3.0
+        t0 = time.monotonic()
+        deadline = t0 + float(os.environ.get("BENCH_DISK_DEADLINE_S", "300"))
+        try:
+            bound = _converge(client, sched, n_pods, deadline)
+            elapsed = time.monotonic() - t0
+            leaked = _assume_leaked(sched)
+            loop_errors = sched.loop_errors
+            if bound < n_pods:
+                raise AssertionError(
+                    f"[disk] DID NOT CONVERGE: {bound}/{n_pods} bound; "
+                    f"faults={fabric.stats()} "
+                    f"counters={counters.snapshot()}")
+            if leaked:
+                raise AssertionError("[disk] ASSUMED-CAPACITY LEAK at "
+                                     "quiesce")
+        finally:
+            compact_stop.set()
+            svc.shutdown_scheduler()
+            scrub = store.scrub()
+            stats = store.storage_stats()
+            store.faults = None
+            store.close()
+        violations = wal_double_binds(wal)
+        report = fsck(wal)
+    if violations:
+        raise AssertionError(f"[disk] DOUBLE BIND: {violations[:5]}")
+    fire_stats = fabric.stats()
+    if fire_stats["fires"].get("disk.enospc", 0) < 1:
+        raise AssertionError("[disk] ENOSPC episode never fired")
+    flipped = fire_stats["fires"].get("wal.bitflip", 0)
+    crc_findings = sum("crc mismatch" in e for e in report["errors"])
+    if flipped and not crc_findings:
+        raise AssertionError(
+            f"[disk] UNDETECTED BIT-FLIP: {flipped} injected, fsck found "
+            f"none; report={report['errors']}")
+    _log(f"[disk] {n_pods} pods converged in {elapsed:.1f}s under "
+         f"{sum(fire_stats['fires'].values())} disk faults (degraded "
+         f"{stats['degraded_episodes']}x / {stats['degraded_dwell_s']}s "
+         f"dwell; {flipped} bit-flip(s) detected by fsck; no leak, no "
+         f"double-bind)")
+    return {
+        "pods": n_pods,
+        "nodes": n_nodes,
+        "total_s": elapsed,
+        "seed": seed,
+        "injected": fire_stats["fires"],
+        "degraded_episodes": stats["degraded_episodes"],
+        "degraded_dwell_s": stats["degraded_dwell_s"],
+        "scrub_findings": scrub["findings"],
+        "fsck_errors": report["errors"],
+        "bitflips_detected": crc_findings,
+        "group_commit": {
+            "groups": counters.get("storage.group_commit.groups"),
+            "records": counters.get("storage.group_commit.records"),
+            "fsyncs_saved": counters.get("storage.group_commit.fsyncs_saved"),
+        },
+        "recovered": {k: v for k, v in counters.snapshot().items()
+                      if v and (k.startswith("storage.")
+                                or k.startswith("remote."))},
+        "loop_errors": loop_errors,
+        "leak": False,
+        "double_bind": False,
+    }
+
+
+def role_ha(device: Any = None) -> Dict[str, Any]:
+    """The HA plane at bench scale (``bench_ha``): N active-active
+    sharded device engines over one WAL store, one killed mid-run with
+    its lease abandoned (peers must time it out).  The record carries
+    the TTL-bounded rebalance, convergence, exactly-once binds across the
+    full history and the ``ha.*`` counters.  The engines share this
+    process and the card; their pods carry no cross-pod constraint, so
+    no engine captures a scan-lane graph (``prewarm_scan=False``), which
+    another engine's launches on the card would break."""
+    import tempfile
+
+    from minisched_tpu_torch.api.objects import make_node, make_pod
+    from minisched_tpu_torch.controlplane.client import Client
+    from minisched_tpu_torch.controlplane.durable import DurableObjectStore
+    from minisched_tpu_torch.faults import wal_double_binds
+    from minisched_tpu_torch.ha import start_ha_engine
+    from minisched_tpu_torch.observability import counters
+    from minisched_tpu_torch.service.config import default_full_roster_config
+
+    n_engines = int(os.environ.get("BENCH_HA_ENGINES", "3"))
+    n_nodes = int(os.environ.get("BENCH_HA_NODES", "48"))
+    n_pods = int(os.environ.get("BENCH_HA_PODS", "1200"))
+    ttl_s = float(os.environ.get("BENCH_HA_TTL_S", "2.0"))
+    with tempfile.TemporaryDirectory(prefix="minisched-ha-") as tmp:
+        wal = os.path.join(tmp, "ha.wal")
+        store = DurableObjectStore(wal, archive_compacted=True)
+        setup = Client(store=store)
+        setup.nodes().create_many([
+            make_node(f"node{i:04d}",
+                      capacity={"cpu": "64", "memory": "128Gi", "pods": 256})
+            for i in range(n_nodes)])
+        pods = [make_pod(f"hp{i:05d}",
+                         requests={"cpu": "500m", "memory": "64Mi"})
+                for i in range(n_pods)]
+        first = (2 * n_pods) // 3
+        setup.pods().create_many(pods[:first])
+        counters.reset()
+        t0 = time.monotonic()
+        engines = []
+        try:
+            for i in range(n_engines):
+                engines.append(start_ha_engine(
+                    Client(store=store), f"engine-{i}",
+                    cfg=default_full_roster_config(), ttl_s=ttl_s,
+                    device=device, prewarm_scan=False))
+
+            def bound() -> int:
+                return sum(1 for p in setup.pods().list()
+                           if p.spec.node_name)
+
+            deadline = time.monotonic() + float(
+                os.environ.get("BENCH_HA_DEADLINE_S", "240"))
+            while time.monotonic() < deadline and bound() < first:
+                time.sleep(0.2)
+            if bound() < first:
+                raise AssertionError(f"[ha] first burst stalled: "
+                                     f"{bound()}/{first}")
+            # kill one engine (no lease release), keep the load coming
+            victim = engines[len(engines) // 2]
+            survivors = [e for e in engines if e is not victim]
+            t_kill = time.monotonic()
+            victim.kill()
+            engines.remove(victim)
+            setup.pods().create_many(pods[first:])
+            rebalance_s = None
+            while time.monotonic() < deadline:
+                if all(victim.membership.member_id
+                       not in e.membership.members() for e in survivors):
+                    rebalance_s = time.monotonic() - t_kill
+                    break
+                time.sleep(0.05)
+            if rebalance_s is None:
+                raise AssertionError("[ha] survivors never dropped the dead "
+                                     "member")
+            bound_n = 0
+            while time.monotonic() < deadline:
+                bound_n = bound()
+                if bound_n >= n_pods:
+                    break
+                time.sleep(0.2)
+            elapsed = time.monotonic() - t0
+            loop_errors = sum(e.scheduler.loop_errors for e in survivors)
+        finally:
+            for e in engines:
+                e.stop()
+            store.close()
+        violations = wal_double_binds(wal)
+    if bound_n < n_pods:
+        raise AssertionError(f"[ha] DID NOT CONVERGE: {bound_n}/{n_pods} "
+                             "bound")
+    # rebalance bounded by the lease TTL (+ a heartbeat tick and margin)
+    if rebalance_s > ttl_s + ttl_s / 3.0 + 1.5:
+        raise AssertionError(f"[ha] SLOW REBALANCE: {rebalance_s:.2f}s")
+    if violations:
+        raise AssertionError(f"[ha] DOUBLE BIND: {violations[:5]}")
+    _log(f"[ha] {n_pods} pods, {n_engines} engines, 1 kill: converged in "
+         f"{elapsed:.1f}s, rebalance {rebalance_s:.2f}s (ttl {ttl_s}s)")
+    return {
+        "pods": n_pods,
+        "nodes": n_nodes,
+        "engines": n_engines,
+        "kills": 1,
+        "lease_ttl_s": ttl_s,
+        "total_s": elapsed,
+        "rebalance_s": rebalance_s,
+        "loop_errors": loop_errors,
+        "double_bind": False,
+        "counters": {k: v for k, v in counters.snapshot().items()
+                     if k.startswith("ha.")},
     }
 
 

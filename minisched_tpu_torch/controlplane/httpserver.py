@@ -72,9 +72,12 @@ mirror's surface; the façade's ``shards.ShardRuntime`` (lease journal,
 budget sync, autosplit) starts and stops with it.  Without ``shard=``
 the routes answer 404 and no write is refused.
 
-Left out, answering 404 as the JAX façade does when it is not enabled:
-the ``http.500``/``http.reset`` fault points (``faults=``), which wait
-for ROADMAP item 8.
+``start_api_server(faults=FaultFabric)`` makes the façade lossy on
+purpose (JAX ``:237-265``): before any route runs, ``http.reset`` closes
+the connection without a byte written and ``http.500`` answers 503 and
+closes it, each keyed by the request path; ``/healthz`` is exempt.  Both
+fire before the store is touched, and before a watch stream is handed to
+the stream loop, so a retried request never finds half-applied state.
 """
 
 from __future__ import annotations
@@ -239,6 +242,8 @@ class _Handler(BaseHTTPRequestHandler):
     store: ObjectStore = None  # set by start_api_server
     active_watches: set = None
     watch_lock: threading.Lock = None
+    #: optional ``faults.FaultFabric`` (``http.500``, ``http.reset``)
+    faults = None
     ack_registry: dict = None  # ack id → response entry
     ack_order: deque = None  # FIFO of ack ids for eviction
     ack_lock: threading.Lock = None
@@ -260,6 +265,32 @@ class _Handler(BaseHTTPRequestHandler):
 
     def log_message(self, *args) -> None:  # quiet
         pass
+
+    def _inject_fault(self) -> bool:
+        """Consult the fabric before routing: ``http.reset`` closes the
+        connection without a single response byte (the client sees a
+        transport error), ``http.500`` answers 503 and closes it (the
+        body may be unread, and keep-alive reuse would misparse it as
+        the next request).  True: the request was answered so.
+        ``/healthz`` is exempt: readiness polling must not be lied to."""
+        f = self.faults
+        if f is None:
+            return False
+        path = self.path.partition("?")[0]
+        if path == "/healthz":
+            return False
+        if f.should_fire("http.reset", path):
+            try:
+                self.connection.close()
+            except OSError:
+                pass
+            self.close_connection = True
+            return True
+        if f.should_fire("http.500", path):
+            self.close_connection = True
+            self._error(503, "injected: control plane unavailable")
+            return True
+        return False
 
     def _send(self, code: int, payload: Any, rv: Optional[int] = None
               ) -> None:
@@ -334,6 +365,8 @@ class _Handler(BaseHTTPRequestHandler):
                 self._observe_request("GET", path, t0)
 
     def _handle_get(self, path: str, query: str) -> None:
+        if self._inject_fault():
+            return
         if path == "/healthz":
             self._send(200, "ok")
             return
@@ -600,6 +633,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._observe_request("POST", self.path.partition("?")[0], t0)
 
     def _handle_post(self) -> None:
+        if self._inject_fault():
+            return
         path = self.path.partition("?")[0]
         if path == "/api/v1/bindings":
             self._bind_many()
@@ -908,6 +943,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._observe_request("PUT", self.path.partition("?")[0], t0)
 
     def _handle_put(self) -> None:
+        if self._inject_fault():
+            return
         path, _, query = self.path.partition("?")
         try:
             kind, ns, name, _ = _route(path)
@@ -955,6 +992,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._observe_request("DELETE", self.path.partition("?")[0], t0)
 
     def _handle_delete(self) -> None:
+        if self._inject_fault():
+            return
         try:
             kind, ns, name, _ = _route(self.path)
             if not self._shard_guard(kind, ns):
@@ -970,6 +1009,7 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 def start_api_server(store: Optional[ObjectStore] = None, port: int = 0,
+                     faults: Any = None,
                      stream_buffer_bytes: Optional[int] = None,
                      stream_sndbuf_bytes: Optional[int] = None,
                      repl: Any = None, shard: Any = None
@@ -978,6 +1018,8 @@ def start_api_server(store: Optional[ObjectStore] = None, port: int = 0,
     ``/healthz`` until it answers (k8sapiserver.go:231-249's readiness
     loop: 100 ms apart, 30 s at most).  Returns (server, base_url,
     shutdown_fn); the shutdown ends every watch stream first.
+    ``faults``: a ``faults.FaultFabric`` whose ``http.500`` and
+    ``http.reset`` points make the façade lossy (``_inject_fault``).
 
     Watch streams are handed to a selector stream loop (N watchers cost N
     sockets and one thread); ``MINISCHED_STREAMLOOP=0`` keeps a handler
@@ -1007,7 +1049,8 @@ def start_api_server(store: Optional[ObjectStore] = None, port: int = 0,
     acks = dict(recovered()) if recovered is not None else {}
     handler = type("BoundHandler", (_Handler,), {
         "store": store, "active_watches": set(),
-        "watch_lock": threading.Lock(), "ack_registry": acks,
+        "watch_lock": threading.Lock(), "faults": faults,
+        "ack_registry": acks,
         "ack_order": deque(acks), "ack_lock": threading.Lock(),
         "stream_loop": stream_loop, "repl": repl, "shard": shard})
     shard_runtime = None

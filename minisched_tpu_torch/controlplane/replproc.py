@@ -35,8 +35,6 @@ from __future__ import annotations
 
 import json
 import os
-import signal
-import socket
 import subprocess
 import sys
 import threading
@@ -44,15 +42,15 @@ import time
 import urllib.request
 from typing import Any, Dict, List, Optional
 
+from minisched_tpu_torch.faults.proc import (
+    _free_port,
+    child_env,
+    orphan_watchdog,
+)
+
 #: default election lease TTL for the harness (JAX ``replproc.py:41``;
 #: a soak's promotion deadline is a small multiple of it)
 DEFAULT_TTL_S = 2.0
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _replica_child_main(
@@ -132,14 +130,8 @@ def _replica_child_main(
 
         threading.Thread(target=compactor, daemon=True).start()
     if parent_pid:
-        # orphan watchdog: an aborted run must not strand listeners on
-        # the fixed ports
-        def watchdog() -> None:
-            while os.getppid() == parent_pid:
-                time.sleep(0.5)
-            os.kill(os.getpid(), signal.SIGKILL)
-
-        threading.Thread(target=watchdog, daemon=True).start()
+        # an aborted run must not strand listeners on the fixed ports
+        orphan_watchdog(parent_pid)
     threading.Event().wait()  # until SIGKILL — no orderly shutdown, ever
 
 
@@ -228,16 +220,10 @@ class ReplicaSupervisor:
             "compact_every_s": self._compact_every_s,
             "shard": self.shard,
         }
-        env = dict(os.environ)
-        repo_root = os.path.dirname(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        )
-        env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
-        # a replica is host code: no CUDA context on the card, ever
-        env["CUDA_VISIBLE_DEVICES"] = ""
         self._proc = subprocess.Popen(
             [sys.executable, "-c", _CHILD_CMD, json.dumps(cfg)],
-            env=env,
+            # a replica is host code: no CUDA context on the card, ever
+            env=child_env(cuda=False),
             stdout=subprocess.DEVNULL,
             stderr=subprocess.DEVNULL,
         )
@@ -449,16 +435,10 @@ class SplitCoordinator:
         self.result: Optional[dict] = None
 
     def start(self) -> "SplitCoordinator":
-        env = dict(os.environ)
-        repo_root = os.path.dirname(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
-        # host code: no CUDA context on the card
-        env["CUDA_VISIBLE_DEVICES"] = ""
         self._proc = subprocess.Popen(
             [sys.executable, "-c", _COORD_CMD, json.dumps(self._cfg)],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
-            text=True)
+            env=child_env(cuda=False),  # host code: no CUDA context
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
         return self
 
     def wait_frozen(self, timeout_s: float = 30.0) -> str:

@@ -38,7 +38,11 @@ could roll back; ``_visible_rv`` stamps snapshots with the published rv.
 checkpoint) and ``_rebuild_node_agg`` are recovery's surface.
 ``fault_injector`` (called as (op, kind, key) before each mutation and
 read) and ``faults`` (a ``faults.FaultFabric``) are None until a caller
-arms them.
+arms them.  The base store reads one point of the fabric, ``watch.drop``
+(JAX ``:554-559``, ``:721-747``): at fanout a scheduled drop kills the
+watch instead of delivering, the events of that fanout (one write, or a
+whole batch) lost with it, and the next fanout prunes it; the consumer's
+resume or relist is what recovers the gap.
 
 The copy-on-write read plane (JAX ``store.py:428-610``): every publish
 point swaps in one immutable ``_ReadSnapshot`` (maps and the rv they
@@ -61,8 +65,6 @@ of it with ``NotYetObserved``.
 ``WrongShard``, ``ShardFrozen`` and ``ShardFrozenTimeout`` (JAX
 ``:90-125``) are the sharded write plane's refusals (``shards.py``);
 the store itself never raises them, the façade's shard guard does.
-
-Left out: the ``watch.drop`` fault point (ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -443,8 +445,9 @@ class ObjectStore:
         #: mutation and read; raising fails the call as a flaky store
         #: would; ``faults.FaultFabric.as_store_injector()`` is one
         self.fault_injector: Optional[Callable[[str, str, str], None]] = None
-        #: the fault fabric the durable store's disk points read
-        #: (``disk.enospc``, ``wal.append``, ``wal.bitflip``, ...); None
+        #: the fault fabric: ``watch.drop`` here at fanout, and the
+        #: durable store's disk points (``disk.enospc``, ``wal.append``,
+        #: ``wal.bitflip``, ...); None
         self.faults: Any = None
         #: the copy-on-write read plane: the published view lock-free
         #: readers serve from; None with ``MINISCHED_COW_READS=0``
@@ -582,10 +585,14 @@ class ObjectStore:
         # object after it lands, so observers can never see one change
         for ev in events:
             self._record_history(kind, ev)
+        faults = self.faults
         for w in list(self._watches.get(kind, ())):
             if w.stopped:
-                # killed or evicted: pruned here, as a dropped stream
+                # killed, dropped or evicted: pruned here
                 self._remove_watch(kind, w)
+                continue
+            if faults is not None and faults.should_fire("watch.drop", kind):
+                w.kill()  # the stream dies, these events lost to it
                 continue
             w._deliver_many(events)
 

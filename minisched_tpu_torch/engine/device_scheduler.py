@@ -52,7 +52,7 @@ Differences from the JAX engine:
   JAX, which prints the exception and goes on; the port also counts it in
   ``record_errors`` and keeps the last in ``last_record_error``, so a
   failed kernel launch there cannot pass unseen;
-* no mesh (ROADMAP item 12) and no fault injection;
+* no mesh (ROADMAP item 12);
 * a wave, scan chunk, block or backlog flush whose evaluation fails parks
   its pods, as in JAX, and then re-raises, so the run loop counts it
   (``Scheduler.loop_errors``); so does the build worker for an exception
@@ -221,10 +221,14 @@ class DeviceScheduler(Scheduler):
 
     def __init__(self, *args, max_wave: int = 1024,
                  assume_ttl_s: Optional[float] = 30.0, device: Any = None,
-                 **kwargs):
+                 faults: Any = None, **kwargs):
         self.device: torch.device = resolve_device(device)
         super().__init__(*args, **kwargs)
         self.max_wave = max_wave
+        #: optional ``faults.FaultFabric`` for the engine's own point,
+        #: ``engine.bind`` (JAX ``:91-93``): a wave's bind transaction
+        #: fails whole before it leaves the engine
+        self.faults = faults
         #: per-engine monotonic wave id, stamped on the trace spans
         self._wave_seq = 0
         #: assume-lease TTL: an assumption the informer has not confirmed
@@ -407,7 +411,13 @@ class DeviceScheduler(Scheduler):
                        for uid, deadline in self._assumed_expiry.items()
                        if deadline <= now and uid in self._assumed
                        and uid not in backlog_uids]
-        for uid, assumed in expired[: self.MAX_LEASE_PROBES_PER_ROUND]:
+        # at most this many store probes a round, each a round trip on
+        # the engine thread; the rest stay expired for the next round
+        probe = expired[: self.MAX_LEASE_PROBES_PER_ROUND]
+        if len(expired) > len(probe):
+            counters.inc("assume.lease_probe_deferred",
+                         len(expired) - len(probe))
+        for i, (uid, assumed) in enumerate(probe):
             try:
                 cur = self.client.pods().get(assumed.metadata.name,
                                              assumed.metadata.namespace)
@@ -415,6 +425,20 @@ class DeviceScheduler(Scheduler):
                 self._forget(uid)  # deleted while assumed
                 counters.inc("assume.lease_expired")
                 continue
+            except Exception:
+                # store unreachable (or an injected ``store.get``): keep
+                # the capacity booked (the bind may have landed) and
+                # re-arm this lease and every other one of the round
+                # without probing them, as JAX does (``:418-434``); each
+                # probe would pay the client's whole retry budget
+                with self._assumed_lock:
+                    for uid2, _ in probe[i:]:
+                        if uid2 in self._assumed_expiry:
+                            self._assumed_expiry[uid2] = (
+                                now + self.assume_ttl_s)
+                counters.inc("assume.lease_renewed_unreachable",
+                             len(probe) - i)
+                return
             if cur.metadata.uid != uid:
                 self._forget(uid)  # recreated under the same name
                 counters.inc("assume.lease_expired")
@@ -1489,6 +1513,8 @@ class DeviceScheduler(Scheduler):
         self.informer_factory.pause_dispatch()
         with self.metrics.timed("bind"):
             try:
+                if self.faults is not None:
+                    self.faults.check("engine.bind", str(len(ready)))
                 results = self.client.pods().bind_many(
                     bindings, return_objects=False)
             except Exception as err:
@@ -1500,6 +1526,7 @@ class DeviceScheduler(Scheduler):
         # Losers whose attempts overlapped go through backoff, not park.
         self.queue.note_move_request(ClusterEvent(GVK.POD, ActionType.UPDATE))
         degraded_dumped = False
+        bound = 0
         for (qpi, pod, node_name, state), res in zip(ready, results):
             if isinstance(res, BaseException):
                 trace.span_pod("bind_failed", pod, wave=self._wave_seq,
@@ -1523,11 +1550,15 @@ class DeviceScheduler(Scheduler):
                 if self.on_decision:
                     self.on_decision(pod, None, Status.from_error(res))
             else:
+                bound += 1
                 trace.span_pod("bind", pod, wave=self._wave_seq,
                                node=node_name)
                 self.queue.observe_bind(pod, node_name)
                 if self.on_decision:
                     self.on_decision(pod, node_name, Status.success())
+        if bound:
+            # the port's: this engine's own binds (an HA engine's share)
+            counters.inc("engine.pods_bound", bound)
 
 
 def new_device_scheduler(client: Any, informer_factory: Any, cfg: Any = None,

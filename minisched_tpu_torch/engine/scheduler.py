@@ -272,6 +272,13 @@ class Scheduler:
         self.queue = SchedulingQueue(event_map=self.event_map,
                                      **(queue_opts or {}))
 
+        #: HA shard filter (``ha/membership.Membership.owns_pod``): when
+        #: set, the event handlers admit only this engine's shard into
+        #: the queue; None admits everything (one engine is a plane of
+        #: one).  Installed before the informers start
+        #: (``service.start_scheduler``), so the first replay is filtered.
+        self.shard_filter: Optional[Callable[[Pod], bool]] = None
+
         self._waiting_pods: Dict[str, WaitingPod] = {}
         self._waiting_lock = threading.Lock()
         self._stop = threading.Event()
@@ -321,9 +328,11 @@ class Scheduler:
         BEFORE the NodeInfo cache's (see __init__)."""
 
     def admits(self, pod: Pod) -> bool:
-        """Queue-admission predicate the event handlers consult: one
-        engine schedules every pod."""
-        return True
+        """Queue-admission predicate the event handlers consult on every
+        pending-pod event: does this engine schedule ``pod``?  An HA
+        plane sets ``shard_filter`` so N engines partition the pods."""
+        f = self.shard_filter
+        return True if f is None else f(pod)
 
     # ------------------------------------------------------------------
     # lifecycle

@@ -10,6 +10,10 @@ Named points the port wires (grep for the literal string):
         — ObjectStore API calls raise InjectedFault (a flaky apiserver /
           etcd), through ``ObjectStore.fault_injector =
           fabric.as_store_injector()``
+    watch.drop
+        — a store watch stream dies at fanout instead of delivering (the
+          write's events, or a whole batch's, lost to it); the informer
+          resumes or relists; key = kind
     wal.append
         — DurableObjectStore refuses the mutation before touching memory
     disk.enospc
@@ -26,6 +30,22 @@ Named points the port wires (grep for the literal string):
         — one byte of a freshly written checkpoint flips post-rename;
           the sha256 sidecar convicts it and restore takes the fallback
           chain
+    http.500 / http.reset
+        — the REST façade (``start_api_server(faults=)``) answers 503, or
+          closes the connection without a response byte (the client sees
+          a transport error and retries); ``/healthz`` exempt; key =
+          request path
+    remote.request
+        — ``RemoteStore(faults=)`` fails an attempt before it leaves the
+          process, retried like a reset connection; key = request path
+    engine.bind
+        — the device engine's batch-bind transaction raises before the
+          store call (``DeviceScheduler.faults``): the wave's failed
+          commit requeues every pod and releases its assumed capacity;
+          key = the batch's size
+    proc.kill
+        — ``faults.proc.ServerSupervisor.start_chaos``: whether a tick
+          SIGKILLs and restarts the control-plane child; key = its port
     repl.ship
         — the leader's replication stream server drops a follower's
           connection mid-ship with no goodbye; the follower reconnects
@@ -47,15 +67,8 @@ interleaving, and equals the JAX fabric's for the same seed and calls.
 
 ``wal_double_binds`` (JAX ``:192``), the full-history double-bind audit,
 lives here as in JAX; ``controlplane.fsck`` imports it.
-
-``remote.request`` (``RemoteStore(faults=)``: each attempt raises
-InjectedFault before it leaves the process, retried like a reset
-connection; key = the request path) is wired since the sharded plane's
-tests race binds under it.
-
-Left out, for the rest of ROADMAP item 8: ``faults/proc.py`` (the
-killable control-plane child), and the ``http.500``, ``http.reset``,
-``watch.drop`` and ``engine.bind`` points.
+``faults/proc.py`` runs the control plane as a killable child
+(``ServerSupervisor``), ``faults/net.py`` cuts links.
 """
 
 from __future__ import annotations

@@ -1333,80 +1333,6 @@ def audit_trace(spans: List[Dict[str, Any]],
 
 # -- the scheduler over the wire, through a restart of its API server -------
 
-#: ``python3 -c`` body of the façade child: ``start_api_server`` over
-#: ``store_from_url(argv[1])`` on port ``argv[2]``; prints one JSON line
-#: (base URL, the store's replay seconds, the plain pods unbound at boot)
-#: once ``/healthz`` answers, and stops cleanly on SIGTERM
-FACADE_CHILD = """
-import json, signal, sys, threading, time
-from minisched_tpu_torch.controlplane.durable import store_from_url
-from minisched_tpu_torch.controlplane.httpserver import start_api_server
-store = store_from_url(sys.argv[1])
-with store.locked():
-    pods = list(store._objects.get("Pod", {}).values())
-unbound = sum(1 for p in pods if not p.spec.node_name
-              and not p.metadata.name.startswith("special"))
-del pods
-_server, base, stop = start_api_server(store, port=int(sys.argv[2]))
-done = threading.Event()
-signal.signal(signal.SIGTERM, lambda *_: done.set())
-print(json.dumps({"base": base, "replay_s": store.replay_s,
-                  "unbound": unbound}), flush=True)
-done.wait()
-stop()
-store.close()
-"""
-
-
-class FacadeChild:
-    """The port's REST façade in a child process over a ``file://`` WAL
-    (``FACADE_CHILD``); ``info`` is its JSON line, ``boot_s`` the seconds
-    from the spawn to that line."""
-
-    def __init__(self, url: str, port: int, timeout_s: float = 300.0):
-        t0 = time.monotonic()
-        self.proc = subprocess.Popen(
-            [sys.executable, "-c", FACADE_CHILD, url, str(port)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        self.lines: List[str] = []
-        ready = threading.Event()
-        self.info: Dict[str, Any] = {}
-
-        def read() -> None:
-            # read to the end, so the child never blocks on a full pipe
-            for line in self.proc.stdout:
-                self.lines.append(line)
-                if not self.info and line.startswith('{"base"'):
-                    self.info = json.loads(line)
-                    ready.set()
-            ready.set()
-
-        self._reader = threading.Thread(target=read, daemon=True)
-        self._reader.start()
-        ready.wait(timeout_s)
-        if not self.info:
-            self.kill()
-            raise AssertionError(f"façade child: no ready line "
-                                 f"({self.lines[-20:]})")
-        self.boot_s = time.monotonic() - t0
-
-    def kill(self) -> None:
-        self.proc.send_signal(signal.SIGKILL)
-        self.proc.wait(timeout=60)
-        self._reader.join(10)
-
-    def stop(self) -> int:
-        """SIGTERM, then the exit code (SIGKILL after 60 s)."""
-        self.proc.send_signal(signal.SIGTERM)
-        try:
-            return self.proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            self.kill()
-            return self.proc.returncode
-        finally:
-            self._reader.join(10)
-
-
 @dataclass
 class RemoteRun:
     n_plain: int
@@ -1473,11 +1399,12 @@ def run_config5_remote(workdir: str, n_nodes: int = 10_000,
     """Config 5 scheduled over the wire through a SIGKILL and restart of
     the API server.
 
-    The port's ``start_api_server`` runs in a child (``FacadeChild``) over
-    ``store_from_url("file://<workdir>/remote.wal")`` on a ``free_port``
-    (the stream loop on, fsync off).  A ``PodWatch`` opens first; config
-    5's nodes and pods are created with ``RemoteClient(base)`` in batch
-    creates of ``chunk`` (``return_objects=False``).  Then
+    The port's ``start_api_server`` runs in a ``faults.proc.
+    ServerSupervisor`` child over ``<workdir>/remote.wal`` on a fixed
+    port (the stream loop on, fsync off, no compaction).  A ``PodWatch``
+    opens first; config 5's nodes and pods are created with
+    ``RemoteClient(base)`` in batch creates of ``chunk``
+    (``return_objects=False``).  Then
     ``SchedulerService(RemoteClient(base, retries=REMOTE_RETRIES))`` starts
     ``default_full_roster_config()`` with ``device_mode=True`` at its
     defaults (pipelined, waves of ``max_wave``, 1,024) on ``device``:
@@ -1502,17 +1429,17 @@ def run_config5_remote(workdir: str, n_nodes: int = 10_000,
         default_full_roster_config,
     )
 
+    from minisched_tpu_torch.faults.proc import ServerSupervisor
+
     nodes, pods = mk_c5_cluster(n_nodes, n_pods)
     plain = [p.metadata.name for p in pods
              if not p.metadata.name.startswith("special")]
     wal = os.path.join(workdir, "remote.wal")
-    url = f"file://{wal}"
-    port = free_port()
     hist.reset()
     counters.reset()
     before = set(threading.enumerate())
-    child = FacadeChild(url, port)
-    base = child.info["base"]
+    sup = ServerSupervisor(wal, archive_history=False, boot_timeout_s=300.0)
+    base = sup.start()
     svc = watch = watch2 = None
     try:
         client = RemoteClient(base)
@@ -1539,7 +1466,7 @@ def run_config5_remote(workdir: str, n_nodes: int = 10_000,
         while (len(watch.nodes) < kill_binds and watch.error is None
                and time.monotonic() < deadline):
             time.sleep(0.01)
-        child.kill()
+        sup.kill()
         kill_s = time.monotonic() - t_loop
         seen = dict(watch.nodes)
         watch.join()
@@ -1548,9 +1475,13 @@ def run_config5_remote(workdir: str, n_nodes: int = 10_000,
                                  f"before the kill, not {kill_binds} "
                                  f"(watch {watch.error!r})")
         # -- the restart: same port, same WAL ---------------------------------
-        child = FacadeChild(url, port)
+        sup.restart()
         t_ready = time.monotonic()
-        left_at_boot = int(child.info["unbound"])
+        boot = _metrics_counters(base, ("proc.boot_pending_pods",
+                                        "proc.boot_replay_us"))
+        # the special pods never bind: the rest of the pending are plain
+        left_at_boot = (boot["proc.boot_pending_pods"]
+                        - (len(pods) - len(plain)))
         if left_at_boot < len(plain) * MIN_LEFT_AT_BOOT:
             raise AssertionError(
                 f"remote config 5: {left_at_boot} of {len(plain)} plain "
@@ -1570,7 +1501,7 @@ def run_config5_remote(workdir: str, n_nodes: int = 10_000,
                                  f"{watch2.error!r}")
         bind_s = watch2.last_bind_t - t_ready
         next_bind_s = (watch2.first_live_bind_t - t_ready
-                       + child.boot_s if watch2.first_live_bind_t else -1.0)
+                       + sup.boot_s if watch2.first_live_bind_t else -1.0)
         wait_until(lambda: sched.assumed_count() == 0, QUIESCE_TTL_S * 20,
                    "the assume cache drained", sched)
         waves = int(metrics.snapshot().get("wave", {}).get("count", 0))
@@ -1619,10 +1550,10 @@ def run_config5_remote(workdir: str, n_nodes: int = 10_000,
             if w is not None:
                 w._closing = True
                 w._resp.close()
-        rc = child.stop() if child.proc.poll() is None else None
+        rc = sup.terminate() if sup.alive() else None
+        sup.stop()
     if rc != 0:
-        raise AssertionError(f"façade child exit {rc}: "
-                             f"{''.join(child.lines[-20:])}")
+        raise AssertionError(f"façade child exit {rc}: {sup.exit_stderr}")
     for w in (watch, watch2):
         w._thread.join(timeout=30)
     left = sorted(t.name for t in set(threading.enumerate()) - before
@@ -1651,7 +1582,7 @@ def run_config5_remote(workdir: str, n_nodes: int = 10_000,
     snap = counters.snapshot()
     return RemoteRun(
         len(plain), create_s, sync_s, len(seen), kill_s,
-        float(child.info["replay_s"]), child.boot_s, left_at_boot,
+        boot["proc.boot_replay_us"] / 1e6, sup.boot_s, left_at_boot,
         next_bind_s, bind_s, waves, loop_errors, assumed_left, waiting_left,
         audit, reconnects, {k: snap.get(k, 0) for k in REMOTE_COUNTERS},
         decode_s, decoded, len(double), fsck_proc.returncode, fsck_s,
@@ -2387,3 +2318,385 @@ def run_config5_sharded(workdir: str, n_nodes: int = 10_000,
          "reopens": snap.get("shard.watch_reopen", 0)},
         all_counters, hot_left, double, fsck_rc, fsck_s, placements, seen,
         phases, left, children_left)
+
+
+# -- config 5 by three HA engine children through a SIGKILL of one ---------
+
+@dataclass
+class HARun:
+    n_plain: int
+    #: the creates over the wire: the nodes and ``special*`` pods before
+    #: the engines, the first four fifths of the plain pods once all were
+    #: ready, and the last fifth after the kill
+    create_s: Dict[str, float]
+    #: per engine: spawn to its member lease live, and its child's start
+    #: to a running engine (``ha.engine_ready_ms``); and the first spawn
+    #: to every engine running
+    boot_s: Dict[str, float]
+    ready_s: Dict[str, float]
+    start_s: float
+    victim: str
+    #: binds the watch had seen at the SIGKILL, and the seconds from the
+    #: first plain create to the kill
+    seen_at_kill: int
+    kill_s: float
+    #: seconds from the kill: to every survivor publishing an epoch past
+    #: its pre-kill one with the victim gone from the live set, to the
+    #: last survivor's resync having queued the orphaned pods (its
+    #: ``ha.shard_adopt_unix_ms``), to the first bind the watch saw after
+    #: it, and to the last plain bind
+    adopt_s: float
+    resync_s: float
+    next_bind_s: float
+    after_s: float
+    #: per engine, off its child's ``/metrics`` just before the kill:
+    #: binds (``engine.pods_bound``) and the ``ha.*`` counters
+    binds_before: Dict[str, int]
+    ha_before: Dict[str, Dict[str, int]]
+    #: per engine, off its child's ``/metrics`` (the victim's just before
+    #: the kill, the survivors' at the end): binds (``engine.pods_bound``),
+    #: ``select_hosts`` launches,
+    #: plain-twin calls, loop errors, peak device memory and ``ha.*``
+    binds: Dict[str, int]
+    launches: Dict[str, int]
+    plain_calls: Dict[str, int]
+    loop_errors: Dict[str, int]
+    peak_bytes: Dict[str, int]
+    ha_counters: Dict[str, Dict[str, int]]
+    #: per engine: its renewals (``ha.heartbeat_s``), the gaps between
+    #: their starts (``ha.renew_gap_s``, with the widest) and its view
+    #: ticks (``ha.view_s``): count and the p50 and p99 bucket upper
+    #: bounds (seconds)
+    heartbeat: Dict[str, Dict[str, Any]]
+    adopted: int
+    audit: Dict[str, int]
+    double_binds: int
+    fsck_rc: int
+    fsck_s: float
+    children_left: List[str]
+    threads_left: List[str]
+
+
+#: the ``ha.*`` counters ``run_config5_ha`` reads off each engine child
+HA_COUNTERS = ("ha.member_join", "ha.epoch_bump", "ha.member_lost",
+               "ha.lease_expired", "ha.lease_renew", "ha.lease_lost",
+               "ha.shard_adopt", "ha.shard_adopt_pods",
+               "ha.expiry_unconfirmed", "assume.revalidate_on_reconnect")
+#: HA engines of ``run_config5_ha``: JAX's ``bench_ha`` and
+#: ``test_ha_engine_kill_smoke`` run three, and kill the middle one
+HA_ENGINES = 3
+HA_TTL_S = 2.0
+
+
+def _ha_timings(metrics_url: str) -> Dict[str, Any]:
+    """An engine child's renewals, renewal gaps and view ticks off its
+    ``/metrics``: per histogram its count and the p50 and p99 bucket
+    upper bounds (seconds; None when empty), and the widest gap."""
+    with urllib.request.urlopen(metrics_url, timeout=60) as r:
+        _types, samples = hist.parse_prometheus(r.read().decode())
+    out: Dict[str, Any] = {}
+    for key, name in (("renew", "ha_heartbeat_seconds"),
+                      ("gap", "ha_renew_gap_seconds"),
+                      ("view", "ha_view_seconds")):
+        p50 = hist.parsed_histogram_quantile(samples, name, 0.5)
+        p99 = hist.parsed_histogram_quantile(samples, name, 0.99)
+        out[key] = {"n": int(sum(v for n, _l, v in samples
+                                 if n == name + "_count")),
+                    "p50_le_s": p50[1] if p50 else None,
+                    "p99_le_s": p99[1] if p99 else None}
+    out["gap_max_s"] = sum(v for n, _l, v in samples
+                           if n == "ha_renew_gap_max_ms") / 1000.0
+    return out
+
+
+def _member_leases(base: str) -> Dict[str, Any]:
+    """holder → member Lease, read off the façade."""
+    from minisched_tpu_torch.controlplane.remote import RemoteStore
+    from minisched_tpu_torch.ha.lease import HA_NAMESPACE
+    from minisched_tpu_torch.ha.membership import MEMBER_PREFIX
+
+    rs = RemoteStore(base, retries=2, timeout_s=10.0)
+    try:
+        return {l.spec.holder: l for l in rs.list("Lease")
+                if l.metadata.namespace == HA_NAMESPACE
+                and l.metadata.name.startswith(MEMBER_PREFIX)}
+    finally:
+        rs.close()
+
+
+def run_config5_ha(workdir: str, n_nodes: int = 10_000,
+                   n_pods: int = 12_500, kill_binds: int = 2_500,
+                   device: str = "cuda", n_engines: int = HA_ENGINES,
+                   ttl_s: float = HA_TTL_S, max_wave: int = 1024,
+                   chunk: int = 10_000, timeout_s: float = 600.0,
+                   boot_timeout_s: float = 300.0) -> HARun:
+    """Config 5 scheduled by ``n_engines`` active-active HA device engines,
+    each a child process, through a SIGKILL of one.
+
+    The control plane is a ``faults.proc.ServerSupervisor`` child over
+    ``<workdir>/ha.wal`` (``archive_history=True``, fsync off).  Config
+    5's nodes and ``special*`` pods are created over the wire; then
+    ``ha.proc.EngineSupervisor`` children ``engine-0..n-1`` start side by
+    side, each ``ha.plane.start_ha_engine`` over a ``RemoteClient`` with
+    the full roster, the device engine on ``device``, ``max_wave`` (JAX's
+    ``start_scheduler`` default, 1,024; JAX's child default is 64) and
+    lease TTL ``ttl_s``.  Once every engine runs, a ``PodWatch`` opens and
+    the first four fifths of the plain pods are created in batch creates
+    of ``chunk``; each engine admits its rendezvous shard.  When the watch
+    has seen ``kill_binds`` binds and every engine has bound its share of
+    them (a ``n_engines``-th, off its ``/metrics``), every engine's counts
+    are read, the middle engine (``bench_ha``'s pick) is SIGKILLed with
+    its lease abandoned, and the last
+    fifth of the plain pods is created.  The survivors must drop it from
+    their live set and publish a new epoch within ``ttl + ttl/3 + 1.5`` s
+    (``test_ha_chaos.py:149-153``), adopt its shard and bind the rest.
+
+    Raises unless adoption met that bound, both as the survivors' leases
+    publish it and as their resyncs stamp it; no engine dropped a live
+    peer (before the kill no ``ha.lease_expired`` or ``ha.member_lost``
+    anywhere, at the end exactly one of each on every survivor); every
+    engine bound its share of ``kill_binds`` before the kill (else the
+    wait for it times out); every plain pod is bound, on
+    the node the watch first saw, and no ``special*`` pod; the audit holds
+    over every bind; the archived WAL holds no double bind and ``python3
+    -m minisched_tpu_torch fsck`` exits 0; every engine launched
+    ``select_hosts`` and called no plain twin and counted no loop error;
+    and no child is left.  (On the CPU each engine must have called the
+    plain twin instead.)"""
+    from minisched_tpu_torch.controlplane.remote import RemoteClient
+    from minisched_tpu_torch.faults.proc import ServerSupervisor
+    from minisched_tpu_torch.ha.proc import EngineSupervisor
+
+    nodes, pods = mk_c5_cluster(n_nodes, n_pods)
+    plain_pods = [p for p in pods
+                  if not p.metadata.name.startswith("special")]
+    specials = [p for p in pods if p.metadata.name.startswith("special")]
+    plain = [p.metadata.name for p in plain_pods]
+    first = len(plain_pods) * 4 // 5
+    wal = os.path.join(workdir, "ha.wal")
+    before = set(threading.enumerate())
+    sup = ServerSupervisor(wal, archive_history=True, boot_timeout_s=300.0)
+    base = sup.start()
+    engines = [EngineSupervisor(base, f"engine-{i}", ttl_s=ttl_s,
+                                max_wave=max_wave, device=device,
+                                metrics_port=0,
+                                boot_timeout_s=boot_timeout_s)
+               for i in range(n_engines)]
+    victim = engines[len(engines) // 2]
+    survivors = [e for e in engines if e is not victim]
+    client = None
+    watch = None
+    create_s: Dict[str, float] = {}
+    got: Dict[str, Dict[str, float]] = {}
+    try:
+        client = RemoteClient(base, retries=REMOTE_RETRIES)
+        t0 = time.monotonic()
+        for i in range(0, len(nodes), chunk):
+            client.nodes().create_many(nodes[i:i + chunk],
+                                       return_objects=False)
+        client.pods().create_many(specials, return_objects=False)
+        create_s["setup"] = time.monotonic() - t0
+        # -- the engines, side by side ------------------------------------
+        errors: List[BaseException] = []
+
+        def boot(e: EngineSupervisor) -> None:
+            try:
+                e.start()
+            except BaseException as err:  # re-raised below
+                errors.append(err)
+
+        t_spawn = time.monotonic()
+        starters = [threading.Thread(target=boot, args=(e,))
+                    for e in engines]
+        for t in starters:
+            t.start()
+        for t in starters:
+            t.join()
+        if errors:
+            raise errors[0]
+        ready_s: Dict[str, float] = {}
+        deadline = time.monotonic() + boot_timeout_s
+        while len(ready_s) < len(engines):
+            for e in engines:
+                if e.engine_id not in ready_s:
+                    ms = e.scrape().get("ha_engine_ready_ms")
+                    if ms is not None:
+                        ready_s[e.engine_id] = ms / 1000.0
+            if time.monotonic() > deadline or not all(
+                    e.alive() for e in engines):
+                raise AssertionError(f"HA config 5: engines ready "
+                                     f"{sorted(ready_s)} of {n_engines}")
+            time.sleep(0.1)
+        start_s = time.monotonic() - t_spawn
+        # -- the pods, and the kill ----------------------------------------
+        watch = PodWatch(base)
+        t_create = time.monotonic()
+        for i in range(0, first, chunk):
+            client.pods().create_many(plain_pods[i:min(i + chunk, first)],
+                                      return_objects=False)
+        create_s["first"] = time.monotonic() - t_create
+
+        def shares_bound() -> bool:
+            # every engine has bound its share of the kill's binds, so the
+            # kill fails over a shard that was being scheduled; on the CPU
+            # the engine's waves call the plain twin instead of launching
+            for e in engines:
+                got = e.scrape()
+                if (got.get("engine_pods_bound", 0) < kill_binds // n_engines
+                        or got.get("kernel_launches_select_hosts", 0)
+                        + got.get("kernel_plain_calls_select_hosts", 0) < 1):
+                    return False
+            return True
+
+        deadline = time.monotonic() + timeout_s
+        while not (len(watch.nodes) >= kill_binds and shares_bound()):
+            if watch.error is not None or time.monotonic() > deadline:
+                raise AssertionError(f"HA config 5: {len(watch.nodes)} "
+                                     f"binds seen before the kill (watch "
+                                     f"{watch.error!r})")
+            time.sleep(0.05)
+        pre_epochs = {h: l.spec.epoch
+                      for h, l in _member_leases(base).items()}
+        seen = dict(watch.nodes)
+        before_kill = {e.engine_id: e.scrape() for e in survivors}
+        beats = {victim.engine_id: _ha_timings(victim.metrics_url)}
+        # the victim's counts as late as can be: a bind batch committed
+        # between this read and the kill is not in them
+        got[victim.engine_id] = before_kill[victim.engine_id] = (
+            victim.scrape())
+        t_kill = time.monotonic()
+        kill_wall = time.time()
+        victim.kill()
+        kill_s = t_kill - t_create
+        n_before_kill = len(watch.bind_times)
+        t1 = time.monotonic()
+        client.pods().create_many(plain_pods[first:], return_objects=False)
+        create_s["after_kill"] = time.monotonic() - t1
+        # -- adoption: the survivors' published view moves past the kill ---
+        names = {e.engine_id for e in survivors}
+        adopt_s = -1.0
+        deadline = t_kill + 10 * ttl_s
+        while time.monotonic() < deadline:
+            try:
+                leases = _member_leases(base)
+            except Exception:
+                time.sleep(0.05)
+                continue
+            now = time.time()
+            live = {h for h, l in leases.items() if not l.expired(now)}
+            if live == names and all(
+                    leases[h].spec.epoch > pre_epochs.get(h, 0)
+                    for h in names):
+                adopt_s = time.monotonic() - t_kill
+                break
+            time.sleep(0.05)
+        deadline = time.monotonic() + timeout_s
+        want = set(plain)
+        while not want <= set(watch.nodes):
+            if watch.error is not None or time.monotonic() > deadline:
+                raise AssertionError(
+                    f"HA config 5: {len(want & set(watch.nodes))} of "
+                    f"{len(want)} plain pods seen bound (watch "
+                    f"{watch.error!r}, survivors alive "
+                    f"{[e.alive() for e in survivors]})")
+            time.sleep(0.05)
+        after_s = watch.last_bind_t - t_kill
+        later = watch.bind_times[n_before_kill:]
+        next_bind_s = later[0] - t_kill if later else -1.0
+        for e in survivors:
+            got[e.engine_id] = e.scrape()
+            beats[e.engine_id] = _ha_timings(e.metrics_url)
+        pod_list = client.pods().list()
+        audit = audit_store(client, pods=pod_list)
+        final = {p.metadata.name: p.spec.node_name for p in pod_list}
+        del pod_list
+    finally:
+        if watch is not None:
+            watch._closing = True
+            watch._resp.close()
+        if client is not None:
+            client.store.close()
+        for e in engines:
+            e.stop()
+        sup.stop()
+    if watch is not None:
+        watch._thread.join(timeout=30)
+    children_left = [e.engine_id for e in engines if e.alive()]
+    if sup.alive():
+        children_left.append("control plane")
+    left = sorted(t.name for t in set(threading.enumerate()) - before
+                  if t.is_alive() and not t.daemon)
+    t1 = time.monotonic()
+    offline = _audit_wals({"ha": wal}, digested=set(), fsck_wal=wal)
+    fsck_rc, fsck_out = offline[None]
+    double = offline["ha"]["double"]
+    fsck_s = time.monotonic() - t1
+
+    def each(metric: str) -> Dict[str, int]:
+        return {k: int(v.get(metric, 0)) for k, v in got.items()}
+
+    binds = each("engine_pods_bound")
+    launches = each("kernel_launches_select_hosts")
+    plain_calls = {k: int(v.get("kernel_plain_calls_select_hosts", 0)
+                          + v.get("kernel_plain_calls_nodenumber_select_"
+                                  "hosts", 0)) for k, v in got.items()}
+    loop_errors = each("engine_loop_errors")
+    ha_counters = {k: {c: int(v.get(c.replace(".", "_"), 0))
+                       for c in HA_COUNTERS} for k, v in got.items()}
+    ha_before = {k: {c: int(v.get(c.replace(".", "_"), 0))
+                     for c in HA_COUNTERS} for k, v in before_kill.items()}
+    binds_before = {k: int(v.get("engine_pods_bound", 0))
+                    for k, v in before_kill.items()}
+    stamps = [got.get(e.engine_id, {}).get("ha_shard_adopt_unix_ms", 0)
+              / 1000.0 for e in survivors]
+    resync_s = (max(stamps) - kill_wall if min(stamps) > kill_wall
+                else -1.0)
+    # a live peer dropped anywhere is a false expiry: before the kill no
+    # engine lost a member; after it each survivor lost the victim once
+    flaps = {k: (c["ha.lease_expired"], c["ha.member_lost"])
+             for k, c in ha_before.items() if c["ha.lease_expired"]
+             or c["ha.member_lost"]}
+    flaps.update({e.engine_id: (ha_counters[e.engine_id]["ha.lease_expired"],
+                                ha_counters[e.engine_id]["ha.member_lost"])
+                  for e in survivors
+                  if (ha_counters[e.engine_id]["ha.lease_expired"],
+                      ha_counters[e.engine_id]["ha.member_lost"]) != (1, 1)})
+    unbound = [n for n in plain if not final.get(n)]
+    special_bound = [n for n, node in final.items()
+                     if n.startswith("special") and node]
+    moved = [(n, node, final.get(n)) for n, node in watch.nodes.items()
+             if final.get(n) != node]
+    gate = ttl_s + ttl_s / 3.0 + 1.5
+    on_card = device.startswith("cuda")
+    problems = {
+        "adoption": adopt_s < 0 or adopt_s > gate,
+        "resync adoption": resync_s < 0 or resync_s > gate,
+        "false expiries": flaps,
+        "pre-kill share": {k: n for k, n in binds_before.items()
+                           if n < kill_binds // n_engines},
+        "unbound": unbound[:3], "special bound": special_bound[:3],
+        "moved": moved[:3], "double binds": double,
+        "fsck": fsck_rc and fsck_out[-500:],
+        "no launch": [k for k, n in (launches if on_card
+                                     else plain_calls).items() if n < 1],
+        "plain twin": on_card and {k: n for k, n in plain_calls.items()
+                                   if n},
+        "loop errors": {k: n for k, n in loop_errors.items() if n},
+        "engines read": sorted(got) != sorted(e.engine_id for e in engines),
+        "nodes": audit["nodes"] != n_nodes,
+        "children left": children_left, "threads left": left}
+    bad = {k: v for k, v in problems.items() if v}
+    if bad:
+        raise AssertionError(f"HA config 5 (adoption {adopt_s:.3f}s, "
+                             f"resync {resync_s:.3f}s, gate {gate:.3f}s, "
+                             f"binds before the kill {binds_before}): "
+                             f"{bad}")
+    return HARun(
+        len(plain), create_s,
+        {e.engine_id: e.boot_s for e in engines}, ready_s, start_s,
+        victim.engine_id, len(seen), kill_s, adopt_s, resync_s, next_bind_s,
+        after_s, binds_before, ha_before, binds, launches, plain_calls, loop_errors,
+        each("cuda_peak_allocated_bytes"), ha_counters, beats,
+        sum(ha_counters[e.engine_id]["ha.shard_adopt_pods"]
+            for e in survivors),
+        audit, double, fsck_rc, fsck_s, children_left, left)

@@ -39,7 +39,41 @@ The remote control plane's names are JAX's (``counters.py:86-114``):
         the remote store's retries, its mutate re-applies, retried binds
         that had landed, entries answered from the ack registry
     assume.revalidate_on_reconnect
-        assumptions whose lease a watch reconnect made due at once
+        assumptions whose lease a watch reconnect (or a lost HA member)
+        made due at once
+    assume.lease_renewed_unreachable, assume.lease_probe_deferred
+        leases re-armed unprobed because the store did not answer a
+        probe, and expired leases left for the next round past the
+        round's probe budget
+    engine.bind_batch_failed
+        whole bind transactions that failed (an injected ``engine.bind``
+        among them); every pod of the batch requeued
+    engine.pods_bound
+        the port's: pods the device engine's wave binds committed (an HA
+        engine child's share of the binds)
+
+The HA plane's (``ha/``; JAX ``counters.py:14-26``), surfaced in the
+``ha`` role's record and phase 34's line:
+
+    ha.lease_acquire, ha.lease_takeover, ha.lease_renew
+        member (and coordination) leases won, expired ones taken over,
+        heartbeats
+    ha.lease_lost, ha.lease_expired, ha.lease_release, ha.lease_gc
+        renewals that found the lease gone, members lost by TTL expiry,
+        graceful releases, long-dead leases collected
+    ha.member_join, ha.member_lost, ha.epoch_bump
+        joins, members dropped from a view, and view changes
+    ha.shard_adopt, ha.shard_adopt_pods
+        resyncs after a lost member, and the pending pods they queued
+    ha.expiry_unconfirmed
+        the port's: members whose lease read expired in the Lease
+        informer's cache and live in the store, so kept in the view
+    ha.renew_gap_max_ms
+        the port's gauge: the widest gap (ms) between the starts of two
+        successive renewals of this member's lease
+    ha.shard_adopt_unix_ms
+        the port's gauge: the wall clock (ms) at which the last resync
+        after a lost member had queued its pods
 
 The sharded write plane's (``controlplane/shards.py``; JAX
 ``counters.py:408-500``): the router's under ``shard.``, the façade's

@@ -8,6 +8,11 @@ around ``SchedulerService``) can serve the same exposition with
 ``/debug/trace`` (the span ring as JSONL), ``/healthz`` and
 ``/debug/metrics.json`` off the process-global registries.
 ``scrape_main`` is ``python -m minisched_tpu_torch metrics <url>``.
+
+``start_metrics_server(collect=fn)`` (the port's addition) calls ``fn``
+before each ``/metrics`` or ``/debug/metrics.json`` answer, so a process
+can publish gauges it keeps elsewhere exactly at scrape time (an HA
+engine child publishes its kernels' launch counts so).
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import sys
 import threading
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 from minisched_tpu_torch.observability import hist, trace
 
@@ -30,6 +35,10 @@ class _MetricsHandler(BaseHTTPRequestHandler):
 
     def do_GET(self) -> None:  # noqa: N802 (http.server API)
         path = self.path.split("?", 1)[0]
+        collect = getattr(self.server, "collect", None)
+        if collect is not None and path in ("/metrics",
+                                            "/debug/metrics.json"):
+            collect()
         if path == "/metrics":
             body = hist.render_prometheus().encode()
             ctype = "text/plain; version=0.0.4"
@@ -54,14 +63,16 @@ class _MetricsHandler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
 
-def start_metrics_server(port: int = 0, host: str = "127.0.0.1"
+def start_metrics_server(port: int = 0, host: str = "127.0.0.1",
+                         collect: Optional[Callable[[], None]] = None
                          ) -> Tuple[ThreadingHTTPServer, int,
                                     Callable[[], None]]:
     """Serve ``/metrics`` (and ``/healthz``, ``/debug/metrics.json``) on
-    ``host:port`` (port 0: ephemeral).  Returns (server, bound port,
-    shutdown)."""
+    ``host:port`` (port 0: ephemeral).  ``collect`` runs before each
+    metrics answer.  Returns (server, bound port, shutdown)."""
     srv = ThreadingHTTPServer((host, port), _MetricsHandler)
     srv.daemon_threads = True
+    srv.collect = collect
     t = threading.Thread(target=srv.serve_forever, daemon=True,
                          name="metricsd")
     t.start()

@@ -30,8 +30,15 @@ pod's per-plugin verdicts land on its ``scheduler-simulator/*``
 annotations when its bind does.  The scalar engine records per cycle
 through the wrappers; the device engine, whose loop then stays serial,
 records per wave and per exact-scan chunk with one diagnostics
-evaluation.  ``restart_scheduler`` keeps recording.  The mesh and the HA
-shard filter are not ported.
+evaluation.  ``restart_scheduler`` keeps recording.
+
+``shard_filter`` (JAX ``:51``, ``:114``, ``:158-170``): the HA
+queue-admission predicate (pod → bool, ``ha/membership.Membership.
+owns_pod``), installed on the engine before the informers start, so even
+the first snapshot replay admits only this engine's shard;
+``restart_scheduler`` keeps it.  N services with complementary filters
+run active-active against one control plane (``ha/plane.py``).  The mesh
+is not ported (ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ class SchedulerService:
         self._max_wave = 1024
         self._device: Any = None
         self._pipeline: Optional[bool] = None
+        self._shard_filter = None
 
     def start_scheduler(
         self,
@@ -84,6 +92,7 @@ class SchedulerService:
         device: Any = None,
         prewarm_scan: bool = True,
         pipeline: Optional[bool] = None,
+        shard_filter=None,
     ) -> Scheduler:
         """Build the engine for ``cfg`` (default: the reference's default
         wiring), start and sync the informers, then the run loop: the
@@ -92,7 +101,8 @@ class SchedulerService:
         are installed before the loop starts.  The sync replays every
         pod already in the store through the queue handlers, so the loop
         starts with every pending pod queued, in store order.
-        ``record_results``: see the module docstring."""
+        ``record_results`` and ``shard_filter``: see the module
+        docstring."""
         if self._scheduler is not None:
             raise RuntimeError(
                 "scheduler already running; use restart_scheduler")
@@ -119,6 +129,9 @@ class SchedulerService:
         else:
             sched = build_scheduler_from_config(self._client, self._factory,
                                                 cfg)
+        # before the informers start: the first replay must already be
+        # shard-filtered, or a rebalance-sized purge follows at once
+        sched.shard_filter = shard_filter
         self.recorder.eventf(None, "Normal", "SchedulerStarted",
                              "scheduler starting")
         self._factory.start()
@@ -152,6 +165,7 @@ class SchedulerService:
         self._max_wave = max_wave
         self._device = device
         self._pipeline = pipeline
+        self._shard_filter = shard_filter
         return sched
 
     def restart_scheduler(self, cfg: Optional[SchedulerConfig] = None
@@ -162,7 +176,8 @@ class SchedulerService:
                                     device_mode=self._device_mode,
                                     max_wave=self._max_wave,
                                     device=self._device,
-                                    pipeline=self._pipeline)
+                                    pipeline=self._pipeline,
+                                    shard_filter=self._shard_filter)
 
     def shutdown_scheduler(self) -> None:
         if self._scheduler is not None:

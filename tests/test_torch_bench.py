@@ -39,6 +39,19 @@ COUNTERPARTS = {
     "repl": "bench_repl",
     "readscale": "bench_readscale",
     "shard": "bench_shard",
+    "chaos": "bench_chaos",
+    "disk": "bench_disk",
+    "ha": "bench_ha",
+}
+
+#: small sizes of the fault and HA roles for a run on the CPU (their
+#: ``bench.py`` knobs; every other default and gate as the role has it)
+SMALL = {
+    "chaos": {"BENCH_CHAOS_NODES": "16", "BENCH_CHAOS_PODS": "160",
+              "BENCH_CHAOS_WAVE": "32"},
+    "disk": {"BENCH_DISK_NODES": "8", "BENCH_DISK_PODS": "200",
+             "BENCH_DISK_WAVE": "32"},
+    "ha": {"BENCH_HA_NODES": "8", "BENCH_HA_PODS": "120"},
 }
 
 
@@ -101,6 +114,30 @@ def test_wave_role_skips_with_the_pipeline_off(monkeypatch):
     assert bench.run_role("wave") == {
         "role": "wave",
         "skipped": "MINISCHED_PIPELINE=0: pipeline disabled by env"}
+
+
+@pytest.mark.parametrize("role", list(SMALL))
+def test_fault_and_ha_roles_at_a_small_size_on_the_cpu(role, monkeypatch):
+    """``role_chaos``, ``role_disk`` and ``role_ha`` with ``device="cpu"``
+    at a small size: each meets its ``bench.py`` gates (it raises
+    otherwise) and keeps ``bench.py``'s record keys."""
+    for k, v in SMALL[role].items():
+        monkeypatch.setenv(k, v)
+    rec = getattr(bench, f"role_{role}")(device="cpu")
+    assert rec["loop_errors"] == 0
+    assert rec["double_bind"] is False
+    if role == "chaos":
+        assert rec["pods"] == 160 and rec["leak"] is False
+        assert rec["injected"].get("store.update", 0) >= 1
+        assert set(rec["injected"]) <= set(rec["draws"])
+    elif role == "disk":
+        assert rec["injected"].get("disk.enospc", 0) >= 1
+        assert rec["bitflips_detected"] >= rec["injected"].get(
+            "wal.bitflip", 0)
+    else:
+        assert rec["engines"] == 3 and rec["kills"] == 1
+        assert rec["rebalance_s"] <= 2.0 + 2.0 / 3.0 + 1.5
+        assert rec["counters"].get("ha.member_lost", 0) >= 2
 
 
 def test_percentile_is_nearest_rank_as_bench_py():

@@ -752,3 +752,70 @@ def test_pipelined_live_run_on_card(dev):
     assert lanes["blocked"].select_hosts > 0
     assert kernels.launch_counts["select_hosts"] > run.waves
     assert not any(kernels.plain_calls.values())
+
+
+def _ha_plane(n_nodes: int, n_pods: int):
+    """An in-process façade holding a small cluster, for engine children."""
+    from minisched_tpu_torch.controlplane.client import Client
+    from minisched_tpu_torch.controlplane.httpserver import start_api_server
+    from minisched_tpu_torch.controlplane.store import ObjectStore
+
+    store = ObjectStore()
+    client = Client(store)
+    client.nodes().create_many([
+        make_node(f"node{i:03d}",
+                  capacity={"cpu": "8", "memory": "16Gi", "pods": 110})
+        for i in range(n_nodes)])
+    if n_pods:
+        client.pods().create_many([
+            make_pod(f"hp{i:04d}", requests={"cpu": "500m", "memory": "64Mi"})
+            for i in range(n_pods)])
+    _server, base, shutdown = start_api_server(store)
+    return store, base, shutdown
+
+
+def test_engine_child_on_card_reports_launches(dev):
+    """An ``EngineSupervisor`` child on ``cuda`` binds every pod and
+    reports its ``select_hosts`` launches (and no plain-twin call) on its
+    ``/metrics``; this process's counts never see them."""
+    import time
+
+    from minisched_tpu_torch.ha.proc import EngineSupervisor
+
+    store, base, shutdown = _ha_plane(16, 64)
+    eng = EngineSupervisor(base, "engine-0", device="cuda", metrics_port=0)
+    kernels.reset_launch_counts()
+    try:
+        eng.start()
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and not all(
+                p.spec.node_name for p in store.list("Pod")):
+            time.sleep(0.1)
+        assert all(p.spec.node_name for p in store.list("Pod"))
+        counts = eng.kernel_counts()
+        assert counts["launches"]["select_hosts"] >= 1
+        assert not any(counts["plain_calls"].values())
+        assert eng.scrape()["engine_pods_bound"] == 64
+    finally:
+        eng.stop()
+        shutdown()
+    assert not eng.alive()
+    assert kernels.launch_counts["select_hosts"] == 0
+
+
+def test_engine_child_with_a_missing_device_raises(dev):
+    """A child asked for a CUDA device this machine lacks exits non-zero
+    before it joins, and ``start()`` raises with the child's stderr."""
+    from minisched_tpu_torch.ha.proc import NO_DEVICE_EXIT, EngineSupervisor
+
+    _store, base, shutdown = _ha_plane(2, 0)
+    missing = f"cuda:{torch.cuda.device_count()}"
+    eng = EngineSupervisor(base, "engine-x", device=missing)
+    try:
+        with pytest.raises(RuntimeError,
+                           match=rf"exitcode {NO_DEVICE_EXIT}\).*no CUDA "
+                                 rf"device '{missing}'"):
+            eng.start()
+    finally:
+        eng.stop()
+        shutdown()

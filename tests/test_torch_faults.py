@@ -7,10 +7,14 @@ The port's copies of JAX's fabric, retry-jitter and store-level tests of
 under JAX's names; then, for the same seeds and the same calls, the
 port's ``FaultFabric`` and ``NetFabric`` decide every call as JAX's do
 (call for call, fire counts and stats included), and the WAL
-double-bind audit now in ``faults`` answers as JAX's.  The tests of
-points that wait for the rest of ROADMAP item 8 (``watch.drop``,
-``http.500``/``http.reset``, ``remote.request``) are named there, not
-copied.
+double-bind audit now in ``faults`` answers as JAX's.  The injection
+points' tests (``watch.drop`` with the informer's reconnect, the
+façade's ``http.500``/``http.reset`` under the remote client's retries,
+semantic errors never retried, a retried bind idempotent on its own node
+through ``remote.request``, ``create_many`` parity across façades) are
+JAX's too; and over one fixed call sequence each package's store,
+façade and device engine decide every ``watch.drop``, ``http.*`` and
+``engine.bind`` call alike, for three seeds.
 """
 
 from __future__ import annotations
@@ -297,3 +301,396 @@ def test_wal_double_binds_equal_jax(tmp_path):
     got = tfaults.wal_double_binds(wal)
     assert got == jfaults.wal_double_binds(wal)
     assert got == [(moved.metadata.uid, "n1", "n2")]
+
+
+# -- the injection points (JAX ``test_faults.py:145-341``) ------------------
+
+
+def test_watch_drop_kills_stream_and_informer_reconnects_with_diff():
+    from minisched_tpu_torch.controlplane.informer import (
+        SharedInformerFactory,
+    )
+
+    store = ObjectStore()
+    fab = FaultFabric(11).on("watch.drop", rate=1.0, max_fires=1,
+                             keys={"Node"})
+    factory = SharedInformerFactory(store)
+    inf = factory.informer_for("Node")
+    factory.start()
+    assert factory.wait_for_cache_sync(5.0)
+    store.faults = fab
+    # this event's fanout kills the watch and is lost with it; the
+    # reconnect's snapshot replay diff must still deliver the node
+    store.create("Node", make_node("n1"))
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline:
+        if [n.metadata.name for n in inf.lister()] == ["n1"]:
+            break
+        time.sleep(0.05)
+    assert [n.metadata.name for n in inf.lister()] == ["n1"]
+    assert inf.reconnects >= 1
+    assert fab.fires("watch.drop") == 1
+    assert inf.staleness_s() < 5.0  # live again after the replay
+    factory.shutdown()
+
+
+def test_remote_client_retries_through_500s_and_resets():
+    from minisched_tpu_torch.controlplane.httpserver import start_api_server
+    from minisched_tpu_torch.controlplane.remote import RemoteClient
+    from minisched_tpu_torch.observability import counters
+
+    store = ObjectStore()
+    fab = (FaultFabric(21).on("http.500", rate=1.0, max_fires=2)
+           .on("http.reset", rate=1.0, max_fires=2))
+    _server, base, shutdown = start_api_server(store, faults=fab)
+    try:
+        counters.reset()
+        client = RemoteClient(base, retries=6, backoff_initial_s=0.01,
+                              retry_seed=1)
+        node = client.nodes().create(make_node("n1"))
+        assert node.metadata.name == "n1"
+        got = client.store.get("Node", "", "n1")
+        assert got.metadata.name == "n1"
+        assert fab.fires("http.500") + fab.fires("http.reset") >= 2
+        assert counters.get("remote.retry") >= 2
+    finally:
+        shutdown()
+
+
+def test_remote_client_semantic_errors_do_not_retry():
+    from minisched_tpu_torch.controlplane.httpserver import start_api_server
+    from minisched_tpu_torch.controlplane.remote import RemoteStore
+    from minisched_tpu_torch.observability import counters
+
+    store = ObjectStore()
+    _server, base, shutdown = start_api_server(store)
+    try:
+        counters.reset()
+        rstore = RemoteStore(base, retries=3, backoff_initial_s=0.01)
+        with pytest.raises(KeyError):
+            rstore.get("Node", "", "missing")
+        assert counters.get("remote.retry") == 0
+    finally:
+        shutdown()
+
+
+def test_remote_bind_retry_is_idempotent_same_node_only():
+    """A retried bind whose first attempt landed comes back AlreadyBound
+    to the same node: success; AlreadyBound to another node stays a
+    conflict."""
+    from minisched_tpu_torch.controlplane.client import AlreadyBound
+    from minisched_tpu_torch.controlplane.httpserver import start_api_server
+    from minisched_tpu_torch.controlplane.remote import RemoteStore
+
+    store = ObjectStore()
+    _server, base, shutdown = start_api_server(store)
+    try:
+        inproc = Client(store)
+        inproc.nodes().create(make_node("n1"))
+        inproc.pods().create(make_pod("p1"))
+        inproc.pods().create(make_pod("p2"))
+        # "the first attempt committed, its answer was lost": the pod is
+        # bound already, and the client's fabric fails attempt 0, so the
+        # request the server sees is a retry
+        inproc.pods().bind(Binding("p1", "default", "n1"))
+        inproc.pods().bind(Binding("p2", "default", "n1"))
+        fab = FaultFabric(31).on("remote.request", rate=1.0, max_fires=1)
+        rstore = RemoteStore(base, retries=3, backoff_initial_s=0.01,
+                             faults=fab)
+        [res] = rstore.bind_many_remote([Binding("p1", "default", "n1")])
+        assert res is None, "same-node AlreadyBound after a retry is ours"
+        fab2 = FaultFabric(32).on("remote.request", rate=1.0, max_fires=1)
+        rstore2 = RemoteStore(base, retries=3, backoff_initial_s=0.01,
+                              faults=fab2)
+        [res2] = rstore2.bind_many_remote(
+            [Binding("p2", "default", "nOTHER")])
+        assert isinstance(res2, AlreadyBound)
+    finally:
+        shutdown()
+
+
+def _seed_conflict_batch(pods_api):
+    pods = [make_pod("a"), make_pod("a"), make_pod("b")]
+    with pytest.raises(KeyError):
+        pods_api.create_many(pods)
+
+
+def test_create_many_partial_failure_parity_across_facades():
+    """Both façades create every independent item and raise the first
+    per-item conflict."""
+    from minisched_tpu_torch.controlplane.httpserver import start_api_server
+    from minisched_tpu_torch.controlplane.remote import RemoteClient
+
+    inproc_store = ObjectStore()
+    _seed_conflict_batch(Client(inproc_store).pods())
+    inproc_names = sorted(p.metadata.name for p in inproc_store.list("Pod"))
+    remote_store = ObjectStore()
+    _server, base, shutdown = start_api_server(remote_store)
+    try:
+        _seed_conflict_batch(RemoteClient(base).pods())
+    finally:
+        shutdown()
+    remote_names = sorted(p.metadata.name for p in remote_store.list("Pod"))
+    assert inproc_names == remote_names == ["a", "b"]
+
+
+def test_informer_resumes_from_last_rv_after_drop():
+    """A dropped stream reconnects by resuming from the informer's last
+    rv: the missed tail (the event the drop swallowed included) is
+    replayed from history, with no relist."""
+    from minisched_tpu_torch.controlplane.informer import (
+        SharedInformerFactory,
+    )
+    from minisched_tpu_torch.observability import counters
+
+    store = ObjectStore()
+    fab = FaultFabric(11).on("watch.drop", rate=1.0, max_fires=1,
+                             keys={"Node"})
+    factory = SharedInformerFactory(store)
+    inf = factory.informer_for("Node")
+    factory.start()
+    assert factory.wait_for_cache_sync(5.0)
+    store.create("Node", make_node("n0"))  # seen live: sets the cursor
+    deadline = time.monotonic() + 5
+    while time.monotonic() < deadline and not inf.lister():
+        time.sleep(0.02)
+    counters.reset()
+    store.faults = fab
+    store.create("Node", make_node("n1"))
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline:
+        if {n.metadata.name for n in inf.lister()} == {"n0", "n1"}:
+            break
+        time.sleep(0.05)
+    assert {n.metadata.name for n in inf.lister()} == {"n0", "n1"}
+    assert inf.reconnects >= 1
+    assert inf.resumes >= 1
+    assert counters.get("informer.resume") >= 1
+    factory.shutdown()
+
+
+def test_informer_relists_on_compacted_history_without_dropping_events():
+    """A resume whose rv was compacted away gets 410 and the informer
+    relists, converging on the whole post-outage state."""
+    from minisched_tpu_torch.controlplane.informer import (
+        SharedInformerFactory,
+    )
+    from minisched_tpu_torch.observability import counters
+
+    store = ObjectStore()
+    fab = FaultFabric(13).on("watch.drop", rate=1.0, max_fires=1,
+                             keys={"Node"})
+    factory = SharedInformerFactory(store)
+    inf = factory.informer_for("Node")
+    factory.start()
+    assert factory.wait_for_cache_sync(5.0)
+    store.create("Node", make_node("n0"))
+    deadline = time.monotonic() + 5
+    while time.monotonic() < deadline and not inf.lister():
+        time.sleep(0.02)
+    counters.reset()
+    # the floor is raised before the stream dies, so the verdict is
+    # deterministic (410), not a race with the ring's overflow
+    store.set_history_floor(store.resource_version + 1)
+    store.faults = fab
+    store.create("Node", make_node("n1"))
+    store.faults = None
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline:
+        if {n.metadata.name for n in inf.lister()} == {"n0", "n1"}:
+            break
+        time.sleep(0.05)
+    assert {n.metadata.name for n in inf.lister()} == {"n0", "n1"}
+    assert counters.get("informer.relist_on_410") >= 1
+    assert inf.reconnects >= 1
+    factory.shutdown()
+
+
+# -- the points decide as JAX's, call for call ------------------------------
+
+
+def _recording(mod):
+    """A FaultFabric of ``mod`` that records every (point, key, verdict)."""
+
+    class Recording(mod.FaultFabric):
+        def __init__(self, seed):
+            super().__init__(seed)
+            self.log = []
+
+        def should_fire(self, point, key=""):
+            fired = super().should_fire(point, key)
+            self.log.append((point, key, fired))
+            return fired
+
+    return Recording
+
+
+def _watch_drop_trace(side, seed):
+    """One fixed sequence of writes (single and batched) on a store with
+    three Pod and two Node watches: after each write, which watches are
+    dead; and every ``watch.drop`` draw."""
+    if side == "jax":
+        from minisched_tpu import faults as mod
+        from minisched_tpu.api import objects as objs
+        from minisched_tpu.controlplane.store import ObjectStore as Store
+    else:
+        from minisched_tpu_torch import faults as mod
+        from minisched_tpu_torch.api import objects as objs
+        Store = ObjectStore
+    store = Store()
+    fab = _recording(mod)(seed).on("watch.drop", rate=0.3,
+                                   keys={"Pod", "Node"})
+    store.faults = fab
+    watches = []
+    for kind in ("Pod", "Pod", "Node", "Pod", "Node"):
+        got = store.watch(kind)
+        watches.append(got[0] if isinstance(got, tuple) else got)
+    out = []
+    for i in range(30):
+        if i % 5 == 0:
+            store.create("Node", objs.make_node(f"n{i}"))
+        elif i % 5 == 1:
+            store.create_many("Pod", [objs.make_pod(f"b{i}-{j}")
+                                      for j in range(3)])
+        elif i % 5 == 2:
+            pod = store.get("Pod", "default", f"b{i - 1}-0")
+            pod.metadata.labels = {"step": str(i)}
+            store.update("Pod", pod)
+        elif i % 5 == 3:
+            store.delete("Pod", "default", f"b{i - 2}-1")
+        else:
+            store.create("Pod", objs.make_pod(f"p{i}"))
+        out.append([w.stopped for w in watches])
+    return out, fab.log, fab.stats()
+
+
+@pytest.mark.parametrize("seed", [0, 7, 1234])
+def test_watch_drop_decisions_equal_jax_call_for_call(seed):
+    want = _watch_drop_trace("jax", seed)
+    got = _watch_drop_trace("port", seed)
+    assert got == want
+    assert want[2]["fires"].get("watch.drop", 0) >= 1
+
+
+#: (verb, path) of the façades' fault trace; /healthz is exempt
+_HTTP_CALLS = [("GET", "/healthz"), ("GET", "/api/v1/nodes"),
+               ("GET", "/api/v1/namespaces/default/pods"),
+               ("POST", "/api/v1/nodes"), ("PUT", "/api/v1/nodes/x"),
+               ("DELETE", "/api/v1/namespaces/default/pods/x"),
+               ("GET", "/api/v1/nodes/x"), ("POST", "/api/v1/bindings")]
+
+
+def _http_trace(side, seed):
+    """A fixed sequence of requests, each on a fresh connection: reset (no
+    byte answered), the injected 503, or routed; and every draw."""
+    import http.client
+
+    if side == "jax":
+        from minisched_tpu import faults as mod
+        from minisched_tpu.controlplane.httpserver import start_api_server
+        from minisched_tpu.controlplane.store import ObjectStore as Store
+    else:
+        from minisched_tpu_torch import faults as mod
+        from minisched_tpu_torch.controlplane.httpserver import (
+            start_api_server,
+        )
+        Store = ObjectStore
+    fab = (_recording(mod)(seed).on("http.500", rate=0.25)
+           .on("http.reset", rate=0.2))
+    _server, base, shutdown = start_api_server(Store(), faults=fab)
+    host, port = base.split("//")[1].split(":")
+    out = []
+    try:
+        for i in range(60):
+            verb, path = _HTTP_CALLS[i % len(_HTTP_CALLS)]
+            conn = http.client.HTTPConnection(host, int(port), timeout=10)
+            try:
+                conn.request(verb, path, body=b"{}" if verb in ("POST", "PUT")
+                             else None,
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = resp.read()
+                injected = (resp.status == 503
+                            and b"injected" in body)
+                out.append("503" if injected else "routed")
+            except (ConnectionError, http.client.HTTPException, OSError):
+                out.append("reset")
+            finally:
+                conn.close()
+    finally:
+        shutdown()
+    return out, fab.log, fab.stats()
+
+
+@pytest.mark.parametrize("seed", [0, 7, 1234])
+def test_http_fault_decisions_equal_jax_call_for_call(seed):
+    want = _http_trace("jax", seed)
+    got = _http_trace("port", seed)
+    assert got == want
+    assert {"503", "reset", "routed"} <= set(want[0])
+    # /healthz is never drawn
+    assert not any(key == "/healthz" for _p, key, _f in want[1])
+
+
+def _engine_bind_trace(side, seeds, monkeypatch):
+    """The serial device engine of ``side`` on one small cluster: for
+    each seed in turn, 40 pods arrive with ``engine.bind`` armed by a
+    fabric of that seed and are driven until bound.  Every draw (keyed by
+    the batch's size) with its verdict, and where each pod ended."""
+    from tests.test_torch_engine import SIDES, wait_for
+
+    objs, config, ClientCls, Service, _Engine = SIDES[side]
+    if side == "jax":
+        from minisched_tpu import faults as mod
+    else:
+        mod = tfaults
+    monkeypatch.setenv("MINISCHED_PIPELINE", "0")
+    client = ClientCls()
+    client.nodes().create_many([
+        objs.make_node(f"node{i}", capacity={"cpu": "64", "memory": "64Gi",
+                                             "pods": 110})
+        for i in range(6)])
+    cfg = config.default_full_roster_config()
+    # short backoffs: a refused batch's pods come back within the test
+    cfg.queue_opts = {"initial_backoff_s": 0.05, "max_backoff_s": 0.2}
+    svc = Service(client)
+    kw = {"device": "cpu"} if side == "port" else {}
+    sched = svc.start_scheduler(cfg, device_mode=True, max_wave=8, **kw)
+    out = []
+    try:
+        sched.assume_ttl_s = 1.0
+        for seed in seeds:
+            fab = _recording(mod)(seed).on("engine.bind", rate=0.4,
+                                           max_fires=5)
+            sched.faults = fab
+            pods = [objs.make_pod(f"s{seed}-{i:03d}",
+                                  requests={"cpu": "500m"})
+                    for i in range(40)]
+            for p in pods:
+                p.metadata.uid = f"uid-{p.metadata.name}"
+            client.pods().create_many(pods)
+
+            def all_bound():
+                if sched.queue.stats()["unschedulable"]:
+                    sched.queue.flush_unschedulable_leftover()
+                    sched.queue.flush_backoff_completed()
+                return all(p.spec.node_name for p in client.pods().list())
+
+            assert wait_for(all_bound, 120)
+            out.append((fab.log, fab.stats()["fires"]))
+    finally:
+        svc.shutdown_scheduler()
+    return out, sorted((p.metadata.name, p.spec.node_name)
+                       for p in client.pods().list())
+
+
+def test_engine_bind_decisions_equal_jax_call_for_call(monkeypatch):
+    """Both engines refuse the same bind batches: for each of three
+    seeds the same draws (one a wave, keyed by its size) with the same
+    verdicts, every run converging anyway, and every pod on the same
+    node."""
+    seeds = (0, 7, 1234)
+    want = _engine_bind_trace("jax", seeds, monkeypatch)
+    got = _engine_bind_trace("port", seeds, monkeypatch)
+    assert got == want
+    assert all(fires.get("engine.bind", 0) >= 1 for _log, fires in want[0])

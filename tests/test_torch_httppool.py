@@ -2,10 +2,11 @@
 on the CPU: the cases of ``tests/test_httppool.py`` against the port's
 façade — connection reuse, the retry-safe reopen of a stale socket, no
 response bleed across 409, 410 and 507 on one pooled socket, the shared
-per-endpoint pool and the bind-replay dedup of ``HTTPClient``.  The
-stale socket is made by restarting the façade on its port where JAX's
-copy injects ``http.500``; the case that needs the ``http.reset`` fault
-point waits for the port of ``faults/`` (ROADMAP item 8).
+per-endpoint pool and the bind-replay dedup of ``HTTPClient``, and the
+pool under the façade's injected ``http.reset``.  The stale socket is
+made by SIGKILLing a ``faults.proc.ServerSupervisor`` façade child and
+restarting it on its port (JAX's copy injects ``http.500``, which
+closes the socket after answering).
 """
 
 from __future__ import annotations
@@ -142,18 +143,16 @@ def test_pool_reopens_stale_socket_after_server_side_close(tmp_path):
     once on a fresh connection (``wire.pool_stale_retry``) instead of
     failing.  The façade is a child over a WAL, SIGKILLed and started
     again (JAX's copy closes the socket with an injected ``http.500``;
-    the port has no fault points yet)."""
-    from minisched_tpu_torch.live import FacadeChild, free_port
+    a restart kills every kept-alive socket)."""
+    from minisched_tpu_torch.faults.proc import ServerSupervisor
 
-    url, port = f"file://{tmp_path / 'pool.wal'}", free_port()
-    child = FacadeChild(url, port)
+    child = ServerSupervisor(str(tmp_path / "pool.wal"))
     try:
-        base = child.info["base"]
+        base = child.start()
         client = RemoteClient(base, retries=2, backoff_initial_s=0.01)
         client.nodes().create(make_node("warm"))
         assert client.store._pool.idle_count() >= 1
-        child.kill()
-        child = FacadeChild(url, port)
+        child.kill_and_restart()
         stale0 = counters.get("wire.pool_stale_retry")
         for i in range(3):
             client.nodes().create(make_node(f"n{i}"))
@@ -163,8 +162,9 @@ def test_pool_reopens_stale_socket_after_server_side_close(tmp_path):
         assert counters.get("wire.pool_stale_retry") >= stale0 + 1
         client.store.close()
     finally:
-        if child.proc.poll() is None:
-            assert child.stop() == 0
+        if child.alive():
+            assert child.terminate() == 0
+        child.stop()
 
 
 def test_stale_replay_goes_fresh_not_next_corpse(api):
@@ -266,6 +266,33 @@ def test_httpclient_bind_replay_dedup(api):
         http.pods().bind(Binding("p1", "default", "n1"))
     http.close()
     assert inner.idle_count() == 0
+
+
+def test_pool_composes_with_http_reset_fault_retries(api):
+    """``http.reset`` closes the connection before a single response
+    byte: the pool surfaces the transport error (fresh connections) or
+    retries once (stale), and the remote store's jittered retries
+    converge, every later response matching its own request."""
+    from minisched_tpu_torch.faults import FaultFabric
+
+    fabric = FaultFabric(seed=11).on("http.reset", rate=0.4, max_fires=6)
+    server, base, shutdown = start_api_server(faults=fabric)
+    try:
+        client = RemoteClient(base, retries=6, backoff_initial_s=0.01,
+                              retry_seed=1)
+        for i in range(12):
+            client.pods().create(make_pod(f"r{i}"))
+        assert fabric.fires("http.reset") >= 1
+        pods = {p.metadata.name for p in client.pods().list()}
+        assert pods == {f"r{i}" for i in range(12)}
+        # interleaved verbs on the same pool: each response is its own
+        got = client.pods().get("r3")
+        assert got.metadata.name == "r3"
+        client.pods().delete("r3")
+        with pytest.raises(KeyError):
+            client.pods().get("r3")
+    finally:
+        shutdown()
 
 
 def test_shared_pool_one_endpoint_one_pool(api):

@@ -6,8 +6,9 @@ caught-up watcher, the snapshot replay exempt), of
 ``tests/test_history_budget.py`` (an informer relisting past byte
 compaction), and of ``tests/test_faults.py`` that drop a watch stream
 (resume, relist on 410, the reconnect's diff) — re-driven without the
-fault fabric, which waits for ROADMAP item 8: the server-side watch is
-killed as a dropped stream would die.  Then the relist's diff against
+fault fabric (its copies with the ``watch.drop`` point are in
+``test_torch_faults.py``): the server-side watch is killed as a dropped
+stream would die.  Then the relist's diff against
 JAX's ``_apply_relist`` on the same two states, the engine's
 ``assume.revalidate_on_reconnect`` against JAX's, and
 ``live.run_config5_remote`` at 100 nodes and 1,000 pods: the façade

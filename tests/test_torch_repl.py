@@ -9,9 +9,7 @@ byte-identical parity, fencing, digest gossip, the ``fsck`` halves, the
 ``repl.ack`` fault point healing, an arbiter-majority election,
 checkpoint generations, follower watch fanout, the typed resume-ahead
 answers, ``/repl/status``, ``min_rv`` reads and the multi-endpoint
-client.  The only change: the façade takes no ``faults=`` (its
-``http.*`` points wait for ROADMAP item 8), so the ``repl.ack`` test arms
-the leader store's fabric, which ``ReplRuntime`` reads.
+client.
 
 Then the port against the JAX package, exact (bytes, rvs, names):
 
@@ -89,11 +87,8 @@ class _Plane:
             ack_timeout_s=ack_timeout_s,
         )
         self.runtime.promote()
-        # the port's façade has no faults= (http.* points wait for the
-        # rest of faults/); the repl.* points read the store's fabric
-        self.leader.faults = faults
         self.server, self.url, self._shutdown = start_api_server(
-            self.leader, port=0, repl=self.runtime
+            self.leader, port=0, repl=self.runtime, faults=faults
         )
         self.followers = []
         for i in range(n_followers):
