@@ -38,8 +38,8 @@ Phases, each of which raises on failure (nothing catches it):
    is over its allocatable, no pod sits on a cordoned node, no
    ``special*`` pod is placed, every unplaced plain pod fits no node; and
    98,000 pods placed, no wave at the 16-round cap.
-7. A reduced config 5 (2,000 nodes, 20,000 pods, waves of 4,096) on the
-   card and on the CPU twins: equal choices, rounds per wave,
+7. A reduced config 5 (``C5_REDUCED``: 2,000 nodes, 10,000 pods, waves
+   of 4,096) on the card and on the CPU twins: equal choices, rounds per wave,
    unschedulable masks and final tables.
 8. Config 5 at full size again, with the full default roster (15
    filters, 7 scores; each wave's constraint tables built on the host
@@ -60,7 +60,8 @@ Phases, each of which raises on failure (nothing catches it):
    CPU twins give equal choices; printed: pods placed, the wave's ms (best
    of 3) and the host table builds.
 10. ``fullchain.mk_mixed_cluster`` (2,048 nodes, each its own hostname,
-   4,800 assigned pods, 8,192 pods with every feature of the full roster,
+   4,800 assigned pods, ``MIXED_PODS`` (6,144; 8,192 until phase 35)
+   pods with every feature of the full roster,
    a zone domain sum above 4,096) in full-roster repair waves of 4,096,
    on the card and on
    the CPU twins: equal choices, rounds, unschedulable masks, final node
@@ -110,7 +111,8 @@ Phases, each of which raises on failure (nothing catches it):
    placements so far; config 5 without gang specs under the gang roster
    equal to phase 8 (choices, rounds, final table); a reduced copy
    (1,024 nodes, 10,000 pods, waves of 4,096) equal card against CPU
-   twins, and the exact scan of its first 2,048 pods likewise.  Printed:
+   twins, and the exact scan of its first ``GANG_SCAN_PODS`` (1,280: two
+   chunks) pods likewise.  Printed:
    the schedule wall, rounds, device ms a round (one profiled pass), the
    gang-view and constraint-build seconds, peak memory, and the share of
    gangs whose members all sit on one slice beside the same share under
@@ -133,9 +135,10 @@ Phases, each of which raises on failure (nothing catches it):
 17. Config 5 live at full width on the serial engine
    (``live.run_config5_live(pipeline=False)``, the flow of
    ``bench.py``'s ``_bench_config5_fullchain_once``): 10,000 nodes and
-   ``LIVE_C5_PODS`` pods (50,000; 100,000 until phases 33-34 needed the
-   time) created in the store, the full default roster in waves of
-   16,384; the first drain binds the plain pods and parks the 2%
+   ``LIVE_C5_PODS`` pods (25,000; 100,000 until phases 33-34 and
+   50,000 until phase 35 needed the time) created in the store, the full
+   default roster in waves of 16,384; the first drain binds the plain
+   pods and parks the 2%
    ``special*`` pods; labelling 2,000 schedulable nodes
    ``special=true`` (``random.Random(55)``) requeues them until all
    are bound.  Checks from the store's final state: no node over
@@ -161,8 +164,9 @@ Phases, each of which raises on failure (nothing catches it):
    allocatable, no exception in the loop.  Printed: the share of gangs on
    one slice beside phase 14's wave-driver share at the same size.
 19. Config 5 live at full width on the pipelined engine (the JAX
-   default), at ``LIVE_C5_PODS`` pods (50,000; 100,000 until
-   phases 33-34 needed the time): phase 17's run with the build worker
+   default), at phase 17's ``LIVE_C5_PODS`` pods (25,000; 100,000 until
+   phases 33-34 and 50,000 until phase 35 needed the time): phase 17's
+   run with the build worker
    packing wave N+1 on the host while wave N is on the card and every
    winner re-arbitrated at commit; node tables from
    ``CachedNodeTableBuilder``.  Checks: every pod bound, phase 17's
@@ -196,7 +200,7 @@ Phases, each of which raises on failure (nothing catches it):
    attempt's cause printed; any other mismatch fails.  Then the pipelined
    engine on the card over the same cluster, held to the audits.
 22. Preemption bursts on config 5, chained onto phase 19's run
-   (``run_config5_live(preempt_burst=8)``): once all its 50,000 pods are
+   (``run_config5_live(preempt_burst=8)``): once all its 25,000 pods are
    bound, every schedulable node with 4 CPU free is topped up with
    ``fill*`` pods of config 5's shape at priority 0 (config 5's waves leave
    nodes unevenly full) and the store is checked to hold no node with 4 CPU
@@ -210,8 +214,9 @@ Phases, each of which raises on failure (nothing catches it):
    from the first create to the last bind, the fillers, the PostFilter
    passes and victims, ``losers_handle`` and ``wave_preempt_eligible``,
    seconds per pass and the launches.  Then a reduced copy (1,024 nodes,
-   5,000 pods in config 5's proportions (10,000 until phases 33-34), 16
-   preemptors) on the serial engine, once on the card and once on the CPU
+   5,000 pods in config 5's proportions (10,000 until phases 33-34), 8
+   preemptors (16 until phase 35)) on the serial engine, once on the card
+   and once on the CPU
    twins: every binding, every nomination and every victim set equal; a
    mismatch whose runs differ in waves or passes is a timing race and is
    retried, up to 3 attempts, as in phase 21.
@@ -270,7 +275,8 @@ Phases, each of which raises on failure (nothing catches it):
    served from its store, opened after the creates and read by a watcher
    in its own process (``live.count_grpc_binds``, up to
    ``GRPC_WATCH_BATCH`` events a message), at ``GRPC_WATCH_PODS`` pods
-   (25,000; 100,000 until phases 33-34 needed the time): phase 17's
+   (12,500; 25,000 until phase 35 and 100,000 until phases 33-34 needed
+   the time): phase 17's
    audit; every bind seen over the stream, none evicted
    (``grpc.watch.evicted`` 0),
    every event in resource_version order, every bind on the node the
@@ -472,6 +478,38 @@ Phases, each of which raises on failure (nothing catches it):
    bind, each engine's binds before the kill and in all, the ``ha.*``
    counters, the renewals, their widest gap and the view ticks, the
    adopted pods and each child's peak device memory.
+35. The device mesh (``parallel/sharding.py``) on a virtual 2 x 4 mesh
+   of this card (``make_mesh(8, devices=[cuda:0] * 8)``; 2 x 4 is
+   ``default_pod_shards(8)``).  (a) One full-roster repair wave of config
+   5 at full width (10,000 nodes, its first 8,192 pods, with the wave's
+   constraint tables) through ``RepairingEvaluator(mesh=)`` and mesh-off:
+   choices, rounds, unschedulable masks and final node tables
+   bit-identical, ``select_hosts`` launched by every tile each round (8 x
+   (rounds + the diagnostics evaluation)) and no plain twin; then the
+   evaluate-and-commit step (``sharded_wave_step``) against
+   ``evaluate`` and ``apply_placements``: choice and best bit-identical.
+   (d) ``MINISCHED_MESH=1`` on this card: a 1 x 1 mesh placing that wave
+   as mesh-off.  (b) Config 5 live on the serial engine under the mesh,
+   10,000 nodes and ``EARLY_C5_PODS`` (12,500) pods (the depth of phases
+   25(a) and 29-34), waves of 16,384: every pod bound, phase 17's audit,
+   ``wave_mesh.waves`` equal to the waves, no fallback, no loop error, at
+   least 8 launches a wave and no plain twin; printed beside phase 17:
+   pods/s and ``wave_device``.  (c) The per-wave ladder
+   (``live.run_mesh_ladder``): ``mesh.evaluate`` armed once, exactly one
+   fallback to the single-device evaluator (on the card), the next
+   batch's waves sharded, every pod bound.  (e) The exact scan in the
+   scan layout (4 node shards, pods whole) over config 5's first
+   ``MESH_SCAN_PLAIN`` (256) plain pods and all 2,000 ``special*`` pods,
+   full roster, against the mesh-off scan: choice, best and final node
+   table bit-identical, 4 launches a step.  (f) ``select_hosts`` at a
+   nonzero node base on ``kernel_cases``' edge rows against its twin,
+   and 4 shards' partials merged by ``select_hosts_merge`` against the
+   whole row's kernel.  (g) A fresh process with ``MINISCHED_CACHE_DIR``
+   set (started with the phase, run beside (a)-(f)) calls
+   ``enable_persistent_cache``: the library is built and loaded under
+   that directory and launches bit-exact.  Phases 5, 12 and
+   13 also check and time ``select_hosts`` at ``SELECT_BASE`` beside
+   base 0.  A ``[clock]`` line closes the phase.
 
 Phase 2 also holds ``select_hosts`` against its twin on the repair
 route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
@@ -491,8 +529,9 @@ phase 24 with and without the record, phase 25's process, phase 26's
 gRPC calls and watched run, each role of phase 28, phase 29's
 recovered engine, phase 30's remote engine, phase 31's engine behind
 the replicated plane, phase 32's behind the sharded one and both chaos
-runs of phase 33) and read just after it; phase 34's engines are child
-processes, whose counts start at 0 and are read off their
+runs of phase 33, and phase 35's mesh wave and step, 1 x 1 mesh, live
+engine, ladder and scan) and read just after it; phase 34's engines are
+child processes, whose counts start at 0 and are read off their
 ``/metrics``.  A scan's step is captured once in a CUDA graph and
 replayed; each replay counts the ``select_hosts`` launch recorded in
 the graph.  The last three lines of output are the card's name and
@@ -539,25 +578,35 @@ C5_SCAN_PLAIN = 2_096  # phase 12: plain pods scanned before the specials
 GRPC_WATCH_WAVE = 2_048
 #: config 5's pods in phase 26(b) (100,000 until phases 33-34 needed the
 #: time: the smoke took 1,092.8 s of its 1,200 s on an H100 before them,
-#: and they add about 86 s); 12 waves of 2,048, three times the stream's
-#: 8,192-event bound
-GRPC_WATCH_PODS = 25_000
+#: and they add about 86 s; 25,000 until phase 35 did); 7 waves of 2,048,
+#: half again the stream's 8,192-event bound
+GRPC_WATCH_PODS = 12_500
 #: the most events a message of phase 26(b)'s stream: one event a message
 #: falls behind the engine's binds (the stream's generator and grpc's
 #: completion thread share the engine's interpreter lock; PERF.md §6)
 GRPC_WATCH_BATCH = 1_024
 TRACE_PODS = 256  # phase 27: pods created after phase 25(a)'s config 5
 MIXED_WAVE = 4_096  # repair waves of the mixed cluster (phase 10)
+#: phase 10's pending pods of the mixed cluster, card against CPU: a
+#: whole wave and half of a second (8,192 until phase 35 needed the time;
+#: the CPU twins took 26.4 s of them on a slow host)
+MIXED_PODS = 6_144
 C5X_SPREAD = 5_000  # config 5's spread pods (phase 13)
+#: phase 7's reduced config 5, card against CPU: nodes, pods (20,000 pods
+#: until phase 35 needed the time: the CPU twins took 12.5 s of it)
+C5_REDUCED = (2_000, 10_000)
 C5X_REDUCED_NODES = 1_520  # phase 13's card-vs-CPU run: full enough to race
 GANG_REDUCED_NODES = 1_024  # phase 14's card-vs-CPU run: 64 slices
 GANG_REDUCED_GANGS = 410  # 10,000 pending pods in config 5's proportions
-GANG_SCAN_PODS = 2_048  # phase 14's exact scan, card against CPU
+#: phase 14's exact scan, card against CPU: two chunks (2,048 until phase
+#: 35 needed the time; the CPU twins took 24.8 s of it on a slow host)
+GANG_SCAN_PODS = 1_280
 #: phase 22's preemptors (64 until phase 29 took the script to 1,081-
 #: 1,296 s on an H100)
 PREEMPT_BURST = 8
-#: nodes, pods, preemptors (10,000 pods until phases 33-34)
-PREEMPT_REDUCED = (1_024, 5_000, 16)
+#: nodes, pods, preemptors (10,000 pods until phases 33-34; 16
+#: preemptors until phase 35: fewer pods would only add fill pods)
+PREEMPT_REDUCED = (1_024, 5_000, 8)
 MIXED_SCALAR_PODS = 64  # phase 23's scan against the scalar loop
 #: phase 24: record_results on the mixed cluster, card against CPU; 512
 #: nodes keep the 4,200 assigned web pods of zone z0 under a node's 110;
@@ -569,10 +618,14 @@ DURABLE_KILL_BINDS = 2_000
 #: config 5's pods in phases 17 and 19, and so in phase 22's burst on
 #: 19's run (100,000 until phases 33-34: with them and 26(b) cut the
 #: smoke took 1,021.7 s, 1,147.5 s and, with 19 cut, 1,205.1 s on H100
-#: hosts of different speeds)
-LIVE_C5_PODS = 50_000
+#: hosts of different speeds; 50,000 until phase 35 needed the time).
+#: The two phases share it so that 19's pipelined run is compared with
+#: 17's serial one at one size; at 25,000, phase 22 creates about 25,000
+#: more fill pods, which are bound in the store, not scheduled
+LIVE_C5_PODS = 25_000
 #: pods of phase 21's reduced copy (1,520 nodes, 1,000 of them spread
-#: pods), card against CPU (18,000 until phases 33-34)
+#: pods), card against CPU (18,000 until phases 33-34; at 6,000 the
+#: plain pods leave the nodes too empty for the blocked lane to race)
 LIVE_REDUCED_PODS = 9_000
 #: config 5's pods in phase 20 (100,000 until phase 29 took the script to
 #: 1,081-1,296 s on an H100; 25,000 took it as long as 50,000)
@@ -602,6 +655,14 @@ CHAOS_GATED_POINTS = ("store.update", "watch.drop", "wal.append",
                       "engine.bind")
 #: phase 34: binds the watch must have seen before the SIGKILL of an engine
 HA_KILL_BINDS = 2_500
+#: phase 35: the virtual mesh's devices (2 x 4, ``default_pod_shards(8)``),
+#: its repair wave's pods (config 5's first 8,192 at full width) and its
+#: exact scan's plain pods (before all 2,000 ``special*`` pods)
+MESH_DEVICES = 8
+MESH_WAVE = 8_192
+MESH_SCAN_PLAIN = 256
+#: a nonzero node-index base for ``select_hosts`` (phases 5, 12, 13, 35)
+SELECT_BASE = 1 << 20
 
 
 T0 = time.monotonic()
@@ -700,6 +761,341 @@ def check_twin_runs(what: str, card, cpu, tables) -> None:
     for name, col in tables.table_columns(card.node_table).items():
         if not torch.equal(col.cpu(), cpu_cols[name]):
             raise AssertionError(f"{what}: final tables differ in {name}")
+
+
+#: phase 35(g)'s child: the build directory ``MINISCHED_CACHE_DIR`` gives,
+#: the library loaded from there, one launch against the twin
+_CACHE_CHILD = """
+import json, time
+t0 = time.monotonic()
+import torch
+from minisched_tpu_torch.utils.compilecache import enable_persistent_cache
+d = enable_persistent_cache()
+from minisched_tpu_torch.utils import build
+from minisched_tpu_torch.ops import kernels
+lib = build.library_path()
+build.load_library()
+g = torch.Generator(device="cuda")
+g.manual_seed(3)
+s = torch.randint(0, 3, (64, 1000), generator=g, device="cuda",
+                  dtype=torch.int32)
+m = torch.rand((64, 1000), generator=g, device="cuda") < 0.5
+sd = torch.arange(64, dtype=torch.int32, device="cuda")
+ok = all(torch.equal(a, b) for a, b in zip(
+    kernels.select_hosts_cuda(s, m, sd, 7),
+    kernels.select_hosts_plain(s, m, sd, 7)))
+print(json.dumps({"dir": d, "lib": str(lib), "exists": lib.exists(),
+                  "ok": ok, "launches": kernels.launch_counts["select_hosts"],
+                  "wall_s": time.monotonic() - t0}))
+"""
+
+
+def phase35(dev, card, launches, main_err, serial17, c5_nodes,
+            c5_pods) -> None:
+    """Phase 35: the device mesh (``parallel/sharding.py``) on a virtual
+    2 x 4 mesh of this card; ``launches`` and ``main_err`` are the main
+    script's ledgers, ``serial17`` phase 17's (first drain, tail, total,
+    split), ``c5_nodes``/``c5_pods`` config 5 at full size."""
+    import shutil
+    import tempfile
+
+    from minisched_tpu_torch.kernel_cases import (
+        SELECT_NS,
+        select_case,
+        select_tensors,
+    )
+    from minisched_tpu_torch.live import (
+        audit_store,
+        run_config5_live,
+        run_mesh_ladder,
+    )
+    from minisched_tpu_torch.models import tables
+    from minisched_tpu_torch.models.constraints import build_constraint_tables
+    from minisched_tpu_torch.ops import kernels
+    from minisched_tpu_torch.ops.fused import BatchContext, evaluate
+    from minisched_tpu_torch.ops.repair import RepairingEvaluator
+    from minisched_tpu_torch.ops.sequential import SequentialScheduler
+    from minisched_tpu_torch.ops.state import apply_placements
+    from minisched_tpu_torch.parallel import sharding
+    from minisched_tpu_torch.plugins.registry import build_plugins
+    from minisched_tpu_torch.service.config import default_full_roster_config
+
+    stamp("35")
+    t_phase = time.monotonic()
+    # (g) runs in its own process, started now beside (a)-(f)
+    cache_dir = tempfile.mkdtemp(prefix="kernel-cache-")
+    env = dict(os.environ, MINISCHED_CACHE_DIR=cache_dir)
+    env.pop("MINISCHED_CACHE", None)
+    cache_child = subprocess.Popen(
+        [sys.executable, "-c", _CACHE_CHILD], env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mesh = sharding.make_mesh(MESH_DEVICES, devices=[dev] * MESH_DEVICES)
+    ps, ns = sharding.mesh_axis_sizes(mesh)
+    if (ps, ns) != (2, 4):
+        raise AssertionError(f"make_mesh(8) factored {ps} x {ns}, not 2 x 4")
+    cfg = default_full_roster_config()
+    chains = build_plugins(cfg)
+    weights = cfg.score_weights()
+    chain = (chains.filter, chains.pre_score, chains.score)
+
+    def counted(fn):
+        """(fn(), seconds, launches, plain-twin calls), counts from 0."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.monotonic() - t0, kernels.launch_counts["select_hosts"],
+                sum(kernels.plain_calls.values()))
+
+    def same_tables(what, got, want) -> None:
+        want_cols = tables.table_columns(want)
+        for name, col in tables.table_columns(got).items():
+            if not torch.equal(col, want_cols[name]):
+                raise AssertionError(f"{what}: final node tables differ in "
+                                     f"{name}")
+
+    # (a) one full-roster repair wave of config 5 at full width
+    nodes, pods = c5_nodes, c5_pods[:MESH_WAVE]
+    nt, _ = tables.build_node_table(nodes, device=dev)
+    pt, _ = tables.build_pod_table(pods, capacity=MESH_WAVE, device=dev)
+    extra = build_constraint_tables(pods, nodes, [], pod_capacity=pt.capacity,
+                                    node_capacity=nt.capacity, device=dev)
+
+    def repair(mesh_):
+        ev = RepairingEvaluator(*chain, weights=weights,
+                                with_diagnostics=True, mesh=mesh_)
+        return counted(lambda: ev(pt, nt, extra))
+
+    # off, mesh, mesh, off: the first run of each pays its first-call
+    # costs; the times printed are the second runs'
+    off, _, _, _ = repair(None)
+    on, _, _, _ = repair(mesh)
+    on2, on_s, on_n, on_plain = repair(mesh)
+    off2, off_s, off_n, _ = repair(None)
+    if not (torch.equal(on2.choice, on.choice)
+            and torch.equal(off2.choice, off.choice)):
+        raise AssertionError("mesh repair wave: a second run placed "
+                             "differently")
+    del on2, off2
+    n_live = len(pods)
+    unplaced = bool((off.choice[:n_live] < 0).any())
+    if not torch.equal(on.choice, off.choice) or on.rounds != off.rounds:
+        bad = int((on.choice != off.choice).sum())
+        raise AssertionError(f"mesh repair wave: {bad} choices differ, rounds "
+                             f"{on.rounds} against {off.rounds}")
+    if not torch.equal(on.unschedulable, off.unschedulable):
+        raise AssertionError("mesh repair wave: unschedulable masks differ")
+    same_tables("mesh repair wave", on.node_table, off.node_table)
+    want_n = mesh.size * (on.rounds + int(unplaced))
+    if on_n != want_n or on_plain:
+        raise AssertionError(f"mesh repair wave: {on_n} select_hosts "
+                             f"launches (want {want_n}: every tile each "
+                             f"round), {on_plain} plain-twin calls")
+    ctx = BatchContext(weights=tuple(sorted(weights.items())))
+    ref, ref_s, _, _ = counted(lambda: evaluate(pt, nt, *chain, ctx,
+                                                extra=extra))
+    step = sharding.sharded_wave_step(mesh, *chain, ctx)
+    (step_nodes, step_choice, step_best), step_s, step_n, step_plain = (
+        counted(lambda: step(pt, nt, extra)))
+    if (not torch.equal(step_choice, ref.choice)
+            or not torch.equal(step_best, ref.best_score)
+            or step_n != mesh.size or step_plain):
+        raise AssertionError(
+            f"mesh wave step: {int((step_choice != ref.choice).sum())} "
+            f"choices and {int((step_best != ref.best_score).sum())} best "
+            f"scores differ; {step_n} launches, {step_plain} plain calls")
+    same_tables("mesh wave step", step_nodes,
+                apply_placements(nt, pt, ref.choice))
+    launches["select_hosts"]["mesh-wave"] = on_n + step_n
+    placed = int((on.choice[:n_live] >= 0).sum())
+    log(f"[mesh-wave] {card}: config 5, {N_NODES} nodes x {n_live} pods, "
+        f"full roster, one repair wave on a virtual {ps} x {ns} mesh of "
+        f"cuda:0 ({MESH_DEVICES} tiles of {pt.capacity // ps} x "
+        f"{nt.capacity // ns}) and mesh-off: choices, rounds ({on.rounds}), "
+        f"unschedulable masks and final node tables bit-identical "
+        f"({placed} placed); the evaluate-and-commit step's choice and best "
+        f"bit-identical; wall {on_s:.3f}s on the mesh against {off_s:.3f}s "
+        f"off it (the step {step_s:.3f}s against {ref_s:.3f}s); "
+        f"select_hosts launches {on_n} = {mesh.size} tiles x "
+        f"({on.rounds} rounds + {int(unplaced)} diagnostics evaluation) "
+        f"(off the mesh {off_n}), plain-twin calls 0")
+
+    # (d) MINISCHED_MESH=1 on one card: a 1 x 1 mesh, mesh-off placements
+    one = sharding.resolve_mesh(env={"MINISCHED_MESH": "1"})
+    if one is None or one.shape != {"pods": 1, "nodes": 1}:
+        raise AssertionError(f"MINISCHED_MESH=1 on one card gave {one}")
+    deg, deg_s, deg_n, deg_plain = repair(one)
+    if (not torch.equal(deg.choice, off.choice) or deg.rounds != off.rounds
+            or deg_plain):
+        raise AssertionError("MINISCHED_MESH=1: the 1 x 1 mesh placed "
+                             "differently from mesh-off")
+    same_tables("1 x 1 mesh", deg.node_table, off.node_table)
+    launches["select_hosts"]["mesh-1x1"] = deg_n
+    log(f"[mesh-1x1] MINISCHED_MESH=1 on this card: {one}; the same wave "
+        f"placed bit-identically to mesh-off in {deg_s:.3f}s, "
+        f"select_hosts launches {deg_n}, plain-twin calls 0")
+    del off, on, deg, ref, step_nodes, nt, pt, extra
+
+    # (b) the live engine on config 5 under the mesh
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    run = run_config5_live(N_NODES, EARLY_C5_PODS, max_wave=C5_WAVE,
+                           pipeline=False, mesh=mesh)
+    live_n = kernels.launch_counts["select_hosts"]
+    live_plain = sum(kernels.plain_calls.values())
+    peak = torch.cuda.max_memory_allocated()
+    audited = audit_store(run.client, run.labelled)
+    mesh_waves = run.counters["wave_mesh.waves"]
+    fallbacks = run.counters["wave_mesh.fallbacks"]
+    if (audited["bound"] != EARLY_C5_PODS or run.loop_errors
+            or run.assumed_left or mesh_waves != run.waves or fallbacks
+            or live_plain or live_n < mesh.size * run.waves):
+        raise AssertionError(
+            f"mesh live config 5: {audited['bound']}/{EARLY_C5_PODS} bound, "
+            f"{run.loop_errors} loop errors, {run.assumed_left} assumed "
+            f"left, wave_mesh.waves {mesh_waves} of {run.waves} waves, "
+            f"fallbacks {fallbacks}, launches {live_n}, plain calls "
+            f"{live_plain}")
+    launches["select_hosts"]["mesh-live"] = live_n
+    s17 = serial17[3]
+    log(f"[mesh-live] {card}: config 5 live on the {ps} x {ns} virtual "
+        f"mesh, {N_NODES} nodes x {EARLY_C5_PODS} pods, full roster, serial, "
+        f"waves of {C5_WAVE}: {audited['bound']} of {EARLY_C5_PODS} bound; "
+        f"first drain {run.first_drain_s:.3f}s, total {run.total_s:.3f}s = "
+        f"{EARLY_C5_PODS / run.total_s:,.0f} pods/s (phase 17 off the mesh, "
+        f"{LIVE_C5_PODS} pods: {LIVE_C5_PODS / serial17[2]:,.0f} "
+        f"pods/s); "
+        f"wave_device {run.split.get('wave_device', 0.0):.3f}s over "
+        f"{run.waves} waves = "
+        f"{run.split.get('wave_device', 0.0) / max(run.waves, 1):.3f}s a "
+        f"wave (phase 17, {LIVE_C5_PODS} pods: "
+        f"{s17.get('wave_device', 0.0):.3f}s over all its waves); "
+        f"wave_mesh.waves {mesh_waves} = the waves, fallbacks 0, pad rows "
+        f"pods {run.counters['wave_mesh.pad_pod_rows']} nodes "
+        f"{run.counters['wave_mesh.pad_node_rows']}; audit passed, assume "
+        f"cache drained, loop errors 0; select_hosts launches {live_n}, "
+        f"plain-twin calls 0; peak device memory {peak / 2**30:.2f} GiB")
+    del run
+
+    # (c) the per-wave ladder: mesh.evaluate armed once
+    kernels.reset_launch_counts()
+    ladder = run_mesh_ladder(mesh, device=dev)
+    ladder_n = kernels.launch_counts["select_hosts"]
+    ladder_plain = sum(kernels.plain_calls.values())
+    unbound = [k for k, v in ladder.placements.items() if not v]
+    if (ladder.fires != 1 or ladder.after_first["wave_mesh.fallbacks"] != 1
+            or ladder.after_second["wave_mesh.fallbacks"] != 1
+            or ladder.after_second["wave_mesh.waves"] < 1 or unbound
+            or ladder.loop_errors or ladder_plain or not ladder_n):
+        raise AssertionError(
+            f"mesh ladder: fires {ladder.fires}, counters after the first "
+            f"batch {ladder.after_first}, after the second "
+            f"{ladder.after_second}, unbound {unbound[:5]}, loop errors "
+            f"{ladder.loop_errors}, launches {ladder_n}, plain calls "
+            f"{ladder_plain}")
+    launches["select_hosts"]["mesh-ladder"] = ladder_n
+    log(f"[mesh-ladder] mesh.evaluate armed once (seed 1234): "
+        f"{len(ladder.placements)} pods all bound in {ladder.wall_s:.3f}s; "
+        f"after the first batch {ladder.after_first}, after the second "
+        f"{ladder.after_second}: exactly one fallback, later waves sharded; "
+        f"the single-device rung on the card, select_hosts launches "
+        f"{ladder_n}, plain-twin calls 0")
+
+    # (e) the exact scan lane under the mesh, against mesh-off
+    c5n = c5_nodes
+    plain = [p for p in c5_pods if not p.metadata.name.startswith("special")]
+    special = [p for p in c5_pods if p.metadata.name.startswith("special")]
+    scan_pods = plain[:MESH_SCAN_PLAIN] + special
+    snt, _ = tables.build_node_table(c5n, device=dev)
+    spt, _ = tables.build_pod_table(scan_pods, device=dev)
+    sex = build_constraint_tables(scan_pods, c5n, [], pod_capacity=spt.capacity,
+                                  node_capacity=snt.capacity, scan_planes=True,
+                                  device=dev)
+    soff, soff_s, soff_n, _ = counted(lambda: SequentialScheduler(
+        *chain, weights=weights)(spt, snt, sex))
+    son, son_s, son_n, son_plain = counted(lambda: SequentialScheduler(
+        *chain, weights=weights, mesh=mesh)(spt, snt, sex))
+    # every tile launches once a step: the replays, and the warm-up step
+    # run once before the capture
+    want_scan = ns * (len(scan_pods) + 1)
+    if (not torch.equal(son[1], soff[1]) or not torch.equal(son[2], soff[2])
+            or son_plain or son_n != want_scan):
+        raise AssertionError(
+            f"mesh scan: {int((son[1] != soff[1]).sum())} choices and "
+            f"{int((son[2] != soff[2]).sum())} best scores differ; "
+            f"{son_n} launches (want {want_scan}), "
+            f"{son_plain} plain calls")
+    same_tables("mesh scan", son[0], soff[0])
+    n_special_placed = int((son[1][MESH_SCAN_PLAIN:len(scan_pods)] >= 0).sum())
+    if n_special_placed:
+        raise AssertionError(f"mesh scan: {n_special_placed} special pods "
+                             "placed")
+    launches["select_hosts"]["mesh-scan"] = son_n
+    log(f"[mesh-scan] {card}: the exact scan of config 5's first "
+        f"{MESH_SCAN_PLAIN} plain and all {len(special)} special pods, full "
+        f"roster, in the scan layout ({ns} node shards, pods whole): choice, "
+        f"best and final node table bit-identical to mesh-off; "
+        f"{son_s:.3f}s on the mesh ({son_s / len(scan_pods) * 1e3:.2f} ms a "
+        f"step: one CUDA graph of the {ns} tiles' step, replayed) against "
+        f"{soff_s:.3f}s off it; select_hosts launches {son_n} = {ns} x "
+        f"({len(scan_pods)} steps + the warm-up step), plain-twin calls 0")
+    del soff, son, snt, spt, sex
+
+    # (f) select_hosts at a nonzero node-index base, and the shard merge
+    bases = 0
+    for n in SELECT_NS:
+        for tie_heavy in (False, True):
+            sc, mk, sd = select_tensors(*select_case(n, 9, n, tie_heavy), dev)
+            for base in (SELECT_BASE, (1 << 31) - 1 - n):
+                main_err["select_hosts base"] = max(
+                    main_err.get("select_hosts base", 0),
+                    check_equal(f"select_hosts N={n} base={base}",
+                                kernels.select_hosts_cuda(sc, mk, sd, base),
+                                kernels.select_hosts_plain(sc, mk, sd, base)))
+                bases += 1
+    sc, mk, sd = select_tensors(*select_case(11, 64, 10112), dev)
+    width = 10112 // ns
+    parts = [kernels.select_hosts_cuda(sc[:, j * width:(j + 1) * width]
+                                       .contiguous(),
+                                       mk[:, j * width:(j + 1) * width]
+                                       .contiguous(), sd, j * width)
+             for j in range(ns)]
+    check_equal("select_hosts_merge over 4 node shards 64x10112",
+                kernels.select_hosts_merge(parts, sd),
+                kernels.select_hosts_cuda(sc, mk, sd))
+    log(f"[check] select_hosts at a nonzero node base: {bases} edge-row "
+        f"cases of kernel_cases (every N of SELECT_NS, base {SELECT_BASE} "
+        f"and the largest) bit-exact with the twin; 4 shards' partials of "
+        f"64 x 10112 merged by select_hosts_merge equal the whole row's")
+
+    # (g) the compile cache: MINISCHED_CACHE_DIR in a fresh process
+    try:
+        out, err = cache_child.communicate(timeout=600)
+        if cache_child.returncode != 0:
+            raise AssertionError(f"compile-cache child: rc "
+                                 f"{cache_child.returncode}: {err[-2000:]}")
+        info = json.loads(out.strip().splitlines()[-1])
+        if (not info["dir"] or not info["dir"].startswith(cache_dir)
+                or not info["lib"].startswith(info["dir"])
+                or not info["exists"] or not info["ok"]
+                or info["launches"] != 1):
+            raise AssertionError(f"compile cache: {info}")
+        log(f"[compile-cache] MINISCHED_CACHE_DIR=<tmp>: a fresh process "
+            f"(run beside (a)-(f)) built and loaded the kernels from "
+            f"{info['lib'].replace(cache_dir, '<tmp>')} and launched "
+            f"select_hosts bit-exact with its twin, in {info['wall_s']:.1f}s "
+            f"from its start")
+    finally:
+        if cache_child.poll() is None:
+            cache_child.kill()
+            cache_child.wait()
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    log(f"[clock] phase 35 took {time.monotonic() - t_phase:.1f}s")
 
 
 def main() -> int:
@@ -1104,9 +1500,27 @@ def main() -> int:
                     lambda: kernels.select_hosts_cuda(scores, mask, seeds),
                     lambda: kernels.select_hosts_plain(scores, mask, seeds),
                     select_work(scores, mask), tuple(scores.shape))
+        based_time(path, scores, mask, seeds)
+
+    def based_time(path: str, scores, mask, seeds) -> None:
+        """``select_hosts`` at a nonzero node-index base (a mesh's node
+        shard), checked and timed on the same planes as at base 0."""
+        check_equal(f"select_hosts {path} base {SELECT_BASE}",
+                    kernels.select_hosts_cuda(scores, mask, seeds,
+                                              SELECT_BASE),
+                    kernels.select_hosts_plain(scores, mask, seeds,
+                                               SELECT_BASE))
+        time_kernel("select_hosts", f"{path} base {SELECT_BASE}",
+                    lambda: kernels.select_hosts_cuda(scores, mask, seeds,
+                                                      SELECT_BASE),
+                    lambda: kernels.select_hosts_plain(scores, mask, seeds,
+                                                       SELECT_BASE),
+                    select_work(scores, mask), tuple(scores.shape))
 
     for (name, path), (kernel_fn, plain_fn, work, shape) in cases.items():
         time_kernel(name, path, kernel_fn, plain_fn, work, shape)
+    based_time("generic", main_scores, main_mask, wave0.seed)
+    based_time("repair", rep_scores, rep_mask, c5_wave0.seed)
     del main_scores, main_mask
 
     # -- phase 6: config 5 at full size, repair waves ----------------------
@@ -1144,7 +1558,7 @@ def main() -> int:
 
     # -- phase 7: reduced config 5, the card against the twins -------------
     stamp("7")
-    r_nodes, r_pods = mk_c5_cluster(2_000, 20_000)
+    r_nodes, r_pods = mk_c5_cluster(*C5_REDUCED)
     t0 = time.monotonic()
     on_card = schedule_repair_waves(r_nodes, r_pods, wave=4_096,
                                     cfg=node_local_roster_config())
@@ -1154,7 +1568,8 @@ def main() -> int:
                                    cfg=node_local_roster_config())
     cpu_s = time.monotonic() - t0
     check_twin_runs("reduced config 5", on_card, on_cpu, tables)
-    log(f"[config5-reduced] 2,000 nodes x 20,000 pods, waves of 4,096: card "
+    log(f"[config5-reduced] {C5_REDUCED[0]:,} nodes x {C5_REDUCED[1]:,} "
+        f"pods, waves of 4,096: card "
         f"and CPU twins equal (choices, rounds {on_card.rounds}, "
         f"unschedulable masks, every final table column); "
         f"{card_s:.2f}s on the card, {cpu_s:.2f}s on the CPU")
@@ -1289,7 +1704,8 @@ def main() -> int:
 
     # -- phase 10: the mixed cluster, the card against the twins -----------
     stamp("10")
-    m_nodes, m_assigned, m_pods, m_pvcs, m_pvs = mk_mixed_cluster()
+    m_nodes, m_assigned, m_pods, m_pvcs, m_pvs = mk_mixed_cluster(
+        n_pods=MIXED_PODS)
     probe = build_constraint_tables(
         m_pods[:MIXED_WAVE], m_nodes, m_assigned, pod_capacity=MIXED_WAVE,
         node_capacity=tables.pad_to(len(m_nodes)), pvcs=m_pvcs, pvs=m_pvs,
@@ -1952,11 +2368,12 @@ def main() -> int:
                            for k in keys)
     log(f"[live-c5-pipelined] {card}: config 5 live, pipelined, {N_NODES} "
         f"nodes x {LIVE_C5_PODS} pods, waves of {C5_WAVE} "
-        f"({c5p.waves} waves): first drain {c5p.first_drain_s:.3f}s (serial "
-        f"{fd17:.3f}s); tail {c5p.total_s - c5p.first_drain_s:.3f}s (serial "
-        f"{tail17:.3f}s); total {c5p.total_s:.3f}s = "
-        f"{LIVE_C5_PODS / c5p.total_s:,.0f} pods/s (serial "
-        f"{total17:.3f}s = {LIVE_C5_PODS / total17:,.0f} pods/s); split: "
+        f"({c5p.waves} waves): first drain {c5p.first_drain_s:.3f}s (serial, "
+        f"phase 17: {fd17:.3f}s); tail "
+        f"{c5p.total_s - c5p.first_drain_s:.3f}s (serial {tail17:.3f}s); "
+        f"total {c5p.total_s:.3f}s = {LIVE_C5_PODS / c5p.total_s:,.0f} "
+        f"pods/s (serial {total17:.3f}s = {LIVE_C5_PODS / total17:,.0f} "
+        f"pods/s); split: "
         f"{split_line}; counters: {counters_line(c5p.counters)}; peak "
         f"device memory {c5p_peak / 2**30:.2f} GiB; time to bind p50 <= "
         f"{c5p.ttb_p50_le_s}s, p99 <= {c5p.ttb_p99_le_s}s; audit passed, "
@@ -2830,6 +3247,8 @@ def main() -> int:
         f"{json.dumps(har.loop_errors, sort_keys=True)}, select_hosts "
         f"launches {json.dumps(har.launches, sort_keys=True)}, plain-twin "
         f"calls {json.dumps(har.plain_calls, sort_keys=True)}")
+
+    phase35(dev, card, launches, main_err, serial17, c5_nodes, c5_pods)
 
     stamp("end")
     report = []

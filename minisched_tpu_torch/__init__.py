@@ -32,8 +32,14 @@ whose rendezvous map is each engine's queue admission;
 ``ha.proc.EngineSupervisor``: an engine as a killable child process,
 on the card by default), and ``faults/`` injects failures at named
 points (store, watch, WAL, disk, façade, engine, replication, network)
-and kills the control plane (``faults.proc.ServerSupervisor``).  Still
-to come (ROADMAP.md §1): the compile cache knobs and a device mesh.
+and kills the control plane (``faults.proc.ServerSupervisor``).
+``parallel/sharding.py`` evaluates waves and exact scans over a device
+mesh (``MINISCHED_MESH``, ``MINISCHED_MESH_POD_SHARDS``,
+``MINISCHED_MESH_DEVICES``, or ``make_mesh(devices=...)``), and
+``utils/compilecache.py`` says where the kernels are built
+(``MINISCHED_CACHE``, ``MINISCHED_CACHE_DIR``).  What the JAX package
+does on one host, the port does; a mesh across processes is still to
+come (ROADMAP.md §1).
 """
 
 from __future__ import annotations

@@ -37,8 +37,18 @@ Subcommands:
         listener) and print the snapshot: counters, gauges, and each
         histogram's count and p50/p99 bucket bounds.
 
-Not ported yet, and refused: a device mesh (``MINISCHED_MESH_DEVICES``
-> 0).
+Device-mode knobs (JAX ``__main__.py:37-45``):
+
+    MINISCHED_MESH_DEVICES=N      evaluate waves over an N-card mesh
+    MINISCHED_MESH_POD_SHARDS=K   its pod-axis factoring (default: the
+                                  near-square one, 2 x 4 for 8)
+    MINISCHED_MESH=0|1            the mesh policy when no N is pinned
+                                  (unset: a mesh over every card when
+                                  there is more than one;
+                                  ``parallel/sharding.resolve_mesh``)
+    MINISCHED_CACHE=0             build the kernels into a temporary
+                                  directory (``utils/compilecache.py``)
+    MINISCHED_CACHE_DIR=<dir>     build and cache them under <dir>
 """
 
 from __future__ import annotations
@@ -69,9 +79,9 @@ def start(cfg: ProcessConfig, device_mode: bool = True, mesh_devices: int = 0,
     scheduler service."""
     # refuse what cannot run BEFORE booting anything: a failure after the
     # API server and the PV controller are up would leak their threads
-    if mesh_devices:
-        raise ValueError("MINISCHED_MESH_DEVICES: a device mesh is not "
-                         "ported yet (ROADMAP item 12)")
+    if mesh_devices and not device_mode:
+        raise ValueError("MINISCHED_MESH_DEVICES needs the device engine "
+                         "(MINISCHED_DEVICE_MODE=1)")
     # the scheduler's modules (torch with them) load here, not with the
     # module: ``fsck`` and ``metrics`` run without them
     from minisched_tpu_torch.controlplane.pvcontroller import (
@@ -83,8 +93,19 @@ def start(cfg: ProcessConfig, device_mode: bool = True, mesh_devices: int = 0,
     )
     from minisched_tpu_torch.service.service import SchedulerService
 
+    mesh = None
     if device_mode:
         resolve_device(device)
+        if mesh_devices:
+            from minisched_tpu_torch.parallel.sharding import (
+                make_mesh,
+                visible_devices,
+            )
+
+            pod_shards = os.environ.get("MINISCHED_MESH_POD_SHARDS", "")
+            mesh = make_mesh(mesh_devices,
+                             pod_shards=int(pod_shards) if pod_shards else None,
+                             devices=visible_devices(device))
     # empty: the in-memory store; file://<path>: the WAL (replayed here);
     # any other scheme raises before anything boots
     store = store_from_url(cfg.external_store_url) or ObjectStore()
@@ -98,7 +119,7 @@ def start(cfg: ProcessConfig, device_mode: bool = True, mesh_devices: int = 0,
         service.start_scheduler(
             default_full_roster_config() if device_mode
             else default_scheduler_config(),
-            device_mode=device_mode, device=device)
+            device_mode=device_mode, device=device, device_mesh=mesh)
     except BaseException:
         service.close()
         pv.stop()
@@ -137,6 +158,12 @@ def main(argv=None) -> int:
     cfg = ProcessConfig.from_env()
     device_mode = os.environ.get("MINISCHED_DEVICE_MODE", "1") != "0"
     mesh_devices = int(os.environ.get("MINISCHED_MESH_DEVICES", "0"))
+    if device_mode:
+        from minisched_tpu_torch.utils.compilecache import (
+            enable_persistent_cache,
+        )
+
+        enable_persistent_cache()
     done = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: done.set())

@@ -100,7 +100,7 @@ def build_variants(out: Path) -> Dict[str, Callable]:
 
 def main() -> int:
     device = resolve_device(None)
-    fns = build_variants(build.BUILD_DIR / "ablate")
+    fns = build_variants(build.build_dir() / "ablate")
     nodes, pods = mk_cluster(10_000, WAVE)
     nt, _ = tables.build_node_table(nodes, device=device)
     pt, _ = tables.build_pod_table(pods, capacity=WAVE, device=device)

@@ -131,6 +131,15 @@ One role for each ``bench.py`` role the port can run (``ROLES``):
                         bound; gated on convergence, the survivors
                         dropping it within ``ttl + ttl/3 + 1.5`` s and no
                         double bind
+``mesh``                ``bench_mesh`` (``:1984``): the pipelined device
+                        engine single-device and over a mesh of every
+                        card (``make_mesh``) on the same uid-pinned
+                        workload; gated on parity, no fallback and at
+                        least one sharded wave, the exactly-once and
+                        capacity audits, the build-and-warm budget
+                        (``BENCH_MESH_COMPILE_BUDGET_S``, 300 s) and, over
+                        distinct cards, the mesh's device total strictly
+                        below single-device; it skips below two cards
 ======================  ==================================================
 
 The live roles read ``bench.py``'s environment knobs with its defaults
@@ -147,7 +156,9 @@ and power limit (``nvidia-smi``).  Without a card a role prints
 The host-only roles (``wire_fanout``, ``relist``, ``wal``, ``repl``,
 ``readscale``, ``shard``) touch no card but keep that rule; their functions (``role_relist()``, ...) run
 anywhere.  ``role_chaos``, ``role_disk`` and ``role_ha`` take
-``device`` (the tests run them small with ``"cpu"``).
+``device`` (the tests run them small with ``"cpu"``); ``role_mesh``
+takes ``device`` and ``mesh`` (a virtual mesh: its correctness gates run,
+the device-time gate is not armed).
 """
 
 from __future__ import annotations
@@ -171,7 +182,7 @@ import torch
 ROLES = ("headline", "c1", "c2", "c3", "c4", "c5", "c5_waves",
          "fullchain_parity", "c5x", "gang_waves", "c5x_live", "wave", "gang",
          "churn", "wire", "wire_fanout", "relist", "wal", "repl",
-         "readscale", "shard", "chaos", "disk", "ha")
+         "readscale", "shard", "chaos", "disk", "ha", "mesh")
 
 GIB = 2**30
 
@@ -3741,8 +3752,190 @@ def role_ha(device: Any = None) -> Dict[str, Any]:
     }
 
 
+
+def role_mesh(device: Any = None, mesh: Any = None) -> Dict[str, Any]:
+    """``bench_mesh`` (``bench.py:1984``): the live engine over a device
+    mesh against the single-device engine on the same uid-pinned
+    workload (``BENCH_MESH_NODES`` 512, ``BENCH_MESH_PODS`` 6,144,
+    ``BENCH_MESH_WAVE`` 1,024, the full roster, pipelined).  Its gates:
+    parity; the baseline not sharded; at least one sharded wave and no
+    fallback; the pipeline not serial under the mesh; the exactly-once
+    and capacity audits on both laps; each lap's build and warm (the
+    engine's start: evaluator, kernels, prewarm) within
+    ``BENCH_MESH_COMPILE_BUDGET_S``; and, when the mesh spans distinct
+    devices, its ``wave_device`` total strictly below single-device's.
+    ``mesh`` None: every visible card, skipped below two."""
+    from minisched_tpu_torch.api.objects import make_node, make_pod
+    from minisched_tpu_torch.controlplane.client import Client
+    from minisched_tpu_torch.observability import counters
+    from minisched_tpu_torch.observability.profiling import CycleMetrics
+    from minisched_tpu_torch.parallel.sharding import (
+        make_mesh,
+        mesh_shape_key,
+    )
+    from minisched_tpu_torch.service.config import default_full_roster_config
+    from minisched_tpu_torch.service.service import SchedulerService
+
+    if mesh is None:
+        if torch.cuda.device_count() < 2:
+            raise Skip("mesh role needs more than one device (distinct "
+                       "cards; a virtual mesh shows no speed-up)")
+        mesh = make_mesh()
+    n_nodes = int(os.environ.get("BENCH_MESH_NODES", "512"))
+    n_pods = int(os.environ.get("BENCH_MESH_PODS", "6144"))
+    max_wave = int(os.environ.get("BENCH_MESH_WAVE", "1024"))
+    budget_s = float(os.environ.get("BENCH_MESH_COMPILE_BUDGET_S", "300"))
+    nodes = [make_node(f"node{i:04d}",
+                       capacity={"cpu": "64", "memory": "128Gi", "pods": 256})
+             for i in range(n_nodes)]
+
+    def lap(device_mesh: Any, tag: str):
+        client = Client()
+        client.nodes().create_many([n.clone() for n in nodes],
+                                   return_objects=False)
+        pods = []
+        for i in range(n_pods):
+            p = make_pod(f"mp{i:05d}",
+                         requests={"cpu": "100m", "memory": "64Mi"})
+            # the tie-break seed pinned: the two laps compare pod for pod
+            p.metadata.uid = f"mesh-uid-{i:05d}"
+            pods.append(p)
+        client.pods().create_many(pods, return_objects=False)
+        bound_n = 0
+        mu = threading.Lock()
+
+        def counting(pod, node_name, status):
+            nonlocal bound_n
+            if node_name:
+                with mu:
+                    bound_n += 1
+
+        counters.reset()
+        metrics = CycleMetrics()
+        svc = SchedulerService(client)
+        t_warm = time.monotonic()
+        sched = svc.start_scheduler(
+            default_full_roster_config(), device_mode=True,
+            max_wave=max_wave, device_mesh=device_mesh, device=device,
+            on_decision=counting, metrics=metrics, prewarm_scan=False)
+        warm_s = time.monotonic() - t_warm
+        t0 = time.monotonic()
+        try:
+            deadline = time.monotonic() + 900
+            while time.monotonic() < deadline:
+                with mu:
+                    if bound_n >= n_pods:
+                        break
+                time.sleep(0.05)
+            with mu:
+                if bound_n < n_pods:
+                    raise AssertionError(f"[mesh] {tag}: only {bound_n}/"
+                                         f"{n_pods} bound")
+            elapsed = time.monotonic() - t0
+            snap = metrics.snapshot()
+            loop_errors = sched.loop_errors
+        finally:
+            svc.shutdown_scheduler()
+        # exactly once and within capacity: faster may never mean wrong
+        placements = {}
+        cpu: Dict[str, int] = defaultdict(int)
+        cnt: Dict[str, int] = defaultdict(int)
+        for p in client.pods().list():
+            if not p.spec.node_name:
+                raise AssertionError(f"[mesh] {tag}: pod {p.metadata.name} "
+                                     "left unbound")
+            placements[p.metadata.name] = p.spec.node_name
+            cpu[p.spec.node_name] += p.resource_requests().milli_cpu
+            cnt[p.spec.node_name] += 1
+        for node in client.nodes().list():
+            alloc = node.status.allocatable
+            name = node.metadata.name
+            if cpu[name] > alloc.milli_cpu or cnt[name] > alloc.pods:
+                raise AssertionError(f"[mesh] {tag}: NODE OVER ALLOCATABLE "
+                                     f"{name}")
+
+        def phase(name, field):
+            return round(snap.get(name, {}).get(field, 0.0), 3)
+
+        out = {
+            "total_s": round(elapsed, 2),
+            "warm_s": round(warm_s, 2),
+            "pods_per_sec_e2e": round(n_pods / elapsed, 1),
+            "device_total_s": phase("wave_device", "total_s"),
+            "build_total_s": phase("wave_pipeline_build", "total_s"),
+            "stall_total_s": phase("wave_pipeline_stall", "total_s"),
+            "pipelined_waves": counters.get("wave_pipeline.waves"),
+            "loop_errors": loop_errors,
+            "wave_mesh": {name: counters.get(f"wave_mesh.{name}") for name in (
+                "pod_shards", "node_shards", "waves", "fallbacks",
+                "pad_pod_rows", "pad_node_rows")},
+        }
+        _log(f"[mesh] {tag}: {n_pods} pods in {elapsed:.1f}s (device "
+             f"{out['device_total_s']}s, warm {warm_s:.1f}s, mesh waves "
+             f"{out['wave_mesh']['waves']}, fallbacks "
+             f"{out['wave_mesh']['fallbacks']})")
+        return out, placements
+
+    # mesh=False pins the baseline to one device: with several visible,
+    # None would shard it too and compare the mesh with itself
+    single, base_placements = lap(False, "single-device")
+    sharded, mesh_placements = lap(mesh, f"mesh {mesh_shape_key(mesh)}")
+
+    if mesh_placements != base_placements:
+        diff = sum(1 for k in base_placements
+                   if mesh_placements.get(k) != base_placements[k])
+        raise AssertionError(f"[mesh] PARITY BROKEN: {diff} placements "
+                             "differ")
+    if single["wave_mesh"]["waves"]:
+        raise AssertionError("[mesh] BASELINE RAN SHARDED")
+    if sharded["wave_mesh"]["waves"] == 0:
+        raise AssertionError("[mesh] NO WAVE RAN SHARDED")
+    if sharded["wave_mesh"]["fallbacks"]:
+        raise AssertionError(f"[mesh] {sharded['wave_mesh']['fallbacks']} "
+                             "waves fell back to the single-device evaluator")
+    if single["loop_errors"] or sharded["loop_errors"]:
+        raise AssertionError("[mesh] the engine loop raised")
+    if (sharded["build_total_s"] > 0
+            and sharded["stall_total_s"] >= sharded["build_total_s"]):
+        raise AssertionError(
+            f"[mesh] PIPELINE REGRESSED TO SERIAL under the mesh: stall "
+            f"{sharded['stall_total_s']}s >= build "
+            f"{sharded['build_total_s']}s")
+    for tag, rec in (("single", single), ("mesh", sharded)):
+        if rec["warm_s"] > budget_s:
+            raise AssertionError(f"[mesh] {tag} build and warm "
+                                 f"{rec['warm_s']}s exceeds {budget_s}s")
+    # the device-time gate is a speed claim: it needs distinct devices (a
+    # virtual mesh repeats one, and splits nothing)
+    devices = {d for row in mesh.devices for d in row}
+    if len(devices) > 1:
+        if sharded["device_total_s"] >= single["device_total_s"]:
+            raise AssertionError(
+                f"[mesh] SHARDED DEVICE TIME NOT BELOW SINGLE-DEVICE: "
+                f"{sharded['device_total_s']}s >= "
+                f"{single['device_total_s']}s")
+        device_gate = "passed"
+    else:
+        device_gate = (f"not armed: the mesh's {mesh.size} entries are one "
+                       "device")
+    _log(f"[mesh] device-time gate {device_gate}")
+    return {
+        "nodes": n_nodes,
+        "pods": n_pods,
+        "mesh_shape": [list(kv) for kv in mesh_shape_key(mesh)],
+        "distinct_devices": len(devices),
+        "single_device": single,
+        "sharded": sharded,
+        "device_speedup": round(single["device_total_s"]
+                                / max(sharded["device_total_s"], 1e-9), 3),
+        "device_gate": device_gate,
+        "parity_ok": True,
+    }
+
+
 def run_role(role: str) -> Dict[str, Any]:
     """One role's record; ``{"skipped": reason}`` without a card."""
+    fn = globals()[f"role_{role}"]
     if not torch.cuda.is_available():
         return {"role": role, "skipped": "no CUDA device is available"}
     from minisched_tpu_torch.utils import build
@@ -3754,7 +3947,7 @@ def run_role(role: str) -> Dict[str, Any]:
     kernels.reset_launch_counts()
     t0 = time.monotonic()
     try:
-        rec = globals()[f"role_{role}"]()
+        rec = fn()
     except Skip as skip:
         return {"role": role, "skipped": str(skip)}
     return {"role": role, **rec, "role_wall_s": time.monotonic() - t0,

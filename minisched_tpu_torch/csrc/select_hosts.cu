@@ -21,7 +21,11 @@
 //   nodes before its first 16-byte-aligned mask byte and after its last
 //   whole 16-node group (at most 30) take a scalar edge loop; a row whose
 //   score and mask rows cannot both be 16-byte aligned (a view at an odd
-//   offset) takes the edge loop whole.
+//   offset) takes the edge loop whole.  A node-index base (0 for a whole
+//   row; a node shard's first global index under a mesh) enters only the
+//   hash and the result: the kernel hashes mix32(seed, base + idx) and
+//   returns base + idx, so a shard's winner carries the global index and
+//   tie-break of the whole row, and shards merge by (-best, hash, index).
 //
 // nodenumber_select_hosts_kernel
 //   Replaces minisched_tpu/ops/pallas_kernels.py nodenumber_select_hosts
@@ -84,10 +88,10 @@ __device__ __forceinline__ unsigned mix32(unsigned seed, unsigned idx) {
   return x;
 }
 
-// (h, i) := min((h, i), (mix32(seed, j), j)) in (hash, idx) order
+// (h, i) := min((h, i), (mix32(seed, base + j), j)) in (hash, idx) order
 __device__ __forceinline__ void offer_hash(unsigned& h, int& i, unsigned seed,
-                                           int j) {
-  const unsigned hj = mix32(seed, static_cast<unsigned>(j));
+                                           int j, unsigned base) {
+  const unsigned hj = mix32(seed, base + static_cast<unsigned>(j));
   if (hj < h || (hj == h && j < i)) {
     h = hj;
     i = j;
@@ -138,7 +142,8 @@ struct RowRun {
 template <int K>
 __device__ __forceinline__ void select_chunk(const int (&s)[K], unsigned fb,
                                              int jbase, unsigned seed,
-                                             RowRun& r, int* buf, int lane) {
+                                             unsigned base, RowRun& r,
+                                             int* buf, int lane) {
   if (!__any_sync(kFull, fb != 0)) return;
   int lmax = INT_MIN;
 #pragma unroll
@@ -169,7 +174,9 @@ __device__ __forceinline__ void select_chunk(const int (&s)[K], unsigned fb,
     buf[pos++] = jbase + e;
   }
   __syncwarp();
-  for (int k = lane; k < total; k += kWarp) offer_hash(r.h, r.i, seed, buf[k]);
+  for (int k = lane; k < total; k += kWarp) {
+    offer_hash(r.h, r.i, seed, buf[k], base);
+  }
   __syncwarp();  // buf is rewritten by the next chunk
 }
 
@@ -205,7 +212,8 @@ __global__ void __launch_bounds__(kThreads)
 select_hosts_kernel(const int* __restrict__ scores,
                     const unsigned char* __restrict__ mask,
                     const unsigned* __restrict__ seeds, int P, int N,
-                    int* __restrict__ choice, int* __restrict__ best) {
+                    int node_base, int* __restrict__ choice,
+                    int* __restrict__ best) {
   __shared__ int bufs[kWarps][kStep];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
@@ -216,6 +224,7 @@ select_hosts_kernel(const int* __restrict__ scores,
   const int* srow = scores + base;
   const unsigned char* mrow = mask + base;
   const unsigned seed = seeds[row];
+  const unsigned hbase = static_cast<unsigned>(node_base);
   RowRun r{INT_MIN, false, kNoHash, kNone};
 
   // nodes [0, head) and [tail, N) go through the edge loop
@@ -243,7 +252,7 @@ select_hosts_kernel(const int* __restrict__ scores,
         s[4 * q + 3] = cur.s[q].w;
       }
       const unsigned fb = g < groups ? mask_bits(cur.m) : 0u;
-      select_chunk<kVec>(s, fb, head + g * kVec, seed, r, buf, lane);
+      select_chunk<kVec>(s, fb, head + g * kVec, seed, hbase, r, buf, lane);
       cur = nxt;
     }
   }
@@ -260,12 +269,12 @@ select_hosts_kernel(const int* __restrict__ scores,
       fb = mrow[j] != 0;
       s[0] = srow[j];
     }
-    select_chunk<1>(s, fb, j, seed, r, buf, lane);
+    select_chunk<1>(s, fb, j, seed, hbase, r, buf, lane);
   }
 
   warp_min(r.h, r.i);
   if (lane == 0) {
-    choice[row] = r.seen ? r.i : -1;
+    choice[row] = r.seen ? node_base + r.i : -1;
     best[row] = r.seen ? r.run : 0;
   }
 }
@@ -616,15 +625,15 @@ int nn_resident_blocks() {
 
 extern "C" int minisched_select_hosts(const void* scores, const void* mask,
                                       const void* seeds, int P, int N,
-                                      void* choice, void* best,
+                                      int node_base, void* choice, void* best,
                                       void* stream) {
   if (P <= 0) return 0;
   const unsigned grid = static_cast<unsigned>((P + kWarps - 1) / kWarps);
   select_hosts_kernel<<<grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(scores), static_cast<const unsigned char*>(mask),
-      static_cast<const unsigned*>(seeds), P, N, static_cast<int*>(choice),
-      static_cast<int*>(best));
+      static_cast<const unsigned*>(seeds), P, N, node_base,
+      static_cast<int*>(choice), static_cast<int*>(best));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,9 +35,12 @@ replay on a card.
 
 In PyTorch terms: the engine resolves its device once (``device=None`` is
 the card; the tests pass ``"cpu"``, where the kernels' plain twins run).
-Only the engine thread touches CUDA: the build worker produces host
-buffers (``NodeTableHost``, packed pod and constraint tables) and the
-engine thread copies them to the card (``CachedNodeTableBuilder.place``).
+Only the engine thread touches CUDA (and, under a mesh, the tile threads
+it hands each evaluation to and waits for, which launch on its streams
+one at a time: ``parallel/sharding.run_tiles``): the build worker
+produces host buffers (``NodeTableHost``, packed pod and constraint
+tables) and the engine thread copies them to the card
+(``CachedNodeTableBuilder.place``).
 Informer dispatch, binding threads and Permit timers handle host objects
 only.
 
@@ -52,7 +55,14 @@ Differences from the JAX engine:
   JAX, which prints the exception and goes on; the port also counts it in
   ``record_errors`` and keeps the last in ``last_record_error``, so a
   failed kernel launch there cannot pass unseen;
-* no mesh (ROADMAP item 12);
+* under a device mesh (``mesh=``, ``parallel/sharding.py``; ``None``
+  applies ``resolve_mesh``, ``False`` pins one device) each wave is
+  evaluated over the (pods × nodes) mesh by ``RepairingEvaluator(mesh=)``
+  through the per-wave ladder of JAX's ``_eval_packed_wave``
+  (``_eval_wave``: the ``mesh.evaluate`` fault point, then on any failure
+  the same wave on the single-device evaluator, counted in
+  ``wave_mesh.fallbacks``; later waves retry the mesh), and the exact
+  scan runs in the scan layout; the blocked lane runs unsharded;
 * a wave, scan chunk, block or backlog flush whose evaluation fails parks
   its pods, as in JAX, and then re-raises, so the run loop counts it
   (``Scheduler.loop_errors``); so does the build worker for an exception
@@ -63,6 +73,7 @@ from __future__ import annotations
 
 import gc
 import os
+import sys
 import threading
 import time
 import traceback
@@ -122,6 +133,15 @@ from minisched_tpu_torch.ops.sequential import (
     SequentialScheduler,
     StepLog,
 )
+from minisched_tpu_torch.parallel.sharding import (
+    NodeShards,
+    cap_multiple,
+    gather_nodes,
+    make_mesh,
+    mesh_axis_sizes,
+    resolve_mesh,
+    visible_devices,
+)
 from minisched_tpu_torch.plugins.defaultpreemption import preemption_might_help
 from minisched_tpu_torch.plugins.registry import (
     build_plugins,
@@ -142,6 +162,14 @@ def _is_cross_pod(pod: Pod) -> bool:
     if aff is None:
         return False
     return aff.pod_affinity is not None or aff.pod_anti_affinity is not None
+
+
+def _whole(node_table: Any) -> Any:
+    """A placed node table as one NodeTable (mesh shards gathered on their
+    lead device)."""
+    if isinstance(node_table, NodeShards):
+        return gather_nodes(node_table, node_table.shards[0].valid.device)
+    return node_table
 
 
 def _unwrapped_name(plugin: Any) -> str:
@@ -221,10 +249,32 @@ class DeviceScheduler(Scheduler):
 
     def __init__(self, *args, max_wave: int = 1024,
                  assume_ttl_s: Optional[float] = 30.0, device: Any = None,
-                 faults: Any = None, **kwargs):
+                 faults: Any = None, mesh: Any = None, **kwargs):
         self.device: torch.device = resolve_device(device)
         super().__init__(*args, **kwargs)
         self.max_wave = max_wave
+        #: the (pods × nodes) device mesh the waves are evaluated over (JAX
+        #: ``:95-111``): None resolves the startup policy
+        #: (``parallel.sharding.resolve_mesh``: ``MINISCHED_MESH``), False
+        #: pins one device
+        if mesh is None:
+            mesh = resolve_mesh(device=self.device)
+        elif mesh is False:
+            mesh = None
+        self.mesh = mesh
+        #: pod-table capacity quantum: lane-padded and a whole number of
+        #: rows on each pod shard (the node quantum is the builder's)
+        self._pod_cap_mult = self.POD_CAP_MULT
+        #: (pod shards, node shards) on the trace spans in mesh mode
+        self._mesh_shards: Optional[Tuple[int, int]] = None
+        self._mesh_fallback_evaluator: Optional[RepairingEvaluator] = None
+        if mesh is not None:
+            pod_ax, node_ax = mesh_axis_sizes(mesh)
+            self._pod_cap_mult = cap_multiple(self.POD_CAP_MULT, pod_ax)
+            self._mesh_shards = (pod_ax, node_ax)
+            # gauges: the factoring is state, not a count
+            counters.set_gauge("wave_mesh.pod_shards", pod_ax)
+            counters.set_gauge("wave_mesh.node_shards", node_ax)
         #: optional ``faults.FaultFabric`` for the engine's own point,
         #: ``engine.bind`` (JAX ``:91-93``): a wave's bind transaction
         #: fails whole before it leaves the engine
@@ -266,7 +316,8 @@ class DeviceScheduler(Scheduler):
             p.name() == "NodeResourcesFit" for p in self.filter_plugins)
         #: static node columns cached across waves, aggregates re-encoded
         #: from the cache's dirty rows; the waves and both lanes share it
-        self._table_builder = CachedNodeTableBuilder(self.device)
+        self._table_builder = CachedNodeTableBuilder(self.device,
+                                                     mesh=self.mesh)
         # cross-pod pods deferred across waves, in pop order (per-group
         # FIFO, the blocked lane's exactness contract, is unchanged)
         self._scan_backlog: List[QueuedPodInfo] = []
@@ -551,14 +602,57 @@ class DeviceScheduler(Scheduler):
                 self.score_plugins, weights=self.score_weights,
                 # per-pod first-failing-plugin masks for the losers, so
                 # the requeue is gated on the plugins that actually failed
-                with_diagnostics=True)
+                with_diagnostics=True, mesh=self.mesh)
         return self._evaluator
+
+    def _get_mesh_fallback_evaluator(self) -> RepairingEvaluator:
+        """The mesh evaluator's single-device twin (JAX ``:590-604``): it
+        takes the same wave's tables, the node table placed whole on the
+        engine's device, so a sharded failure costs one re-dispatch."""
+        if self._mesh_fallback_evaluator is None:
+            self._mesh_fallback_evaluator = RepairingEvaluator(
+                self.filter_plugins, self.pre_score_plugins,
+                self.score_plugins, weights=self.score_weights,
+                with_diagnostics=True)
+        return self._mesh_fallback_evaluator
+
+    def _eval_wave(self, pod_table: Any, node_table: Any, extra: Any,
+                   node_host: Any, n_pods: int, n_nodes: int) -> Any:
+        """One wave's evaluation with the mesh ladder (JAX
+        ``_eval_packed_wave``, ``:606-655``): the sharded evaluation when
+        a mesh is set, the same wave on the single-device evaluator after
+        any failure of it (counted and printed: that wave degrades, later
+        waves retry the mesh), the caller's park as the last rung."""
+        ev = self._get_evaluator()
+        if self.mesh is None:
+            return ev(pod_table, node_table, extra)
+        # rows shipped beyond the live wave and roster
+        counters.inc("wave_mesh.pad_pod_rows", pod_table.capacity - n_pods)
+        counters.inc("wave_mesh.pad_node_rows", node_host.capacity - n_nodes)
+        try:
+            if self.faults is not None:
+                self.faults.check("mesh.evaluate", str(n_pods))
+            out = ev(pod_table, node_table, extra)
+            # a fault on the card surfaces here, inside the ladder
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            counters.inc("wave_mesh.waves")
+            return out
+        except Exception as err:
+            counters.inc("wave_mesh.fallbacks")
+            print(f"[wave-mesh] sharded evaluate failed, single-device "
+                  f"fallback: {type(err).__name__}: {str(err)[-160:]}",
+                  file=sys.stderr, flush=True)
+            return self._get_mesh_fallback_evaluator()(
+                pod_table, self._table_builder.place_default(node_host),
+                extra)
 
     def _get_scan_scheduler(self) -> SequentialScheduler:
         if self._scan_scheduler is None:
             self._scan_scheduler = SequentialScheduler(
                 self.filter_plugins, self.pre_score_plugins,
-                self.score_plugins, weights=self.score_weights)
+                self.score_plugins, weights=self.score_weights,
+                mesh=self.mesh)
         return self._scan_scheduler
 
     def _get_blocked_scheduler(self) -> BlockedSequentialScheduler:
@@ -592,8 +686,10 @@ class DeviceScheduler(Scheduler):
             max_skew=1, topology_key="warmzone",
             when_unsatisfiable="DoNotSchedule",
             label_selector=LabelSelector(match_labels={"app": "warm"}))]
-        node_table, _ = CachedNodeTableBuilder(self.device).build(
-            build_node_infos(nodes, []))
+        warm_builder = CachedNodeTableBuilder(self.device, mesh=self.mesh)
+        node_host, _ = warm_builder.build_host(build_node_infos(nodes, []))
+        node_table = warm_builder.place(node_host)
+        whole = warm_builder.place(node_host, sharded=False)
         cap = self.SCAN_MIN_CAP
         pod_table, _ = build_pod_table([pod], capacity=cap,
                                        device=self.device)
@@ -603,14 +699,15 @@ class DeviceScheduler(Scheduler):
             device=self.device)
         _, choice, _ = self._get_scan_scheduler()(pod_table, node_table, extra)
         _, bchoice, _, _ = self._get_blocked_scheduler()(
-            pod_table, node_table, extra)
+            pod_table, whole, extra)
         if int(choice[0]) < 0 or int(bchoice[0]) < 0:
             raise RuntimeError("scan-lane prewarm: the warm pod was not "
                                "placed")
 
     def _wave_cap(self, n_pods: int) -> int:
-        full = pad_to(max(self.max_wave, 128), self.POD_CAP_MULT)
-        small = min(pad_to(self.WAVE_SMALL_CAP, self.POD_CAP_MULT), full)
+        # a whole number of rows on each pod shard under a mesh
+        full = pad_to(max(self.max_wave, 128), self._pod_cap_mult)
+        small = min(pad_to(self.WAVE_SMALL_CAP, self._pod_cap_mult), full)
         return small if n_pods <= small else full
 
     @classmethod
@@ -720,8 +817,9 @@ class DeviceScheduler(Scheduler):
             pods_ = [m.pod if m is not None else dummy for m in cur]
             gang_view = self._gang_view(pods_)
             with self.metrics.timed("scan_build"):
+                # the blocked lane runs unsharded under a mesh
                 node_table, node_names = self._table_builder.build(
-                    node_infos, agg_delta=agg_delta)
+                    node_infos, agg_delta=agg_delta, sharded=False)
                 pod_table, _ = build_pod_table(
                     pods_, capacity=cap, device=self.device,
                     invalid_rows=pad_rows, gang_view=gang_view)
@@ -803,7 +901,7 @@ class DeviceScheduler(Scheduler):
                 if self.result_store is not None:
                     # scan pods get the wave pods' record, against the
                     # chunk's pre-decision snapshot
-                    self._record_wave(pods_, pod_table, node_table,
+                    self._record_wave(pods_, pod_table, _whole(node_table),
                                       node_names, extra)
                 with self.metrics.timed("scan_evaluate"):
                     log = StepLog()
@@ -1012,7 +1110,8 @@ class DeviceScheduler(Scheduler):
         self._wave_seq += 1
         wave_id = self._wave_seq
         trace.span("wave_build", wave=wave_id, size=len(qpis),
-                   build_s=round(prepared.build_s, 6))
+                   build_s=round(prepared.build_s, 6),
+                   mesh=self._mesh_shards)
         # the previous wave's held bind events drain against the device
         # call, and the worker gets the GIL for the next build
         self.informer_factory.resume_dispatch()
@@ -1029,7 +1128,8 @@ class DeviceScheduler(Scheduler):
             for qpi in qpis:
                 self.error_func(qpi, err)
             raise
-        trace.span("wave_evaluate", wave=wave_id, size=len(qpis))
+        trace.span("wave_evaluate", wave=wave_id, size=len(qpis),
+                   mesh=self._mesh_shards)
         node_names = prepared.tables[1]
         losers: List[Any] = []
         winners: List[Any] = []
@@ -1188,7 +1288,7 @@ class DeviceScheduler(Scheduler):
         t_wave = time.monotonic()
         self._wave_seq += 1
         trace.span("wave_build", wave=self._wave_seq, size=len(qpis),
-                   serial=True)
+                   serial=True, mesh=self._mesh_shards)
         self.metrics.observe("wave_size", float(len(qpis)))
         try:
             self._schedule_wave_inner(qpis)
@@ -1310,11 +1410,13 @@ class DeviceScheduler(Scheduler):
             extra = (None if extra_host is None
                      else extra_host.to_device(self.device))
         if self.result_store is not None:
-            self._record_wave(pods_, pod_table, node_table, node_names, extra)
+            self._record_wave(pods_, pod_table, _whole(node_table),
+                              node_names, extra)
         # the previous wave's bind events dispatch while the card works
         self.informer_factory.resume_dispatch()
         with self.metrics.timed("wave_device"):
-            out = self._get_evaluator()(pod_table, node_table, extra)
+            out = self._eval_wave(pod_table, node_table, extra, node_host,
+                                  n_pods, len(node_names))
             choice = out.choice.cpu()
             unsched = out.unschedulable.cpu()
         with self.metrics.timed("wave_postfetch"):
@@ -1563,16 +1665,24 @@ class DeviceScheduler(Scheduler):
 
 def new_device_scheduler(client: Any, informer_factory: Any, cfg: Any = None,
                          max_wave: int = 1024, device: Any = None,
-                         pipeline: Optional[bool] = None) -> DeviceScheduler:
+                         pipeline: Optional[bool] = None,
+                         mesh: Any = None) -> DeviceScheduler:
     """A DeviceScheduler from a SchedulerConfig (default: the full
     roster).  ``device=None`` is the card; ``pipeline=None`` follows
     ``MINISCHED_PIPELINE`` (on unless "0"); the plugins with a handle
     (NodeNumber, Coscheduling, DefaultPreemption) get the engine as
     theirs, and the volume filters the client (DefaultPreemption's dry
-    run calls their scalar halves)."""
+    run calls their scalar halves).  ``mesh``: a
+    ``parallel.sharding.Mesh`` (or False: one device); None defers to the
+    config's ``mesh_devices``/``mesh_pod_shards`` pin (JAX ``:2481-2511``),
+    then to ``MINISCHED_MESH``."""
     from minisched_tpu_torch.service.config import default_full_roster_config
 
     cfg = cfg or default_full_roster_config()
+    if mesh is None and (cfg.mesh_devices or cfg.mesh_pod_shards):
+        mesh = make_mesh(cfg.mesh_devices or None,
+                         pod_shards=cfg.mesh_pod_shards,
+                         devices=visible_devices(device))
     chains = build_plugins(cfg)
     sched = DeviceScheduler(
         client,
@@ -1587,6 +1697,7 @@ def new_device_scheduler(client: Any, informer_factory: Any, cfg: Any = None,
         queue_opts=cfg.queue_opts,
         max_wave=max_wave,
         device=device,
+        mesh=mesh,
     )
     if pipeline is not None:
         sched.pipeline_enabled = pipeline

@@ -43,6 +43,11 @@ Named points the port wires (grep for the literal string):
           store call (``DeviceScheduler.faults``): the wave's failed
           commit requeues every pod and releases its assumed capacity;
           key = the batch's size
+    mesh.evaluate
+        — a mesh engine's sharded wave evaluation raises before it runs
+          (``DeviceScheduler._eval_wave``): that wave falls back to the
+          single-device evaluator, later waves retry the mesh; key = the
+          wave's pod count
     proc.kill
         — ``faults.proc.ServerSupervisor.start_chaos``: whether a tick
           SIGKILLs and restarts the control-plane child; key = its port

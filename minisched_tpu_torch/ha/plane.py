@@ -21,7 +21,10 @@ callback that runs on every epoch bump:
 Unlike JAX's, whose engines default to the scalar loop, the port's
 ``start_ha_engine`` runs the device engine (``device_mode=True``) on
 ``device`` (None: the card, as ``start_scheduler``; the tests pass
-``"cpu"``).  No mesh (ROADMAP item 12).  The port's membership also
+``"cpu"``), and ``device_mesh`` (JAX ``:71-97``) shards each wave of
+that engine over its mesh: the membership splits the pods between
+engines, a mesh splits one engine's wave across its devices.  The port's
+membership also
 heartbeats from the moment it joins, where JAX's starts once the engine
 runs: an engine's start (informer sync, a CUDA context) can outlast the
 TTL, and its lease would lapse before its first renewal.  A resync after
@@ -72,6 +75,7 @@ class HAEngine:
 def start_ha_engine(client: Any, engine_id: str, cfg: Any = None,
                     ttl_s: float = DEFAULT_TTL_S, device_mode: bool = True,
                     max_wave: int = 1024, device: Any = None,
+                    device_mesh: Any = None,
                     **start_kwargs: Any) -> HAEngine:
     """Join the plane and start one sharded engine over ``client``.
 
@@ -87,7 +91,8 @@ def start_ha_engine(client: Any, engine_id: str, cfg: Any = None,
     try:
         sched = service.start_scheduler(
             cfg, device_mode=device_mode, max_wave=max_wave, device=device,
-            shard_filter=membership.owns_pod, **start_kwargs)
+            shard_filter=membership.owns_pod, device_mesh=device_mesh,
+            **start_kwargs)
     except BaseException:
         membership.stop(release=True)
         raise

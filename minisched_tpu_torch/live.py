@@ -71,7 +71,7 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-from minisched_tpu_torch.api.objects import gang_key, make_pod
+from minisched_tpu_torch.api.objects import gang_key, make_node, make_pod
 from minisched_tpu_torch.controlplane.client import Client
 from minisched_tpu_torch.engine.device_scheduler import DeviceScheduler
 from minisched_tpu_torch.fullchain import (
@@ -103,7 +103,9 @@ SPLIT_MORE = ("wave_place", "wave_pipeline_stall", "wave_pipeline_build",
 #: the engine's counters a live run reports
 COUNTERS = ("wave_pipeline.waves", "wave_pipeline.rearb_requeued",
             "wave_pipeline.build_fallback", "wave_build.skipped",
-            "wave_build.full", "wave_build.dirty_rows")
+            "wave_build.full", "wave_build.dirty_rows", "wave_mesh.waves",
+            "wave_mesh.fallbacks", "wave_mesh.pad_pod_rows",
+            "wave_mesh.pad_node_rows")
 #: assume-lease TTL of the live runs: at quiesce the last wave's
 #: assumptions drain when their leases run out (``bench.py`` ``bench_gang``
 #: sets the same)
@@ -111,6 +113,21 @@ QUIESCE_TTL_S = 3.0
 #: a preemptor of the burst: 4 CPU and 1 Gi at priority 100
 BURST_CPU_M = 4_000
 BURST_PRIORITY = 100
+
+
+def closed_waves(metrics: CycleMetrics, timeout_s: float, sched: Any) -> int:
+    """The engine's wave count once every wave begun has closed.  A wave
+    observes ``wave_size`` as it starts and ``wave`` as it ends, after its
+    binds, so a count read as the last pod binds can miss that pod's
+    wave."""
+    def counts() -> Tuple[int, int]:
+        snap = metrics.snapshot()
+        return (int(snap.get("wave_size", {}).get("count", 0)),
+                int(snap.get("wave", {}).get("count", 0)))
+
+    wait_until(lambda: len(set(counts())) == 1, timeout_s,
+               "every wave begun to close", sched)
+    return counts()[1]
 
 
 def wait_until(pred, timeout_s: float, what: str, sched: Any) -> None:
@@ -325,15 +342,16 @@ def run_config5_live(n_nodes: int = 10_000, n_pods: int = 100_000,
                      timeout_s: float = 900.0, n_crosspod: int = 0,
                      pipeline: bool = True, preempt_burst: int = 0,
                      before_burst: Optional[Callable[[], None]] = None,
-                     after_setup: Optional[Callable[[Client], None]] = None
-                     ) -> LiveRun:
+                     after_setup: Optional[Callable[[Client], None]] = None,
+                     mesh: Any = None) -> LiveRun:
     """Config 5 (with ``n_crosspod`` spread pods) through the live engine,
     park and requeue included; ``pipeline=False`` runs the serial loop.
     ``preempt_burst`` preemptors follow once every pod is bound
     (``LiveRun.burst``); ``before_burst`` is called just before they are
     created (the run's other fields stop there).  ``after_setup`` is
     called with the client once the cluster is in the store, just before
-    the engine starts (a watch opened there sees every bind)."""
+    the engine starts (a watch opened there sees every bind).  ``mesh``:
+    the engine's ``device_mesh`` (a ``parallel.sharding.Mesh``)."""
     nodes, pods = mk_c5_cluster(n_nodes, n_pods, n_crosspod=n_crosspod)
     n_special = sum(p.metadata.name.startswith("special") for p in pods)
     client = Client()
@@ -353,7 +371,7 @@ def run_config5_live(n_nodes: int = 10_000, n_pods: int = 100_000,
                                 device_mode=True, max_wave=max_wave,
                                 on_decision=bound, metrics=metrics,
                                 device=device, prewarm_scan=n_crosspod > 0,
-                                pipeline=pipeline)
+                                pipeline=pipeline, device_mesh=mesh)
     sched.assume_ttl_s = QUIESCE_TTL_S
     t_loop = time.monotonic()
     try:
@@ -378,8 +396,8 @@ def run_config5_live(n_nodes: int = 10_000, n_pods: int = 100_000,
                    f"all {n_pods} bound", sched)
         bound_wait_s = time.monotonic() - t1
         total_s = time.monotonic() - t_loop
+        waves = closed_waves(metrics, timeout_s, sched)
         phases = split(metrics)
-        waves = metrics.snapshot().get("wave", {}).get("count", 0)
         wait_until(lambda: sched.assumed_count() == 0,
                    QUIESCE_TTL_S * 20, "the assume cache to drain", sched)
         p50 = hist.quantile_bounds("sched.time_to_bind_s", 0.5)
@@ -401,6 +419,69 @@ def run_config5_live(n_nodes: int = 10_000, n_pods: int = 100_000,
                    sched.assumed_count(), labelled,
                    p50[1] if p50 else None, p99[1] if p99 else None,
                    scan_stats, counts, sched.pipeline_enabled, burst)
+
+
+@dataclass
+class MeshLadderRun:
+    """``run_mesh_ladder``'s outcome."""
+
+    #: pod name → node, every pod of both batches
+    placements: Dict[str, str]
+    fires: int  # ``mesh.evaluate`` fires
+    #: the engine's ``wave_mesh.*`` counters after each batch
+    after_first: Dict[str, int]
+    after_second: Dict[str, int]
+    loop_errors: int
+    wall_s: float
+
+
+def run_mesh_ladder(mesh: Any, n_nodes: int = 40, n_pods: int = 30,
+                    device: Any = None, timeout_s: float = 300.0
+                    ) -> MeshLadderRun:
+    """JAX's ``test_mesh_sharding_failure_falls_back_per_wave``
+    (``tests/test_mesh_live.py:199``) as a run: a mesh engine with the
+    ``mesh.evaluate`` point armed once (seed 1234, rate 1), waves of 64;
+    ``n_pods`` pods of 100m, then as many again once they are bound.  The
+    first batch's wave falls back to the single-device evaluator; the
+    second batch's waves are sharded.  The roster is the full default one
+    (the engine's default): JAX's test runs the reference's NodeNumber
+    chain, whose Permit holds each pod up to its node's number of seconds
+    (and, time-scaled down, can time a pod out and park it until the next
+    flush, which would add a wave)."""
+    from minisched_tpu_torch.faults import FaultFabric
+
+    rng = random.Random(11)
+    nodes = [make_node(f"node{i:03d}", unschedulable=rng.random() < 0.2,
+                       capacity={"cpu": "16", "memory": "32Gi", "pods": 64})
+             for i in range(n_nodes)]
+    batches = [[make_pod(f"{tag}{i:03d}", requests={"cpu": "100m"})
+                for i in range(n_pods)] for tag in ("a", "b")]
+    fabric = FaultFabric(1234).on("mesh.evaluate", rate=1.0, max_fires=1)
+    client = Client()
+    client.nodes().create_many(nodes, return_objects=False)
+    counters.reset()
+    names = ("wave_mesh.waves", "wave_mesh.fallbacks")
+    svc = SchedulerService(client)
+    t0 = time.monotonic()
+    sched = svc.start_scheduler(default_full_roster_config(),
+                                device_mode=True, max_wave=64, device=device,
+                                device_mesh=mesh, prewarm_scan=False)
+    sched.faults = fabric
+    after = []
+    try:
+        for k, batch in enumerate(batches):
+            client.pods().create_many(batch, return_objects=False)
+            want = n_pods * (k + 1)
+            wait_until(lambda: sum(1 for p in client.pods().list()
+                                   if p.spec.node_name) >= want,
+                       timeout_s, f"{want} bound", sched)
+            after.append({name: counters.get(name) for name in names})
+    finally:
+        svc.close()
+    return MeshLadderRun(
+        {p.metadata.name: p.spec.node_name for p in client.pods().list()},
+        fabric.fires("mesh.evaluate"), after[0], after[1],
+        sched.loop_errors, time.monotonic() - t0)
 
 
 def audit_store(client: Client,

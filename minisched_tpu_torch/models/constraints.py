@@ -768,6 +768,53 @@ def build_constraint_tables(
 _COLUMNS = tuple(f for f in ConstraintTables.__dataclass_fields__
                  if f != "in_use")
 
+#: column → (kind, axis): the one map of how each plane is laid out
+#: ("first": a leading pod axis, "last": a trailing node axis, "rep":
+#: small metadata), JAX ``models/constraints.py:161``;
+#: ``parallel/sharding.py`` splits a wave's tables over a mesh by it
+CONSTRAINT_AXES = {
+    "combo_dsum": ("last", "nodes"),
+    "combo_haskey": ("last", "nodes"),
+    "combo_here": ("last", "nodes"),
+    "combo_global": ("rep", None),
+    "combo_key": ("rep", None),
+    "topo_domain": ("last", "nodes"),
+    "topo_onehot": ("last", "nodes"),
+    "topo_unique": ("rep", None),
+    "ex_domain": ("last", "nodes"),
+    "pod_matches_ex": ("first", "pods"),
+    "rev_weight": ("last", "nodes"),
+    "pod_matches_combo": ("first", "pods"),
+    "combo_excl": ("last", "nodes"),
+    "claim_mask": ("last", "nodes"),
+    "claim_zone_ok": ("last", "nodes"),
+    "node_vols_fam": ("last", "nodes"),
+    "pod_vols_fam": ("first", "pods"),
+    "claim_vol": ("rep", None),
+    "claim_cnt": ("rep", None),
+    "claim_family": ("rep", None),
+    "claim_ro": ("rep", None),
+    "pod_claim_valid": ("first", "pods"),
+    "pod_missing": ("first", "pods"),
+    "vol_any": ("last", "nodes"),
+    "vol_rw": ("last", "nodes"),
+    "ts_combo": ("first", "pods"),
+    "ts_skew": ("first", "pods"),
+    "ts_mode": ("first", "pods"),
+    "ts_n": ("first", "pods"),
+    "pa_combo": ("first", "pods"),
+    "pa_self": ("first", "pods"),
+    "pa_n": ("first", "pods"),
+    "pan_combo": ("first", "pods"),
+    "pan_n": ("first", "pods"),
+    "ppa_combo": ("first", "pods"),
+    "ppa_w": ("first", "pods"),
+    "ppa_n": ("first", "pods"),
+    "pod_claims": ("first", "pods"),
+    "vol_ok": ("first", "pods"),
+    "pod_n_vols": ("first", "pods"),
+}
+
 #: columns with a leading pod axis (a scan step takes its rows of them),
 #: in the JAX package's order
 POD_AXIS_FIELDS = (

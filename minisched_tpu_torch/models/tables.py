@@ -523,6 +523,11 @@ NODE_AGG_COLS = (
 )
 NODE_STATIC_COLS = tuple(f.name for f in fields(NodeTable)
                          if f.name not in NODE_AGG_COLS)
+#: NodeTable columns with a leading PROFILE axis, not the node axis: a
+#: mesh replicates them whole on every node shard (every node row gathers
+#: through ``profile_id``; JAX ``models/tables.py:602``)
+NODE_PROFILE_COLS = tuple(name for name in NODE_STATIC_COLS
+                          if name.startswith("prof_"))
 
 #: a caller outside the dirty protocol (scan lanes, prewarm, one-shot
 #: builds); distinct from None, which means "rebuild the base fully"
@@ -574,8 +579,16 @@ class NodeTableHost:
 class CachedNodeTableBuilder:
     """Per-wave NodeTable builds with the static columns cached: the
     counterpart of the JAX ``CachedNodeTableBuilder``
-    (``minisched_tpu/models/tables.py:882-1395``) without ``build_packed``
-    and the mesh.
+    (``minisched_tpu/models/tables.py:882-1395``) without ``build_packed``.
+
+    ``mesh`` (a ``parallel.sharding.Mesh``, JAX ``:894-915,1072``): node
+    capacities quantize to ``cap_multiple(128, node shards)`` so every
+    shard gets equal whole rows; ``place`` then gives ``NodeShards``, each
+    shard's static columns resident on its device (the profile planes
+    whole on each), uploaded again only for a new static version.
+    ``static_dev_default`` is the unsharded static copy on ``device``
+    (``place_default``'s), which the mesh engine's single-device fallback
+    evaluator reads.
 
     The static encode (names, labels, taints, images of every node) runs
     again only when the name-sorted (name, resource_version) signature
@@ -596,8 +609,19 @@ class CachedNodeTableBuilder:
     threads.  Every method serialises on one re-entrant lock: the waves
     and the scan lanes share one builder."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, mesh: Any = None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._cap_mult = 128
+        if mesh is not None:
+            from minisched_tpu_torch.parallel.sharding import (
+                cap_multiple,
+                mesh_axis_sizes,
+            )
+
+            self._cap_mult = cap_multiple(128, mesh_axis_sizes(mesh)[1])
+        self._static_shards: List[Dict[str, torch.Tensor]] = []
+        self._static_shards_version = -1
         self._build_lock = threading.RLock()
         self._sig: Optional[Tuple] = None
         self._host_static: Dict[str, np.ndarray] = {}
@@ -786,7 +810,9 @@ class CachedNodeTableBuilder:
 
     # -- builds ------------------------------------------------------------
     def node_capacity(self, n: int) -> int:
-        return pad_to(max(n, 1))
+        """The table capacity for ``n`` nodes: lane-padded, and a whole
+        number of rows on each node shard under a mesh."""
+        return pad_to(max(n, 1), self._cap_mult)
 
     def build_host(self, node_infos: Sequence[Any],
                    capacity: Optional[int] = None,
@@ -801,9 +827,14 @@ class CachedNodeTableBuilder:
         with self._build_lock:
             try:
                 n = len(node_infos)
-                cap = capacity or pad_to(n)
+                cap = capacity or self.node_capacity(n)
                 if n > cap:
                     raise ValueError(f"{n} nodes exceed table capacity {cap}")
+                if cap % self._cap_mult:
+                    raise ValueError(
+                        f"node capacity {cap} is not a multiple of "
+                        f"{self._cap_mult} (mesh node shards need equal "
+                        "whole rows)")
                 reused = self._try_reuse(node_infos, cap, prof_capacity,
                                          dirty, agg_delta, epoch)
                 if reused is not None:
@@ -836,10 +867,24 @@ class CachedNodeTableBuilder:
                 self._drop_reuse()
                 raise
 
-    def place(self, host: NodeTableHost) -> NodeTable:
+    def place(self, host: NodeTableHost, sharded: Optional[bool] = None):
         """``host`` on the builder's device: the aggregate columns in one
         copy; the static columns from the device-resident set, uploaded
-        first when ``host`` is of another static version."""
+        first when ``host`` is of another static version.  Under a mesh
+        (unless ``sharded`` is False) the table comes as
+        ``parallel.sharding.NodeShards``."""
+        if self.mesh is not None and sharded is not False:
+            return self._place_sharded(host)
+        return self.place_default(host)
+
+    def static_dev_default(self) -> Dict[str, torch.Tensor]:
+        """The static columns of the last placed version, whole on the
+        builder's device."""
+        with self._build_lock:
+            return dict(self._static_dev)
+
+    def place_default(self, host: NodeTableHost) -> NodeTable:
+        """``host`` as one NodeTable on the builder's device."""
         with self._build_lock:
             if host.static_version != self._static_dev_version:
                 self._static_dev = host.static.columns_on(self.device)
@@ -848,13 +893,55 @@ class CachedNodeTableBuilder:
         cols.update(host.agg.columns_on(self.device))
         return NodeTable(**cols)
 
+    def _place_sharded(self, host: NodeTableHost):
+        from minisched_tpu_torch.parallel.sharding import (
+            NODE_AXIS,
+            NodeShards,
+            mesh_axis_sizes,
+            static_col_shardings,
+        )
+
+        ns = mesh_axis_sizes(self.mesh)[1]
+        width = host.capacity // ns
+        devices = [self.mesh.device(0, j) for j in range(ns)]
+
+        def split(cols_on, layout_of):
+            """Shard j's columns: one copy to each distinct device, the
+            node-axis columns cut to the shard's rows."""
+            by_dev = {}
+            out = []
+            for j, dev in enumerate(devices):
+                if dev not in by_dev:
+                    by_dev[dev] = cols_on(dev)
+                layout = layout_of(by_dev[dev])
+                out.append({
+                    name: (col if layout[name] is None else
+                           col.narrow(0, j * width, width).contiguous())
+                    for name, col in by_dev[dev].items()})
+            return out
+
+        with self._build_lock:
+            if host.static_version != self._static_shards_version:
+                # the static columns resident on each shard's device
+                self._static_shards = split(
+                    host.static.columns_on,
+                    lambda cols: static_col_shardings(self.mesh, cols))
+                self._static_shards_version = host.static_version
+            statics = [dict(c) for c in self._static_shards]
+        aggs = split(host.agg.columns_on,
+                     lambda cols: {name: (NODE_AXIS, 0) for name in cols})
+        return NodeShards([NodeTable(**st, **ag)
+                           for st, ag in zip(statics, aggs)], width)
+
     def build(self, node_infos: Sequence[Any], capacity: Optional[int] = None,
               prof_capacity: Optional[int] = None, agg_delta=None,
-              dirty=DIRTY_UNTRACKED, epoch=None) -> Tuple[NodeTable, List[str]]:
-        """``build_host`` then ``place``: (NodeTable, node names)."""
+              dirty=DIRTY_UNTRACKED, epoch=None,
+              sharded: Optional[bool] = None) -> Tuple[Any, List[str]]:
+        """``build_host`` then ``place``: (NodeTable, or ``NodeShards``
+        under a mesh unless ``sharded`` is False; node names)."""
         host, names = self.build_host(node_infos, capacity, prof_capacity,
                                       agg_delta, dirty, epoch)
-        return self.place(host), names
+        return self.place(host, sharded), names
 
 
 # ---------------------------------------------------------------------------

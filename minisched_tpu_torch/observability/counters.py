@@ -6,6 +6,23 @@ admission and TTL release, bind-batch failures), read by tests and bench
 audits, and last-write-wins gauges (``set_gauge``), which the Prometheus
 exposition (``hist.render_prometheus``) types as ``gauge``.
 
+The mesh engine's names are JAX's (``counters.py:135-149``): the
+device engine over a ``parallel.sharding.Mesh`` records under
+``wave_mesh.``:
+
+    wave_mesh.pod_shards, wave_mesh.node_shards (gauges)
+        the factoring the engine took at construction (2 × 4 on eight
+        devices)
+    wave_mesh.waves
+        waves evaluated over the mesh (a mesh engine whose count stays 0
+        runs degraded)
+    wave_mesh.fallbacks
+        waves evaluated again on one device after the sharded evaluation
+        raised (the per-wave ladder; later waves retry the mesh)
+    wave_mesh.pad_pod_rows, wave_mesh.pad_node_rows
+        table rows shipped beyond the live wave and roster (the capacity
+        a mesh axis rounds up to)
+
 The remote control plane's names are JAX's (``counters.py:86-114``):
 
     wire.streams_adopted, wire.streams_active (gauge)

@@ -11,6 +11,11 @@ ends in ``select_hosts`` (from ``ops.kernels``), the seeded masked argmax
 
 There is no routing flag: ``select_hosts`` takes the plain twin for a CPU
 tensor and the hand-written kernel for a CUDA tensor, at any shape.
+Under a device mesh (``parallel/sharding.py``) ``evaluate`` runs on one
+(pod shard, node shard) tile: the kernel gets the tile's node-index base
+and the node shards' partials merge into the whole rows' argmax, as do
+the feasible count and the diagnostics' ``any``; off a mesh each merge is
+the identity.
 
 ``precompute_static`` and ``evaluate(static=)`` split a repair wave's
 chain into the round-invariant half (computed once) and the plugins that
@@ -31,6 +36,7 @@ import torch
 from minisched_tpu_torch.framework.plugin import implements_batch
 from minisched_tpu_torch.ops.kernels import mix32_plain as mix32
 from minisched_tpu_torch.ops.kernels import select_hosts
+from minisched_tpu_torch.parallel import sharding
 
 __all__ = [
     "BatchContext",
@@ -233,14 +239,18 @@ def evaluate(
     ``extra``: the wave's ConstraintTables, for the plugins that read them."""
     planes = wave_planes(pods, nodes, filter_plugins, pre_score_plugins,
                          score_plugins, ctx, with_diagnostics, static, extra)
-    choice, best = select_hosts(planes.totals, planes.mask, pods.seed)
+    choice, best = sharding.merge_select(
+        *select_hosts(planes.totals, planes.mask, pods.seed,
+                      sharding.node_base()), pods.seed)
+
     def stacked(planes_: List[torch.Tensor]) -> Optional[torch.Tensor]:
         return torch.stack(planes_) if planes_ else None
 
     return PlacementResult(
         choice=choice,
         best_score=best,
-        feasible_count=planes.mask.sum(dim=1, dtype=torch.int32),
+        feasible_count=sharding.node_sum(
+            planes.mask.sum(dim=1, dtype=torch.int32)),
         filter_masks=stacked(planes.per_filter),
         score_matrices=stacked(planes.per_score),
         raw_score_matrices=stacked(planes.per_raw),
@@ -259,7 +269,7 @@ def unschedulable_plugin_masks(filter_masks: torch.Tensor,
     out = []
     for k in range(filter_masks.shape[0]):
         m = filter_masks[k]
-        out.append((prefix & ~m).any(dim=1))
+        out.append(sharding.node_any((prefix & ~m).any(dim=1)))
         prefix = prefix & m
     return torch.stack(out)
 

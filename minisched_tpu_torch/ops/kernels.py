@@ -16,13 +16,19 @@ per pod, among feasible nodes take the max score; among those the least
 no feasible node gets ``(choice, best) = (-1, 0)``.
 
 Seeds are u32 values carried as ``torch.int32`` holding the same bits.
+
+Under a device mesh (``parallel/sharding.py``) each node shard runs the
+argmax over its own columns with ``node_base`` (its first global node
+index): the hash and the returned index are the whole row's, so the
+shards' partials merge exactly (``select_hosts_merge``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Dict, Tuple
+import threading
+from typing import Any, Dict, Sequence, Tuple
 
 import torch
 
@@ -47,6 +53,8 @@ plain_calls = {"select_hosts": 0, "nodenumber_select_hosts": 0}
 #: kernel into the graph, which launches it at every replay; whoever
 #: replays the graph counts those launches (``count_replays``)
 captured_counts = {"select_hosts": 0, "nodenumber_select_hosts": 0}
+#: the counts are bumped from a mesh's tile threads too
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -92,9 +100,12 @@ def mix32_plain(seed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def select_hosts_plain(
-    scores: torch.Tensor, mask: torch.Tensor, seeds: torch.Tensor
+    scores: torch.Tensor, mask: torch.Tensor, seeds: torch.Tensor,
+    node_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The XLA tail of ``minisched_tpu/ops/fused.py:179-196`` in torch."""
+    """The XLA tail of ``minisched_tpu/ops/fused.py:179-196`` in torch;
+    ``node_base`` is added to each column's index before it is hashed and
+    to the returned choice."""
     P, N = scores.shape
     if N == 0:
         return (torch.full((P,), -1, dtype=torch.int32, device=scores.device),
@@ -102,7 +113,7 @@ def select_hosts_plain(
     masked = torch.where(mask, scores, INT32_MIN)
     best = masked.max(dim=1).values  # i32[P]
     cand = mask & (masked == best[:, None])
-    idx = torch.arange(N, device=scores.device)
+    idx = torch.arange(node_base, node_base + N, device=scores.device)
     h = mix32_plain(seeds[:, None], idx[None, :])
     hkey = torch.where(cand, h, UINT32_MAX)
     minh = hkey.min(dim=1).values
@@ -114,6 +125,8 @@ def select_hosts_plain(
     pick_from = torch.where(has_pref[:, None], pref, is_min)
     # argmax returns the first maximal position
     choice = pick_from.to(torch.uint8).argmax(dim=1).to(torch.int32)
+    if node_base:
+        choice = choice + node_base
     feasible_any = mask.any(dim=1)
     choice = torch.where(feasible_any, choice, -1).to(torch.int32)
     best = torch.where(feasible_any, best, 0).to(torch.int32)
@@ -150,9 +163,9 @@ def nodenumber_select_hosts_plain(
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
 _SIGNATURES = {
-    # scores, mask, seeds, P, N, choice, best, stream
-    "minisched_select_hosts": (_ptr, _ptr, _ptr, _int, _int, _ptr, _ptr,
-                               _ptr),
+    # scores, mask, seeds, P, N, node_base, choice, best, stream
+    "minisched_select_hosts": (_ptr, _ptr, _ptr, _int, _int, _int, _ptr,
+                               _ptr, _ptr),
     # unsched, nsuffix, nvalid, N, psuffix, seeds, pvalid, tol_key,
     # tol_value, tol_effect, tol_op, tol_empty_key, num_tols, T, P,
     # match_score, unsched_key_hash, empty_value_hash, effect_none,
@@ -195,31 +208,35 @@ def _launch(name: str, device: torch.device, *args) -> None:
         err = _kernel(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-    if torch.cuda.is_current_stream_capturing():
-        captured_counts[name.removeprefix("minisched_")] += 1
-    else:
-        launch_counts[name.removeprefix("minisched_")] += 1
+    counts = (captured_counts if torch.cuda.is_current_stream_capturing()
+              else launch_counts)
+    with _count_lock:
+        counts[name.removeprefix("minisched_")] += 1
 
 
 def select_hosts_cuda(
-    scores: torch.Tensor, mask: torch.Tensor, seeds: torch.Tensor
+    scores: torch.Tensor, mask: torch.Tensor, seeds: torch.Tensor,
+    node_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``select_hosts_kernel``: scores i32[P, N], mask bool[P, N], seeds
-    i32[P] (u32 bits), all on one card → (choice i32[P], best i32[P])."""
+    i32[P] (u32 bits), all on one card → (choice i32[P], best i32[P]);
+    column j is node ``node_base + j``."""
     device = scores.device
     if device.type != "cuda":
         raise ValueError(f"select_hosts_cuda needs CUDA tensors, got {device}")
     if scores.dim() != 2:
         raise ValueError(f"scores must be 2-D, got shape {tuple(scores.shape)}")
     P, N = scores.shape
+    if node_base < 0 or node_base + N >= 1 << 31:
+        raise ValueError(f"node_base {node_base} + {N} columns out of range")
     _check(scores, "scores", torch.int32, (P, N), device)
     _check(mask, "mask", torch.bool, (P, N), device)
     _check(seeds, "seeds", torch.int32, (P,), device)
     choice = torch.empty(P, dtype=torch.int32, device=device)
     best = torch.empty(P, dtype=torch.int32, device=device)
     _launch("minisched_select_hosts", device, scores.data_ptr(),
-            mask.data_ptr(), seeds.data_ptr(), P, N, choice.data_ptr(),
-            best.data_ptr())
+            mask.data_ptr(), seeds.data_ptr(), P, N, node_base,
+            choice.data_ptr(), best.data_ptr())
     return choice, best
 
 
@@ -279,7 +296,8 @@ def nodenumber_launch_shape(device: torch.device) -> Tuple[int, int]:
 
 
 def select_hosts(
-    scores: torch.Tensor, mask: torch.Tensor, seeds: torch.Tensor
+    scores: torch.Tensor, mask: torch.Tensor, seeds: torch.Tensor,
+    node_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched deterministic selectHost.
 
@@ -287,14 +305,43 @@ def select_hosts(
     i32[P] holding the u32 tie-break seeds.  Returns (choice i32[P], node
     index or -1; best_score i32[P]).  Among feasible max-score nodes the
     one minimizing mix32(seed, node_index) wins; hash ties go to the
-    lowest index.
+    lowest index.  Column j is node ``node_base + j`` (a node shard's
+    columns under a mesh).
     """
     if scores.device.type == "cuda":
-        return select_hosts_cuda(scores, mask, seeds)
+        return select_hosts_cuda(scores, mask, seeds, node_base)
     if scores.device.type == "cpu":
-        plain_calls["select_hosts"] += 1
-        return select_hosts_plain(scores, mask, seeds)
+        with _count_lock:
+            plain_calls["select_hosts"] += 1
+        return select_hosts_plain(scores, mask, seeds, node_base)
     raise ValueError(f"no select_hosts route for tensors on {scores.device}")
+
+
+def select_hosts_merge(
+    partials: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    seeds: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge node shards' ``select_hosts`` results (each with its shard's
+    ``node_base``) into the whole row's: per pod, over the shards whose
+    choice is >= 0, the lexicographic least (-best, mix32(seed, choice),
+    choice) — the rule of ``_reduce_and_merge``
+    (``minisched_tpu/ops/pallas_kernels.py:61``) across shards.  No
+    feasible shard gives (-1, 0).  Plain torch on the partials' device: a
+    merge step over (P, shards) values, not a kernel."""
+    choice, best = partials[0]
+    have = choice >= 0
+    h = mix32_plain(seeds, choice.clamp(min=0))
+    for c, b in partials[1:]:
+        ok = c >= 0
+        hc = mix32_plain(seeds, c.clamp(min=0))
+        wins = ok & (~have | (b > best) | ((b == best) & (
+            (hc < h) | ((hc == h) & (c < choice)))))
+        choice = torch.where(wins, c, choice)
+        best = torch.where(wins, b, best)
+        h = torch.where(wins, hc, h)
+        have = have | ok
+    return (torch.where(have, choice, -1).to(torch.int32),
+            torch.where(have, best, 0).to(torch.int32))
 
 
 def nodenumber_select_hosts(
@@ -306,6 +353,7 @@ def nodenumber_select_hosts(
     if device.type == "cuda":
         return nodenumber_select_hosts_cuda(pods, nodes, match_score)
     if device.type == "cpu":
-        plain_calls["nodenumber_select_hosts"] += 1
+        with _count_lock:
+            plain_calls["nodenumber_select_hosts"] += 1
         return nodenumber_select_hosts_plain(pods, nodes, match_score)
     raise ValueError(f"no route for tables on {device}")

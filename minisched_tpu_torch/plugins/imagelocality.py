@@ -38,6 +38,7 @@ from minisched_tpu_torch.framework.types import (
     CycleState,
     Status,
 )
+from minisched_tpu_torch.parallel import sharding
 from minisched_tpu_torch.utils.reduce import any_last_axis
 
 NAME = "ImageLocality"
@@ -129,16 +130,20 @@ class ImageLocality(BatchEvaluable):
         c_in_range = (torch.arange(C, device=dev)[None, :]
                       < pods.num_containers[:, None]) & (pods.image_key != 0)
         node_keys = torch.where(img_in_range, nodes.image_key, 0)  # (N, I)
-        size_at = _canonical_sizes(pods.image_key, node_keys,
-                                   torch.where(img_in_range, nodes.image_size_mb, 0))
-        total_nodes = nodes.valid.sum(dtype=torch.int32).clamp(min=1)
+        # the largest size and the node counts are over the whole roster
+        size_at = sharding.node_max(_canonical_sizes(
+            pods.image_key, node_keys,
+            torch.where(img_in_range, nodes.image_size_mb, 0)))
+        total_nodes = sharding.node_sum(
+            nodes.valid.sum(dtype=torch.int32)).clamp(min=1)
         sums = torch.zeros((P, N), dtype=torch.int32, device=dev)
         for c in range(C):
             # (P, N, I) compare, reduced over I at once; a dead slot (0)
             # never equals a live key
             has = any_last_axis(pods.image_key[:, c][:, None, None] == node_keys[None])
             has &= c_in_range[:, c][:, None] & nodes.valid[None, :]
-            n_with = has.sum(dim=1, dtype=torch.int32)  # (P,)
+            n_with = sharding.node_sum(
+                has.sum(dim=1, dtype=torch.int32))  # (P,)
             scaled = size_at[:, c] * n_with // total_nodes
             sums += torch.where(has, scaled[:, None], 0)
         lo = MIN_THRESHOLD_MB * pods.num_containers[:, None]

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from minisched_tpu_torch.framework.types import MAX_NODE_SCORE, NodeScoreList
+from minisched_tpu_torch.parallel import sharding
 
 _BIG = torch.iinfo(torch.int32).max
 
@@ -40,8 +41,10 @@ def minmax_normalize_batch(scores: torch.Tensor, mask: torch.Tensor,
     (``torch.div(..., rounding_mode="floor")``, as ``jnp``'s ``//``); a
     row whose feasible scores are all equal gets ``fill``."""
     scores = scores.to(torch.int32)
-    lo = torch.where(mask, scores, _BIG).amin(dim=1, keepdim=True)
-    hi = torch.where(mask, scores, -_BIG).amax(dim=1, keepdim=True)
+    lo = sharding.node_min(
+        torch.where(mask, scores, _BIG).amin(dim=1, keepdim=True))
+    hi = sharding.node_max(
+        torch.where(mask, scores, -_BIG).amax(dim=1, keepdim=True))
     spread = hi - lo
     num = (hi - scores) if reverse else (scores - lo)
     out = torch.div(MAX_NODE_SCORE * num, spread.clamp(min=1),

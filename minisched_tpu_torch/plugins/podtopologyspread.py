@@ -46,6 +46,7 @@ from minisched_tpu_torch.framework.types import (
     Status,
 )
 from minisched_tpu_torch.models.constraints import TS_DO_NOT_SCHEDULE, _matches
+from minisched_tpu_torch.parallel import sharding
 from minisched_tpu_torch.plugins.nodeaffinity import (
     node_affinity_eligible,
     required_node_affinity_mask,
@@ -201,7 +202,7 @@ class PodTopologySpread(BatchEvaluable):
         onehot_t = extra.topo_onehot.reshape(K * D, N).t().double()  # (N, K·D)
         rows = torch.arange(P, device=dev)
         # exists[p, k, d]: some ELIGIBLE node sits in domain d of key k
-        e_all = (elig.double() @ onehot_t).reshape(P, K, D) > 0
+        e_all = sharding.node_matmul(elig.double(), onehot_t).reshape(P, K, D) > 0
         for c in extra.in_use.ts_hard:
             active = (extra.ts_n > c) & (extra.ts_mode[:, c] == TS_DO_NOT_SCHEDULE)
             combo = extra.ts_combo[:, c].long()
@@ -210,7 +211,7 @@ class PodTopologySpread(BatchEvaluable):
             x = torch.where(elig, extra.combo_here.index_select(0, combo), 0)
             key = extra.combo_key[combo].long()  # (P,)
             unique = extra.topo_unique[key]  # (P,)
-            a_all = (x.double() @ onehot_t).reshape(P, K, D)
+            a_all = sharding.node_matmul(x.double(), onehot_t).reshape(P, K, D)
             A = a_all[rows, key].to(torch.int32)  # (P, D) the pod's key row
             exists = e_all[rows, key]  # (P, D)
             # zone-like path: each node's domain sum, through its domain id
@@ -219,7 +220,8 @@ class PodTopologySpread(BatchEvaluable):
             dsum_z = torch.cat([A, A.new_zeros(P, 1)], dim=1).gather(1, dom)
             m_z = torch.where(exists, A, _INF).amin(dim=1)
             # hostname-like path: every domain is one node
-            m_u = torch.where(elig & haskey, x, _INF).amin(dim=1)
+            m_u = sharding.node_min(
+                torch.where(elig & haskey, x, _INF).amin(dim=1))
             dsum = torch.where(unique[:, None], x, dsum_z)
             m = torch.where(unique, m_u, m_z)
             ok = (haskey & (m < _INF)[:, None]
@@ -235,7 +237,8 @@ class PodTopologySpread(BatchEvaluable):
         if not extra.in_use.ts_soft:
             return total
         keyed = torch.where(extra.combo_haskey, extra.combo_dsum, 0)  # (C, N)
-        worst = keyed.amax(dim=1, keepdim=True)  # (C, 1) worst domain count
+        # (C, 1) worst domain count
+        worst = sharding.node_max(keyed.amax(dim=1, keepdim=True))
         # keyless nodes take the constraint's worst domain count
         plane = torch.where(extra.combo_haskey, extra.combo_dsum, worst)
         for c in extra.in_use.ts_soft:

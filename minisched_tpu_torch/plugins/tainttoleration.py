@@ -35,6 +35,7 @@ from minisched_tpu_torch.framework.types import (
     Status,
 )
 from minisched_tpu_torch.models import tables
+from minisched_tpu_torch.parallel import sharding
 
 NAME = "TaintToleration"
 
@@ -169,7 +170,8 @@ class TaintToleration(BatchEvaluable):
                         mask: torch.Tensor) -> torch.Tensor:
         """DefaultNormalizeScore reversed: more intolerable taints, lower
         score; a pod whose feasible counts are all 0 scores 100 everywhere."""
-        max_count = torch.where(mask, scores, 0).amax(dim=1, keepdim=True)
+        max_count = sharding.node_max(
+            torch.where(mask, scores, 0).amax(dim=1, keepdim=True))
         normalized = MAX_NODE_SCORE - scores * MAX_NODE_SCORE // max_count.clamp(min=1)
         return torch.where(max_count == 0, MAX_NODE_SCORE,
                            normalized).to(torch.int32)

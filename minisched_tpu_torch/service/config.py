@@ -10,8 +10,8 @@ reference has them:
 * ``SchedulerConfig``: the KubeSchedulerConfiguration analog with
   enable/disable lists (``"*"`` wildcard), per-plugin weights and args,
   the two rosters the JAX package ships and its merge of a user's
-  customization over a default.  The mesh-pinning fields wait for the
-  multi-device slice of the port.
+  customization over a default, and the device-mesh pin of the wave
+  engine (``mesh_devices``, ``mesh_pod_shards``).
 
 ``node_local_roster_config`` is the full default roster without the
 plugins that read the wave's constraint tables (volumes, topology spread,
@@ -78,6 +78,13 @@ class SchedulerConfig:
     plugin_args: Dict[str, Dict[str, Any]] = field(default_factory=dict)
     queue_opts: Dict[str, Any] = field(default_factory=dict)
     time_scale: float = 1.0
+    #: device-mesh pin for the wave engine (JAX ``:80-86``): 0 devices
+    #: defers to the startup policy (``MINISCHED_MESH``, auto on more than
+    #: one card: ``parallel/sharding.resolve_mesh``); a nonzero count (and
+    #: an optional pod-axis factoring) builds exactly that mesh over the
+    #: visible cards.  The scalar engine ignores it.
+    mesh_devices: int = 0
+    mesh_pod_shards: Optional[int] = None
 
     def clone(self) -> "SchedulerConfig":
         return copy.deepcopy(self)

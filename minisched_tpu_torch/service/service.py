@@ -37,8 +37,13 @@ queue-admission predicate (pod → bool, ``ha/membership.Membership.
 owns_pod``), installed on the engine before the informers start, so even
 the first snapshot replay admits only this engine's shard;
 ``restart_scheduler`` keeps it.  N services with complementary filters
-run active-active against one control plane (``ha/plane.py``).  The mesh
-is not ported (ROADMAP item 12).
+run active-active against one control plane (``ha/plane.py``).
+
+``device_mesh`` (JAX ``:46-104``, ``:157-169``; device mode only): a
+``parallel.sharding.Mesh`` the engine's waves are evaluated over (pod
+rows data-parallel, node columns model-parallel); None defers to the
+config's ``mesh_devices``/``mesh_pod_shards`` pin, then to
+``MINISCHED_MESH``; ``restart_scheduler`` keeps it.
 """
 
 from __future__ import annotations
@@ -93,6 +98,7 @@ class SchedulerService:
         prewarm_scan: bool = True,
         pipeline: Optional[bool] = None,
         shard_filter=None,
+        device_mesh: Any = None,
     ) -> Scheduler:
         """Build the engine for ``cfg`` (default: the reference's default
         wiring), start and sync the informers, then the run loop: the
@@ -101,8 +107,8 @@ class SchedulerService:
         are installed before the loop starts.  The sync replays every
         pod already in the store through the queue handlers, so the loop
         starts with every pending pod queued, in store order.
-        ``record_results`` and ``shard_filter``: see the module
-        docstring."""
+        ``record_results``, ``shard_filter`` and ``device_mesh``: see the
+        module docstring."""
         if self._scheduler is not None:
             raise RuntimeError(
                 "scheduler already running; use restart_scheduler")
@@ -123,7 +129,7 @@ class SchedulerService:
         if device_mode:
             sched = new_device_scheduler(self._client, self._factory, cfg,
                                          max_wave=max_wave, device=device,
-                                         pipeline=pipeline)
+                                         pipeline=pipeline, mesh=device_mesh)
             if record_results:
                 sched.result_store = self.result_store
         else:
@@ -166,6 +172,7 @@ class SchedulerService:
         self._device = device
         self._pipeline = pipeline
         self._shard_filter = shard_filter
+        self._device_mesh = device_mesh
         return sched
 
     def restart_scheduler(self, cfg: Optional[SchedulerConfig] = None
@@ -177,7 +184,8 @@ class SchedulerService:
                                     max_wave=self._max_wave,
                                     device=self._device,
                                     pipeline=self._pipeline,
-                                    shard_filter=self._shard_filter)
+                                    shard_filter=self._shard_filter,
+                                    device_mesh=self._device_mesh)
 
     def shutdown_scheduler(self) -> None:
         if self._scheduler is not None:

@@ -2,7 +2,9 @@
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
 together) for ``sm_90a``, then linked into ``libminisched_kernels.so``
-under ``_build/<hash>/``, keyed by a hash of the sources and flags.  The
+under ``<build dir>/<hash>/``, keyed by a hash of the sources and flags.
+The build directory is ``utils/compilecache.py``'s: ``_build/`` unless
+``MINISCHED_CACHE_DIR`` or ``MINISCHED_CACHE=0`` says otherwise.  The
 library has a plain C interface and is loaded with ``ctypes``; no PyTorch
 header is compiled.  The build happens at first use, never at import, and
 a failed build raises with nvcc's output — there is no fallback.
@@ -22,7 +24,6 @@ from typing import List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libminisched_kernels.so"
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -33,6 +34,25 @@ LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_build_dir: Optional[Path] = None
+
+
+def set_build_dir(path: Path) -> None:
+    """Where the next build goes (``compilecache.enable_persistent_cache``
+    sets it)."""
+    global _build_dir
+    _build_dir = Path(path)
+
+
+def build_dir() -> Path:
+    """The build directory in effect: the one set last, else the knobs'
+    (``compilecache.default_build_dir``), fixed at the first call."""
+    global _build_dir
+    if _build_dir is None:
+        from minisched_tpu_torch.utils.compilecache import default_build_dir
+
+        _build_dir = default_build_dir()
+    return _build_dir
 
 
 def find_nvcc() -> str:
@@ -60,7 +80,7 @@ def library_path() -> Path:
         digest.update(flag.encode() + b"\0")
     for src in _sources() + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
-    return BUILD_DIR / digest.hexdigest()[:16] / LIB_NAME
+    return build_dir() / digest.hexdigest()[:16] / LIB_NAME
 
 
 def build() -> Path:

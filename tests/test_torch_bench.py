@@ -6,6 +6,7 @@ them; none runs on the CPU instead.  The roles are those of
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -42,6 +43,7 @@ COUNTERPARTS = {
     "chaos": "bench_chaos",
     "disk": "bench_disk",
     "ha": "bench_ha",
+    "mesh": "bench_mesh",
 }
 
 #: small sizes of the fault and HA roles for a run on the CPU (their
@@ -138,6 +140,67 @@ def test_fault_and_ha_roles_at_a_small_size_on_the_cpu(role, monkeypatch):
         assert rec["engines"] == 3 and rec["kills"] == 1
         assert rec["rebalance_s"] <= 2.0 + 2.0 / 3.0 + 1.5
         assert rec["counters"].get("ha.member_lost", 0) >= 2
+
+
+
+@pytest.mark.parametrize("argv", [["--only", "mesh"], []],
+                         ids=["only-mesh", "every-role"])
+def test_entry_point_finds_every_role(argv):
+    """``python -m minisched_tpu_torch.bench`` with no card: every role
+    asked for is found in the module as it runs as ``__main__`` (each is
+    looked up before the card check) and prints its skip record; exit
+    0."""
+    env = {k: v for k, v in os.environ.items()}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run(
+        [sys.executable, "-m", "minisched_tpu_torch.bench", *argv],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    records = [json.loads(line) for line in out.stdout.splitlines()]
+    want = argv[1:] or list(bench.ROLES)
+    assert [r["role"] for r in records] == want
+    assert all(r["skipped"] == "no CUDA device is available"
+               for r in records)
+
+
+def test_mesh_role_skips_on_a_one_card_host(monkeypatch):
+    """As ``bench_mesh`` below two devices: the role skips with its
+    reason before it builds anything (one card here, as on the card
+    machine); ``run_role`` prints the skip record."""
+    monkeypatch.setattr(bench.torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(bench.Skip, match="more than one device"):
+        bench.role_mesh()
+    monkeypatch.setattr(bench.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(bench, "card_line", lambda: "card, 700.00 W")
+    from minisched_tpu_torch.utils import build
+
+    monkeypatch.setattr(build, "load_library", lambda: None)
+    record = bench.run_role("mesh")
+    assert record["role"] == "mesh"
+    assert "more than one device" in record["skipped"]
+
+
+def test_mesh_role_core_on_a_virtual_cpu_mesh(monkeypatch):
+    """The role's parity and audit core at a small size on a virtual
+    2 x 4 mesh of the host: the sharded lap places every pod as the
+    single-device lap, with sharded waves and no fallback; the
+    device-time gate is not armed over one device."""
+    import torch
+
+    from minisched_tpu_torch.parallel.sharding import make_mesh
+
+    monkeypatch.setenv("BENCH_MESH_NODES", "40")
+    monkeypatch.setenv("BENCH_MESH_PODS", "300")
+    monkeypatch.setenv("BENCH_MESH_WAVE", "128")
+    mesh = make_mesh(8, devices=[torch.device("cpu")] * 8)
+    rec = bench.role_mesh(device="cpu", mesh=mesh)
+    assert rec["parity_ok"] and rec["mesh_shape"] == [["pods", 2],
+                                                      ["nodes", 4]]
+    assert rec["sharded"]["wave_mesh"]["waves"] >= 1
+    assert rec["sharded"]["wave_mesh"]["fallbacks"] == 0
+    assert rec["single_device"]["wave_mesh"]["waves"] == 0
+    assert rec["device_gate"].startswith("not armed")
+    assert rec["distinct_devices"] == 1
 
 
 def test_percentile_is_nearest_rank_as_bench_py():

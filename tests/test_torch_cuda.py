@@ -819,3 +819,95 @@ def test_engine_child_with_a_missing_device_raises(dev):
     finally:
         eng.stop()
         shutdown()
+
+
+@pytest.mark.parametrize("N", SELECT_NS)
+@pytest.mark.parametrize("base", [1, 1 << 20, "largest"])
+def test_select_hosts_kernel_at_a_node_base(N, base, dev):
+    """A mesh node shard's call: the kernel hashes ``base + idx`` and
+    returns ``base + idx``, as the twin does, on the edge rows."""
+    scores, mask, seeds = select_tensors(*select_case(N + 3, 9, N), dev)
+    base = (1 << 31) - 1 - N if base == "largest" else base
+    got = kernels.select_hosts_cuda(scores, mask, seeds, base)
+    want = kernels.select_hosts_plain(scores, mask, seeds, base)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_node_shards_merge_to_the_whole_row_on_card(shards, dev):
+    scores, mask, seeds = _planes(5, 257, 10112, dev, tie_heavy=True)
+    width = 10112 // shards
+    parts = [kernels.select_hosts_cuda(
+        scores[:, j * width:(j + 1) * width].contiguous(),
+        mask[:, j * width:(j + 1) * width].contiguous(), seeds, j * width)
+        for j in range(shards)]
+    got = kernels.select_hosts_merge(parts, seeds)
+    want = kernels.select_hosts_cuda(scores, mask, seeds)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("path", ["repair", "scan", "blocked"])
+def test_mesh_repair_and_scan_on_a_virtual_card_mesh(path, dev):
+    """The full roster on the mixed cluster over a virtual 2 x 4 mesh of
+    the card: the repair wave, the exact scan and the blocked lane (each
+    lane's step over all tiles captured in one CUDA graph) equal the
+    mesh-off paths, every tile launching the kernel and no plain twin
+    called."""
+    from minisched_tpu_torch.ops.repair import RepairingEvaluator
+    from minisched_tpu_torch.parallel import sharding
+
+    mesh = sharding.make_mesh(8, devices=[dev] * 8)
+    nodes, assigned, pods, pvcs, pvs = mk_mixed_cluster(256, 200)
+    by_node = {}
+    for p in assigned:
+        by_node.setdefault(p.spec.node_name, []).append(p)
+    nt, _ = tables.build_node_table(nodes, by_node, device=dev)
+    pt, _ = tables.build_pod_table(pods, device=dev)
+    cfg = default_full_roster_config()
+    chains = build_plugins(cfg)
+    chain = (chains.filter, chains.pre_score, chains.score)
+    extra = build_constraint_tables(
+        pods, nodes, assigned, pod_capacity=pt.capacity,
+        node_capacity=nt.capacity, pvcs=pvcs, pvs=pvs,
+        scan_planes=path != "repair", device=dev)
+    weights = cfg.score_weights()
+
+    def run(mesh_):
+        if path == "scan":
+            return sequential.SequentialScheduler(
+                *chain, weights=weights, mesh=mesh_)(pt, nt, extra)
+        if path == "blocked":
+            return sequential.BlockedSequentialScheduler(
+                *chain, weights=weights, block_size=32, mesh=mesh_)(
+                    pt, nt, extra)
+        out = RepairingEvaluator(*chain, weights=weights,
+                                 with_diagnostics=True, mesh=mesh_)(
+                                     pt, nt, extra)
+        return out.node_table, out.choice, out.unschedulable
+
+    want = run(None)
+    kernels.reset_launch_counts()
+    got = run(mesh)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["select_hosts"] >= 8
+    assert not any(kernels.plain_calls.values())
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    want_cols = tables.table_columns(want[0])
+    for name, col in tables.table_columns(got[0]).items():
+        assert torch.equal(col, want_cols[name]), name
+
+
+def test_live_engine_on_a_virtual_card_mesh(dev):
+    """The mesh ladder on the card: ``mesh.evaluate`` armed once, one
+    fallback, later waves sharded, every pod bound, no plain twin."""
+    from minisched_tpu_torch.parallel import sharding
+
+    kernels.reset_launch_counts()
+    run = live.run_mesh_ladder(sharding.make_mesh(8, devices=[dev] * 8),
+                               device=dev)
+    assert run.fires == 1 and run.after_second["wave_mesh.fallbacks"] == 1
+    assert run.after_second["wave_mesh.waves"] >= 1
+    assert all(run.placements.values()) and run.loop_errors == 0
+    assert kernels.launch_counts["select_hosts"] >= 8
+    assert not any(kernels.plain_calls.values())

@@ -35,6 +35,47 @@ def test_config5_live_matches_the_wave_driver_and_audits():
     assert run.ttb_p99_le_s is not None
 
 
+
+def test_closed_waves_waits_for_the_wave_that_bound_the_last_pod():
+    """A wave observes ``wave_size`` as it starts and ``wave`` once its
+    binds are done: the count is read only when the two agree."""
+    import threading
+
+    from minisched_tpu_torch.observability.profiling import CycleMetrics
+
+    class Engine:
+        loop_errors = 0
+
+    metrics = CycleMetrics()
+    for _ in range(2):
+        metrics.observe("wave_size", 8.0)
+    metrics.observe("wave", 0.1)
+    closer = threading.Timer(0.2, metrics.observe, ("wave", 0.1))
+    closer.start()
+    try:
+        assert live.closed_waves(metrics, 10.0, Engine()) == 2
+    finally:
+        closer.cancel()
+
+
+def test_config5_live_on_a_mesh_counts_every_wave_sharded():
+    """Phase 35(b)'s check at a small size: config 5 live under a virtual
+    2 x 4 mesh of the host, every pod bound, and ``wave_mesh.waves`` equal
+    to the engine's waves, no fallback."""
+    import torch
+
+    from minisched_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(8, devices=[torch.device("cpu")] * 8)
+    run = live.run_config5_live(200, 2_000, max_wave=512, device="cpu",
+                                timeout_s=120.0, pipeline=False, mesh=mesh)
+    assert run.loop_errors == 0 and run.assumed_left == 0
+    assert live.audit_store(run.client, run.labelled) == {"bound": 2_000,
+                                                          "nodes": 200}
+    assert run.counters["wave_mesh.waves"] == run.waves >= 5
+    assert run.counters["wave_mesh.fallbacks"] == 0
+
+
 def test_audit_store_catches_a_misplaced_special_pod():
     run = live.run_config5_live(100, 1_000, max_wave=512, device="cpu",
                                 timeout_s=120.0)

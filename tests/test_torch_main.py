@@ -24,6 +24,7 @@ from minisched_tpu.service import config as jconfig
 from minisched_tpu_torch import __main__ as tmain
 from minisched_tpu_torch.controlplane.httpserver import HTTPClient
 from minisched_tpu_torch.live import free_port
+from minisched_tpu_torch.observability import counters
 from minisched_tpu_torch.scenario.runner import readme_scenario_http
 from minisched_tpu_torch.service import config as tconfig
 
@@ -71,9 +72,32 @@ def test_start_device_mode_readme_over_http_and_stop():
     assert left == []
 
 
+def test_start_device_mode_on_a_one_device_mesh():
+    """``MINISCHED_MESH_DEVICES=1`` (``start(mesh_devices=1)``): the
+    device engine over a 1 x 1 mesh of the engine's device (the host
+    here, one card on the card machine) places the README scenario as
+    the mesh-off engine does, through the mesh ladder."""
+    cfg = tconfig.ProcessConfig(port=free_port(), frontend_url="http://x")
+    counters.reset()
+    client, base, stop = tmain.start(cfg, device_mode=True, device="cpu",
+                                     mesh_devices=1)
+    try:
+        sched = stop.service.scheduler
+        assert sched.mesh is not None and sched.mesh.shape == {
+            "pods": 1, "nodes": 1}
+        assert readme_scenario_http(HTTPClient(base),
+                                    log=lambda m: None) == "node10"
+        assert counters.get("wave_mesh.waves") >= 1
+        assert counters.get("wave_mesh.fallbacks") == 0
+    finally:
+        stop()
+
+
 @pytest.mark.parametrize("kw, match", [
-    pytest.param({"mesh_devices": 8}, "ROADMAP item 12",
-                 id="kw0-ROADMAP item 12"),
+    pytest.param({"mesh_devices": 8}, "requested 8 devices, only 1",
+                 id="kw0-more mesh devices than visible"),
+    pytest.param({"mesh_devices": 2, "device_mode": False},
+                 "needs the device engine", id="kw1-mesh without device mode"),
     pytest.param({"external_store_url": "etcd://host:2379"},
                  "unsupported store url", id="kw2-unsupported store url"),
 ])
