@@ -510,6 +510,25 @@ Phases, each of which raises on failure (nothing catches it):
    that directory and launches bit-exact.  Phases 5, 12 and
    13 also check and time ``select_hosts`` at ``SELECT_BASE`` beside
    base 0.  A ``[clock]`` line closes the phase.
+36. The mesh across processes (``parallel/distributed.py``): two
+   processes started by ``distributed.spawn`` (a ``gloo`` group over a
+   ``file://`` rendezvous), each a 1 x 4 row of this card
+   (``make_mesh(devices=[cuda:0] * 4)`` under the group), together phase
+   35's 2 x 4 mesh, one pod shard each; the children load phase 35(a)'s
+   tables and (c)'s from one file and run ``parallel.rank_steps.run_rank``.
+   (a) Phase 35(a)'s repair wave (once to warm, once timed): on each
+   rank choices, rounds, unschedulable masks, final node table and
+   carried volume planes bit-identical to phase 35(a)'s mesh-off wave and
+   to the other rank's, 4 ``select_hosts`` launches an evaluation and no
+   plain twin.  (b) ``sharded_wave_step``: choice, best and table equal
+   ``evaluate`` then ``apply_placements``.  (c) The exact scan of config
+   5's first ``MESH_SCAN_PLAIN`` (256) plain pods in the scan layout
+   against the mesh-off scan (run here while the children start).  Each
+   rank's engine refuses the mesh.  Printed: each rank's wall for the
+   wave, its seconds in the gather a round (the exchange, and the wait
+   for the card before it), its launches.  A rank that raises, hangs
+   past ``PROCESS_MESH_DEADLINE_S`` or disagrees fails the phase.  A
+   ``[clock]`` line closes the phase.
 
 Phase 2 also holds ``select_hosts`` against its twin on the repair
 route's own planes: round 1 of config 5's wave 0 (tie-heavy) and round 2
@@ -532,7 +551,8 @@ the replicated plane, phase 32's behind the sharded one and both chaos
 runs of phase 33, and phase 35's mesh wave and step, 1 x 1 mesh, live
 engine, ladder and scan) and read just after it; phase 34's engines are
 child processes, whose counts start at 0 and are read off their
-``/metrics``.  A scan's step is captured once in a CUDA graph and
+``/metrics``, and phase 36's ranks set theirs to 0 before each step and
+hand them back with its results.  A scan's step is captured once in a CUDA graph and
 replayed; each replay counts the ``select_hosts`` launch recorded in
 the graph.  The last three lines of output are the card's name and
 power limit, one JSON object describing every kernel, and the
@@ -661,6 +681,12 @@ HA_KILL_BINDS = 2_500
 MESH_DEVICES = 8
 MESH_WAVE = 8_192
 MESH_SCAN_PLAIN = 256
+#: phase 36: the processes of the mesh across processes, the devices of
+#: each (a 1 x 4 row of this card: together phase 35's 2 x 4), and the
+#: deadline of their spawn (the phase's budget is 40 s)
+PROCESS_MESH_RANKS = 2
+PROCESS_MESH_LOCAL = 4
+PROCESS_MESH_DEADLINE_S = 180.0
 #: a nonzero node-index base for ``select_hosts`` (phases 5, 12, 13, 35)
 SELECT_BASE = 1 << 20
 
@@ -791,11 +817,12 @@ print(json.dumps({"dir": d, "lib": str(lib), "exists": lib.exists(),
 
 
 def phase35(dev, card, launches, main_err, serial17, c5_nodes,
-            c5_pods) -> None:
+            c5_pods) -> dict:
     """Phase 35: the device mesh (``parallel/sharding.py``) on a virtual
     2 x 4 mesh of this card; ``launches`` and ``main_err`` are the main
     script's ledgers, ``serial17`` phase 17's (first drain, tail, total,
-    split), ``c5_nodes``/``c5_pods`` config 5 at full size."""
+    split), ``c5_nodes``/``c5_pods`` config 5 at full size.  Returns (a)'s
+    inputs and mesh-off answers on the host, for phase 36."""
     import shutil
     import tempfile
 
@@ -816,7 +843,7 @@ def phase35(dev, card, launches, main_err, serial17, c5_nodes,
     from minisched_tpu_torch.ops.repair import RepairingEvaluator
     from minisched_tpu_torch.ops.sequential import SequentialScheduler
     from minisched_tpu_torch.ops.state import apply_placements
-    from minisched_tpu_torch.parallel import sharding
+    from minisched_tpu_torch.parallel import rank_steps, sharding
     from minisched_tpu_torch.plugins.registry import build_plugins
     from minisched_tpu_torch.service.config import default_full_roster_config
 
@@ -938,6 +965,20 @@ def phase35(dev, card, launches, main_err, serial17, c5_nodes,
     log(f"[mesh-1x1] MINISCHED_MESH=1 on this card: {one}; the same wave "
         f"placed bit-identically to mesh-off in {deg_s:.3f}s, "
         f"select_hosts launches {deg_n}, plain-twin calls 0")
+    # phase 36 runs the same wave and step across two processes: the
+    # inputs and the mesh-off answers, on the host
+    handoff = {
+        "wave": tuple(rank_steps.tables_to(x, "cpu") for x in (pt, nt, extra)),
+        "off": {"choice": off.choice.cpu(), "rounds": off.rounds,
+                "unschedulable": off.unschedulable.cpu(),
+                "node_table": {k: v.cpu() for k, v in
+                               tables.table_columns(off.node_table).items()},
+                "carried": {f: getattr(off.extra, f).cpu()
+                            for f in rank_steps.CARRIED}},
+        "step": {"choice": ref.choice.cpu(), "best": ref.best_score.cpu(),
+                 "node_table": {k: v.cpu() for k, v in tables.table_columns(
+                     apply_placements(nt, pt, ref.choice)).items()}},
+    }
     del off, on, deg, ref, step_nodes, nt, pt, extra
 
     # (b) the live engine on config 5 under the mesh
@@ -1096,6 +1137,152 @@ def phase35(dev, card, launches, main_err, serial17, c5_nodes,
             cache_child.wait()
         shutil.rmtree(cache_dir, ignore_errors=True)
     log(f"[clock] phase 35 took {time.monotonic() - t_phase:.1f}s")
+    return handoff
+
+
+def phase36(dev, card, launches, handoff, c5_nodes, c5_pods) -> None:
+    """Phase 36: the mesh across processes (``parallel/distributed.py``):
+    two spawned processes, each a 1 x 4 row of this card, form phase
+    35's 2 x 4 mesh, one pod shard a process, and run (a)'s repair wave,
+    the wave step and the exact scan; ``handoff`` is phase 35's inputs
+    and mesh-off answers."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from minisched_tpu_torch.models import tables
+    from minisched_tpu_torch.models.constraints import build_constraint_tables
+    from minisched_tpu_torch.ops.sequential import SequentialScheduler
+    from minisched_tpu_torch.parallel import distributed, rank_steps
+    from minisched_tpu_torch.plugins.registry import build_plugins
+    from minisched_tpu_torch.service.config import default_full_roster_config
+
+    stamp("36")
+    t_phase = time.monotonic()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # (c)'s tables: config 5's first plain pods, the full roster, in scan
+    # planes; the children load them with (a)'s from one file
+    plain = [p for p in c5_pods if not p.metadata.name.startswith("special")]
+    scan_pods = plain[:MESH_SCAN_PLAIN]
+    snt, _ = tables.build_node_table(c5_nodes, device=dev)
+    spt, _ = tables.build_pod_table(scan_pods, device=dev)
+    sex = build_constraint_tables(scan_pods, c5_nodes, [],
+                                  pod_capacity=spt.capacity,
+                                  node_capacity=snt.capacity,
+                                  scan_planes=True, device=dev)
+    workdir = tempfile.mkdtemp(prefix="process-mesh-")
+    path = os.path.join(workdir, "inputs.pt")
+    pt, nt, extra = handoff["wave"]
+    rank_steps.save_inputs(path, repair=(pt, nt, extra),
+                           step=(pt, nt, extra, "full"), scan=(spt, snt, sex))
+    t_spawn = time.monotonic()
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(distributed.spawn, PROCESS_MESH_RANKS,
+                              rank_steps.run_rank,
+                              (path, "cuda", PROCESS_MESH_LOCAL, None, 1),
+                              PROCESS_MESH_DEADLINE_S)
+            # the mesh-off scan, while the children start
+            cfg = default_full_roster_config()
+            chains = build_plugins(cfg)
+            soff = SequentialScheduler(chains.filter, chains.pre_score,
+                                       chains.score,
+                                       weights=cfg.score_weights())(
+                                           spt, snt, sex)
+            torch.cuda.synchronize()
+            scan_off = {"choice": soff[1].cpu(), "best": soff[2].cpu(),
+                        "node_table": {k: v.cpu() for k, v in
+                                       tables.table_columns(soff[0]).items()}}
+            del soff, snt, spt, sex
+            ranks = fut.result()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    spawn_s = time.monotonic() - t_spawn
+    off, step_ref = handoff["off"], handoff["step"]
+    n_live = MESH_WAVE
+    diag = int(bool((off["choice"][:n_live] < 0).any()))
+
+    def same(what, got, want) -> None:
+        if isinstance(want, dict):
+            if got.keys() != want.keys():
+                raise AssertionError(f"{what}: keys {sorted(got)} against "
+                                     f"{sorted(want)}")
+            for k in want:
+                same(f"{what} {k}", got[k], want[k])
+        elif isinstance(want, torch.Tensor):
+            if not torch.equal(got, want):
+                bad = int((got != want).sum()) if got.shape == want.shape \
+                    else "shape"
+                raise AssertionError(f"{what}: {bad} entries differ")
+        elif got != want:
+            raise AssertionError(f"{what}: {got} against {want}")
+
+    total = 0
+    lines = []
+    for rank, r in enumerate(ranks):
+        who = f"process mesh rank {rank}"
+        if (r["rank"], r["processes"], r["shape"], r["rows"]) != (
+                rank, PROCESS_MESH_RANKS,
+                (PROCESS_MESH_RANKS, PROCESS_MESH_LOCAL), [rank]):
+            raise AssertionError(f"{who}: rank {r['rank']} of "
+                                 f"{r['processes']}, mesh {r['shape']}, "
+                                 f"rows {r['rows']}")
+        if "spans processes" not in (r["engine_refusal"] or ""):
+            raise AssertionError(f"{who}: the engine took a mesh across "
+                                 f"processes ({r['engine_refusal']})")
+        rep, st, sc = r["repair"], r["step"], r["scan"]
+        for name in ("choice", "rounds", "unschedulable", "node_table",
+                     "carried"):
+            same(f"{who}: (a) {name} against phase 35's mesh-off", rep[name],
+                 off[name])
+        for name in ("choice", "best", "node_table"):
+            same(f"{who}: (b) {name} against evaluate and apply_placements",
+                 st[name], step_ref[name])
+            same(f"{who}: (c) {name} against the mesh-off scan", sc[name],
+                 scan_off[name])
+        if rank:
+            for part in ("repair", "step", "scan"):
+                for name, want in ranks[0][part].items():
+                    if not name.endswith("_s"):
+                        same(f"{who}: {part} {name} against rank 0",
+                             r[part][name], want)
+        want = {"repair": PROCESS_MESH_LOCAL * (rep["rounds"] + diag),
+                "step": PROCESS_MESH_LOCAL,
+                "scan": PROCESS_MESH_LOCAL * (len(scan_pods) + 1)}
+        for part, n in want.items():
+            if r[part]["launches"] != n or r[part]["plain"]:
+                raise AssertionError(
+                    f"{who}: {part} launched select_hosts "
+                    f"{r[part]['launches']} times (want {n}: 4 tiles an "
+                    f"evaluation), {r[part]['plain']} plain-twin calls")
+            total += r[part]["launches"]
+        lines.append(
+            f"rank {rank}: wave {rep['wall_s']:.3f}s ({rep['rounds']} rounds; "
+            f"in the gather a round {rep['gather_s'] / rep['gather_calls'] * 1e3:.2f}"
+            f" ms exchanging after "
+            f"{rep['gather_wait_s'] / rep['gather_calls'] * 1e3:.2f} ms "
+            f"waiting for the card, over {rep['gather_calls']} gathers), step "
+            f"{st['wall_s']:.3f}s (exchange {st['gather_s'] * 1e3:.2f} ms, "
+            f"wait {st['gather_wait_s'] * 1e3:.2f} ms, 2 gathers), "
+            f"scan {sc['wall_s']:.3f}s ({sc['wall_s'] / len(scan_pods) * 1e3:.2f}"
+            f" ms a step); select_hosts launches {rep['launches']} + "
+            f"{st['launches']} + {sc['launches']}")
+    launches["select_hosts"]["mesh-processes"] = total
+    placed = int((off["choice"][:n_live] >= 0).sum())
+    log(f"[mesh-processes] {card}: {PROCESS_MESH_RANKS} processes (spawn, "
+        f"gloo), each a 1 x {PROCESS_MESH_LOCAL} row of cuda:0, one "
+        f"{PROCESS_MESH_RANKS} x {PROCESS_MESH_LOCAL} mesh: (a) config 5's "
+        f"repair wave ({N_NODES} nodes x {n_live} pods, full roster, "
+        f"diagnostics): choices, rounds, unschedulable masks, final node "
+        f"table and carried volume planes bit-identical to phase 35's "
+        f"mesh-off wave on every rank ({placed} placed); (b) the wave step's "
+        f"choice, best and table equal evaluate and apply_placements; (c) "
+        f"the exact scan of {len(scan_pods)} plain pods in the scan layout "
+        f"equal the mesh-off scan; ranks equal; the engine refused the "
+        f"mesh; spawn to results {spawn_s:.1f}s; " + "; ".join(lines)
+        + "; plain-twin calls 0")
+    log(f"[clock] phase 36 took {time.monotonic() - t_phase:.1f}s")
 
 
 def main() -> int:
@@ -3248,7 +3435,9 @@ def main() -> int:
         f"launches {json.dumps(har.launches, sort_keys=True)}, plain-twin "
         f"calls {json.dumps(har.plain_calls, sort_keys=True)}")
 
-    phase35(dev, card, launches, main_err, serial17, c5_nodes, c5_pods)
+    handoff = phase35(dev, card, launches, main_err, serial17, c5_nodes,
+                      c5_pods)
+    phase36(dev, card, launches, handoff, c5_nodes, c5_pods)
 
     stamp("end")
     report = []

@@ -38,8 +38,10 @@ mesh (``MINISCHED_MESH``, ``MINISCHED_MESH_POD_SHARDS``,
 ``MINISCHED_MESH_DEVICES``, or ``make_mesh(devices=...)``), and
 ``utils/compilecache.py`` says where the kernels are built
 (``MINISCHED_CACHE``, ``MINISCHED_CACHE_DIR``).  What the JAX package
-does on one host, the port does; a mesh across processes is still to
-come (ROADMAP.md §1).
+does on one host, the port does; ``parallel/distributed.py`` spans a
+mesh across processes for the one-shot steps, as JAX's puts hosts on the
+pod axis (the live engine stays one process, as JAX's; distinct cards,
+ROADMAP.md §1, are still to come).
 """
 
 from __future__ import annotations

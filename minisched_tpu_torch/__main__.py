@@ -105,7 +105,7 @@ def start(cfg: ProcessConfig, device_mode: bool = True, mesh_devices: int = 0,
             pod_shards = os.environ.get("MINISCHED_MESH_POD_SHARDS", "")
             mesh = make_mesh(mesh_devices,
                              pod_shards=int(pod_shards) if pod_shards else None,
-                             devices=visible_devices(device))
+                             devices=visible_devices(device), local=True)
     # empty: the in-memory store; file://<path>: the WAL (replayed here);
     # any other scheme raises before anything boots
     store = store_from_url(cfg.external_store_url) or ObjectStore()

@@ -251,6 +251,12 @@ class DeviceScheduler(Scheduler):
                  assume_ttl_s: Optional[float] = 30.0, device: Any = None,
                  faults: Any = None, mesh: Any = None, **kwargs):
         self.device: torch.device = resolve_device(device)
+        if mesh not in (None, False) and mesh.spans_processes:
+            raise ValueError(
+                f"{mesh!r} spans processes; the engine is one process, as "
+                "JAX's is (it fetches each wave with jax.device_get, "
+                "minisched_tpu/engine/device_scheduler.py:2090): give it a "
+                "mesh of this process's devices")
         super().__init__(*args, **kwargs)
         self.max_wave = max_wave
         #: the (pods × nodes) device mesh the waves are evaluated over (JAX
@@ -1682,7 +1688,7 @@ def new_device_scheduler(client: Any, informer_factory: Any, cfg: Any = None,
     if mesh is None and (cfg.mesh_devices or cfg.mesh_pod_shards):
         mesh = make_mesh(cfg.mesh_devices or None,
                          pod_shards=cfg.mesh_pod_shards,
-                         devices=visible_devices(device))
+                         devices=visible_devices(device), local=True)
     chains = build_plugins(cfg)
     sched = DeviceScheduler(
         client,

@@ -56,15 +56,31 @@ is.  A virtual mesh repeats one device (``make_mesh(8, devices=[d] *
 8)``): every line of the sharded path runs, the copies are no-ops and
 nothing runs faster.
 
+Across processes (JAX's hosts on the pod axis, ``:91-108``): under a
+``parallel.distributed`` group, ``make_mesh(devices=...)`` takes each
+process's own devices and spans the group, host major, one pod shard a
+process by default (``Mesh.rows``: the ones this process owns).  The
+one-shot steps run SPMD, as GSPMD runs JAX's under
+``jax.distributed``: each process evaluates its own pod shards' tiles
+(every node-axis merge stays inside it), the rows' ``choice`` (and
+``best``, and the diagnostics' masks) cross processes through
+``distributed.gather_pod_rows``, and the accept rule, the commits and
+the next round run alike on every process, each on its own copy of the
+node shards.  The scan lanes replicate the pod axis, so each process
+runs the scan layout on its own first row, with no exchange.  The live
+engine stays one process (it refuses such a mesh) and ``resolve_mesh``
+stays local.
+
 Left out:
 
 * ``_CompiledShardedStep``'s jit-cache heal (JAX ``:259-393``): it
   recompiles a GSPMD executable that a poisoned jit cache dispatched
   with the wrong buffer count.  The port compiles nothing per signature;
   its tiles call the same eager functions as the mesh-off path;
-* JAX's hosts-on-the-pod-axis factoring across processes (``:91-108``):
-  the port's mesh is one process's devices (``n_processes`` is kept for
-  the factoring rule and is 1 for every mesh the port builds);
+* a node shard spanning processes (a pinned ``pod_shards`` that is not
+  a multiple of the processes raises), and a live engine across
+  processes: JAX's has none (it is one process, fetching each wave with
+  ``jax.device_get``, ``minisched_tpu/engine/device_scheduler.py:2090``);
 * the engine runs its blocked scan lane unsharded inside a mesh engine
   (as the JAX engine's tests pin it, ``tests/test_device_scheduler.py:
   368-373``); ``BlockedSequentialScheduler(mesh=)`` runs it in the scan
@@ -86,6 +102,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from minisched_tpu_torch.parallel import distributed
+from minisched_tpu_torch.parallel.distributed import gather_pod_rows
+
 POD_AXIS = "pods"
 NODE_AXIS = "nodes"
 
@@ -96,18 +115,57 @@ TURN_TIMEOUT_S = 600.0
 
 class Mesh:
     """A 2-D grid of ``torch.device``: rows are pod shards, columns node
-    shards.  ``shape`` maps each axis name to its size, as JAX's does."""
+    shards.  ``shape`` maps each axis name to its size, as JAX's does.
+
+    Across processes (``group``: a ``torch.distributed`` group) the grid
+    is the whole mesh, host major, and ``rows`` are the pod shards this
+    process owns (every process as many), whose devices are its own; the
+    other rows' entries name their owners' devices and are never touched
+    here.  Off a group this process owns every row."""
 
     axis_names = (POD_AXIS, NODE_AXIS)
 
-    def __init__(self, grid: Sequence[Sequence[Any]]):
-        rows = [[torch.device(d) for d in row] for row in grid]
-        if not rows or not rows[0] or any(len(r) != len(rows[0])
-                                          for r in rows):
+    def __init__(self, grid: Sequence[Sequence[Any]], group: Any = None,
+                 rows: Optional[Sequence[int]] = None):
+        grid_rows = [[torch.device(d) for d in row] for row in grid]
+        if not grid_rows or not grid_rows[0] or any(
+                len(r) != len(grid_rows[0]) for r in grid_rows):
             raise ValueError("a mesh needs a non-empty rectangular grid")
-        self.devices: List[List[torch.device]] = rows
+        self.devices: List[List[torch.device]] = grid_rows
+        #: the process group the mesh spans (None: this process alone)
+        self.group = group
+        #: the pod shards this process evaluates, in order
+        self.rows: List[int] = (list(range(len(grid_rows))) if rows is None
+                                else list(rows))
+        if not self.rows or any(not 0 <= i < len(grid_rows)
+                                for i in self.rows):
+            raise ValueError(f"rows {self.rows} are not pod shards of a "
+                             f"{len(grid_rows)}-row grid")
+        #: what the exchanges across processes cost (``gather_pod_rows``)
+        self.gather_stats = distributed.GatherStats()
         self._pool: Optional[ThreadPoolExecutor] = None
         self._run_lock = threading.Lock()
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.group is not None
+
+    @property
+    def process_count(self) -> int:
+        """The processes the mesh spans (1 off a group)."""
+        return (len(self.devices) // len(self.rows)
+                if self.group is not None else 1)
+
+    @property
+    def lead(self) -> torch.device:
+        """This process's lead device: its first row's first device, where
+        a step gathers the whole wave."""
+        return self.devices[self.rows[0]][0]
+
+    def node_device(self, j: int) -> torch.device:
+        """Where this process keeps node shard ``j`` (its first row's
+        device of column ``j``)."""
+        return self.devices[self.rows[0]][j]
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -122,13 +180,16 @@ class Mesh:
         return self.devices[i][j]
 
     def __repr__(self) -> str:
+        procs = (f", {self.process_count} processes, rows {self.rows}"
+                 if self.spans_processes else "")
         return (f"Mesh({self.shape[POD_AXIS]}x{self.shape[NODE_AXIS]}, "
-                f"{[str(d) for row in self.devices for d in row]})")
+                f"{[str(d) for row in self.devices for d in row]}{procs})")
 
     def _executor(self) -> ThreadPoolExecutor:
         if self._pool is None:
-            self._pool = ThreadPoolExecutor(max_workers=self.size,
-                                            thread_name_prefix="mesh-tile")
+            self._pool = ThreadPoolExecutor(
+                max_workers=len(self.rows) * len(self.devices[0]),
+                thread_name_prefix="mesh-tile")
         return self._pool
 
 
@@ -188,7 +249,7 @@ def resolve_mesh(env: Optional[Dict[str, str]] = None,
         raise RuntimeError("MINISCHED_MESH=1: no CUDA device is visible")
     pod_shards = env.get("MINISCHED_MESH_POD_SHARDS", "")
     return make_mesh(pod_shards=int(pod_shards) if pod_shards else None,
-                     devices=devices)
+                     devices=devices, local=True)
 
 
 def default_pod_shards(n_devices: int, n_processes: int = 1) -> int:
@@ -206,11 +267,22 @@ def default_pod_shards(n_devices: int, n_processes: int = 1) -> int:
 
 def make_mesh(n_devices: Optional[int] = None,
               pod_shards: Optional[int] = None,
-              devices: Optional[Sequence[Any]] = None) -> Mesh:
+              devices: Optional[Sequence[Any]] = None,
+              local: bool = False) -> Mesh:
     """A (pods × nodes) mesh over the first ``n_devices`` of ``devices``
     (default: every visible card), ``pod_shards`` rows of them
     (default: ``default_pod_shards``).  A device repeated in ``devices``
-    gives a virtual mesh, as the tests and the smoke build one."""
+    gives a virtual mesh, as the tests and the smoke build one.
+
+    Under a process group of W > 1 ranks (``parallel.distributed``) and
+    unless ``local``, ``devices`` are this process's own (every rank
+    passes the same count L) and the mesh spans the group, as JAX's
+    spans ``jax.process_count()`` processes (``:134-141``): W × L
+    devices, host major, ``default_pod_shards(W * L, W)`` = W rows by
+    default, one a process.  A pinned ``pod_shards`` must be a multiple
+    of W (a pod shard's node shards never span processes).  ``local``
+    keeps the mesh to this process's devices under a group too (the live
+    engine's, ``resolve_mesh``)."""
     if n_devices is not None and n_devices < 1:
         raise ValueError(f"n_devices must be >= 1, got {n_devices}")
     devices = list(devices if devices is not None else visible_devices())
@@ -220,6 +292,9 @@ def make_mesh(n_devices: Optional[int] = None,
     if n > len(devices):
         raise ValueError(f"requested {n} devices, only {len(devices)} available")
     devices = devices[:n]
+    n_procs = 1 if local else distributed.process_count()
+    if n_procs > 1:
+        return _process_mesh(devices, pod_shards, n_procs)
     if pod_shards is None:
         pod_shards = default_pod_shards(n)
     if n % pod_shards:
@@ -227,6 +302,39 @@ def make_mesh(n_devices: Optional[int] = None,
     width = n // pod_shards
     return Mesh([devices[r * width:(r + 1) * width]
                  for r in range(pod_shards)])
+
+
+def _process_mesh(local: List[Any], pod_shards: Optional[int],
+                  n_procs: int) -> Mesh:
+    """``make_mesh`` across the group: every rank sends its roster and
+    its ``pod_shards``, so every rank takes the same decision (and raises
+    alike) before any step runs."""
+    rank = distributed.process_index()
+    rosters = distributed.all_gather_objects(
+        ([str(d) for d in local], pod_shards))
+    counts = [len(r) for r, _ in rosters]
+    if len(set(counts)) != 1:
+        raise ValueError(f"a mesh across processes needs the same device "
+                         f"count on every rank, got {counts}")
+    pins = {p for _, p in rosters}
+    if len(pins) != 1:
+        raise ValueError(f"the ranks pinned different pod_shards: "
+                         f"{sorted(map(str, pins))}")
+    n = n_procs * counts[0]
+    if pod_shards is None:
+        pod_shards = default_pod_shards(n, n_procs)
+    if pod_shards % n_procs:
+        raise ValueError(f"pod_shards={pod_shards} is not a multiple of the "
+                         f"{n_procs} processes: a pod shard's node shards "
+                         "would span processes")
+    if n % pod_shards:
+        raise ValueError(f"{n} devices not divisible by pod_shards={pod_shards}")
+    width = n // pod_shards
+    every = [d for roster, _ in rosters for d in roster]
+    per_proc = pod_shards // n_procs
+    return Mesh([every[r * width:(r + 1) * width] for r in range(pod_shards)],
+                group=distributed.default_group(),
+                rows=range(rank * per_proc, (rank + 1) * per_proc))
 
 
 # ---------------------------------------------------------------------------
@@ -329,9 +437,11 @@ def place(obj: Any, layout: Dict[str, Placement],
 @dataclass
 class NodeShards:
     """A node table split on the node axis: shard j holds node rows
-    ``[j * width, (j + 1) * width)`` on ``mesh.device(0, j)`` (a tile of
-    another pod shard moves it to its device, which is a no-op on a
-    virtual mesh)."""
+    ``[j * width, (j + 1) * width)`` on ``mesh.node_device(j)``, this
+    process's first row (a tile of another pod shard moves it to its
+    device, which is a no-op on a virtual mesh).  Across processes every
+    process holds its own copy, and every one commits the same
+    placements."""
 
     shards: List[Any]
     width: int
@@ -355,7 +465,7 @@ def shard_nodes(mesh: Mesh, nodes: Any) -> NodeShards:
     width = cap // ns
     layout = node_sharding(mesh, nodes)
     return NodeShards([place(nodes, layout, {NODE_AXIS: (j * width, width)},
-                             mesh.device(0, j)) for j in range(ns)], width)
+                             mesh.node_device(j)) for j in range(ns)], width)
 
 
 def gather_nodes(shards: NodeShards, device: Any) -> Any:
@@ -376,7 +486,8 @@ def gather_nodes(shards: NodeShards, device: Any) -> Any:
 
 def shard_pods(mesh: Mesh, pods: Any) -> List[Any]:
     """The pod table split over the pod axis: shard i on its lead device
-    ``mesh.device(i, 0)``."""
+    ``mesh.device(i, 0)``, for the pod shards this process owns
+    (``mesh.rows``: every one off a group)."""
     ps, _ = mesh_axis_sizes(mesh)
     cap = int(pods.valid.shape[0])
     if cap % ps:
@@ -385,7 +496,7 @@ def shard_pods(mesh: Mesh, pods: Any) -> List[Any]:
     width = cap // ps
     layout = pod_sharding(mesh, pods)
     return [place(pods, layout, {POD_AXIS: (i * width, width)},
-                  mesh.device(i, 0)) for i in range(ps)]
+                  mesh.device(i, 0)) for i in mesh.rows]
 
 
 def shard_tables(mesh: Mesh, pods: Any, nodes: Any
@@ -586,14 +697,15 @@ def merge_select(choice: torch.Tensor, best: torch.Tensor,
 def run_tiles(mesh: Mesh, fn: Callable[[int, int], Any], node_width: int,
               rows: Optional[Sequence[int]] = None) -> Dict[Tuple[int, int], Any]:
     """``fn(i, j)`` for every tile of the pod shards ``rows`` (default:
-    all) and every node shard, each in a thread of its own with its tile
-    set (so the merges above meet across the node shards of pod shard i),
-    on its device and on the calling thread's current stream there; the
-    tiles take turns (``_Ring``).  Returns {(i, j): result}.  A tile that
-    raises stops the others at their next wait; its error is raised once
-    every tile ended.  A 1 × 1 mesh runs inline."""
-    ps, ns = mesh_axis_sizes(mesh)
-    rows = list(range(ps)) if rows is None else list(rows)
+    this process's, ``mesh.rows``) and every node shard, each in a thread
+    of its own with its tile set (so the merges above meet across the
+    node shards of pod shard i), on its device and on the calling
+    thread's current stream there; the tiles take turns (``_Ring``).
+    Returns {(i, j): result}.  A tile that raises stops the others at
+    their next wait; its error is raised once every tile ended.  A 1 × 1
+    mesh runs inline."""
+    _, ns = mesh_axis_sizes(mesh)
+    rows = list(mesh.rows) if rows is None else list(rows)
     keys = [(i, j) for i in rows for j in range(ns)]
     groups = {i: _NodeGroup(ns, mesh.device(i, 0)) for i in rows}
     ring = _Ring(keys)
@@ -661,6 +773,11 @@ class _GatheredNodes:
                                            for s in shards]))
 
 
+def _pad_column(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with one zero column more on its last dim."""
+    return torch.cat([t, t.new_zeros((*t.shape[:-1], 1))], dim=-1)
+
+
 def _cat_to(parts: Sequence[torch.Tensor], device: torch.device,
             dim: int = 0) -> torch.Tensor:
     return torch.cat([p.to(device) for p in parts], dim=dim)
@@ -674,7 +791,10 @@ def _mesh_repair_wave_step(mesh: Mesh, pods: Any, nodes: NodeShards,
                            split_static: bool) -> Any:
     """``ops/repair.repair_wave_step`` over the mesh (see the module
     docstring); the same rounds, accept rule and commits, placements
-    bit-identical."""
+    bit-identical.  Across processes each evaluates its own pod shards'
+    tiles, the rows' choices (and the diagnostics' masks) are gathered by
+    ``distributed.gather_pod_rows``, and the rest of the round runs alike
+    on every process, on its own copy of the node shards."""
     from minisched_tpu_torch.ops.fused import (
         evaluate,
         precompute_static,
@@ -688,7 +808,8 @@ def _mesh_repair_wave_step(mesh: Mesh, pods: Any, nodes: NodeShards,
     from minisched_tpu_torch.ops.state import apply_placements, mount_slot_planes
 
     ps, ns = mesh_axis_sizes(mesh)
-    lead = mesh.device(0, 0)
+    lead = mesh.lead
+    rows = mesh.rows
     P = int(pods.valid.shape[0])
     if P % ps:
         raise ValueError(f"pod capacity {P} does not divide over {ps} pod shards")
@@ -714,7 +835,7 @@ def _mesh_repair_wave_step(mesh: Mesh, pods: Any, nodes: NodeShards,
         slots = mount_slot_planes(extra)
         n_vol_rows = extra.vol_any.shape[0]
         for j in range(ns):
-            dev = mesh.device(0, j)
+            dev = mesh.node_device(j)
             vols.append({f: getattr(extra, f).narrow(-1, j * W, W)
                          .to(dev).contiguous()
                          for f in ("vol_any", "vol_rw", "node_vols_fam")})
@@ -757,7 +878,8 @@ def _mesh_repair_wave_step(mesh: Mesh, pods: Any, nodes: NodeShards,
             tile_pods(active_pods, i, j), tile_nodes(i, j), filter_plugins,
             pre_score_plugins, score_plugins, ctx,
             static=statics.get((i, j)), extra=tile_extra(i, j)), W)
-        choice = _cat_to([results[(i, 0)].choice for i in range(ps)], lead)
+        choice = gather_pod_rows(mesh, [results[(i, 0)].choice for i in rows],
+                                 lead)
         accept = accept_placements(
             _GatheredNodes(nodes.shards, lead), active_pods, choice,
             active_pods.valid, check_resources=check_resources,
@@ -770,7 +892,7 @@ def _mesh_repair_wave_step(mesh: Mesh, pods: Any, nodes: NodeShards,
                          if check_restr else None))
         # each accepted pod's use lands in the node shard owning its node
         for j in range(ns):
-            dev = mesh.device(0, j)
+            dev = mesh.node_device(j)
             c, a = choice.to(dev), accept.to(dev)
             base = nodes.base(j)
             own = a & (c >= base) & (c < base + W)
@@ -779,13 +901,21 @@ def _mesh_repair_wave_step(mesh: Mesh, pods: Any, nodes: NodeShards,
                            {}, dev)
             nodes.shards[j] = apply_placements(nodes.shards[j], pods_j, local)
             if track_vols:
+                # the slots that commit nothing write the dummy row where
+                # mesh-off writes it: at the pod's node if it is accepted,
+                # else at node 0 (shard 0's); a sink column past the shard
+                # takes the writes of the pods another shard owns
                 v = vols[j]
+                sink = torch.where(a, W, 0) if base == 0 else W
+                idx = torch.where(own, c - base, sink).long()
+                fam, va, vr = commit_volume_state(
+                    own, idx, tuple(s.to(dev) for s in slots),
+                    extra.pod_missing.to(dev),
+                    *(_pad_column(v[f]) for f in ("node_vols_fam",
+                                                  "vol_any", "vol_rw")),
+                    bool(fam_limits))
                 v["node_vols_fam"], v["vol_any"], v["vol_rw"] = (
-                    commit_volume_state(
-                        own, local.clamp(min=0).long(),
-                        tuple(s.to(dev) for s in slots),
-                        extra.pod_missing.to(dev), v["node_vols_fam"],
-                        v["vol_any"], v["vol_rw"], bool(fam_limits)))
+                    fam[..., :W], va[..., :W], vr[..., :W])
         final = torch.where(accept, choice, final)
         committed = committed | accept
         rounds += 1
@@ -810,7 +940,8 @@ def _mesh_repair_wave_step(mesh: Mesh, pods: Any, nodes: NodeShards,
                 return unschedulable_plugin_masks(result.filter_masks, valid)
 
             masks = run_tiles(mesh, diag, W)
-            unsched = _cat_to([masks[(i, 0)] for i in range(ps)], lead, dim=1)
+            unsched = gather_pod_rows(mesh, [masks[(i, 0)] for i in rows],
+                                      lead, dim=1)
     out_extra = None
     if extra is not None:
         out_extra = extra
@@ -834,7 +965,7 @@ def _run_mesh_steps(mesh: Mesh, step: Callable[[Dict[str, torch.Tensor]], None],
     from minisched_tpu_torch.ops import sequential as seq
 
     _, ns = mesh_axis_sizes(mesh)
-    if len({mesh.device(0, j) for j in range(ns)}) == 1:
+    if len({mesh.node_device(j) for j in range(ns)}) == 1:
         seq.run_steps(step, state, n, log)
         return
     if n <= 0:
@@ -844,7 +975,7 @@ def _run_mesh_steps(mesh: Mesh, step: Callable[[Dict[str, torch.Tensor]], None],
     t0 = time.monotonic()
     for _ in range(n):
         step(state)
-    for d in {mesh.device(0, j) for j in range(ns)}:
+    for d in {mesh.node_device(j) for j in range(ns)}:
         if d.type == "cuda":
             torch.cuda.synchronize(d)
     stats.wall_s = time.monotonic() - t0
@@ -884,7 +1015,8 @@ def _mesh_scan_schedule(mesh: Mesh, pods: Any, nodes: NodeShards,
 
     _, ns = mesh_axis_sizes(mesh)
     W = nodes.width
-    lead = mesh.device(0, 0)
+    lead = mesh.lead
+    row = mesh.rows[0]
     needs = [pl.name() for pl in (*filter_plugins, *score_plugins)
              if getattr(pl, "needs_extra", False)]
     if needs and extra is None:
@@ -903,7 +1035,7 @@ def _mesh_scan_schedule(mesh: Mesh, pods: Any, nodes: NodeShards,
                  if extra is not None else {})
 
     def setup(_i: int, j: int) -> Dict[str, Any]:
-        dev = mesh.device(0, j)
+        dev = mesh.node_device(j)
         base = nodes.base(j)
         pods_j = place(pods, pod_sharding(mesh, pods), {}, dev)
         extra_j = (place(extra, ex_layout, {NODE_AXIS: (base, W)}, dev)
@@ -923,12 +1055,12 @@ def _mesh_scan_schedule(mesh: Mesh, pods: Any, nodes: NodeShards,
                 extra_dynamic=scan_dynamic),
         }
 
-    tiles = run_tiles(mesh, setup, W, rows=[0])
+    tiles = run_tiles(mesh, setup, W, rows=[row])
     state = {f"{j}/{name}": t for j in range(ns)
-             for name, t in tiles[(0, j)]["state"].items()}
+             for name, t in tiles[(row, j)]["state"].items()}
 
     def tile_step(j: int, st: Dict[str, torch.Tensor]) -> None:
-        t = tiles[(0, j)]
+        t = tiles[(row, j)]
         s = {name: st[f"{j}/{name}"] for name in t["state"]}
         base = t["base"]
         i = s["i"]
@@ -958,12 +1090,12 @@ def _mesh_scan_schedule(mesh: Mesh, pods: Any, nodes: NodeShards,
         s["i"] += 1
 
     def step(st: Dict[str, torch.Tensor]) -> None:
-        run_tiles(mesh, lambda _i, j: tile_step(j, st), W, rows=[0])
+        run_tiles(mesh, lambda _i, j: tile_step(j, st), W, rows=[row])
 
     _run_mesh_steps(mesh, step, state, live, log)
     shards = NodeShards([seq._carried_nodes(
         nodes.shards[j], {name: state[f"{j}/{name}"]
-                          for name in tiles[(0, j)]["state"]})
+                          for name in tiles[(row, j)]["state"]})
         for j in range(ns)], W)
     return (gather_nodes(shards, lead), state["0/choice"].to(lead),
             state["0/best"].to(lead))
@@ -993,7 +1125,8 @@ def _mesh_blocked_scan_schedule(mesh: Mesh, pods: Any, nodes: NodeShards,
 
     _, ns = mesh_axis_sizes(mesh)
     W = nodes.width
-    lead = mesh.device(0, 0)
+    lead = mesh.lead
+    row = mesh.rows[0]
     P = int(pods.valid.shape[0])
     B = block_size
     if P % B:
@@ -1015,7 +1148,7 @@ def _mesh_blocked_scan_schedule(mesh: Mesh, pods: Any, nodes: NodeShards,
     steps = -(-seq._live_rows(pods.valid) // B)
 
     def setup(_i: int, j: int) -> Dict[str, Any]:
-        dev = mesh.device(0, j)
+        dev = mesh.node_device(j)
         base = nodes.base(j)
         pods_j = place(pods, pod_sharding(mesh, pods), {}, dev)
         extra_j = place(extra, ex_layout, {NODE_AXIS: (base, W)}, dev)
@@ -1035,12 +1168,12 @@ def _mesh_blocked_scan_schedule(mesh: Mesh, pods: Any, nodes: NodeShards,
                 extra_dynamic=scan_dynamic),
         }
 
-    tiles = run_tiles(mesh, setup, W, rows=[0])
+    tiles = run_tiles(mesh, setup, W, rows=[row])
     state = {f"{j}/{name}": t for j in range(ns)
-             for name, t in tiles[(0, j)]["state"].items()}
+             for name, t in tiles[(row, j)]["state"].items()}
 
     def tile_step(j: int, st: Dict[str, torch.Tensor]) -> None:
-        t = tiles[(0, j)]
+        t = tiles[(row, j)]
         s = {name: st[f"{j}/{name}"] for name in t["state"]}
         base, volumes, static = t["base"], t["volumes"], t["static"]
         rows = s["i"] * B + t["rows"]
@@ -1085,12 +1218,12 @@ def _mesh_blocked_scan_schedule(mesh: Mesh, pods: Any, nodes: NodeShards,
         s["i"] += 1
 
     def step(st: Dict[str, torch.Tensor]) -> None:
-        run_tiles(mesh, lambda _i, j: tile_step(j, st), W, rows=[0])
+        run_tiles(mesh, lambda _i, j: tile_step(j, st), W, rows=[row])
 
     _run_mesh_steps(mesh, step, state, steps, log)
     shards = NodeShards([seq._carried_nodes(
         nodes.shards[j], {name: state[f"{j}/{name}"]
-                          for name in tiles[(0, j)]["state"]})
+                          for name in tiles[(row, j)]["state"]})
         for j in range(ns)], W)
     return (gather_nodes(shards, lead), state["0/choice"].to(lead),
             state["0/best"].to(lead), state["0/accepted"].to(lead))
@@ -1101,13 +1234,14 @@ def _mesh_wave_step(mesh: Mesh, pods: Any, nodes: NodeShards, extra: Any,
                     pre_score_plugins: Sequence[Any],
                     score_plugins: Sequence[Any], ctx: Any
                     ) -> Tuple[Any, torch.Tensor, torch.Tensor]:
-    """``ops/state.wave_step`` over the mesh: evaluate every tile, then
+    """``ops/state.wave_step`` over the mesh: evaluate every tile (across
+    processes, this process's), gather the rows' choice and best, then
     commit each placement into the node shard owning its node."""
     from minisched_tpu_torch.ops.fused import evaluate
     from minisched_tpu_torch.ops.state import apply_placements
 
     ps, ns = mesh_axis_sizes(mesh)
-    lead = mesh.device(0, 0)
+    lead = mesh.lead
     P = int(pods.valid.shape[0])
     Pw, W = P // ps, nodes.width
     ex_layout = constraint_sharding(mesh, extra) if extra is not None else {}
@@ -1125,10 +1259,12 @@ def _mesh_wave_step(mesh: Mesh, pods: Any, nodes: NodeShards, extra: Any,
                         score_plugins, ctx, extra=te)
 
     results = run_tiles(mesh, tile, W)
-    choice = _cat_to([results[(i, 0)].choice for i in range(ps)], lead)
-    best = _cat_to([results[(i, 0)].best_score for i in range(ps)], lead)
+    choice = gather_pod_rows(mesh, [results[(i, 0)].choice
+                                    for i in mesh.rows], lead)
+    best = gather_pod_rows(mesh, [results[(i, 0)].best_score
+                                  for i in mesh.rows], lead)
     for j in range(ns):
-        dev = mesh.device(0, j)
+        dev = mesh.node_device(j)
         c = choice.to(dev)
         base = nodes.base(j)
         own = (c >= base) & (c < base + W)

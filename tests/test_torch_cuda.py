@@ -911,3 +911,40 @@ def test_live_engine_on_a_virtual_card_mesh(dev):
     assert all(run.placements.values()) and run.loop_errors == 0
     assert kernels.launch_counts["select_hosts"] >= 8
     assert not any(kernels.plain_calls.values())
+
+
+def test_nodenumber_wave_step_across_two_processes(dev, tmp_path):
+    """Two processes on the card, each a 1 x 4 row of it (one 2 x 4 mesh
+    across processes, ``parallel/distributed.py``): every rank's
+    NodeNumber wave step gives the mesh-off choice, best and final node
+    table, launching the kernel on its 4 tiles and no plain twin."""
+    from minisched_tpu_torch.ops.fused import BatchContext, evaluate
+    from minisched_tpu_torch.ops.state import apply_placements
+    from minisched_tpu_torch.parallel import distributed, rank_steps
+    from minisched_tpu_torch.plugins.nodenumber import NodeNumber
+    from minisched_tpu_torch.plugins.nodeunschedulable import (
+        NodeUnschedulable,
+    )
+
+    rng = np.random.default_rng(7)
+    nodes = [make_node(f"node{i:04d}", unschedulable=bool(rng.random() < 0.3))
+             for i in range(1000)]
+    pods = [make_pod(f"pod{i}") for i in range(500)]
+    nt, _ = tables.build_node_table(nodes, capacity=1024, device=dev)
+    pt, _ = tables.build_pod_table(pods, capacity=512, device=dev)
+    nn = NodeNumber()
+    off = evaluate(pt, nt, (NodeUnschedulable(),), (nn,), (nn,),
+                   BatchContext(weights=(("NodeNumber", 1),)))
+    want = tables.table_columns(apply_placements(nt, pt, off.choice))
+    path = str(tmp_path / "inputs.pt")
+    rank_steps.save_inputs(path, step=(pt, nt, None, "nodenumber"))
+    ranks = distributed.spawn(2, rank_steps.run_rank, (path, "cuda", 4), 120)
+    for rank, r in enumerate(ranks):
+        assert r["shape"] == (2, 4) and r["rows"] == [rank]
+        step = r["step"]
+        assert torch.equal(step["choice"], off.choice.cpu())
+        assert torch.equal(step["best"], off.best_score.cpu())
+        for name, col in step["node_table"].items():
+            assert torch.equal(col, want[name].cpu()), name
+        assert step["launches"] == 4 and step["plain"] == 0
+        assert step["gather_calls"] == 2

@@ -22,9 +22,11 @@ FORBIDDEN = ("jax", "jaxlib", "minisched_tpu")
 
 
 def _sources():
-    # the card tests run where JAX is not installed
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tests" / "test_torch_cuda.py"]
+    # the card tests run where JAX is not installed, and the processes
+    # the tests spawn import their targets' module
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+        ROOT / "tests" / "process_mesh_child.py"]
 
 
 def _imported_modules(path: Path):
@@ -49,6 +51,15 @@ def _forbidden(module: str) -> bool:
 def test_port_source_imports_no_jax(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_mesh_across_processes_is_checked():
+    """The group, the spawn and the ranks' steps are among the sources
+    parsed above, and so is the spawned children's test module."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    assert {"minisched_tpu_torch/parallel/distributed.py",
+            "minisched_tpu_torch/parallel/rank_steps.py",
+            "tests/process_mesh_child.py"} <= names
 
 
 def test_forbidden_matches_only_the_jax_side():
