@@ -193,16 +193,22 @@ def _with_node(pod: Pod, node_name: str) -> Pod:
 class LaneStats:
     """What one scan lane of an engine did (``DeviceScheduler.scan_stats``):
     calls, steps replayed (pods for the exact scan, blocks for the blocked
-    lane), ``select_hosts`` launches recorded in those replays and the
-    seconds spent capturing the step graphs (both 0 on the CPU), pods
-    placed; for the blocked lane also its grouping rounds and the pods it
-    left to the exact scan."""
+    lane), ``select_hosts`` launches recorded in those replays, the
+    seconds spent capturing the step graphs, the replays timed by CUDA
+    events and the card's seconds for them (all 0 on the CPU), pods
+    placed; the seconds of the ``scan_build`` block's two builds (the node
+    and pod tables, ``_build_constraints``); for the blocked lane also its
+    grouping rounds and the pods it left to the exact scan."""
 
     calls: int = 0
     steps: int = 0
     select_hosts: int = 0
     capture_s: float = 0.0
+    replays: int = 0
+    device_s: float = 0.0
     placed: int = 0
+    build_tables_s: float = 0.0
+    build_constraints_s: float = 0.0
     rounds: int = 0
     to_exact: int = 0
 
@@ -212,6 +218,8 @@ class LaneStats:
             self.steps += loop.steps
             self.select_hosts += loop.steps * loop.select_hosts_per_step
             self.capture_s += loop.capture_s
+            self.replays += loop.replays
+            self.device_s += loop.device_s
 
 
 class DeviceScheduler(Scheduler):
@@ -823,20 +831,24 @@ class DeviceScheduler(Scheduler):
             pods_ = [m.pod if m is not None else dummy for m in cur]
             gang_view = self._gang_view(pods_)
             with self.metrics.timed("scan_build"):
+                t0 = time.monotonic()
                 # the blocked lane runs unsharded under a mesh
                 node_table, node_names = self._table_builder.build(
                     node_infos, agg_delta=agg_delta, sharded=False)
                 pod_table, _ = build_pod_table(
                     pods_, capacity=cap, device=self.device,
                     invalid_rows=pad_rows, gang_view=gang_view)
+                t1 = time.monotonic()
                 extra = self._build_constraints(
                     pods_, nodes, pod_capacity=cap,
                     node_capacity=node_table.capacity, scan_planes=True)
+                stats.build_tables_s += t1 - t0
+                stats.build_constraints_s += time.monotonic() - t1
             # the gate opens for the device call: held event batches drain
             # against it
             self.informer_factory.resume_dispatch()
             with self.metrics.timed("scan_evaluate"):
-                log = StepLog()
+                log = StepLog(timed=self.metrics.timed)
                 _, choice, _, accepted = self._get_blocked_scheduler()(
                     pod_table, node_table, extra, log)
                 choice, accepted = choice.cpu(), accepted.cpu()
@@ -893,24 +905,28 @@ class DeviceScheduler(Scheduler):
                 pods_ = [qpi.pod for qpi in part_]
                 gang_view = self._gang_view(pods_)
                 with self.metrics.timed("scan_build"):
+                    t0 = time.monotonic()
                     node_table, node_names = self._table_builder.build(
                         node_infos, agg_delta=agg_delta)
                     pod_table, _ = build_pod_table(
                         pods_, capacity=cap, device=self.device,
                         gang_view=gang_view)
+                    t1 = time.monotonic()
                     extra = None
                     if self._needs_extra:
                         extra = self._build_constraints(
                             pods_, nodes, pod_capacity=cap,
                             node_capacity=node_table.capacity,
                             scan_planes=True)
+                    stats.build_tables_s += t1 - t0
+                    stats.build_constraints_s += time.monotonic() - t1
                 if self.result_store is not None:
                     # scan pods get the wave pods' record, against the
                     # chunk's pre-decision snapshot
                     self._record_wave(pods_, pod_table, _whole(node_table),
                                       node_names, extra)
                 with self.metrics.timed("scan_evaluate"):
-                    log = StepLog()
+                    log = StepLog(timed=self.metrics.timed)
                     _, choice, _ = self._get_scan_scheduler()(
                         pod_table, node_table, extra, log)
                     choice = choice.cpu()

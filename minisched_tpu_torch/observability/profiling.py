@@ -94,23 +94,3 @@ class CycleMetrics:
             )
         return "\n".join(lines)
 
-
-class NullMetrics:
-    """No-op stand-in so the engine can call ``metrics.timed(...)``
-    unconditionally (assign a real CycleMetrics to start collecting)."""
-
-    def observe(self, phase: str, dt: float) -> None:
-        pass
-
-    @contextlib.contextmanager
-    def timed(self, phase: str) -> Iterator[None]:
-        yield
-
-    def snapshot(self) -> Dict[str, Dict[str, float]]:
-        return {}
-
-    def report(self) -> str:
-        return ""
-
-
-NULL_METRICS = NullMetrics()

@@ -36,6 +36,11 @@ that read a device value on the host could not be captured, so the
 capture itself is the check that none does.  On the CPU the same step
 function runs eagerly.  The JAX ``lax.cond`` that skips fully padded
 blocks becomes a host count of the live steps, read once before the loop.
+A ``StepLog``'s ``timed`` hook opens a span around each part of a lane
+call: ``scan_prepare`` (the lane's entry up to the loop), ``scan_capture``
+(the warm-up step and the capture) and ``scan_replay`` (the replays, or
+the eager loop), and the loop's ``LoopStats`` keeps the replays between
+its two CUDA events and their elapsed time.
 
 Commits are exact in any order: integer ``index_add_`` and gathers; the
 JAX blocked commit's float matmul chains (``Precision.HIGHEST``) are a
@@ -58,9 +63,19 @@ is not ported; the live engine calls both lanes through
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field, replace
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (
+    Any,
+    Callable,
+    ContextManager,
+    Dict,
+    List,
+    Optional,
+    Sequence,
+    Tuple,
+)
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -101,10 +116,11 @@ class LoopStats:
     """What one step loop measured (``run_steps``)."""
 
     steps: int  # steps run (graph replays on a card)
-    wall_s: float = 0.0  # host wall of the loop, closed by a synchronise
     capture_s: float = 0.0  # warm-up step and capture (card only)
-    #: CUDA events around the replays, divided by the replays (card only)
-    device_ms_per_step: Optional[float] = None
+    #: the replays between the loop's two CUDA events and the seconds the
+    #: events measured (card only; the profiled replay is outside them)
+    replays: int = 0
+    device_s: float = 0.0
     #: device operations (kernels, copies, fills) of one replay, from the
     #: profiler (card only, when the log asks for it)
     device_ops_per_step: Optional[int] = None
@@ -117,15 +133,28 @@ class LoopStats:
     #: ``select_hosts`` launches recorded in the graph (card only)
     select_hosts_per_step: int = 0
 
+    @property
+    def device_ms_per_step(self) -> Optional[float]:
+        """CUDA-event milliseconds a replay (None without a timed one)."""
+        return self.device_s * 1e3 / self.replays if self.replays else None
+
 
 @dataclass
 class StepLog:
     """Pass as ``log`` to the scan lanes to keep one ``LoopStats`` per step
     loop; ``count_ops`` profiles the first replay of each loop to count
-    its device operations."""
+    its device operations.  ``timed`` takes a phase name (``scan_prepare``,
+    ``scan_capture``, ``scan_replay``) and returns the context manager the
+    lane runs that part in (the engine passes ``CycleMetrics.timed``)."""
 
     count_ops: bool = False
     loops: List[LoopStats] = field(default_factory=list)
+    timed: Callable[[str], ContextManager[Any]] = contextlib.nullcontext
+
+
+def _span(log: Optional[StepLog], phase: str) -> ContextManager[None]:
+    """``log.timed(phase)``, or nothing without a log."""
+    return log.timed(phase) if log is not None else contextlib.nullcontext()
 
 
 def run_steps(step: Callable[[State], None], state: State, n: int,
@@ -144,15 +173,14 @@ def run_steps(step: Callable[[State], None], state: State, n: int,
         return
     device = next(iter(state.values())).device
     stats = LoopStats(steps=n)
-    t0 = time.monotonic()
     if device.type == "cpu":
-        for _ in range(n):
-            step(state)
+        with _span(log, "scan_replay"):
+            for _ in range(n):
+                step(state)
     elif device.type == "cuda":
         _replay(step, state, n, stats, log)
     else:
         raise ValueError(f"no step loop for tensors on {device}")
-    stats.wall_s = time.monotonic() - t0
     if log is not None:
         log.loops.append(stats)
 
@@ -160,37 +188,40 @@ def run_steps(step: Callable[[State], None], state: State, n: int,
 def _replay(step: Callable[[State], None], state: State, n: int,
             stats: LoopStats, log: Optional[StepLog]) -> None:
     device = next(iter(state.values())).device
-    t0 = time.monotonic()
-    current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        step({name: t.clone() for name, t in state.items()})
-    current.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    before = dict(kernels.captured_counts)
-    with torch.cuda.graph(graph):
-        step(state)
+    with _span(log, "scan_capture"):
+        t0 = time.monotonic()
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            step({name: t.clone() for name, t in state.items()})
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(kernels.captured_counts)
+        with torch.cuda.graph(graph):
+            step(state)
+        stats.capture_s = time.monotonic() - t0
     captured = {name: kernels.captured_counts[name] - before[name]
                 for name in before}
     stats.select_hosts_per_step = captured["select_hosts"]
-    stats.capture_s = time.monotonic() - t0
     timed = n
-    if log is not None and log.count_ops:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _span(log, "scan_replay"):
+        if log is not None and log.count_ops:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                graph.replay()
+                torch.cuda.synchronize(device)
+            _profiled_replay(prof, stats)
+            timed -= 1
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(timed):
             graph.replay()
-            torch.cuda.synchronize(device)
-        _profiled_replay(prof, stats)
-        timed -= 1
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(timed):
-        graph.replay()
-    end.record()
-    end.synchronize()
+        end.record()
+        end.synchronize()
     if timed:
-        stats.device_ms_per_step = start.elapsed_time(end) / timed
+        stats.replays = timed
+        stats.device_s = start.elapsed_time(end) / 1e3
     kernels.count_replays(captured, n)
 
 
@@ -522,21 +553,23 @@ def scan_schedule(
     chain has cross-pod or volume plugins; its coupling planes are
     carried and updated per committed pod.  The tables given are not
     changed."""
-    needs = [pl.name() for pl in (*filter_plugins, *score_plugins)
-             if getattr(pl, "needs_extra", False)]
-    if needs and extra is None:
-        raise ValueError(f"sequential scan with cross-pod plugins {needs} "
-                         "needs the ConstraintTables — pass `extra`")
-    tracked = (_carried_planes((*filter_plugins, *pre_score_plugins,
-                                *score_plugins))[0]
-               if extra is not None else set())
-    track_combos = "combos" in tracked
-    track_vols = "volumes" in tracked
-    state = _initial_state(nodes, extra, track_combos, track_vols,
-                           pods.valid.shape[0], ("choice", "best"))
-    use = scan_use(extra.in_use) if extra is not None else None
-    combos = _ComboCommit(extra) if track_combos else None
-    volumes = _VolumeCommit(extra) if track_vols else None
+    with _span(log, "scan_prepare"):
+        needs = [pl.name() for pl in (*filter_plugins, *score_plugins)
+                 if getattr(pl, "needs_extra", False)]
+        if needs and extra is None:
+            raise ValueError(f"sequential scan with cross-pod plugins {needs} "
+                             "needs the ConstraintTables — pass `extra`")
+        tracked = (_carried_planes((*filter_plugins, *pre_score_plugins,
+                                    *score_plugins))[0]
+                   if extra is not None else set())
+        track_combos = "combos" in tracked
+        track_vols = "volumes" in tracked
+        state = _initial_state(nodes, extra, track_combos, track_vols,
+                               pods.valid.shape[0], ("choice", "best"))
+        use = scan_use(extra.in_use) if extra is not None else None
+        combos = _ComboCommit(extra) if track_combos else None
+        volumes = _VolumeCommit(extra) if track_vols else None
+        live = _live_rows(pods.valid)
 
     def step(s: State) -> None:
         i = s["i"]
@@ -557,7 +590,7 @@ def scan_schedule(
         s["best"].index_copy_(0, i, result.best_score)
         s["i"] += 1
 
-    run_steps(step, state, _live_rows(pods.valid), log)
+    run_steps(step, state, live, log)
     return _carried_nodes(nodes, state), state["choice"], state["best"]
 
 
@@ -586,33 +619,37 @@ def blocked_scan_schedule(
     observed.  Within an interaction group the placements are those of
     the exact scan; across groups capacity coupling gets the repair
     wave's safety instead of sequential score-exactness."""
-    P = pods.valid.shape[0]
-    B = block_size
-    if P % B:
-        raise ValueError(f"pod capacity {P} not divisible by {B}")
-    names = {pl.name() for pl in filter_plugins}
-    check_resources = "NodeResourcesFit" in names
-    check_ports = "NodePorts" in names
-    fam_limits = tuple(
-        (pl.volume_family_index, pl.max_volumes) for pl in filter_plugins
-        if getattr(pl, "volume_family_index", None) is not None)
-    check_restr = any(getattr(pl, "enforces_volume_restrictions", False)
-                      for pl in filter_plugins)
-    # plugins whose carried planes change mid-scan are evaluated per
-    # block; everything else once over the chunk, sliced per block
-    tracked, scan_dynamic = _carried_planes(
-        (*filter_plugins, *pre_score_plugins, *score_plugins))
-    track_combos = "combos" in tracked
-    track_vols = "volumes" in tracked or bool(fam_limits) or check_restr
-    static = precompute_static(pods, nodes, filter_plugins, pre_score_plugins,
-                               score_plugins, ctx, extra=extra,
-                               extra_dynamic=scan_dynamic)
-    state = _initial_state(nodes, extra, track_combos, track_vols, P,
-                           ("choice", "best", "accepted"))
-    use = scan_use(extra.in_use)
-    combos = _ComboCommit(extra) if track_combos else None
-    volumes = _VolumeCommit(extra) if track_vols else None
-    block_rows = torch.arange(B, device=pods.valid.device)
+    with _span(log, "scan_prepare"):
+        P = pods.valid.shape[0]
+        B = block_size
+        if P % B:
+            raise ValueError(f"pod capacity {P} not divisible by {B}")
+        names = {pl.name() for pl in filter_plugins}
+        check_resources = "NodeResourcesFit" in names
+        check_ports = "NodePorts" in names
+        fam_limits = tuple(
+            (pl.volume_family_index, pl.max_volumes) for pl in filter_plugins
+            if getattr(pl, "volume_family_index", None) is not None)
+        check_restr = any(getattr(pl, "enforces_volume_restrictions", False)
+                          for pl in filter_plugins)
+        # plugins whose carried planes change mid-scan are evaluated per
+        # block; everything else once over the chunk, sliced per block
+        tracked, scan_dynamic = _carried_planes(
+            (*filter_plugins, *pre_score_plugins, *score_plugins))
+        track_combos = "combos" in tracked
+        track_vols = "volumes" in tracked or bool(fam_limits) or check_restr
+        static = precompute_static(pods, nodes, filter_plugins,
+                                   pre_score_plugins, score_plugins, ctx,
+                                   extra=extra, extra_dynamic=scan_dynamic)
+        state = _initial_state(nodes, extra, track_combos, track_vols, P,
+                               ("choice", "best", "accepted"))
+        use = scan_use(extra.in_use)
+        combos = _ComboCommit(extra) if track_combos else None
+        volumes = _VolumeCommit(extra) if track_vols else None
+        block_rows = torch.arange(B, device=pods.valid.device)
+        # fully padded trailing blocks are not run: they would commit
+        # nothing
+        steps = -(-_live_rows(pods.valid) // B)
 
     def step(s: State) -> None:
         rows = s["i"] * B + block_rows  # (B,)
@@ -649,8 +686,7 @@ def blocked_scan_schedule(
         s["accepted"].index_copy_(0, rows, accept)
         s["i"] += 1
 
-    # fully padded trailing blocks are not run: they would commit nothing
-    run_steps(step, state, -(-_live_rows(pods.valid) // B), log)
+    run_steps(step, state, steps, log)
     return (_carried_nodes(nodes, state), state["choice"], state["best"],
             state["accepted"])
 

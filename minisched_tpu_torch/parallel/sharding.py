@@ -93,7 +93,6 @@ import functools
 import math
 import os
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack
 from dataclasses import dataclass, fields, replace
@@ -959,8 +958,8 @@ def _run_mesh_steps(mesh: Mesh, step: Callable[[Dict[str, torch.Tensor]], None],
                     state: Dict[str, torch.Tensor], n: int, log: Any) -> None:
     """Run a mesh scan's ``step`` ``n`` times: through
     ``sequential.run_steps`` when the grid's first row shares one device,
-    else eagerly, keeping the same ``LoopStats`` in ``log`` (steps, wall,
-    ``select_hosts`` launches a step)."""
+    else eagerly in a ``scan_replay`` span, keeping the same ``LoopStats``
+    in ``log`` (steps, ``select_hosts`` launches a step; no replays)."""
     from minisched_tpu_torch.ops import kernels
     from minisched_tpu_torch.ops import sequential as seq
 
@@ -972,13 +971,12 @@ def _run_mesh_steps(mesh: Mesh, step: Callable[[Dict[str, torch.Tensor]], None],
         return
     stats = seq.LoopStats(steps=n)
     before = kernels.launch_counts["select_hosts"]
-    t0 = time.monotonic()
-    for _ in range(n):
-        step(state)
-    for d in {mesh.node_device(j) for j in range(ns)}:
-        if d.type == "cuda":
-            torch.cuda.synchronize(d)
-    stats.wall_s = time.monotonic() - t0
+    with seq._span(log, "scan_replay"):
+        for _ in range(n):
+            step(state)
+        for d in {mesh.node_device(j) for j in range(ns)}:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
     stats.select_hosts_per_step = (
         kernels.launch_counts["select_hosts"] - before) // n
     if log is not None:

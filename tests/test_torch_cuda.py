@@ -754,6 +754,23 @@ def test_pipelined_live_run_on_card(dev):
     assert not any(kernels.plain_calls.values())
 
 
+@pytest.mark.parametrize("lane", ["exact", "blocked"])
+def test_lane_call_split_on_card(lane, dev, monkeypatch):
+    """A live engine on the card flushes spread pods through ``lane``
+    (``test_torch_scan_spans.lane_run``): the lane spans nest in
+    ``scan_evaluate`` as on the CPU, the capture is a span, every replay
+    is timed by the loop's CUDA events (the engine counts no operations),
+    and the card's time for the replays fits in their span."""
+    from test_torch_scan_spans import assert_lane_split, lane_run
+
+    spans, stats, phases = lane_run(lane, "cuda", monkeypatch)
+    assert_lane_split(spans, stats, phases)
+    assert phases["scan_capture"]["count"] >= stats[lane].calls
+    assert all(s.replays == s.steps for s in stats.values())
+    device_s = sum(s.device_s for s in stats.values())
+    assert 0 < device_s <= phases["scan_replay"]["total_s"]
+
+
 def _ha_plane(n_nodes: int, n_pods: int):
     """An in-process façade holding a small cluster, for engine children."""
     from minisched_tpu_torch.controlplane.client import Client

@@ -584,7 +584,7 @@ def test_eager_mesh_steps_keep_the_log(monkeypatch):
     assert int(state["i"]) == 5
     [loop] = log.loops
     assert (loop.steps, loop.select_hosts_per_step) == (5, 2)
-    assert loop.wall_s >= 0.0
+    assert loop.replays == 0  # no CUDA graph: nothing replayed
 
 
 # ---------------------------------------------------------------------------
