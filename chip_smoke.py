@@ -93,7 +93,13 @@ Phases, each of which raises on failure (nothing catches it):
    twins: equal choices, every call's accepted mask, attempts, exact-lane
    leftovers and final tables.  At 1,520 nodes the plain pods leave about
    one free slot a node, so the spread pods race for them and the lane
-   retries (at least 2 attempts, checked).
+   retries (at least 2 attempts, checked).  Then the block commit kernel
+   (``csrc/scan_commit.cu``) at the benchmark cell's block (32 rows, one
+   live spread pod) on 5,000 and 10,000 nodes
+   (``profile_block_commit.measure``): bit-equal to its twin, its time
+   beside its byte bound and the twin's, and the lane's device operations
+   and ms a step with the twin and with the kernel; every blocked step
+   records one ``block_commit`` call (checked).
    For 11-13 it prints the scan wall and pods/s, the steps (blocks)
    replayed, device ms a step (CUDA events around the replays), device
    operations a step (one replay under the profiler), ``select_hosts``
@@ -1359,6 +1365,10 @@ def main() -> int:
     from minisched_tpu_torch.plugins.podtopologyspread import PodTopologySpread
     from minisched_tpu_torch.plugins.registry import build_plugins
     from minisched_tpu_torch.profile_repair import profile_repair
+    from minisched_tpu_torch.profile_block_commit import (
+        measure as block_commit_measure,
+    )
+    from minisched_tpu_torch.ops import scan_commit
     from minisched_tpu_torch.live import (
         AFTER_RESTART_PODS,
         BURST_CPU_M,
@@ -2139,6 +2149,11 @@ def main() -> int:
         f"{x_lane.constraint_build_s:.3f}s of the wall; "
         + loop_line(x_log, C5X_SPREAD, x_lane.schedule_s, x_peak))
     launches["select_hosts"]["blocked-c5x"] = x_counts["select_hosts"]
+    launches["block_commit"] = {"blocked-c5x": x_counts["block_commit"]}
+    if x_counts["block_commit"] < sum(s.steps for s in x_log.loops) or any(
+            s.block_commit_per_step != 1 for s in x_log.loops):
+        raise AssertionError(f"config 5 blocked lane: block_commit launched "
+                             f"{x_counts['block_commit']} times")
     del x_waves, x_lane
 
     # 1,520 nodes leave about one free slot a node after the plain pods,
@@ -2177,6 +2192,29 @@ def main() -> int:
         f"{r_card.exact_pods} exact-lane leftovers, every final table "
         f"column); {int((r_card.choices >= 0).sum())} spread pods placed; "
         f"{card_s:.2f}s on the card, {cpu_s:.2f}s on the CPU")
+
+    # the block commit kernel at the benchmark cell's pod shape (one live
+    # pod a block of 32) on 5,000 and 10,000 nodes: against its twin, and
+    # the lane's step with each
+    for n_nodes in (5_000, N_NODES):
+        bc = block_commit_measure(n_nodes, scan_commit)
+        c, after, before = bc["commit"], bc["lane"], bc["lane_twin"]
+        if not c["equal"] or after["block_commit_per_step"] != 1:
+            raise AssertionError(f"block_commit at {n_nodes} nodes: {bc}")
+        timed["block_commit", f"cell-{bc['columns']}"] = {
+            "P": c["shape"][0], "N": c["shape"][1], "ms": c["kernel_ms"],
+            "plain_ms": c["twin_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": "bytes"}
+        log(f"[block-commit] {c['shape'][0]} x {c['shape'][1]} (the cell's "
+            f"block, one live pod): kernel {c['kernel_ms']:.5f} ms a call "
+            f"(graph of 20; {c['kernel_device_ops']} device ops), twin "
+            f"{c['twin_ms']:.5f} ms ({c['twin_device_ops']} device ops), "
+            f"bound {c['bound_ms']:.6f} ms ({c['least_bytes']} B), "
+            f"{c['kernel_share_pct']:.2f}% of it; bit-equal to the twin; "
+            f"the lane's step: {before['device_ops_per_step']} device ops "
+            f"and {before['device_ms_per_step']:.4f} ms with the twin, "
+            f"{after['device_ops_per_step']} and "
+            f"{after['device_ms_per_step']:.4f} ms with the kernel")
 
     # -- phase 14: config 5 with gangs, repair waves -----------------------
     stamp("14")
@@ -3444,18 +3482,23 @@ def main() -> int:
     replaces = {
         "select_hosts": "minisched_tpu/ops/pallas_kernels.py:221",
         "nodenumber_select_hosts": "minisched_tpu/ops/pallas_kernels.py:174",
+        "block_commit": "none (XLA fusion)",
     }
+    sources = {"block_commit": "minisched_tpu_torch/csrc/scan_commit.cu"}
     errs = {"select_hosts": max(v for k, v in main_err.items()
                                 if k.startswith("select_hosts")),
-            "nodenumber_select_hosts": main_err["nodenumber_select_hosts"]}
+            "nodenumber_select_hosts": main_err["nodenumber_select_hosts"],
+            "block_commit": 0}
     for name, first_path in (("select_hosts", "generic"),
-                             ("nodenumber_select_hosts", "fused")):
+                             ("nodenumber_select_hosts", "fused"),
+                             ("block_commit", "cell-5120")):
         by_path = launches[name]
         first = timed[name, first_path]
         report.append({
             "name": name,
             "route": "cuda",
-            "source": "minisched_tpu_torch/csrc/select_hosts.cu",
+            "source": sources.get(
+                name, "minisched_tpu_torch/csrc/select_hosts.cu"),
             "replaces": replaces[name],
             "launches": sum(by_path.values()),
             "max_abs_err": errs[name],

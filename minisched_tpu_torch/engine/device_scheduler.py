@@ -193,9 +193,11 @@ def _with_node(pod: Pod, node_name: str) -> Pod:
 class LaneStats:
     """What one scan lane of an engine did (``DeviceScheduler.scan_stats``):
     calls, steps replayed (pods for the exact scan, blocks for the blocked
-    lane), ``select_hosts`` launches recorded in those replays, the
-    seconds spent capturing the step graphs, the replays timed by CUDA
-    events and the card's seconds for them (all 0 on the CPU), pods
+    lane), ``select_hosts`` launches and ``block_commit`` kernel calls
+    (the blocked lane's commit, ``ops/scan_commit.py``) recorded in those
+    replays, the seconds spent capturing the step graphs, the replays
+    timed by CUDA events and the card's seconds for them (all 0 on the
+    CPU), pods
     placed; the seconds of the ``scan_build`` block's two builds (the node
     and pod tables, ``_build_constraints``); for the blocked lane also its
     grouping rounds and the pods it left to the exact scan."""
@@ -203,6 +205,7 @@ class LaneStats:
     calls: int = 0
     steps: int = 0
     select_hosts: int = 0
+    block_commits: int = 0
     capture_s: float = 0.0
     replays: int = 0
     device_s: float = 0.0
@@ -217,6 +220,7 @@ class LaneStats:
         for loop in log.loops:
             self.steps += loop.steps
             self.select_hosts += loop.steps * loop.select_hosts_per_step
+            self.block_commits += loop.steps * loop.block_commit_per_step
             self.capture_s += loop.capture_s
             self.replays += loop.replays
             self.device_s += loop.device_s

@@ -1,4 +1,4 @@
-"""Inputs that reach every code path of the two kernels, made with numpy
+"""Inputs that reach every code path of the kernels, made with numpy
 from a seed.
 
 ``chip_smoke.py`` (phase 2) and ``tests/test_torch_cuda.py`` hold each
@@ -20,12 +20,20 @@ holds the twins against the JAX package on the same toleration forms.
   suffix) and pods carrying every toleration form, then ``garble`` fills
   the slots at or past ``num_tols`` with matching tolerations and clears
   ``valid`` on some rows.
+* ``commit_case``: one block of the blocked lane's commit
+  (``ops/scan_commit.py``) with capacity races on a few hot nodes,
+  zero-demand pods, repeated and contested host ports and nodes whose
+  port slots overflow, volume families at their limit, read-only against
+  writable mounts, hostname-like, zone-like and keyless combo keys with
+  anti-affinity, affinity and preferred term slots, and padding rows; the
+  slots past each count hold garbage that must be ignored.
 """
 
 from __future__ import annotations
 
-from dataclasses import replace
-from typing import Any, List, Tuple
+from dataclasses import dataclass, replace
+from types import SimpleNamespace
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +43,18 @@ from minisched_tpu_torch.models import tables
 from minisched_tpu_torch.models.constraints import scan_use
 from minisched_tpu_torch.ops.fused import wave_planes
 from minisched_tpu_torch.ops.repair import repair_wave_step
-from minisched_tpu_torch.ops.sequential import extra_rows, pod_rows
+from minisched_tpu_torch.ops.scan_commit import (
+    COMBO_PLANES,
+    VOLUME_PLANES,
+    CommitRule,
+)
+from minisched_tpu_torch.ops.state import COMMITTED_COLUMNS
+from minisched_tpu_torch.ops.sequential import (
+    _ComboCommit,
+    _VolumeCommit,
+    extra_rows,
+    pod_rows,
+)
 from minisched_tpu_torch.utils.hashing import fnv1a32
 
 #: node counts of the select_hosts cases: both sides of the 16-node group
@@ -201,3 +220,170 @@ def scan_planes(scheduler: Any, pods: Any, nodes: Any, extra: Any,
                          scheduler.score_plugins, scheduler.ctx,
                          extra=row_extra)
     return planes.totals, planes.mask
+
+
+#: the acceptance rules of the commit cases: the full roster's, none, and
+#: ports and volume restrictions without capacity
+COMMIT_RULES = {
+    "full": CommitRule(True, True, ((1, 4), (2, 3), (0, 8)), True),
+    "bare": CommitRule(False, False, (), False),
+    "ports-restr": CommitRule(False, True, (), True),
+}
+
+
+@dataclass
+class CommitCase:
+    """The arguments of ``scan_commit.block_commit`` but the state, which
+    ``state()`` makes anew each time (the commit updates it in place)."""
+
+    initial: Dict[str, torch.Tensor]
+    nodes: Any
+    pods: Any
+    extra: Any
+    rows: torch.Tensor
+    choice: torch.Tensor
+    best: torch.Tensor
+    rule: CommitRule
+    combos: Any
+    volumes: Any
+
+    def state(self) -> Dict[str, torch.Tensor]:
+        return {k: v.clone() for k, v in self.initial.items()}
+
+    def args(self, state: Dict[str, torch.Tensor]) -> tuple:
+        """The arguments with ``state``; the node table's committed
+        columns are the state's, as the lane's carried table."""
+        nodes = replace(self.nodes,
+                        **{c: state[c] for c in COMMITTED_COLUMNS})
+        return (state, nodes, self.pods, self.extra, self.rows, self.choice,
+                self.best, self.rule, self.combos, self.volumes)
+
+
+def commit_case(seed: int, B: int, N: int, device, rule: str = "full",
+                combos: bool = True, volumes: bool = True) -> CommitCase:
+    """The middle block (rows B..2B-1) of a call of 3 blocks on N nodes;
+    the same seed gives the same case on any device."""
+    rng = np.random.default_rng(seed)
+    P = 3 * B
+    W = tables.MAX_PORTS
+    i32 = np.int32
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def ints(lo, hi, size):
+        return rng.integers(lo, hi, size=size).astype(i32)
+
+    # nodes: a few hot ones near full, so the block's pods race for them
+    hot = rng.choice(N, size=min(3, N), replace=False)
+    alloc_cpu = ints(1000, 4001, N)
+    req_cpu = (alloc_cpu * rng.random(N)).astype(i32)
+    req_cpu[hot] = alloc_cpu[hot] - ints(0, 700, hot.size)
+    alloc_mem = ints(4096, 32769, N)
+    req_mem = (alloc_mem * rng.random(N)).astype(i32)
+    alloc_eph = ints(0, 2, N) * 1000
+    alloc_pods = ints(4, 111, N)
+    req_pods = (alloc_pods * rng.random(N)).astype(i32)
+    req_pods[hot[:1]] = alloc_pods[hot[:1]] - 2
+    num_used = ints(0, W + 1, N)
+    num_used[hot] = W - ints(0, 3, hot.size)  # ports past the slots drop
+    nt, _ = tables.build_node_table([make_node(f"n{i:04d}")
+                                     for i in range(N)], capacity=N,
+                                    device=device)
+    nodes = replace(
+        nt, alloc_cpu=t(alloc_cpu), alloc_mem=t(alloc_mem),
+        alloc_eph=t(alloc_eph.astype(i32)), alloc_pods=t(alloc_pods),
+        req_cpu=t(req_cpu), req_mem=t(req_mem),
+        req_eph=t(np.zeros(N, i32)), req_pods=t(req_pods),
+        nzreq_cpu=t(req_cpu + 100), nzreq_mem=t(req_mem + 200),
+        used_port=t(ints(1, 65536, (N, W))), num_used_ports=t(num_used))
+
+    # the block: choices mostly on the hot nodes, some infeasible, some
+    # padding rows (a padding row may still carry a choice)
+    valid = rng.random(B) >= 0.15
+    choice = np.where(rng.random(B) < 0.6, rng.choice(hot, size=B),
+                      rng.integers(0, N, size=B)).astype(i32)
+    choice[rng.random(B) < 0.1] = -1
+    choice[~valid & (rng.random(B) < 0.7)] = -1
+    pods = SimpleNamespace(
+        valid=t(valid),
+        req_cpu=t(rng.choice(np.array([0, 100, 500, 1000], i32), size=B)),
+        req_mem=t(rng.choice(np.array([0, 128, 500, 2048], i32), size=B)),
+        req_eph=t(rng.choice(np.array([0, 0, 0, 0, 0, 600], i32), size=B)),
+        req_pods=t(np.zeros(B, i32)),
+        port=t(rng.choice(np.array([80, 443, 8080, 9000], i32), size=(B, W))),
+        num_ports=t(rng.choice(np.array([0, 0, 1, 2, 3, W], i32), size=B)))
+
+    # topology: key 0 hostname-like, key 1 four zones, key 2 on no node;
+    # a tenth of the nodes lack keys 0 and 1
+    D = 64
+    keyless = rng.random(N) < 0.1
+    topo_domain = np.full((3, N), D, i32)
+    topo_domain[0] = np.where(keyless, D, 0)
+    topo_domain[1] = np.where(keyless, D, rng.integers(0, 4, size=N))
+    topo_onehot = np.zeros((3, D, N), bool)
+    for n in np.flatnonzero(~keyless):
+        topo_onehot[1, topo_domain[1, n], n] = True
+    C, T = 8, {"pan": 4, "ppa": 8, "pa": 4}
+
+    def terms(kind):
+        n = ints(0, T[kind] + 1, P)
+        n[rng.random(P) < 0.4] = 0
+        return ints(0, C, (P, T[kind])), n
+
+    pan_combo, pan_n = terms("pan")
+    ppa_combo, ppa_n = terms("ppa")
+    pa_combo, pa_n = terms("pa")
+    # volumes: 10 claims over 11 volume rows and the dummy row, 4 families
+    C2, Vd, F, V = 10, 12, 4, 4
+    claim_vol = ints(0, Vd - 1, C2)
+    claim_vol[rng.random(C2) < 0.3] = -1  # unbound
+    pod_claims = ints(0, C2, (P, V))
+    pod_claims[:, 1] = np.where(rng.random(P) < 0.2, pod_claims[:, 0],
+                                pod_claims[:, 1])  # one claim twice
+    full = SimpleNamespace(
+        combo_key=t(rng.integers(0, 3, size=C).astype(i32)),
+        topo_unique=t(np.array([True, False, False])),
+        topo_onehot=t(topo_onehot), topo_domain=t(topo_domain),
+        pod_claims=t(pod_claims), pod_n_vols=t(ints(0, V + 1, P)),
+        pod_claim_valid=t(rng.random((P, V)) < 0.85),
+        claim_cnt=t(ints(0, Vd - 1, C2)), claim_vol=t(claim_vol),
+        claim_ro=t(rng.random(C2) < 0.5),
+        claim_family=t(ints(0, F, C2)))
+    planes = {
+        "combo_dsum": t(ints(0, 6, (C, N))),
+        "combo_here": t(ints(0, 3, (C, N))),
+        "combo_global": t(ints(0, 50, C)),
+        "combo_excl": t(rng.random((C, N)) < 0.1),
+        "rev_weight": t(ints(-50, 51, (C, N))),
+        "vol_any": t(rng.random((Vd, N)) < 0.2),
+        "vol_rw": t(rng.random((Vd, N)) < 0.1),
+        "node_vols_fam": t(ints(0, 4, (F, N))),
+    }
+    for name, plane in planes.items():
+        setattr(full, name, plane)
+    rows = torch.arange(B, 2 * B, device=device)
+    block = slice(B, 2 * B)
+    extra = SimpleNamespace(
+        pod_matches_combo=t(rng.random((B, C)) < 0.4),
+        pod_vols_fam=t(rng.choice(np.array([0, 0, 0, 1, 2], i32),
+                                  size=(B, F))),
+        pod_missing=t(ints(0, 2, B) * (rng.random(B) < 0.3)),
+        pan_combo=t(pan_combo[block]), pan_n=t(pan_n[block]),
+        ppa_combo=t(ppa_combo[block]), ppa_n=t(ppa_n[block]),
+        ppa_w=t(ints(-100, 101, (B, T["ppa"]))),
+        pa_combo=t(pa_combo[block]), pa_n=t(pa_n[block]))
+    state = {c: getattr(nodes, c).clone() for c in COMMITTED_COLUMNS}
+    if combos:
+        state.update({k: planes[k] for k in COMBO_PLANES})
+    if volumes:
+        state.update({k: planes[k] for k in VOLUME_PLANES})
+    state["choice"] = t(ints(-1, N, P))
+    state["best"] = t(ints(0, 100, P))
+    state["accepted"] = t(rng.random(P) < 0.5)
+    return CommitCase(
+        initial=state, nodes=nodes, pods=pods, extra=extra, rows=rows,
+        choice=t(choice), best=t(ints(-10, 300, B)),
+        rule=COMMIT_RULES[rule],
+        combos=_ComboCommit(full) if combos else None,
+        volumes=_VolumeCommit(full) if volumes else None)

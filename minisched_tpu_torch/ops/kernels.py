@@ -45,14 +45,18 @@ UINT32_MAX = 0xFFFFFFFF
 
 #: launches of each kernel since the last ``reset_launch_counts``; a
 #: wrapper adds one where it launches its kernel and nowhere else
-launch_counts = {"select_hosts": 0, "nodenumber_select_hosts": 0}
-#: calls the dispatchers below routed to a plain twin (CPU tensors): a
-#: path that runs on the card must leave these at 0
-plain_calls = {"select_hosts": 0, "nodenumber_select_hosts": 0}
+#: (``block_commit``: ``ops/scan_commit.py``, one call of two launches)
+launch_counts = {"select_hosts": 0, "nodenumber_select_hosts": 0,
+                 "block_commit": 0}
+#: calls the dispatchers routed to a plain twin (CPU tensors): a path
+#: that runs on the card must leave these at 0
+plain_calls = {"select_hosts": 0, "nodenumber_select_hosts": 0,
+               "block_commit": 0}
 #: calls made while a CUDA graph was being captured: each records its
 #: kernel into the graph, which launches it at every replay; whoever
 #: replays the graph counts those launches (``count_replays``)
-captured_counts = {"select_hosts": 0, "nodenumber_select_hosts": 0}
+captured_counts = {"select_hosts": 0, "nodenumber_select_hosts": 0,
+                   "block_commit": 0}
 #: the counts are bumped from a mesh's tile threads too
 _count_lock = threading.Lock()
 
@@ -175,6 +179,8 @@ _SIGNATURES = {
         _ptr, _ptr, _int, _int, _int, _int, _int, _int, _int, _int, _ptr,
         _ptr, _ptr,
     ),
+    # a BlockCommitArgs struct (ops/scan_commit._Args), stream
+    "minisched_block_commit": (_ptr, _ptr),
     "minisched_nodenumber_smem_bytes": (),
     "minisched_nodenumber_resident_blocks": (),
 }

@@ -22,7 +22,9 @@ orders pods so that every block of ``block_size`` has pairwise disjoint
 interaction sets (``engine/scan_groups.py``); a step evaluates a whole
 block against the carried state, commits the subset that repair's
 acceptance rule lets through (``ops/repair.accept_placements``) and
-applies every committed pod's plane updates.  The round-invariant half
+applies every committed pod's plane updates, all in one call of
+``ops/scan_commit.block_commit`` (two launches of a hand-written kernel
+on a card, the PyTorch composition on the CPU).  The round-invariant half
 of the chain is computed once per call (``precompute_static`` with the
 plugins whose carried planes change marked dynamic).
 
@@ -96,7 +98,12 @@ from minisched_tpu_torch.ops.fused import (
     precompute_static,
     validate_batch_chains,
 )
-from minisched_tpu_torch.ops.repair import accept_placements
+from minisched_tpu_torch.ops.scan_commit import (
+    COMBO_PLANES,
+    VOLUME_PLANES,
+    CommitRule,
+    block_commit,
+)
 from minisched_tpu_torch.ops.state import (
     COMMITTED_COLUMNS,
     apply_placements,
@@ -132,6 +139,9 @@ class LoopStats:
     top_ops: List[Tuple[str, int, float]] = field(default_factory=list)
     #: ``select_hosts`` launches recorded in the graph (card only)
     select_hosts_per_step: int = 0
+    #: ``block_commit`` kernel calls recorded in the graph (card only; 1
+    #: a blocked step, 0 an exact one)
+    block_commit_per_step: int = 0
 
     @property
     def device_ms_per_step(self) -> Optional[float]:
@@ -204,6 +214,7 @@ def _replay(step: Callable[[State], None], state: State, n: int,
     captured = {name: kernels.captured_counts[name] - before[name]
                 for name in before}
     stats.select_hosts_per_step = captured["select_hosts"]
+    stats.block_commit_per_step = captured["block_commit"]
     timed = n
     with _span(log, "scan_replay"):
         if log is not None and log.count_ops:
@@ -296,11 +307,10 @@ def _initial_state(nodes: NodeTable, extra: Any, track_combos: bool,
     dev = nodes.valid.device
     state = {c: getattr(nodes, c).clone() for c in COMMITTED_COLUMNS}
     if track_combos:
-        for f in ("combo_dsum", "combo_here", "combo_global", "combo_excl",
-                  "rev_weight"):
+        for f in COMBO_PLANES:
             state[f] = getattr(extra, f).clone()
     if track_vols:
-        for f in ("vol_any", "vol_rw", "node_vols_fam"):
+        for f in VOLUME_PLANES:
             state[f] = getattr(extra, f).clone()
     state["i"] = torch.zeros(1, dtype=torch.int64, device=dev)
     init = {"choice": (-1, torch.int32), "best": (0, torch.int32),
@@ -624,20 +634,14 @@ def blocked_scan_schedule(
         B = block_size
         if P % B:
             raise ValueError(f"pod capacity {P} not divisible by {B}")
-        names = {pl.name() for pl in filter_plugins}
-        check_resources = "NodeResourcesFit" in names
-        check_ports = "NodePorts" in names
-        fam_limits = tuple(
-            (pl.volume_family_index, pl.max_volumes) for pl in filter_plugins
-            if getattr(pl, "volume_family_index", None) is not None)
-        check_restr = any(getattr(pl, "enforces_volume_restrictions", False)
-                          for pl in filter_plugins)
+        rule = CommitRule.of_chain(filter_plugins)
         # plugins whose carried planes change mid-scan are evaluated per
         # block; everything else once over the chunk, sliced per block
         tracked, scan_dynamic = _carried_planes(
             (*filter_plugins, *pre_score_plugins, *score_plugins))
         track_combos = "combos" in tracked
-        track_vols = "volumes" in tracked or bool(fam_limits) or check_restr
+        track_vols = ("volumes" in tracked or bool(rule.fam_limits)
+                      or rule.check_restr)
         static = precompute_static(pods, nodes, filter_plugins,
                                    pre_score_plugins, score_plugins, ctx,
                                    extra=extra, extra_dynamic=scan_dynamic)
@@ -664,26 +668,8 @@ def blocked_scan_schedule(
                  for k, v in static.raw_scores.items()})
         result = evaluate(pod_block, carry, filter_plugins, pre_score_plugins,
                           score_plugins, ctx, extra=extra_b, static=static_b)
-        choice = result.choice  # (B,)
-        accept = accept_placements(
-            carry, pod_block, choice, pod_block.valid,
-            check_resources=check_resources, check_ports=check_ports,
-            vol_state=([(extra_b.pod_vols_fam[:, f], s["node_vols_fam"][f], mx)
-                        for f, mx in fam_limits] if fam_limits else None),
-            restr_state=((volumes.slot_vol.index_select(0, rows),
-                          volumes.slot_ro.index_select(0, rows),
-                          volumes.n_rows) if check_restr else None))
-        committed = accept & (choice >= 0)
-        n_b = choice.clamp(min=0).long()
-        if combos is not None:
-            combos.block(s, extra_b, n_b, committed)
-        if volumes is not None:
-            volumes(s, rows, extra_b.pod_missing, n_b, committed)
-        _store_nodes(s, apply_placements(carry, pod_block,
-                                         torch.where(committed, choice, -1)))
-        s["choice"].index_copy_(0, rows, choice)
-        s["best"].index_copy_(0, rows, result.best_score)
-        s["accepted"].index_copy_(0, rows, accept)
+        block_commit(s, carry, pod_block, extra_b, rows, result.choice,
+                     result.best_score, rule, combos, volumes)
         s["i"] += 1
 
     run_steps(step, state, steps, log)

@@ -39,7 +39,7 @@ from minisched_tpu_torch.engine import oracle as toracle
 from minisched_tpu_torch.engine import tiebreak as ttiebreak
 from minisched_tpu_torch.models import tables as ttables
 from minisched_tpu_torch.ops import fused as tfused
-from minisched_tpu_torch.ops import kernels
+from minisched_tpu_torch.ops import kernels, scan_commit
 from minisched_tpu_torch.plugins.nodeunschedulable import tolerates_unschedulable
 
 from tests.test_torch_tables import jax_columns, port_columns
@@ -248,5 +248,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     tp, _ = ttables.build_pod_table(pods, device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         kernels.nodenumber_select_hosts_cuda(tp, tn)
+    case = kernel_cases.commit_case(1, 8, 40, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        scan_commit.block_commit_cuda(*case.args(case.state()))
     assert kernels.launch_counts == {"select_hosts": 0,
-                                     "nodenumber_select_hosts": 0}
+                                     "nodenumber_select_hosts": 0,
+                                     "block_commit": 0}

@@ -209,7 +209,8 @@ def test_supervisors_pick_a_taken_port_anew_before_the_first_start(
             assert eng.metrics_url != (
                 f"http://127.0.0.1:{held.getsockname()[1]}/metrics")
             assert eng.kernel_counts()["launches"] == {
-                "select_hosts": 0, "nodenumber_select_hosts": 0}
+                "select_hosts": 0, "nodenumber_select_hosts": 0,
+                "block_commit": 0}
         finally:
             held.close()
         fixed = ServerSupervisor(str(tmp_path / "q.wal"),
